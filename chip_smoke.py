@@ -16,7 +16,24 @@ Phases, each of which raises on failure (exit code not 0):
              published width and depth (random weights from a seed): every
              launch counter set to 0 just before, read just after, and each
              kernel of the path launched the expected number of times; then
-             prefill/decode consistency at full width with the kernels on.
+             prefill/decode consistency at full width with the kernels on;
+5. maxplus — the (max, +) kernel against its plain version on the card at
+             the JAX kernel tests' sweep (fp32 and fp16 inputs) and at
+             12 lanes of p = 512 and p = 2944, at exact equality; times of
+             both at the two batched shapes beside the bound;
+6. ranks   — the paper's §6.1 campaign grid at full size (5 Chameleon apps
+             x nb (5, 10, 20) x 6 block sizes, fork-join of width 100-500
+             and 2, 5 or 10 phases; up to 5011 tasks, padded to p = 5120):
+             upward ranks of every (graph, type) lane through
+             ``batched_ranks`` on the card, each held against
+             ``TaskGraph.upward_rank`` (rtol 1e-5), one critical path per
+             graph through ``longest_path_closure`` held against
+             ``TaskGraph.critical_path``; the launch counter set to 0 just
+             before and required to equal the sum of ``ceil(log2 p)`` over
+             the calls just after.
+
+``--phases`` runs a subset (``card`` and ``build`` always run); with no
+arguments the script runs them all.
 
 The line before the last is the card's name and power limit, the one before
 it a JSON object of per-kernel numbers; the last line is
@@ -39,6 +56,13 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 FP32_FLOP_PER_S = 67e12
+# A (max, +) pair is two instructions on the CUDA cores, FADD and FMNMX.
+# 132 SMs x 128 FP32 lanes x 1.98 GHz issue 33.5e12 FADD/s (the FMA rate
+# counted once, not as two flops); FMNMX runs at 64 per clock per SM on
+# compute capability 9.0 (the CUDA programming guide's throughput table,
+# "compare, minimum, maximum"), and a scheduler issues one warp instruction
+# per clock: each caps the product at 2 instructions / 33.5e12 per pair.
+MAXPLUS_INSTR_PER_S = FP32_FLOP_PER_S / 2
 
 # The serving run: qwen2-1.5b at full width, 2 batches of 4 prompts of 512.
 SERVE_ARGS = ["--arch", "qwen2-1.5b", "--requests", "8", "--batch", "4",
@@ -60,6 +84,21 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # the JAX kernel tests'
 # different paths (the kernel's fp32 P.V against decode's bf16 weights)
 # through 28 residual layers, on logits of standard deviation about 0.8.
 CONSIST_TOL = {"float32": 2e-3, "bfloat16": 0.25}
+
+# (m, k, n) of tests/test_kernels.py's sweep, each in fp32 and fp16; then
+# the batched closure shapes: 12 lanes (6 block sizes x 2 types) at p = 512
+# (potrs nb=20) and p = 2944 (getrf nb=20).
+MAXPLUS_SWEEP = [(128, 128, 128), (256, 128, 384), (128, 256, 128),
+                 (512, 512, 256)]
+MAXPLUS_BATCHED = [(12, 512), (12, 2944)]
+
+# The §6.1 full grid (benchmarks/campaign.py::instances, full=True).
+NB_BLOCKS = (5, 10, 20)
+BLOCK_SIZES = (64, 128, 320, 512, 768, 960)
+FJ_WIDTHS = (100, 200, 300, 400, 500)
+FJ_PHASES = (2, 5, 10)
+RANK_RTOL = 1e-5                       # as tests/test_kernels.py
+PHASES = ("flash", "serve", "maxplus", "ranks")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -165,6 +204,163 @@ def flash_phase(torch) -> dict:
             "library_ms": library_ms}
 
 
+def maxplus_bound_ms(lanes: int, m: int, k: int, n: int) -> tuple[float, str]:
+    """The least time of one (B, m, k) x (B, k, n) product, and its limit."""
+    t_ops = 2 * lanes * m * k * n / MAXPLUS_INSTR_PER_S * 1e3
+    t_bytes = 4 * lanes * (m * k + k * n + m * n) / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def maxplus_phase(torch) -> dict:
+    """The kernel against its plain version, at exact equality; times."""
+    from repro_torch.kernels.maxplus import maxplus as mp
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    cases = [((m, k), (k, n), dt) for m, k, n in MAXPLUS_SWEEP
+             for dt in (torch.float32, torch.float16)]
+    cases += [((lanes, p, p), (lanes, p, p), torch.float32)
+              for lanes, p in MAXPLUS_BATCHED]
+    worst = 0.0
+    for shape_a, shape_b, dtype in cases:
+        a = torch.randn(shape_a, generator=gen, device="cuda").to(dtype)
+        b = torch.randn(shape_b, generator=gen, device="cuda").to(dtype)
+        got = mp.maxplus_matmul(a, b)
+        want = mp.maxplus_matmul_ref(a, b)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        print(f"maxplus {shape_a} x {shape_b} {dtype}: max|err| {err:.3e} "
+              "(exact equality required)")
+        check(got.dtype == torch.float32 and got.shape == want.shape,
+              f"maxplus returned {got.dtype} {tuple(got.shape)}")
+        check(torch.equal(got, want), f"maxplus disagrees with its plain "
+              f"version at {shape_a} x {shape_b} {dtype}: max|err| {err}")
+        worst = max(worst, err)
+        del a, b, got, want
+
+    row = {}
+    for lanes, p in MAXPLUS_BATCHED:
+        a = torch.randn((lanes, p, p), generator=gen, device="cuda")
+        ms = time_ms(lambda: mp.maxplus_matmul(a, a), iters=10, warmup=2)
+        plain_ms = time_ms(lambda: mp.maxplus_matmul_ref(a, a), iters=1,
+                           warmup=1)
+        bound, by = maxplus_bound_ms(lanes, p, p, p)
+        print(f"maxplus B={lanes} p={p}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}), kernel at "
+              f"{bound / ms:.1%} of the bound; "
+              f"{lanes * p ** 3 / ms / 1e9:.3f} Tpairs/s")
+        row = {"name": "maxplus_matmul", "route": "cuda",
+               "source": "src/repro_torch/kernels/csrc/maxplus.cu",
+               "replaces": "src/repro/kernels/maxplus/maxplus.py:42",
+               "shape": [lanes, p, p, p], "max_abs_err": worst, "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+               "library_ms": None}
+        del a
+    return row          # the last shape, p = 2944, is the row's
+
+
+def rank_grid():
+    """(label, graphs) of the §6.1 grid: the graphs of one label share
+    their edges (a Chameleon (app, nb) at its 6 block sizes, or one
+    fork-join graph), so they share one adjacency."""
+    from repro_torch.core.workloads import CHAMELEON_APPS, chameleon, fork_join
+
+    for app in CHAMELEON_APPS:
+        for nb in NB_BLOCKS:
+            yield f"{app}_n{nb}", [chameleon(app, nb, bs) for bs in BLOCK_SIZES]
+    for w in FJ_WIDTHS:
+        for ph in FJ_PHASES:
+            yield f"forkjoin_w{w}_p{ph}", [fork_join(w, ph)]
+
+
+def ranks_phase(torch) -> dict:
+    """Upward ranks and critical paths of the whole grid (the main path)."""
+    import numpy as np
+    from repro_torch.kernels.maxplus import maxplus as mp
+    from repro_torch.kernels.maxplus import ops
+
+    # kernel time per (lanes, p) class: CUDA events around each launch
+    events, launch = [], mp.launch
+
+    def timed_launch(a, b):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        c = launch(a, b)
+        end.record()
+        events.append((tuple(a.shape[:2]), start, end))
+        return c
+
+    expected, worst, calls_s = 0, (0.0, "", 0), 0.0
+    mp.launch = timed_launch
+    mp.reset_launch_count()
+    t0 = time.perf_counter()
+    try:
+        for label, graphs in rank_grid():
+            g0 = graphs[0]
+            for g in graphs[1:]:
+                check(np.array_equal(g.edges, g0.edges),
+                      f"{label}: block sizes do not share their edges")
+            adj = torch.as_tensor(ops.dense_adjacency(g0.n, g0.edges),
+                                  device="cuda")
+            p = adj.shape[0]
+            lanes = [(g, g.proc[:, q]) for g in graphs
+                     for q in range(g.num_types)]
+            times = torch.zeros((len(lanes), p), dtype=torch.float32)
+            for i, (_, w) in enumerate(lanes):
+                times[i, :g0.n] = torch.as_tensor(w, dtype=torch.float32)
+            times = times.to("cuda")
+            t_call = time.perf_counter()
+            ranks = ops.batched_ranks(adj.expand(len(lanes), p, p), times)
+            finish = ops.longest_path_closure(adj, times[0])
+            expected += 2 * ops.squarings(p)
+            ranks, finish = ranks.cpu().numpy(), finish.cpu().numpy()
+            calls_s += time.perf_counter() - t_call
+            check(bool(np.isfinite(ranks).all()) and ranks.shape
+                  == (len(lanes), p), f"{label}: ranks {ranks.shape} not finite")
+            for i, (g, w) in enumerate(lanes):
+                want = g.upward_rank(w)
+                rel = float(np.max(np.abs(ranks[i, :g.n] - want) / want))
+                if rel > worst[0]:
+                    depth = int(round(g.critical_path(np.ones(g.n))))
+                    worst = (rel, f"{label} lane {i}", depth)
+                check(rel <= RANK_RTOL, f"{label} lane {i}: ranks off by "
+                      f"rtol {rel:.3e} (depth "
+                      f"{g.critical_path(np.ones(g.n)):.0f})")
+            cp = g0.critical_path(lanes[0][1])
+            rel_cp = abs(float(finish[:g0.n].max()) - cp) / cp
+            check(rel_cp <= RANK_RTOL, f"{label}: critical path "
+                  f"{finish[:g0.n].max()} against {cp}")
+            print(f"ranks {label}: n {g0.n}, p {p}, {len(lanes)} lanes, "
+                  f"critical path {cp:.6g} (rel err {rel_cp:.2e})")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        mp.launch = launch
+    launches = mp.launch_count()
+    check(launches == expected, f"maxplus launched {launches} times in "
+          f"the ranks phase, expected {expected}")
+    classes = {}
+    for key, start, end in events:
+        ms = start.elapsed_time(end)
+        n_, t_ = classes.get(key, (0, 0.0))
+        classes[key] = (n_ + 1, t_ + ms)
+    kernel_ms = bound_total = 0.0
+    for (lanes, p), (n_, t_) in sorted(classes.items(), key=lambda kv: kv[0][1]):
+        bound = maxplus_bound_ms(lanes, p, p, p)[0] * n_
+        kernel_ms += t_
+        bound_total += bound
+        print(f"ranks kernel class B={lanes} p={p}: {n_} launches, "
+              f"{t_:.3f} ms, bound {bound:.3f} ms ({bound / t_:.1%})")
+    print(f"ranks phase: wall {wall:.3f} s, of which {calls_s:.3f} s in the "
+          f"ranks and closure calls up to their results on the host; kernel "
+          f"{kernel_ms:.3f} ms over {launches} launches (bound "
+          f"{bound_total:.3f} ms); worst rank rtol {worst[0]:.3e} at "
+          f"{worst[1]} (depth {worst[2]})")
+    return {"launches": launches, "wall_s": wall, "calls_s": calls_s,
+            "kernel_ms": kernel_ms, "bound_ms": bound_total,
+            "worst_rtol": worst[0]}
+
+
 def consistency(torch, dtype: str) -> float:
     """max |decode(S-1 | prefill S-1) - prefill(S)| at full width."""
     import dataclasses
@@ -194,7 +390,16 @@ def consistency(torch, dtype: str) -> float:
     return err
 
 
-def main() -> int:
+def main(argv: list[str] | None = None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help=f"comma-separated subset of {','.join(PHASES)}")
+    phases = ap.parse_args(argv).phases.split(",")
+    unknown = set(phases) - set(PHASES)
+    if unknown:
+        ap.error(f"unknown phases {sorted(unknown)}")
+
     import torch
 
     if not torch.cuda.is_available():
@@ -217,34 +422,53 @@ def main() -> int:
 
     print(f"build: {build_all(build):.1f} s")
 
-    t0 = time.perf_counter()
-    flash = flash_phase(torch)
-    print(f"kernels: {time.perf_counter() - t0:.1f} s")
+    rows, summary = [], None
+    if "flash" in phases:
+        t0 = time.perf_counter()
+        rows.append(flash_phase(torch))
+        print(f"kernels: {time.perf_counter() - t0:.1f} s")
 
-    # the main path: counters at 0 just before, read just after
-    fa.reset_launch_count()
-    summary = serve.main(SERVE_ARGS)
-    launches = fa.launch_count()
-    torch.cuda.synchronize()
-    layers = 28
-    check(launches == layers * SERVE_BATCHES,
-          f"flash attention launched {launches} times, expected "
-          f"{layers * SERVE_BATCHES}")
-    check(summary["flash_launches"] == launches, "serve summary count differs")
-    check(summary["logits_finite"], "non-finite logits while serving")
-    check(summary["tokens"] == 8 * 32, f"served {summary['tokens']} tokens")
-    print(f"serve qwen2-1.5b full width on {card}: {summary['tok_per_s']:.1f} "
-          f"tok/s, prefill {summary['prefill_s']:.3f} s, decode "
-          f"{summary['decode_s']:.3f} s, wall {summary['wall_s']:.3f} s, "
-          f"makespan {summary['makespan']:.3f} s, flash launches {launches}")
-    flash["launches"] = launches
+    if "serve" in phases:
+        # the serving path: counters at 0 just before, read just after
+        fa.reset_launch_count()
+        summary = serve.main(SERVE_ARGS)
+        launches = fa.launch_count()
+        torch.cuda.synchronize()
+        layers = 28
+        check(launches == layers * SERVE_BATCHES,
+              f"flash attention launched {launches} times, expected "
+              f"{layers * SERVE_BATCHES}")
+        check(summary["flash_launches"] == launches, "serve summary count differs")
+        check(summary["logits_finite"], "non-finite logits while serving")
+        check(summary["tokens"] == 8 * 32, f"served {summary['tokens']} tokens")
+        print(f"serve qwen2-1.5b full width on {card}: {summary['tok_per_s']:.1f} "
+              f"tok/s, prefill {summary['prefill_s']:.3f} s, decode "
+              f"{summary['decode_s']:.3f} s, wall {summary['wall_s']:.3f} s, "
+              f"makespan {summary['makespan']:.3f} s, flash launches {launches}")
+        for row in rows:
+            if row["name"] == "flash_attention":
+                row["launches"] = launches
 
-    for dtype in ("float32", "bfloat16"):
-        consistency(torch, dtype)
+        for dtype in ("float32", "bfloat16"):
+            consistency(torch, dtype)
+            torch.cuda.empty_cache()
+        print(f"serve summary: {json.dumps(summary)}")
+
+    if "maxplus" in phases:
+        t0 = time.perf_counter()
+        rows.append(maxplus_phase(torch))
         torch.cuda.empty_cache()
+        print(f"maxplus: {time.perf_counter() - t0:.1f} s")
 
-    print(f"serve summary: {json.dumps(summary)}")
-    print(json.dumps({"kernels": [flash]}))
+    if "ranks" in phases:
+        # the ranking path: its counter at 0 just before, read just after
+        ranks = ranks_phase(torch)
+        for row in rows:
+            if row["name"] == "maxplus_matmul":
+                row["launches"] = ranks["launches"]
+        print(f"ranks summary: {json.dumps(ranks)}")
+
+    print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,7 +13,7 @@ from repro_torch import resolve_device  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention as fa  # noqa: E402
 from repro_torch.kernels.flash_attention import ops  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import kernel_bench, serve  # noqa: E402
 
 SRC = Path(repro_torch.__file__).resolve().parents[1]
 
@@ -43,7 +43,11 @@ def test_every_module_is_listed_by_the_probe():
                                                    "repro_torch.")}
     assert {"repro_torch.launch.serve", "repro_torch.models.convert",
             "repro_torch.kernels.build",
-            "repro_torch.kernels.flash_attention.ops"} <= names
+            "repro_torch.kernels.flash_attention.ops",
+            "repro_torch.kernels.maxplus.ops", "repro_torch.launch.kernel_bench",
+            "repro_torch.core.hlp", "repro_torch.core.listsched",
+            "repro_torch.sim.engine", "repro_torch.sim.adapters",
+            "repro_torch.sim.network", "repro_torch.obs.registry"} <= names
 
 
 @pytest.fixture
@@ -67,6 +71,19 @@ def test_serve_main_defaults_to_the_card_and_raises_without_it(no_card):
         serve.main(["--arch", "qwen2-1.5b", "--smoke"])
     with pytest.raises(RuntimeError, match="cuda"):
         serve.main(["--arch", "qwen2-1.5b", "--smoke", "--device", "cuda"])
+
+
+def test_kernel_bench_defaults_to_the_card_and_raises_without_it(no_card):
+    with pytest.raises(RuntimeError, match="cuda"):
+        kernel_bench.main([])
+
+
+def test_kernel_bench_on_cpu_prints_the_reference_csv_lines():
+    lines = kernel_bench.main(["--device", "cpu"])
+    assert [line.split(",")[0] for line in lines] == [
+        "kernels/maxplus_256x256x256", "kernels/flash_attn_s512"]
+    assert lines[0].endswith(";max_err=0.0e+00")
+    assert all(line.split(",")[2].startswith("ref_us=") for line in lines)
 
 
 def test_flash_wrapper_on_cpu_takes_the_plain_path():
