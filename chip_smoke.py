@@ -30,10 +30,13 @@ Phases, each of which raises on failure (exit code not 0):
              graph through ``longest_path_closure`` held against
              ``TaskGraph.critical_path``; the launch counter set to 0 just
              before and required to equal the sum of ``ceil(log2 p)`` over
-             the calls just after.
-
-``--phases`` runs a subset (``card`` and ``build`` always run); with no
-arguments the script runs them all.
+             the calls just after.  The path's host time (graph generation,
+             adjacency, copies, the calls up to their results on the host)
+             and the float64 checks' time are read apart, and each call's
+             device time from one CUDA event pair around it.  Then the
+             kernel against its plain version, exactly, on the closure's own
+             inputs (mostly NEG_INF, where the floor decides most outputs):
+             the first two squarings of the largest call of each lane count.
 
 The line before the last is the card's name and power limit, the one before
 it a JSON object of per-kernel numbers; the last line is
@@ -98,7 +101,6 @@ BLOCK_SIZES = (64, 128, 320, 512, 768, 960)
 FJ_WIDTHS = (100, 200, 300, 400, 500)
 FJ_PHASES = (2, 5, 10)
 RANK_RTOL = 1e-5                       # as tests/test_kernels.py
-PHASES = ("flash", "serve", "maxplus", "ranks")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -273,92 +275,118 @@ def rank_grid():
 
 
 def ranks_phase(torch) -> dict:
-    """Upward ranks and critical paths of the whole grid (the main path)."""
+    """Upward ranks and critical paths of the whole grid (the main path),
+    then the kernel against its plain version on the closure's inputs."""
     import numpy as np
     from repro_torch.kernels.maxplus import maxplus as mp
     from repro_torch.kernels.maxplus import ops
 
-    # kernel time per (lanes, p) class: CUDA events around each launch
-    events, launch = [], mp.launch
+    events = []       # ((lanes, p), start, end): one event pair per call
+    largest = {}      # lanes -> (p, label, adjs, times) of the largest call
 
-    def timed_launch(a, b):
+    def timed(key, fn, *args):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        c = launch(a, b)
+        out = fn(*args)
         end.record()
-        events.append((tuple(a.shape[:2]), start, end))
-        return c
+        events.append((key, start, end))
+        return out
 
-    expected, worst, calls_s = 0, (0.0, "", 0), 0.0
-    mp.launch = timed_launch
+    expected, worst = 0, (0.0, "", 0)
+    path_s = check_s = 0.0
     mp.reset_launch_count()
-    t0 = time.perf_counter()
-    try:
-        for label, graphs in rank_grid():
-            g0 = graphs[0]
-            for g in graphs[1:]:
-                check(np.array_equal(g.edges, g0.edges),
-                      f"{label}: block sizes do not share their edges")
-            adj = torch.as_tensor(ops.dense_adjacency(g0.n, g0.edges),
-                                  device="cuda")
-            p = adj.shape[0]
-            lanes = [(g, g.proc[:, q]) for g in graphs
-                     for q in range(g.num_types)]
-            times = torch.zeros((len(lanes), p), dtype=torch.float32)
-            for i, (_, w) in enumerate(lanes):
-                times[i, :g0.n] = torch.as_tensor(w, dtype=torch.float32)
-            times = times.to("cuda")
-            t_call = time.perf_counter()
-            ranks = ops.batched_ranks(adj.expand(len(lanes), p, p), times)
-            finish = ops.longest_path_closure(adj, times[0])
-            expected += 2 * ops.squarings(p)
-            ranks, finish = ranks.cpu().numpy(), finish.cpu().numpy()
-            calls_s += time.perf_counter() - t_call
-            check(bool(np.isfinite(ranks).all()) and ranks.shape
-                  == (len(lanes), p), f"{label}: ranks {ranks.shape} not finite")
-            for i, (g, w) in enumerate(lanes):
-                want = g.upward_rank(w)
-                rel = float(np.max(np.abs(ranks[i, :g.n] - want) / want))
-                if rel > worst[0]:
-                    depth = int(round(g.critical_path(np.ones(g.n))))
-                    worst = (rel, f"{label} lane {i}", depth)
-                check(rel <= RANK_RTOL, f"{label} lane {i}: ranks off by "
-                      f"rtol {rel:.3e} (depth "
-                      f"{g.critical_path(np.ones(g.n)):.0f})")
-            cp = g0.critical_path(lanes[0][1])
-            rel_cp = abs(float(finish[:g0.n].max()) - cp) / cp
-            check(rel_cp <= RANK_RTOL, f"{label}: critical path "
-                  f"{finish[:g0.n].max()} against {cp}")
-            print(f"ranks {label}: n {g0.n}, p {p}, {len(lanes)} lanes, "
-                  f"critical path {cp:.6g} (rel err {rel_cp:.2e})")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    finally:
-        mp.launch = launch
+    t0 = mark = time.perf_counter()
+    # path time runs from ``mark`` to the results on the host, so it holds
+    # the generator's next(), which builds the label's graphs
+    for label, graphs in rank_grid():
+        g0 = graphs[0]
+        adj = torch.as_tensor(ops.dense_adjacency(g0.n, g0.edges),
+                              device="cuda")
+        p = adj.shape[0]
+        lanes = [(g, g.proc[:, q]) for g in graphs for q in range(g.num_types)]
+        times = torch.zeros((len(lanes), p), dtype=torch.float32)
+        for i, (_, w) in enumerate(lanes):
+            times[i, :g0.n] = torch.as_tensor(w, dtype=torch.float32)
+        times = times.to("cuda")
+        adjs = adj.expand(len(lanes), p, p)
+        ranks = timed((len(lanes), p), ops.batched_ranks, adjs, times)
+        finish = timed((1, p), ops.longest_path_closure, adj, times[0])
+        expected += 2 * ops.squarings(p)
+        ranks, finish = ranks.cpu().numpy(), finish.cpu().numpy()
+        path_s += time.perf_counter() - mark
+        mark = time.perf_counter()
+
+        if p > largest.get(len(lanes), (0,))[0]:
+            largest[len(lanes)] = (p, label, adjs, times)
+        for g in graphs[1:]:
+            check(np.array_equal(g.edges, g0.edges),
+                  f"{label}: block sizes do not share their edges")
+        check(bool(np.isfinite(ranks).all()) and ranks.shape
+              == (len(lanes), p), f"{label}: ranks {ranks.shape} not finite")
+        for i, (g, w) in enumerate(lanes):
+            want = g.upward_rank(w)
+            rel = float(np.max(np.abs(ranks[i, :g.n] - want) / want))
+            if rel > worst[0]:
+                depth = int(round(g.critical_path(np.ones(g.n))))
+                worst = (rel, f"{label} lane {i}", depth)
+            check(rel <= RANK_RTOL, f"{label} lane {i}: ranks off by rtol "
+                  f"{rel:.3e} (depth {g.critical_path(np.ones(g.n)):.0f})")
+        cp = g0.critical_path(lanes[0][1])
+        rel_cp = abs(float(finish[:g0.n].max()) - cp) / cp
+        check(rel_cp <= RANK_RTOL, f"{label}: critical path "
+              f"{finish[:g0.n].max()} against {cp}")
+        print(f"ranks {label}: n {g0.n}, p {p}, {len(lanes)} lanes, "
+              f"critical path {cp:.6g} (rel err {rel_cp:.2e})")
+        check_s += time.perf_counter() - mark
+        mark = time.perf_counter()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
     launches = mp.launch_count()
     check(launches == expected, f"maxplus launched {launches} times in "
           f"the ranks phase, expected {expected}")
+
     classes = {}
     for key, start, end in events:
-        ms = start.elapsed_time(end)
         n_, t_ = classes.get(key, (0, 0.0))
-        classes[key] = (n_ + 1, t_ + ms)
-    kernel_ms = bound_total = 0.0
+        classes[key] = (n_ + 1, t_ + start.elapsed_time(end))
+    device_ms = bound_total = 0.0
     for (lanes, p), (n_, t_) in sorted(classes.items(), key=lambda kv: kv[0][1]):
-        bound = maxplus_bound_ms(lanes, p, p, p)[0] * n_
-        kernel_ms += t_
+        bound = maxplus_bound_ms(lanes, p, p, p)[0] * n_ * ops.squarings(p)
+        device_ms += t_
         bound_total += bound
-        print(f"ranks kernel class B={lanes} p={p}: {n_} launches, "
-              f"{t_:.3f} ms, bound {bound:.3f} ms ({bound / t_:.1%})")
-    print(f"ranks phase: wall {wall:.3f} s, of which {calls_s:.3f} s in the "
-          f"ranks and closure calls up to their results on the host; kernel "
-          f"{kernel_ms:.3f} ms over {launches} launches (bound "
-          f"{bound_total:.3f} ms); worst rank rtol {worst[0]:.3e} at "
-          f"{worst[1]} (depth {worst[2]})")
-    return {"launches": launches, "wall_s": wall, "calls_s": calls_s,
-            "kernel_ms": kernel_ms, "bound_ms": bound_total,
-            "worst_rtol": worst[0]}
+        print(f"ranks call class B={lanes} p={p}: {n_} calls, "
+              f"{n_ * ops.squarings(p)} launches, {t_:.3f} ms, bound "
+              f"{bound:.3f} ms ({bound / t_:.1%})")
+    print(f"ranks phase: wall {wall:.3f} s = path {path_s:.3f} s (graph "
+          f"generation, adjacency, copies, the calls up to their results on "
+          f"the host) + TaskGraph checks {check_s:.3f} s + "
+          f"{wall - path_s - check_s:.3f} s; calls {device_ms:.3f} ms on the "
+          f"card over {launches} launches (bound {bound_total:.3f} ms); "
+          f"worst rank rtol {worst[0]:.3e} at {worst[1]} (depth {worst[2]})")
+
+    # The closure's own inputs: mostly NEG_INF, so sums reach -2e30 and the
+    # NEG_INF floor decides most outputs.  These launches are not the path's.
+    t_exact = time.perf_counter()
+    for n_lanes, (p, label, adjs, times) in sorted(largest.items()):
+        c = ops.closure_input(adjs.transpose(-1, -2), times)
+        for step in (1, 2):
+            got = mp.maxplus_matmul(c, c)
+            want = mp.maxplus_matmul_ref(c, c)
+            floor = (want == mp.NEG_INF).double().mean().item()
+            err = (got - want).abs().max().item()
+            print(f"ranks exact {label} B={n_lanes} p={p} squaring {step}: "
+                  f"max|err| {err:.3e} (exact equality required), "
+                  f"{floor:.1%} of outputs at the NEG_INF floor")
+            check(torch.equal(got, want), f"maxplus disagrees with its plain "
+                  f"version on {label}'s squaring {step}: max|err| {err}")
+            c = got
+            del want
+        del c, got
+    print(f"ranks exact checks: {time.perf_counter() - t_exact:.1f} s")
+    return {"launches": launches, "wall_s": wall, "path_s": path_s,
+            "check_s": check_s, "device_ms": device_ms,
+            "bound_ms": bound_total, "worst_rtol": worst[0]}
 
 
 def consistency(torch, dtype: str) -> float:
@@ -390,16 +418,7 @@ def consistency(torch, dtype: str) -> float:
     return err
 
 
-def main(argv: list[str] | None = None) -> int:
-    import argparse
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default=",".join(PHASES),
-                    help=f"comma-separated subset of {','.join(PHASES)}")
-    phases = ap.parse_args(argv).phases.split(",")
-    unknown = set(phases) - set(PHASES)
-    if unknown:
-        ap.error(f"unknown phases {sorted(unknown)}")
-
+def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -422,53 +441,44 @@ def main(argv: list[str] | None = None) -> int:
 
     print(f"build: {build_all(build):.1f} s")
 
-    rows, summary = [], None
-    if "flash" in phases:
-        t0 = time.perf_counter()
-        rows.append(flash_phase(torch))
-        print(f"kernels: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    flash_row = flash_phase(torch)
+    print(f"kernels: {time.perf_counter() - t0:.1f} s")
 
-    if "serve" in phases:
-        # the serving path: counters at 0 just before, read just after
-        fa.reset_launch_count()
-        summary = serve.main(SERVE_ARGS)
-        launches = fa.launch_count()
-        torch.cuda.synchronize()
-        layers = 28
-        check(launches == layers * SERVE_BATCHES,
-              f"flash attention launched {launches} times, expected "
-              f"{layers * SERVE_BATCHES}")
-        check(summary["flash_launches"] == launches, "serve summary count differs")
-        check(summary["logits_finite"], "non-finite logits while serving")
-        check(summary["tokens"] == 8 * 32, f"served {summary['tokens']} tokens")
-        print(f"serve qwen2-1.5b full width on {card}: {summary['tok_per_s']:.1f} "
-              f"tok/s, prefill {summary['prefill_s']:.3f} s, decode "
-              f"{summary['decode_s']:.3f} s, wall {summary['wall_s']:.3f} s, "
-              f"makespan {summary['makespan']:.3f} s, flash launches {launches}")
-        for row in rows:
-            if row["name"] == "flash_attention":
-                row["launches"] = launches
+    # the serving path: counters at 0 just before, read just after
+    fa.reset_launch_count()
+    summary = serve.main(SERVE_ARGS)
+    launches = fa.launch_count()
+    torch.cuda.synchronize()
+    layers = 28
+    check(launches == layers * SERVE_BATCHES,
+          f"flash attention launched {launches} times, expected "
+          f"{layers * SERVE_BATCHES}")
+    check(summary["flash_launches"] == launches, "serve summary count differs")
+    check(summary["logits_finite"], "non-finite logits while serving")
+    check(summary["tokens"] == 8 * 32, f"served {summary['tokens']} tokens")
+    print(f"serve qwen2-1.5b full width on {card}: {summary['tok_per_s']:.1f} "
+          f"tok/s, prefill {summary['prefill_s']:.3f} s, decode "
+          f"{summary['decode_s']:.3f} s, wall {summary['wall_s']:.3f} s, "
+          f"makespan {summary['makespan']:.3f} s, flash launches {launches}")
+    flash_row["launches"] = launches
 
-        for dtype in ("float32", "bfloat16"):
-            consistency(torch, dtype)
-            torch.cuda.empty_cache()
-        print(f"serve summary: {json.dumps(summary)}")
-
-    if "maxplus" in phases:
-        t0 = time.perf_counter()
-        rows.append(maxplus_phase(torch))
+    for dtype in ("float32", "bfloat16"):
+        consistency(torch, dtype)
         torch.cuda.empty_cache()
-        print(f"maxplus: {time.perf_counter() - t0:.1f} s")
+    print(f"serve summary: {json.dumps(summary)}")
 
-    if "ranks" in phases:
-        # the ranking path: its counter at 0 just before, read just after
-        ranks = ranks_phase(torch)
-        for row in rows:
-            if row["name"] == "maxplus_matmul":
-                row["launches"] = ranks["launches"]
-        print(f"ranks summary: {json.dumps(ranks)}")
+    t0 = time.perf_counter()
+    maxplus_row = maxplus_phase(torch)
+    torch.cuda.empty_cache()
+    print(f"maxplus: {time.perf_counter() - t0:.1f} s")
 
-    print(json.dumps({"kernels": rows}))
+    # the ranking path: its counter at 0 just before, read just after
+    ranks = ranks_phase(torch)
+    maxplus_row["launches"] = ranks["launches"]
+    print(f"ranks summary: {json.dumps(ranks)}")
+
+    print(json.dumps({"kernels": [flash_row, maxplus_row]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,8 +20,8 @@ import torch
 
 from .maxplus import NEG_INF, maxplus_matmul
 
-__all__ = ["dense_adjacency", "squarings", "longest_path_closure",
-           "batched_ranks"]
+__all__ = ["dense_adjacency", "squarings", "closure_input",
+           "longest_path_closure", "batched_ranks"]
 
 
 def dense_adjacency(n: int, edges, pad_to: int = 128) -> np.ndarray:
@@ -39,6 +39,17 @@ def squarings(p: int) -> int:
     return math.ceil(math.log2(max(p, 2)))
 
 
+def closure_input(adj: torch.Tensor, times: torch.Tensor) -> torch.Tensor:
+    """The matrix the closure squares first, I_tropical ⊕ W, where
+    W[.., i, j] = times[.., i] + adj[.., i, j] is the adjacency
+    edge-weighted by the source's duration; float32, adj's shape."""
+    p = adj.shape[-1]
+    w = times.to(torch.float32)[..., :, None] + adj.to(torch.float32)
+    eye = torch.full((p, p), NEG_INF, dtype=torch.float32, device=adj.device)
+    eye.fill_diagonal_(0.0)
+    return torch.maximum(eye, w)
+
+
 def longest_path_closure(adj: torch.Tensor, times: torch.Tensor) -> torch.Tensor:
     """Finish times for every task of a dense-adjacency DAG.
 
@@ -52,15 +63,10 @@ def longest_path_closure(adj: torch.Tensor, times: torch.Tensor) -> torch.Tensor
                          f"times {tuple(times.shape)}")
     if adj.device != times.device:
         raise ValueError(f"adj is on {adj.device} and times on {times.device}")
-    p = adj.shape[-1]
     times = times.to(torch.float32)
-    # W[i, j] = times[i] + adj[i, j]: edge-weighted by the source's duration.
-    w = times[..., :, None] + adj.to(torch.float32)
     # closure by repeated squaring of (I_tropical ⊕ W)
-    eye = torch.full((p, p), NEG_INF, dtype=torch.float32, device=adj.device)
-    eye.fill_diagonal_(0.0)
-    c = torch.maximum(eye, w)
-    for _ in range(squarings(p)):
+    c = closure_input(adj, times)
+    for _ in range(squarings(adj.shape[-1])):
         c = maxplus_matmul(c, c)
     # longest incoming path weight + own time
     best_in = c.amax(dim=-2)

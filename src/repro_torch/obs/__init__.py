@@ -6,24 +6,22 @@ scheduling core and the simulator call.  The registry
 :func:`enabled` is the zero-overhead guard every hot path checks.  Counters
 are always on; spans and decision records are recorded only while enabled
 (:func:`enable` / the :class:`capture` scope).
-:mod:`repro_torch.obs.provenance` captures per-task :class:`DecisionRecord`
-evidence and diffs it across schedulers.  The chrome-trace export
-(``repro.obs.trace``) is not yet ported.
+:mod:`repro_torch.obs.provenance` holds the per-task :class:`DecisionRecord`
+the allocators record.  The JAX package's gauges, ``timer``,
+``wall_events``, ``snapshot``, the provenance diff and the chrome-trace
+export (``repro.obs.trace``) are not ported yet: nothing in the port reads
+them.
 """
-from .provenance import (DecisionRecord, dump_decisions, explain_divergence,
-                         provenance_diff)
+from .provenance import DecisionRecord
 from .registry import (bump, capture, counter_value, counters,
-                       decision_records, disable, enable, enabled, gauges,
-                       record_decision, reset, set_counter, set_gauge,
-                       snapshot, span, timer, wall_events)
+                       decision_records, disable, enable, enabled,
+                       record_decision, reset, span)
 
 __all__ = [
     # registry
     "enabled", "enable", "disable", "capture", "reset",
-    "bump", "counter_value", "set_counter", "counters",
-    "set_gauge", "gauges", "span", "timer", "wall_events",
-    "record_decision", "decision_records", "snapshot",
+    "bump", "counter_value", "counters", "span",
+    "record_decision", "decision_records",
     # provenance
-    "DecisionRecord", "provenance_diff", "explain_divergence",
-    "dump_decisions",
+    "DecisionRecord",
 ]

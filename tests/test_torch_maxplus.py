@@ -1,8 +1,9 @@
 """The port's (max, +) product, closure and ranks against the JAX package.
 
 Here on the CPU the port's wrappers take their plain versions (the CUDA
-kernel runs only on the card, where ``chip_smoke.py`` and the card test
-below hold it against the same plain version); the JAX side runs the
+kernel runs only on the card, where ``chip_smoke.py`` and
+``tests/test_torch_maxplus_card.py`` hold it against the same plain
+version); the JAX side runs the
 Pallas kernel in interpret mode, as ``tests/test_kernels.py`` does.  Inputs
 come from numpy with a seed.
 
@@ -43,14 +44,6 @@ def _graph_inputs(app, nb, bs, pad_to=128):
     times = np.zeros((g.num_types, adj.shape[0]), np.float32)
     times[:, :g.n] = g.proc.T
     return g, adj, times
-
-
-@pytest.fixture
-def card():
-    """The card, for tests that launch the kernel; skips without one."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    return torch.device("cuda")
 
 
 # Each test below loops over its cases rather than being parametrized per
@@ -195,21 +188,3 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError, match="B, p, p"):
         ops.batched_ranks(torch.zeros(128, 128), torch.zeros(128))
 
-
-def test_kernel_equals_plain_on_the_card(card):
-    """On the card: the kernel against its plain version, exactly, at the
-    sweep's shapes, a ragged one and a batch; the ranks of one graph."""
-    mp.reset_launch_count()
-    cases = [((128, 128), (128, 128)), ((256, 128), (128, 384)),
-             ((100, 37), (37, 200)), ((3, 130, 129), (3, 129, 131))]
-    for i, (sa, sb) in enumerate(cases):
-        a, b = (torch.from_numpy(x).to(card) for x in _inputs(i, sa, sb))
-        assert torch.equal(mp.maxplus_matmul(a, b), maxplus_matmul_ref(a, b))
-    assert mp.launch_count() == len(cases)
-    g, adj, times = _graph_inputs("potrf", 5, 320)
-    ranks = ops.batched_ranks(torch.from_numpy(adj).to(card).expand(2, -1, -1),
-                              torch.from_numpy(times).to(card))
-    want = ops.batched_ranks(torch.from_numpy(adj).expand(2, -1, -1),
-                             torch.from_numpy(times))
-    assert torch.equal(ranks.cpu(), want)
-    assert mp.launch_count() == len(cases) + ops.squarings(adj.shape[0])
