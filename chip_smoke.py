@@ -8,15 +8,23 @@ Phases, each of which raises on failure (exit code not 0):
 1. card    — the card's name and power limit, from ``nvidia-smi``;
 2. build   — every ``src/repro_torch/kernels/csrc/*.cu`` with ``nvcc`` for
              ``sm_90a``, all sources at once, from the checkout alone;
-3. kernels — each kernel against its plain PyTorch version on the card at
-             the serving shape, the JAX kernel tests' sweep and a ragged
-             length; times of the kernel, the plain version and one PyTorch
-             library call at the serving shape (CUDA events, after warm-up);
+3. kernels — flash attention against its plain PyTorch version on the
+             card at the serving shape, the JAX kernel tests' sweep and a
+             ragged length, bf16 through the tensor-core kernel and fp32
+             through the FMA kernel (each call's kernel read from the
+             per-kernel counters); times at the serving shape and at a long
+             prompt (S = 8192): the kernel and
+             ``scaled_dot_product_attention`` in turns, eagerly (CUDA events)
+             and replayed from a CUDA graph (device time), beside the FMA
+             kernel on the same bf16 inputs, the plain version (serving shape
+             only), the bound and the achieved rate;
 4. serve   — ``repro_torch.launch.serve.main`` on qwen2-1.5b at its full
              published width and depth (random weights from a seed): every
              launch counter set to 0 just before, read just after, and each
-             kernel of the path launched the expected number of times; then
-             prefill/decode consistency at full width with the kernels on;
+             kernel of the path launched the expected number of times (all
+             56 flash launches by the bf16 kernel); then prefill/decode
+             consistency at full width with the kernels on, in fp32 (the
+             FMA kernel's path, 56 launches) and bf16;
 5. maxplus — the (max, +) kernel against its plain version on the card at
              the JAX kernel tests' sweep (fp32 and fp16 inputs) and at
              12 lanes of p = 512 and p = 2944, at exact equality; times of
@@ -78,6 +86,10 @@ FLASH_SLICE = (4, 512, 12, 2, 128)
 FLASH_SWEEP = [(2, 256, 4, 4, 64), (2, 512, 4, 2, 64), (2, 256, 8, 1, 128),
                (2, 384, 6, 2, 64), (2, 200, 4, 2, 64)]
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # the JAX kernel tests'
+# the kernel each dtype must go through (flash_attention.KERNELS)
+FLASH_KERNEL = {"float32": "fma", "bfloat16": "sm90_bf16"}
+# a long prompt: qwen2-1.5b's heads at S = 8192, one sequence
+FLASH_LONG = (1, 8192, 12, 2, 128)
 
 # Prefill/decode consistency at full width: decode of token S-1 after a
 # prefill of S-1 against the last logits of a prefill of S.  float32 holds
@@ -132,6 +144,32 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int = 50) -> float:
+    """Device time of one of ``iters`` back-to-back calls of ``fn``,
+    captured in a CUDA graph and replayed, so the host's launch cost is
+    not in it."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def build_all(build) -> float:
     """Build every CUDA source at once (one nvcc each); returns seconds."""
     sources = sorted(p.stem for p in build.CSRC.glob("*.cu"))
@@ -150,29 +188,104 @@ def flash_inputs(torch, case, dtype, seed):
                  for shape in ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, d)))
 
 
-def flash_phase(torch) -> dict:
-    """Every flash case against the plain version; times at the slice shape."""
+def flash_bound_ms(case, elem: int, flop_per_s: float) -> tuple[float, str]:
+    """The least time of causal attention at ``case``, and its limit."""
+    b, s, h, hkv, d = case
+    moved = elem * (2 * b * s * h * d + 2 * b * s * hkv * d)
+    flops = 4 * b * h * d * (s * (s + 1) // 2)      # QK^T and P.V, causal
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / flop_per_s * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def flash_times(torch, case, dtype, *, plain: bool) -> dict:
+    """Times of the dtype's kernel, SDPA and, for bf16, the FMA kernel on
+    the same inputs, causal.  The kernel and SDPA are timed in turns
+    (kernel, SDPA, SDPA, kernel), each turn twice: eagerly (CUDA events
+    over back-to-back calls from Python, the host's launch cost included)
+    and as device time (the same calls replayed from a CUDA graph)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention import ops
 
-    slice_err = 0.0
+    b, s, h, hkv, d = case
+    q, k, v = flash_inputs(torch, case, dtype, seed=0)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    long = s > 1024
+    iters = 20 if long else 50
+
+    def kernel():
+        return ops.flash_attention(q, k, v, causal=True)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
+    turns = {"kernel": [], "sdpa": [], "kernel_eager": [], "sdpa_eager": []}
+    for name, fn in (("kernel", kernel), ("sdpa", sdpa), ("sdpa", sdpa),
+                     ("kernel", kernel)):
+        turns[name + "_eager"].append(time_ms(fn, iters))
+        turns[name].append(graph_ms(fn, iters))
+    out = {key: sum(val) / len(val) for key, val in turns.items()}
+    out["turns"] = turns
+    if dtype == torch.bfloat16:
+        out["fma"] = time_ms(lambda: fa.launch_bshd(q, k, v, causal=True,
+                                                    kernel="fma"),
+                             iters=3 if long else 20, warmup=1)
+    out["plain"] = (time_ms(lambda: ops.flash_attention_ref(q, k, v,
+                                                            causal=True))
+                    if plain else None)
+    peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    out["bound"], out["bound_by"] = flash_bound_ms(case, q.element_size(), peak)
+    flops = 4 * b * h * d * (s * (s + 1) // 2)
+    out["tflops"] = flops / out["kernel"] / 1e9
+    name = "bf16" if dtype == torch.bfloat16 else "fp32"
+    fma = f", FMA kernel {out['fma']:.4f} ms" if "fma" in out else ""
+    plain_txt = f", plain {out['plain']:.4f} ms" if plain else ""
+    print(f"flash times at B,S,H,Hkv,D={case} {name} causal: kernel "
+          f"{out['kernel']:.4f} ms on the card (turns "
+          f"{turns['kernel'][0]:.4f} / {turns['kernel'][1]:.4f}; eager "
+          f"{out['kernel_eager']:.4f}), SDPA {out['sdpa']:.4f} ms (turns "
+          f"{turns['sdpa'][0]:.4f} / {turns['sdpa'][1]:.4f}; eager "
+          f"{out['sdpa_eager']:.4f}){fma}{plain_txt}; bound "
+          f"{out['bound'] * 1e3:.2f} us ({out['bound_by']}), kernel at "
+          f"{out['bound'] / out['kernel']:.1%} of it, {out['tflops']:.1f} "
+          f"TFLOP/s; kernel {'no slower' if out['kernel'] <= out['sdpa'] else 'SLOWER'}"
+          f" than SDPA on the card")
+    return out
+
+
+def flash_phase(torch) -> tuple[dict, dict]:
+    """Every flash case against the plain version, each through the kernel
+    of its dtype; times at the serving and the long shape.  Returns the
+    rows of the bf16 (tensor-core) kernel and the fp32 (FMA) kernel."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ops
+
+    errs = {}
     for i, case in enumerate([FLASH_SLICE] + FLASH_SWEEP):
         for dtype_name, tol in FLASH_TOL.items():
             dtype = getattr(torch, dtype_name)
             q, k, v = flash_inputs(torch, case, dtype, seed=i)
             for causal in (True, False):
+                before = fa.launch_counts()
                 got = ops.flash_attention(q, k, v, causal=causal)
+                ran = [n for n, c in fa.launch_counts().items()
+                       if c != before[n]]
                 want = ops.flash_attention_ref(q, k, v, causal=causal)
                 diff = (got.float() - want.float()).abs()
                 err = diff.max().item()
                 ok = bool((diff <= tol + tol * want.float().abs()).all())
                 print(f"flash B,S,H,Hkv,D={case} {dtype_name} causal={causal}: "
-                      f"max|err| {err:.3e} (atol = rtol = {tol})")
+                      f"kernel {'+'.join(ran)}, max|err| {err:.3e} "
+                      f"(atol = rtol = {tol})")
+                check(ran == [FLASH_KERNEL[dtype_name]], f"flash attention "
+                      f"{dtype_name} ran {ran}, expected "
+                      f"{FLASH_KERNEL[dtype_name]}")
                 check(ok, f"flash attention disagrees at {case} {dtype_name} "
                       f"causal={causal}: max|err| {err}")
-                if case == FLASH_SLICE and dtype_name == "bfloat16" and causal:
-                    slice_err = err
+                if case == FLASH_SLICE and causal:
+                    errs[dtype_name] = err
     # the (BH, S, D) wrapper once, against attention_ref
     q, k, v = flash_inputs(torch, (1, 256, 8, 8, 64), torch.float32, seed=99)
     fold = [x[0].transpose(0, 1).contiguous() for x in (q, k, v)]
@@ -180,30 +293,32 @@ def flash_phase(torch) -> dict:
     check(bool(((got - want).abs() <= 2e-5 + 2e-5 * want.abs()).all()),
           "flash_attention_bhsd disagrees with attention_ref")
 
-    b, s, h, hkv, d = FLASH_SLICE
-    q, k, v = flash_inputs(torch, FLASH_SLICE, torch.bfloat16, seed=0)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    ms = time_ms(lambda: ops.flash_attention(q, k, v, causal=True))
-    plain_ms = time_ms(lambda: ops.flash_attention_ref(q, k, v, causal=True))
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True))
-    elem = q.element_size()
-    moved = elem * (2 * b * s * h * d + 2 * b * s * hkv * d)
-    flops = 4 * b * h * d * (s * (s + 1) // 2)      # QK^T and P.V, causal
-    t_bytes = moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOP_PER_S * 1e3
-    print(f"flash at B,S,H,Hkv,D={FLASH_SLICE} bf16 causal: kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms; bound "
-          f"{max(t_bytes, t_ops) * 1e3:.2f} us ({moved / 1e6:.1f} MB, "
-          f"{flops / 1e9:.2f} GFLOP); kernel at fp32 FMA peak "
-          f"{flops / FP32_FLOP_PER_S * 1e6:.1f} us")
-    return {"name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention/flash_attention.py:62",
-            "max_abs_err": slice_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms}
+    serving = flash_times(torch, FLASH_SLICE, torch.bfloat16, plain=True)
+    long = flash_times(torch, FLASH_LONG, torch.bfloat16, plain=False)
+    fp32 = flash_times(torch, FLASH_SLICE, torch.float32, plain=True)
+    sm90_row = {
+        "name": "flash_attention_sm90_bf16", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:62",
+        "shape": list(FLASH_SLICE), "max_abs_err": errs["bfloat16"],
+        "ms": serving["kernel"], "plain_ms": serving["plain"],
+        "bound_ms": serving["bound"], "bound_by": serving["bound_by"],
+        "library_ms": serving["sdpa"], "eager_ms": serving["kernel_eager"],
+        "library_eager_ms": serving["sdpa_eager"],
+        "fma_ms": serving["fma"], "long": {
+            "shape": list(FLASH_LONG), "ms": long["kernel"],
+            "library_ms": long["sdpa"], "fma_ms": long["fma"],
+            "bound_ms": long["bound"], "bound_by": long["bound_by"],
+            "tflops": long["tflops"]}}
+    fma_row = {
+        "name": "flash_attention_fma_fp32", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:62",
+        "shape": list(FLASH_SLICE), "max_abs_err": errs["float32"],
+        "ms": fp32["kernel"], "plain_ms": fp32["plain"],
+        "bound_ms": fp32["bound"], "bound_by": fp32["bound_by"],
+        "library_ms": fp32["sdpa"]}
+    return sm90_row, fma_row
 
 
 def maxplus_bound_ms(lanes: int, m: int, k: int, n: int) -> tuple[float, str]:
@@ -434,6 +549,7 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.launch import serve
 
+    t_start = time.perf_counter()
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -442,29 +558,44 @@ def main() -> int:
     print(f"build: {build_all(build):.1f} s")
 
     t0 = time.perf_counter()
-    flash_row = flash_phase(torch)
+    flash_row, fma_row = flash_phase(torch)
     print(f"kernels: {time.perf_counter() - t0:.1f} s")
 
     # the serving path: counters at 0 just before, read just after
     fa.reset_launch_count()
     summary = serve.main(SERVE_ARGS)
     launches = fa.launch_count()
+    per_kernel = fa.launch_counts()
     torch.cuda.synchronize()
     layers = 28
     check(launches == layers * SERVE_BATCHES,
           f"flash attention launched {launches} times, expected "
           f"{layers * SERVE_BATCHES}")
+    check(per_kernel["sm90_bf16"] == launches, f"the bf16 serving path "
+          f"launched {per_kernel}, not the sm90 kernel alone")
     check(summary["flash_launches"] == launches, "serve summary count differs")
     check(summary["logits_finite"], "non-finite logits while serving")
     check(summary["tokens"] == 8 * 32, f"served {summary['tokens']} tokens")
     print(f"serve qwen2-1.5b full width on {card}: {summary['tok_per_s']:.1f} "
           f"tok/s, prefill {summary['prefill_s']:.3f} s, decode "
           f"{summary['decode_s']:.3f} s, wall {summary['wall_s']:.3f} s, "
-          f"makespan {summary['makespan']:.3f} s, flash launches {launches}")
+          f"makespan {summary['makespan']:.3f} s, flash launches {launches} "
+          f"{per_kernel}")
     flash_row["launches"] = launches
 
+    # two prefills of 28 layers each, through the kernel of the dtype: the
+    # fp32 one is the FMA kernel's path, its counter 0 just before
     for dtype in ("float32", "bfloat16"):
+        fa.reset_launch_count()
         consistency(torch, dtype)
+        counts = fa.launch_counts()
+        name = FLASH_KERNEL[dtype]
+        check(counts == {**dict.fromkeys(counts, 0), name: 2 * layers},
+              f"the {dtype} prefills launched {counts}, expected "
+              f"{2 * layers} of {name}")
+        print(f"prefill {dtype}: flash launches {counts}")
+        if dtype == "float32":
+            fma_row["launches"] = counts[name]
         torch.cuda.empty_cache()
     print(f"serve summary: {json.dumps(summary)}")
 
@@ -478,7 +609,9 @@ def main() -> int:
     maxplus_row["launches"] = ranks["launches"]
     print(f"ranks summary: {json.dumps(ranks)}")
 
-    print(json.dumps({"kernels": [flash_row, maxplus_row]}))
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
+          "imports, build included")
+    print(json.dumps({"kernels": [flash_row, fma_row, maxplus_row]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
