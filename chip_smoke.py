@@ -10,21 +10,22 @@ Phases, each of which raises on failure (exit code not 0):
              ``sm_90a``, all sources at once, from the checkout alone;
 3. kernels — flash attention against its plain PyTorch version on the
              card at the serving shape, the JAX kernel tests' sweep and a
-             ragged length, bf16 through the tensor-core kernel and fp32
-             through the FMA kernel (each call's kernel read from the
-             per-kernel counters); times at the serving shape and at a long
-             prompt (S = 8192): the kernel and
-             ``scaled_dot_product_attention`` in turns, eagerly (CUDA events)
-             and replayed from a CUDA graph (device time), beside the FMA
-             kernel on the same bf16 inputs, the plain version (serving shape
-             only), the bound and the achieved rate;
+             ragged length, bf16 through the bf16 tensor-core kernel and
+             fp32 through the 3xTF32 tensor-core kernel (each call's kernel
+             read from the per-kernel counters), and the FMA kernel on the
+             same cases in both dtypes (``kernel="fma"``); times in both
+             dtypes at the serving shape and at a long prompt (S = 8192):
+             the kernel and ``scaled_dot_product_attention`` in turns,
+             eagerly (CUDA events) and replayed from a CUDA graph (device
+             time), beside the FMA kernel on the same inputs, the plain
+             version (serving shape only), the bound and the achieved rate;
 4. serve   — ``repro_torch.launch.serve.main`` on qwen2-1.5b at its full
              published width and depth (random weights from a seed): every
              launch counter set to 0 just before, read just after, and each
              kernel of the path launched the expected number of times (all
              56 flash launches by the bf16 kernel); then prefill/decode
              consistency at full width with the kernels on, in fp32 (the
-             FMA kernel's path, 56 launches) and bf16;
+             3xTF32 kernel's path, 56 launches) and bf16;
 5. maxplus — the (max, +) kernel against its plain version on the card at
              the JAX kernel tests' sweep (fp32 and fp16 inputs) and at
              12 lanes of p = 512 and p = 2944, at exact equality; times of
@@ -67,6 +68,10 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 FP32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
+# fp32-accurate products on the tensor cores are 3 TF32 products each
+# (hi hi' + hi lo' + lo hi'): the fp32 tensor-core kernel's bound
+TF32_PRODUCTS = 3
 # A (max, +) pair is two instructions on the CUDA cores, FADD and FMNMX.
 # 132 SMs x 128 FP32 lanes x 1.98 GHz issue 33.5e12 FADD/s (the FMA rate
 # counted once, not as two flops); FMNMX runs at 64 per clock per SM on
@@ -87,7 +92,7 @@ FLASH_SWEEP = [(2, 256, 4, 4, 64), (2, 512, 4, 2, 64), (2, 256, 8, 1, 128),
                (2, 384, 6, 2, 64), (2, 200, 4, 2, 64)]
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # the JAX kernel tests'
 # the kernel each dtype must go through (flash_attention.KERNELS)
-FLASH_KERNEL = {"float32": "fma", "bfloat16": "sm90_bf16"}
+FLASH_KERNEL = {"float32": "sm90_fp32", "bfloat16": "sm90_bf16"}
 # a long prompt: qwen2-1.5b's heads at S = 8192, one sequence
 FLASH_LONG = (1, 8192, 12, 2, 128)
 
@@ -188,22 +193,25 @@ def flash_inputs(torch, case, dtype, seed):
                  for shape in ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, d)))
 
 
-def flash_bound_ms(case, elem: int, flop_per_s: float) -> tuple[float, str]:
-    """The least time of causal attention at ``case``, and its limit."""
+def flash_bound_ms(case, elem: int, flop_per_s: float,
+                   products: int = 1) -> tuple[float, str]:
+    """The least time of causal attention at ``case``, and its limit, with
+    ``products`` tensor-core products for each product of the function."""
     b, s, h, hkv, d = case
     moved = elem * (2 * b * s * h * d + 2 * b * s * hkv * d)
     flops = 4 * b * h * d * (s * (s + 1) // 2)      # QK^T and P.V, causal
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / flop_per_s * 1e3
+    t_ops = products * flops / flop_per_s * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def flash_times(torch, case, dtype, *, plain: bool) -> dict:
-    """Times of the dtype's kernel, SDPA and, for bf16, the FMA kernel on
-    the same inputs, causal.  The kernel and SDPA are timed in turns
-    (kernel, SDPA, SDPA, kernel), each turn twice: eagerly (CUDA events
-    over back-to-back calls from Python, the host's launch cost included)
-    and as device time (the same calls replayed from a CUDA graph)."""
+    """Times of the dtype's kernel, SDPA and the FMA kernel on the same
+    inputs, causal.  The kernel and SDPA are timed in turns (kernel, SDPA,
+    SDPA, kernel), each turn twice: eagerly (CUDA events over back-to-back
+    calls from Python, the host's launch cost included) and as device time
+    (the same calls replayed from a CUDA graph).  The FMA kernel's own
+    bound (fp32 FMA peak) is beside it."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention import ops
@@ -212,7 +220,8 @@ def flash_times(torch, case, dtype, *, plain: bool) -> dict:
     q, k, v = flash_inputs(torch, case, dtype, seed=0)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     long = s > 1024
-    iters = 20 if long else 50
+    fp32 = dtype == torch.float32
+    iters = (5 if fp32 else 20) if long else 50
 
     def kernel():
         return ops.flash_attention(q, k, v, causal=True)
@@ -228,64 +237,83 @@ def flash_times(torch, case, dtype, *, plain: bool) -> dict:
         turns[name].append(graph_ms(fn, iters))
     out = {key: sum(val) / len(val) for key, val in turns.items()}
     out["turns"] = turns
-    if dtype == torch.bfloat16:
-        out["fma"] = time_ms(lambda: fa.launch_bshd(q, k, v, causal=True,
-                                                    kernel="fma"),
-                             iters=3 if long else 20, warmup=1)
+    out["fma"] = time_ms(lambda: fa.launch_bshd(q, k, v, causal=True,
+                                                kernel="fma"),
+                         iters=3 if long else 20, warmup=1)
     out["plain"] = (time_ms(lambda: ops.flash_attention_ref(q, k, v,
                                                             causal=True))
                     if plain else None)
-    peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
-    out["bound"], out["bound_by"] = flash_bound_ms(case, q.element_size(), peak)
+    # the fp32 kernel's pre-pass alone (its time is inside the kernel's)
+    out["pre_pass"] = (graph_ms(lambda: fa.split_kv_tf32(k, v), iters)
+                       if fp32 else None)
+    if fp32:
+        out["bound"], out["bound_by"] = flash_bound_ms(
+            case, 4, TF32_FLOP_PER_S, TF32_PRODUCTS)
+    else:
+        out["bound"], out["bound_by"] = flash_bound_ms(case, 2, BF16_FLOP_PER_S)
+    out["fma_bound"], out["fma_bound_by"] = flash_bound_ms(
+        case, q.element_size(), FP32_FLOP_PER_S)
     flops = 4 * b * h * d * (s * (s + 1) // 2)
     out["tflops"] = flops / out["kernel"] / 1e9
     name = "bf16" if dtype == torch.bfloat16 else "fp32"
-    fma = f", FMA kernel {out['fma']:.4f} ms" if "fma" in out else ""
+    fma = (f", FMA kernel {out['fma']:.4f} ms (bound "
+           f"{out['fma_bound'] * 1e3:.2f} us, {out['fma_bound_by']}, "
+           f"{out['fma_bound'] / out['fma']:.1%} of it)")
     plain_txt = f", plain {out['plain']:.4f} ms" if plain else ""
+    if fp32:
+        plain_txt += f", its pre-pass alone {out['pre_pass']:.4f} ms"
     print(f"flash times at B,S,H,Hkv,D={case} {name} causal: kernel "
           f"{out['kernel']:.4f} ms on the card (turns "
           f"{turns['kernel'][0]:.4f} / {turns['kernel'][1]:.4f}; eager "
           f"{out['kernel_eager']:.4f}), SDPA {out['sdpa']:.4f} ms (turns "
           f"{turns['sdpa'][0]:.4f} / {turns['sdpa'][1]:.4f}; eager "
           f"{out['sdpa_eager']:.4f}){fma}{plain_txt}; bound "
-          f"{out['bound'] * 1e3:.2f} us ({out['bound_by']}), kernel at "
+          f"{out['bound'] * 1e3:.2f} us ({out['bound_by']}"
+          f"{', 3xTF32' if fp32 else ''}), kernel at "
           f"{out['bound'] / out['kernel']:.1%} of it, {out['tflops']:.1f} "
-          f"TFLOP/s; kernel {'no slower' if out['kernel'] <= out['sdpa'] else 'SLOWER'}"
+          f"TFLOP/s of the function; kernel "
+          f"{'no slower' if out['kernel'] <= out['sdpa'] else 'SLOWER'}"
           f" than SDPA on the card")
     return out
 
 
-def flash_phase(torch) -> tuple[dict, dict]:
+def flash_phase(torch) -> tuple[dict, dict, dict]:
     """Every flash case against the plain version, each through the kernel
-    of its dtype; times at the serving and the long shape.  Returns the
-    rows of the bf16 (tensor-core) kernel and the fp32 (FMA) kernel."""
+    of its dtype, then through the FMA kernel when asked; times at the
+    serving and the long shape.  Returns the rows of the bf16 and the fp32
+    tensor-core kernels and of the FMA kernel."""
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention import ops
 
-    errs = {}
+    errs, fma_err = {}, 0.0
     for i, case in enumerate([FLASH_SLICE] + FLASH_SWEEP):
         for dtype_name, tol in FLASH_TOL.items():
             dtype = getattr(torch, dtype_name)
             q, k, v = flash_inputs(torch, case, dtype, seed=i)
             for causal in (True, False):
-                before = fa.launch_counts()
-                got = ops.flash_attention(q, k, v, causal=causal)
-                ran = [n for n, c in fa.launch_counts().items()
-                       if c != before[n]]
                 want = ops.flash_attention_ref(q, k, v, causal=causal)
-                diff = (got.float() - want.float()).abs()
-                err = diff.max().item()
-                ok = bool((diff <= tol + tol * want.float().abs()).all())
-                print(f"flash B,S,H,Hkv,D={case} {dtype_name} causal={causal}: "
-                      f"kernel {'+'.join(ran)}, max|err| {err:.3e} "
-                      f"(atol = rtol = {tol})")
-                check(ran == [FLASH_KERNEL[dtype_name]], f"flash attention "
-                      f"{dtype_name} ran {ran}, expected "
-                      f"{FLASH_KERNEL[dtype_name]}")
-                check(ok, f"flash attention disagrees at {case} {dtype_name} "
-                      f"causal={causal}: max|err| {err}")
-                if case == FLASH_SLICE and causal:
-                    errs[dtype_name] = err
+                for kernel in (None, "fma"):
+                    before = fa.launch_counts()
+                    got = (ops.flash_attention(q, k, v, causal=causal)
+                           if kernel is None else
+                           fa.launch_bshd(q, k, v, causal=causal, kernel=kernel))
+                    ran = [n for n, c in fa.launch_counts().items()
+                           if c != before[n]]
+                    diff = (got.float() - want.float()).abs()
+                    err = diff.max().item()
+                    ok = bool((diff <= tol + tol * want.float().abs()).all())
+                    expected = kernel or FLASH_KERNEL[dtype_name]
+                    print(f"flash B,S,H,Hkv,D={case} {dtype_name} "
+                          f"causal={causal}: kernel {'+'.join(ran)}, max|err| "
+                          f"{err:.3e} (atol = rtol = {tol})")
+                    check(ran == [expected], f"flash attention {dtype_name} "
+                          f"ran {ran}, expected {expected}")
+                    check(ok, f"flash attention ({expected}) disagrees at "
+                          f"{case} {dtype_name} causal={causal}: max|err| {err}")
+                    if kernel == "fma" and dtype_name == "float32":
+                        fma_err = max(fma_err, err)
+                    if kernel is None and case == FLASH_SLICE and causal:
+                        errs[dtype_name] = err
     # the (BH, S, D) wrapper once, against attention_ref
     q, k, v = flash_inputs(torch, (1, 256, 8, 8, 64), torch.float32, seed=99)
     fold = [x[0].transpose(0, 1).contiguous() for x in (q, k, v)]
@@ -293,32 +321,48 @@ def flash_phase(torch) -> tuple[dict, dict]:
     check(bool(((got - want).abs() <= 2e-5 + 2e-5 * want.abs()).all()),
           "flash_attention_bhsd disagrees with attention_ref")
 
-    serving = flash_times(torch, FLASH_SLICE, torch.bfloat16, plain=True)
-    long = flash_times(torch, FLASH_LONG, torch.bfloat16, plain=False)
-    fp32 = flash_times(torch, FLASH_SLICE, torch.float32, plain=True)
-    sm90_row = {
-        "name": "flash_attention_sm90_bf16", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
-        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:62",
-        "shape": list(FLASH_SLICE), "max_abs_err": errs["bfloat16"],
-        "ms": serving["kernel"], "plain_ms": serving["plain"],
-        "bound_ms": serving["bound"], "bound_by": serving["bound_by"],
-        "library_ms": serving["sdpa"], "eager_ms": serving["kernel_eager"],
-        "library_eager_ms": serving["sdpa_eager"],
-        "fma_ms": serving["fma"], "long": {
-            "shape": list(FLASH_LONG), "ms": long["kernel"],
-            "library_ms": long["sdpa"], "fma_ms": long["fma"],
-            "bound_ms": long["bound"], "bound_by": long["bound_by"],
-            "tflops": long["tflops"]}}
+    times = {(dt, shape): flash_times(torch, case, getattr(torch, dt),
+                                      plain=shape == "serving")
+             for dt in ("bfloat16", "float32")
+             for shape, case in (("serving", FLASH_SLICE), ("long", FLASH_LONG))}
+
+    def row(name, source, dt, err):
+        serving, long = times[dt, "serving"], times[dt, "long"]
+        return {
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": "src/repro/kernels/flash_attention/flash_attention.py:62",
+            "shape": list(FLASH_SLICE), "max_abs_err": err,
+            "ms": serving["kernel"], "plain_ms": serving["plain"],
+            "bound_ms": serving["bound"], "bound_by": serving["bound_by"],
+            "library_ms": serving["sdpa"], "eager_ms": serving["kernel_eager"],
+            "library_eager_ms": serving["sdpa_eager"],
+            "fma_ms": serving["fma"], "pre_pass_ms": serving["pre_pass"],
+            "long": {
+                "shape": list(FLASH_LONG), "ms": long["kernel"],
+                "pre_pass_ms": long["pre_pass"],
+                "eager_ms": long["kernel_eager"], "library_ms": long["sdpa"],
+                "fma_ms": long["fma"], "bound_ms": long["bound"],
+                "bound_by": long["bound_by"], "tflops": long["tflops"]}}
+
+    bf16_row = row("flash_attention_sm90_bf16", "flash_attention_sm90.cu",
+                   "bfloat16", errs["bfloat16"])
+    fp32_row = row("flash_attention_sm90_fp32", "flash_attention_sm90_fp32.cu",
+                   "float32", errs["float32"])
+    fp32, fp32_long = times["float32", "serving"], times["float32", "long"]
     fma_row = {
-        "name": "flash_attention_fma_fp32", "route": "cuda",
+        "name": "flash_attention_fma", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:62",
-        "shape": list(FLASH_SLICE), "max_abs_err": errs["float32"],
-        "ms": fp32["kernel"], "plain_ms": fp32["plain"],
-        "bound_ms": fp32["bound"], "bound_by": fp32["bound_by"],
-        "library_ms": fp32["sdpa"]}
-    return sm90_row, fma_row
+        "shape": list(FLASH_SLICE), "dtype": "float32",
+        "max_abs_err": fma_err, "ms": fp32["fma"], "plain_ms": fp32["plain"],
+        "bound_ms": fp32["fma_bound"], "bound_by": fp32["fma_bound_by"],
+        "library_ms": fp32["sdpa"], "launches": 0, "long": {
+            "shape": list(FLASH_LONG), "ms": fp32_long["fma"],
+            "bf16_ms": times["bfloat16", "long"]["fma"],
+            "bound_ms": fp32_long["fma_bound"],
+            "bound_by": fp32_long["fma_bound_by"]}}
+    return bf16_row, fp32_row, fma_row
 
 
 def maxplus_bound_ms(lanes: int, m: int, k: int, n: int) -> tuple[float, str]:
@@ -558,7 +602,7 @@ def main() -> int:
     print(f"build: {build_all(build):.1f} s")
 
     t0 = time.perf_counter()
-    flash_row, fma_row = flash_phase(torch)
+    flash_row, fp32_row, fma_row = flash_phase(torch)
     print(f"kernels: {time.perf_counter() - t0:.1f} s")
 
     # the serving path: counters at 0 just before, read just after
@@ -584,7 +628,7 @@ def main() -> int:
     flash_row["launches"] = launches
 
     # two prefills of 28 layers each, through the kernel of the dtype: the
-    # fp32 one is the FMA kernel's path, its counter 0 just before
+    # fp32 one is the 3xTF32 kernel's path, its counter 0 just before
     for dtype in ("float32", "bfloat16"):
         fa.reset_launch_count()
         consistency(torch, dtype)
@@ -595,7 +639,7 @@ def main() -> int:
               f"{2 * layers} of {name}")
         print(f"prefill {dtype}: flash launches {counts}")
         if dtype == "float32":
-            fma_row["launches"] = counts[name]
+            fp32_row["launches"] = counts[name]
         torch.cuda.empty_cache()
     print(f"serve summary: {json.dumps(summary)}")
 
@@ -611,7 +655,8 @@ def main() -> int:
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
           "imports, build included")
-    print(json.dumps({"kernels": [flash_row, fma_row, maxplus_row]}))
+    print(json.dumps({"kernels": [flash_row, fp32_row, fma_row,
+                                  maxplus_row]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

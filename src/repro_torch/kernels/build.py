@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled at first
 use with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``build/repro_torch/`` at the root of the checkout, then loaded with
-``ctypes``.  The library's file name carries a hash of its source, so an
-edited source is rebuilt.  Nothing here runs at import time, and a failed
+``ctypes``.  The library's file name carries a hash of its source and of
+the shared headers ``csrc/*.cuh``, so an edited source or header is
+rebuilt.  Nothing here runs at import time, and a failed
 build raises: there is no path around a kernel that does not build.
 """
 from __future__ import annotations
@@ -39,10 +40,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to (content-addressed)."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where ``csrc/<name>.cu`` builds to, content-addressed by the source,
+    every shared header ``csrc/*.cuh`` and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str, *, verbose: bool = False) -> Path:

@@ -5,8 +5,8 @@
 //   src/repro/kernels/flash_attention/flash_attention.py:62 flash_attention_bhsd
 //   (body _flash_kernel :24), with the kv-head repeat of its GQA wrapper
 //   src/repro/kernels/flash_attention/ops.py:13 flash_attention,
-// for bf16 inputs.  float32 inputs keep the CUDA-core kernel of
-// flash_attention.cu (see kernels/flash_attention/flash_attention.py).
+// for bf16 inputs.  float32 inputs launch the 3xTF32 tensor-core kernel of
+// flash_attention_sm90_fp32.cu (see kernels/flash_attention/flash_attention.py).
 //
 // It computes what _flash_kernel computes: softmax(q k^T / sqrt(D), causal
 // mask -1e30) v with the running max m, the running sum l and the
@@ -72,14 +72,16 @@
 // C interface (loaded with ctypes): flash_attention_fwd_sm90 returns the
 // cudaError_t of the launch as an int, 0 on success; an unsupported case
 // returns cudaErrorInvalidValue, and a tensor map that the driver refuses
-// returns 10000 + its CUresult.  cuTensorMapEncodeTiled comes from the
-// driver through cudaGetDriverEntryPoint, so the library links only the
-// CUDA runtime.
+// returns 10000 + its CUresult.  The Hopper helpers (mbarriers, TMA,
+// descriptors, cuTensorMapEncodeTiled from the driver) are in
+// sm90_common.cuh, shared with flash_attention_sm90_fp32.cu.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sm90_common.cuh"
 
 namespace {
 
@@ -107,92 +109,6 @@ struct Smem {
   static constexpr int BYTES = BAR + 16 * 8 + 1024;  // + alignment slack
   static constexpr uint32_t TILE_BYTES = BN * D * 2;
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Returns once the barrier's phase of the given parity has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-// One box of a 4-d tensor map into shared memory, completing on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0,
-                                          int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
-      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
-      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// A wgmma shared-memory descriptor for a 128-byte-swizzled tile: start
-// address, leading and stride byte offsets (PTX ISA, "Matrix Descriptor").
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// Waits until at most N committed groups of this warpgroup are in flight.
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Pins the registers of an in-flight wgmma accumulator, so the compiler
-// moves no read or write of them across the asynchronous product.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -504,31 +420,6 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// cuTensorMapEncodeTiled, from the driver at run time.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
 // The (B, S, heads, D) bf16 tensor at `ptr` as the 4-d tensor (D, heads,
 // S, B), read and written in 64-column, 128-byte-swizzled boxes of `rows`.
 CUresult tensor_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int D,
@@ -557,17 +448,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H, i
       (res = tensor_map(encode, &tv, v, D, Hkv, S, B, BN)) != CUDA_SUCCESS ||
       (res = tensor_map(encode, &to, o, D, H, S, B, WG_ROWS)) != CUDA_SUCCESS)
     return 10000 + (int)res;
-  // the shared-memory limit is raised once per device (at most 64 devices)
   static unsigned long long configured = 0;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const cudaError_t err = allow_smem(flash_fwd_sm90_kernel<D>, Smem<D>::BYTES, configured);
   if (err != cudaSuccess) return (int)err;
-  if (dev >= 64 || !(configured >> dev & 1ull)) {
-    err = cudaFuncSetAttribute(flash_fwd_sm90_kernel<D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::BYTES);
-    if (err != cudaSuccess) return (int)err;
-    if (dev < 64) configured |= 1ull << dev;
-  }
   const dim3 grid(B * H, (S + BM - 1) / BM);
   const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)D));
   flash_fwd_sm90_kernel<D><<<grid, THREADS, Smem<D>::BYTES, stream>>>(

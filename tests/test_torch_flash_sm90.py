@@ -97,18 +97,20 @@ def test_emulation_matches_plain_version_over_many_tiles():
 def test_select_kernel_dispatches_by_dtype_and_head_dim():
     for d in fa.HEAD_DIMS:
         assert fa.select_kernel(torch.bfloat16, d) == "sm90_bf16"
-        assert fa.select_kernel(torch.float32, d) == "fma"
+        assert fa.select_kernel(torch.float32, d) == "sm90_fp32"
         assert fa.select_kernel(torch.bfloat16, d, "fma") == "fma"
+        assert fa.select_kernel(torch.float32, d, "fma") == "fma"
     for dtype, d, kernel, err in (
             (torch.bfloat16, 96, None, ValueError),
             (torch.float32, 32, None, ValueError),
             (torch.float16, 128, None, TypeError),
             (torch.float32, 128, "sm90_bf16", TypeError),
+            (torch.bfloat16, 64, "sm90_fp32", TypeError),
             (torch.float16, 64, "fma", TypeError),
             (torch.bfloat16, 128, "tf32", TypeError)):
         with pytest.raises(err):
             fa.select_kernel(dtype, d, kernel)
-    assert set(fa.SOURCES) == set(fa.KERNELS.values())
+    assert set(fa.SOURCES) == set(fa.KERNELS.values()) | {"fma"}
 
 
 def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
@@ -117,7 +119,7 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     fa.reset_launch_count()
     got = ops.flash_attention(q, k, v, causal=True)
     assert torch.equal(got, ops.flash_attention_ref(q, k, v, causal=True))
-    assert fa.launch_counts() == {"sm90_bf16": 0, "fma": 0}
+    assert fa.launch_counts() == {"sm90_bf16": 0, "sm90_fp32": 0, "fma": 0}
     assert fa.launch_count() == 0
     with pytest.raises(ValueError, match="one card"):
         fa.launch_bshd(q, k, v, causal=True)
