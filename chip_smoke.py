@@ -46,6 +46,18 @@ Phases, each of which raises on failure (exit code not 0):
              kernel against its plain version, exactly, on the closure's own
              inputs (mostly NEG_INF, where the floor decides most outputs):
              the first two squarings of the largest call of each lane count.
+7. replay  — the same grid's 105 graphs on a (32 CPUs, 4 GPUs) machine,
+             planned by HLP-EST and HLP-OLS, replayed under 32 seeds of
+             lognormal noise through ``repro_torch.sim.batch``'s
+             ``sweep_suite_makespans`` on the card (HEFT left out for host
+             time): the replay launch counter set to 0 just before and
+             required to equal the number of shape buckets just after;
+             planning and the replay path timed apart on the host clock.
+             Then each bucket launched once between one CUDA event pair,
+             beside its byte bound and its chain length, held bit for bit
+             against the plain version on CPU copies and against the
+             sweep's rows; the smallest and largest plan of each scheduler
+             against the float64 engine at rtol 1e-5.
 
 The line before the last is the card's name and power limit, the one before
 it a JSON object of per-kernel numbers; the last line is
@@ -118,6 +130,16 @@ BLOCK_SIZES = (64, 128, 320, 512, 768, 960)
 FJ_WIDTHS = (100, 200, 300, 400, 500)
 FJ_PHASES = (2, 5, 10)
 RANK_RTOL = 1e-5                       # as tests/test_kernels.py
+
+# The replay phase: the same grid on the (32 CPUs, 4 GPUs) platform of
+# OFFLINE_CONFIGS_2, planned by HLP-EST and HLP-OLS, each plan replayed
+# under benchmarks/campaign.py::sim_sweep(full=True)'s noise and 32 seeds.
+REPLAY_MACHINE = (32, 4)
+REPLAY_SCHEDULERS = ("hlp_est", "hlp_ols")
+REPLAY_NOISE = ("lognormal", 0.2)
+REPLAY_SEEDS = range(32)
+REPLAY_RTOL = 1e-5     # against the float64 engine, as tests/test_sim_comm.py
+CARD = "cuda"
 
 
 def check(cond: bool, msg: str) -> None:
@@ -548,6 +570,173 @@ def ranks_phase(torch) -> dict:
             "bound_ms": bound_total, "worst_rtol": worst[0]}
 
 
+class _Planner:
+    """A scheduler that logs each plan it makes and the seconds it took, so
+    the replay phase can read planning apart from the rest of its path."""
+
+    def __init__(self, name: str, log: list):
+        from repro_torch.sim import make_scheduler
+        self.name, self.log, self.seconds = name, log, 0.0
+        self._inner = make_scheduler(name)
+
+    def allocate(self, g, machine):
+        t0 = time.perf_counter()
+        plan = self._inner.allocate(g, machine)
+        self.seconds += time.perf_counter() - t0
+        self.log.append((self.name, g, plan))
+        return plan
+
+
+def replay_bound_ms(bd, ns, S: int) -> tuple[float, str, int]:
+    """The least time of one bucket's replay, its limit, and its bytes,
+    from each item's own size n (``ns``): its order, floor and S time
+    entries over its n tasks and the one phantom its spare order slots
+    point at (none where it fills the bucket), its real pred slots (index
+    and delay), each read once, and the (B, S) output written once; against
+    one FADD + one FMNMX per real slot and lane and three instructions per
+    real step and lane."""
+    B, n_pad = bd.order.shape
+    real = int(bd.pred_mask.sum())
+    read = sum(min(n + 1, n_pad) for n in ns)
+    moved = 4 * (read * (2 + S) + 2 * real + B * S)
+    instr = S * (2 * real + 3 * sum(ns))
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = instr / MAXPLUS_INSTR_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), moved
+
+
+def replay_phase(torch) -> dict:
+    """The §6.1 grid replayed at full size (the main path), then each
+    bucket's kernel against its plain version and the float64 engine.
+
+    105 graphs (``rank_grid``) on a (32, 4) machine, planned by HLP-EST and
+    HLP-OLS (210 plans), each replayed under 32 seeds of lognormal noise
+    (6720 lanes) through ``repro_torch.sim.batch.sweep_suite_makespans`` on
+    the card.  HEFT, a static planner of ``sim_sweep``, is left out for host
+    time alone: it plans one 4620-task graph in about 7 s.  The replay
+    launch counter is 0 just before the sweep and must equal the number of
+    buckets just after.  Then, outside the counted run, each bucket is
+    rebuilt and launched on the card, held bit for bit against the plain
+    version on CPU copies and against the sweep's own rows, and timed: the
+    device time of a launch from a CUDA graph of 5, the wrapper's host time
+    apart; the smallest and largest plan of each scheduler at seeds 0 and 1
+    against ``simulate`` (rtol 1e-5)."""
+    import numpy as np
+    from repro_torch.kernels.replay import replay as R
+    from repro_torch.sim import (FrozenPlanScheduler, Machine, NoiseModel,
+                                 simulate)
+    from repro_torch.sim import batch as TB
+
+    graphs = [g for _, gs in rank_grid() for g in gs]
+    machine = Machine.hybrid(*REPLAY_MACHINE)
+    noise = NoiseModel(*REPLAY_NOISE)
+    log: list = []
+    planners = [_Planner(name, log) for name in REPLAY_SCHEDULERS]
+    entries = [(g, machine, p) for p in planners for g in graphs]
+
+    R.reset_launch_count()
+    t0 = time.perf_counter()
+    out = TB.sweep_suite_makespans(entries, noise=noise, seeds=REPLAY_SEEDS,
+                                   device=CARD)
+    wall = time.perf_counter() - t0
+    launches = R.launch_count()
+    planning_s = sum(p.seconds for p in planners)
+    items = [(g, plan) for _, g, plan in log]
+    buckets = TB.bucket_plans(items)
+    S = len(REPLAY_SEEDS)
+    check(launches == len(buckets), f"replay launched {launches} times, "
+          f"expected one per bucket: {len(buckets)}")
+    check(len(out) == len(entries) and all(
+        o.shape == (S,) and o.dtype == np.float32 for o in out),
+        "the sweep returned rows of the wrong shape or dtype")
+    ms_all = np.stack(out)
+    check(bool(np.isfinite(ms_all).all() and (ms_all > 0).all()),
+          "a makespan is not finite and positive")
+    print(f"replay sweep: {len(items)} plans x {S} seeds in {len(buckets)} "
+          f"buckets, {launches} launches; wall {wall:.3f} s = planning "
+          f"{planning_s:.3f} s + replay path {wall - planning_s:.3f} s "
+          f"(noise, plan tensors, copies, launches, results on the host)")
+
+    t_check = time.perf_counter()
+    rows = []
+    kernel_ms = host_ms_all = bound_ms = plain_s = worst_err = 0.0
+    for (n_key, p_key), idxs in sorted(buckets.items()):
+        bd = TB.BatchedPlanDag.from_plans([items[i] for i in idxs])
+        tt = TB.bucket_times([TB.sample_actual_batch(*items[i], noise,
+                                                     REPLAY_SEEDS)
+                              for i in idxs], bd.n_pad)
+        args = (bd.order, bd.pred, bd.pred_delay, bd.floor, tt)
+        dev_args = [a.to(CARD) for a in args]
+        R.check_indices(*dev_args[:2])
+        got = R.launch(*dev_args)
+        torch.cuda.synchronize()
+        ms = graph_ms(lambda: R.launch(*dev_args), iters=5)
+        t1 = time.perf_counter()
+        for _ in range(5):
+            R.launch(*dev_args)
+        host_ms = (time.perf_counter() - t1) / 5 * 1e3
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        want = R.bucket_makespans_ref(*args)
+        plain = time.perf_counter() - t1
+        got = got.cpu()
+        shape = tuple(bd.pred.shape) + (S,)
+        err = (got - want).abs().max().item()
+        worst_err = max(worst_err, err)
+        check(torch.equal(got, want), f"replay kernel disagrees with its "
+              f"plain version on bucket {shape}: max|err| {err}")
+        check(np.array_equal(got.numpy(), ms_all[idxs]), f"bucket {shape}: "
+              "the sweep's rows differ from the bucket's launch")
+        ns = [items[i][0].n for i in idxs]
+        bound, by, moved = replay_bound_ms(bd, ns, S)
+        print(f"replay bucket ({n_key}, {p_key}) B,n_pad,P_pad,S={shape}: "
+              f"kernel {ms:.4f} ms (CUDA graph of 5), {ms / bd.n_pad * 1e6:.1f}"
+              f" ns per step of a chain of {bd.n_pad} steps (largest plan "
+              f"{max(ns)} tasks, {sum(ns)} real steps a seed); wrapper "
+              f"{host_ms:.4f} ms of host time a call; bound "
+              f"{bound * 1e3:.3f} us ({by}, {moved} bytes), kernel at "
+              f"{bound / ms:.2%} of it; plain version {plain:.3f} s on the "
+              "host; exact")
+        rows.append({"shape": list(shape), "ms": ms, "host_ms": host_ms,
+                     "bound_ms": bound, "bound_by": by, "chain": bd.n_pad,
+                     "steps": sum(ns), "plain_s": plain})
+        kernel_ms += ms
+        host_ms_all += host_ms
+        bound_ms += bound
+        plain_s += plain
+    check_s = time.perf_counter() - t_check
+
+    t_engine = time.perf_counter()
+    worst = 0.0
+    for name in REPLAY_SCHEDULERS:
+        own = [i for i, (n_, _, _) in enumerate(log) if n_ == name]
+        for i in (min(own, key=lambda k: items[k][0].n),
+                  max(own, key=lambda k: items[k][0].n)):
+            g, plan = items[i]
+            for s in (0, 1):
+                want = simulate(g, machine, FrozenPlanScheduler(plan),
+                                noise=noise, seed=s).makespan
+                rel = abs(float(ms_all[i, s]) - want) / want
+                worst = max(worst, rel)
+                check(rel <= REPLAY_RTOL, f"{name} on {g.n} tasks, seed {s}: "
+                      f"replay {ms_all[i, s]} against the engine's {want}")
+    engine_s = time.perf_counter() - t_engine
+    print(f"replay checks: kernel {kernel_ms:.3f} ms over {len(rows)} buckets "
+          f"(wrappers {host_ms_all:.3f} ms of host time; bounds "
+          f"{bound_ms * 1e3:.3f} us, chains of "
+          f"{sum(r['chain'] for r in rows)} steps in all); plain version "
+          f"{plain_s:.3f} s on the host, bit-equal on every bucket; bucket "
+          f"checks {check_s:.3f} s; engine checks {engine_s:.3f} s, worst "
+          f"rtol {worst:.3e}")
+    return {"launches": launches, "buckets": rows, "wall_s": wall,
+            "planning_s": planning_s, "path_s": wall - planning_s,
+            "kernel_ms": kernel_ms, "host_ms": host_ms_all,
+            "bound_ms": bound_ms, "plain_s": plain_s,
+            "max_abs_err": worst_err, "check_s": check_s,
+            "engine_s": engine_s, "worst_rtol": worst}
+
+
 def consistency(torch, dtype: str) -> float:
     """max |decode(S-1 | prefill S-1) - prefill(S)| at full width."""
     import dataclasses
@@ -653,10 +842,31 @@ def main() -> int:
     maxplus_row["launches"] = ranks["launches"]
     print(f"ranks summary: {json.dumps(ranks)}")
 
+    # the replay path: its counter at 0 just before, read just after
+    t0 = time.perf_counter()
+    replay = replay_phase(torch)
+    print(f"replay: {time.perf_counter() - t0:.1f} s")
+    buckets = replay.pop("buckets")
+    replay_row = {
+        "name": "replay_makespans", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/replay.cu",
+        "replaces": "src/repro/sim/batch.py:455",
+        "shape": "every bucket of the sweep, summed",
+        "launches": replay["launches"], "max_abs_err": replay["max_abs_err"],
+        "ms": replay["kernel_ms"], "plain_ms": replay["plain_s"] * 1e3,
+        "plain_on": "host", "bound_ms": replay["bound_ms"],
+        "bound_by": ("bytes" if all(b["bound_by"] == "bytes" for b in buckets)
+                     else "operations"),
+        "library_ms": None,
+        "chain_steps": sum(b["chain"] for b in buckets),
+        "real_steps": sum(b["steps"] for b in buckets),
+        "host_ms": replay["host_ms"], "buckets": buckets}
+    print(f"replay summary: {json.dumps(replay)}")
+
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
           "imports, build included")
     print(json.dumps({"kernels": [flash_row, fp32_row, fma_row,
-                                  maxplus_row]}))
+                                  maxplus_row, replay_row]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,12 +15,12 @@ them.
 from .provenance import DecisionRecord
 from .registry import (bump, capture, counter_value, counters,
                        decision_records, disable, enable, enabled,
-                       record_decision, reset, span)
+                       record_decision, reset, set_counter, span)
 
 __all__ = [
     # registry
     "enabled", "enable", "disable", "capture", "reset",
-    "bump", "counter_value", "counters", "span",
+    "bump", "counter_value", "set_counter", "counters", "span",
     "record_decision", "decision_records",
     # provenance
     "DecisionRecord",

@@ -23,7 +23,7 @@ from typing import Any
 
 __all__ = [
     "enabled", "enable", "disable", "capture", "reset",
-    "bump", "counter_value", "counters",
+    "bump", "counter_value", "set_counter", "counters",
     "span",
     "record_decision", "decision_records",
 ]
@@ -98,6 +98,10 @@ def bump(name: str, n: int = 1) -> None:
 
 def counter_value(name: str) -> int:
     return _STATE.counters.get(name, 0)
+
+
+def set_counter(name: str, value: int) -> None:
+    _STATE.counters[name] = int(value)
 
 
 def counters() -> dict[str, int]:

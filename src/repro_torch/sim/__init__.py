@@ -21,9 +21,12 @@ protocol and one event-driven engine, built on the allocation API of
     ``fixed_latency`` and ``maxmin_fair`` (``repro_torch.sim.network``);
   * **scenario families** — ``repro_torch.sim.scenarios``.
 
-Not yet ported: the batched replay evaluator (``repro.sim.batch``), the
-pipelined campaign executor (``repro.sim.pipeline``) and the jitted
-contention kernel.
+The batched replay evaluator (``repro_torch.sim.batch``) replays a whole
+(scenario × scheduler × seed) grid with one launch of a CUDA kernel per
+shape bucket.  Not yet ported: the contention fixpoint on the device
+(``contended_bucket_delays``; the numpy oracle prices contended plans), the
+pipelined campaign executor (``repro.sim.pipeline``) and the split of the
+plan axis over several cards.
 
 Entry points::
 
@@ -39,6 +42,7 @@ Entry points::
 from repro_torch.platform import Decision, Platform
 
 from .adapters import ADAPTERS, FrozenPlanScheduler, make_scheduler, plan_for
+from .batch import reset_trace_counts, trace_count
 from .engine import (Machine, MachineState, NoiseModel, Plan, Scheduler,
                      SimResult, TraceEvent, plan_times, simulate)
 from .network import (NETWORKS, FixedLatencyNetwork, InstantNetwork,
@@ -48,6 +52,7 @@ from .scenarios import (SCENARIO_FAMILIES, Scenario, default_suite,
 
 __all__ = [
     "ADAPTERS", "FrozenPlanScheduler", "make_scheduler", "plan_for",
+    "reset_trace_counts", "trace_count",
     "Decision", "Platform", "Machine", "MachineState", "NoiseModel", "Plan",
     "Scheduler", "SimResult", "TraceEvent", "plan_times", "simulate",
     "NETWORKS", "NetworkModel", "InstantNetwork", "FixedLatencyNetwork",

@@ -47,7 +47,9 @@ def test_every_module_is_listed_by_the_probe():
             "repro_torch.kernels.maxplus.ops", "repro_torch.launch.kernel_bench",
             "repro_torch.core.hlp", "repro_torch.core.listsched",
             "repro_torch.sim.engine", "repro_torch.sim.adapters",
-            "repro_torch.sim.network", "repro_torch.obs.registry"} <= names
+            "repro_torch.sim.network", "repro_torch.obs.registry",
+            "repro_torch.sim.batch", "repro_torch.kernels.replay.replay",
+            "repro_torch.kernels.replay.ref"} <= names
 
 
 @pytest.fixture
@@ -71,6 +73,24 @@ def test_serve_main_defaults_to_the_card_and_raises_without_it(no_card):
         serve.main(["--arch", "qwen2-1.5b", "--smoke"])
     with pytest.raises(RuntimeError, match="cuda"):
         serve.main(["--arch", "qwen2-1.5b", "--smoke", "--device", "cuda"])
+
+
+def test_replay_evaluators_default_to_the_card_and_raise_without_it(no_card):
+    from repro_torch.sim import NoiseModel, batch, make_scheduler
+    from repro_torch.sim.scenarios import chain_scenario
+
+    sc = chain_scenario(n=6, counts=(2, 1), seed=0)
+    plan = make_scheduler("heft").allocate(sc.graph, sc.machine)
+    rows = [batch.sample_actual_batch(sc.graph, plan, NoiseModel(), [0])]
+    for kw in ({}, {"device": "cuda"}):
+        with pytest.raises(RuntimeError, match="cuda"):
+            batch.bucketed_makespans([(sc.graph, plan)], rows, **kw)
+        with pytest.raises(RuntimeError, match="cuda"):
+            batch.sweep_suite_makespans(
+                [(sc.graph, sc.machine, make_scheduler("heft"))],
+                noise=NoiseModel(), seeds=[0], **kw)
+    assert batch.bucketed_makespans([(sc.graph, plan)], rows,
+                                    device="cpu")[0].shape == (1,)
 
 
 def test_kernel_bench_defaults_to_the_card_and_raises_without_it(no_card):
