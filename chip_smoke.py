@@ -50,14 +50,20 @@ Phases, each of which raises on failure (exit code not 0):
              planned by HLP-EST and HLP-OLS, replayed under 32 seeds of
              lognormal noise through ``repro_torch.sim.batch``'s
              ``sweep_suite_makespans`` on the card (HEFT left out for host
-             time): the replay launch counter set to 0 just before and
-             required to equal the number of shape buckets just after;
-             planning and the replay path timed apart on the host clock.
-             Then each bucket launched once between one CUDA event pair,
-             beside its byte bound and its chain length, held bit for bit
+             time): the replay launch counters set to 0 just before, and
+             just after the sm90 kernel's required to equal the number of
+             shape buckets and the walk kernel's to be 0; planning and the
+             replay path timed apart on the host clock.  Then each bucket
+             through both kernels (``replay_sm90.cu`` and, with
+             ``kernel="walk"``, ``replay.cu``), each held bit for bit
              against the plain version on CPU copies and against the
-             sweep's rows; the smallest and largest plan of each scheduler
-             against the float64 engine at rtol 1e-5.
+             sweep's rows and timed from a CUDA graph of 5 launches in
+             turns (sm90, walk, walk, sm90), beside its byte bound, its
+             longest chain and the chain floor: that chain times one
+             dependent add + max step through shared memory, as the probe
+             ``replay_sm90_chain_probe`` measures it first; the smallest
+             and largest plan of each scheduler against the float64 engine
+             at rtol 1e-5.
 
 The line before the last is the card's name and power limit, the one before
 it a JSON object of per-kernel numbers; the last line is
@@ -606,28 +612,69 @@ def replay_bound_ms(bd, ns, S: int) -> tuple[float, str, int]:
                                  else "operations"), moved
 
 
+def chain_probe_ns(torch, steps: int = 200_000) -> float:
+    """ns of one dependent replay step through shared memory (a load of the
+    last finish time, an add, a max with 0 and with a floor, an add and a
+    store), from ``replay_sm90_chain_probe``: the difference of a walk of
+    2 ``steps`` and one of ``steps``, each the least of three, so the
+    launch's own cost drops out."""
+    import ctypes
+    from repro_torch.kernels import build
+
+    probe = build.load("replay_sm90").replay_sm90_chain_probe
+    probe.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    probe.restype = ctypes.c_int
+    out = torch.zeros(1, device=CARD)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def walk_ms(n: int) -> float:
+        best = float("inf")
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            check(probe(out.data_ptr(), n, stream) == 0, "chain probe failed")
+            end.record()
+            end.synchronize()
+            best = min(best, start.elapsed_time(end))
+        return best
+
+    walk_ms(1000)
+    check(out.item() == 1250.0, f"chain probe returned {out.item()}")
+    one, two = walk_ms(steps), walk_ms(2 * steps)
+    ns = (two - one) / steps * 1e6
+    print(f"replay chain probe: {ns:.2f} ns a dependent step through shared "
+          f"memory ({steps} steps {one:.4f} ms, {2 * steps} steps "
+          f"{two:.4f} ms)")
+    return ns
+
+
 def replay_phase(torch) -> dict:
     """The §6.1 grid replayed at full size (the main path), then each
-    bucket's kernel against its plain version and the float64 engine.
+    bucket through both replay kernels against the plain version and the
+    float64 engine.
 
     105 graphs (``rank_grid``) on a (32, 4) machine, planned by HLP-EST and
     HLP-OLS (210 plans), each replayed under 32 seeds of lognormal noise
     (6720 lanes) through ``repro_torch.sim.batch.sweep_suite_makespans`` on
     the card.  HEFT, a static planner of ``sim_sweep``, is left out for host
     time alone: it plans one 4620-task graph in about 7 s.  The replay
-    launch counter is 0 just before the sweep and must equal the number of
-    buckets just after.  Then, outside the counted run, each bucket is
-    rebuilt and launched on the card, held bit for bit against the plain
+    launch counters are 0 just before the sweep; just after, the sm90
+    kernel's must equal the number of buckets and the walk kernel's be 0.
+    Then, outside the counted run, each bucket is rebuilt and launched on
+    the card through both kernels, each held bit for bit against the plain
     version on CPU copies and against the sweep's own rows, and timed: the
-    device time of a launch from a CUDA graph of 5, the wrapper's host time
-    apart; the smallest and largest plan of each scheduler at seeds 0 and 1
-    against ``simulate`` (rtol 1e-5)."""
+    device time of a launch from a CUDA graph of 5, in turns (sm90, walk,
+    walk, sm90), the sm90 wrapper's host time apart; the smallest and
+    largest plan of each scheduler at seeds 0 and 1 against ``simulate``
+    (rtol 1e-5)."""
     import numpy as np
     from repro_torch.kernels.replay import replay as R
     from repro_torch.sim import (FrozenPlanScheduler, Machine, NoiseModel,
                                  simulate)
     from repro_torch.sim import batch as TB
 
+    probe_ns = chain_probe_ns(torch)
     graphs = [g for _, gs in rank_grid() for g in gs]
     machine = Machine.hybrid(*REPLAY_MACHINE)
     noise = NoiseModel(*REPLAY_NOISE)
@@ -640,13 +687,14 @@ def replay_phase(torch) -> dict:
     out = TB.sweep_suite_makespans(entries, noise=noise, seeds=REPLAY_SEEDS,
                                    device=CARD)
     wall = time.perf_counter() - t0
-    launches = R.launch_count()
+    counts = R.launch_counts()
     planning_s = sum(p.seconds for p in planners)
     items = [(g, plan) for _, g, plan in log]
     buckets = TB.bucket_plans(items)
     S = len(REPLAY_SEEDS)
-    check(launches == len(buckets), f"replay launched {launches} times, "
-          f"expected one per bucket: {len(buckets)}")
+    check(counts == {"sm90": len(buckets), "walk": 0}, f"replay launched "
+          f"{counts}, expected one sm90 launch per bucket ({len(buckets)}) "
+          "and no walk launch")
     check(len(out) == len(entries) and all(
         o.shape == (S,) and o.dtype == np.float32 for o in out),
         "the sweep returned rows of the wrong shape or dtype")
@@ -654,13 +702,15 @@ def replay_phase(torch) -> dict:
     check(bool(np.isfinite(ms_all).all() and (ms_all > 0).all()),
           "a makespan is not finite and positive")
     print(f"replay sweep: {len(items)} plans x {S} seeds in {len(buckets)} "
-          f"buckets, {launches} launches; wall {wall:.3f} s = planning "
+          f"buckets, launches {counts}; wall {wall:.3f} s = planning "
           f"{planning_s:.3f} s + replay path {wall - planning_s:.3f} s "
           f"(noise, plan tensors, copies, launches, results on the host)")
 
     t_check = time.perf_counter()
     rows = []
-    kernel_ms = host_ms_all = bound_ms = plain_s = worst_err = 0.0
+    totals = dict.fromkeys(("sm90", "walk", "host", "bound", "plain",
+                            "floor"), 0.0)
+    errs = dict.fromkeys(R.KERNELS, 0.0)
     for (n_key, p_key), idxs in sorted(buckets.items()):
         bd = TB.BatchedPlanDag.from_plans([items[i] for i in idxs])
         tt = TB.bucket_times([TB.sample_actual_batch(*items[i], noise,
@@ -669,9 +719,13 @@ def replay_phase(torch) -> dict:
         args = (bd.order, bd.pred, bd.pred_delay, bd.floor, tt)
         dev_args = [a.to(CARD) for a in args]
         R.check_indices(*dev_args[:2])
-        got = R.launch(*dev_args)
+        got = {k: R.launch(*dev_args, kernel=k) for k in R.KERNELS}
         torch.cuda.synchronize()
-        ms = graph_ms(lambda: R.launch(*dev_args), iters=5)
+        turns = {k: [] for k in R.KERNELS}
+        for k in ("sm90", "walk", "walk", "sm90"):
+            turns[k].append(graph_ms(
+                lambda k=k: R.launch(*dev_args, kernel=k), iters=5))
+        ms = {k: sum(v) / len(v) for k, v in turns.items()}
         t1 = time.perf_counter()
         for _ in range(5):
             R.launch(*dev_args)
@@ -680,31 +734,40 @@ def replay_phase(torch) -> dict:
         t1 = time.perf_counter()
         want = R.bucket_makespans_ref(*args)
         plain = time.perf_counter() - t1
-        got = got.cpu()
         shape = tuple(bd.pred.shape) + (S,)
-        err = (got - want).abs().max().item()
-        worst_err = max(worst_err, err)
-        check(torch.equal(got, want), f"replay kernel disagrees with its "
-              f"plain version on bucket {shape}: max|err| {err}")
-        check(np.array_equal(got.numpy(), ms_all[idxs]), f"bucket {shape}: "
-              "the sweep's rows differ from the bucket's launch")
+        for k in R.KERNELS:
+            g_k = got[k].cpu()
+            err = (g_k - want).abs().max().item()
+            errs[k] = max(errs[k], err)
+            check(torch.equal(g_k, want), f"replay kernel {k} disagrees with "
+                  f"its plain version on bucket {shape}: max|err| {err}")
+            check(np.array_equal(g_k.numpy(), ms_all[idxs]), f"bucket "
+                  f"{shape}: the sweep's rows differ from the {k} launch")
         ns = [items[i][0].n for i in idxs]
+        chain = max(ns)
+        floor_ms = chain * probe_ns * 1e-6
         bound, by, moved = replay_bound_ms(bd, ns, S)
         print(f"replay bucket ({n_key}, {p_key}) B,n_pad,P_pad,S={shape}: "
-              f"kernel {ms:.4f} ms (CUDA graph of 5), {ms / bd.n_pad * 1e6:.1f}"
-              f" ns per step of a chain of {bd.n_pad} steps (largest plan "
-              f"{max(ns)} tasks, {sum(ns)} real steps a seed); wrapper "
-              f"{host_ms:.4f} ms of host time a call; bound "
-              f"{bound * 1e3:.3f} us ({by}, {moved} bytes), kernel at "
-              f"{bound / ms:.2%} of it; plain version {plain:.3f} s on the "
-              "host; exact")
-        rows.append({"shape": list(shape), "ms": ms, "host_ms": host_ms,
-                     "bound_ms": bound, "bound_by": by, "chain": bd.n_pad,
+              f"sm90 {ms['sm90']:.4f} ms (turns {turns['sm90'][0]:.4f} / "
+              f"{turns['sm90'][1]:.4f}), walk {ms['walk']:.4f} ms (turns "
+              f"{turns['walk'][0]:.4f} / {turns['walk'][1]:.4f}), CUDA graph "
+              f"of 5; longest chain {chain} steps: sm90 "
+              f"{ms['sm90'] / chain * 1e6:.1f} ns a step, walk "
+              f"{ms['walk'] / chain * 1e6:.1f}; chain floor {floor_ms:.4f} ms "
+              f"({floor_ms / ms['sm90']:.1%} of sm90's time); {sum(ns)} real "
+              f"steps a seed; sm90 wrapper {host_ms:.4f} ms of host time a "
+              f"call; bound {bound * 1e3:.3f} us ({by}, {moved} bytes), sm90 "
+              f"at {bound / ms['sm90']:.2%} of it; plain version {plain:.3f} "
+              "s on the host; both exact")
+        rows.append({"shape": list(shape), "ms": ms["sm90"],
+                     "walk_ms": ms["walk"], "turns": turns,
+                     "host_ms": host_ms, "bound_ms": bound, "bound_by": by,
+                     "chain": chain, "chain_floor_ms": floor_ms,
                      "steps": sum(ns), "plain_s": plain})
-        kernel_ms += ms
-        host_ms_all += host_ms
-        bound_ms += bound
-        plain_s += plain
+        for key, val in (("sm90", ms["sm90"]), ("walk", ms["walk"]),
+                         ("host", host_ms), ("bound", bound),
+                         ("plain", plain), ("floor", floor_ms)):
+            totals[key] += val
     check_s = time.perf_counter() - t_check
 
     t_engine = time.perf_counter()
@@ -722,19 +785,22 @@ def replay_phase(torch) -> dict:
                 check(rel <= REPLAY_RTOL, f"{name} on {g.n} tasks, seed {s}: "
                       f"replay {ms_all[i, s]} against the engine's {want}")
     engine_s = time.perf_counter() - t_engine
-    print(f"replay checks: kernel {kernel_ms:.3f} ms over {len(rows)} buckets "
-          f"(wrappers {host_ms_all:.3f} ms of host time; bounds "
-          f"{bound_ms * 1e3:.3f} us, chains of "
+    print(f"replay checks: sm90 {totals['sm90']:.3f} ms, walk "
+          f"{totals['walk']:.3f} ms over {len(rows)} buckets (sm90 wrappers "
+          f"{totals['host']:.3f} ms of host time; bounds "
+          f"{totals['bound'] * 1e3:.3f} us; chain floors "
+          f"{totals['floor']:.3f} ms over chains of "
           f"{sum(r['chain'] for r in rows)} steps in all); plain version "
-          f"{plain_s:.3f} s on the host, bit-equal on every bucket; bucket "
-          f"checks {check_s:.3f} s; engine checks {engine_s:.3f} s, worst "
-          f"rtol {worst:.3e}")
-    return {"launches": launches, "buckets": rows, "wall_s": wall,
+          f"{totals['plain']:.3f} s on the host, both kernels bit-equal on "
+          f"every bucket; bucket checks {check_s:.3f} s; engine checks "
+          f"{engine_s:.3f} s, worst rtol {worst:.3e}")
+    return {"launches": counts, "buckets": rows, "wall_s": wall,
             "planning_s": planning_s, "path_s": wall - planning_s,
-            "kernel_ms": kernel_ms, "host_ms": host_ms_all,
-            "bound_ms": bound_ms, "plain_s": plain_s,
-            "max_abs_err": worst_err, "check_s": check_s,
-            "engine_s": engine_s, "worst_rtol": worst}
+            "kernel_ms": totals["sm90"], "walk_ms": totals["walk"],
+            "host_ms": totals["host"], "bound_ms": totals["bound"],
+            "chain_floor_ms": totals["floor"], "probe_ns": probe_ns,
+            "plain_s": totals["plain"], "max_abs_err": errs,
+            "check_s": check_s, "engine_s": engine_s, "worst_rtol": worst}
 
 
 def consistency(torch, dtype: str) -> float:
@@ -847,26 +913,36 @@ def main() -> int:
     replay = replay_phase(torch)
     print(f"replay: {time.perf_counter() - t0:.1f} s")
     buckets = replay.pop("buckets")
-    replay_row = {
-        "name": "replay_makespans", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/replay.cu",
-        "replaces": "src/repro/sim/batch.py:455",
-        "shape": "every bucket of the sweep, summed",
-        "launches": replay["launches"], "max_abs_err": replay["max_abs_err"],
-        "ms": replay["kernel_ms"], "plain_ms": replay["plain_s"] * 1e3,
-        "plain_on": "host", "bound_ms": replay["bound_ms"],
-        "bound_by": ("bytes" if all(b["bound_by"] == "bytes" for b in buckets)
-                     else "operations"),
-        "library_ms": None,
-        "chain_steps": sum(b["chain"] for b in buckets),
-        "real_steps": sum(b["steps"] for b in buckets),
-        "host_ms": replay["host_ms"], "buckets": buckets}
+    bound_by = ("bytes" if all(b["bound_by"] == "bytes" for b in buckets)
+                else "operations")
+
+    def replay_row(kernel: str, source: str, ms_key: str) -> dict:
+        return {
+            "name": f"replay_makespans_{kernel}", "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": "src/repro/sim/batch.py:455",
+            "shape": "every bucket of the sweep, summed",
+            "launches": replay["launches"][kernel],
+            "max_abs_err": replay["max_abs_err"][kernel],
+            "ms": sum(b[ms_key] for b in buckets),
+            "plain_ms": replay["plain_s"] * 1e3, "plain_on": "host",
+            "bound_ms": replay["bound_ms"], "bound_by": bound_by,
+            "library_ms": None,
+            "chain_floor_ms": replay["chain_floor_ms"],
+            "chain_steps": sum(b["chain"] for b in buckets),
+            "real_steps": sum(b["steps"] for b in buckets),
+            "bucket_ms": [b[ms_key] for b in buckets]}
+
+    sm90_row = replay_row("sm90", "replay_sm90.cu", "ms")
+    sm90_row.update(host_ms=replay["host_ms"], probe_ns=replay["probe_ns"],
+                    buckets=buckets)
+    walk_row = replay_row("walk", "replay.cu", "walk_ms")
     print(f"replay summary: {json.dumps(replay)}")
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
           "imports, build included")
     print(json.dumps({"kernels": [flash_row, fp32_row, fma_row,
-                                  maxplus_row, replay_row]}))
+                                  maxplus_row, sm90_row, walk_row]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

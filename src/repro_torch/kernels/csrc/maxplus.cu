@@ -11,7 +11,9 @@
 // in fp32, NEG_INF = -1e30: one fp32 add rounded once per pair and an exact
 // max, so the result does not depend on the order of k and equals the plain
 // version (ref.maxplus_matmul_ref) bit for bit.  The NEG_INF floor is the
-// TPU kernel's initial value of its output tile.
+// TPU kernel's initial value of its output tile.  The max keeps NaN
+// (max_nan, sm90_common.cuh), as jnp.maximum and torch.maximum do: a NaN
+// operand gives NaN in every output it reaches.
 //
 // What bounds it on the H100: tensor cores cannot compute a (max, +)
 // product, so every pair costs two instructions on the CUDA cores, FADD and
@@ -50,6 +52,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sm90_common.cuh"
 
 namespace {
 
@@ -117,7 +121,7 @@ maxplus_kernel(const float* __restrict__ a, const float* __restrict__ b,
       for (int i = 0; i < TM; ++i)
 #pragma unroll
         for (int j = 0; j < TN; ++j)
-          acc[i][j] = fmaxf(acc[i][j], __fadd_rn(ra[i], rb[j]));
+          acc[i][j] = max_nan(acc[i][j], __fadd_rn(ra[i], rb[j]));
     }
     __syncthreads();
   }

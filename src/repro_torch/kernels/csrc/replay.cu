@@ -1,4 +1,7 @@
-// Makespan replay of a bucket of padded plan DAGs, CUDA C++ for sm_90a.
+// Makespan replay of a bucket of padded plan DAGs, CUDA C++ for sm_90a: the
+// first, simple port ("walk"), kept as the yardstick of replay_sm90.cu,
+// which the card path takes by default; this kernel runs only when asked
+// (kernels/replay/replay.py, kernel="walk").
 //
 // Replaces the JAX package's jitted replay
 //   src/repro/sim/batch.py::_bucket_makespans (:455), a vmap over plans and
@@ -12,7 +15,8 @@
 //   finish[j] = start + times[b, s, j]
 // and writes out[b, s] = max_j finish[j], all in fp32.  Every operation is
 // an add (rounded once, __fadd_rn, so no FMA can form; no fast-math) or an
-// exact max, taken on the operands of the reference's scan, so the result
+// exact max that keeps NaN (max_nan, sm90_common.cuh, as jnp.max and
+// torch.amax do), taken on the operands of the reference's scan, so the result
 // equals the plain version (replay/ref.py::bucket_makespans_ref) and the
 // JAX package's float32 scan bit for bit.
 //
@@ -45,14 +49,17 @@
 //     the walk, as the reference's max(finish): the zeroing and this pass
 //     are n_pad independent coalesced stores and loads per lane, off the
 //     chain of dependent steps.
-//   * Not yet done: a level-parallel design (one block per lane, finish in
-//     shared memory, the tasks of one topological level in parallel).
+//   * replay_sm90.cu keeps the finish times in shared memory and stages
+//     the inputs off the chain; a level-parallel design (the tasks of one
+//     topological level in parallel) is not done.
 //
 // C interface (loaded with ctypes): replay_makespans_f32 returns the
 // cudaError_t of the launch as an int, 0 on success.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sm90_common.cuh"
 
 namespace {
 
@@ -83,16 +90,16 @@ replay_kernel(const int* __restrict__ order, const int* __restrict__ pred,
     for (int k = 0; k < p_pad; ++k) {
       const int p = pj[k];
       if (p < 0) break;
-      start = fmaxf(start, __fadd_rn(finish[static_cast<int64_t>(p) * s], dj[k]));
+      start = max_nan(start, __fadd_rn(finish[static_cast<int64_t>(p) * s], dj[k]));
     }
-    start = fmaxf(start, floors[j]);
+    start = max_nan(start, floors[j]);
     const float f = __fadd_rn(start, times[j]);
     finish[static_cast<int64_t>(j) * s] = f;
   }
   float best = finish[0];
 #pragma unroll 8
   for (int j = 1; j < n_pad; ++j)
-    best = fmaxf(best, finish[static_cast<int64_t>(j) * s]);
+    best = max_nan(best, finish[static_cast<int64_t>(j) * s]);
   out[b * s + lane] = best;
 }
 

@@ -1,10 +1,13 @@
-// Hopper (sm_90a) building blocks shared by the tensor-core flash kernels
-// (flash_attention_sm90.cu, bf16; flash_attention_sm90_fp32.cu, 3xTF32):
-// mbarriers, TMA loads and stores through 4-d tensor maps, wgmma shared-
-// memory descriptors and group control, and cuTensorMapEncodeTiled taken
-// from the driver at run time, so a library links only the CUDA runtime.
-// kernels/build.py hashes every csrc/*.cuh into each library's name, so an
-// edit here rebuilds both kernels.
+// Hopper (sm_90a) building blocks shared by the port's kernels: for the
+// tensor-core flash kernels (flash_attention_sm90.cu, bf16;
+// flash_attention_sm90_fp32.cu, 3xTF32) mbarriers, TMA loads and stores
+// through 4-d tensor maps, wgmma shared-memory descriptors and group
+// control, and cuTensorMapEncodeTiled taken from the driver at run time, so
+// a library links only the CUDA runtime; for the (max, +) and replay
+// kernels (maxplus.cu, replay.cu, replay_sm90.cu) the NaN-keeping max; for
+// any kernel above 48 KB of shared memory allow_smem.  kernels/build.py
+// hashes every csrc/*.cuh into each library's name, so an edit here
+// rebuilds every kernel.
 
 #pragma once
 
@@ -13,6 +16,15 @@
 #include <stdint.h>
 
 namespace {
+
+// max(a, b) that returns NaN when either operand is NaN (PTX max.NaN.f32,
+// sm_80 and later), as jnp.maximum / jnp.max and torch.maximum / amax do;
+// fmaxf returns the other operand instead.  Exact on every other pair.
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;\n" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));

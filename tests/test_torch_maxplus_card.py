@@ -7,7 +7,8 @@ also runs on a host that has the card but not the JAX package:
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_maxplus_card.py
 
 Each pair costs one float32 add, rounded once, and the max is exact, so the
-kernel must equal the plain version bit for bit (``torch.equal``).
+kernel must equal the plain version bit for bit (``torch.equal``); a NaN
+operand gives NaN in the same outputs on both (the max keeps NaN).
 """
 import numpy as np
 import pytest
@@ -73,3 +74,23 @@ def test_kernel_equals_plain_on_closure_inputs(card):
             got = mp.maxplus_matmul(c, c)
             assert torch.equal(got, maxplus_matmul_ref(c, c)), step
             c = got
+
+
+@pytest.mark.card
+def test_kernel_keeps_nan_as_the_plain_version(card):
+    """A NaN operand in A and one in B, alone and in a batch of 3 at a
+    ragged shape: the kernel gives NaN in the same row and column as the
+    plain version, and equal values elsewhere."""
+    for sa, sb, at_a, at_b in (((130, 129), (129, 131), (5, 17), None),
+                               ((130, 129), (129, 131), None, (40, 100)),
+                               ((3, 100, 37), (3, 37, 200), (1, 9, 3),
+                                (2, 30, 150))):
+        a, b = (torch.from_numpy(x) for x in _inputs(3, sa, sb))
+        if at_a is not None:
+            a[at_a] = float("nan")
+        if at_b is not None:
+            b[at_b] = float("nan")
+        want = maxplus_matmul_ref(a, b).numpy()
+        got = mp.maxplus_matmul(a.to(card), b.to(card)).cpu().numpy()
+        np.testing.assert_array_equal(got, want)
+        assert np.isnan(want).any() and not np.isnan(want).all()

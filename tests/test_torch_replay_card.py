@@ -1,4 +1,4 @@
-"""The replay CUDA kernel against its plain version, on the card.
+"""The replay CUDA kernels against their plain version, on the card.
 
 The kernel has no CPU mode, so every test here carries the ``card`` marker
 and asks for the ``card`` fixture, which skips it without a card.  This
@@ -8,8 +8,11 @@ but not the JAX package:
     PYTHONPATH=src python -m pytest -q --noconftest -m card tests/test_torch_replay_card.py
 
 Every operation of the replay is a float32 add, rounded once, or an exact
-max, so the kernel must equal the plain version bit for bit
-(``torch.equal``).
+max, so each kernel must equal the plain version bit for bit
+(``torch.equal``).  Every case runs through both kernels, the sm90 kernel
+(``csrc/replay_sm90.cu``, the default) and the walk kernel
+(``csrc/replay.cu``, ``kernel="walk"``); the sm90 kernel's own cases are in
+``tests/test_torch_replay_sm90_card.py``.
 """
 import numpy as np
 import pytest
@@ -52,10 +55,12 @@ def _random_bucket(rng, B, n, P, S):
 
 def _check(args, card):
     want = R.bucket_makespans_ref(*args)
-    got = R.launch(*(a.to(card) for a in args))
-    torch.cuda.synchronize()
-    assert got.shape == want.shape and got.dtype == torch.float32
-    assert torch.equal(got.cpu(), want), (got.cpu() - want).abs().max()
+    for kernel in R.KERNELS:
+        got = R.launch(*(a.to(card) for a in args), kernel=kernel)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and got.dtype == torch.float32
+        assert torch.equal(got.cpu(), want), (kernel,
+                                              (got.cpu() - want).abs().max())
 
 
 @pytest.mark.card
@@ -66,7 +71,7 @@ def test_kernel_equals_plain_on_random_dags(card):
     R.reset_launch_count()
     for i, S in enumerate((1, 31, 32, 33, 64)):
         _check(_random_bucket(rng, 3 + i, 200, 6, S), card)
-    assert R.launch_count() == 5
+    assert R.launch_counts() == {"sm90": 5, "walk": 5}
 
 
 @pytest.mark.card
@@ -88,7 +93,8 @@ def test_kernel_equals_plain_on_plan_buckets(card):
     for fl in (None, floors):
         R.reset_launch_count()
         got = TB.bucketed_makespans(items, rows, floors=fl, device=card)
-        assert R.launch_count() == len(TB.bucket_plans(items))
+        assert R.launch_counts() == {"sm90": len(TB.bucket_plans(items)),
+                                     "walk": 0}
         want = TB.bucketed_makespans(items, rows, floors=fl, device="cpu")
         for a, b in zip(got, want):
             np.testing.assert_array_equal(a, b)
@@ -129,12 +135,16 @@ def test_kernel_equals_plain_on_an_order_that_is_not_topological(card):
 def test_launch_refuses_what_the_kernel_does_not_take(card):
     args = _random_bucket(np.random.default_rng(2), 2, 16, 3, 8)
     R.reset_launch_count()
-    with pytest.raises(ValueError, match="card"):
-        R.launch(*args)
     order, pred, delay, floor, times = (a.to(card) for a in args)
-    with pytest.raises(ValueError, match="contiguous"):
-        R.launch(order, pred, delay, floor,
-                 times.transpose(1, 2).contiguous().transpose(1, 2))
+    for kernel in R.KERNELS:
+        with pytest.raises(ValueError, match="card"):
+            R.launch(*args, kernel=kernel)
+        with pytest.raises(ValueError, match="contiguous"):
+            R.launch(order, pred, delay, floor,
+                     times.transpose(1, 2).contiguous().transpose(1, 2),
+                     kernel=kernel)
+    with pytest.raises(ValueError, match="unknown replay kernel"):
+        R.launch(order, pred, delay, floor, times, kernel="fma")
     holed = pred.clone()
     holed[0, 5, 0], holed[0, 5, 1] = -1, 0
     with pytest.raises(ValueError, match="after a -1"):
