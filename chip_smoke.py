@@ -64,6 +64,33 @@ Phases, each of which raises on failure (exit code not 0):
              ``replay_sm90_chain_probe`` measures it first; the smallest
              and largest plan of each scheduler against the float64 engine
              at rtol 1e-5.
+8. contention — ``benchmarks/campaign.py::sim_sweep(full=True)``'s network
+             sub-grid (netbound seeds 300-305, 60 tasks, planned by hlp_ols
+             and the contention-aware CAHLP) replayed under ``instant``,
+             ``fixed_latency`` and ``maxmin_fair`` with 32 seeds through
+             ``sweep_suite_makespans`` on the card, then the same generator
+             at width 100 and depth 10 (1000 tasks) under ``maxmin_fair``:
+             the contention and replay launch counters and
+             ``trace_count("contended")`` set to 0 just before each sweep,
+             and just after the contention kernel's launches and the trace
+             count required to equal the number of (n_pad, P_pad, L) groups
+             under ``maxmin_fair`` (0 under the other two) and the sm90
+             replay kernel's the number of buckets.  Then each group through
+             ``csrc/contention.cu`` against its plain version bit for bit,
+             the per-edge delays against ``contended_plan_delays`` (rtol
+             1e-6, atol 1e-9; every plan of the campaign grid, seed 300's
+             two at the large scale), timed from a CUDA graph of 3 launches
+             in two turns beside the plain version's and the oracle's host
+             time and the chain floor: the kernel's per-plan counts of
+             replay steps and of block-wide barrier-and-mins, each times
+             the link ``contention_chain_probe`` measures.
+
+The tests that launch a kernel run apart, on the same card:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m card \
+        tests/test_torch_flash_card.py tests/test_torch_maxplus_card.py \
+        tests/test_torch_replay_card.py tests/test_torch_replay_sm90_card.py \
+        tests/test_torch_contention_card.py
 
 The line before the last is the card's name and power limit, the one before
 it a JSON object of per-kernel numbers; the last line is
@@ -145,6 +172,20 @@ REPLAY_SCHEDULERS = ("hlp_est", "hlp_ols")
 REPLAY_NOISE = ("lognormal", 0.2)
 REPLAY_SEEDS = range(32)
 REPLAY_RTOL = 1e-5     # against the float64 engine, as tests/test_sim_comm.py
+
+# The contention phase: benchmarks/campaign.py::sim_sweep(full=True)'s
+# network sub-grid (netbound_scenario seeds 300-305 at the generator's
+# width 12 and depth 5, each planned by hlp_ols and by the contention-aware
+# CAHLP, replayed under the three network models with the sweep's noise and
+# 32 seeds), then the same generator at the §6.1 fork-join's scale (width
+# 100, depth 10: 1000 tasks) under maxmin_fair.
+NET_SEEDS = range(300, 306)
+NET_MODELS = ("instant", "fixed_latency", "maxmin_fair")
+NET_SCALE = (100, 10)
+NET_ORACLE_SEEDS = (300,)   # the oracle at the large scale: 1-80+ s a plan
+NET_RTOL, NET_ATOL = 1e-6, 1e-9   # against the numpy oracle, as the reference
+# fp64 outside the tensor cores on one H100 SXM (NVIDIA's data sheet)
+FP64_FLOP_PER_S = 34e12
 CARD = "cuda"
 
 
@@ -580,10 +621,10 @@ class _Planner:
     """A scheduler that logs each plan it makes and the seconds it took, so
     the replay phase can read planning apart from the rest of its path."""
 
-    def __init__(self, name: str, log: list):
+    def __init__(self, name: str, log: list, inner=None):
         from repro_torch.sim import make_scheduler
         self.name, self.log, self.seconds = name, log, 0.0
-        self._inner = make_scheduler(name)
+        self._inner = make_scheduler(name) if inner is None else inner
 
     def allocate(self, g, machine):
         t0 = time.perf_counter()
@@ -803,6 +844,269 @@ def replay_phase(torch) -> dict:
             "check_s": check_s, "engine_s": engine_s, "worst_rtol": worst}
 
 
+def contention_probe_ns(torch, threads: int,
+                        steps: int = 50_000) -> tuple[float, float]:
+    """ns of the two links of the contention kernel's chains, from
+    ``contention_chain_probe``: one dependent float64 replay step through
+    shared memory (a load of the last finish time, an add, a butterfly max
+    over 4 lanes, an add, a store and a ``__syncwarp``), and one block-wide
+    barrier-and-min of ``threads`` threads (two values through warp
+    shuffles, one barrier, the warps' partials).  Each is the difference of
+    a run of 2 ``steps`` and one of ``steps``, the least of three, so the
+    launch's own cost drops out."""
+    import ctypes
+    from repro_torch.kernels import build
+
+    probe = build.load("contention").contention_chain_probe
+    probe.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_int, ctypes.c_void_p]
+    probe.restype = ctypes.c_int
+    out = torch.zeros(1, dtype=torch.float64, device=CARD)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run_ms(mode: int, n: int) -> float:
+        best = float("inf")
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            check(probe(out.data_ptr(), n, mode, threads, stream) == 0,
+                  "contention chain probe failed")
+            end.record()
+            end.synchronize()
+            best = min(best, start.elapsed_time(end))
+        return best
+
+    run_ms(0, 1000)
+    check(out.item() == 1250.0, f"contention probe step returned {out.item()}")
+    run_ms(1, 10)
+    check(out.item() == 10.0, f"contention probe min returned {out.item()}")
+    step = (run_ms(0, 2 * steps) - run_ms(0, steps)) / steps * 1e6
+    barrier = (run_ms(1, 2 * steps) - run_ms(1, steps)) / steps * 1e6
+    print(f"contention chain probe, {threads} threads: {step:.2f} ns a "
+          f"dependent float64 replay step, {barrier:.2f} ns a block-wide "
+          "barrier-and-min")
+    return step, barrier
+
+
+def contention_bound_ms(cb, counts, items) -> tuple[float, str]:
+    """The least time of one group's fixpoint and its limit: every input
+    tensor read once and the durations and counts written once, against
+    the float64 operations this run's data needs, from the kernel's counts
+    and the items' own sizes (per replay step and real slot an add and a
+    max, per real task an add; per event and real transfer about six
+    operations (its activity test, the next event's candidates, the update
+    of what remains); per filling round and real transfer two (its share
+    and its links' test), per link four)."""
+    moved = sum(t.numel() * t.element_size() for t in cb.tensors())
+    moved += cb.size.numel() * 8 + counts.size * 4
+    slots = cb.pred_mask.sum(dim=(1, 2)).numpy()
+    n_real = [g.n for g, _ in items]
+    T_real = cb.t_mask.sum(dim=1).numpy()
+    L = int(max(cb.up.max(), cb.dn.max())) + 1
+    rounds, events, fills = counts[:, 0], counts[:, 1], counts[:, 2]
+    ops = float((rounds * (2 * slots + n_real)).sum()
+                + (events * 6 * T_real).sum()
+                + (fills * (2 * T_real + 4 * L)).sum())
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP64_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def contention_groups(torch, items, nets, label: str, oracle: set,
+                      probes: dict) -> list[dict]:
+    """Each (n_pad, P_pad, L) group of ``items`` through the contention
+    kernel on the card, outside any counted run: bit for bit against the
+    plain version on CPU copies; the per-edge delays of the items in
+    ``oracle`` within rtol 1e-6, atol 1e-9 of ``contended_plan_delays``;
+    the kernel's device time from a CUDA graph of 3 launches in two turns,
+    the bare launch's host time, the whole wrapper's (index checks, launch,
+    copy back) and the plain version's; the chain floor from the kernel's
+    per-plan counts and the probe's two links at the group's block size."""
+    import numpy as np
+    from repro_torch.kernels.contention import contention as C
+    from repro_torch.sim import batch as TB
+    from repro_torch.sim.network import (CONTENTION_ITERS,
+                                         contended_plan_delays)
+    from repro_torch.sim import plan_times
+
+    zeros, groups = TB.contended_buckets(items, nets)
+    for i in oracle & set(zeros):
+        g, plan = items[i]
+        want = contended_plan_delays(g, plan, plan_times(g, plan, g.proc),
+                                     nets[i])
+        check(not want.any(), f"{label}: item {i} has no transfer, but the "
+              "oracle charges a delay")
+    rows = []
+    for (n_pad, P_pad, L), (idxs, transfers, cb) in sorted(groups.items()):
+        B, T_pad = cb.size.shape
+        dev_args = [t.to(CARD) for t in cb.tensors()]
+        kw = {"num_links": L, "iters": CONTENTION_ITERS}
+        t0 = time.perf_counter()
+        whole = C.contended_durations(*dev_args, **kw).cpu()
+        path_ms = (time.perf_counter() - t0) * 1e3
+        got, counts = C.launch(*dev_args, **kw)
+        torch.cuda.synchronize()
+        turns = [graph_ms(lambda: C.launch(*dev_args, **kw), iters=3)
+                 for _ in range(2)]
+        t1 = time.perf_counter()
+        for _ in range(3):
+            C.launch(*dev_args, **kw)
+        host_ms = (time.perf_counter() - t1) / 3 * 1e3
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        want = C.contended_durations(*cb.tensors(), **kw)
+        plain_s = time.perf_counter() - t1
+        got = got.cpu()
+        err = (got - want).abs().max().item()
+        shape = (B, n_pad, P_pad, T_pad, L)
+        check(torch.equal(got, want) and torch.equal(whole, want),
+              f"{label}: the contention kernel disagrees with its plain "
+              f"version on {shape}: max|err| {err}")
+        counts = counts.cpu().numpy()
+        check(bool((counts[:, 3] == counts[:, 0] * n_pad).all()
+                   and (counts[:, 0] >= 1).all()
+                   and (counts[:, 0] <= CONTENTION_ITERS).all()),
+              f"{label}: implausible kernel counts {counts.tolist()}")
+        threads = C.threads(T_pad)
+        if threads not in probes:
+            probes[threads] = contention_probe_ns(torch, threads)
+        step_ns, barrier_ns = probes[threads]
+        floors = (counts[:, 3] * step_ns
+                  + (counts[:, 1] + counts[:, 2]) * barrier_ns) * 1e-6
+        floor_ms = float(floors.max())
+        oracle_s, worst = 0.0, 0.0
+        for b, (i, tr) in enumerate(zip(idxs, transfers)):
+            if i not in oracle:
+                continue
+            g, plan = items[i]
+            delay = np.zeros(g.num_edges)
+            hit = tr.key_of >= 0
+            delay[hit] = got[b].numpy()[tr.key_of[hit]]
+            t1 = time.perf_counter()
+            want_e = contended_plan_delays(g, plan, plan_times(g, plan, g.proc),
+                                           nets[i])
+            oracle_s += time.perf_counter() - t1
+            diff = np.abs(delay - want_e)
+            worst = max(worst, float((diff / np.maximum(np.abs(want_e),
+                                                        1e-300)).max(initial=0)))
+            check(np.allclose(delay, want_e, rtol=NET_RTOL, atol=NET_ATOL),
+                  f"{label}: plan {i} on {g.n} tasks: the kernel's delays "
+                  f"differ from the oracle's by up to "
+                  f"{np.abs(delay - want_e).max()}")
+        bound, by = contention_bound_ms(cb, counts, [items[i] for i in idxs])
+        ms = sum(turns) / 2
+        n_or = len(oracle & set(idxs))
+        print(f"contention {label} group (n_pad, P_pad, L) = ({n_pad}, "
+              f"{P_pad}, {L}), B, T_pad = {B}, {T_pad}, {threads} threads: "
+              f"kernel {ms:.4f} ms (turns {turns[0]:.4f} / {turns[1]:.4f}, "
+              f"CUDA graph of 3); launch host time {host_ms:.4f} ms, wrapper "
+              f"path {path_ms:.3f} ms; plain version {plain_s:.3f} s on the "
+              f"host; oracle {oracle_s:.3f} s on the host for {n_or} plans "
+              f"(worst rel err {worst:.3e}); counts (rounds, "
+              f"events, fills, steps) per plan {counts.tolist()}; chain floor "
+              f"{floor_ms:.4f} ms ({floor_ms / ms:.1%} of the kernel's time), "
+              f"bound {bound * 1e3:.3f} us ({by}); exact")
+        rows.append({"shape": list(shape), "ms": ms, "turns": turns,
+                     "host_ms": host_ms, "path_ms": path_ms,
+                     "plain_s": plain_s, "oracle_s": oracle_s,
+                     "oracle_plans": n_or, "max_abs_err": err,
+                     "counts": counts.tolist(), "chain_floor_ms": floor_ms,
+                     "step_ns": step_ns, "barrier_ns": barrier_ns,
+                     "bound_ms": bound, "bound_by": by})
+    return rows
+
+
+def contention_phase(torch) -> dict:
+    """The campaign's network sub-grid (the main path), then the same
+    generator at the §6.1 fork-join's scale, through the port's
+    ``sweep_suite_makespans`` on the card, and each group of each grid
+    through ``contention_groups``.
+
+    The main path: 6 netbound scenarios x (hlp_ols, CAHLP with contention)
+    replayed under each of ``instant``, ``fixed_latency`` and
+    ``maxmin_fair`` with lognormal 0.2 noise and 32 seeds, the contention
+    and replay launch counters and ``trace_count("contended")`` set to 0
+    just before each sweep and read just after: the contention kernel
+    launched once per (n_pad, P_pad, L) group under ``maxmin_fair`` and
+    never under the other two, the sm90 replay kernel once per bucket.
+    Every plan's delays against the oracle.  At the large scale
+    (``NET_SCALE``) the same under ``maxmin_fair`` alone, the oracle run
+    on seed 300's two plans only."""
+    import numpy as np
+    from repro_torch.kernels.contention import contention as C
+    from repro_torch.kernels.replay import replay as R
+    from repro_torch.sim import NoiseModel, make_network
+    from repro_torch.sim import batch as TB
+    from repro_torch.sim.adapters import CommAwareHLPScheduler
+    from repro_torch.sim.scenarios import netbound_scenario
+
+    noise = NoiseModel(*REPLAY_NOISE)
+    S = len(REPLAY_SEEDS)
+    probes: dict = {}
+    out: dict = {}
+    for label, (width, depth), models in (
+            ("campaign", (12, 5), NET_MODELS),
+            ("scale", NET_SCALE, ("maxmin_fair",))):
+        scens = [netbound_scenario(width=width, depth=depth, seed=s)
+                 for s in NET_SEEDS]
+        sweeps, items, nets = {}, None, None
+        for model in models:
+            log: list = []
+            planners = [_Planner("hlp_ols", log),
+                        _Planner("cahlp_ctn", log,
+                                 CommAwareHLPScheduler(contention=True))]
+            entries = [(sc.graph, sc.machine, p) for sc in scens
+                       for p in planners]
+            net = make_network(model)
+            C.reset_launch_count()
+            R.reset_launch_count()
+            TB.reset_trace_counts()
+            t0 = time.perf_counter()
+            rows = TB.sweep_suite_makespans(entries, noise=noise,
+                                            seeds=REPLAY_SEEDS, network=net,
+                                            device=CARD)
+            wall = time.perf_counter() - t0
+            launches, traces = C.launch_count(), TB.trace_count("contended")
+            replays = R.launch_counts()
+            planning = sum(p.seconds for p in planners)
+            items = [(g, plan) for _, g, plan in log]
+            nets = [net] * len(items)
+            groups = (len(TB.contended_buckets(items, nets)[1])
+                      if net.contended else 0)
+            buckets = len(TB.bucket_plans(items))
+            check(launches == groups and traces == groups,
+                  f"{label} {model}: the contention kernel launched "
+                  f"{launches} times and trace_count('contended') is "
+                  f"{traces}; expected {groups}, one per group")
+            check(replays == {"sm90": buckets, "walk": 0}, f"{label} "
+                  f"{model}: replay launched {replays}, expected {buckets} "
+                  "sm90 launches")
+            ms = np.stack(rows)
+            check(ms.shape == (len(entries), S) and ms.dtype == np.float32
+                  and bool(np.isfinite(ms).all() and (ms > 0).all()),
+                  f"{label} {model}: makespans not finite and positive")
+            sweeps[model] = {"wall_s": wall, "planning_s": planning,
+                             "path_s": wall - planning,
+                             "contention_launches": launches,
+                             "groups": groups, "replay_launches": replays,
+                             "mean_makespan": float(ms.mean())}
+            print(f"contention {label} sweep under {model}: {len(items)} "
+                  f"plans x {S} seeds, wall {wall:.3f} s = planning "
+                  f"{planning:.3f} s + path {wall - planning:.3f} s; "
+                  f"contention launches {launches} (groups {groups}, "
+                  f"trace_count {traces}), replay {replays}; mean makespan "
+                  f"{ms.mean():.4f}")
+        oracle = (set(range(len(items))) if label == "campaign" else
+                  {i for i, (g, _) in enumerate(items)
+                   if scens[i // 2].seed in NET_ORACLE_SEEDS})
+        group_rows = contention_groups(torch, items, nets, label, oracle,
+                                       probes)
+        out[label] = {"sweeps": sweeps, "groups": group_rows,
+                      "launches": sweeps["maxmin_fair"]["contention_launches"]}
+    return out
+
+
 def consistency(torch, dtype: str) -> float:
     """max |decode(S-1 | prefill S-1) - prefill(S)| at full width."""
     import dataclasses
@@ -939,10 +1243,48 @@ def main() -> int:
     walk_row = replay_row("walk", "replay.cu", "walk_ms")
     print(f"replay summary: {json.dumps(replay)}")
 
+    # the contention path: its counters at 0 just before each sweep
+    t0 = time.perf_counter()
+    contention = contention_phase(torch)
+    print(f"contention: {time.perf_counter() - t0:.1f} s")
+    main_groups = contention["campaign"]["groups"]
+    scale_groups = contention["scale"]["groups"]
+    contention_row = {
+        "name": "contention_fixpoint", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/contention.cu",
+        "replaces": "src/repro/sim/batch.py:489",
+        "also_replaces": ["src/repro/sim/network.py:473",
+                          "src/repro/sim/network.py:512"],
+        "shape": "every group of the campaign's netbound grid, summed",
+        "launches": contention["campaign"]["launches"],
+        "max_abs_err": max(g["max_abs_err"]
+                           for g in main_groups + scale_groups),
+        "ms": sum(g["ms"] for g in main_groups),
+        "plain_ms": sum(g["plain_s"] for g in main_groups) * 1e3,
+        "plain_on": "host",
+        "bound_ms": sum(g["bound_ms"] for g in main_groups),
+        "bound_by": ("bytes" if all(g["bound_by"] == "bytes"
+                                    for g in main_groups) else "operations"),
+        "library_ms": None,
+        "chain_floor_ms": sum(g["chain_floor_ms"] for g in main_groups),
+        "host_ms": sum(g["host_ms"] for g in main_groups),
+        "scale": {
+            "shape": f"netbound width {NET_SCALE[0]} depth {NET_SCALE[1]}, "
+                     "every group",
+            "launches": contention["scale"]["launches"],
+            "ms": sum(g["ms"] for g in scale_groups),
+            "plain_ms": sum(g["plain_s"] for g in scale_groups) * 1e3,
+            "bound_ms": sum(g["bound_ms"] for g in scale_groups),
+            "chain_floor_ms": sum(g["chain_floor_ms"] for g in scale_groups),
+            "host_ms": sum(g["host_ms"] for g in scale_groups)},
+        "groups": main_groups + scale_groups}
+    print(f"contention summary: {json.dumps(contention)}")
+
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
           "imports, build included")
     print(json.dumps({"kernels": [flash_row, fp32_row, fma_row,
-                                  maxplus_row, sm90_row, walk_row]}))
+                                  maxplus_row, sm90_row, walk_row,
+                                  contention_row]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,8 +23,9 @@ protocol and one event-driven engine, built on the allocation API of
 
 The batched replay evaluator (``repro_torch.sim.batch``) replays a whole
 (scenario × scheduler × seed) grid with one launch of a CUDA kernel per
-shape bucket.  Not yet ported: the contention fixpoint on the device
-(``contended_bucket_delays``; the numpy oracle prices contended plans), the
+shape bucket, and prices ``maxmin_fair`` contention with one launch of the
+contention kernel per padded shape (``set_contention_kernel("numpy")``
+routes through the per-plan oracle instead).  Not yet ported: the
 pipelined campaign executor (``repro.sim.pipeline``) and the split of the
 plan axis over several cards.
 
@@ -46,7 +47,8 @@ from .batch import reset_trace_counts, trace_count
 from .engine import (Machine, MachineState, NoiseModel, Plan, Scheduler,
                      SimResult, TraceEvent, plan_times, simulate)
 from .network import (NETWORKS, FixedLatencyNetwork, InstantNetwork,
-                      MaxMinFairNetwork, NetworkModel, make_network)
+                      MaxMinFairNetwork, NetworkModel, contention_kernel,
+                      make_network, set_contention_kernel)
 from .scenarios import (SCENARIO_FAMILIES, Scenario, default_suite,
                         from_estee, make_scenario, moldable_suite, to_estee)
 
@@ -56,7 +58,8 @@ __all__ = [
     "Decision", "Platform", "Machine", "MachineState", "NoiseModel", "Plan",
     "Scheduler", "SimResult", "TraceEvent", "plan_times", "simulate",
     "NETWORKS", "NetworkModel", "InstantNetwork", "FixedLatencyNetwork",
-    "MaxMinFairNetwork", "make_network",
+    "MaxMinFairNetwork", "contention_kernel", "make_network",
+    "set_contention_kernel",
     "SCENARIO_FAMILIES", "Scenario", "default_suite", "from_estee",
     "make_scenario", "moldable_suite", "to_estee",
 ]

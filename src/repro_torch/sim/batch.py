@@ -29,15 +29,19 @@ the reference's bit for bit, and the float64 ``engine.simulate`` to rtol
 
 ``trace_count`` keeps the reference's compile counters: ``bucket`` (and
 ``single`` for ``batch_makespans``) advance the first time the process
-replays a (B, n_pad, P_pad, S) shape, which is what retraces the
-reference's jitted evaluator; ``contended`` stays 0 here.
+replays a (B, n_pad, P_pad, S) shape, and ``contended`` the first time it
+prices a (B, n_pad, P_pad, T_pad, L) shape — what retraces the
+reference's jitted evaluators.
 
-Contended networks (``maxmin_fair``) are priced at plan-DAG *build* time
-through the per-plan numpy oracle ``network.contended_plan_delays`` — the
-reference's ``set_contention_kernel("numpy")`` route.  The whole-bucket
-device fixpoint (``contended_bucket_delays``) comes with ROADMAP A3; the
-pipelined executor (``workers``, ``cache``) and the split of the plan axis
-over several cards (``mesh``) with A4.
+Contended networks (``maxmin_fair``) are priced at plan-DAG *build* time:
+by default a whole group of plans solves its replay/fluid fixpoint in one
+launch of the contention kernel (``contended_bucket_delays`` below, over
+``kernels/contention``: ``csrc/contention.cu`` on the card, its plain
+float64 version on the CPU); ``set_contention_kernel("numpy")`` routes
+through the per-plan numpy oracle instead.  Either way contention enters
+``pred_delay`` as numbers, never as new array shapes.  The pipelined
+executor (``workers``, ``cache``) and the split of the plan axis over
+several cards (``mesh``) come with ROADMAP A4.
 
 Padding scheme: a plan with n tasks and max fan-in P lands in bucket
 ``(next_pow2(n + 1), next_pow2(P))`` and is padded to that bucket's maxima —
@@ -52,7 +56,9 @@ at their current commitment horizons (``rollout_floors``).
 
 Every evaluator takes ``device`` (default ``"cuda"``, through
 ``repro_torch.resolve_device``, which raises without a card) and returns
-numpy arrays, as the reference does.
+numpy arrays, as the reference does; ``build_plan_dag`` and
+``BatchedPlanDag.from_plans`` take it for the contention fixpoint, the one
+part of a plan's build that runs on the device.
 """
 from __future__ import annotations
 
@@ -64,12 +70,14 @@ import torch
 
 from repro_torch.core.dag import TaskGraph
 from repro_torch.device import resolve_device
+from repro_torch.kernels.contention import contention as _contention
 from repro_torch.kernels.replay import replay as _kernel
 from repro_torch.obs import registry as _obs
 from repro_torch.platform import as_platform
 
 from .engine import Machine, NoiseModel, Plan, plan_times
-from .network import contended_plan_delays
+from .network import (CONTENTION_ITERS, contended_plan_delays,
+                      contention_kernel, plan_transfers)
 
 #: Compile-count kinds of the reference's jitted evaluators, kept under
 #: ``sim.compile.<kind>`` in the ``repro_torch.obs`` registry.  Here a kind
@@ -143,34 +151,50 @@ class PlanDag:
                               #        carries the full (type, width) decision.
 
 
-def _plan_delay_override(g: TaskGraph, plan: Plan, network):
+def _plan_delay_override(g: TaskGraph, plan: Plan, network,
+                         device: str | torch.device = "cuda"):
     """Per-edge delay vector a ``NetworkModel`` implies for this plan, or
     ``None`` for the default fixed-latency charging."""
-    return _delay_overrides([(g, plan)], [network])[0]
+    return _delay_overrides([(g, plan)], [network], device)[0]
 
 
-def _delay_overrides(items, networks) -> list:
+def _delay_overrides(items, networks,
+                     device: str | torch.device = "cuda") -> list:
     """Per-item per-edge delay vectors (or ``None``) the models imply.
 
     Non-contended models reduce to closed-form delay arrays.  Contended
     models (``maxmin_fair``) price each plan through the fixed-start
-    max-min fluid fixpoint of the per-plan numpy oracle
-    ``network.contended_plan_delays`` — the reference's
-    ``set_contention_kernel("numpy")`` route; its whole-bucket device
-    fixpoint comes with ROADMAP A3.  Either way contention enters the plan
-    DAG as delay *numbers*, never as new array shapes.
+    max-min fluid fixpoint; by default all contended items of the list are
+    solved *together* on ``device`` by the whole-bucket fixpoint
+    (:func:`contended_bucket_delays` — one launch per padded-shape group),
+    while ``set_contention_kernel("numpy")`` routes each through the
+    per-plan numpy oracle ``contended_plan_delays`` instead.  Either way
+    contention enters the plan DAG as delay *numbers*, never as new array
+    shapes.
     """
     if networks is None:
         return [None] * len(items)
     out: list = [None] * len(items)
+    contended = []
     for i, ((g, plan), net) in enumerate(zip(items, networks)):
         if net is None:
             continue
         if getattr(net, "contended", False):
-            out[i] = contended_plan_delays(
-                g, plan, plan_times(g, plan, g.proc), net)
+            contended.append(i)
         else:
             out[i] = net.plan_delays(g, plan.alloc)
+    if contended:
+        if contention_kernel() == "numpy":
+            for i in contended:
+                g, plan = items[i]
+                out[i] = contended_plan_delays(
+                    g, plan, plan_times(g, plan, g.proc), networks[i])
+        else:
+            delays = contended_bucket_delays(
+                [items[i] for i in contended],
+                [networks[i] for i in contended], device=device)
+            for i, d in zip(contended, delays):
+                out[i] = d
     return out
 
 
@@ -242,7 +266,8 @@ def _f32(a: np.ndarray) -> torch.Tensor:
 
 def build_plan_dag(g: TaskGraph, plan: Plan,
                    floor: np.ndarray | None = None,
-                   network=None) -> PlanDag:
+                   network=None,
+                   device: str | torch.device = "cuda") -> PlanDag:
     """Fuse DAG predecessors (with their transfer delays under the plan's
     allocation) with each task's processor-sequence predecessors (one chain
     pred per unit a width-w task occupies).
@@ -250,9 +275,10 @@ def build_plan_dag(g: TaskGraph, plan: Plan,
     ``floor`` optionally gives each task an earliest-start time (release
     times, or per-processor busy horizons — see ``rollout_floors``).
     ``network`` optionally replaces the fixed-latency edge delays with a
-    ``NetworkModel``'s (see ``_delay_overrides``)."""
+    ``NetworkModel``'s (see ``_delay_overrides``), a contended one priced
+    on ``device``."""
     order, pred, delay, _ = _plan_arrays(
-        g, plan, delay_e=_plan_delay_override(g, plan, network))
+        g, plan, delay_e=_plan_delay_override(g, plan, network, device))
     f = np.zeros(g.n) if floor is None else np.asarray(floor, dtype=np.float64)
     return PlanDag(order=torch.from_numpy(order), pred=torch.from_numpy(pred),
                    pred_mask=torch.from_numpy(pred >= 0),
@@ -357,7 +383,8 @@ class BatchedPlanDag:
     def from_plans(items: list[tuple[TaskGraph, Plan]],
                    floors: list[np.ndarray] | None = None,
                    pad_to: tuple[int, int] | None = None,
-                   networks: list | None = None) -> "BatchedPlanDag":
+                   networks: list | None = None,
+                   device: str | torch.device = "cuda") -> "BatchedPlanDag":
         """Stack heterogeneous (graph, plan) pairs, padded to shared maxima.
 
         Items shorter than the bucket get phantom tasks: zero fan-in, zero
@@ -371,9 +398,10 @@ class BatchedPlanDag:
         times / busy-machine conditioning); phantom tasks floor at 0.
         ``networks`` optionally carries a per-item ``NetworkModel`` (or
         ``None``) replacing the fixed-latency edge delays — contention
-        enters as numbers in ``pred_delay``, never as new array shapes.
+        enters as numbers in ``pred_delay``, never as new array shapes;
+        a contended model is priced on ``device``.
         """
-        delay_es = _delay_overrides(items, networks)
+        delay_es = _delay_overrides(items, networks, device)
         arrays = [_plan_arrays(g, plan, delay_e=delay_es[i])
                   for i, (g, plan) in enumerate(items)]
         n_pad = max(a[0].shape[0] for a in arrays)
@@ -452,6 +480,140 @@ def _pow2(x: int) -> int:
     return 1 << max(0, int(np.ceil(np.log2(max(int(x), 1)))))
 
 
+# -------------------------------------------------- contended bucket kernel
+@dataclasses.dataclass(frozen=True)
+class ContendedBucket:
+    """A group of B padded plans plus their transfer sets, stacked into CPU
+    tensors for the whole-bucket contention fixpoint
+    (``_contended_durations``)."""
+
+    order: torch.Tensor      # (B, n_pad) int32 topological order
+    pred: torch.Tensor       # (B, n_pad, P_pad) int32, -1 = none
+    pred_mask: torch.Tensor  # (B, n_pad, P_pad) bool
+    pred_tid: torch.Tensor   # (B, n_pad, P_pad) int32 transfer behind each
+                             #      pred slot, -1 = chain/non-cross/padding
+    times: torch.Tensor      # (B, n_pad) float64 nominal (noise-free) times
+    src: torch.Tensor        # (B, T_pad) int32 producer task per transfer
+    size: torch.Tensor       # (B, T_pad) float64 data-object sizes
+    up: torch.Tensor         # (B, T_pad) int32 dense uplink ids
+    dn: torch.Tensor         # (B, T_pad) int32 dense downlink ids
+    t_mask: torch.Tensor     # (B, T_pad) bool real-transfer lanes
+    capacity: torch.Tensor   # (B,) float64 link bandwidth per plan
+
+    def tensors(self) -> tuple[torch.Tensor, ...]:
+        """The fields in the order the contention kernel takes them."""
+        return tuple(getattr(self, f.name)
+                     for f in dataclasses.fields(self))
+
+
+def _contended_durations(cb: ContendedBucket, num_links: int, iters: int,
+                         device: torch.device) -> np.ndarray:
+    """(B, T_pad) float64 fluid transfer durations at the replay/fluid
+    fixpoint, on ``device``: one launch of the contention kernel for a
+    CUDA device, its plain version on the CPU.  The first solve of each
+    (B, n_pad, P_pad, T_pad, L) shape bumps ``trace_count("contended")``."""
+    B, n_pad, P_pad = cb.pred.shape
+    _count_shape("contended", (B, n_pad, P_pad, cb.size.shape[1], num_links))
+    args = [t.to(device) for t in cb.tensors()]
+    return _contention.contended_durations(
+        *args, num_links=num_links, iters=iters).cpu().numpy()
+
+
+def contended_buckets(items: list, networks: list):
+    """Group the contended items as :func:`contended_bucket_delays` solves
+    them.  Returns ``(zeros, groups)``: ``zeros`` maps each item with no
+    crossing transfer to its (E,) zero delays; ``groups`` maps each
+    ``(n_pad, P_pad, L)`` to ``(idxs, transfers, bucket)``, the group's
+    item indices, their ``PlanTransfers`` and its ``ContendedBucket``."""
+    zeros: dict[int, np.ndarray] = {}
+    members: dict[tuple, list[int]] = defaultdict(list)
+    prep: dict[int, tuple] = {}
+    for i, ((g, plan), net) in enumerate(zip(items, networks)):
+        tr = plan_transfers(g, plan, net)
+        if not tr.count:
+            zeros[i] = np.zeros(g.num_edges)
+            continue
+        arrays = _plan_arrays(g, plan, delay_e=np.zeros(g.num_edges))
+        prep[i] = (tr, arrays, plan_times(g, plan, g.proc))
+        n_pad, P_pad = _bucket_key(g, plan)
+        members[(n_pad, P_pad, tr.num_links)].append(i)
+
+    groups = {}
+    for (n_pad, P_pad, L), idxs in members.items():
+        B = len(idxs)
+        T_pad = _pow2(max(prep[i][0].count for i in idxs))
+        order = np.zeros((B, n_pad), dtype=np.int32)
+        pred = np.full((B, n_pad, P_pad), -1, dtype=np.int32)
+        tid = np.full((B, n_pad, P_pad), -1, dtype=np.int32)
+        times = np.zeros((B, n_pad), dtype=np.float64)
+        src = np.zeros((B, T_pad), dtype=np.int32)
+        size = np.zeros((B, T_pad), dtype=np.float64)
+        up = np.zeros((B, T_pad), dtype=np.int32)
+        dn = np.zeros((B, T_pad), dtype=np.int32)
+        t_mask = np.zeros((B, T_pad), dtype=bool)
+        cap = np.zeros(B, dtype=np.float64)
+        for b, i in enumerate(idxs):
+            tr, (o, p, _, pe), base = prep[i]
+            n, Pi = p.shape
+            order[b, :n] = o
+            order[b, n:] = n  # spare slots visit the first phantom task
+            pred[b, :n, :Pi] = p
+            m = pe >= 0
+            ti = np.full((n, Pi), -1, dtype=np.int32)
+            ti[m] = tr.key_of[pe[m]]
+            tid[b, :n, :Pi] = ti
+            times[b, :n] = base
+            T = tr.count
+            src[b, :T] = tr.src
+            size[b, :T] = tr.size
+            up[b, :T] = tr.up
+            dn[b, :T] = tr.dn
+            t_mask[b, :T] = True
+            cap[b] = tr.capacity
+        cb = ContendedBucket(
+            order=torch.from_numpy(order), pred=torch.from_numpy(pred),
+            pred_mask=torch.from_numpy(pred >= 0),
+            pred_tid=torch.from_numpy(tid), times=torch.from_numpy(times),
+            src=torch.from_numpy(src), size=torch.from_numpy(size),
+            up=torch.from_numpy(up), dn=torch.from_numpy(dn),
+            t_mask=torch.from_numpy(t_mask), capacity=torch.from_numpy(cap))
+        groups[(n_pad, P_pad, L)] = (idxs, [prep[i][0] for i in idxs], cb)
+    return zeros, groups
+
+
+def contended_bucket_delays(items: list, networks: list,
+                            device: str | torch.device = "cuda"
+                            ) -> list[np.ndarray]:
+    """Per-item (E_i,) per-edge delay vectors from the whole-bucket
+    contention fixpoint — the batched front door ``_delay_overrides`` calls.
+
+    Items are grouped by ``(bucket_key, num_links)`` — the same
+    power-of-two (n, fan-in) envelope the makespan path buckets by — and
+    each group's transfer axis is padded to the power-of-two envelope of
+    its largest transfer set (``contended_buckets``), so a campaign's
+    contended grid costs one launch of the contention kernel per group on
+    the card; plans with no crossing transfers short-circuit to zeros.  The
+    fixpoint is float64, like the reference's under x64, and matches the
+    float64 numpy oracle to rtol 1e-6; the resulting durations scatter back
+    to the (deduplicated, output-cached) edges via ``PlanTransfers.key_of``.
+    """
+    dev = resolve_device(device)
+    zeros, groups = contended_buckets(items, networks)
+    out: list[np.ndarray | None] = [None] * len(items)
+    for i, z in zeros.items():
+        out[i] = z
+    for (n_pad, P_pad, L), (idxs, transfers, cb) in groups.items():
+        with _obs.span("sim.contended.fixpoint", bucket=f"{n_pad}x{P_pad}",
+                       links=L, plans=len(idxs)):
+            durs = _contended_durations(cb, L, CONTENTION_ITERS, dev)
+        for b, (i, tr) in enumerate(zip(idxs, transfers)):
+            delay = np.zeros(items[i][0].num_edges)
+            hit = tr.key_of >= 0
+            delay[hit] = durs[b, tr.key_of[hit]]
+            out[i] = delay
+    return out  # type: ignore[return-value]
+
+
 def _check_grid(items, times) -> None:
     """The reference's argument checks shared by both bucketed entries."""
     S = {t.shape[0] for t in times}
@@ -512,7 +674,8 @@ def bucketed_makespans(items: list[tuple[TaskGraph, Plan]],
                         if floors is not None else None),
                 pad_to=key if envelope else None,
                 networks=([networks[i] for i in idxs]
-                          if networks is not None else None))
+                          if networks is not None else None),
+                device=dev)
             tt = bucket_times([times[i] for i in idxs], bd.n_pad)
         with _obs.span("sim.bucket.execute", bucket=f"{key[0]}x{key[1]}",
                        plans=len(idxs)):
@@ -550,7 +713,8 @@ def fixed_envelope_makespans(items: list[tuple[TaskGraph, Plan]],
     _check_grid(items, times)
     with _obs.span("sim.bucket.build", bucket=f"{pad_to[0]}x{pad_to[1]}",
                    plans=len(items)):
-        bd = BatchedPlanDag.from_plans(items, floors=floors, pad_to=pad_to)
+        bd = BatchedPlanDag.from_plans(items, floors=floors, pad_to=pad_to,
+                                       device=dev)
         if (bd.n_pad, bd.pred.shape[2]) != tuple(pad_to):
             raise ValueError(
                 f"item exceeds the fixed envelope {tuple(pad_to)}: bucket "

@@ -41,10 +41,13 @@ Three consumers of a model:
     when a new one starts (first-come-frozen fluid approximation), which
     keeps decisions causal at the cost of slightly optimistic sharing;
   * the batched replay path prices each plan through the same fixed-start
-    max-min fluid fixpoint, evaluated by the plain-numpy
-    :func:`contended_plan_delays`.  The JAX package's jitted twin
-    (``fluid_finishes_jax`` and its whole-bucket fixpoint) is not yet
-    ported.
+    max-min fluid fixpoint, evaluated either by the plain-numpy reference
+    (:func:`contended_plan_delays`, the oracle) or — the default — by the
+    whole-bucket fixpoint of ``repro_torch.sim.batch`` (one launch of the
+    CUDA kernel ``kernels/csrc/contention.cu`` per padded shape on the card;
+    its plain float64 torch version, built on :func:`fluid_finishes_ref`,
+    on the CPU).  :func:`set_contention_kernel` switches the two; they
+    agree to rtol 1e-6.
 """
 from __future__ import annotations
 
@@ -53,6 +56,7 @@ import dataclasses
 import numpy as np
 
 from repro_torch.core.dag import TaskGraph
+from repro_torch.kernels.contention.ref import fluid_finishes_ref
 from repro_torch.obs import registry as _obs
 
 _EPS = 1e-12
@@ -439,13 +443,38 @@ def contended_plan_delays(g: TaskGraph, plan, times: np.ndarray,
     return delay
 
 
-#: fixpoint rounds of the batched contention solve (the reference shares
-#: this value between its numpy oracle and its jitted kernel).
+# ------------------------------------------------ whole-bucket contention
+#: fixpoint rounds of the batched contention solve — one value shared by the
+#: numpy oracle (``contended_plan_delays(iters=)`` default) and the
+#: whole-bucket fixpoint, so the two run the same iteration schedule.
 CONTENTION_ITERS = 4
+
+#: The whole-bucket fixpoint is ``"torch"`` (the reference's ``"jax"``: the
+#: port runs no JAX); there is no environment switch.
+_CONTENTION_KERNELS = ("torch", "numpy")
+_contention_kernel = "torch"
+
+
+def contention_kernel() -> str:
+    """Which implementation prices contention on the bucketed batch path:
+    ``"torch"`` (the whole-bucket fixpoint, default: the CUDA kernel on the
+    card, its plain version on the CPU) or ``"numpy"`` (the per-plan
+    reference oracle)."""
+    return _contention_kernel
+
+
+def set_contention_kernel(name: str) -> None:
+    global _contention_kernel
+    if name not in _CONTENTION_KERNELS:
+        raise ValueError(f"unknown contention kernel {name!r}; "
+                         f"have {_CONTENTION_KERNELS}")
+    _contention_kernel = name
+
 
 __all__ = [
     "CONTENTION_ITERS", "NETWORKS", "NetworkModel", "InstantNetwork",
     "FixedLatencyNetwork", "MaxMinFairNetwork", "PlanTransfers",
-    "TransferTracker", "contended_plan_delays", "make_network",
-    "maxmin_rates", "plan_transfers",
+    "TransferTracker", "contended_plan_delays", "contention_kernel",
+    "fluid_finishes_ref", "make_network", "maxmin_rates", "plan_transfers",
+    "set_contention_kernel",
 ]

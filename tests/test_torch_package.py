@@ -49,7 +49,9 @@ def test_every_module_is_listed_by_the_probe():
             "repro_torch.sim.engine", "repro_torch.sim.adapters",
             "repro_torch.sim.network", "repro_torch.obs.registry",
             "repro_torch.sim.batch", "repro_torch.kernels.replay.replay",
-            "repro_torch.kernels.replay.ref"} <= names
+            "repro_torch.kernels.replay.ref",
+            "repro_torch.kernels.contention.contention",
+            "repro_torch.kernels.contention.ref"} <= names
 
 
 @pytest.fixture

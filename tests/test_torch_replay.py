@@ -6,8 +6,8 @@ process with the reference's plan-axis sharding off
 (``REPRO_SHARD_BACKEND=none``): the padded plan tensors, the buckets and
 every makespan must be equal, in float32, over ``default_suite``,
 ``comm_suite`` and ``moldable_suite`` × every ported static adapter, with
-floors, with envelopes and under the three network models (the
-reference's contended route through its numpy oracle).  The float64
+floors, with envelopes and under the three network models (both
+packages' contended routes through their numpy oracles).  The float64
 engine agrees to rtol 1e-5, as in ``tests/test_sim_comm.py``.  The CUDA
 kernel runs only on the card (``tests/test_torch_replay_card.py``); here
 its loop is emulated in numpy float32 and held to the plain version.
@@ -189,12 +189,15 @@ def test_bucketed_makespans_equal_reference_in_float32():
 
 
 def test_bucketed_makespans_under_networks_equal_reference():
-    """instant, fixed_latency and maxmin_fair; the reference prices the
-    contended model through its numpy oracle, the port always does."""
+    """instant, fixed_latency and maxmin_fair; both packages price the
+    contended model through their numpy oracles here (the whole-bucket
+    fixpoints are held in ``tests/test_torch_contention.py``)."""
     _, jitems, titems, _ = _grid()
     jt, tt = _times(jitems, titems, seeds=[0, 1, 2])
     was = JN.contention_kernel()
     JN.set_contention_kernel("numpy")
+    T.set_contention_kernel("numpy")
+    TB.reset_trace_counts()
     try:
         for net in NETWORKS:
             ref = JB.bucketed_makespans(
@@ -205,6 +208,7 @@ def test_bucketed_makespans_under_networks_equal_reference():
             _same(ref, got, net)
     finally:
         JN.set_contention_kernel(was)
+        T.set_contention_kernel("torch")
     assert TB.trace_count("contended") == 0
 
 
