@@ -74,23 +74,32 @@ Phases, each of which raises on failure (exit code not 0):
              ``trace_count("contended")`` set to 0 just before each sweep,
              and just after the contention kernel's launches and the trace
              count required to equal the number of (n_pad, P_pad, L) groups
-             under ``maxmin_fair`` (0 under the other two) and the sm90
-             replay kernel's the number of buckets.  Then each group through
-             ``csrc/contention.cu`` against its plain version bit for bit,
-             the per-edge delays against ``contended_plan_delays`` (rtol
-             1e-6, atol 1e-9; every plan of the campaign grid, seed 300's
-             two at the large scale), timed from a CUDA graph of 3 launches
-             in two turns beside the plain version's and the oracle's host
-             time and the chain floor: the kernel's per-plan counts of
-             replay steps and of block-wide barrier-and-mins, each times
-             the link ``contention_chain_probe`` measures.
+             under ``maxmin_fair`` (0 under the other two), all of them
+             by ``csrc/contention_sm90.cu`` and none by
+             ``csrc/contention.cu``, and the sm90 replay kernel's the
+             number of buckets.  Then each group through both contention
+             kernels (the second with ``kernel="block"``), each against its
+             plain version bit for bit and their per-plan counts equal, the
+             per-edge delays against ``contended_plan_delays`` (rtol 1e-6,
+             atol 1e-9; every plan of the campaign grid, seed 300's two at
+             the large scale), both timed from CUDA graphs of 3 launches in
+             turns (sm90, block, block, sm90) beside the plain version's
+             and the oracle's host time; each kernel's split variant (the
+             clock cycles of each phase of the slowest plan's chain) and
+             chain floor: the per-plan counts of replay steps and of
+             reductions (block: events + filling rounds; sm90: filling
+             rounds + events - merged rounds), each times the link its
+             probe (``contention_chain_probe``,
+             ``contention_sm90_chain_probe``) measures at the group's block
+             size.
 
 The tests that launch a kernel run apart, on the same card:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m card \
         tests/test_torch_flash_card.py tests/test_torch_maxplus_card.py \
         tests/test_torch_replay_card.py tests/test_torch_replay_sm90_card.py \
-        tests/test_torch_contention_card.py
+        tests/test_torch_contention_card.py \
+        tests/test_torch_contention_sm90_card.py
 
 The line before the last is the card's name and power limit, the one before
 it a JSON object of per-kernel numbers; the last line is
@@ -844,9 +853,23 @@ def replay_phase(torch) -> dict:
             "check_s": check_s, "engine_s": engine_s, "worst_rtol": worst}
 
 
+def _probe_ms(torch, run) -> float:
+    """The least of three CUDA-event timings of ``run()``."""
+    best = float("inf")
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end))
+    return best
+
+
 def contention_probe_ns(torch, threads: int,
                         steps: int = 50_000) -> tuple[float, float]:
-    """ns of the two links of the contention kernel's chains, from
+    """ns of the two links of the block kernel's chains, from
     ``contention_chain_probe``: one dependent float64 replay step through
     shared memory (a load of the last finish time, an add, a butterfly max
     over 4 lanes, an add, a store and a ``__syncwarp``), and one block-wide
@@ -865,17 +888,9 @@ def contention_probe_ns(torch, threads: int,
     stream = torch.cuda.current_stream().cuda_stream
 
     def run_ms(mode: int, n: int) -> float:
-        best = float("inf")
-        for _ in range(3):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            check(probe(out.data_ptr(), n, mode, threads, stream) == 0,
-                  "contention chain probe failed")
-            end.record()
-            end.synchronize()
-            best = min(best, start.elapsed_time(end))
-        return best
+        return _probe_ms(torch, lambda: check(
+            probe(out.data_ptr(), n, mode, threads, stream) == 0,
+            "contention chain probe failed"))
 
     run_ms(0, 1000)
     check(out.item() == 1250.0, f"contention probe step returned {out.item()}")
@@ -887,6 +902,44 @@ def contention_probe_ns(torch, threads: int,
           f"dependent float64 replay step, {barrier:.2f} ns a block-wide "
           "barrier-and-min")
     return step, barrier
+
+
+def contention_sm90_probe_ns(torch, t_pad: int,
+                             steps: int = 50_000) -> tuple[float, float]:
+    """ns of the two links of the sm90 kernel's chains at the block it
+    launches for ``t_pad`` transfers, from ``contention_sm90_chain_probe``:
+    the same dependent replay step, and one combined count-and-min
+    reduction (the packed per-link counts of four links at that block's
+    field width, and the float64 min) of a warp alone (no barrier) or of
+    the block behind one barrier; measured as :func:`contention_probe_ns`
+    measures."""
+    import ctypes
+    from repro_torch.kernels import build
+    from repro_torch.kernels.contention import contention as C
+
+    probe = build.load("contention_sm90").contention_sm90_chain_probe
+    probe.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    probe.restype = ctypes.c_int
+    out = torch.zeros(1, dtype=torch.float64, device=CARD)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run_ms(mode: int, n: int) -> float:
+        return _probe_ms(torch, lambda: check(
+            probe(out.data_ptr(), n, mode, t_pad, stream) == 0,
+            "contention sm90 chain probe failed"))
+
+    run_ms(0, 1000)
+    check(out.item() == 1250.0, f"sm90 probe step returned {out.item()}")
+    run_ms(1, 10)
+    check(out.item() == 10.0, f"sm90 probe reduction returned {out.item()}")
+    step = (run_ms(0, 2 * steps) - run_ms(0, steps)) / steps * 1e6
+    red = (run_ms(1, 2 * steps) - run_ms(1, steps)) / steps * 1e6
+    print(f"contention sm90 chain probe, T_pad {t_pad} on "
+          f"{C.threads(t_pad)} threads: "
+          f"{step:.2f} ns a dependent float64 replay step, {red:.2f} ns a "
+          "combined count-and-min reduction")
+    return step, red
 
 
 def contention_bound_ms(cb, counts, items) -> tuple[float, str]:
@@ -913,16 +966,30 @@ def contention_bound_ms(cb, counts, items) -> tuple[float, str]:
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def split_shares(cycles) -> dict:
+    """Each phase's share of the slowest plan's clock cycles (from a split
+    launch), with that plan's total."""
+    from repro_torch.kernels.contention import contention as C
+    import numpy as np
+
+    row = cycles[int(np.argmax(cycles.sum(axis=1)))]
+    total = int(row.sum())
+    return {"cycles": total, **{name: int(v) / total
+                                for name, v in zip(C.PHASES, row)}}
+
+
 def contention_groups(torch, items, nets, label: str, oracle: set,
                       probes: dict) -> list[dict]:
-    """Each (n_pad, P_pad, L) group of ``items`` through the contention
-    kernel on the card, outside any counted run: bit for bit against the
-    plain version on CPU copies; the per-edge delays of the items in
-    ``oracle`` within rtol 1e-6, atol 1e-9 of ``contended_plan_delays``;
-    the kernel's device time from a CUDA graph of 3 launches in two turns,
-    the bare launch's host time, the whole wrapper's (index checks, launch,
-    copy back) and the plain version's; the chain floor from the kernel's
-    per-plan counts and the probe's two links at the group's block size."""
+    """Each (n_pad, P_pad, L) group of ``items`` through both contention
+    kernels on the card, outside any counted run: each bit for bit against
+    the plain version on CPU copies, their counts equal; the per-edge delays
+    of the items in ``oracle`` within rtol 1e-6, atol 1e-9 of
+    ``contended_plan_delays``; each kernel's device time from CUDA graphs of
+    3 launches in turns (sm90, block, block, sm90), the bare sm90 launch's
+    host time, the whole sm90 wrapper's (index checks, launch, copy back)
+    and the plain version's; each kernel's phase split (its split variant,
+    the slowest plan); both chain floors from the per-plan counts and each
+    kernel's probe at the group's block size."""
     import numpy as np
     from repro_torch.kernels.contention import contention as C
     from repro_torch.sim import batch as TB
@@ -940,15 +1007,19 @@ def contention_groups(torch, items, nets, label: str, oracle: set,
     rows = []
     for (n_pad, P_pad, L), (idxs, transfers, cb) in sorted(groups.items()):
         B, T_pad = cb.size.shape
+        shape = (B, n_pad, P_pad, T_pad, L)
         dev_args = [t.to(CARD) for t in cb.tensors()]
         kw = {"num_links": L, "iters": CONTENTION_ITERS}
         t0 = time.perf_counter()
         whole = C.contended_durations(*dev_args, **kw).cpu()
         path_ms = (time.perf_counter() - t0) * 1e3
-        got, counts = C.launch(*dev_args, **kw)
+        got = {k: C.launch(*dev_args, **kw, kernel=k) for k in C.KERNELS}
         torch.cuda.synchronize()
-        turns = [graph_ms(lambda: C.launch(*dev_args, **kw), iters=3)
-                 for _ in range(2)]
+        turns = {k: [] for k in C.KERNELS}
+        for k in ("sm90", "block", "block", "sm90"):
+            turns[k].append(graph_ms(
+                lambda k=k: C.launch(*dev_args, **kw, kernel=k), iters=3))
+        ms = {k: sum(v) / len(v) for k, v in turns.items()}
         t1 = time.perf_counter()
         for _ in range(3):
             C.launch(*dev_args, **kw)
@@ -957,32 +1028,55 @@ def contention_groups(torch, items, nets, label: str, oracle: set,
         t1 = time.perf_counter()
         want = C.contended_durations(*cb.tensors(), **kw)
         plain_s = time.perf_counter() - t1
-        got = got.cpu()
-        err = (got - want).abs().max().item()
-        shape = (B, n_pad, P_pad, T_pad, L)
-        check(torch.equal(got, want) and torch.equal(whole, want),
-              f"{label}: the contention kernel disagrees with its plain "
-              f"version on {shape}: max|err| {err}")
-        counts = counts.cpu().numpy()
+        errs = {}
+        for k in C.KERNELS:
+            g_k = got[k][0].cpu()
+            errs[k] = (g_k - want).abs().max().item()
+            check(torch.equal(g_k, want), f"{label}: the {k} contention "
+                  f"kernel disagrees with its plain version on {shape}: "
+                  f"max|err| {errs[k]}")
+        check(torch.equal(whole, want), f"{label}: the sm90 wrapper path "
+              f"disagrees with the plain version on {shape}")
+        counts = got["sm90"][1].cpu().numpy()
+        check(np.array_equal(counts[:, :4], got["block"][1].cpu().numpy()),
+              f"{label}: the kernels' counts differ on {shape}: "
+              f"{counts.tolist()} against {got['block'][1].tolist()}")
         check(bool((counts[:, 3] == counts[:, 0] * n_pad).all()
                    and (counts[:, 0] >= 1).all()
-                   and (counts[:, 0] <= CONTENTION_ITERS).all()),
+                   and (counts[:, 0] <= CONTENTION_ITERS).all()
+                   and (counts[:, 4] <= counts[:, 1]).all()),
               f"{label}: implausible kernel counts {counts.tolist()}")
-        threads = C.threads(T_pad)
-        if threads not in probes:
-            probes[threads] = contention_probe_ns(torch, threads)
-        step_ns, barrier_ns = probes[threads]
-        floors = (counts[:, 3] * step_ns
-                  + (counts[:, 1] + counts[:, 2]) * barrier_ns) * 1e-6
-        floor_ms = float(floors.max())
+        splits = {}
+        for k in C.KERNELS:
+            out_s, counts_s, cycles = C.launch_split(*dev_args, **kw,
+                                                     kernel=k)
+            check(torch.equal(out_s, got[k][0])
+                  and torch.equal(counts_s, got[k][1]),
+                  f"{label}: the {k} split variant differs from its launch")
+            splits[k] = split_shares(cycles.cpu().numpy())
+        nt_block = C.threads(T_pad, kernel="block")
+        if ("block", nt_block) not in probes:
+            probes[("block", nt_block)] = contention_probe_ns(torch, nt_block)
+        nt = C.threads(T_pad)
+        if ("sm90", T_pad) not in probes:
+            probes[("sm90", T_pad)] = contention_sm90_probe_ns(torch, T_pad)
+        step_ns, barrier_ns = probes[("block", nt_block)]
+        step90_ns, red_ns = probes[("sm90", T_pad)]
+        rounds, events, fills, steps, merged = counts.T
+        floor_block = float(((steps * step_ns + (events + fills) * barrier_ns)
+                             * 1e-6).max())
+        floor_sm90 = float(((steps * step90_ns
+                             + (fills + events - merged) * red_ns)
+                            * 1e-6).max())
         oracle_s, worst = 0.0, 0.0
+        sm90_got = got["sm90"][0].cpu().numpy()
         for b, (i, tr) in enumerate(zip(idxs, transfers)):
             if i not in oracle:
                 continue
             g, plan = items[i]
             delay = np.zeros(g.num_edges)
             hit = tr.key_of >= 0
-            delay[hit] = got[b].numpy()[tr.key_of[hit]]
+            delay[hit] = sm90_got[b][tr.key_of[hit]]
             t1 = time.perf_counter()
             want_e = contended_plan_delays(g, plan, plan_times(g, plan, g.proc),
                                            nets[i])
@@ -994,25 +1088,50 @@ def contention_groups(torch, items, nets, label: str, oracle: set,
                   f"{label}: plan {i} on {g.n} tasks: the kernel's delays "
                   f"differ from the oracle's by up to "
                   f"{np.abs(delay - want_e).max()}")
-        bound, by = contention_bound_ms(cb, counts, [items[i] for i in idxs])
-        ms = sum(turns) / 2
+        bound, by = contention_bound_ms(cb, counts[:, :4],
+                                        [items[i] for i in idxs])
         n_or = len(oracle & set(idxs))
+        slow = int(np.argmax(counts[:, 1] + counts[:, 2]))
+
+        def phases(k):
+            return ", ".join(f"{name} {splits[k][name]:.1%}"
+                             for name in C.PHASES)
         print(f"contention {label} group (n_pad, P_pad, L) = ({n_pad}, "
-              f"{P_pad}, {L}), B, T_pad = {B}, {T_pad}, {threads} threads: "
-              f"kernel {ms:.4f} ms (turns {turns[0]:.4f} / {turns[1]:.4f}, "
-              f"CUDA graph of 3); launch host time {host_ms:.4f} ms, wrapper "
-              f"path {path_ms:.3f} ms; plain version {plain_s:.3f} s on the "
-              f"host; oracle {oracle_s:.3f} s on the host for {n_or} plans "
-              f"(worst rel err {worst:.3e}); counts (rounds, "
-              f"events, fills, steps) per plan {counts.tolist()}; chain floor "
-              f"{floor_ms:.4f} ms ({floor_ms / ms:.1%} of the kernel's time), "
-              f"bound {bound * 1e3:.3f} us ({by}); exact")
-        rows.append({"shape": list(shape), "ms": ms, "turns": turns,
+              f"{P_pad}, {L}), B, T_pad = {B}, {T_pad}: sm90 {ms['sm90']:.4f} "
+              f"ms on {nt} threads (turns {turns['sm90'][0]:.4f} / "
+              f"{turns['sm90'][1]:.4f}), block {ms['block']:.4f} ms on "
+              f"{nt_block} threads (turns {turns['block'][0]:.4f} / "
+              f"{turns['block'][1]:.4f}), CUDA graphs of 3, block / sm90 "
+              f"{ms['block'] / ms['sm90']:.2f}x; sm90 launch host time "
+              f"{host_ms:.4f} ms, wrapper path {path_ms:.3f} ms; plain "
+              f"version {plain_s:.3f} s on the host; oracle {oracle_s:.3f} s "
+              f"on the host for {n_or} plans (worst rel err {worst:.3e}); "
+              f"counts (rounds, events, fills, steps, merged) per plan "
+              f"{counts.tolist()}; slowest plan {slow}: "
+              f"{int(counts[slow, 2] + counts[slow, 1] - counts[slow, 4])} "
+              f"reductions for {int(counts[slow, 1] + counts[slow, 2])} of "
+              f"the block kernel's barriers; chain floors: sm90 "
+              f"{floor_sm90:.4f} ms ({floor_sm90 / ms['sm90']:.1%} of its "
+              f"time), block {floor_block:.4f} ms "
+              f"({floor_block / ms['block']:.1%} of its time; "
+              f"{floor_block / ms['sm90']:.1%} of sm90's); "
+              f"bound {bound * 1e3:.3f} us ({by}); both exact")
+        print(f"contention {label} group {shape} split of the slowest plan "
+              f"(clock64 cycles of thread 0): sm90 {splits['sm90']['cycles']} "
+              f"cycles: {phases('sm90')}; block {splits['block']['cycles']} "
+              f"cycles: {phases('block')}")
+        rows.append({"shape": list(shape), "ms": ms["sm90"],
+                     "block_ms": ms["block"], "turns": turns,
+                     "threads": nt, "block_threads": nt_block,
                      "host_ms": host_ms, "path_ms": path_ms,
                      "plain_s": plain_s, "oracle_s": oracle_s,
-                     "oracle_plans": n_or, "max_abs_err": err,
-                     "counts": counts.tolist(), "chain_floor_ms": floor_ms,
-                     "step_ns": step_ns, "barrier_ns": barrier_ns,
+                     "oracle_plans": n_or, "max_abs_err": errs,
+                     "counts": counts.tolist(),
+                     "chain_floor_ms": floor_sm90,
+                     "block_chain_floor_ms": floor_block,
+                     "step_ns": step90_ns, "reduction_ns": red_ns,
+                     "block_step_ns": step_ns, "barrier_ns": barrier_ns,
+                     "split": splits,
                      "bound_ms": bound, "bound_by": by})
     return rows
 
@@ -1067,7 +1186,7 @@ def contention_phase(torch) -> dict:
                                             seeds=REPLAY_SEEDS, network=net,
                                             device=CARD)
             wall = time.perf_counter() - t0
-            launches, traces = C.launch_count(), TB.trace_count("contended")
+            launches, traces = C.launch_counts(), TB.trace_count("contended")
             replays = R.launch_counts()
             planning = sum(p.seconds for p in planners)
             items = [(g, plan) for _, g, plan in log]
@@ -1075,10 +1194,12 @@ def contention_phase(torch) -> dict:
             groups = (len(TB.contended_buckets(items, nets)[1])
                       if net.contended else 0)
             buckets = len(TB.bucket_plans(items))
-            check(launches == groups and traces == groups,
-                  f"{label} {model}: the contention kernel launched "
-                  f"{launches} times and trace_count('contended') is "
-                  f"{traces}; expected {groups}, one per group")
+            check(launches == {"sm90": groups, "block": 0}
+                  and traces == groups,
+                  f"{label} {model}: the contention kernels launched "
+                  f"{launches} and trace_count('contended') is {traces}; "
+                  f"expected {groups} sm90 launches, one per group, and no "
+                  "block launch")
             check(replays == {"sm90": buckets, "walk": 0}, f"{label} "
                   f"{model}: replay launched {replays}, expected {buckets} "
                   "sm90 launches")
@@ -1249,42 +1370,54 @@ def main() -> int:
     print(f"contention: {time.perf_counter() - t0:.1f} s")
     main_groups = contention["campaign"]["groups"]
     scale_groups = contention["scale"]["groups"]
-    contention_row = {
-        "name": "contention_fixpoint", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/contention.cu",
-        "replaces": "src/repro/sim/batch.py:489",
-        "also_replaces": ["src/repro/sim/network.py:473",
-                          "src/repro/sim/network.py:512"],
-        "shape": "every group of the campaign's netbound grid, summed",
-        "launches": contention["campaign"]["launches"],
-        "max_abs_err": max(g["max_abs_err"]
-                           for g in main_groups + scale_groups),
-        "ms": sum(g["ms"] for g in main_groups),
-        "plain_ms": sum(g["plain_s"] for g in main_groups) * 1e3,
-        "plain_on": "host",
-        "bound_ms": sum(g["bound_ms"] for g in main_groups),
-        "bound_by": ("bytes" if all(g["bound_by"] == "bytes"
-                                    for g in main_groups) else "operations"),
-        "library_ms": None,
-        "chain_floor_ms": sum(g["chain_floor_ms"] for g in main_groups),
-        "host_ms": sum(g["host_ms"] for g in main_groups),
-        "scale": {
-            "shape": f"netbound width {NET_SCALE[0]} depth {NET_SCALE[1]}, "
-                     "every group",
-            "launches": contention["scale"]["launches"],
-            "ms": sum(g["ms"] for g in scale_groups),
-            "plain_ms": sum(g["plain_s"] for g in scale_groups) * 1e3,
-            "bound_ms": sum(g["bound_ms"] for g in scale_groups),
-            "chain_floor_ms": sum(g["chain_floor_ms"] for g in scale_groups),
-            "host_ms": sum(g["host_ms"] for g in scale_groups)},
-        "groups": main_groups + scale_groups}
+
+    def contention_row(kernel: str, source: str, ms_key: str,
+                       floor_key: str) -> dict:
+        return {
+            "name": "contention_fixpoint" + ("" if kernel == "sm90"
+                                             else f"_{kernel}"),
+            "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": "src/repro/sim/batch.py:489",
+            "also_replaces": ["src/repro/sim/network.py:473",
+                              "src/repro/sim/network.py:512"],
+            "shape": "every group of the campaign's netbound grid, summed",
+            "launches": contention["campaign"]["launches"][kernel],
+            "max_abs_err": max(g["max_abs_err"][kernel]
+                               for g in main_groups + scale_groups),
+            "ms": sum(g[ms_key] for g in main_groups),
+            "plain_ms": sum(g["plain_s"] for g in main_groups) * 1e3,
+            "plain_on": "host",
+            "bound_ms": sum(g["bound_ms"] for g in main_groups),
+            "bound_by": ("bytes" if all(g["bound_by"] == "bytes"
+                                        for g in main_groups)
+                         else "operations"),
+            "library_ms": None,
+            "chain_floor_ms": sum(g[floor_key] for g in main_groups),
+            "group_ms": [g[ms_key] for g in main_groups],
+            "scale": {
+                "shape": f"netbound width {NET_SCALE[0]} depth "
+                         f"{NET_SCALE[1]}, every group",
+                "launches": contention["scale"]["launches"][kernel],
+                "ms": sum(g[ms_key] for g in scale_groups),
+                "plain_ms": sum(g["plain_s"] for g in scale_groups) * 1e3,
+                "bound_ms": sum(g["bound_ms"] for g in scale_groups),
+                "chain_floor_ms": sum(g[floor_key] for g in scale_groups)}}
+
+    sm90_contention = contention_row("sm90", "contention_sm90.cu", "ms",
+                                     "chain_floor_ms")
+    sm90_contention.update(
+        host_ms=sum(g["host_ms"] for g in main_groups),
+        groups=main_groups + scale_groups)
+    block_contention = contention_row("block", "contention.cu", "block_ms",
+                                      "block_chain_floor_ms")
     print(f"contention summary: {json.dumps(contention)}")
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
           "imports, build included")
     print(json.dumps({"kernels": [flash_row, fp32_row, fma_row,
                                   maxplus_row, sm90_row, walk_row,
-                                  contention_row]}))
+                                  sm90_contention, block_contention]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

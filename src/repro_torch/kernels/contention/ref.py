@@ -1,6 +1,7 @@
 """The plain versions of the contention fixpoint, in float64 torch.
 
-The functions the CUDA kernel (``csrc/contention.cu``) computes, written
+The functions the CUDA kernels (``csrc/contention_sm90.cu``,
+``csrc/contention.cu``) compute, written
 with torch operations in the JAX package's order of operations, with the
 plan axis of its ``vmap`` written out as a leading batch dimension:
 
@@ -16,7 +17,7 @@ plan axis of its ``vmap`` written out as a leading batch dimension:
 
 Every loop runs its fixed count, as the reference's ``fori_loop`` and
 ``scan`` do; every sum and product is its own operation, rounded once
-(nothing is fused into a multiply-add).  The kernel equals these bit for
+(nothing is fused into a multiply-add).  Both kernels equal these bit for
 bit.
 """
 from __future__ import annotations

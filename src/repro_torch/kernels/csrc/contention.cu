@@ -60,32 +60,34 @@
 //     durations froze skips its remaining rounds (the reference keeps its
 //     durations).  tests/test_torch_contention.py emulates the loop with
 //     these stops against the plain version, bit for bit.
-//   * Not done: several plans a block for small T, a level-parallel replay,
-//     a lighter reduction for the events (ROADMAP B3).
+//   * Not done here: contention_sm90.cu, the redesign, takes one reduction
+//     a filling round and drops the second an event.
 //
 // C interface (loaded with ctypes): contention_durations_f64 returns the
 // cudaError_t of the shared-memory attribute call or of the launch as an
 // int, 0 on success, and writes (B, T_pad) durations and (B, 4) int32
 // counts (rounds, events, filling rounds, replay steps); contention_smem_bytes
 // the bytes a launch takes; contention_threads the block size;
-// contention_chain_probe times the two chain links.
+// contention_chain_probe times the two chain links.  contention_split_f64
+// is the same launch with the kernel's split variant (the same body under
+// the template flag SPLIT), which also writes (B, PHASES) int64 clock64()
+// cycles that thread 0 spends in each phase of the chain
+// (contention_common.cuh's Phase); it is for timing only, never the sweep
+// path.  contention_sm90.cu is this kernel's Hopper redesign and the card
+// path's default; this one runs only when asked (kernel="block").
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "contention_common.cuh"
 #include "sm90_common.cuh"
 
 namespace {
 
 constexpr int MAX_THREADS = 512;
 constexpr int MAX_WARPS = MAX_THREADS / 32;
-constexpr int MAX_LINKS = 8;
-constexpr int SMEM_LIMIT = 232448;          // 227 KB, the most a block may take
 constexpr int COUNTS = 4;                   // rounds, events, fills, replay steps
-constexpr double EPS = 1e-12;               // network.py's _EPS
-constexpr double TINY = 2.2250738585072014e-308;   // finfo(float64).tiny
-constexpr unsigned FULL = 0xffffffffu;
 
 // Transfer flags.
 constexpr unsigned char F_MASK = 1, F_LIVE = 2, F_FINISHED = 4, F_ACTIVE = 8,
@@ -130,15 +132,6 @@ __host__ __device__ inline Layout layout(int n_pad, int p_pad, int t_pad) {
   return l;
 }
 
-// max / min that keep NaN, as torch.maximum / amax and jnp.max do; exact on
-// every other pair.
-__device__ __forceinline__ double dmax(double a, double b) {
-  return (a > b || a != a) ? a : b;
-}
-__device__ __forceinline__ double dmin(double a, double b) {
-  return (a < b || a != a) ? a : b;
-}
-
 // Block-wide min of two values; every thread gets both.  `red` is a
 // [2][MAX_WARPS][2] double buffer: the writes of one call and the reads of
 // the call before it are split by the barrier of the call in between.
@@ -164,6 +157,7 @@ __device__ __forceinline__ void block_min2(double& a, double& b, double* red,
   parity ^= 1;
 }
 
+template <bool SPLIT>
 __global__ void __launch_bounds__(MAX_THREADS)
 contention_kernel(const int* __restrict__ order, const int* __restrict__ pred,
                   const bool* __restrict__ pmask, const int* __restrict__ ptid,
@@ -171,8 +165,8 @@ contention_kernel(const int* __restrict__ order, const int* __restrict__ pred,
                   const double* __restrict__ size, const int* __restrict__ up,
                   const int* __restrict__ dn, const bool* __restrict__ tmask,
                   const double* __restrict__ capacity, double* __restrict__ out,
-                  int* __restrict__ counts, int n_pad, int p_pad, int t_pad,
-                  int num_links, int iters) {
+                  int* __restrict__ counts, long long* __restrict__ split,
+                  int n_pad, int p_pad, int t_pad, int num_links, int iters) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout lay = layout(n_pad, p_pad, t_pad);
   double* finish = reinterpret_cast<double*>(smem + lay.finish);
@@ -239,6 +233,8 @@ contention_kernel(const int* __restrict__ order, const int* __restrict__ pred,
   const int width = p_pad >= 32 ? 32 : (p_pad <= 1 ? 1 : 1 << (32 - __clz(p_pad - 1)));
   int par_dbl = 0, par_int = 0;
   int rounds = 0, events = 0, fills = 0, steps = 0;
+  Split<SPLIT> clk;
+  clk.start();
 
   for (int r = 0; r < iters; ++r) {
     ++rounds;
@@ -265,6 +261,7 @@ contention_kernel(const int* __restrict__ order, const int* __restrict__ pred,
     }
     steps += n_pad;
     __syncthreads();
+    clk.stamp(P_REPLAY);
 
     // the fluid solve at the transfers' starts
     double t = INFINITY, unused = INFINITY;
@@ -293,6 +290,7 @@ contention_kernel(const int* __restrict__ order, const int* __restrict__ pred,
         flags[i] = f;
         rate[i] = 0.0;
       }
+      clk.stamp(P_ACTIVITY);
       double used[MAX_LINKS];
 #pragma unroll
       for (int l = 0; l < MAX_LINKS; ++l) used[l] = 0.0;
@@ -330,6 +328,7 @@ contention_kernel(const int* __restrict__ order, const int* __restrict__ pred,
           }
         }
         par_int ^= 1;
+        clk.stamp(P_COUNT);
         if (!any) break;                 // nothing unfrozen: the round is a no-op
         double inc = INFINITY;
 #pragma unroll
@@ -350,6 +349,7 @@ contention_kernel(const int* __restrict__ order, const int* __restrict__ pred,
             }
           }
         }
+        clk.stamp(P_INC);
         for (int i = tid; i < t_pad; i += nt) {
           unsigned char f = flags[i];
           if (f & F_UNFROZEN) {
@@ -359,6 +359,7 @@ contention_kernel(const int* __restrict__ order, const int* __restrict__ pred,
             flags[i] = f;
           }
         }
+        clk.stamp(P_RATE);
         if (!froze) break;               // the guard froze every flow
       }
 
@@ -373,6 +374,7 @@ contention_kernel(const int* __restrict__ order, const int* __restrict__ pred,
       block_min2(t_done, t_next, red_dbl, par_dbl, lane, warp, nwarps);
       ++events;
       const double t_ev = dmin(t_done, t_next);
+      clk.stamp(P_EVENT);
       if (!isfinite(t_ev)) break;        // nothing left: every later step is a no-op
       const double t_new = dmax(t_ev, t);
       const double dt = __dsub_rn(t_new, t);
@@ -388,6 +390,7 @@ contention_kernel(const int* __restrict__ order, const int* __restrict__ pred,
         }
       }
       t = t_new;
+      clk.stamp(P_REMAIN);
     }
 
     // new durations, and the plan's freeze
@@ -400,8 +403,11 @@ contention_kernel(const int* __restrict__ order, const int* __restrict__ pred,
         dur[i] = nw;
       }
     }
-    if (__syncthreads_and(close)) break;
+    const bool frozen = __syncthreads_and(close);
+    clk.stamp(P_REMAIN);
+    if (frozen) break;
   }
+  clk.write(split, b);
 
   for (int i = tid; i < t_pad; i += nt) out[static_cast<int64_t>(b) * t_pad + i] = dur[i];
   if (tid == 0) {
@@ -452,7 +458,25 @@ chain_probe_kernel(double* out, int steps, int mode, int width) {
   }
 }
 
-unsigned long long g_configured = 0;   // devices whose shared-memory limit is raised
+template <bool SPLIT>
+int launch_fixpoint(const int* order, const int* pred, const bool* pmask, const int* ptid,
+                    const double* times, const int* src, const double* size, const int* up,
+                    const int* dn, const bool* tmask, const double* capacity, double* out,
+                    int* counts, long long* split, int batch, int n_pad, int p_pad, int t_pad,
+                    int num_links, int iters, cudaStream_t stream) {
+  if (batch <= 0 || n_pad <= 0 || p_pad <= 0 || t_pad <= 0 || num_links <= 0 ||
+      num_links > MAX_LINKS || iters < 0)
+    return cudaErrorInvalidValue;
+  const int64_t bytes = layout(n_pad, p_pad, t_pad).bytes;
+  if (bytes > SMEM_LIMIT) return cudaErrorInvalidValue;
+  static unsigned long long configured = 0;   // devices whose shared-memory limit is raised
+  cudaError_t err = allow_smem(contention_kernel<SPLIT>, SMEM_LIMIT, configured);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  contention_kernel<SPLIT><<<batch, threads_for(t_pad), static_cast<size_t>(bytes), stream>>>(
+      order, pred, pmask, ptid, times, src, size, up, dn, tmask, capacity, out, counts, split,
+      n_pad, p_pad, t_pad, num_links, iters);
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace
 
@@ -469,17 +493,21 @@ extern "C" int contention_durations_f64(const int* order, const int* pred, const
                                         int* counts, int batch, int n_pad, int p_pad,
                                         int t_pad, int num_links, int iters,
                                         cudaStream_t stream) {
-  if (batch <= 0 || n_pad <= 0 || p_pad <= 0 || t_pad <= 0 || num_links <= 0 ||
-      num_links > MAX_LINKS || iters < 0)
-    return cudaErrorInvalidValue;
-  const int64_t bytes = layout(n_pad, p_pad, t_pad).bytes;
-  if (bytes > SMEM_LIMIT) return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(contention_kernel, SMEM_LIMIT, g_configured);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  contention_kernel<<<batch, threads_for(t_pad), static_cast<size_t>(bytes), stream>>>(
-      order, pred, pmask, ptid, times, src, size, up, dn, tmask, capacity, out, counts,
-      n_pad, p_pad, t_pad, num_links, iters);
-  return static_cast<int>(cudaGetLastError());
+  return launch_fixpoint<false>(order, pred, pmask, ptid, times, src, size, up, dn, tmask,
+                                capacity, out, counts, nullptr, batch, n_pad, p_pad, t_pad,
+                                num_links, iters, stream);
+}
+
+extern "C" int contention_split_f64(const int* order, const int* pred, const bool* pmask,
+                                    const int* ptid, const double* times, const int* src,
+                                    const double* size, const int* up, const int* dn,
+                                    const bool* tmask, const double* capacity, double* out,
+                                    int* counts, long long* split, int batch, int n_pad,
+                                    int p_pad, int t_pad, int num_links, int iters,
+                                    cudaStream_t stream) {
+  return launch_fixpoint<true>(order, pred, pmask, ptid, times, src, size, up, dn, tmask,
+                               capacity, out, counts, split, batch, n_pad, p_pad, t_pad,
+                               num_links, iters, stream);
 }
 
 extern "C" int contention_chain_probe(double* out, int steps, int mode, int threads,

@@ -36,7 +36,7 @@ reference's jitted evaluators.
 Contended networks (``maxmin_fair``) are priced at plan-DAG *build* time:
 by default a whole group of plans solves its replay/fluid fixpoint in one
 launch of the contention kernel (``contended_bucket_delays`` below, over
-``kernels/contention``: ``csrc/contention.cu`` on the card, its plain
+``kernels/contention``: ``csrc/contention_sm90.cu`` on the card, its plain
 float64 version on the CPU); ``set_contention_kernel("numpy")`` routes
 through the per-plan numpy oracle instead.  Either way contention enters
 ``pred_delay`` as numbers, never as new array shapes.  The pipelined

@@ -44,10 +44,10 @@ Three consumers of a model:
     max-min fluid fixpoint, evaluated either by the plain-numpy reference
     (:func:`contended_plan_delays`, the oracle) or — the default — by the
     whole-bucket fixpoint of ``repro_torch.sim.batch`` (one launch of the
-    CUDA kernel ``kernels/csrc/contention.cu`` per padded shape on the card;
-    its plain float64 torch version, built on :func:`fluid_finishes_ref`,
-    on the CPU).  :func:`set_contention_kernel` switches the two; they
-    agree to rtol 1e-6.
+    CUDA kernel ``kernels/csrc/contention_sm90.cu`` per padded shape on the
+    card; its plain float64 torch version, built on
+    :func:`fluid_finishes_ref`, on the CPU).  :func:`set_contention_kernel`
+    switches the two; they agree to rtol 1e-6.
 """
 from __future__ import annotations
 

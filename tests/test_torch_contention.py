@@ -9,11 +9,14 @@ at rtol 1e-6, atol 1e-9, on the campaign's netbound scenarios
 the contention-aware CAHLP).  The reference runs its fixpoint under
 ``jax.experimental.enable_x64``, which jax 0.9 no longer has; the tests
 hand it ``jax.enable_x64(True)`` in its place through ``monkeypatch``, and
-nothing in ``src/repro`` changes.  The CUDA kernel runs only on the card
-(``tests/test_torch_contention_card.py``); here its loop is emulated in
-numpy (``tests/contention_emulation.py``) and held to the plain version
-bit for bit.
+nothing in ``src/repro`` changes.  A bucket with a NaN task time and a NaN
+size is held to the reference's fixpoint too (NaN at the same places).
+The CUDA kernels run only on the card (``tests/test_torch_contention_card.py``,
+``tests/test_torch_contention_sm90_card.py``); here the first kernel's loop
+is emulated in numpy (``tests/contention_emulation.py``) and held to the
+plain version bit for bit.
 """
+import dataclasses
 import os
 import subprocess
 import sys
@@ -38,8 +41,9 @@ from repro.sim.adapters import CommAwareHLPScheduler as JCAHLP  # noqa: E402
 from repro_torch.kernels.contention import contention as C  # noqa: E402
 from repro_torch.sim.adapters import CommAwareHLPScheduler as TCAHLP  # noqa: E402
 
-from contention_emulation import (emulate, fluid_bucket,  # noqa: E402
-                                  random_bucket, random_transfer_sets)
+from contention_emulation import (emulate, emulate_sm90,  # noqa: E402
+                                  fluid_bucket, random_bucket,
+                                  random_transfer_sets)
 
 CPU = "cpu"
 LINKS = [("up", 0), ("down", 0), ("up", 1), ("down", 1), ("up", 2),
@@ -271,6 +275,38 @@ def test_kernel_loop_emulation_matches_plain_version():
     assert froze >= 1, "no plan froze early: the skip went untested"
 
 
+def nan_bucket():
+    """A random bucket with a NaN task time in plan 0 (the producer of its
+    first transfer) and a NaN size in plan 1 (a transfer a pred slot waits
+    on); plan 2 is left finite."""
+    cb = random_bucket(np.random.default_rng(9), B=3, n=24, P=3, T=32)
+    times, size = cb.times.clone(), cb.size.clone()
+    times[0, int(cb.src[0, 0])] = float("nan")
+    size[1, int(cb.pred_tid[1][cb.pred_tid[1] >= 0][0])] = float("nan")
+    return dataclasses.replace(cb, times=times, size=size)
+
+
+def test_nan_task_time_and_size_follow_the_reference_fixpoint(x64):
+    """NaN where the reference's jitted fixpoint has NaN, and within its
+    rtol 1e-12 elsewhere; the sm90 kernel's emulation keeps the plain
+    version's NaN and equals it elsewhere, bit for bit."""
+    cb = nan_bucket()
+    got = C.contended_durations(*cb.tensors(), num_links=4,
+                                iters=TN.CONTENTION_ITERS).numpy()
+    with jax.enable_x64(True):
+        jcb = JB.ContendedBucket(*(jnp.asarray(t.numpy())
+                                   for t in cb.tensors()))
+        want = np.asarray(JB._contended_durations(jcb, 4,
+                                                  JN.CONTENTION_ITERS))
+    nan = np.isnan(want)
+    assert nan[0].any() and nan[1].any() and not nan[2].any()
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    np.testing.assert_allclose(got[~nan], want[~nan], rtol=1e-12, atol=0)
+    with np.errstate(invalid="ignore"):
+        emu = emulate_sm90(cb, 4, TN.CONTENTION_ITERS)[0]
+    np.testing.assert_array_equal(emu, got)
+
+
 # ------------------------------------------------------------- wrapper
 def test_wrapper_checks_and_shared_memory_sizing():
     rand = random_bucket(np.random.default_rng(3), B=2, n=16, P=4, T=32)
@@ -282,12 +318,15 @@ def test_wrapper_checks_and_shared_memory_sizing():
         C.contended_durations(*args[:10], args[10][:1], num_links=4, iters=4)
     with pytest.raises(ValueError, match="needs the card"):
         C.launch(*args, num_links=4, iters=4)
-    assert C.threads(1) == 32 and C.threads(100) == 128
-    assert C.threads(1024) == 512
+    # the block kernel (csrc/contention.cu); the sm90 kernel's mirrors are
+    # checked in tests/test_torch_contention_sm90.py
+    block = {"kernel": "block"}
+    assert C.threads(1, **block) == 32 and C.threads(100, **block) == 128
+    assert C.threads(1024, **block) == 512
     # the campaign's shapes fit; a §6.1 fork-join join does not
-    assert C.smem_bytes(64, 4, 64) < 48 * 1024
-    assert C.smem_bytes(1024, 4, 1024) <= C.SMEM_LIMIT
-    assert C.smem_bytes(4096, 4, 1024) > C.SMEM_LIMIT
-    assert C.smem_bytes(1024, 4, 1024) == (
+    assert C.smem_bytes(64, 4, 64, **block) < 48 * 1024
+    assert C.smem_bytes(1024, 4, 1024, **block) <= C.SMEM_LIMIT
+    assert C.smem_bytes(4096, 4, 1024, **block) > C.SMEM_LIMIT
+    assert C.smem_bytes(1024, 4, 1024, **block) == (
         8 * (1025 + 1024 + 4096 + 6 * 1024 + 64)
         + 4 * (1024 + 2 * 4096 + 3 * 1024 + 256) + 1024)

@@ -1,5 +1,7 @@
-"""The contention kernel ``csrc/contention.cu`` against its plain version,
-on the card.
+"""The first contention kernel ``csrc/contention.cu`` (``kernel="block"``,
+the yardstick since the Hopper redesign ``csrc/contention_sm90.cu``, whose
+tests are ``tests/test_torch_contention_sm90_card.py``) against its plain
+version, on the card.
 
 Every test carries the ``card`` marker, asks for the ``card`` fixture
 (which skips without a card) and imports nothing of JAX:
@@ -59,7 +61,7 @@ def _netbound_groups(width=12, depth=5, n_scen=6):
 
 def _launch(cb, L, card, iters=ITERS):
     out, counts = C.launch(*(t.to(card) for t in cb.tensors()), num_links=L,
-                           iters=iters)
+                           iters=iters, kernel="block")
     torch.cuda.synchronize()
     return out.cpu(), counts.cpu().numpy()
 
@@ -140,20 +142,22 @@ def test_bucketed_path_launches_once_per_group_and_matches_the_cpu(card):
 def test_launch_raises_on_what_the_kernel_does_not_take(card):
     cb = random_bucket(np.random.default_rng(5), B=2, n=16, P=4, T=32)
     args = [t.to(card) for t in cb.tensors()]
+    block = {"kernel": "block"}
     with pytest.raises(TypeError, match="times is torch.float32"):
         C.launch(*args[:4], args[4].float(), *args[5:], num_links=4,
-                 iters=ITERS)
+                 iters=ITERS, **block)
     with pytest.raises(ValueError, match="is on cpu"):
-        C.launch(*args[:10], args[10].cpu(), num_links=4, iters=ITERS)
+        C.launch(*args[:10], args[10].cpu(), num_links=4, iters=ITERS,
+                 **block)
     with pytest.raises(ValueError, match="links"):
-        C.launch(*args, num_links=C.MAX_LINKS + 1, iters=ITERS)
+        C.launch(*args, num_links=C.MAX_LINKS + 1, iters=ITERS, **block)
     with pytest.raises(ValueError, match="out of range"):
         C.contended_durations(*args[:5], args[5] + 1000, *args[6:],
-                              num_links=4, iters=ITERS)
+                              num_links=4, iters=ITERS, **block)
     big = random_bucket(np.random.default_rng(5), B=1, n=4096, P=4, T=64)
     big = [t.to(card) for t in big.tensors()]
     with pytest.raises(ValueError, match=r"\(4096, 4, 64\) needs \d+ bytes"):
-        C.launch(*big, num_links=4, iters=ITERS)
+        C.launch(*big, num_links=4, iters=ITERS, **block)
 
 
 def test_shared_memory_mirror_and_block_size(card):
@@ -163,8 +167,9 @@ def test_shared_memory_mirror_and_block_size(card):
     lib.contention_threads.argtypes = [ctypes.c_int]
     for n, P, Tn in ((64, 4, 32), (1024, 4, 1024), (4096, 4, 64), (33, 3, 31),
                      (20, 40, 700)):
-        assert lib.contention_smem_bytes(n, P, Tn) == C.smem_bytes(n, P, Tn)
-        assert lib.contention_threads(Tn) == C.threads(Tn)
+        assert lib.contention_smem_bytes(n, P, Tn) == C.smem_bytes(
+            n, P, Tn, kernel="block")
+        assert lib.contention_threads(Tn) == C.threads(Tn, kernel="block")
 
 
 def test_chain_probe_runs(card):

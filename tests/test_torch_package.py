@@ -1,5 +1,6 @@
 """Package rules of the port: no JAX, no ``repro``, no silent CPU fallback."""
 import pkgutil
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -133,3 +134,60 @@ def test_build_is_content_addressed_and_lazy():
     assert lib.parent == build.BUILD_DIR
     assert lib.name.startswith("libflash_attention-") and lib.suffix == ".so"
     assert build.load.cache_info().currsize == 0 or torch.cuda.is_available()
+
+
+_SMOKE_PROBE = """
+import runpy, sys
+sys.argv = ["chip_smoke.py"]
+try:
+    runpy.run_path("chip_smoke.py", run_name="__main__")
+    code = 0
+except SystemExit as stop:
+    code = stop.code
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(code, bad)
+"""
+
+
+def test_chip_smoke_refuses_without_a_card_and_loads_no_jax():
+    """``chip_smoke.py`` with no card visible: exit code 1, no result line,
+    and nothing of JAX or of the JAX package loaded."""
+    env = {"PYTHONPATH": str(SRC), "CUDA_VISIBLE_DEVICES": ""}
+    proc = subprocess.run([sys.executable, "-c", _SMOKE_PROBE],
+                          capture_output=True, text=True, env=env,
+                          timeout=300, cwd=SRC.parent, check=True)
+    assert proc.stdout.strip() == "1 []"
+    assert "is_available() is False" in proc.stderr
+
+
+def test_build_hashes_the_shared_headers_into_every_library(tmp_path,
+                                                            monkeypatch):
+    """Both contention kernels include ``contention_common.cuh``: an edit
+    there must rebuild each.  On a copy of ``csrc/``, one byte added to
+    either shared header changes every library's name, and an edit of one
+    source only that source's."""
+    headers = sorted(p.name for p in build.CSRC.glob("*.cuh"))
+    assert {"contention_common.cuh", "sm90_common.cuh"} <= set(headers)
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    names = sorted(p.stem for p in csrc.glob("*.cu"))
+    assert {"contention", "contention_sm90"} <= set(names)
+
+    def paths():
+        return {name: build.library_path(name) for name in names}
+
+    before = paths()
+    for name, path in before.items():
+        assert path.name.startswith(f"lib{name}-")
+    for header in ("contention_common.cuh", "sm90_common.cuh"):
+        with open(csrc / header, "a") as f:
+            f.write("\n")
+        after = paths()
+        assert all(after[n] != before[n] for n in names), header
+        before = after
+    with open(csrc / "contention_sm90.cu", "a") as f:
+        f.write("\n")
+    after = paths()
+    assert [n for n in names if after[n] != before[n]] == ["contention_sm90"]
