@@ -50,20 +50,25 @@ Phases, each of which raises on failure (exit code not 0):
              planned by HLP-EST and HLP-OLS, replayed under 32 seeds of
              lognormal noise through ``repro_torch.sim.batch``'s
              ``sweep_suite_makespans`` on the card (HEFT left out for host
-             time): the replay launch counters set to 0 just before, and
-             just after the sm90 kernel's required to equal the number of
-             shape buckets and the walk kernel's to be 0; planning and the
-             replay path timed apart on the host clock.  Then each bucket
-             through both kernels (``replay_sm90.cu`` and, with
-             ``kernel="walk"``, ``replay.cu``), each held bit for bit
-             against the plain version on CPU copies and against the
-             sweep's rows and timed from a CUDA graph of 5 launches in
-             turns (sm90, walk, walk, sm90), beside its byte bound, its
-             longest chain and the chain floor: that chain times one
+             time): the replay launch counter set to 0 just before, and just
+             after required to equal the number of shape buckets; planning
+             and the replay path timed apart on the host clock.  Then the
+             same entries through the pipelined executor
+             (``workers=os.cpu_count()``, ``cache=True``), with the process
+             pool still to start and again with it running: its rows bit
+             for bit the serial rows, the replay launches the buckets it
+             dispatched (``last_pipeline_stats().buckets``), no broken
+             process pool (``plan_pool.broken`` 0); planning at one worker
+             and at N (with the longest single solve), the pipelined wall,
+             ``overlap_frac`` and the drain's wait.  Then each bucket of the serial sweep through the kernel
+             (``replay_sm90.cu``), held bit for bit against the plain
+             version on CPU copies and against the sweep's rows and timed
+             from a CUDA graph of 5 launches, twice, beside its byte bound,
+             its longest chain and the chain floor: that chain times one
              dependent add + max step through shared memory, as the probe
-             ``replay_sm90_chain_probe`` measures it first; the smallest
-             and largest plan of each scheduler against the float64 engine
-             at rtol 1e-5.
+             ``replay_sm90_chain_probe`` measures it first; the smallest and
+             largest plan of each scheduler against the float64 engine at
+             rtol 1e-5.
 8. contention — ``benchmarks/campaign.py::sim_sweep(full=True)``'s network
              sub-grid (netbound seeds 300-305, 60 tasks, planned by hlp_ols
              and the contention-aware CAHLP) replayed under ``instant``,
@@ -74,24 +79,29 @@ Phases, each of which raises on failure (exit code not 0):
              ``trace_count("contended")`` set to 0 just before each sweep,
              and just after the contention kernel's launches and the trace
              count required to equal the number of (n_pad, P_pad, L) groups
-             under ``maxmin_fair`` (0 under the other two), all of them
-             by ``csrc/contention_sm90.cu`` and none by
-             ``csrc/contention.cu``, and the sm90 replay kernel's the
-             number of buckets.  Then each group through both contention
-             kernels (the second with ``kernel="block"``), each against its
-             plain version bit for bit and their per-plan counts equal, the
-             per-edge delays against ``contended_plan_delays`` (rtol 1e-6,
-             atol 1e-9; every plan of the campaign grid, seed 300's two at
-             the large scale), both timed from CUDA graphs of 3 launches in
-             turns (sm90, block, block, sm90) beside the plain version's
-             and the oracle's host time; each kernel's split variant (the
-             clock cycles of each phase of the slowest plan's chain) and
-             chain floor: the per-plan counts of replay steps and of
-             reductions (block: events + filling rounds; sm90: filling
-             rounds + events - merged rounds), each times the link its
-             probe (``contention_chain_probe``,
-             ``contention_sm90_chain_probe``) measures at the group's block
-             size.
+             under ``maxmin_fair`` (0 under the other two), and the replay
+             kernel's the number of buckets.  Then each group through the
+             contention kernel (``contention_sm90.cu``) against its plain
+             version bit for bit, the per-edge delays against
+             ``contended_plan_delays`` (rtol 1e-6, atol 1e-9; every plan of
+             the campaign grid, seed 300's two at the large scale), timed
+             from CUDA graphs of 3 launches, twice, beside the plain
+             version's and the oracle's host time; the kernel's split
+             variant (the clock cycles of each phase of the slowest plan's
+             chain) and chain floor: the per-plan counts of replay steps and
+             of reductions (filling rounds + events - merged rounds), each
+             times the link its probe (``contention_sm90_chain_probe``)
+             measures at the group's block size.
+9. campaign — ``python -m repro_torch.launch.campaign --bench-json X`` on
+             the card in a fresh process (the ``sim`` and ``search``
+             targets, their replay and contention launches counted from 0
+             by the process itself), then the JAX package's gate
+             ``python -m benchmarks.render_tables --check-bench X
+             benchmarks/BENCH_pinned.json``: both must exit 0, every pinned
+             metric must lie within rtol 1e-6 of its pin and every count of
+             ``CHECK_COUNTS`` equal it; the replay launches must equal the
+             chunks the run dispatched (the ``sim`` buckets) and the
+             contention launches the groups it priced.
 
 The tests that launch a kernel run apart, on the same card:
 
@@ -99,7 +109,8 @@ The tests that launch a kernel run apart, on the same card:
         tests/test_torch_flash_card.py tests/test_torch_maxplus_card.py \
         tests/test_torch_replay_card.py tests/test_torch_replay_sm90_card.py \
         tests/test_torch_contention_card.py \
-        tests/test_torch_contention_sm90_card.py
+        tests/test_torch_contention_sm90_card.py \
+        tests/test_torch_pipeline_card.py
 
 The line before the last is the card's name and power limit, the one before
 it a JSON object of per-kernel numbers; the last line is
@@ -110,6 +121,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import json
+import os
 import subprocess
 import sys
 import time
@@ -196,6 +208,11 @@ NET_RTOL, NET_ATOL = 1e-6, 1e-9   # against the numpy oracle, as the reference
 # fp64 outside the tensor cores on one H100 SXM (NVIDIA's data sheet)
 FP64_FLOP_PER_S = 34e12
 CARD = "cuda"
+
+# The campaign phase: the pins the JAX package's gate holds the port to,
+# and the tolerance beyond the gate's 5% (the port replays bit for bit).
+PINNED = ROOT / "benchmarks" / "BENCH_pinned.json"
+CAMPAIGN_RTOL = 1e-6
 
 
 def check(cond: bool, msg: str) -> None:
@@ -699,25 +716,94 @@ def chain_probe_ns(torch, steps: int = 200_000) -> float:
     return ns
 
 
+def pipelined_replay(graphs, machine, noise, serial_rows, planning_s
+                     ) -> dict:
+    """The replay phase's entries again through the pipelined executor on
+    the card (``workers=os.cpu_count()``, ``cache=True``): the LP planners
+    in the persistent process pool, buckets dispatched without waiting;
+    twice, the first with the pool still to start (as a campaign process
+    meets it) and the second with it running.  Each time its rows must
+    equal ``serial_rows`` bit for bit, its replay launches the buckets it
+    dispatched, and no worker pool may have broken."""
+    import numpy as np
+    from repro_torch.kernels.replay import replay as R
+    from repro_torch.obs import registry as obs
+    from repro_torch.sim import make_scheduler
+    from repro_torch.sim import batch as TB
+    from repro_torch.sim import pipeline as TP
+
+    workers = os.cpu_count() or 1
+    entries = [(g, machine, make_scheduler(name))
+               for name in REPLAY_SCHEDULERS for g in graphs]
+    out = {"workers": workers, "planning_s_1": planning_s}
+    for pool in ("cold", "warm"):
+        TP.clear_plan_cache()
+        broken0 = obs.counter_value("plan_pool.broken")
+        R.reset_launch_count()
+        t0 = time.perf_counter()
+        rows = TB.sweep_suite_makespans(entries, noise=noise,
+                                        seeds=REPLAY_SEEDS, workers=workers,
+                                        cache=True, device=CARD)
+        wall = time.perf_counter() - t0
+        launches = R.launch_count()
+        st = TP.last_pipeline_stats()
+        broken = obs.counter_value("plan_pool.broken") - broken0
+        check(launches == st.buckets, f"the pipelined sweep ({pool} pool) "
+              f"launched the replay {launches} times for {st.buckets} "
+              "buckets")
+        check(broken == 0, f"the planning pool broke {broken} times")
+        check(len(rows) == len(serial_rows) and all(
+            np.array_equal(a, b) for a, b in zip(rows, serial_rows)),
+            f"the pipelined sweep's rows ({pool} pool) differ from the "
+            "serial sweep's")
+        print(f"replay pipelined, {pool} pool: {len(entries)} plans on "
+              f"{workers} workers (os.cpu_count() {os.cpu_count()}) in "
+              f"{st.buckets} envelope buckets, {launches} launches, "
+              f"plan_pool.broken {broken}; wall {wall:.3f} s; planning "
+              f"{planning_s:.3f} s at 1 worker, {st.build_wall_s:.3f} s at "
+              f"{workers} ({st.plan_build_s:.3f} s of solver time summed "
+              f"over the workers, the longest solve {st.solve_max_s:.3f} s);"
+              f" dispatch {st.dispatch_s:.3f} s, drain (the wait for the "
+              f"card) {st.drain_s:.4f} s, overlap_frac "
+              f"{st.overlap_frac:.4f}; rows bit-equal to the serial sweep")
+        out[pool] = {"wall_s": wall, "launches": launches,
+                     "buckets": st.buckets, "planning_s": st.build_wall_s,
+                     "solver_s": st.plan_build_s,
+                     "solve_max_s": st.solve_max_s,
+                     "dispatch_s": st.dispatch_s, "drain_s": st.drain_s,
+                     "overlap_frac": st.overlap_frac, "broken": broken}
+    # what the pool's start pays once: the forkserver is a fresh
+    # interpreter that imports the planners (torch with them)
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-c", "import repro_torch.sim.adapters"],
+                   env={**os.environ, "PYTHONPATH": str(SRC)}, check=True,
+                   timeout=300)
+    out["planner_import_s"] = time.perf_counter() - t0
+    print(f"replay pipelined: a fresh interpreter imports the planners in "
+          f"{out['planner_import_s']:.3f} s; the pool's start cost "
+          f"{out['cold']['planning_s'] - out['warm']['planning_s']:.3f} s "
+          "(cold planning less warm)")
+    return out
+
+
 def replay_phase(torch) -> dict:
-    """The §6.1 grid replayed at full size (the main path), then each
-    bucket through both replay kernels against the plain version and the
-    float64 engine.
+    """The §6.1 grid replayed at full size (the main path), serially and
+    through the pipelined executor, then each bucket through the replay
+    kernel against the plain version and the float64 engine.
 
     105 graphs (``rank_grid``) on a (32, 4) machine, planned by HLP-EST and
     HLP-OLS (210 plans), each replayed under 32 seeds of lognormal noise
     (6720 lanes) through ``repro_torch.sim.batch.sweep_suite_makespans`` on
     the card.  HEFT, a static planner of ``sim_sweep``, is left out for host
     time alone: it plans one 4620-task graph in about 7 s.  The replay
-    launch counters are 0 just before the sweep; just after, the sm90
-    kernel's must equal the number of buckets and the walk kernel's be 0.
-    Then, outside the counted run, each bucket is rebuilt and launched on
-    the card through both kernels, each held bit for bit against the plain
-    version on CPU copies and against the sweep's own rows, and timed: the
-    device time of a launch from a CUDA graph of 5, in turns (sm90, walk,
-    walk, sm90), the sm90 wrapper's host time apart; the smallest and
-    largest plan of each scheduler at seeds 0 and 1 against ``simulate``
-    (rtol 1e-5)."""
+    launch counter is 0 just before the sweep; just after, it must equal
+    the number of buckets.  Then the same entries through the pipelined
+    executor (``pipelined_replay``).  Then, outside the counted runs, each
+    bucket is rebuilt and launched on the card, held bit for bit against
+    the plain version on CPU copies and against the sweep's own rows, and
+    timed: the device time of a launch from a CUDA graph of 5, twice, the
+    wrapper's host time apart; the smallest and largest plan of each
+    scheduler at seeds 0 and 1 against ``simulate`` (rtol 1e-5)."""
     import numpy as np
     from repro_torch.kernels.replay import replay as R
     from repro_torch.sim import (FrozenPlanScheduler, Machine, NoiseModel,
@@ -737,14 +823,13 @@ def replay_phase(torch) -> dict:
     out = TB.sweep_suite_makespans(entries, noise=noise, seeds=REPLAY_SEEDS,
                                    device=CARD)
     wall = time.perf_counter() - t0
-    counts = R.launch_counts()
+    launches = R.launch_count()
     planning_s = sum(p.seconds for p in planners)
     items = [(g, plan) for _, g, plan in log]
     buckets = TB.bucket_plans(items)
     S = len(REPLAY_SEEDS)
-    check(counts == {"sm90": len(buckets), "walk": 0}, f"replay launched "
-          f"{counts}, expected one sm90 launch per bucket ({len(buckets)}) "
-          "and no walk launch")
+    check(launches == len(buckets), f"replay launched {launches} times, "
+          f"expected one launch per bucket ({len(buckets)})")
     check(len(out) == len(entries) and all(
         o.shape == (S,) and o.dtype == np.float32 for o in out),
         "the sweep returned rows of the wrong shape or dtype")
@@ -752,15 +837,15 @@ def replay_phase(torch) -> dict:
     check(bool(np.isfinite(ms_all).all() and (ms_all > 0).all()),
           "a makespan is not finite and positive")
     print(f"replay sweep: {len(items)} plans x {S} seeds in {len(buckets)} "
-          f"buckets, launches {counts}; wall {wall:.3f} s = planning "
+          f"buckets, launches {launches}; wall {wall:.3f} s = planning "
           f"{planning_s:.3f} s + replay path {wall - planning_s:.3f} s "
           f"(noise, plan tensors, copies, launches, results on the host)")
+    pipelined = pipelined_replay(graphs, machine, noise, out, planning_s)
 
     t_check = time.perf_counter()
     rows = []
-    totals = dict.fromkeys(("sm90", "walk", "host", "bound", "plain",
-                            "floor"), 0.0)
-    errs = dict.fromkeys(R.KERNELS, 0.0)
+    totals = dict.fromkeys(("sm90", "host", "bound", "plain", "floor"), 0.0)
+    err_max = 0.0
     for (n_key, p_key), idxs in sorted(buckets.items()):
         bd = TB.BatchedPlanDag.from_plans([items[i] for i in idxs])
         tt = TB.bucket_times([TB.sample_actual_batch(*items[i], noise,
@@ -769,13 +854,11 @@ def replay_phase(torch) -> dict:
         args = (bd.order, bd.pred, bd.pred_delay, bd.floor, tt)
         dev_args = [a.to(CARD) for a in args]
         R.check_indices(*dev_args[:2])
-        got = {k: R.launch(*dev_args, kernel=k) for k in R.KERNELS}
+        got = R.launch(*dev_args)
         torch.cuda.synchronize()
-        turns = {k: [] for k in R.KERNELS}
-        for k in ("sm90", "walk", "walk", "sm90"):
-            turns[k].append(graph_ms(
-                lambda k=k: R.launch(*dev_args, kernel=k), iters=5))
-        ms = {k: sum(v) / len(v) for k, v in turns.items()}
+        turns = [graph_ms(lambda: R.launch(*dev_args), iters=5)
+                 for _ in range(2)]
+        ms = sum(turns) / len(turns)
         t1 = time.perf_counter()
         for _ in range(5):
             R.launch(*dev_args)
@@ -785,37 +868,31 @@ def replay_phase(torch) -> dict:
         want = R.bucket_makespans_ref(*args)
         plain = time.perf_counter() - t1
         shape = tuple(bd.pred.shape) + (S,)
-        for k in R.KERNELS:
-            g_k = got[k].cpu()
-            err = (g_k - want).abs().max().item()
-            errs[k] = max(errs[k], err)
-            check(torch.equal(g_k, want), f"replay kernel {k} disagrees with "
-                  f"its plain version on bucket {shape}: max|err| {err}")
-            check(np.array_equal(g_k.numpy(), ms_all[idxs]), f"bucket "
-                  f"{shape}: the sweep's rows differ from the {k} launch")
+        g_k = got.cpu()
+        err = (g_k - want).abs().max().item()
+        err_max = max(err_max, err)
+        check(torch.equal(g_k, want), f"the replay kernel disagrees with "
+              f"its plain version on bucket {shape}: max|err| {err}")
+        check(np.array_equal(g_k.numpy(), ms_all[idxs]), f"bucket "
+              f"{shape}: the sweep's rows differ from the launch")
         ns = [items[i][0].n for i in idxs]
         chain = max(ns)
         floor_ms = chain * probe_ns * 1e-6
         bound, by, moved = replay_bound_ms(bd, ns, S)
         print(f"replay bucket ({n_key}, {p_key}) B,n_pad,P_pad,S={shape}: "
-              f"sm90 {ms['sm90']:.4f} ms (turns {turns['sm90'][0]:.4f} / "
-              f"{turns['sm90'][1]:.4f}), walk {ms['walk']:.4f} ms (turns "
-              f"{turns['walk'][0]:.4f} / {turns['walk'][1]:.4f}), CUDA graph "
-              f"of 5; longest chain {chain} steps: sm90 "
-              f"{ms['sm90'] / chain * 1e6:.1f} ns a step, walk "
-              f"{ms['walk'] / chain * 1e6:.1f}; chain floor {floor_ms:.4f} ms "
-              f"({floor_ms / ms['sm90']:.1%} of sm90's time); {sum(ns)} real "
-              f"steps a seed; sm90 wrapper {host_ms:.4f} ms of host time a "
-              f"call; bound {bound * 1e3:.3f} us ({by}, {moved} bytes), sm90 "
-              f"at {bound / ms['sm90']:.2%} of it; plain version {plain:.3f} "
-              "s on the host; both exact")
-        rows.append({"shape": list(shape), "ms": ms["sm90"],
-                     "walk_ms": ms["walk"], "turns": turns,
+              f"{ms:.4f} ms (turns {turns[0]:.4f} / {turns[1]:.4f}), CUDA "
+              f"graph of 5; longest chain {chain} steps, "
+              f"{ms / chain * 1e6:.1f} ns a step; chain floor "
+              f"{floor_ms:.4f} ms ({floor_ms / ms:.1%} of its time); "
+              f"{sum(ns)} real steps a seed; wrapper {host_ms:.4f} ms of "
+              f"host time a call; bound {bound * 1e3:.3f} us ({by}, {moved} "
+              f"bytes), at {bound / ms:.2%} of it; plain version "
+              f"{plain:.3f} s on the host; exact")
+        rows.append({"shape": list(shape), "ms": ms, "turns": turns,
                      "host_ms": host_ms, "bound_ms": bound, "bound_by": by,
                      "chain": chain, "chain_floor_ms": floor_ms,
                      "steps": sum(ns), "plain_s": plain})
-        for key, val in (("sm90", ms["sm90"]), ("walk", ms["walk"]),
-                         ("host", host_ms), ("bound", bound),
+        for key, val in (("sm90", ms), ("host", host_ms), ("bound", bound),
                          ("plain", plain), ("floor", floor_ms)):
             totals[key] += val
     check_s = time.perf_counter() - t_check
@@ -835,22 +912,22 @@ def replay_phase(torch) -> dict:
                 check(rel <= REPLAY_RTOL, f"{name} on {g.n} tasks, seed {s}: "
                       f"replay {ms_all[i, s]} against the engine's {want}")
     engine_s = time.perf_counter() - t_engine
-    print(f"replay checks: sm90 {totals['sm90']:.3f} ms, walk "
-          f"{totals['walk']:.3f} ms over {len(rows)} buckets (sm90 wrappers "
-          f"{totals['host']:.3f} ms of host time; bounds "
+    print(f"replay checks: {totals['sm90']:.3f} ms over {len(rows)} buckets "
+          f"(wrappers {totals['host']:.3f} ms of host time; bounds "
           f"{totals['bound'] * 1e3:.3f} us; chain floors "
           f"{totals['floor']:.3f} ms over chains of "
           f"{sum(r['chain'] for r in rows)} steps in all); plain version "
-          f"{totals['plain']:.3f} s on the host, both kernels bit-equal on "
+          f"{totals['plain']:.3f} s on the host, the kernel bit-equal on "
           f"every bucket; bucket checks {check_s:.3f} s; engine checks "
           f"{engine_s:.3f} s, worst rtol {worst:.3e}")
-    return {"launches": counts, "buckets": rows, "wall_s": wall,
+    return {"launches": launches, "buckets": rows, "wall_s": wall,
             "planning_s": planning_s, "path_s": wall - planning_s,
-            "kernel_ms": totals["sm90"], "walk_ms": totals["walk"],
-            "host_ms": totals["host"], "bound_ms": totals["bound"],
-            "chain_floor_ms": totals["floor"], "probe_ns": probe_ns,
-            "plain_s": totals["plain"], "max_abs_err": errs,
-            "check_s": check_s, "engine_s": engine_s, "worst_rtol": worst}
+            "pipelined": pipelined,
+            "kernel_ms": totals["sm90"], "host_ms": totals["host"],
+            "bound_ms": totals["bound"], "chain_floor_ms": totals["floor"],
+            "probe_ns": probe_ns, "plain_s": totals["plain"],
+            "max_abs_err": err_max, "check_s": check_s,
+            "engine_s": engine_s, "worst_rtol": worst}
 
 
 def _probe_ms(torch, run) -> float:
@@ -867,43 +944,6 @@ def _probe_ms(torch, run) -> float:
     return best
 
 
-def contention_probe_ns(torch, threads: int,
-                        steps: int = 50_000) -> tuple[float, float]:
-    """ns of the two links of the block kernel's chains, from
-    ``contention_chain_probe``: one dependent float64 replay step through
-    shared memory (a load of the last finish time, an add, a butterfly max
-    over 4 lanes, an add, a store and a ``__syncwarp``), and one block-wide
-    barrier-and-min of ``threads`` threads (two values through warp
-    shuffles, one barrier, the warps' partials).  Each is the difference of
-    a run of 2 ``steps`` and one of ``steps``, the least of three, so the
-    launch's own cost drops out."""
-    import ctypes
-    from repro_torch.kernels import build
-
-    probe = build.load("contention").contention_chain_probe
-    probe.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_int, ctypes.c_void_p]
-    probe.restype = ctypes.c_int
-    out = torch.zeros(1, dtype=torch.float64, device=CARD)
-    stream = torch.cuda.current_stream().cuda_stream
-
-    def run_ms(mode: int, n: int) -> float:
-        return _probe_ms(torch, lambda: check(
-            probe(out.data_ptr(), n, mode, threads, stream) == 0,
-            "contention chain probe failed"))
-
-    run_ms(0, 1000)
-    check(out.item() == 1250.0, f"contention probe step returned {out.item()}")
-    run_ms(1, 10)
-    check(out.item() == 10.0, f"contention probe min returned {out.item()}")
-    step = (run_ms(0, 2 * steps) - run_ms(0, steps)) / steps * 1e6
-    barrier = (run_ms(1, 2 * steps) - run_ms(1, steps)) / steps * 1e6
-    print(f"contention chain probe, {threads} threads: {step:.2f} ns a "
-          f"dependent float64 replay step, {barrier:.2f} ns a block-wide "
-          "barrier-and-min")
-    return step, barrier
-
-
 def contention_sm90_probe_ns(torch, t_pad: int,
                              steps: int = 50_000) -> tuple[float, float]:
     """ns of the two links of the sm90 kernel's chains at the block it
@@ -911,8 +951,9 @@ def contention_sm90_probe_ns(torch, t_pad: int,
     the same dependent replay step, and one combined count-and-min
     reduction (the packed per-link counts of four links at that block's
     field width, and the float64 min) of a warp alone (no barrier) or of
-    the block behind one barrier; measured as :func:`contention_probe_ns`
-    measures."""
+    the block behind one barrier.  Each is the difference of a run of 2
+    ``steps`` and one of ``steps``, the least of three, so the launch's own
+    cost drops out."""
     import ctypes
     from repro_torch.kernels import build
     from repro_torch.kernels.contention import contention as C
@@ -980,16 +1021,15 @@ def split_shares(cycles) -> dict:
 
 def contention_groups(torch, items, nets, label: str, oracle: set,
                       probes: dict) -> list[dict]:
-    """Each (n_pad, P_pad, L) group of ``items`` through both contention
-    kernels on the card, outside any counted run: each bit for bit against
-    the plain version on CPU copies, their counts equal; the per-edge delays
-    of the items in ``oracle`` within rtol 1e-6, atol 1e-9 of
-    ``contended_plan_delays``; each kernel's device time from CUDA graphs of
-    3 launches in turns (sm90, block, block, sm90), the bare sm90 launch's
-    host time, the whole sm90 wrapper's (index checks, launch, copy back)
-    and the plain version's; each kernel's phase split (its split variant,
-    the slowest plan); both chain floors from the per-plan counts and each
-    kernel's probe at the group's block size."""
+    """Each (n_pad, P_pad, L) group of ``items`` through the contention
+    kernel on the card, outside any counted run: bit for bit against the
+    plain version on CPU copies; the per-edge delays of the items in
+    ``oracle`` within rtol 1e-6, atol 1e-9 of ``contended_plan_delays``;
+    its device time from CUDA graphs of 3 launches, twice, the bare launch's
+    host time, the whole wrapper's (index checks, launch, copy back) and
+    the plain version's; its phase split (its split variant, the slowest
+    plan); its chain floor from the per-plan counts and its probe at the
+    group's block size."""
     import numpy as np
     from repro_torch.kernels.contention import contention as C
     from repro_torch.sim import batch as TB
@@ -1013,13 +1053,11 @@ def contention_groups(torch, items, nets, label: str, oracle: set,
         t0 = time.perf_counter()
         whole = C.contended_durations(*dev_args, **kw).cpu()
         path_ms = (time.perf_counter() - t0) * 1e3
-        got = {k: C.launch(*dev_args, **kw, kernel=k) for k in C.KERNELS}
+        got, counts_t = C.launch(*dev_args, **kw)
         torch.cuda.synchronize()
-        turns = {k: [] for k in C.KERNELS}
-        for k in ("sm90", "block", "block", "sm90"):
-            turns[k].append(graph_ms(
-                lambda k=k: C.launch(*dev_args, **kw, kernel=k), iters=3))
-        ms = {k: sum(v) / len(v) for k, v in turns.items()}
+        turns = [graph_ms(lambda: C.launch(*dev_args, **kw), iters=3)
+                 for _ in range(2)]
+        ms = sum(turns) / len(turns)
         t1 = time.perf_counter()
         for _ in range(3):
             C.launch(*dev_args, **kw)
@@ -1028,55 +1066,38 @@ def contention_groups(torch, items, nets, label: str, oracle: set,
         t1 = time.perf_counter()
         want = C.contended_durations(*cb.tensors(), **kw)
         plain_s = time.perf_counter() - t1
-        errs = {}
-        for k in C.KERNELS:
-            g_k = got[k][0].cpu()
-            errs[k] = (g_k - want).abs().max().item()
-            check(torch.equal(g_k, want), f"{label}: the {k} contention "
-                  f"kernel disagrees with its plain version on {shape}: "
-                  f"max|err| {errs[k]}")
-        check(torch.equal(whole, want), f"{label}: the sm90 wrapper path "
+        g_k = got.cpu()
+        err = (g_k - want).abs().max().item()
+        check(torch.equal(g_k, want), f"{label}: the contention kernel "
+              f"disagrees with its plain version on {shape}: max|err| {err}")
+        check(torch.equal(whole, want), f"{label}: the wrapper path "
               f"disagrees with the plain version on {shape}")
-        counts = got["sm90"][1].cpu().numpy()
-        check(np.array_equal(counts[:, :4], got["block"][1].cpu().numpy()),
-              f"{label}: the kernels' counts differ on {shape}: "
-              f"{counts.tolist()} against {got['block'][1].tolist()}")
+        counts = counts_t.cpu().numpy()
         check(bool((counts[:, 3] == counts[:, 0] * n_pad).all()
                    and (counts[:, 0] >= 1).all()
                    and (counts[:, 0] <= CONTENTION_ITERS).all()
                    and (counts[:, 4] <= counts[:, 1]).all()),
               f"{label}: implausible kernel counts {counts.tolist()}")
-        splits = {}
-        for k in C.KERNELS:
-            out_s, counts_s, cycles = C.launch_split(*dev_args, **kw,
-                                                     kernel=k)
-            check(torch.equal(out_s, got[k][0])
-                  and torch.equal(counts_s, got[k][1]),
-                  f"{label}: the {k} split variant differs from its launch")
-            splits[k] = split_shares(cycles.cpu().numpy())
-        nt_block = C.threads(T_pad, kernel="block")
-        if ("block", nt_block) not in probes:
-            probes[("block", nt_block)] = contention_probe_ns(torch, nt_block)
+        out_s, counts_s, cycles = C.launch_split(*dev_args, **kw)
+        check(torch.equal(out_s, got) and torch.equal(counts_s, counts_t),
+              f"{label}: the split variant differs from the launch")
+        split = split_shares(cycles.cpu().numpy())
         nt = C.threads(T_pad)
-        if ("sm90", T_pad) not in probes:
-            probes[("sm90", T_pad)] = contention_sm90_probe_ns(torch, T_pad)
-        step_ns, barrier_ns = probes[("block", nt_block)]
-        step90_ns, red_ns = probes[("sm90", T_pad)]
+        if T_pad not in probes:
+            probes[T_pad] = contention_sm90_probe_ns(torch, T_pad)
+        step_ns, red_ns = probes[T_pad]
         rounds, events, fills, steps, merged = counts.T
-        floor_block = float(((steps * step_ns + (events + fills) * barrier_ns)
-                             * 1e-6).max())
-        floor_sm90 = float(((steps * step90_ns
-                             + (fills + events - merged) * red_ns)
-                            * 1e-6).max())
+        floor = float(((steps * step_ns + (fills + events - merged) * red_ns)
+                       * 1e-6).max())
         oracle_s, worst = 0.0, 0.0
-        sm90_got = got["sm90"][0].cpu().numpy()
+        got_np = g_k.numpy()
         for b, (i, tr) in enumerate(zip(idxs, transfers)):
             if i not in oracle:
                 continue
             g, plan = items[i]
             delay = np.zeros(g.num_edges)
             hit = tr.key_of >= 0
-            delay[hit] = sm90_got[b][tr.key_of[hit]]
+            delay[hit] = got_np[b][tr.key_of[hit]]
             t1 = time.perf_counter()
             want_e = contended_plan_delays(g, plan, plan_times(g, plan, g.proc),
                                            nets[i])
@@ -1091,48 +1112,27 @@ def contention_groups(torch, items, nets, label: str, oracle: set,
         bound, by = contention_bound_ms(cb, counts[:, :4],
                                         [items[i] for i in idxs])
         n_or = len(oracle & set(idxs))
-        slow = int(np.argmax(counts[:, 1] + counts[:, 2]))
-
-        def phases(k):
-            return ", ".join(f"{name} {splits[k][name]:.1%}"
-                             for name in C.PHASES)
+        phases = ", ".join(f"{name} {split[name]:.1%}" for name in C.PHASES)
         print(f"contention {label} group (n_pad, P_pad, L) = ({n_pad}, "
-              f"{P_pad}, {L}), B, T_pad = {B}, {T_pad}: sm90 {ms['sm90']:.4f} "
-              f"ms on {nt} threads (turns {turns['sm90'][0]:.4f} / "
-              f"{turns['sm90'][1]:.4f}), block {ms['block']:.4f} ms on "
-              f"{nt_block} threads (turns {turns['block'][0]:.4f} / "
-              f"{turns['block'][1]:.4f}), CUDA graphs of 3, block / sm90 "
-              f"{ms['block'] / ms['sm90']:.2f}x; sm90 launch host time "
-              f"{host_ms:.4f} ms, wrapper path {path_ms:.3f} ms; plain "
-              f"version {plain_s:.3f} s on the host; oracle {oracle_s:.3f} s "
-              f"on the host for {n_or} plans (worst rel err {worst:.3e}); "
-              f"counts (rounds, events, fills, steps, merged) per plan "
-              f"{counts.tolist()}; slowest plan {slow}: "
-              f"{int(counts[slow, 2] + counts[slow, 1] - counts[slow, 4])} "
-              f"reductions for {int(counts[slow, 1] + counts[slow, 2])} of "
-              f"the block kernel's barriers; chain floors: sm90 "
-              f"{floor_sm90:.4f} ms ({floor_sm90 / ms['sm90']:.1%} of its "
-              f"time), block {floor_block:.4f} ms "
-              f"({floor_block / ms['block']:.1%} of its time; "
-              f"{floor_block / ms['sm90']:.1%} of sm90's); "
-              f"bound {bound * 1e3:.3f} us ({by}); both exact")
+              f"{P_pad}, {L}), B, T_pad = {B}, {T_pad}: {ms:.4f} ms on {nt} "
+              f"threads (turns {turns[0]:.4f} / {turns[1]:.4f}), CUDA graphs "
+              f"of 3; launch host time {host_ms:.4f} ms, wrapper path "
+              f"{path_ms:.3f} ms; plain version {plain_s:.3f} s on the host; "
+              f"oracle {oracle_s:.3f} s on the host for {n_or} plans (worst "
+              f"rel err {worst:.3e}); counts (rounds, events, fills, steps, "
+              f"merged) per plan {counts.tolist()}; chain floor "
+              f"{floor:.4f} ms ({floor / ms:.1%} of its time); bound "
+              f"{bound * 1e3:.3f} us ({by}); exact")
         print(f"contention {label} group {shape} split of the slowest plan "
-              f"(clock64 cycles of thread 0): sm90 {splits['sm90']['cycles']} "
-              f"cycles: {phases('sm90')}; block {splits['block']['cycles']} "
-              f"cycles: {phases('block')}")
-        rows.append({"shape": list(shape), "ms": ms["sm90"],
-                     "block_ms": ms["block"], "turns": turns,
-                     "threads": nt, "block_threads": nt_block,
-                     "host_ms": host_ms, "path_ms": path_ms,
+              f"(clock64 cycles of thread 0): {split['cycles']} cycles: "
+              f"{phases}")
+        rows.append({"shape": list(shape), "ms": ms, "turns": turns,
+                     "threads": nt, "host_ms": host_ms, "path_ms": path_ms,
                      "plain_s": plain_s, "oracle_s": oracle_s,
-                     "oracle_plans": n_or, "max_abs_err": errs,
-                     "counts": counts.tolist(),
-                     "chain_floor_ms": floor_sm90,
-                     "block_chain_floor_ms": floor_block,
-                     "step_ns": step90_ns, "reduction_ns": red_ns,
-                     "block_step_ns": step_ns, "barrier_ns": barrier_ns,
-                     "split": splits,
-                     "bound_ms": bound, "bound_by": by})
+                     "oracle_plans": n_or, "max_abs_err": err,
+                     "counts": counts.tolist(), "chain_floor_ms": floor,
+                     "step_ns": step_ns, "reduction_ns": red_ns,
+                     "split": split, "bound_ms": bound, "bound_by": by})
     return rows
 
 
@@ -1186,23 +1186,20 @@ def contention_phase(torch) -> dict:
                                             seeds=REPLAY_SEEDS, network=net,
                                             device=CARD)
             wall = time.perf_counter() - t0
-            launches, traces = C.launch_counts(), TB.trace_count("contended")
-            replays = R.launch_counts()
+            launches, traces = C.launch_count(), TB.trace_count("contended")
+            replays = R.launch_count()
             planning = sum(p.seconds for p in planners)
             items = [(g, plan) for _, g, plan in log]
             nets = [net] * len(items)
             groups = (len(TB.contended_buckets(items, nets)[1])
                       if net.contended else 0)
             buckets = len(TB.bucket_plans(items))
-            check(launches == {"sm90": groups, "block": 0}
-                  and traces == groups,
-                  f"{label} {model}: the contention kernels launched "
-                  f"{launches} and trace_count('contended') is {traces}; "
-                  f"expected {groups} sm90 launches, one per group, and no "
-                  "block launch")
-            check(replays == {"sm90": buckets, "walk": 0}, f"{label} "
-                  f"{model}: replay launched {replays}, expected {buckets} "
-                  "sm90 launches")
+            check(launches == groups and traces == groups,
+                  f"{label} {model}: the contention kernel launched "
+                  f"{launches} times and trace_count('contended') is "
+                  f"{traces}; expected {groups}, one per group")
+            check(replays == buckets, f"{label} {model}: replay launched "
+                  f"{replays} times, expected {buckets}")
             ms = np.stack(rows)
             check(ms.shape == (len(entries), S) and ms.dtype == np.float32
                   and bool(np.isfinite(ms).all() and (ms > 0).all()),
@@ -1226,6 +1223,85 @@ def contention_phase(torch) -> dict:
         out[label] = {"sweeps": sweeps, "groups": group_rows,
                       "launches": sweeps["maxmin_fair"]["contention_launches"]}
     return out
+
+
+def campaign_phase() -> dict:
+    """``python -m repro_torch.launch.campaign`` on the card in a fresh
+    process (the replay shapes it counts, like the reference's jit caches,
+    are per process), then the JAX package's gate ``benchmarks/render_tables
+    --check-bench`` against ``benchmarks/BENCH_pinned.json``; both must exit
+    0.  Beyond the gate's 5%, every pinned metric must lie within
+    ``CAMPAIGN_RTOL`` of its pin and every pinned count equal it.  The
+    process counts each target's replay and contention launches from 0;
+    they must equal the replay chunks it dispatched (for ``sim``, the
+    pipelined sweeps' buckets) and the contention groups it priced."""
+    out_dir = ROOT / "build" / "campaign"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = out_dir / "BENCH_torch.json"
+    path.unlink(missing_ok=True)
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "repro_torch.launch.campaign",
+                          "--bench-json", str(path)], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    for line in run.stdout.splitlines():
+        if line.startswith("#"):
+            print(f"campaign | {line}")
+    check(run.returncode == 0, f"the campaign entry exited "
+          f"{run.returncode}:\n{run.stderr[-4000:]}")
+    gate = subprocess.run([sys.executable, "-m", "benchmarks.render_tables",
+                           "--check-bench", str(path), str(PINNED)],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=300)
+    print(f"campaign gate | {gate.stdout.strip()}")
+    check(gate.returncode == 0, f"render_tables --check-bench exited "
+          f"{gate.returncode}:\n{gate.stdout[-4000:]}{gate.stderr[-2000:]}")
+    got = json.loads(path.read_text())["benches"]
+    pins = json.loads(PINNED.read_text())["benches"]
+    worst, counts = 0.0, 0
+    for name, pin in pins.items():
+        for key, want in pin["metrics"].items():
+            rel = abs(got[name]["metrics"][key] - want) / abs(want)
+            worst = max(worst, rel)
+            check(rel <= CAMPAIGN_RTOL, f"campaign {name} metric {key}: "
+                  f"{got[name]['metrics'][key]} against the pin {want}")
+        for key, want in pin.items():
+            if isinstance(want, int) and not isinstance(want, bool):
+                counts += 1
+                check(got[name][key] == want, f"campaign {name} count "
+                      f"{key}: {got[name][key]} against the pin {want}")
+    sim, search = got["sim"]["launches"], got["search"]["launches"]
+    check(sim["replay"] == sim["replay_chunks"] == got["sim"]["buckets"],
+          f"campaign sim: {sim['replay']} replay launches for "
+          f"{sim['replay_chunks']} chunks in {got['sim']['buckets']} buckets")
+    check(sim["contention"] == sim["contended_groups"] >= 1,
+          f"campaign sim: {sim['contention']} contention launches for "
+          f"{sim['contended_groups']} groups")
+    check(search["replay"] == search["replay_chunks"] >= 1
+          and search["contention"] == 0,
+          f"campaign search: launches {search}")
+    summary = {"wall_s": wall, "worst_rel": worst, "counts": counts}
+    for name in ("sim", "search"):
+        b = got[name]
+        summary[name] = {"wall_s": b["wall_s"], "launches": b["launches"],
+                         **{k: b[k] for k in ("plan_build_s", "build_wall_s",
+                                              "solve_max_s", "overlap_frac",
+                                              "drain_s", "plan_workers",
+                                              "buckets")
+                            if k in b}}
+        print(f"campaign {name}: wall {b['wall_s']:.3f} s, launches "
+              f"{b['launches']}" + (
+                  f", plan_build_s {b['plan_build_s']:.3f} over "
+                  f"{b['plan_workers']} workers (build wall "
+                  f"{b['build_wall_s']:.3f} s), overlap_frac "
+                  f"{b['overlap_frac']:.4f}, drain {b['drain_s']:.4f} s"
+                  if name == "sim" else ""))
+    print(f"campaign: entry {wall:.1f} s in its own process; "
+          f"{sum(len(p['metrics']) for p in pins.values())} pinned metrics "
+          f"within rtol {CAMPAIGN_RTOL} (worst {worst:.3e}), {counts} "
+          "pinned counts exact")
+    return summary
 
 
 def consistency(torch, dtype: str) -> float:
@@ -1341,27 +1417,24 @@ def main() -> int:
     bound_by = ("bytes" if all(b["bound_by"] == "bytes" for b in buckets)
                 else "operations")
 
-    def replay_row(kernel: str, source: str, ms_key: str) -> dict:
-        return {
-            "name": f"replay_makespans_{kernel}", "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{source}",
-            "replaces": "src/repro/sim/batch.py:455",
-            "shape": "every bucket of the sweep, summed",
-            "launches": replay["launches"][kernel],
-            "max_abs_err": replay["max_abs_err"][kernel],
-            "ms": sum(b[ms_key] for b in buckets),
-            "plain_ms": replay["plain_s"] * 1e3, "plain_on": "host",
-            "bound_ms": replay["bound_ms"], "bound_by": bound_by,
-            "library_ms": None,
-            "chain_floor_ms": replay["chain_floor_ms"],
-            "chain_steps": sum(b["chain"] for b in buckets),
-            "real_steps": sum(b["steps"] for b in buckets),
-            "bucket_ms": [b[ms_key] for b in buckets]}
-
-    sm90_row = replay_row("sm90", "replay_sm90.cu", "ms")
-    sm90_row.update(host_ms=replay["host_ms"], probe_ns=replay["probe_ns"],
-                    buckets=buckets)
-    walk_row = replay_row("walk", "replay.cu", "walk_ms")
+    sm90_row = {
+        "name": "replay_makespans_sm90", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/replay_sm90.cu",
+        "replaces": "src/repro/sim/batch.py:455",
+        "shape": "every bucket of the sweep, summed",
+        "launches": replay["launches"],
+        "max_abs_err": replay["max_abs_err"],
+        "ms": sum(b["ms"] for b in buckets),
+        "plain_ms": replay["plain_s"] * 1e3, "plain_on": "host",
+        "bound_ms": replay["bound_ms"], "bound_by": bound_by,
+        "library_ms": None,
+        "chain_floor_ms": replay["chain_floor_ms"],
+        "chain_steps": sum(b["chain"] for b in buckets),
+        "real_steps": sum(b["steps"] for b in buckets),
+        "bucket_ms": [b["ms"] for b in buckets],
+        "host_ms": replay["host_ms"], "probe_ns": replay["probe_ns"],
+        "pipelined_launches": replay["pipelined"]["cold"]["launches"],
+        "buckets": buckets}
     print(f"replay summary: {json.dumps(replay)}")
 
     # the contention path: its counters at 0 just before each sweep
@@ -1370,54 +1443,52 @@ def main() -> int:
     print(f"contention: {time.perf_counter() - t0:.1f} s")
     main_groups = contention["campaign"]["groups"]
     scale_groups = contention["scale"]["groups"]
-
-    def contention_row(kernel: str, source: str, ms_key: str,
-                       floor_key: str) -> dict:
-        return {
-            "name": "contention_fixpoint" + ("" if kernel == "sm90"
-                                             else f"_{kernel}"),
-            "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{source}",
-            "replaces": "src/repro/sim/batch.py:489",
-            "also_replaces": ["src/repro/sim/network.py:473",
-                              "src/repro/sim/network.py:512"],
-            "shape": "every group of the campaign's netbound grid, summed",
-            "launches": contention["campaign"]["launches"][kernel],
-            "max_abs_err": max(g["max_abs_err"][kernel]
-                               for g in main_groups + scale_groups),
-            "ms": sum(g[ms_key] for g in main_groups),
-            "plain_ms": sum(g["plain_s"] for g in main_groups) * 1e3,
-            "plain_on": "host",
-            "bound_ms": sum(g["bound_ms"] for g in main_groups),
-            "bound_by": ("bytes" if all(g["bound_by"] == "bytes"
-                                        for g in main_groups)
-                         else "operations"),
-            "library_ms": None,
-            "chain_floor_ms": sum(g[floor_key] for g in main_groups),
-            "group_ms": [g[ms_key] for g in main_groups],
-            "scale": {
-                "shape": f"netbound width {NET_SCALE[0]} depth "
-                         f"{NET_SCALE[1]}, every group",
-                "launches": contention["scale"]["launches"][kernel],
-                "ms": sum(g[ms_key] for g in scale_groups),
-                "plain_ms": sum(g["plain_s"] for g in scale_groups) * 1e3,
-                "bound_ms": sum(g["bound_ms"] for g in scale_groups),
-                "chain_floor_ms": sum(g[floor_key] for g in scale_groups)}}
-
-    sm90_contention = contention_row("sm90", "contention_sm90.cu", "ms",
-                                     "chain_floor_ms")
-    sm90_contention.update(
-        host_ms=sum(g["host_ms"] for g in main_groups),
-        groups=main_groups + scale_groups)
-    block_contention = contention_row("block", "contention.cu", "block_ms",
-                                      "block_chain_floor_ms")
+    sm90_contention = {
+        "name": "contention_fixpoint", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/contention_sm90.cu",
+        "replaces": "src/repro/sim/batch.py:489",
+        "also_replaces": ["src/repro/sim/network.py:473",
+                          "src/repro/sim/network.py:512"],
+        "shape": "every group of the campaign's netbound grid, summed",
+        "launches": contention["campaign"]["launches"],
+        "max_abs_err": max(g["max_abs_err"]
+                           for g in main_groups + scale_groups),
+        "ms": sum(g["ms"] for g in main_groups),
+        "plain_ms": sum(g["plain_s"] for g in main_groups) * 1e3,
+        "plain_on": "host",
+        "bound_ms": sum(g["bound_ms"] for g in main_groups),
+        "bound_by": ("bytes" if all(g["bound_by"] == "bytes"
+                                    for g in main_groups) else "operations"),
+        "library_ms": None,
+        "chain_floor_ms": sum(g["chain_floor_ms"] for g in main_groups),
+        "group_ms": [g["ms"] for g in main_groups],
+        "host_ms": sum(g["host_ms"] for g in main_groups),
+        "scale": {
+            "shape": f"netbound width {NET_SCALE[0]} depth {NET_SCALE[1]}, "
+                     "every group",
+            "launches": contention["scale"]["launches"],
+            "ms": sum(g["ms"] for g in scale_groups),
+            "plain_ms": sum(g["plain_s"] for g in scale_groups) * 1e3,
+            "bound_ms": sum(g["bound_ms"] for g in scale_groups),
+            "chain_floor_ms": sum(g["chain_floor_ms"]
+                                  for g in scale_groups)},
+        "groups": main_groups + scale_groups}
     print(f"contention summary: {json.dumps(contention)}")
+
+    # the port's campaign entry in a fresh process, then the pinned gate
+    t0 = time.perf_counter()
+    campaign = campaign_phase()
+    print(f"campaign: {time.perf_counter() - t0:.1f} s")
+    sm90_row["campaign_launches"] = sum(
+        campaign[b]["launches"]["replay"] for b in ("sim", "search"))
+    sm90_contention["campaign_launches"] = sum(
+        campaign[b]["launches"]["contention"] for b in ("sim", "search"))
+    print(f"campaign summary: {json.dumps(campaign)}")
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
           "imports, build included")
     print(json.dumps({"kernels": [flash_row, fp32_row, fma_row,
-                                  maxplus_row, sm90_row, walk_row,
-                                  sm90_contention, block_contention]}))
+                                  maxplus_row, sm90_row, sm90_contention]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

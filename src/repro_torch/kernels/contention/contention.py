@@ -1,23 +1,16 @@
-"""The contention fixpoint on the card: the wrappers of
-``csrc/contention_sm90.cu`` and ``csrc/contention.cu``.
+"""The contention fixpoint on the card: the wrapper of
+``csrc/contention_sm90.cu``.
 
 The counterpart of the JAX package's jitted whole-bucket fixpoint
 ``repro.sim.batch._contended_durations``: a bucket of B padded plans with
 their transfer sets (the fields of ``repro_torch.sim.batch.ContendedBucket``)
 gives (B, T_pad) float64 transfer durations at the replay/fluid fixpoint.
 A tensor on the CPU takes the plain version (``ref.contended_durations_ref``);
-a tensor on the card launches a CUDA kernel or raises.  Two kernels compute
-the same function, bit for bit (:data:`KERNELS`):
+a tensor on the card launches the kernel or raises.  The kernel keeps each
+transfer's state in registers, runs one reduction a filling round that also
+carries the event's min, and runs one warp a plan up to 32 transfers.
 
-* ``"sm90"``, the default: each transfer's state in registers, one
-  reduction a filling round that also carries the event's min, one warp a
-  plan up to 32 transfers (``csrc/contention_sm90.cu``);
-* ``"block"``, the first port, kept as a yardstick and run only when asked:
-  per-transfer arrays in shared memory, a barrier a filling round and one
-  more an event (``csrc/contention.cu``).
-
-Every launch adds one to its kernel's counter (:func:`launch_counts`;
-:func:`launch_count` is their total).
+Every launch adds one to the counter (:func:`launch_count`).
 
 Inputs: ``order`` (B, n_pad), ``pred`` and ``pred_tid`` (B, n_pad, P_pad)
 int32 (-1 = none), ``pred_mask`` (B, n_pad, P_pad) bool, ``times`` (B,
@@ -26,12 +19,11 @@ T_pad) float64, ``t_mask`` (B, T_pad) bool, ``capacity`` (B,) float64.
 :func:`contended_durations` checks the index ranges on the card (one wait)
 and returns the durations; :func:`launch` is the bare launch, which checks
 layouts only and also returns the kernel's per-plan int32 counts, in the
-order of :func:`count_names`: rounds run, events run, filling rounds run
-and replay steps (both kernels, with the same meaning), and for ``"sm90"``
-the events whose min rode on their last filling round's reduction.
-:func:`launch_split` is the same launch through the kernel's split variant,
-which also returns the clock cycles of each phase (:data:`PHASES`), for
-timing.
+order of :data:`COUNT_NAMES`: rounds run, events run, filling rounds run,
+replay steps, and the events whose min rode on their last filling round's
+reduction.  :func:`launch_split` is the same launch through the kernel's
+split variant, which also returns the clock cycles of each phase
+(:data:`PHASES`), for timing.
 """
 from __future__ import annotations
 
@@ -44,21 +36,18 @@ from repro_torch.kernels import build
 
 from .ref import contended_durations_ref
 
-__all__ = ["COUNT_NAMES", "KERNELS", "MAX_LINKS", "MAX_T_PAD", "PHASES",
-           "SMEM_LIMIT", "check_indices", "check_inputs",
-           "contended_durations", "contended_durations_ref", "count_names",
-           "launch", "launch_count", "launch_counts", "launch_split",
-           "reset_launch_count", "smem_bytes", "threads"]
+__all__ = ["COUNT_NAMES", "MAX_LINKS", "MAX_T_PAD", "PHASES", "SMEM_LIMIT",
+           "check_indices", "check_inputs", "contended_durations",
+           "contended_durations_ref", "launch", "launch_count",
+           "launch_split", "reset_launch_count", "smem_bytes", "threads"]
 
-#: kernel name -> its source under ``csrc/``; the first is the default
-KERNELS = {"sm90": "contention_sm90", "block": "contention"}
-COUNT_NAMES = ("rounds", "events", "fills", "steps")
+SOURCE = "contention_sm90"   # the kernel's source under ``csrc/``
+COUNT_NAMES = ("rounds", "events", "fills", "steps", "merged")
 #: the phases of a split launch's cycles (``contention_common.cuh``)
 PHASES = ("replay", "activity", "count", "inc", "rate", "event", "remain")
 MAX_LINKS = 8                # links a plan may use (a pair per resource type)
 SMEM_LIMIT = 232448          # 227 KB, the most a block may take on the H100
-BLOCK_MAX_THREADS = 512      # the block kernel's threads a block at most
-# The sm90 kernel's block (csrc/contention_sm90.cu), a function of T_pad:
+# The kernel's block (csrc/contention_sm90.cu), a function of T_pad:
 # one warp up to 32 transfers, then a thread a transfer up to
 # BLOCK_THREADS, then BLOCK_THREADS with 2 a thread, past 2 BLOCK_THREADS
 # transfers WIDE_THREADS with 8 or 16 a thread (their registers).
@@ -68,7 +57,7 @@ WIDE_THREADS = 256
 MAX_T_PAD = WIDE_THREADS * 16    # its most transfers a plan
 _MAX_BLOCKS = 2 ** 31 - 1
 
-_launches = dict.fromkeys(KERNELS, 0)
+_launches = 0
 
 _INT = ("order", "pred", "pred_tid", "src", "up", "dn")
 _BOOL = ("pred_mask", "t_mask")
@@ -77,71 +66,41 @@ NAMES = ("order", "pred", "pred_mask", "pred_tid", "times", "src", "size",
 
 
 def launch_count() -> int:
-    """Launches of both kernels since the last :func:`reset_launch_count`."""
-    return sum(_launches.values())
-
-
-def launch_counts() -> dict[str, int]:
-    """Launches of each kernel since the last :func:`reset_launch_count`."""
-    return dict(_launches)
+    """Launches of the kernel since the last :func:`reset_launch_count`."""
+    return _launches
 
 
 def reset_launch_count() -> None:
-    for name in _launches:
-        _launches[name] = 0
+    global _launches
+    _launches = 0
 
 
-def check_kernel(kernel: str) -> None:
-    if kernel not in KERNELS:
-        raise ValueError(f"unknown contention kernel {kernel!r}; the kernels "
-                         f"are {tuple(KERNELS)}")
-
-
-def count_names(kernel: str = "sm90") -> tuple[str, ...]:
-    """The per-plan counts ``kernel`` writes, in order."""
-    check_kernel(kernel)
-    return COUNT_NAMES + (("merged",) if kernel == "sm90" else ())
-
-
-def threads(t_pad: int, kernel: str = "sm90") -> int:
-    """Threads of one block.  sm90: one warp up to 32 transfers, then
-    T_pad rounded up to a warp, at most :data:`BLOCK_THREADS`, and
-    :data:`WIDE_THREADS` past twice that; block: T_pad rounded up to a
-    warp, at most 512."""
-    check_kernel(kernel)
+def threads(t_pad: int) -> int:
+    """Threads of one block: one warp up to 32 transfers, then T_pad
+    rounded up to a warp, at most :data:`BLOCK_THREADS`, and
+    :data:`WIDE_THREADS` past twice that."""
     t = -(-t_pad // 32) * 32
-    if kernel == "block":
-        return min(t, BLOCK_MAX_THREADS)
     if t_pad <= 32:
         return 32
     return WIDE_THREADS if t_pad > 2 * BLOCK_THREADS else min(t, BLOCK_THREADS)
 
 
-def smem_bytes(n_pad: int, p_pad: int, t_pad: int,
-               kernel: str = "sm90") -> int:
-    """Dynamic shared memory of one block, as the kernel lays it out.
-    sm90: float64 finish times (n_pad + 1, a zero cell), step times, slot
-    delays and the transfers' durations, the reductions' buffers (a double
-    and four words a warp, twice), and the step records' task, slot and
-    transfer indices.  block: the same records, six float64 and three int32
-    words and a flag byte per transfer, and its reductions' buffers."""
-    check_kernel(kernel)
+def smem_bytes(n_pad: int, p_pad: int, t_pad: int) -> int:
+    """Dynamic shared memory of one block, as the kernel lays it out:
+    float64 finish times (n_pad + 1, a zero cell), step times, slot delays
+    and the transfers' durations, the reductions' buffers (a double and four
+    words a warp, twice), and the step records' task, slot and transfer
+    indices."""
     slots = n_pad * p_pad
-    if kernel == "sm90":
-        doubles = (n_pad + 1) + n_pad + slots + t_pad + 2 * MAX_WARPS
-        ints = 2 * MAX_WARPS * 4 + n_pad + 2 * slots
-        return (8 * doubles + 4 * ints + 7) & ~7
-    warps = BLOCK_MAX_THREADS // 32
-    doubles = (n_pad + 1) + n_pad + slots + 6 * t_pad + 2 * warps * 2
-    ints = n_pad + 2 * slots + 3 * t_pad + 2 * warps * MAX_LINKS
-    return (8 * doubles + 4 * ints + t_pad + 7) & ~7
+    doubles = (n_pad + 1) + n_pad + slots + t_pad + 2 * MAX_WARPS
+    ints = 2 * MAX_WARPS * 4 + n_pad + 2 * slots
+    return (8 * doubles + 4 * ints + 7) & ~7
 
 
 @functools.cache
-def _kernel(kernel: str, split: bool):
-    lib = build.load(KERNELS[kernel])
+def _kernel(split: bool):
     entry = "split" if split else "durations"
-    fn = getattr(lib, f"{KERNELS[kernel]}_{entry}_f64")
+    fn = getattr(build.load(SOURCE), f"{SOURCE}_{entry}_f64")
     fn.argtypes = ([ctypes.c_void_p] * (14 if split else 13)
                    + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -195,8 +154,8 @@ def check_indices(order, pred, pred_mask, pred_tid, src, up, dn,
                          "range, or pred_mask not pred >= 0")
 
 
-def _launch(args, num_links: int, iters: int, kernel: str, split: bool):
-    check_kernel(kernel)
+def _launch(args, num_links: int, iters: int, split: bool):
+    global _launches
     check_inputs(*args)
     for name, t in zip(NAMES, args):
         if t.device.type != "cuda":
@@ -210,22 +169,22 @@ def _launch(args, num_links: int, iters: int, kernel: str, split: bool):
     if not 1 <= num_links <= MAX_LINKS:
         raise ValueError(f"{num_links} links; the kernel takes 1 to "
                          f"{MAX_LINKS}")
-    need = smem_bytes(n, P, T, kernel)
+    need = smem_bytes(n, P, T)
     if need > SMEM_LIMIT:
         raise ValueError(
             f"a plan of (n_pad, P_pad, T_pad) = ({n}, {P}, {T}) needs {need} "
-            f"bytes of shared memory in the {kernel} kernel, more than the "
+            f"bytes of shared memory in the kernel, more than the "
             f"{SMEM_LIMIT} a block may have")
-    if kernel == "sm90" and T > MAX_T_PAD:
-        raise ValueError(f"a plan of T_pad {T}: the sm90 kernel takes at "
-                         f"most {MAX_T_PAD} transfers")
+    if T > MAX_T_PAD:
+        raise ValueError(f"a plan of T_pad {T}: the kernel takes at most "
+                         f"{MAX_T_PAD} transfers")
     if B > _MAX_BLOCKS:
         raise ValueError(f"{B} plans exceed the launch grid")
     if B == 0 or n == 0 or T == 0:
         raise ValueError(f"empty bucket: B, n_pad, T_pad = {B}, {n}, {T}")
     dev = order.device
     out = torch.empty((B, T), dtype=torch.float64, device=dev)
-    counts = torch.empty((B, len(count_names(kernel))), dtype=torch.int32,
+    counts = torch.empty((B, len(COUNT_NAMES)), dtype=torch.int32,
                          device=dev)
     cycles = (torch.empty((B, len(PHASES)), dtype=torch.int64, device=dev)
               if split else None)
@@ -235,35 +194,32 @@ def _launch(args, num_links: int, iters: int, kernel: str, split: bool):
         pointers.append(cycles.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _kernel(kernel, split)(*pointers, B, n, P, T, num_links, iters,
-                                     stream)
+        err = _kernel(split)(*pointers, B, n, P, T, num_links, iters, stream)
     if err != 0:
-        raise RuntimeError(
-            f"{KERNELS[kernel]}.cu launch failed: CUDA error {err}")
-    _launches[kernel] += 1
+        raise RuntimeError(f"{SOURCE}.cu launch failed: CUDA error {err}")
+    _launches += 1
     return out, counts, cycles
 
 
 def launch(order, pred, pred_mask, pred_tid, times, src, size, up, dn, t_mask,
-           capacity, *, num_links: int, iters: int, kernel: str = "sm90"
+           capacity, *, num_links: int, iters: int
            ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``kernel`` on contiguous tensors on one card, on
+    """Launch the kernel on contiguous tensors on one card, on
     :func:`threads` threads a block; returns the (B, T_pad) float64
-    durations and the (B, len(count_names(kernel))) int32 counts.  Raises
-    on anything of the layout the kernel does not take: another device, a
+    durations and the (B, len(COUNT_NAMES)) int32 counts.  Raises on
+    anything of the layout the kernel does not take: another device, a
     non-contiguous tensor, more than :data:`MAX_LINKS` links, a shape whose
     shared memory passes :data:`SMEM_LIMIT`, more than :data:`MAX_T_PAD`
-    transfers for the sm90 kernel, or a failed launch.  The indices are the
-    caller's to check (:func:`check_indices`)."""
+    transfers, or a failed launch.  The indices are the caller's to check
+    (:func:`check_indices`)."""
     args = (order, pred, pred_mask, pred_tid, times, src, size, up, dn,
             t_mask, capacity)
-    out, counts, _ = _launch(args, num_links, iters, kernel, False)
+    out, counts, _ = _launch(args, num_links, iters, False)
     return out, counts
 
 
 def launch_split(order, pred, pred_mask, pred_tid, times, src, size, up, dn,
-                 t_mask, capacity, *, num_links: int, iters: int,
-                 kernel: str = "sm90"
+                 t_mask, capacity, *, num_links: int, iters: int
                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """:func:`launch` through the kernel's split variant: also returns the
     (B, len(PHASES)) int64 clock cycles that each plan's thread 0 spent in
@@ -271,19 +227,18 @@ def launch_split(order, pred, pred_mask, pred_tid, times, src, size, up, dn,
     equal :func:`launch`'s."""
     args = (order, pred, pred_mask, pred_tid, times, src, size, up, dn,
             t_mask, capacity)
-    return _launch(args, num_links, iters, kernel, True)
+    return _launch(args, num_links, iters, True)
 
 
 def contended_durations(order, pred, pred_mask, pred_tid, times, src, size,
                         up, dn, t_mask, capacity, *, num_links: int,
-                        iters: int, kernel: str = "sm90") -> torch.Tensor:
+                        iters: int) -> torch.Tensor:
     """(B, T_pad) float64 durations at the fixpoint: the plain version for
-    CPU tensors, ``kernel`` for tensors on the card."""
-    check_kernel(kernel)
+    CPU tensors, the kernel for tensors on the card."""
     args = (order, pred, pred_mask, pred_tid, times, src, size, up, dn,
             t_mask, capacity)
     check_inputs(*args)
     if order.device.type == "cpu":
         return contended_durations_ref(*args, num_links, iters)
     check_indices(order, pred, pred_mask, pred_tid, src, up, dn, num_links)
-    return launch(*args, num_links=num_links, iters=iters, kernel=kernel)[0]
+    return launch(*args, num_links=num_links, iters=iters)[0]

@@ -1,7 +1,6 @@
 """The plain versions of the contention fixpoint, in float64 torch.
 
-The functions the CUDA kernels (``csrc/contention_sm90.cu``,
-``csrc/contention.cu``) compute, written
+The functions the CUDA kernel ``csrc/contention_sm90.cu`` computes, written
 with torch operations in the JAX package's order of operations, with the
 plan axis of its ``vmap`` written out as a leading batch dimension:
 

@@ -1,6 +1,5 @@
-// What the two contention fixpoint kernels share (contention.cu, the
-// first port, and contention_sm90.cu, its Hopper redesign): the reference's
-// constants, the NaN-keeping float64 max and min, and the split variant's
+// What the contention fixpoint kernel (contention_sm90.cu) keeps apart
+// from its own loop: the reference's constants, the NaN-keeping float64 max and min, and the split variant's
 // per-phase clock.  kernels/build.py hashes every csrc/*.cuh into each
 // library's name, so an edit here rebuilds every kernel.
 

@@ -1,8 +1,8 @@
 // The contention fixpoint of a bucket of plans, redesigned for Hopper:
 // max-min fair fluid transfers priced against a float64 replay of each
 // plan's DAG, with every transfer's state in registers and one reduction
-// a filling round.  CUDA C++ for sm_90a; the card path's default in
-// kernels/contention/contention.py (kernel="sm90").
+// a filling round.  CUDA C++ for sm_90a; the card path of
+// kernels/contention/contention.py.
 //
 // Replaces the JAX package's jitted whole-bucket fixpoint
 //   src/repro/sim/batch.py::_contended_durations (:489), a vmap over plans
@@ -12,11 +12,12 @@
 //   steps, each re-solving the rates with
 //   src/repro/sim/network.py::_maxmin_rates_jax (:473), num_links rounds
 //   of masked progressive filling.
-// contention.cu, the first port of the same function, stays as the
-// yardstick (kernel="block").
+// It replaced the first port of the same function (a block-wide kernel
+// with per-transfer arrays in shared memory, called "the first port"
+// below), which was deleted once this one matched it bit for bit.
 //
 // It computes what contention/ref.py::contended_durations_ref computes, bit
-// for bit, and writes the same per-plan counts as contention.cu with the
+// for bit, and writes the same per-plan counts as the first port with the
 // same meaning (rounds, events, filling rounds, replay steps), plus the
 // events whose min rode on their last filling round's reduction.  Every
 // float64 operation is __dadd_rn / __dsub_rn / __dmul_rn / __ddiv_rn in the
@@ -26,16 +27,16 @@
 // weights, exact in any order.
 //
 // What bounds it on the H100: two chains of dependent steps a plan, as in
-// contention.cu: the replay walks n_pad steps a round, and the fluid solve
+// the first port: the replay walks n_pad steps a round, and the fluid solve
 // runs its events one after another, each one or more filling rounds.
-// contention.cu spent about 1.3 us a round against a 0.35-0.50 us
+// The first port spent about 1.3 us a round against a 0.35-0.50 us
 // barrier-and-min: five passes over per-transfer arrays in shared memory,
 // 2 L warp reductions, and a second barrier an event for the event's min.
 // Design:
 //   * One plan a block.  The DAG's records stay in shared memory as in
-//     contention.cu (finish times with a zero cell at n_pad, step records,
+//     the first port (finish times with a zero cell at n_pad, step records,
 //     the slots' delays, the transfers' durations for those delays); the
-//     replay walk is contention.cu's, warp 0 over the order.
+//     replay walk is the first port's, warp 0 over the order.
 //   * Transfer state in registers: thread tid owns transfers tid + k nt,
 //     k < K (a template parameter), and holds each one's start, remaining
 //     bytes, rate, finish and its links and flags in registers.  The starts
@@ -61,7 +62,7 @@
 //     links (rounded up to a power of two) holds link l's used capacity and
 //     divides its headroom by its count, and a butterfly of shuffles over
 //     the group takes the min, so every lane holds it (a min of correctly rounded quotients
-//     is exact in any order); contention.cu ran the L divisions one after
+//     is exact in any order); the first port ran the L divisions one after
 //     another on every thread, about 770 cycles a filling round.  The
 //     saturated links and "did a flow freeze" are two votes.
 //   * A float64 min through integer redux.sync: the double's order-keeping
@@ -74,7 +75,7 @@
 //     behind one barrier and every warp reduces them again with redux.sync
 //     (whose cost does not grow with the lanes that hold a value, so the
 //     block stage costs the same at 2 warps and at 16).
-//   * Stops as in contention.cu: the filling loop once nothing is
+//   * Stops as in the first port: the filling loop once nothing is
 //     unfrozen, the event loop once t_ev is not finite, the rounds once the
 //     plan's durations froze.  tests/contention_emulation.py emulates this
 //     loop (ownership, packed counts, the merged round) against the plain
@@ -570,7 +571,7 @@ contention_sm90_kernel(const int* __restrict__ order, const int* __restrict__ pr
 
 // The two links of the new chain, each repeated `steps` times:
 //   mode 0 — one dependent replay step through shared memory, as
-//     contention.cu's probe times it (the walk is unchanged);
+//     the first port timed it (the walk is unchanged);
 //   mode 1 — one combined count-and-min reduction of reduce_round at the
 //     kernel's FB and path (a warp alone, or the block behind a barrier),
 //     each round's candidate the last round's min plus one.

@@ -1,11 +1,10 @@
 // Makespan replay of a bucket of padded plan DAGs, redesigned for Hopper:
 // finish times in shared memory, the inputs staged off the chain.  CUDA C++
-// for sm_90a; the card path's default (kernels/replay/replay.py).
+// for sm_90a; the card path of kernels/replay/replay.py.
 //
 // Replaces the JAX package's jitted replay
 //   src/repro/sim/batch.py::_bucket_makespans (:455), a vmap over plans and
 //   seeds of the lax.scan src/repro/sim/batch.py::_one_makespan (:275),
-// as replay.cu ("walk", its first port, kept as a yardstick) does.
 //
 // It computes what replay/ref.py::bucket_makespans_ref computes, bit for
 // bit, on any order whose entries index the plan: for every plan b and seed
@@ -19,12 +18,12 @@
 //
 // What bounds it on the H100: each lane is one chain of dependent steps (a
 // step needs its predecessors' finish times), so its latency, not bytes nor
-// operations.  The walk kernel paid k + 2 L2 round trips a step (order,
-// pred row, delays and floor through the same pointers as the finish
-// scratch, which its stores could alias).  Here a step waits on one
-// shared-memory round trip: the finish[p] reads of its slots, issued
-// together.  chip_smoke.py measures that floor (one dependent add + max
-// step through shared memory, replay_sm90_chain_probe).
+// operations.  The first port (one thread a lane, deleted since) paid
+// k + 2 L2 round trips a step (order, pred row, delays and floor through
+// the same pointers as the finish scratch, which its stores could alias).
+// Here a step waits on one shared-memory round trip: the finish[p] reads of
+// its slots, issued together.  chip_smoke.py measures that floor (one
+// dependent add + max step through shared memory, replay_sm90_chain_probe).
 //
 // Design:
 //   * One block per (plan, L seeds).  The finish scratch is (n_pad + 1, L)

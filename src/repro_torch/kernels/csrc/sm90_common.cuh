@@ -4,7 +4,7 @@
 // through 4-d tensor maps, wgmma shared-memory descriptors and group
 // control, and cuTensorMapEncodeTiled taken from the driver at run time, so
 // a library links only the CUDA runtime; for the (max, +) and replay
-// kernels (maxplus.cu, replay.cu, replay_sm90.cu) the NaN-keeping max; for
+// kernels (maxplus.cu, replay_sm90.cu) the NaN-keeping max; for
 // any kernel above 48 KB of shared memory allow_smem.  kernels/build.py
 // hashes every csrc/*.cuh into each library's name, so an edit here
 // rebuilds every kernel.

@@ -1,7 +1,7 @@
 """The plain version of the makespan replay of a bucket of plan DAGs.
 
 ``bucket_makespans_ref`` is the function the CUDA kernel
-(``csrc/replay.cu``) computes, written with torch operations in the JAX
+(``csrc/replay_sm90.cu``) computes, written with torch operations in the JAX
 package's order of operations (``repro.sim.batch._one_makespan``): for
 each step i of every plan b's topological order, task ``j = order[b, i]``
 starts at

@@ -1,30 +1,23 @@
-"""Makespan replay on the card: the wrappers of ``csrc/replay_sm90.cu`` and
-``csrc/replay.cu``.
+"""Makespan replay on the card: the wrapper of ``csrc/replay_sm90.cu``.
 
 The counterpart of the JAX package's jitted replay
 ``repro.sim.batch._bucket_makespans``: a bucket of B padded plan DAGs,
 each replayed under S realized-time rows, gives a (B, S) float32 array of
 makespans.  A tensor on the CPU takes the plain version
-(``ref.bucket_makespans_ref``); a tensor on the card launches a CUDA kernel
-or raises.  Two kernels compute the same function (:data:`KERNELS`):
+(``ref.bucket_makespans_ref``); a tensor on the card launches the kernel
+or raises.  The kernel runs one block per (plan, L seeds), keeps finish
+times in shared memory, has other warps stage the inputs ahead of the walk,
+and stops the walk at each item's own length.
 
-* ``"sm90"``, the default: one block per (plan, L seeds), finish times in
-  shared memory, the inputs staged by other warps ahead of the walk, and
-  the walk stopped at each item's own length (``csrc/replay_sm90.cu``);
-* ``"walk"``, the first port, kept as a yardstick and run only when asked:
-  one thread per (plan, seed) lane, finish times in a global scratch
-  (``csrc/replay.cu``).
-
-Every launch adds one to its kernel's counter (:func:`launch_counts`;
-:func:`launch_count` is their total), so a run can show which kernel its
-path went through.
+Every launch adds one to the counter (:func:`launch_count`), so a run can
+show that its path went through the kernel.
 
 Inputs, as ``repro_torch.sim.batch.BatchedPlanDag`` holds them: ``order``
 (B, n_pad) int32 topological order; ``pred`` (B, n_pad, P_pad) int32
 predecessor slots, filled from the left, -1 after the last real one;
 ``pred_delay`` (B, n_pad, P_pad) and ``floor`` (B, n_pad) float32; ``times``
 (B, S, n_pad) float32.  Any order whose entries index the plan gives the
-plain version's answer; the campaign's are topological.  Both kernels keep
+plain version's answer; the campaign's are topological.  The kernel keeps
 NaN where the plain version does.  :func:`bucket_makespans` checks the
 index ranges and the slot filling (:func:`check_indices`, one wait for the
 card); :func:`launch` is the bare launch and checks layouts only.
@@ -40,14 +33,11 @@ from repro_torch.kernels import build
 
 from .ref import bucket_makespans_ref
 
-__all__ = ["KERNELS", "bucket_makespans", "bucket_makespans_ref",
-           "check_indices", "check_inputs", "lanes_per_block", "launch",
-           "launch_count", "launch_counts", "reset_launch_count",
-           "smem_bytes"]
+__all__ = ["bucket_makespans", "bucket_makespans_ref", "check_indices",
+           "check_inputs", "lanes_per_block", "launch", "launch_count",
+           "reset_launch_count", "smem_bytes"]
 
-#: kernel name -> its source under ``csrc/``; the first is the default
-KERNELS = {"sm90": "replay_sm90", "walk": "replay"}
-WALK_LANES = 32              # seeds per block of the walk kernel
+SOURCE = "replay_sm90"       # the kernel's source under ``csrc/``
 _MAX_BLOCKS = 2 ** 31 - 1    # grid x
 
 # The sm90 kernel's shared memory, as csrc/replay_sm90.cu lays it out.
@@ -56,22 +46,17 @@ RECORD = 12                  # words of a step's record
 MISC = 32                    # words of flags and scan totals
 SMEM_LIMIT = 232448          # 227 KB, the most a block may take on the H100
 
-_launches = dict.fromkeys(KERNELS, 0)
+_launches = 0
 
 
 def launch_count() -> int:
-    """Launches of both kernels since the last :func:`reset_launch_count`."""
-    return sum(_launches.values())
-
-
-def launch_counts() -> dict[str, int]:
-    """Launches of each kernel since the last :func:`reset_launch_count`."""
-    return dict(_launches)
+    """Launches of the kernel since the last :func:`reset_launch_count`."""
+    return _launches
 
 
 def reset_launch_count() -> None:
-    for name in _launches:
-        _launches[name] = 0
+    global _launches
+    _launches = 0
 
 
 def _round4(x: int) -> int:
@@ -79,7 +64,7 @@ def _round4(x: int) -> int:
 
 
 def smem_bytes(n_pad: int, p_pad: int, lanes: int) -> int:
-    """Dynamic shared memory of one sm90 block: the (n_pad + 1, lanes)
+    """Dynamic shared memory of one block: the (n_pad + 1, lanes)
     finish scratch with its zero cell, the flags, and two stages of
     :data:`STEPS` steps (records, tasks, the lanes' times, and room for
     2 STEPS + P_pad slots past a record's own)."""
@@ -90,7 +75,7 @@ def smem_bytes(n_pad: int, p_pad: int, lanes: int) -> int:
 
 
 def lanes_per_block(n_pad: int, p_pad: int, s: int = 32) -> int:
-    """Seeds per block of the sm90 kernel: the largest power of two up to
+    """Seeds per block of the kernel: the largest power of two up to
     32 (and up to S rounded up to a power of two) whose shared memory fits
     :data:`SMEM_LIMIT`.  Raises ``ValueError`` where one lane does not."""
     if smem_bytes(n_pad, p_pad, 1) > SMEM_LIMIT:
@@ -107,13 +92,9 @@ def lanes_per_block(n_pad: int, p_pad: int, s: int = 32) -> int:
 
 
 @functools.cache
-def _kernel(name: str):
-    fn = getattr(build.load(KERNELS[name]), {
-        "sm90": "replay_sm90_makespans_f32",
-        "walk": "replay_makespans_f32"}[name])
-    pointers = 6 if name == "sm90" else 7     # walk: its global scratch too
-    ints = 5 if name == "sm90" else 4         # sm90: lanes too
-    fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * ints
+def _kernel():
+    fn = build.load(SOURCE).replay_sm90_makespans_f32
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -145,15 +126,9 @@ def check_inputs(order, pred, pred_delay, floor, times) -> None:
                              f"{order.device}")
 
 
-def check_kernel(kernel: str) -> None:
-    if kernel not in KERNELS:
-        raise ValueError(f"unknown replay kernel {kernel!r}; the kernels "
-                         f"are {tuple(KERNELS)}")
-
-
 def check_indices(order: torch.Tensor, pred: torch.Tensor) -> None:
     """Raise unless every order entry and pred slot indexes a task of its
-    plan and every pred row is filled from the left (the kernels read a
+    plan and every pred row is filled from the left (the kernel reads a
     row's slots up to its first -1)."""
     n = order.shape[1]
     bad = (((order < 0) | (order >= n)).any() | (pred < -1).any()
@@ -164,15 +139,14 @@ def check_indices(order: torch.Tensor, pred: torch.Tensor) -> None:
                          "real slot after a -1")
 
 
-def launch(order, pred, pred_delay, floor, times, *,
-           kernel: str = "sm90") -> torch.Tensor:
-    """Launch ``kernel`` on contiguous tensors on one card; returns (B, S)
-    float32.  Raises on anything of the layout the kernel does not take:
-    another device, a non-contiguous tensor, a grid too large, a plan too
-    long for the sm90 kernel's shared memory, or a failed launch (an empty
-    plan among them).  The indices are the caller's to check
-    (:func:`check_indices`)."""
-    check_kernel(kernel)
+def launch(order, pred, pred_delay, floor, times) -> torch.Tensor:
+    """Launch the kernel on contiguous tensors on one card, on the current
+    stream; returns (B, S) float32.  Raises on anything of the layout the
+    kernel does not take: another device, a non-contiguous tensor, a grid
+    too large, a plan too long for the kernel's shared memory, or a failed
+    launch (an empty plan among them).  The indices are the caller's to
+    check (:func:`check_indices`); nothing here waits for the card."""
+    global _launches
     check_inputs(order, pred, pred_delay, floor, times)
     for name, t in (("order", order), ("pred", pred),
                     ("pred_delay", pred_delay), ("floor", floor),
@@ -184,7 +158,7 @@ def launch(order, pred, pred_delay, floor, times, *,
             raise ValueError(f"{name} must be contiguous")
     B, n, P = pred.shape
     S = times.shape[1]
-    lanes = lanes_per_block(n, P, S) if kernel == "sm90" else WALK_LANES
+    lanes = lanes_per_block(n, P, S)
     if B * -(-S // lanes) > _MAX_BLOCKS:
         raise ValueError(f"{B} plans x {S} seeds exceed the launch grid")
     out = torch.empty((B, S), dtype=torch.float32, device=order.device)
@@ -193,28 +167,18 @@ def launch(order, pred, pred_delay, floor, times, *,
     inputs = [t.data_ptr() for t in (order, pred, pred_delay, floor, times)]
     with torch.cuda.device(order.device):
         stream = torch.cuda.current_stream(order.device).cuda_stream
-        if kernel == "sm90":
-            err = _kernel(kernel)(*inputs, out.data_ptr(), B, n, P, S, lanes,
-                                  stream)
-        else:
-            finish = torch.empty((B, n, S), dtype=torch.float32,
-                                 device=order.device)
-            err = _kernel(kernel)(*inputs, finish.data_ptr(), out.data_ptr(),
-                                  B, n, P, S, stream)
+        err = _kernel()(*inputs, out.data_ptr(), B, n, P, S, lanes, stream)
     if err != 0:
-        raise RuntimeError(
-            f"{KERNELS[kernel]}.cu launch failed: CUDA error {err}")
-    _launches[kernel] += 1
+        raise RuntimeError(f"{SOURCE}.cu launch failed: CUDA error {err}")
+    _launches += 1
     return out
 
 
-def bucket_makespans(order, pred, pred_delay, floor, times, *,
-                     kernel: str = "sm90") -> torch.Tensor:
+def bucket_makespans(order, pred, pred_delay, floor, times) -> torch.Tensor:
     """(B, S) float32 makespans of the bucket: the plain version for CPU
-    tensors, ``kernel`` for tensors on the card."""
-    check_kernel(kernel)
+    tensors, the kernel for tensors on the card."""
     check_inputs(order, pred, pred_delay, floor, times)
     if order.device.type == "cpu":
         return bucket_makespans_ref(order, pred, pred_delay, floor, times)
     check_indices(order, pred)
-    return launch(order, pred, pred_delay, floor, times, kernel=kernel)
+    return launch(order, pred, pred_delay, floor, times)

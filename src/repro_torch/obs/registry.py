@@ -1,20 +1,27 @@
-"""The observability registry — counters, spans, decision records.
+"""The observability registry — counters, gauges, spans, decision records.
 
 One process-global registry backs every layer's instrumentation:
 
   * **Counters** are always-on integers (``bump``/``counter_value``) — cheap
     enough to live inside jitted function bodies, where an increment runs
     once per XLA *trace* and therefore counts compiles
-    (the JAX package's ``repro.sim.batch.trace_count``).
+    (the port's ``repro_torch.sim.batch.trace_count``, which counts new
+    replay shapes the way the JAX package counts traces).
+  * **Gauges** record last-written values (``set_gauge``) — device counts,
+    mesh shapes, throughput figures.
   * **Spans** are wall-clock intervals.  :func:`span` is the hot-path form:
     when the registry is disabled (the default) it returns a shared no-op
     context manager — the ``enabled()`` guard is the only cost.
+    :func:`timer` always measures (it exposes ``.dur`` for callers that
+    *need* the number, e.g. benchmark harnesses) but records the event only
+    while enabled.
   * **Decision records** (:class:`repro_torch.obs.provenance.DecisionRecord`) are
     appended by allocators via :func:`record_decision` while enabled.
 
 Nothing here may change computation: the registry only observes.  Golden
 schedule hashes must be bit-identical with the registry enabled or disabled
-(``tests/test_obs.py`` pins this).
+(``tests/test_obs.py`` pins this for the JAX package,
+``tests/test_torch_obs.py`` for the port).
 """
 from __future__ import annotations
 
@@ -24,19 +31,22 @@ from typing import Any
 __all__ = [
     "enabled", "enable", "disable", "capture", "reset",
     "bump", "counter_value", "set_counter", "counters",
-    "span",
+    "set_gauge", "gauges",
+    "span", "timer", "wall_events",
     "record_decision", "decision_records",
+    "snapshot",
 ]
 
 
 class _State:
     """Process-global mutable registry state."""
 
-    __slots__ = ("enabled", "counters", "events", "decisions")
+    __slots__ = ("enabled", "counters", "gauges", "events", "decisions")
 
     def __init__(self):
         self.enabled = False
         self.counters: dict[str, int] = {}
+        self.gauges: dict[str, float] = {}
         self.events: list[dict] = []
         self.decisions: list = []
 
@@ -51,8 +61,8 @@ def enabled() -> bool:
 
 
 def enable() -> None:
-    """Start recording spans and decision records (counters are always
-    on)."""
+    """Start recording spans and decision records (counters/gauges are
+    always on)."""
     _STATE.enabled = True
 
 
@@ -82,11 +92,12 @@ class capture:
 
 def reset(counters: bool = False) -> None:
     """Clear recorded spans and decision records; with ``counters=True``
-    also zero every counter."""
+    also zero every counter and gauge."""
     _STATE.events.clear()
     _STATE.decisions.clear()
     if counters:
         _STATE.counters.clear()
+        _STATE.gauges.clear()
 
 
 # ------------------------------------------------------------------- counters
@@ -107,6 +118,14 @@ def set_counter(name: str, value: int) -> None:
 def counters() -> dict[str, int]:
     """Snapshot of all counters."""
     return dict(_STATE.counters)
+
+
+def set_gauge(name: str, value: float) -> None:
+    _STATE.gauges[name] = value
+
+
+def gauges() -> dict[str, float]:
+    return dict(_STATE.gauges)
 
 
 # ---------------------------------------------------------------------- spans
@@ -133,6 +152,11 @@ class Span:
                                   "args": self.args})
         return False
 
+    def elapsed(self) -> float:
+        """Seconds since entry — readable *inside* the block (``.dur`` is
+        only final after exit)."""
+        return time.perf_counter() - self.t0
+
 
 class _NoopSpan:
     """Shared do-nothing span for the disabled hot path."""
@@ -158,6 +182,18 @@ def span(name: str, cat: str = "wall", **args):
     return Span(name, cat, args)
 
 
+def timer(name: str, cat: str = "wall", **args) -> Span:
+    """Always-measuring span for harnesses that read ``.dur`` afterwards
+    (benchmark phase timing); the event is recorded only while enabled."""
+    return Span(name, cat, args)
+
+
+def wall_events() -> list[dict]:
+    """Recorded wall-clock span events (name/cat/ts/dur/args dicts, ts in
+    ``time.perf_counter()`` seconds)."""
+    return list(_STATE.events)
+
+
 # ----------------------------------------------------------- decision records
 def record_decision(rec) -> None:
     """Append a :class:`~repro_torch.obs.provenance.DecisionRecord` while enabled.
@@ -172,3 +208,12 @@ def decision_records(scheduler: str | None = None) -> list:
         return list(_STATE.decisions)
     return [r for r in _STATE.decisions if r.scheduler == scheduler]
 
+
+def snapshot() -> dict:
+    """JSON-ready registry summary — the ``obs`` section of a
+    ``repro.bench.v1`` document."""
+    return {"enabled": _STATE.enabled,
+            "counters": counters(),
+            "gauges": gauges(),
+            "spans": len(_STATE.events),
+            "decisions": len(_STATE.decisions)}

@@ -25,9 +25,12 @@ The batched replay evaluator (``repro_torch.sim.batch``) replays a whole
 (scenario × scheduler × seed) grid with one launch of a CUDA kernel per
 shape bucket, and prices ``maxmin_fair`` contention with one launch of the
 contention kernel per padded shape (``set_contention_kernel("numpy")``
-routes through the per-plan oracle instead).  Not yet ported: the
-pipelined campaign executor (``repro.sim.pipeline``) and the split of the
-plan axis over several cards.
+routes through the per-plan oracle instead).  The pipelined campaign
+executor (``repro_torch.sim.pipeline``: a process pool for the LP-heavy
+planners, a content-addressed plan cache, buckets dispatched to the card
+without waiting while planning goes on) is what ``sweep_suite_makespans``
+runs for ``workers != 1`` or ``cache=True``; each bucket's plan axis splits
+over ``campaign_devices()``, every visible card.
 
 Entry points::
 
@@ -43,7 +46,6 @@ Entry points::
 from repro_torch.platform import Decision, Platform
 
 from .adapters import ADAPTERS, FrozenPlanScheduler, make_scheduler, plan_for
-from .batch import reset_trace_counts, trace_count
 from .engine import (Machine, MachineState, NoiseModel, Plan, Scheduler,
                      SimResult, TraceEvent, plan_times, simulate)
 from .network import (NETWORKS, FixedLatencyNetwork, InstantNetwork,
@@ -54,7 +56,10 @@ from .scenarios import (SCENARIO_FAMILIES, Scenario, default_suite,
 
 __all__ = [
     "ADAPTERS", "FrozenPlanScheduler", "make_scheduler", "plan_for",
+    "campaign_devices", "set_campaign_devices",
     "reset_trace_counts", "trace_count",
+    "cached_allocate", "clear_plan_cache", "last_pipeline_stats",
+    "pipelined_sweep_makespans", "plan_cache_stats", "plan_workers",
     "Decision", "Platform", "Machine", "MachineState", "NoiseModel", "Plan",
     "Scheduler", "SimResult", "TraceEvent", "plan_times", "simulate",
     "NETWORKS", "NetworkModel", "InstantNetwork", "FixedLatencyNetwork",
@@ -63,3 +68,20 @@ __all__ = [
     "SCENARIO_FAMILIES", "Scenario", "default_suite", "from_estee",
     "make_scenario", "moldable_suite", "to_estee",
 ]
+
+# The replay evaluator and the pipelined executor bring torch with them;
+# they load on first use, so importing the planners (``sim.adapters``, as
+# a planning worker does) imports no torch.
+_LAZY = {name: "batch" for name in ("campaign_devices", "reset_trace_counts",
+                                    "set_campaign_devices", "trace_count")}
+_LAZY.update({name: "pipeline" for name in (
+    "cached_allocate", "clear_plan_cache", "last_pipeline_stats",
+    "pipelined_sweep_makespans", "plan_cache_stats", "plan_workers")})
+
+
+def __getattr__(name: str):
+    if name in _LAZY:
+        import importlib
+        return getattr(importlib.import_module(f".{_LAZY[name]}", __name__),
+                       name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -16,7 +16,9 @@ Registry (``ADAPTERS`` / ``make_scheduler``):
             bit-identical to ``hlp_ols`` at zero comm),
             ``mhlp_ols`` (width-indexed moldable HLP + width-aware OLS;
             on a curve-free graph it routes through the exact hlp_ols
-            path), ``bruteforce`` (branch-and-bound oracle, n ≤ ~10)
+            path), ``bruteforce`` (branch-and-bound oracle, n ≤ ~10),
+            ``evo``/``evo_camhlp`` (population-based plan search,
+            ``repro_torch.search``, scored on the card)
   online:   ``er_ls``, ``eft``, ``greedy_r1``/``greedy_r2``/``greedy_r3``,
             ``random``
 
@@ -30,10 +32,10 @@ All adapters are stateless between ``simulate`` calls except ``random``,
 which derives its stream from the adapter seed so campaigns stay
 reproducible.
 
-This is the port's copy of the JAX package's ``repro.sim.adapters``.  Three
-of its adapters are not yet ported and are absent from ``ADAPTERS``:
-``hlp_jax_ols`` (it needs the first-order LP of ``repro.core.hlp_jax``) and
-``evo`` / ``evo_camhlp`` (they need the plan search of ``repro.search``).
+This is the port's copy of the JAX package's ``repro.sim.adapters``.  One
+of its adapters is not yet ported and is absent from ``ADAPTERS``:
+``hlp_jax_ols`` (it needs the first-order LP of ``repro.core.hlp_jax``,
+ROADMAP A6).
 """
 from __future__ import annotations
 
@@ -327,6 +329,53 @@ class RandomScheduler(OnlineScheduler):
         return int(self._rng.integers(0, self._g.num_types))
 
 
+class EvoScheduler:
+    """Population-based plan search (``repro_torch.search.evolve_plan``) as
+    an adapter: evolves (allocation, priority) genomes whose generations
+    score as one fixed-shape batch through the bucketed replay, seeded with
+    the LP/HEFT/ER-LS plans so the result is anytime-no-worse than the best
+    of them.  Defaults are sized for adapter use (small budget); campaigns
+    build their own ``SearchConfig``.
+
+    Construction kwargs forward to ``SearchConfig`` (``method``,
+    ``pop_size``, ``generations``, ...); ``seed`` feeds the search rng and
+    ``device`` is where each generation is scored (``"cuda"``: the replay
+    kernel; ``"cpu"``: its plain version — the plans are bit-identical, so
+    the device is not part of the plan cache's key)."""
+
+    name = "evo"
+    plan_pool = "thread"    # scores on the card: stays in-process
+    cacheable = True        # deterministic given (config, seed)
+    _comm_aware = False
+
+    def __init__(self, seed: int = 0, device: str = "cuda", **cfg):
+        from repro_torch.search import SearchConfig
+        cfg.setdefault("pop_size", 16)
+        cfg.setdefault("generations", 5)
+        cfg.setdefault("comm_aware", self._comm_aware)
+        self.seed = seed
+        self.config = SearchConfig(**cfg)
+        self._device = device
+
+    def allocate(self, g: TaskGraph, machine: Machine) -> Plan:
+        from repro_torch.search import evolve_plan
+        return evolve_plan(g, machine, self.config, seed=self.seed,
+                           device=self._device).plan
+
+    def on_task_arrival(self, j: int, ready: float, state: MachineState):
+        raise RuntimeError(f"{self.name} is a static scheduler")
+
+
+class EvoCommAwareScheduler(EvoScheduler):
+    """``evo`` with comm/moldable-aware seeding and ordering: generation 0
+    starts from the comm-priced LP (CAHLP/CAMHLP rounding) and every genome
+    replays with the comm tie-break — the search-side counterpart of
+    ``camhlp_ols``."""
+
+    name = "evo_camhlp"
+    _comm_aware = True
+
+
 class FrozenPlanScheduler:
     """Adapter around a precomputed ``Plan`` — lets any plan (including one
     materialized from an arrival-driven policy via ``plan_for``) ride the
@@ -383,6 +432,8 @@ ADAPTERS = {
     "greedy_r3": lambda: GreedyRuleScheduler("R3"),
     "random": RandomScheduler,
     "bruteforce": BruteForceScheduler,
+    "evo": EvoScheduler,
+    "evo_camhlp": EvoCommAwareScheduler,
 }
 
 

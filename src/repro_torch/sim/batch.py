@@ -39,9 +39,15 @@ launch of the contention kernel (``contended_bucket_delays`` below, over
 ``kernels/contention``: ``csrc/contention_sm90.cu`` on the card, its plain
 float64 version on the CPU); ``set_contention_kernel("numpy")`` routes
 through the per-plan numpy oracle instead.  Either way contention enters
-``pred_delay`` as numbers, never as new array shapes.  The pipelined
-executor (``workers``, ``cache``) and the split of the plan axis over
-several cards (``mesh``) come with ROADMAP A4.
+``pred_delay`` as numbers, never as new array shapes.  ``workers`` and
+``cache`` route ``sweep_suite_makespans`` through the pipelined executor
+(``repro_torch.sim.pipeline``).
+
+Each bucket's plan axis splits over a list of devices (``devices``, by
+default ``campaign_devices()``: every visible card), the counterpart of the
+reference's campaign mesh: each chunk is replayed on its own device and
+stream and the chunks are gathered back in plan order
+(:func:`_dispatch`).  On one card the split is the identity.
 
 Padding scheme: a plan with n tasks and max fan-in P lands in bucket
 ``(next_pow2(n + 1), next_pow2(P))`` and is padded to that bucket's maxima —
@@ -56,7 +62,8 @@ at their current commitment horizons (``rollout_floors``).
 
 Every evaluator takes ``device`` (default ``"cuda"``, through
 ``repro_torch.resolve_device``, which raises without a card) and returns
-numpy arrays, as the reference does; ``build_plan_dag`` and
+numpy arrays, as the reference does, where the reference takes ``mesh=``
+the port takes ``devices=``; ``build_plan_dag`` and
 ``BatchedPlanDag.from_plans`` take it for the contention fixpoint, the one
 part of a plan's build that runs on the device.
 """
@@ -307,14 +314,118 @@ def rollout_floors(g: TaskGraph, plan: Plan, busy: list[np.ndarray],
 
 
 
+# ------------------------------------------- plan-axis split over devices
+_DEVICES: list[torch.device] | None = None
+_SIDE_STREAMS: dict = {}
+
+
+def campaign_devices(device: str | torch.device = "cuda"
+                     ) -> list[torch.device]:
+    """The devices each bucket's plan axis splits over — the counterpart of
+    the reference's ``campaign_mesh``: the list :func:`set_campaign_devices`
+    installed when its devices are of ``device``'s type (so ``"cpu"`` never
+    reaches a card), else every visible card for a ``cuda`` device, else
+    ``[device]``.  On a one-card host the split is the identity."""
+    dev = resolve_device(device)
+    if _DEVICES is not None and all(d.type == dev.type for d in _DEVICES):
+        return list(_DEVICES)
+    if dev.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [dev]
+
+
+def set_campaign_devices(devices) -> None:
+    """Install the device list the plan axis splits over (``None`` resets
+    to the default of :func:`campaign_devices`)."""
+    global _DEVICES
+    if devices is not None:
+        devices = [resolve_device(d) for d in devices]
+        if not devices:
+            raise ValueError("the campaign needs at least one device")
+    _DEVICES = devices
+
+
+def _pad_plan_axis(args: tuple, multiple: int) -> tuple:
+    """Pad the plan axis of each tensor to a multiple of ``multiple`` by
+    repeating plan 0 (a real plan, so every chunk replays one shape), as the
+    reference pads its mesh's plan axis; the caller slices back."""
+    pad = (-args[0].shape[0]) % multiple
+    if not pad:
+        return args
+    return tuple(torch.cat([a, a[:1].expand(pad, *a.shape[1:])]) for a in args)
+
+
+def _side_stream(dev: torch.device):
+    """One stream per card for the replay launches, beside the current one."""
+    if dev not in _SIDE_STREAMS:
+        _SIDE_STREAMS[dev] = torch.cuda.Stream(device=dev)
+    return _SIDE_STREAMS[dev]
+
+
+class _InFlight:
+    """One bucket's replay on its way: per chunk of the plan axis, its rows
+    (a CPU device's, computed at once) or a pinned host buffer and the
+    event recorded after the copy into it."""
+
+    def __init__(self, plans: int):
+        self.plans = plans
+        self.parts: list = []
+
+    def result(self) -> np.ndarray:
+        """(B, S) float32 makespans, waiting for each chunk's event."""
+        rows = []
+        for host, event in self.parts:
+            if event is not None:
+                event.synchronize()
+            rows.append(host.numpy())
+        return np.concatenate(rows)[:self.plans]
+
+
+def _dispatch(order: torch.Tensor, pred: torch.Tensor, delay: torch.Tensor,
+              floor: torch.Tensor, times: torch.Tensor, devices: list,
+              kind: str) -> _InFlight:
+    """Start the replay of one bucket (CPU tensors) without waiting for a
+    card: the plan axis is split over ``devices`` (padded to a multiple of
+    their count by repeats of plan 0); on a card each chunk's indices are
+    checked on the host, its inputs go from pinned host memory to the card
+    on that card's side stream, the kernel launches there and its (B, S)
+    result is copied back into pinned host memory behind an event; a CPU
+    device replays its chunk with the plain version at once.  Each chunk
+    bumps the ``sim.replay.chunks`` counter (on a card, one launch each),
+    and its (B, n_pad, P_pad, S) bumps ``trace_count(kind)`` the first time
+    the process replays it."""
+    args = (order, pred, delay, floor, times)
+    D = len(devices) if order.shape[0] >= 2 else 1
+    flight = _InFlight(order.shape[0])
+    chunks = zip(*(a.chunk(D) for a in _pad_plan_axis(args, D)))
+    for dev, chunk in zip(devices, chunks):
+        _count_shape(kind, (*chunk[1].shape, chunk[4].shape[1]))
+        _obs.bump("sim.replay.chunks")
+        if dev.type == "cpu":
+            flight.parts.append((_kernel.bucket_makespans(*chunk), None))
+            continue
+        _kernel.check_indices(chunk[0], chunk[1])
+        with torch.cuda.device(dev), torch.cuda.stream(_side_stream(dev)):
+            out = _kernel.launch(*(t.pin_memory().to(dev, non_blocking=True)
+                                   for t in chunk))
+            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            host.copy_(out, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+        flight.parts.append((host, event))
+    return flight
+
+
 def _replay(order: torch.Tensor, pred: torch.Tensor, delay: torch.Tensor,
             floor: torch.Tensor, times: torch.Tensor, device: torch.device,
-            kind: str) -> np.ndarray:
-    """(B, S) float32 makespans of one bucket on ``device``: one launch of
-    the replay kernel on the card, its plain version on the CPU."""
-    _count_shape(kind, (*pred.shape, times.shape[1]))
-    args = [t.to(device) for t in (order, pred, delay, floor, times)]
-    return _kernel.bucket_makespans(*args).cpu().numpy()
+            kind: str, devices=None) -> np.ndarray:
+    """(B, S) float32 makespans of one bucket, waited for: the kernel on
+    the card (split over ``devices``, by default
+    ``campaign_devices(device)``), its plain version on the CPU."""
+    devs = campaign_devices(device) if devices is None else [
+        resolve_device(d) for d in devices]
+    return _dispatch(order, pred, delay, floor, times, devs, kind).result()
 
 
 def batch_makespans(g: TaskGraph, plan: Plan, times: np.ndarray,
@@ -470,10 +581,11 @@ def bucket_times(times: list[np.ndarray], n_pad: int) -> torch.Tensor:
 
 
 def _bucket_makespans(bd: BatchedPlanDag, times: torch.Tensor,
-                      device: torch.device) -> np.ndarray:
-    """(B, S) makespans of one bucket: the kernel on the card."""
+                      device: torch.device, devices=None) -> np.ndarray:
+    """(B, S) makespans of one bucket: the kernel on the card, its plan
+    axis split over ``devices``."""
     return _replay(bd.order, bd.pred, bd.pred_delay, bd.floor, times, device,
-                   "bucket")
+                   "bucket", devices)
 
 
 def _pow2(x: int) -> int:
@@ -592,7 +704,8 @@ def contended_bucket_delays(items: list, networks: list,
     each group's transfer axis is padded to the power-of-two envelope of
     its largest transfer set (``contended_buckets``), so a campaign's
     contended grid costs one launch of the contention kernel per group on
-    the card; plans with no crossing transfers short-circuit to zeros.  The
+    the card (each group bumps the ``sim.contended.groups`` counter); plans
+    with no crossing transfers short-circuit to zeros.  The
     fixpoint is float64, like the reference's under x64, and matches the
     float64 numpy oracle to rtol 1e-6; the resulting durations scatter back
     to the (deduplicated, output-cached) edges via ``PlanTransfers.key_of``.
@@ -603,6 +716,7 @@ def contended_bucket_delays(items: list, networks: list,
     for i, z in zeros.items():
         out[i] = z
     for (n_pad, P_pad, L), (idxs, transfers, cb) in groups.items():
+        _obs.bump("sim.contended.groups")
         with _obs.span("sim.contended.fixpoint", bucket=f"{n_pad}x{P_pad}",
                        links=L, plans=len(idxs)):
             durs = _contended_durations(cb, L, CONTENTION_ITERS, dev)
@@ -630,8 +744,8 @@ def bucketed_makespans(items: list[tuple[TaskGraph, Plan]],
                        floors: list[np.ndarray] | None = None,
                        envelope: bool = False,
                        networks: list | None = None,
-                       device: str | torch.device = "cuda"
-                       ) -> list[np.ndarray]:
+                       device: str | torch.device = "cuda",
+                       devices=None) -> list[np.ndarray]:
     """Replay many different plans under per-plan times matrices.
 
     Args:
@@ -648,6 +762,9 @@ def bucketed_makespans(items: list[tuple[TaskGraph, Plan]],
              entries — edge delays are replaced at plan-DAG build time.
       device: where the replay runs: ``"cuda"`` (the kernel) or ``"cpu"``
              (its plain version).
+      devices: optional device list each bucket's plan axis splits over
+             (defaults to ``campaign_devices(device)``; one device runs the
+             bucket whole).
 
     Returns a list of (S,) float32 makespan arrays, one per item, in input
     order.  Cost: one kernel launch per *bucket* (power-of-two envelope of
@@ -679,7 +796,7 @@ def bucketed_makespans(items: list[tuple[TaskGraph, Plan]],
             tt = bucket_times([times[i] for i in idxs], bd.n_pad)
         with _obs.span("sim.bucket.execute", bucket=f"{key[0]}x{key[1]}",
                        plans=len(idxs)):
-            ms = _bucket_makespans(bd, tt, dev)
+            ms = _bucket_makespans(bd, tt, dev, devices)
         for row, i in enumerate(idxs):
             out[i] = ms[row]
     return out  # type: ignore[return-value]
@@ -689,8 +806,8 @@ def fixed_envelope_makespans(items: list[tuple[TaskGraph, Plan]],
                              times: list[np.ndarray],
                              pad_to: tuple[int, int],
                              floors: list[np.ndarray] | None = None,
-                             device: str | torch.device = "cuda"
-                             ) -> list[np.ndarray]:
+                             device: str | torch.device = "cuda",
+                             devices=None) -> list[np.ndarray]:
     """Replay many plans as ONE bucket padded to a caller-fixed envelope.
 
     :func:`bucketed_makespans` keys each plan by its own power-of-two
@@ -722,7 +839,7 @@ def fixed_envelope_makespans(items: list[tuple[TaskGraph, Plan]],
         tt = bucket_times(times, bd.n_pad)
     with _obs.span("sim.bucket.execute", bucket=f"{pad_to[0]}x{pad_to[1]}",
                    plans=len(items)):
-        ms = _bucket_makespans(bd, tt, dev)
+        ms = _bucket_makespans(bd, tt, dev, devices)
     return [ms[i] for i in range(len(items))]
 
 
@@ -740,7 +857,7 @@ def search_envelope(g: TaskGraph, machine) -> tuple[int, int]:
 
 def sweep_suite_makespans(entries, *, noise: NoiseModel, seeds,
                           floor_fn=None, envelope: bool = False,
-                          network=None, workers: int = 1,
+                          network=None, devices=None, workers: int = 1,
                           cache: bool = False,
                           device: str | torch.device = "cuda"
                           ) -> list[np.ndarray]:
@@ -753,19 +870,27 @@ def sweep_suite_makespans(entries, *, noise: NoiseModel, seeds,
     per-task start floors (busy machine / release times); ``envelope=True``
     pads to the full bucket envelope so repeated small sweeps replay one
     shape per bucket.  ``network`` applies one ``NetworkModel`` to every
-    entry's replay.
+    entry's replay; ``devices`` overrides the device list the plan axis
+    splits over.
 
-    This is the reference's serial route.  Its pipelined executor
-    (``workers != 1``, ``cache=True``) is not ported yet (ROADMAP A4), and
-    asking for it raises ``NotImplementedError`` rather than running
-    serially.
+    ``workers`` and ``cache`` route through the *pipelined* executor
+    (:func:`repro_torch.sim.pipeline.pipelined_sweep_makespans`): plan
+    construction fans out over ``workers`` pool workers (``None`` reads
+    ``REPRO_PLAN_WORKERS``), ``cache=True`` deduplicates allocations
+    through the content-addressed plan cache, and buckets dispatch as soon
+    as they close so host building overlaps the card's replay.  The default
+    ``workers=1, cache=False`` is this serial loop, unchanged; either
+    route returns bit-identical makespans (envelope/phantom padding cannot
+    move a real lane's result).
 
     Returns a list of (S,) arrays aligned with ``entries``.
     """
     if workers is None or workers != 1 or cache:
-        raise NotImplementedError(
-            "the pipelined sweep (workers != 1 or cache=True) is not ported "
-            "yet: ROADMAP A4")
+        from .pipeline import pipelined_sweep_makespans
+        return pipelined_sweep_makespans(
+            entries, noise=noise, seeds=seeds, floor_fn=floor_fn,
+            network=network, workers=workers, cache=cache, devices=devices,
+            device=device)
     dev = resolve_device(device)
     items, rows, floors = [], [], []
     for g, machine, scheduler in entries:
@@ -782,4 +907,4 @@ def sweep_suite_makespans(entries, *, noise: NoiseModel, seeds,
                               envelope=envelope,
                               networks=([network] * len(items)
                                         if network is not None else None),
-                              device=dev)
+                              device=dev, devices=devices)

@@ -56,7 +56,6 @@ import dataclasses
 import numpy as np
 
 from repro_torch.core.dag import TaskGraph
-from repro_torch.kernels.contention.ref import fluid_finishes_ref
 from repro_torch.obs import registry as _obs
 
 _EPS = 1e-12
@@ -478,3 +477,12 @@ __all__ = [
     "fluid_finishes_ref", "make_network", "maxmin_rates", "plan_transfers",
     "set_contention_kernel",
 ]
+
+
+def __getattr__(name: str):
+    # the plain torch fluid solve, re-exported on first use: the planners
+    # import this module and need no torch
+    if name == "fluid_finishes_ref":
+        from repro_torch.kernels.contention.ref import fluid_finishes_ref
+        return fluid_finishes_ref
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -318,15 +318,13 @@ def test_wrapper_checks_and_shared_memory_sizing():
         C.contended_durations(*args[:10], args[10][:1], num_links=4, iters=4)
     with pytest.raises(ValueError, match="needs the card"):
         C.launch(*args, num_links=4, iters=4)
-    # the block kernel (csrc/contention.cu); the sm90 kernel's mirrors are
-    # checked in tests/test_torch_contention_sm90.py
-    block = {"kernel": "block"}
-    assert C.threads(1, **block) == 32 and C.threads(100, **block) == 128
-    assert C.threads(1024, **block) == 512
+    # the kernel's block and shared memory (csrc/contention_sm90.cu), as
+    # tests/test_torch_contention_card.py holds them to the library's
+    assert C.threads(1) == 32 and C.threads(100) == 128
+    assert C.threads(1024) == 512
     # the campaign's shapes fit; a §6.1 fork-join join does not
-    assert C.smem_bytes(64, 4, 64, **block) < 48 * 1024
-    assert C.smem_bytes(1024, 4, 1024, **block) <= C.SMEM_LIMIT
-    assert C.smem_bytes(4096, 4, 1024, **block) > C.SMEM_LIMIT
-    assert C.smem_bytes(1024, 4, 1024, **block) == (
-        8 * (1025 + 1024 + 4096 + 6 * 1024 + 64)
-        + 4 * (1024 + 2 * 4096 + 3 * 1024 + 256) + 1024)
+    assert C.smem_bytes(64, 4, 64) < 48 * 1024
+    assert C.smem_bytes(1024, 4, 1024) <= C.SMEM_LIMIT
+    assert C.smem_bytes(4096, 4, 1024) > C.SMEM_LIMIT
+    assert C.smem_bytes(1024, 4, 1024) == (
+        8 * (1025 + 1024 + 4096 + 1024 + 32) + 4 * (128 + 1024 + 2 * 4096))

@@ -1,7 +1,6 @@
-"""The first contention kernel ``csrc/contention.cu`` (``kernel="block"``,
-the yardstick since the Hopper redesign ``csrc/contention_sm90.cu``, whose
-tests are ``tests/test_torch_contention_sm90_card.py``) against its plain
-version, on the card.
+"""The contention kernel ``csrc/contention_sm90.cu`` against its plain
+version and the numpy emulation of the first port's loop, on the card
+(its own design's cases are ``tests/test_torch_contention_sm90_card.py``).
 
 Every test carries the ``card`` marker, asks for the ``card`` fixture
 (which skips without a card) and imports nothing of JAX:
@@ -11,10 +10,12 @@ Every test carries the ``card`` marker, asks for the ``card`` fixture
 The kernel must equal the plain version (``kernels/contention/ref.py``) bit
 for bit: on the random transfer sets of ``tests/test_network_kernel.py``
 (one fluid solve each, also within rtol 1e-6 of the numpy oracle), on
-random buckets (strided threads past 512 transfers, a plan that freezes
-early), and on the campaign's netbound sub-grid at its own size and at the
-§6.1 fork-join's (1000 tasks).  Its per-plan counts must equal the numpy
-emulation's (``tests/contention_emulation.py``); the launch counter, the
+random buckets (past 512 transfers, a plan that freezes early), and on the
+campaign's netbound sub-grid at its own size and at the §6.1 fork-join's
+(1000 tasks).  Its first four per-plan counts (rounds, events, filling
+rounds, replay steps) must equal those of the numpy emulation of the
+first port's loop (``tests/contention_emulation.py::emulate``), an
+independent model of the same schedule; the launch counter, the
 shared-memory limit, the argument checks and the chain probe are checked
 too.
 """
@@ -60,10 +61,12 @@ def _netbound_groups(width=12, depth=5, n_scen=6):
 
 
 def _launch(cb, L, card, iters=ITERS):
+    """The kernel's durations and its counts shared with the first port's
+    (rounds, events, filling rounds, replay steps)."""
     out, counts = C.launch(*(t.to(card) for t in cb.tensors()), num_links=L,
-                           iters=iters, kernel="block")
+                           iters=iters)
     torch.cuda.synchronize()
-    return out.cpu(), counts.cpu().numpy()
+    return out.cpu(), counts.cpu().numpy()[:, :4]
 
 
 def _plain(cb, L, iters=ITERS):
@@ -142,40 +145,40 @@ def test_bucketed_path_launches_once_per_group_and_matches_the_cpu(card):
 def test_launch_raises_on_what_the_kernel_does_not_take(card):
     cb = random_bucket(np.random.default_rng(5), B=2, n=16, P=4, T=32)
     args = [t.to(card) for t in cb.tensors()]
-    block = {"kernel": "block"}
     with pytest.raises(TypeError, match="times is torch.float32"):
         C.launch(*args[:4], args[4].float(), *args[5:], num_links=4,
-                 iters=ITERS, **block)
+                 iters=ITERS)
     with pytest.raises(ValueError, match="is on cpu"):
-        C.launch(*args[:10], args[10].cpu(), num_links=4, iters=ITERS,
-                 **block)
+        C.launch(*args[:10], args[10].cpu(), num_links=4, iters=ITERS)
     with pytest.raises(ValueError, match="links"):
-        C.launch(*args, num_links=C.MAX_LINKS + 1, iters=ITERS, **block)
+        C.launch(*args, num_links=C.MAX_LINKS + 1, iters=ITERS)
     with pytest.raises(ValueError, match="out of range"):
         C.contended_durations(*args[:5], args[5] + 1000, *args[6:],
-                              num_links=4, iters=ITERS, **block)
+                              num_links=4, iters=ITERS)
+    with pytest.raises(TypeError, match="kernel"):
+        C.launch(*args, num_links=4, iters=ITERS, kernel="block")
     big = random_bucket(np.random.default_rng(5), B=1, n=4096, P=4, T=64)
     big = [t.to(card) for t in big.tensors()]
     with pytest.raises(ValueError, match=r"\(4096, 4, 64\) needs \d+ bytes"):
-        C.launch(*big, num_links=4, iters=ITERS, **block)
+        C.launch(*big, num_links=4, iters=ITERS)
 
 
 def test_shared_memory_mirror_and_block_size(card):
-    lib = build.load("contention")
-    lib.contention_smem_bytes.restype = ctypes.c_longlong
-    lib.contention_smem_bytes.argtypes = [ctypes.c_int] * 3
-    lib.contention_threads.argtypes = [ctypes.c_int]
+    lib = build.load("contention_sm90")
+    lib.contention_sm90_smem_bytes.restype = ctypes.c_longlong
+    lib.contention_sm90_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.contention_sm90_threads.argtypes = [ctypes.c_int]
     for n, P, Tn in ((64, 4, 32), (1024, 4, 1024), (4096, 4, 64), (33, 3, 31),
                      (20, 40, 700)):
-        assert lib.contention_smem_bytes(n, P, Tn) == C.smem_bytes(
-            n, P, Tn, kernel="block")
-        assert lib.contention_threads(Tn) == C.threads(Tn, kernel="block")
+        assert lib.contention_sm90_smem_bytes(n, P, Tn) == C.smem_bytes(
+            n, P, Tn)
+        assert lib.contention_sm90_threads(Tn) == C.threads(Tn)
 
 
 def test_chain_probe_runs(card):
-    probe = build.load("contention").contention_chain_probe
-    probe.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_int, ctypes.c_void_p]
+    probe = build.load("contention_sm90").contention_sm90_chain_probe
+    probe.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
     probe.restype = ctypes.c_int
     out = torch.zeros(1, dtype=torch.float64, device=card)
     stream = torch.cuda.current_stream().cuda_stream

@@ -144,38 +144,33 @@ def test_emulation_matches_plain_on_a_1000_task_plan():
 
 # ------------------------------------------------------------- wrapper
 def test_kernel_choice_mirrors_and_no_launch_on_the_cpu():
-    assert tuple(C.KERNELS) == ("sm90", "block")
-    assert C.count_names() == C.COUNT_NAMES + ("merged",)
-    assert C.count_names("block") == C.COUNT_NAMES
-    # the sm90 kernel's block: one warp up to 32 transfers, a thread a
-    # transfer up to 512, then 512 threads, and 256 past 1024 transfers
+    """One kernel is left (``csrc/contention_sm90.cu``): no ``kernel=``
+    choice, its block and shared-memory mirrors, the plain version on CPU
+    tensors and no launch off the card."""
+    assert C.SOURCE == "contention_sm90" and not hasattr(C, "KERNELS")
+    assert C.COUNT_NAMES == ("rounds", "events", "fills", "steps", "merged")
+    # the block: one warp up to 32 transfers, a thread a transfer up to
+    # 512, then 512 threads, and 256 past 1024 transfers
     for T_pad in (1, 16, 32, 33, 64, 128, 160, 512, 600, 1024, 1025, 4096):
         assert C.threads(T_pad) == sm90_threads(T_pad)
     assert [C.threads(t) for t in (16, 64, 600, 1024, 4096)] == [
         32, 64, 512, 512, 256]
-    assert C.threads(1024, kernel="block") == 512
     assert C.MAX_T_PAD == 4096
-    # the sm90 layout drops the transfers' arrays but their durations
+    # the layout keeps of the transfers only their durations
     assert C.smem_bytes(1024, 4, 1024) == (
         8 * (1025 + 1024 + 4096 + 1024 + 32) + 4 * (128 + 1024 + 2 * 4096))
-    assert (C.smem_bytes(1024, 4, 1024, kernel="block")
-            - C.smem_bytes(1024, 4, 1024)) == 53 * 1024 + 8 * 32 + 4 * 128
     assert C.smem_bytes(4096, 4, 64) > C.SMEM_LIMIT
-    with pytest.raises(ValueError, match="unknown contention kernel"):
-        C.threads(64, kernel="walk")
     rand = random_bucket(np.random.default_rng(3), B=2, n=16, P=4, T=32)
     args = list(rand.tensors())
-    with pytest.raises(ValueError, match="unknown contention kernel"):
-        C.contended_durations(*args, num_links=4, iters=4, kernel="fma")
     C.reset_launch_count()
-    for kernel in C.KERNELS:
-        with pytest.raises(ValueError, match="needs the card"):
-            C.launch(*args, num_links=4, iters=4, kernel=kernel)
-        got = C.contended_durations(*args, num_links=4, iters=4,
-                                    kernel=kernel)
-        np.testing.assert_array_equal(got.numpy(), _plain(rand, 4, 4))
+    with pytest.raises(ValueError, match="needs the card"):
+        C.launch(*args, num_links=4, iters=4)
+    for call in (C.launch, C.contended_durations, C.launch_split):
+        with pytest.raises(TypeError, match="kernel"):
+            call(*args, num_links=4, iters=4, kernel="block")
+    got = C.contended_durations(*args, num_links=4, iters=4)
+    np.testing.assert_array_equal(got.numpy(), _plain(rand, 4, 4))
     TB.contended_bucket_delays(*_netbound_items(), device="cpu")
-    assert C.launch_counts() == {"sm90": 0, "block": 0}
     assert C.launch_count() == 0
 
 

@@ -1,5 +1,5 @@
 """The Hopper contention kernel ``csrc/contention_sm90.cu`` against its
-plain version and the first kernel ``csrc/contention.cu``, on the card.
+plain version and the numpy emulations of its loop, on the card.
 
 Every test carries the ``card`` marker, asks for the ``card`` fixture
 (which skips without a card) and imports nothing of JAX:
@@ -8,14 +8,14 @@ Every test carries the ``card`` marker, asks for the ``card`` fixture
 
 The kernel must equal the plain version (``kernels/contention/ref.py``) bit
 for bit, and its per-plan counts (rounds, events, filling rounds, replay
-steps) the block kernel's and, with the merged rounds, the numpy
-emulation's (``tests/contention_emulation.py::emulate_sm90``): on random
-buckets on both sides of the one-warp threshold and past 1024 transfers,
-on the campaign's netbound grid, at the §6.1 fork-join's scale (1000 tasks),
-and on a bucket with NaN inputs (both kernels, NaN where the plain version
-has it).  The sweep path must launch it once per
-group and the block kernel never; unknown kernel names and oversize shapes
-raise; the split variant and the chain probe run.
+steps) those of the numpy emulation of the first port's loop
+(``tests/contention_emulation.py::emulate``) and, with the merged rounds,
+the emulation of its own (``emulate_sm90``): on random buckets on both
+sides of the one-warp threshold and past 1024 transfers, on the campaign's
+netbound grid, at the §6.1 fork-join's scale (1000 tasks), and on a bucket
+with NaN inputs (NaN where the plain version has it).  The sweep path must
+launch it once per group; a ``kernel=`` choice and oversize shapes raise;
+the split variant and the chain probe run.
 """
 import ctypes
 import dataclasses
@@ -33,7 +33,8 @@ from repro_torch.kernels.contention import contention as C  # noqa: E402
 from repro_torch.sim.adapters import CommAwareHLPScheduler  # noqa: E402
 from repro_torch.sim.scenarios import netbound_scenario  # noqa: E402
 
-from contention_emulation import emulate_sm90, random_bucket  # noqa: E402
+from contention_emulation import (emulate, emulate_sm90,  # noqa: E402
+                                  random_bucket)
 
 ITERS = TN.CONTENTION_ITERS
 pytestmark = pytest.mark.card
@@ -58,18 +59,20 @@ def _netbound_groups(width=12, depth=5, n_scen=6):
     return items, nets, TB.contended_buckets(items, nets)[1]
 
 
-def _both(cb, L, card, iters=ITERS):
-    """The sm90 kernel's durations and counts, checked against the plain
-    version and the block kernel's counts."""
+def _both(cb, L, card, iters=ITERS, emulated=None):
+    """The kernel's durations and counts, checked against the plain
+    version and the first port's counts (its loop's numpy emulation) on
+    ``emulated``, the bucket's first plans (all of them by default)."""
     args = [t.to(card) for t in cb.tensors()]
     got, counts = C.launch(*args, num_links=L, iters=iters)
-    _, block = C.launch(*args, num_links=L, iters=iters, kernel="block")
     torch.cuda.synchronize()
     got, counts = got.cpu().numpy(), counts.cpu().numpy()
     want = C.contended_durations(*cb.tensors(), num_links=L,
                                  iters=iters).numpy()
     np.testing.assert_array_equal(got, want)
-    np.testing.assert_array_equal(counts[:, :4], block.cpu().numpy())
+    emulated = cb if emulated is None else emulated
+    np.testing.assert_array_equal(counts[:emulated.size.shape[0], :4],
+                                  emulate(emulated, L, iters)[1])
     assert (counts[:, 4] <= counts[:, 1]).all()
     return counts
 
@@ -115,10 +118,10 @@ def test_sm90_equals_plain_at_the_fork_join_scale(card):
     _, _, groups = _netbound_groups(width=100, depth=10, n_scen=2)
     for (n_pad, P_pad, L), (_, _, cb) in groups.items():
         assert n_pad == 1024 and C.threads(cb.size.shape[1]) == 512
-        counts = _both(cb, L, card)
         first = dataclasses.replace(
             cb, **{f.name: getattr(cb, f.name)[:1]
                    for f in dataclasses.fields(cb)})
+        counts = _both(cb, L, card, emulated=first)
         np.testing.assert_array_equal(counts[:1],
                                       emulate_sm90(first, L, ITERS)[1])
 
@@ -136,9 +139,8 @@ def test_both_kernels_keep_nan_where_the_plain_version_does(card):
                                  iters=ITERS).numpy()
     assert np.isnan(want[0]).any() and np.isnan(want[1]).any()
     args = [t.to(card) for t in cb.tensors()]
-    for kernel in C.KERNELS:
-        got = C.launch(*args, num_links=4, iters=ITERS, kernel=kernel)[0]
-        np.testing.assert_array_equal(got.cpu().numpy(), want)
+    got = C.launch(*args, num_links=4, iters=ITERS)[0]
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
 
 
 def test_bucketed_path_launches_sm90_once_per_group(card):
@@ -147,9 +149,9 @@ def test_bucketed_path_launches_sm90_once_per_group(card):
                                    range(4)) for g, p in items]
     C.reset_launch_count()
     on_card = TB.bucketed_makespans(items, rows, networks=nets)
-    assert C.launch_counts() == {"sm90": len(groups), "block": 0}
+    assert C.launch_count() == len(groups)
     on_cpu = TB.bucketed_makespans(items, rows, networks=nets, device="cpu")
-    assert C.launch_counts() == {"sm90": len(groups), "block": 0}
+    assert C.launch_count() == len(groups)
     for a, b in zip(on_card, on_cpu):
         np.testing.assert_array_equal(a, b)
 
@@ -157,10 +159,10 @@ def test_bucketed_path_launches_sm90_once_per_group(card):
 def test_launch_raises_on_unknown_kernels_and_oversize_shapes(card):
     cb = random_bucket(np.random.default_rng(5), B=2, n=16, P=4, T=32)
     args = [t.to(card) for t in cb.tensors()]
-    for bad in ("walk", "fma", ""):
-        with pytest.raises(ValueError, match="unknown contention kernel"):
+    for bad in ("block", "sm90"):
+        with pytest.raises(TypeError, match="kernel"):
             C.launch(*args, num_links=4, iters=ITERS, kernel=bad)
-        with pytest.raises(ValueError, match="unknown contention kernel"):
+        with pytest.raises(TypeError, match="kernel"):
             C.contended_durations(*args, num_links=4, iters=ITERS,
                                   kernel=bad)
     big = random_bucket(np.random.default_rng(5), B=1, n=4096, P=4, T=64)
@@ -169,7 +171,7 @@ def test_launch_raises_on_unknown_kernels_and_oversize_shapes(card):
         C.launch(*big, num_links=4, iters=ITERS)
     wide = random_bucket(np.random.default_rng(5), B=1, n=8, P=2, T=4097)
     wide = [t.to(card) for t in wide.tensors()]
-    with pytest.raises(ValueError, match="T_pad 4097: the sm90 kernel takes"):
+    with pytest.raises(ValueError, match="T_pad 4097: the kernel takes"):
         C.launch(*wide, num_links=4, iters=1)
 
 
@@ -190,15 +192,13 @@ def test_split_variants_equal_the_launch(card):
     _, _, groups = _netbound_groups(n_scen=2)
     for (n_pad, P_pad, L), (_, _, cb) in groups.items():
         args = [t.to(card) for t in cb.tensors()]
-        for kernel in C.KERNELS:
-            out, counts = C.launch(*args, num_links=L, iters=ITERS,
-                                   kernel=kernel)
-            s_out, s_counts, cycles = C.launch_split(
-                *args, num_links=L, iters=ITERS, kernel=kernel)
-            torch.cuda.synchronize()
-            assert torch.equal(out, s_out) and torch.equal(counts, s_counts)
-            assert cycles.shape == (cb.size.shape[0], len(C.PHASES))
-            assert bool((cycles >= 0).all()) and bool((cycles[:, 0] > 0).all())
+        out, counts = C.launch(*args, num_links=L, iters=ITERS)
+        s_out, s_counts, cycles = C.launch_split(*args, num_links=L,
+                                                 iters=ITERS)
+        torch.cuda.synchronize()
+        assert torch.equal(out, s_out) and torch.equal(counts, s_counts)
+        assert cycles.shape == (cb.size.shape[0], len(C.PHASES))
+        assert bool((cycles >= 0).all()) and bool((cycles[:, 0] > 0).all())
 
 
 def test_chain_probe_runs(card):

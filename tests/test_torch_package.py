@@ -39,6 +39,37 @@ def test_import_loads_no_jax_and_no_repro():
     assert bad.strip() == "[]"
 
 
+_PLANNER_PROBE = """
+import sys
+import repro_torch.launch.campaign, repro_torch.sim.adapters
+import repro_torch.sim.pipeline, repro_torch.sim.scenarios
+print(sorted(m for m in sys.modules if m.split(".")[0] == "torch"))
+"""
+
+
+def test_the_planners_import_no_torch():
+    """What a planning worker of the process pool imports (the adapters,
+    the pipeline module for its task function, the campaign entry it
+    re-runs as ``__main__``) loads no torch, whose import alone takes
+    seconds; the lazy names still resolve."""
+    proc = subprocess.run([sys.executable, "-c", _PLANNER_PROBE],
+                          capture_output=True, text=True,
+                          env={"PYTHONPATH": str(SRC)}, timeout=300,
+                          check=True)
+    assert proc.stdout.strip() == "[]"
+    import repro_torch.sim as T
+    from repro_torch.sim import network
+    from repro_torch.sim.batch import trace_count
+    from repro_torch.sim.pipeline import pipelined_sweep_makespans
+    assert T.trace_count is trace_count and repro_torch.resolve_device is \
+        resolve_device
+    assert T.pipelined_sweep_makespans is pipelined_sweep_makespans
+    assert network.fluid_finishes_ref.__module__ == \
+        "repro_torch.kernels.contention.ref"
+    with pytest.raises(AttributeError):
+        T.no_such_name
+
+
 def test_every_module_is_listed_by_the_probe():
     names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                    "repro_torch.")}
@@ -52,7 +83,11 @@ def test_every_module_is_listed_by_the_probe():
             "repro_torch.sim.batch", "repro_torch.kernels.replay.replay",
             "repro_torch.kernels.replay.ref",
             "repro_torch.kernels.contention.contention",
-            "repro_torch.kernels.contention.ref"} <= names
+            "repro_torch.kernels.contention.ref",
+            "repro_torch.sim.pipeline", "repro_torch.search",
+            "repro_torch.search.genome", "repro_torch.search.evolve",
+            "repro_torch.launch.campaign", "repro_torch.obs.trace",
+            "repro_torch.obs.provenance"} <= names
 
 
 @pytest.fixture
@@ -163,17 +198,20 @@ def test_chip_smoke_refuses_without_a_card_and_loads_no_jax():
 
 def test_build_hashes_the_shared_headers_into_every_library(tmp_path,
                                                             monkeypatch):
-    """Both contention kernels include ``contention_common.cuh``: an edit
-    there must rebuild each.  On a copy of ``csrc/``, one byte added to
-    either shared header changes every library's name, and an edit of one
-    source only that source's."""
+    """The kernels include ``contention_common.cuh`` and
+    ``sm90_common.cuh``: an edit there must rebuild each.  On a copy of
+    ``csrc/``, one byte added to either shared header changes every
+    library's name, and an edit of one source only that source's.  The
+    first ports of the replay and contention kernels are gone: one source
+    each is left."""
     headers = sorted(p.name for p in build.CSRC.glob("*.cuh"))
     assert {"contention_common.cuh", "sm90_common.cuh"} <= set(headers)
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC, csrc)
     monkeypatch.setattr(build, "CSRC", csrc)
     names = sorted(p.stem for p in csrc.glob("*.cu"))
-    assert {"contention", "contention_sm90"} <= set(names)
+    assert {"contention_sm90", "replay_sm90"} <= set(names)
+    assert not {"contention", "replay"} & set(names)
 
     def paths():
         return {name: build.library_path(name) for name in names}

@@ -249,7 +249,11 @@ def test_fixed_envelope_batch_and_sweep_makespans_equal_reference():
                                   device=CPU)], alg)
 
 
-def test_sweep_suite_makespans_equals_reference_and_refuses_the_pipeline():
+def test_sweep_suite_makespans_equals_reference_and_refuses_the_pipeline(
+        monkeypatch):
+    """The serial route against the reference's, and (since the pipelined
+    executor is ported) ``workers`` / ``cache`` routed through it, equal to
+    the reference's pipelined route on the same entries."""
     jsuite = JS.comm_suite(seed=0, ccr=0.6) + JS.moldable_suite(seed=1, num=1)
     tsuite = TS.comm_suite(seed=0, ccr=0.6) + TS.moldable_suite(seed=1, num=1)
     algs = ("hlp_est", "mhlp_ols", "heft")
@@ -267,10 +271,13 @@ def test_sweep_suite_makespans_equals_reference_and_refuses_the_pipeline():
         got = TB.sweep_suite_makespans(tent, noise=T.NoiseModel("uniform", 0.3),
                                        seeds=[0, 1, 2], device=CPU, **kw)
         _same(ref, got, sorted(kw))
+    monkeypatch.setenv("REPRO_PLAN_WORKERS", "2")
     for kw in ({"workers": 2}, {"workers": None}, {"cache": True}):
-        with pytest.raises(NotImplementedError, match="A4"):
-            TB.sweep_suite_makespans(tent, noise=T.NoiseModel(), seeds=[0],
-                                     device=CPU, **kw)
+        ref = JB.sweep_suite_makespans(jent, noise=J.NoiseModel("uniform", 0.3),
+                                       seeds=[0, 1, 2], **kw)
+        got = TB.sweep_suite_makespans(tent, noise=T.NoiseModel("uniform", 0.3),
+                                       seeds=[0, 1, 2], device=CPU, **kw)
+        _same(ref, got, sorted(kw))
 
 
 def test_engine_agrees_and_zero_noise_replays_the_plan():

@@ -1,4 +1,4 @@
-"""The replay CUDA kernels against their plain version, on the card.
+"""The replay CUDA kernel against its plain version, on the card.
 
 The kernel has no CPU mode, so every test here carries the ``card`` marker
 and asks for the ``card`` fixture, which skips it without a card.  This
@@ -8,10 +8,8 @@ but not the JAX package:
     PYTHONPATH=src python -m pytest -q --noconftest -m card tests/test_torch_replay_card.py
 
 Every operation of the replay is a float32 add, rounded once, or an exact
-max, so each kernel must equal the plain version bit for bit
-(``torch.equal``).  Every case runs through both kernels, the sm90 kernel
-(``csrc/replay_sm90.cu``, the default) and the walk kernel
-(``csrc/replay.cu``, ``kernel="walk"``); the sm90 kernel's own cases are in
+max, so the kernel (``csrc/replay_sm90.cu``) must equal the plain version
+bit for bit (``torch.equal``); its cases that test its own design are in
 ``tests/test_torch_replay_sm90_card.py``.
 """
 import numpy as np
@@ -55,12 +53,10 @@ def _random_bucket(rng, B, n, P, S):
 
 def _check(args, card):
     want = R.bucket_makespans_ref(*args)
-    for kernel in R.KERNELS:
-        got = R.launch(*(a.to(card) for a in args), kernel=kernel)
-        torch.cuda.synchronize()
-        assert got.shape == want.shape and got.dtype == torch.float32
-        assert torch.equal(got.cpu(), want), (kernel,
-                                              (got.cpu() - want).abs().max())
+    got = R.launch(*(a.to(card) for a in args))
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert torch.equal(got.cpu(), want), (got.cpu() - want).abs().max()
 
 
 @pytest.mark.card
@@ -71,7 +67,7 @@ def test_kernel_equals_plain_on_random_dags(card):
     R.reset_launch_count()
     for i, S in enumerate((1, 31, 32, 33, 64)):
         _check(_random_bucket(rng, 3 + i, 200, 6, S), card)
-    assert R.launch_counts() == {"sm90": 5, "walk": 5}
+    assert R.launch_count() == 5
 
 
 @pytest.mark.card
@@ -93,8 +89,7 @@ def test_kernel_equals_plain_on_plan_buckets(card):
     for fl in (None, floors):
         R.reset_launch_count()
         got = TB.bucketed_makespans(items, rows, floors=fl, device=card)
-        assert R.launch_counts() == {"sm90": len(TB.bucket_plans(items)),
-                                     "walk": 0}
+        assert R.launch_count() == len(TB.bucket_plans(items))
         want = TB.bucketed_makespans(items, rows, floors=fl, device="cpu")
         for a, b in zip(got, want):
             np.testing.assert_array_equal(a, b)
@@ -136,15 +131,13 @@ def test_launch_refuses_what_the_kernel_does_not_take(card):
     args = _random_bucket(np.random.default_rng(2), 2, 16, 3, 8)
     R.reset_launch_count()
     order, pred, delay, floor, times = (a.to(card) for a in args)
-    for kernel in R.KERNELS:
-        with pytest.raises(ValueError, match="card"):
-            R.launch(*args, kernel=kernel)
-        with pytest.raises(ValueError, match="contiguous"):
-            R.launch(order, pred, delay, floor,
-                     times.transpose(1, 2).contiguous().transpose(1, 2),
-                     kernel=kernel)
-    with pytest.raises(ValueError, match="unknown replay kernel"):
-        R.launch(order, pred, delay, floor, times, kernel="fma")
+    with pytest.raises(ValueError, match="card"):
+        R.launch(*args)
+    with pytest.raises(ValueError, match="contiguous"):
+        R.launch(order, pred, delay, floor,
+                 times.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(TypeError, match="kernel"):
+        R.launch(order, pred, delay, floor, times, kernel="walk")
     holed = pred.clone()
     holed[0, 5, 0], holed[0, 5, 1] = -1, 0
     with pytest.raises(ValueError, match="after a -1"):

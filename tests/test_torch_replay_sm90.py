@@ -346,16 +346,16 @@ def test_plain_maxplus_keeps_nan_as_the_pallas_kernel():
 
 # ------------------------------------------------------------- the wrapper
 def test_wrapper_names_both_kernels_and_takes_the_plain_version_on_cpu():
+    """One kernel is left (``csrc/replay_sm90.cu``): no ``kernel=`` choice,
+    the plain version on CPU tensors, no launch off the card."""
     args = _random_args(np.random.default_rng(7), 2, 20, 3, 5)
     R.reset_launch_count()
     want = R.bucket_makespans_ref(*args)
-    assert tuple(R.KERNELS) == ("sm90", "walk")
-    for kernel in R.KERNELS:
-        assert torch.equal(R.bucket_makespans(*args, kernel=kernel), want)
-        with pytest.raises(ValueError, match="card"):
-            R.launch(*args, kernel=kernel)
+    assert R.SOURCE == "replay_sm90" and not hasattr(R, "KERNELS")
+    assert torch.equal(R.bucket_makespans(*args), want)
+    with pytest.raises(ValueError, match="card"):
+        R.launch(*args)
     for call in (R.bucket_makespans, R.launch):
-        with pytest.raises(ValueError, match="unknown replay kernel"):
-            call(*args, kernel="fma")
-    assert R.launch_counts() == {"sm90": 0, "walk": 0}
+        with pytest.raises(TypeError, match="kernel"):
+            call(*args, kernel="walk")
     assert R.launch_count() == 0

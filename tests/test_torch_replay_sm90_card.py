@@ -1,4 +1,4 @@
-"""The sm90 replay kernel's own cases, and NaN in both replay kernels, on
+"""The sm90 replay kernel's own cases, and NaN in the replay kernel, on
 the card.
 
 Like ``tests/test_torch_replay_card.py`` this file carries the ``card``
@@ -7,7 +7,7 @@ card) and imports nothing of JAX:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m card tests/test_torch_replay_sm90_card.py
 
-Each kernel must equal the plain version bit for bit; where an input holds
+The kernel must equal the plain version bit for bit; where an input holds
 NaN, with NaN in the same lanes (``assert_array_equal`` treats NaNs in the
 same places as equal).  The cases: the shared-memory boundaries where the
 seeds a block takes step down (32 to 16 lanes, and 4 lanes at n_pad 8192),
@@ -57,15 +57,13 @@ def _random_bucket(rng, B, n, P, S, full=False):
             TB._f32(floor), TB._f32(times))
 
 
-def _check(args, card, kernels=tuple(R.KERNELS)):
-    """Each kernel against the plain version; NaN in the same lanes."""
+def _check(args, card):
+    """The kernel against the plain version; NaN in the same lanes."""
     want = R.bucket_makespans_ref(*args).numpy()
-    for kernel in kernels:
-        got = R.launch(*(a.to(card) for a in args), kernel=kernel)
-        torch.cuda.synchronize()
-        assert got.dtype == torch.float32
-        np.testing.assert_array_equal(got.cpu().numpy(), want,
-                                      err_msg=kernel)
+    got = R.launch(*(a.to(card) for a in args))
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
     return want
 
 
@@ -181,8 +179,8 @@ def test_sm90_seed_counts_that_leave_lanes_empty(card):
     R.reset_launch_count()
     for n in (300, 3000):
         for S in (1, 5, 13, 33, 70):
-            _check(_random_bucket(rng, 2, n, 4, S), card, kernels=("sm90",))
-    assert R.launch_counts() == {"sm90": 10, "walk": 0}
+            _check(_random_bucket(rng, 2, n, 4, S), card)
+    assert R.launch_count() == 10
 
 
 @pytest.mark.card

@@ -4,7 +4,8 @@
 schedule hashes for every adapter; the port's ``simulate`` must reproduce
 each one (clean and under seeded lognormal noise) for every adapter it
 carries.  ``hlp_jax_ols`` needs the first-order LP, which the port does not
-have yet, and the ``evo`` adapters have no golden cells.  Beyond the
+have yet; the ``evo`` adapters have no golden cells (``tests/test_torch_search.py``
+holds them against the reference).  Beyond the
 goldens, every ported static adapter runs the communication-carrying
 default suite under the three network models, and the network helpers run
 on a contended instance, each against ``repro.sim`` in the same process.
@@ -29,7 +30,7 @@ import repro_torch.sim.scenarios as TS  # noqa: E402
 with open(os.path.join(os.path.dirname(__file__), "golden_width1.json")) as _f:
     GOLDEN_W1 = json.load(_f)
 
-NOT_PORTED = {"hlp_jax_ols", "evo", "evo_camhlp"}
+NOT_PORTED = {"hlp_jax_ols"}
 STATIC = ("hlp_est", "hlp_ols", "cahlp_ols", "camhlp_ols", "mhlp_ols",
           "heft", "heft_nocomm")
 NETWORKS = ("instant", "fixed_latency", "maxmin_fair")
