@@ -92,16 +92,38 @@ Phases, each of which raises on failure (exit code not 0):
              of reductions (filling rounds + events - merged rounds), each
              times the link its probe (``contention_sm90_chain_probe``)
              measures at the group's block size.
-9. campaign — ``python -m repro_torch.launch.campaign --bench-json X`` on
+9. lp      — the first-order LP (``repro_torch.core.hlp_jax``) on the
+             solver target's instances (Chameleon potrf and getrf nb=10,
+             potri nb=20, block 512, on (64, 8), 300 iterations) through
+             ``solve_hlp_jax`` on the card: the ``hlp_fo`` launch counter
+             set to 0 just before and required to equal the solves just
+             after.  Then each instance through the kernel
+             (``hlp_fo.cu``'s hybrid entry) and its plain version on CPU
+             copies from the same starting logits: λ at rtol 1e-5 and
+             identical threshold allocations; one comm-aware netbound
+             instance and one moldable instance through the choice entry
+             the same way (λ at 1e-3 on the netbound one: see
+             ``LP_NETBOUND_RTOL``).  Each solve timed from CUDA events
+             beside its chain floor (3 level steps a level a step, each
+             as ``hlp_fo_chain_probe`` measures it), its bound, the plain
+             version's host time and HiGHS's (``solve_hlp``), and the split
+             of its chain's clock cycles over the step's four phases.
+10. campaign — ``python -m repro_torch.launch.campaign --bench-json X`` on
              the card in a fresh process (the ``sim`` and ``search``
-             targets, their replay and contention launches counted from 0
-             by the process itself), then the JAX package's gate
-             ``python -m benchmarks.render_tables --check-bench X
+             targets, their replay, contention and first-order LP launches
+             counted from 0 by the process itself), then the JAX package's
+             gate ``python -m benchmarks.render_tables --check-bench X
              benchmarks/BENCH_pinned.json``: both must exit 0, every pinned
              metric must lie within rtol 1e-6 of its pin and every count of
              ``CHECK_COUNTS`` equal it; the replay launches must equal the
-             chunks the run dispatched (the ``sim`` buckets) and the
-             contention launches the groups it priced.
+             chunks the run dispatched (the ``sim`` buckets), the
+             contention launches the groups it priced, the first-order LP's
+             none.  Then ``--full --only sim`` (the reference's full grid,
+             ``hlp_jax_ols`` among its static adapters) the same way against
+             ``tests/torch_sim_full_pin.json``, the reference's own
+             trajectory of that grid: the first-order LP's launches must
+             equal the ``hlp_jax_ols`` solves (one a static-suite
+             scenario).
 
 The tests that launch a kernel run apart, on the same card:
 
@@ -110,7 +132,7 @@ The tests that launch a kernel run apart, on the same card:
         tests/test_torch_replay_card.py tests/test_torch_replay_sm90_card.py \
         tests/test_torch_contention_card.py \
         tests/test_torch_contention_sm90_card.py \
-        tests/test_torch_pipeline_card.py
+        tests/test_torch_pipeline_card.py tests/test_torch_hlp_fo_card.py
 
 The line before the last is the card's name and power limit, the one before
 it a JSON object of per-kernel numbers; the last line is
@@ -210,9 +232,32 @@ FP64_FLOP_PER_S = 34e12
 CARD = "cuda"
 
 # The campaign phase: the pins the JAX package's gate holds the port to,
-# and the tolerance beyond the gate's 5% (the port replays bit for bit).
+# and the tolerance beyond the gate's 5% (the port replays bit for bit);
+# the full grid (--full --only sim) against the reference's own trajectory.
 PINNED = ROOT / "benchmarks" / "BENCH_pinned.json"
+FULL_PIN = ROOT / "tests" / "torch_sim_full_pin.json"
 CAMPAIGN_RTOL = 1e-6
+# the counts render_tables.CHECK_COUNTS holds exactly
+CAMPAIGN_COUNTS = ("plans", "evals", "runs", "scenarios", "compiles",
+                   "contended_compiles", "buckets", "cells",
+                   "plan_cache_hits", "plan_cache_misses")
+
+# The lp phase: the first-order LP on benchmarks/run.py::bench_solver's
+# instances at full=True (Chameleon potrf and getrf nb=10, potri nb=20, at
+# block 512 on (64, 8), 300 iterations), then the choice entry on the
+# campaign network sub-grid's first instance (netbound seed 300, the rigid
+# comm-aware Q=2 grid) and on a moldable instance (moldable_suite seed 400
+# at CCR 2, its comm-aware (type, width) grid).  λ of the kernel against
+# the plain version at rtol 1e-5, allocations identical; on the netbound
+# instance λ at 1e-3: there the reference and the plain version themselves
+# differ by 2.9e-4 on the CPU (tests/test_torch_hlp_fo.py holds it under
+# 1e-3): Adam normalises gradients that are rounding noise along flat
+# directions, so any change of rounding moves the iterates.
+LP_SOLVER = (("potrf", 10), ("getrf", 10), ("potri", 20))
+LP_MACHINE = (64, 8)
+LP_ITERS = 300
+LP_RTOL = 1e-5
+LP_NETBOUND_RTOL = 1e-3
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1225,6 +1270,242 @@ def contention_phase(torch) -> dict:
     return out
 
 
+def lp_probe_ns(torch, threads: int, steps: int = 20_000) -> float:
+    """ns of one level step of the first-order LP's scans at a block of
+    ``threads`` threads, from ``hlp_fo_chain_probe`` (a shared-memory read
+    of another thread's last value, an expf and a logf, a store and a
+    barrier): the difference of a run of 2 ``steps`` and one of ``steps``,
+    the least of three, so the launch's own cost drops out."""
+    from repro_torch.kernels.hlp_fo import hlp_fo as HF
+
+    def run_ms(n: int) -> float:
+        return _probe_ms(torch, lambda: HF.chain_probe(n, threads))
+
+    run_ms(100)
+    return (run_ms(2 * steps) - run_ms(steps)) / steps * 1e6
+
+
+def lp_bound_ms(d, iters: int, c: int = 1, q: int = 0,
+                comm: bool = False) -> tuple[float, str]:
+    """The least time of one solve and its limit: every input read once
+    (the DAG's index arrays, the times or the choice grid, the schedule
+    table, z0) and best x and λ written once, against the float32
+    operations of ``iters`` steps counted as 13 a real pred slot (soft and
+    exact forward, the reverse gather) and 50 a task entry (its time, soft
+    max, chain rule, Adam, loads), each expf / logf as one."""
+    n, P = d.pred.shape
+    E = int(d.succ_task.shape[0])
+    L = d.levels
+    ints = (L + 1) + n + n * P + (n + 1) + 2 * E
+    floats = (2 * n * c + q * c + q + (n * P if comm else 0) + 3 * iters
+              + n * c + n * c + 1)
+    moved = 4 * (ints + floats)
+    ops = iters * (13 * E + 50 * n * c + (4 * q * E if comm else 0))
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def lp_phase(torch) -> dict:
+    """The first-order LP on the card.  The main path: ``solve_hlp_jax`` on
+    the solver target's instances (:data:`LP_SOLVER`), the launch counter
+    0 just before and one launch a solve just after.  Then each instance
+    through the kernel's bare launch and through the plain version on CPU
+    copies from the same starting logits (λ at :data:`LP_RTOL`, threshold
+    allocations identical, the main path's allocation the same), the
+    kernel timed from CUDA events beside its chain floor (3 level steps a
+    level a step, the probe's ns each), its bound, the plain version's
+    host time and HiGHS's (``solve_hlp``).  Then the choice entry on a
+    netbound and a moldable instance, the same way, one launch a solve."""
+    import numpy as np
+    from repro_torch.core.allocation import AllocationProblem
+    from repro_torch.core.hlp import solve_hlp
+    from repro_torch.core.hlp_jax import (PaddedDag, reference_normal,
+                                          solve_hlp_jax)
+    from repro_torch.core.workloads import chameleon
+    from repro_torch.kernels.hlp_fo import hlp_fo as HF
+    from repro_torch.sim.scenarios import moldable_suite, netbound_scenario
+
+    m, k = LP_MACHINE
+    graphs = {f"{a}{nb}": chameleon(a, nb, 512) for a, nb in LP_SOLVER}
+    HF.reset_launch_count()
+    t0 = time.perf_counter()
+    sols = {name: solve_hlp_jax(g, m, k, iters=LP_ITERS)
+            for name, g in graphs.items()}
+    path_s = time.perf_counter() - t0
+    launches = HF.launch_count()
+    check(launches == len(graphs), f"the first-order LP launched "
+          f"{launches} times for {len(graphs)} solves")
+    probes: dict[int, float] = {}
+
+    def probe(threads: int) -> float:
+        if threads not in probes:
+            probes[threads] = lp_probe_ns(torch, threads)
+            print(f"lp chain probe: {probes[threads]:.2f} ns a level step at "
+                  f"{threads} threads")
+        return probes[threads]
+
+    def timed(d, run, c=1, q=0, comm=False) -> dict:
+        width = d.max_width
+        threads = HF.threads_for(width)
+        ms = time_ms(run, iters=5, warmup=1)
+        chain = 3 * d.levels * LP_ITERS
+        floor = chain * probe(threads) * 1e-6
+        bound, bound_by = lp_bound_ms(d, LP_ITERS, c, q, comm)
+        return {"levels": d.levels, "width": width, "threads": threads,
+                "edges": int(d.succ_task.shape[0]), "ms": ms,
+                "chain_steps": chain, "chain_floor_ms": floor,
+                "probe_ns": probes[threads], "bound_ms": bound,
+                "bound_by": bound_by}
+
+    rows = []
+    for name, g in graphs.items():
+        t0 = time.perf_counter()
+        exact = solve_hlp(g, m, k)
+        highs_s = time.perf_counter() - t0
+        sol = sols[name]
+        check(sol.lp_value >= exact.lp_value - 1e-9, f"lp {name}: "
+              f"first-order λ {sol.lp_value} below HiGHS's {exact.lp_value}")
+        z0 = np.float32(0.01) * reference_normal(0, (g.n,))
+        dc = PaddedDag.from_graph(g, "cpu")
+        t0 = time.perf_counter()
+        rx, rv = HF.hybrid(dc, torch.tensor(z0), m=m, k=k, iters=LP_ITERS)
+        plain_s = time.perf_counter() - t0
+        dg = PaddedDag.from_graph(g, CARD)
+        zg = torch.tensor(z0, device=CARD)
+        kx, kv = HF.launch_hybrid(dg, zg, m=m, k=k, iters=LP_ITERS)
+        kx, kv, rx, rv = kx.cpu().numpy(), float(kv), rx.numpy(), float(rv)
+        rel = abs(kv - rv) / abs(rv)
+        check(rel <= LP_RTOL, f"lp {name}: kernel λ {kv} against the plain "
+              f"version's {rv} (rel {rel:.3e})")
+        check(np.array_equal(kx >= 0.5, rx >= 0.5), f"lp {name}: the "
+              "kernel's threshold allocation differs from the plain version's")
+        check(np.array_equal(sol.alloc, np.where(kx >= 0.5, 0, 1)),
+              f"lp {name}: the main path's allocation differs")
+        cycles = torch.zeros(len(HF.PHASES), dtype=torch.int64, device=CARD)
+        sx, sv = HF.launch_hybrid(dg, zg, m=m, k=k, iters=LP_ITERS,
+                                  cycles=cycles)
+        check(float(sv) == kv, f"lp {name}: the split launch's λ differs")
+        cyc = cycles.cpu().tolist()
+        row = {"name": name, "n": g.n, "lam": kv, "plain_lam": rv,
+               "rel": rel, "max_abs_err": float(np.abs(kx - rx).max()),
+               "plain_ms": plain_s * 1e3, "highs_s": highs_s,
+               "lp_highs": exact.lp_value, "lp_first_order": sol.lp_value,
+               "gap_pct": (sol.lp_value / exact.lp_value - 1) * 100,
+               "split": {ph: c / sum(cyc) for ph, c in zip(HF.PHASES, cyc)},
+               **timed(dg, lambda: HF.launch_hybrid(
+                   dg, zg, m=m, k=k, iters=LP_ITERS))}
+        rows.append(row)
+        print(f"lp {name} (n={g.n}, {row['levels']} levels, widest "
+              f"{row['width']}, {row['threads']} threads): kernel "
+              f"{row['ms']:.3f} ms a solve, chain floor "
+              f"{row['chain_floor_ms']:.3f} ms ({row['chain_steps']} level "
+              f"steps), bound {row['bound_ms'] * 1e3:.3f} us "
+              f"({row['bound_by']}), plain {row['plain_ms']:.1f} ms (host), "
+              f"HiGHS {highs_s:.3f} s; λ rel {rel:.2e}, gap "
+              f"{row['gap_pct']:.3f}%; split "
+              + ", ".join(f"{ph} {v:.3f}" for ph, v in row["split"].items()))
+
+    nb = netbound_scenario(seed=300)
+    mo = moldable_suite(seed=400, num=1, ccr=2.0)[0]
+    choice_cases = [("netbound_s300", nb.graph, nb.counts, True,
+                     LP_NETBOUND_RTOL),
+                    ("moldable_s400_ccr2", mo.graph, mo.machine, False,
+                     LP_RTOL)]
+    crows = []
+    for name, g, machine, rigid, rtol in choice_cases:
+        prob = AllocationProblem.build(g, machine, comm_aware=True,
+                                       rigid=rigid)
+        p_dev = np.where(prob.finite, prob.p_choice, 1e12)
+        ins = [p_dev, p_dev * prob.width_of.astype(np.float64),
+               prob.type_mask, 1.0 / np.asarray(prob.counts, np.float64)]
+        z0 = np.float32(0.01) * reference_normal(0, p_dev.shape)
+        res = {}
+        for dev in ("cpu", CARD):
+            d = PaddedDag.from_graph(g, dev)
+            t = [torch.tensor(np.asarray(a, np.float32), device=dev)
+                 for a in ins]
+            zt = torch.tensor(z0, device=dev)
+            before = HF.launch_count()
+            t0 = time.perf_counter()
+            x, v = HF.choice(d, zt, *t, iters=LP_ITERS,
+                             use_comm=prob.comm_aware)
+            res[dev] = (x.cpu().numpy(), float(v), time.perf_counter() - t0,
+                        d, zt, t)
+            check(HF.launch_count() - before == (1 if dev == CARD else 0),
+                  f"lp {name}: {HF.launch_count() - before} launches on "
+                  f"{dev} for one solve")
+        (rx, rv, plain_s, *_), (kx, kv, _, dg, zg, tg) = res["cpu"], res[CARD]
+        rel = abs(kv - rv) / abs(rv)
+        check(rel <= rtol, f"lp {name}: kernel λ {kv} against the plain "
+              f"version's {rv} (rel {rel:.3e} > {rtol})")
+        check(np.array_equal(kx.argmax(1), rx.argmax(1)), f"lp {name}: the "
+              "kernel's allocation differs from the plain version's")
+        c, q = p_dev.shape[1], prob.type_mask.shape[0]
+        row = {"name": name, "n": g.n, "choices": c, "comm": prob.comm_aware,
+               "lam": kv, "plain_lam": rv, "rel": rel, "rtol": rtol,
+               "max_abs_err": float(np.abs(kx - rx).max()),
+               "plain_ms": plain_s * 1e3,
+               **timed(dg, lambda: HF.launch_choice(
+                   dg, zg, *tg, iters=LP_ITERS, use_comm=prob.comm_aware),
+                   c, q, prob.comm_aware)}
+        crows.append(row)
+        print(f"lp choice {name} (n={g.n}, C={c}, comm {prob.comm_aware}): "
+              f"kernel {row['ms']:.3f} ms a solve, chain floor "
+              f"{row['chain_floor_ms']:.3f} ms, plain {row['plain_ms']:.1f} "
+              f"ms (host); λ rel {rel:.2e} (limit {rtol})")
+    return {"launches": launches, "path_s": path_s, "hybrid": rows,
+            "choice": crows}
+
+
+def _campaign_run(args: list[str], pin_path: Path, name: str
+                  ) -> tuple[dict, dict, float, float, int]:
+    """``python -m repro_torch.launch.campaign ARGS`` on the card in a fresh
+    process, then ``benchmarks/render_tables --check-bench`` against
+    ``pin_path``; both must exit 0, every pinned metric must lie within
+    ``CAMPAIGN_RTOL`` of its pin and every pinned count equal it.  Returns
+    the trajectory's benches, the pins, the wall, the worst relative
+    difference and the number of counts held."""
+    out_dir = ROOT / "build" / "campaign"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = out_dir / f"BENCH_{name}.json"
+    path.unlink(missing_ok=True)
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "repro_torch.launch.campaign",
+                          *args, "--bench-json", str(path)], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    for line in run.stdout.splitlines():
+        if line.startswith("#"):
+            print(f"{name} | {line}")
+    check(run.returncode == 0, f"the campaign entry {args} exited "
+          f"{run.returncode}:\n{run.stderr[-4000:]}")
+    gate = subprocess.run([sys.executable, "-m", "benchmarks.render_tables",
+                           "--check-bench", str(path), str(pin_path)],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=300)
+    print(f"{name} gate | {gate.stdout.strip()}")
+    check(gate.returncode == 0, f"render_tables --check-bench exited "
+          f"{gate.returncode}:\n{gate.stdout[-4000:]}{gate.stderr[-2000:]}")
+    got = json.loads(path.read_text())["benches"]
+    pins = json.loads(pin_path.read_text())["benches"]
+    worst, counts = 0.0, 0
+    for bench, pin in pins.items():
+        for key, want in pin["metrics"].items():
+            rel = abs(got[bench]["metrics"][key] - want) / abs(want)
+            worst = max(worst, rel)
+            check(rel <= CAMPAIGN_RTOL, f"{name} {bench} metric {key}: "
+                  f"{got[bench]['metrics'][key]} against the pin {want}")
+        for key, want in pin.items():
+            if (key in CAMPAIGN_COUNTS and isinstance(want, int)
+                    and not isinstance(want, bool)):
+                counts += 1
+                check(got[bench][key] == want, f"{name} {bench} count "
+                      f"{key}: {got[bench][key]} against the pin {want}")
+    return got, pins, wall, worst, counts
+
+
 def campaign_phase() -> dict:
     """``python -m repro_torch.launch.campaign`` on the card in a fresh
     process (the replay shapes it counts, like the reference's jit caches,
@@ -1232,45 +1513,16 @@ def campaign_phase() -> dict:
     --check-bench`` against ``benchmarks/BENCH_pinned.json``; both must exit
     0.  Beyond the gate's 5%, every pinned metric must lie within
     ``CAMPAIGN_RTOL`` of its pin and every pinned count equal it.  The
-    process counts each target's replay and contention launches from 0;
-    they must equal the replay chunks it dispatched (for ``sim``, the
-    pipelined sweeps' buckets) and the contention groups it priced."""
-    out_dir = ROOT / "build" / "campaign"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    path = out_dir / "BENCH_torch.json"
-    path.unlink(missing_ok=True)
-    env = {**os.environ, "PYTHONPATH": str(SRC)}
-    t0 = time.perf_counter()
-    run = subprocess.run([sys.executable, "-m", "repro_torch.launch.campaign",
-                          "--bench-json", str(path)], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=900)
-    wall = time.perf_counter() - t0
-    for line in run.stdout.splitlines():
-        if line.startswith("#"):
-            print(f"campaign | {line}")
-    check(run.returncode == 0, f"the campaign entry exited "
-          f"{run.returncode}:\n{run.stderr[-4000:]}")
-    gate = subprocess.run([sys.executable, "-m", "benchmarks.render_tables",
-                           "--check-bench", str(path), str(PINNED)],
-                          cwd=ROOT, capture_output=True, text=True,
-                          timeout=300)
-    print(f"campaign gate | {gate.stdout.strip()}")
-    check(gate.returncode == 0, f"render_tables --check-bench exited "
-          f"{gate.returncode}:\n{gate.stdout[-4000:]}{gate.stderr[-2000:]}")
-    got = json.loads(path.read_text())["benches"]
-    pins = json.loads(PINNED.read_text())["benches"]
-    worst, counts = 0.0, 0
-    for name, pin in pins.items():
-        for key, want in pin["metrics"].items():
-            rel = abs(got[name]["metrics"][key] - want) / abs(want)
-            worst = max(worst, rel)
-            check(rel <= CAMPAIGN_RTOL, f"campaign {name} metric {key}: "
-                  f"{got[name]['metrics'][key]} against the pin {want}")
-        for key, want in pin.items():
-            if isinstance(want, int) and not isinstance(want, bool):
-                counts += 1
-                check(got[name][key] == want, f"campaign {name} count "
-                      f"{key}: {got[name][key]} against the pin {want}")
+    process counts each target's replay, contention and first-order LP
+    launches from 0; they must equal the replay chunks it dispatched (for
+    ``sim``, the pipelined sweeps' buckets), the contention groups it
+    priced, and 0.  Then ``--full --only sim`` the same way against
+    ``tests/torch_sim_full_pin.json`` (the reference's trajectory of the
+    full grid): the first-order LP's launches must equal the ``hlp_jax_ols``
+    solves, one a scenario of the static suite."""
+    from repro_torch.sim.scenarios import comm_suite, default_suite
+
+    got, pins, wall, worst, counts = _campaign_run([], PINNED, "campaign")
     sim, search = got["sim"]["launches"], got["search"]["launches"]
     check(sim["replay"] == sim["replay_chunks"] == got["sim"]["buckets"],
           f"campaign sim: {sim['replay']} replay launches for "
@@ -1281,6 +1533,8 @@ def campaign_phase() -> dict:
     check(search["replay"] == search["replay_chunks"] >= 1
           and search["contention"] == 0,
           f"campaign search: launches {search}")
+    check(sim["hlp_fo"] == search["hlp_fo"] == 0,
+          f"campaign: the quick grid launched the first-order LP: {sim}")
     summary = {"wall_s": wall, "worst_rel": worst, "counts": counts}
     for name in ("sim", "search"):
         b = got[name]
@@ -1298,6 +1552,35 @@ def campaign_phase() -> dict:
                   f"{b['overlap_frac']:.4f}, drain {b['drain_s']:.4f} s"
                   if name == "sim" else ""))
     print(f"campaign: entry {wall:.1f} s in its own process; "
+          f"{sum(len(p['metrics']) for p in pins.values())} pinned metrics "
+          f"within rtol {CAMPAIGN_RTOL} (worst {worst:.3e}), {counts} "
+          "pinned counts exact")
+
+    got, pins, wall, worst, counts = _campaign_run(
+        ["--full", "--only", "sim"], FULL_PIN, "campaign_full")
+    full = got["sim"]["launches"]
+    solves = len(default_suite(seed=0) + comm_suite(seed=50)
+                 + default_suite(seed=100, counts=(16, 4))
+                 + comm_suite(seed=150, counts=(16, 4)))
+    check(full["hlp_fo"] == solves, f"campaign full: {full['hlp_fo']} "
+          f"first-order LP launches for {solves} hlp_jax_ols solves")
+    check(full["replay"] == full["replay_chunks"] == got["sim"]["buckets"],
+          f"campaign full: {full['replay']} replay launches for "
+          f"{full['replay_chunks']} chunks in {got['sim']['buckets']} "
+          "buckets")
+    check(full["contention"] == full["contended_groups"] >= 1,
+          f"campaign full: launches {full}")
+    b = got["sim"]
+    summary["full"] = {"wall_s": wall, "worst_rel": worst, "counts": counts,
+                       "sim_wall_s": b["wall_s"], "launches": full,
+                       "hlp_jax_ols_solves": solves,
+                       **{k: b[k] for k in ("plan_build_s", "build_wall_s",
+                                            "solve_max_s", "overlap_frac",
+                                            "drain_s", "plan_workers",
+                                            "buckets") if k in b}}
+    print(f"campaign full: entry {wall:.1f} s in its own process, sim wall "
+          f"{b['wall_s']:.3f} s, plan_build_s {b['plan_build_s']:.3f} over "
+          f"{b['plan_workers']} workers, launches {full}; "
           f"{sum(len(p['metrics']) for p in pins.values())} pinned metrics "
           f"within rtol {CAMPAIGN_RTOL} (worst {worst:.3e}), {counts} "
           "pinned counts exact")
@@ -1475,7 +1758,33 @@ def main() -> int:
         "groups": main_groups + scale_groups}
     print(f"contention summary: {json.dumps(contention)}")
 
-    # the port's campaign entry in a fresh process, then the pinned gate
+    # the first-order LP: its counter at 0 just before the main path
+    t0 = time.perf_counter()
+    lp = lp_phase(torch)
+    print(f"lp: {time.perf_counter() - t0:.1f} s")
+    hybrid = lp["hybrid"]
+    lp_row = {
+        "name": "hlp_fo_solve", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/hlp_fo.cu",
+        "replaces": "src/repro/core/hlp_jax.py:122",
+        "also_replaces": ["src/repro/core/hlp_jax.py:172"],
+        "shape": f"{', '.join(r['name'] for r in hybrid)} on "
+                 f"{LP_MACHINE}, {LP_ITERS} iterations, summed",
+        "launches": lp["launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in hybrid + lp["choice"]),
+        "ms": sum(r["ms"] for r in hybrid),
+        "plain_ms": sum(r["plain_ms"] for r in hybrid), "plain_on": "host",
+        "bound_ms": sum(r["bound_ms"] for r in hybrid),
+        "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in hybrid)
+                     else "operations"),
+        "library_ms": None,
+        "chain_floor_ms": sum(r["chain_floor_ms"] for r in hybrid),
+        "highs_ms": sum(r["highs_s"] for r in hybrid) * 1e3,
+        "instances": hybrid + lp["choice"]}
+    print(f"lp summary: {json.dumps(lp)}")
+
+    # the port's campaign entry in a fresh process, then the pinned gate;
+    # then the full sim grid against the reference's trajectory
     t0 = time.perf_counter()
     campaign = campaign_phase()
     print(f"campaign: {time.perf_counter() - t0:.1f} s")
@@ -1483,12 +1792,14 @@ def main() -> int:
         campaign[b]["launches"]["replay"] for b in ("sim", "search"))
     sm90_contention["campaign_launches"] = sum(
         campaign[b]["launches"]["contention"] for b in ("sim", "search"))
+    lp_row["campaign_launches"] = campaign["full"]["launches"]["hlp_fo"]
     print(f"campaign summary: {json.dumps(campaign)}")
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
           "imports, build included")
     print(json.dumps({"kernels": [flash_row, fp32_row, fma_row,
-                                  maxplus_row, sm90_row, sm90_contention]}))
+                                  maxplus_row, sm90_row, sm90_contention,
+                                  lp_row]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,9 +2,9 @@
 
 The paper's allocation phase is a family of LP relaxations — hybrid HLP
 (Q=2), QHLP (Q >= 2) and the width-indexed moldable MHLP — that the repo
-solves with two backends: exact HiGHS (``repro_torch.core.hlp``) and a jitted
-first-order JAX solver (the JAX package's ``repro.core.hlp_jax``, not yet
-ported).  Historically each solver
+solves with two backends: exact HiGHS (``repro_torch.core.hlp``) and a
+first-order solver on the card (``repro_torch.core.hlp_jax``).  Historically
+each solver
 assembled its own objective and constraints; this module factors the whole
 problem into one **``AllocationProblem``** intermediate representation that
 every backend consumes:
@@ -33,7 +33,7 @@ For the hybrid (Q=2) lowering the coupling collapses to one variable
 
 First-order backend: :func:`frac_objective` evaluates the exact λ of any
 fractional choice distribution, pricing edges at the same total-variation
-crossing probability; ``repro.core.hlp_jax`` optimizes a smooth surrogate
+crossing probability; ``repro_torch.core.hlp_jax`` optimizes a smooth surrogate
 (expected crossing under independent draws, an upper bound on the TV term)
 folded into the soft longest path as comm-augmented edge delays.
 

@@ -26,7 +26,7 @@ shrinks) — see :func:`amdahl_speedup` / :func:`powerlaw_speedup`.
 
 The representation is fully vectorized (CSR adjacency + topological levels) so
 that critical-path / rank computations run as numpy sweeps (and, in
-the JAX package's ``repro.core.hlp_jax``, as jitted level-scans).  The CSR arrays carry the
+``repro_torch.core.hlp_jax``, as level-scans on the card).  The CSR arrays carry the
 originating edge index (``pred_eid`` / ``succ_eid``) so per-edge costs are
 addressable from either endpoint without searching.
 """

@@ -14,7 +14,7 @@ Rounding (paper §3): x_j >= 1/2  ->  CPU side, else GPU side.
 
 The LP optimum is degenerate: off-critical-path tasks with load slack can sit
 anywhere in [0, 1] without moving λ, so two optimal solvers (HiGHS here, the
-first-order JAX solver in the JAX package's ``repro.core.hlp_jax``) legitimately return
+first-order solver in ``repro_torch.core.hlp_jax``) legitimately return
 different fractional solutions and hence different rounded allocations.
 ``canonical_round`` removes that freedom with a *shared deterministic
 tie-break*: every task whose side is not pinned by λ is snapped to its
@@ -49,8 +49,8 @@ instead of leaving it to the scheduling phase.  With zero edge costs the
 comm-aware problem is byte-identical to the oblivious one — the paper's
 model, golden-tested bit-for-bit.
 
-Solved exactly with scipy's HiGHS (the paper used GLPK).  The JAX package's
-first-order solver (``repro.core.hlp_jax``) is not yet ported.
+Solved exactly with scipy's HiGHS (the paper used GLPK).  The first-order
+solver, on the card, is ``repro_torch.core.hlp_jax``.
 """
 from __future__ import annotations
 

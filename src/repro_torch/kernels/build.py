@@ -7,6 +7,9 @@ use with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 the shared headers ``csrc/*.cuh``, so an edited source or header is
 rebuilt.  Nothing here runs at import time, and a failed
 build raises: there is no path around a kernel that does not build.
+:func:`load` holds a lock over the first build and load of a library, so
+threads that launch concurrently (the campaign's planning threads) build
+it once.
 """
 from __future__ import annotations
 
@@ -17,12 +20,14 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+_LOAD_LOCK = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -79,5 +84,8 @@ def build(name: str, *, verbose: bool = False) -> Path:
 
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
-    """The built library of ``csrc/<name>.cu``, loaded once per process."""
-    return ctypes.CDLL(str(build(name)))
+    """The built library of ``csrc/<name>.cu``, loaded once per process.
+    The build runs under a lock: a concurrent first caller waits for it,
+    then finds the library built."""
+    with _LOAD_LOCK:
+        return ctypes.CDLL(str(build(name)))

@@ -1,0 +1,340 @@
+"""The first-order LP's solves on the card: the wrapper of
+``csrc/hlp_fo.cu``.
+
+The counterpart of the JAX package's jitted ``repro.core.hlp_jax._solve``
+(:func:`hybrid`: x = σ(z), Q = 2, comm-free) and ``::_solve_choice``
+(:func:`choice`: x = softmax(z) over an (n, C) choice grid, optionally with
+each pred edge's expected crossing delay): ``iters`` Adam steps on logits
+from ``z0``, returning the iterate of least exact λ and that λ.  A tensor
+on the CPU takes the plain version (``ref.py``); a tensor on the card
+launches the kernel, one block for the whole solve, or raises.
+
+Every launch adds one to the counter (:func:`launch_count`), under a lock:
+the campaign's planning threads launch concurrently.
+
+``d`` holds the problem's DAG as ``repro_torch.core.hlp_jax.PaddedDag``
+does: ``pred`` (n, P) int32, -1 after the last real slot; ``pred_mask``
+(n, P) bool; ``pc``, ``pg`` (n,) and ``pred_comm`` (n, P) float32;
+``level_ptr`` (L + 1,) and ``level_task`` (n,) int32, the tasks sorted by
+topological level; ``succ_ptr`` (n + 1,), ``succ_task`` and ``succ_slot``
+(E,) int32, each edge's successor and its slot in that successor's row;
+``max_width``, the most tasks of one level (an int on the host).
+:func:`check_indices` holds these to each other (a few waits for the
+card); :func:`launch_hybrid` and :func:`launch_choice` are the bare
+launches, which check layouts and sizes only.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import threading
+
+import torch
+
+from repro_torch.kernels import build
+
+from .ref import choice_solve_ref, hybrid_solve_ref, schedule
+
+__all__ = ["MAX_C", "MAX_Q", "MAX_THREADS", "PHASES", "SMEM_LIMIT",
+           "chain_probe", "check_dag", "check_indices", "choice", "hybrid",
+           "launch_choice", "launch_count", "launch_hybrid",
+           "reset_launch_count", "smem_bytes", "threads_for"]
+
+SOURCE = "hlp_fo"            # the kernel's source under ``csrc/``
+#: the phases of a step whose clock cycles a launch can return
+PHASES = ("soft_forward", "loss", "reverse", "exact")
+MAX_C = 16                   # choices a task may have
+MAX_Q = 8                    # resource types
+MAX_THREADS = 512            # the kernel's largest block
+SMEM_LIMIT = 232448          # 227 KB, the most a block may take on the H100
+_MAX_V = MAX_C + 1           # values one block reduction carries
+_MAX_WARPS = MAX_THREADS // 32
+
+_launches = 0
+_lock = threading.Lock()
+
+_INT = ("level_ptr", "level_task", "pred", "succ_ptr", "succ_task",
+        "succ_slot")
+_FLOAT = ("pc", "pg", "pred_comm")
+
+
+def launch_count() -> int:
+    """Launches of the kernel since the last :func:`reset_launch_count`."""
+    return _launches
+
+
+def reset_launch_count() -> None:
+    global _launches
+    with _lock:
+        _launches = 0
+
+
+def threads_for(width: int) -> int:
+    """Threads of one block: the widest level rounded up to a warp, at
+    least one warp and at most :data:`MAX_THREADS`."""
+    return min(MAX_THREADS, max(32, -(-width // 32) * 32))
+
+
+def smem_bytes(n: int, levels: int, c: int = 1, q: int = 0,
+               comm: bool = False) -> int:
+    """Dynamic shared memory of one block, as the kernel lays it out: x
+    (n C), the finish times, maxima and sums (3 n), the type marginals
+    (n Q, with ``comm``), the type mask and inverse counts, the level
+    offsets and the reductions' scratch."""
+    floats = (n * c + 3 * n + (n * q if comm else 0) + q * c + q
+              + levels + 1 + _MAX_WARPS * _MAX_V)
+    return 4 * floats
+
+
+@functools.cache
+def _lib():
+    lib = build.load(SOURCE)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.hlp_fo_hybrid_f32.argtypes = [p] * 16 + [i] * 7 + [p]
+    lib.hlp_fo_choice_f32.argtypes = [p] * 19 + [i] * 8 + [p]
+    lib.hlp_fo_chain_probe.argtypes = [p, i, i, p]
+    lib.hlp_fo_smem_bytes.argtypes = [i] * 5
+    lib.hlp_fo_smem_bytes.restype = ctypes.c_longlong
+    for fn in (lib.hlp_fo_hybrid_f32, lib.hlp_fo_choice_f32,
+               lib.hlp_fo_chain_probe):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check_dag(d) -> None:
+    """Shapes, dtypes, contiguity and one device for the DAG's fields."""
+    n, P = d.pred.shape
+    want = {"level_ptr": (d.level_ptr.shape[0],), "level_task": (n,),
+            "pred": (n, P), "pred_mask": (n, P), "succ_ptr": (n + 1,),
+            "succ_task": (d.succ_task.shape[0],),
+            "succ_slot": (d.succ_task.shape[0],), "pc": (n,), "pg": (n,),
+            "pred_comm": (n, P)}
+    dev = d.pred.device
+    for name, shape in want.items():
+        t = getattr(d, name)
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{shape} (pred {(n, P)})")
+        dtype = (torch.int32 if name in _INT else torch.float32
+                 if name in _FLOAT else torch.bool)
+        if t.dtype != dtype:
+            raise TypeError(f"{name} is {t.dtype}; the solve takes {dtype}")
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device} and pred on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if n == 0 or d.level_ptr.shape[0] < 2:
+        raise ValueError("an empty DAG: no tasks or no levels")
+
+
+def check_indices(d) -> None:
+    """Raise unless the levels partition the tasks in a topological order,
+    every pred row is filled from the left with task ids, the mask marks
+    its real slots, and the successor CSR lists each real slot once, at
+    its predecessor."""
+    n, P = d.pred.shape
+    lp, lt = d.level_ptr.long(), d.level_task.long()
+    pred = d.pred.long()
+    real = pred >= 0
+    bad = ((lp[0] != 0) | (lp[-1] != n) | (lp[1:] < lp[:-1]).any()
+           | (lt < 0).any() | (lt >= n).any() | (pred < -1).any()
+           | (pred >= n).any() | (d.pred_mask != real).any()
+           | (real[:, 1:] & ~real[:, :-1]).any())
+    if bool(bad):
+        raise ValueError("level_ptr, level_task, pred or pred_mask out of "
+                         "range, pred not filled from the left, or pred_mask "
+                         "not pred >= 0")
+    level = torch.empty(n, dtype=torch.long, device=lt.device)
+    level[lt] = torch.repeat_interleave(
+        torch.arange(lp.shape[0] - 1, device=lt.device), lp[1:] - lp[:-1])
+    seen = torch.zeros(n, dtype=torch.long, device=lt.device)
+    seen.index_add_(0, lt, torch.ones_like(lt))
+    sp, st, ss = d.succ_ptr.long(), d.succ_task.long(), d.succ_slot.long()
+    E = st.shape[0]
+    bad = ((seen != 1).any() | ((lp[1:] - lp[:-1]).max() != d.max_width)
+           | ((level[pred.clamp_min(0)] >= level[:, None]) & real).any()
+           | (sp[0] != 0) | (sp[-1] != E) | (sp[1:] < sp[:-1]).any()
+           | (E != real.sum()) | (st < 0).any() | (st >= n).any()
+           | (ss < 0).any() | (ss >= P).any())
+    if not bool(bad) and E:
+        src = torch.repeat_interleave(torch.arange(n, device=lt.device),
+                                      sp[1:] - sp[:-1])
+        bad = (pred[st, ss] != src).any()
+    if bool(bad):
+        raise ValueError("the levels are not a topological partition of the "
+                         "tasks (of widest level max_width), or the successor "
+                         "CSR does not list each pred slot once at its "
+                         "predecessor")
+
+
+@functools.cache
+def _schedule_on(iters: int, device: torch.device) -> torch.Tensor:
+    """``ref.schedule(iters)`` on ``device``, copied there once."""
+    return schedule(iters).to(device)
+
+
+def _check_z0(z0: torch.Tensor, shape: tuple, device) -> None:
+    if tuple(z0.shape) != shape or z0.dtype != torch.float32:
+        raise ValueError(f"z0 is {z0.dtype} {tuple(z0.shape)}; expected "
+                         f"float32 {shape}")
+    if z0.device != device or not z0.is_contiguous():
+        raise ValueError(f"z0 must be contiguous on {device}")
+
+
+def _launch(name: str, d, pointers: list, dims: list, iters: int,
+            nC: int, z0: torch.Tensor, cycles: torch.Tensor | None):
+    """Allocate the Adam state and outputs, launch, count."""
+    global _launches
+    dev = d.pred.device
+    if dev.type != "cuda":
+        raise ValueError(f"the DAG is on {dev}; the kernel needs the card")
+    state = torch.empty((3, nC), dtype=torch.float32, device=dev)
+    best_x = torch.empty(nC, dtype=torch.float32, device=dev)
+    best_val = torch.empty((), dtype=torch.float32, device=dev)
+    sched = _schedule_on(iters, dev)
+    ptrs = [d.level_ptr, d.level_task, d.pred, d.succ_ptr, d.succ_task,
+            d.succ_slot]
+    args = ([t.data_ptr() for t in ptrs] + pointers
+            + [sched.data_ptr(), z0.data_ptr(), state[0].data_ptr(),
+               state[1].data_ptr(), state[2].data_ptr(), best_x.data_ptr(),
+               best_val.data_ptr(),
+               None if cycles is None else _cycles_ptr(cycles, dev)])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(_lib(), name)(*args, *dims, threads_for(d.max_width),
+                                    stream)
+    if err != 0:
+        raise RuntimeError(f"{SOURCE}.cu launch failed: CUDA error {err}")
+    with _lock:
+        _launches += 1
+    return best_x, best_val
+
+
+def _cycles_ptr(cycles: torch.Tensor, dev) -> int:
+    if (tuple(cycles.shape) != (len(PHASES),) or cycles.dtype != torch.int64
+            or cycles.device != dev):
+        raise ValueError(f"cycles must be int64 ({len(PHASES)},) on {dev}")
+    return cycles.data_ptr()
+
+
+def _check_size(d, c: int, q: int, comm: bool) -> None:
+    n = d.pred.shape[0]
+    levels = d.level_ptr.shape[0] - 1
+    need = smem_bytes(n, levels, c, q, comm)
+    if need > SMEM_LIMIT:
+        raise ValueError(
+            f"a problem of {n} tasks, {levels} levels and {c} choices needs "
+            f"{need} bytes of shared memory in the kernel, more than the "
+            f"{SMEM_LIMIT} a block may have")
+
+
+def _check_choice(d, z0, p_choice, area, type_mask, inv_counts) -> None:
+    n = d.pred.shape[0]
+    if p_choice.dim() != 2 or p_choice.shape[0] != n or type_mask.dim() != 2:
+        raise ValueError(f"p_choice {tuple(p_choice.shape)} and type_mask "
+                         f"{tuple(type_mask.shape)}: expected (n, C) with "
+                         f"n = {n}, and (Q, C)")
+    C, Q = p_choice.shape[1], type_mask.shape[0]
+    for name, t, shape in (("p_choice", p_choice, (n, C)),
+                           ("area", area, (n, C)),
+                           ("type_mask", type_mask, (Q, C)),
+                           ("inv_counts", inv_counts, (Q,))):
+        if tuple(t.shape) != shape or t.dtype != torch.float32:
+            raise ValueError(f"{name} is {t.dtype} {tuple(t.shape)}; "
+                             f"expected float32 {shape}")
+        if t.device != d.pred.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {d.pred.device}")
+    _check_z0(z0, (n, C), d.pred.device)
+
+
+def launch_hybrid(d, z0: torch.Tensor, *, m: int, k: int, iters: int,
+                  cycles: torch.Tensor | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The bare launch of the hybrid solve on the card: checks layouts and
+    sizes, not indices (:func:`check_indices` is the caller's).  Given an
+    int64 (4,) ``cycles`` tensor on the card, the kernel writes thread 0's
+    clock cycles in each phase of :data:`PHASES`, summed over the steps."""
+    check_dag(d)
+    n = d.pred.shape[0]
+    _check_z0(z0, (n,), d.pred.device)
+    if m <= 0 or k <= 0 or iters < 0:
+        raise ValueError(f"m, k = {m}, {k} and iters = {iters}: the solve "
+                         "takes m, k >= 1 and iters >= 0")
+    _check_size(d, 1, 0, False)
+    return _launch("hlp_fo_hybrid_f32", d, [d.pc.data_ptr(), d.pg.data_ptr()],
+                   [n, d.pred.shape[1], d.level_ptr.shape[0] - 1, iters, m,
+                    k], iters, n, z0, cycles)
+
+
+def launch_choice(d, z0: torch.Tensor, p_choice: torch.Tensor,
+                  area: torch.Tensor, type_mask: torch.Tensor,
+                  inv_counts: torch.Tensor, *, iters: int, use_comm: bool,
+                  cycles: torch.Tensor | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The bare launch of the choice solve on the card, as
+    :func:`launch_hybrid`."""
+    check_dag(d)
+    _check_choice(d, z0, p_choice, area, type_mask, inv_counts)
+    (n, C), Q = p_choice.shape, type_mask.shape[0]
+    if iters < 0:
+        raise ValueError(f"iters = {iters}; the solve takes iters >= 0")
+    if not (1 <= C <= MAX_C and 1 <= Q <= MAX_Q):
+        raise ValueError(f"C = {C} choices and Q = {Q} types: the kernel "
+                         f"takes 1 to {MAX_C} and 1 to {MAX_Q}")
+    _check_size(d, C, Q, use_comm)
+    best_x, best_val = _launch(
+        "hlp_fo_choice_f32", d,
+        [p_choice.data_ptr(), area.data_ptr(), type_mask.data_ptr(),
+         inv_counts.data_ptr(), d.pred_comm.data_ptr()],
+        [n, d.pred.shape[1], d.level_ptr.shape[0] - 1, C, Q, iters,
+         int(bool(use_comm))], iters, n * C, z0, cycles)
+    return best_x.view(n, C), best_val
+
+
+def hybrid(d, z0: torch.Tensor, *, m: int, k: int, iters: int
+           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``_solve`` from logits ``z0`` (n,) on ``m`` CPUs and ``k`` GPUs: the
+    best x (n,) float32 and its exact λ (a float32 scalar), on ``d``'s
+    device: the plain version for CPU tensors, the kernel on the card."""
+    check_dag(d)
+    _check_z0(z0, (d.pred.shape[0],), d.pred.device)
+    if m <= 0 or k <= 0 or iters < 0:
+        raise ValueError(f"m, k = {m}, {k} and iters = {iters}: the solve "
+                         "takes m, k >= 1 and iters >= 0")
+    check_indices(d)
+    if d.pred.device.type == "cpu":
+        return hybrid_solve_ref(d, z0, m=m, k=k, iters=iters)
+    return launch_hybrid(d, z0, m=m, k=k, iters=iters)
+
+
+def choice(d, z0: torch.Tensor, p_choice: torch.Tensor, area: torch.Tensor,
+           type_mask: torch.Tensor, inv_counts: torch.Tensor, *, iters: int,
+           use_comm: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """``_solve_choice`` from logits ``z0`` (n, C): ``p_choice`` and
+    ``area`` (n, C), ``type_mask`` (Q, C) and ``inv_counts`` (Q,), all
+    float32; ``use_comm`` adds each pred edge's expected crossing delay.
+    The best x (n, C) and its exact λ, as :func:`hybrid`."""
+    check_dag(d)
+    _check_choice(d, z0, p_choice, area, type_mask, inv_counts)
+    if iters < 0:
+        raise ValueError(f"iters = {iters}; the solve takes iters >= 0")
+    check_indices(d)
+    if d.pred.device.type == "cpu":
+        return choice_solve_ref(d, z0, p_choice, area, type_mask, inv_counts,
+                                iters=iters, use_comm=use_comm)
+    return launch_choice(d, z0, p_choice, area, type_mask, inv_counts,
+                         iters=iters, use_comm=use_comm)
+
+
+def chain_probe(steps: int, threads: int,
+                device: str | torch.device = "cuda") -> torch.Tensor:
+    """Launch the chain-floor probe: ``steps`` barrier-separated level
+    steps of ``threads`` threads (not counted as a solve)."""
+    out = torch.empty(1, dtype=torch.float32, device=device)
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        err = _lib().hlp_fo_chain_probe(out.data_ptr(), steps, threads,
+                                        stream)
+    if err != 0:
+        raise RuntimeError(f"hlp_fo_chain_probe failed: CUDA error {err}")
+    return out

@@ -1,12 +1,15 @@
-"""The port's campaign entry: the simulation sweep and the plan search.
+"""The port's campaign entry: the simulation sweep, the plan search and the
+allocation solvers.
 
 The counterpart of the JAX package's ``benchmarks/campaign.py``
-(``sim_sweep``, ``search_sweep``) and of the ``sim`` / ``search`` targets of
-``benchmarks/run.py``, run on ``repro_torch``: every static plan of the
-sweep is replayed by the replay kernel on the card through the pipelined
-executor (``repro_torch.sim.pipeline``), the network sub-grid's
-``maxmin_fair`` cells are priced by the contention kernel, and every
-generation of the search is scored by one replay launch.  It writes the
+(``sim_sweep``, ``search_sweep``) and of the ``sim`` / ``search`` /
+``solver`` targets of ``benchmarks/run.py``, run on ``repro_torch``: every
+static plan of the sweep is replayed by the replay kernel on the card
+through the pipelined executor (``repro_torch.sim.pipeline``), the network
+sub-grid's ``maxmin_fair`` cells are priced by the contention kernel, every
+generation of the search is scored by one replay launch, and every
+first-order LP (the ``hlp_jax_ols`` adapter of the full grid, the
+``solver`` target) is one launch of the ``hlp_fo`` kernel.  It writes the
 same ``repro.bench.v1`` trajectory as ``benchmarks/run.py``, so the JAX
 package's gate holds the port to the pinned values::
 
@@ -14,13 +17,14 @@ package's gate holds the port to the pinned values::
   PYTHONPATH=src python -m repro_torch.launch.campaign --device cpu --bench-json X
   python -m benchmarks.render_tables --check-bench X benchmarks/BENCH_pinned.json
 
+``--full`` runs the reference's full grids (``benchmarks/run.py --full``):
+32 noise seeds, the (16, 4) suites and ``hlp_jax_ols`` among the static
+adapters of ``sim``, the larger search, and potri nb=20 in ``solver``.
 ``sim`` runs before ``search`` in one process, as ``benchmarks/run.py``
 runs them: the ``compiles`` counts (new replay shapes, the reference's XLA
 traces) are per process.  Per-instance CSVs land in ``artifacts/torch/``.
-``full=True`` needs the ``hlp_jax_ols`` adapter, which the port does not
-have yet (ROADMAP A6), and raises.  The module imports torch only inside
-its functions: the planning pool's workers re-run it as their
-``__main__`` and need none.
+The module imports torch only inside its functions: the planning pool's
+workers re-run it as their ``__main__`` and need none.
 """
 from __future__ import annotations
 
@@ -84,11 +88,12 @@ def sim_sweep(full: bool = False, noise_scale: float = 0.2,
     repeated allocations (the netbound grid re-uses each allocation across
     its three network models), and each shape bucket is dispatched as soon
     as it closes.  ``base_seed`` shifts every scenario-generator seed.
+
+    ``full=True`` is the reference's full grid: 32 noise seeds, the
+    (16, 4) default and comm suites beside the (8, 2) ones, the first-order
+    ``hlp_jax_ols`` among the static adapters (its LP solved on ``device``),
+    8 instances a moldable sub-campaign and 6 netbound instances.
     """
-    if full:
-        raise NotImplementedError(
-            "sim_sweep(full=True) runs the hlp_jax_ols adapter, which needs "
-            "the first-order LP that is not ported yet: ROADMAP A6")
     from repro_torch.core.theory import ratio_denominator
     from repro_torch.device import resolve_device
     from repro_torch.sim import NoiseModel, make_scheduler, simulate
@@ -102,13 +107,22 @@ def sim_sweep(full: bool = False, noise_scale: float = 0.2,
                                            moldable_suite, netbound_scenario)
 
     dev = resolve_device(device)
-    num_seeds = num_seeds or 8
+    num_seeds = num_seeds or (32 if full else 8)
     noise = NoiseModel("lognormal", noise_scale)
     seeds = list(range(num_seeds))
     suite = default_suite(seed=base_seed) + comm_suite(seed=base_seed + 50,
                                                        ccr=ccr)
-    static = ["hlp_est", "hlp_ols", "cahlp_ols", "heft", "heft_nocomm"]
+    if full:
+        suite += default_suite(seed=base_seed + 100, counts=(16, 4))
+        suite += comm_suite(seed=base_seed + 150, counts=(16, 4), ccr=ccr)
+    static = (["hlp_est", "hlp_ols", "cahlp_ols", "heft", "heft_nocomm"]
+              + (["hlp_jax_ols"] if full else []))
     online = ["er_ls", "eft", "greedy_r2", "random"]
+
+    def make_static(name: str):
+        if name == "hlp_jax_ols":
+            return make_scheduler(name, device=str(dev))
+        return make_scheduler(name)
 
     # the cache is cleared up front so the reported hit rate measures this
     # grid's redundancy, not earlier calls'
@@ -128,7 +142,7 @@ def sim_sweep(full: bool = False, noise_scale: float = 0.2,
     for sc in suite:
         lbs[sc.name] = ratio_denominator(sc.graph, sc.counts)
         for name in static:
-            entries.append((sc.graph, sc.machine, make_scheduler(name)))
+            entries.append((sc.graph, sc.machine, make_static(name)))
             keys.append((sc.name, name))
     with _obs.timer("campaign.sim.static", algs=len(entries)) as sp:
         sweeps = pipelined_sweep_makespans(entries, sample_fn=sample_grid,
@@ -138,10 +152,11 @@ def sim_sweep(full: bool = False, noise_scale: float = 0.2,
 
     # moldable sub-campaigns: width-aware MHLP vs its width-1 restriction,
     # and comm-aware CAMHLP vs oblivious MHLP at CCR 2
+    m_num = 8 if full else 4
     m_suite = [(sc, ("mhlp_ols", "hlp_ols"))
-               for sc in moldable_suite(seed=base_seed + 200, num=4)]
+               for sc in moldable_suite(seed=base_seed + 200, num=m_num)]
     m_suite += [(sc, ("camhlp_ols", "mhlp_ols"))
-                for sc in moldable_suite(seed=base_seed + 400, num=4,
+                for sc in moldable_suite(seed=base_seed + 400, num=m_num,
                                          ccr=2.0)]
     m_entries, m_keys = [], []
     for sc, algs in m_suite:
@@ -161,7 +176,8 @@ def sim_sweep(full: bool = False, noise_scale: float = 0.2,
     # network), the plan cache collapsing each allocation to one solve
     nets = {name: make_network(name)
             for name in ("instant", "fixed_latency", "maxmin_fair")}
-    n_suite = [netbound_scenario(seed=base_seed + 300 + i) for i in range(3)]
+    n_suite = [netbound_scenario(seed=base_seed + 300 + i)
+               for i in range(6 if full else 3)]
     n_allocs = [("hlp_ols", lambda: make_scheduler("hlp_ols")),
                 ("cahlp_ctn", lambda: CommAwareHLPScheduler(contention=True))]
     n_entries, n_keys, n_nets = [], [], []
@@ -404,12 +420,14 @@ def search_sweep(full: bool = False, verbose: bool = False,
 
 # ----------------------------------------------------------- bench targets
 def _launches() -> dict[str, int]:
-    """The replay and contention kernels' launch counters, beside the
-    replay chunks dispatched and the contention groups priced (on the card,
-    one launch each; on the CPU, none)."""
+    """The replay, contention and first-order LP kernels' launch counters,
+    beside the replay chunks dispatched and the contention groups priced
+    (on the card, one launch each; on the CPU, none)."""
     from repro_torch.kernels.contention import contention as C
+    from repro_torch.kernels.hlp_fo import hlp_fo as HF
     from repro_torch.kernels.replay import replay as R
     return {"replay": R.launch_count(), "contention": C.launch_count(),
+            "hlp_fo": HF.launch_count(),
             "replay_chunks": _obs.counter_value("sim.replay.chunks"),
             "contended_groups": _obs.counter_value("sim.contended.groups")}
 
@@ -511,7 +529,41 @@ def bench_search(full: bool, seed: int, device) -> tuple[list[str], dict]:
     return lines, extras
 
 
-BENCHES = {"sim": bench_sim, "search": bench_search}
+def bench_solver(full: bool, seed: int, device) -> tuple[list[str], dict]:
+    """The ``solver`` target of ``benchmarks/run.py``: the allocation
+    phase's runtime, the exact HiGHS LP against the first-order solve
+    (``solve_hlp_jax``, 300 iterations, on ``device``) on Chameleon potrf
+    and getrf nb=10 at block 512 on (64, 8), and potri nb=20 with
+    ``full``.  The first first-order solve includes the kernel's build."""
+    from repro_torch.core.hlp import solve_hlp
+    from repro_torch.core.hlp_jax import solve_hlp_jax
+    from repro_torch.core.workloads import chameleon
+
+    lines, instances = [], {}
+    insts = [("potrf", 10), ("getrf", 10)] + ([("potri", 20)] if full else [])
+    for app, nb in insts:
+        g = chameleon(app, nb, 512)
+        with obs.timer(f"bench.solver.exact.{app}{nb}") as sp_e:
+            exact = solve_hlp(g, 64, 8)
+        with obs.timer(f"bench.solver.first_order.{app}{nb}") as sp_f:
+            approx = solve_hlp_jax(g, 64, 8, iters=300, device=device)
+        gap = (approx.lp_value / exact.lp_value - 1) * 100
+        lines.append(f"solver/{app}{nb}_exact,{sp_e.dur * 1e6:.0f},"
+                     f"lp={exact.lp_value:.4f}")
+        lines.append(f"solver/{app}{nb}_jax,{sp_f.dur * 1e6:.0f},"
+                     f"gap_pct={gap:.3f}")
+        instances[f"{app}{nb}"] = {"n": g.n, "exact_s": sp_e.dur,
+                                   "first_order_s": sp_f.dur,
+                                   "lp": exact.lp_value,
+                                   "first_order_lp": approx.lp_value,
+                                   "gap_pct": gap}
+        print(f"# solver {app}{nb} (n={g.n}): HiGHS {sp_e.dur:.3f}s, "
+              f"first-order {sp_f.dur:.3f}s on {device}, gap {gap:.3f}%")
+    return lines, {"instances": instances}
+
+
+BENCHES = {"sim": bench_sim, "search": bench_search, "solver": bench_solver}
+DEFAULT_TARGETS = ("sim", "search")   # what a run without --only runs
 
 
 def _host_info(device) -> dict:
@@ -540,7 +592,8 @@ def write_bench_json(path: str, args, names: list[str],
     targets}, ``host`` and ``benches.<name>`` {wall_s, lines, ...extras}.
     A partial-target run keeps the other benches of a same-(seed, full)
     file at ``path``; a different seed/full (or a corrupt file) is
-    overwritten."""
+    overwritten.  ``args.full`` defaults to False."""
+    full = bool(getattr(args, "full", False))
     carried: dict[str, dict] = {}
     if os.path.exists(path):
         try:
@@ -550,14 +603,14 @@ def write_bench_json(path: str, args, names: list[str],
             old = None
         if (isinstance(old, dict) and old.get("schema") == "repro.bench.v1"
                 and old.get("run", {}).get("seed") == args.seed
-                and old.get("run", {}).get("full") is False):
+                and old.get("run", {}).get("full") == full):
             carried = {k: v for k, v in old.get("benches", {}).items()
                        if k not in benches}
     if carried:
         benches = {**carried, **benches}
         names = sorted(set(names) | set(carried))
     doc = {"schema": "repro.bench.v1",
-           "run": {"seed": args.seed, "full": False, "targets": names},
+           "run": {"seed": args.seed, "full": full, "targets": names},
            "host": _host_info(args.device),
            "benches": benches}
     if obs_section is not None:
@@ -574,12 +627,18 @@ def write_bench_json(path: str, args, names: list[str],
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", type=str, default="",
-                    help="comma-separated subset of: " + ",".join(BENCHES))
+                    help="comma-separated subset of: " + ",".join(BENCHES)
+                         + " (default: " + ",".join(DEFAULT_TARGETS) + ")")
     ap.add_argument("--seed", type=int, default=0,
                     help="base seed: shifts every scenario generator seed")
+    ap.add_argument("--full", action="store_true",
+                    help="the reference's full grids (benchmarks/run.py "
+                         "--full): hlp_jax_ols and the (16, 4) suites in "
+                         "sim, the larger search, potri nb=20 in solver")
     ap.add_argument("--device", type=str, default="cuda",
-                    help="where the replay and contention run: cuda (the "
-                         "kernels) or cpu (their plain versions)")
+                    help="where the replay, contention and first-order LP "
+                         "run: cuda (the kernels) or cpu (their plain "
+                         "versions)")
     ap.add_argument("--bench-json", type=str,
                     default=str(ART / "BENCH_sim.json"),
                     help="where to write the repro.bench.v1 trajectory "
@@ -592,7 +651,7 @@ def main(argv: list[str] | None = None) -> int:
     args = ap.parse_args(argv)
     from repro_torch.device import resolve_device
 
-    names = [n for n in args.only.split(",") if n] or list(BENCHES)
+    names = [n for n in args.only.split(",") if n] or list(DEFAULT_TARGETS)
     unknown = [n for n in names if n not in BENCHES]
     if unknown:
         print(f"unknown --only target(s): {','.join(unknown)}; "
@@ -600,7 +659,7 @@ def main(argv: list[str] | None = None) -> int:
         return 2
     dev = resolve_device(args.device)
     print(f"# repro_torch.launch.campaign: targets={','.join(names)} "
-          f"device={dev} base_seed={args.seed}", flush=True)
+          f"full={args.full} device={dev} base_seed={args.seed}", flush=True)
     if args.trace:
         obs.enable()
         os.makedirs(args.trace, exist_ok=True)
@@ -613,7 +672,7 @@ def main(argv: list[str] | None = None) -> int:
             obs.reset()
         before = _launches()
         with obs.timer(f"run.{name}") as sp:
-            lines, extras = BENCHES[name](False, args.seed, dev)
+            lines, extras = BENCHES[name](args.full, args.seed, dev)
         after = _launches()
         all_lines += lines
         benches[name] = {"wall_s": sp.dur, "lines": lines, **extras,

@@ -8,7 +8,7 @@ then replays it under realized runtimes.  Arrival-driven adapters implement
 
 Registry (``ADAPTERS`` / ``make_scheduler``):
 
-  static:   ``hlp_est``, ``hlp_ols``, ``heft``,
+  static:   ``hlp_est``, ``hlp_ols``, ``hlp_jax_ols``, ``heft``,
             ``heft_nocomm`` (plans ignoring edge costs — the engine still
             charges them at replay; baseline for communication awareness),
             ``cahlp_ols``/``camhlp_ols`` (comm-aware allocation: the
@@ -32,10 +32,10 @@ All adapters are stateless between ``simulate`` calls except ``random``,
 which derives its stream from the adapter seed so campaigns stay
 reproducible.
 
-This is the port's copy of the JAX package's ``repro.sim.adapters``.  One
-of its adapters is not yet ported and is absent from ``ADAPTERS``:
-``hlp_jax_ols`` (it needs the first-order LP of ``repro.core.hlp_jax``,
-ROADMAP A6).
+This is the port's copy of the JAX package's ``repro.sim.adapters``, with
+every one of its adapters.  ``hlp_jax_ols`` keeps the reference's name; its
+first-order LP (``repro_torch.core.hlp_jax``) is one launch of the
+``hlp_fo`` kernel on the card.
 """
 from __future__ import annotations
 
@@ -93,8 +93,8 @@ def _record_lp_provenance(name: str, g: TaskGraph, machine, sol, *,
 class StaticScheduler:
     """Base: wrap a ``(g, machine) -> Schedule`` solver into the protocol.
 
-    ``plan_pool`` routes the adapter's ``allocate`` in the JAX package's
-    pipelined executor (``repro.sim.pipeline``, not yet ported):
+    ``plan_pool`` routes the adapter's ``allocate`` in the pipelined
+    executor (``repro_torch.sim.pipeline``):
     ``"process"`` for the HiGHS/LP-heavy solvers that hold the GIL,
     ``"thread"`` for ones that must stay in-process.  ``cacheable = False`` opts an adapter
     out of the content-addressed plan cache."""
@@ -137,6 +137,33 @@ class HLPOLSScheduler(HLPESTScheduler):
 
     def _solve(self, g, machine):
         return hlp_ols(g, machine, self._allocate_lp(g, machine))
+
+
+class HLPJaxOLSScheduler(HLPOLSScheduler):
+    """Beyond-paper: the first-order HLP solver + OLS (Q=2 only).
+
+    ``device`` is where the solve runs: ``"cuda"``, one launch of the
+    ``hlp_fo`` kernel; ``"cpu"``, its plain version.  It is part of the plan
+    cache's key, since the two agree to rounding, not to the bit."""
+
+    name = "hlp_jax_ols"
+    plan_pool = "thread"    # launches on the card: stays in-process
+
+    def __init__(self, iters: int = 300, seed: int = 0,
+                 device: str = "cuda"):
+        self.iters, self.seed = iters, seed
+        self.device = str(device)
+
+    def _allocate_lp(self, g, machine):
+        from repro_torch.core.hlp_jax import solve_hlp_jax
+
+        if g.num_types != 2:
+            raise ValueError("hlp_jax_ols requires Q=2")
+        sol = solve_hlp_jax(g, machine.counts[0], machine.counts[1],
+                            iters=self.iters, seed=self.seed,
+                            device=self.device)
+        _record_lp_provenance(self.name, g, machine, sol)
+        return sol.alloc
 
 
 class CommAwareHLPScheduler(StaticScheduler):
@@ -420,6 +447,7 @@ def plan_for(name: str, g: TaskGraph, machine: Machine, **kw) -> Plan:
 ADAPTERS = {
     "hlp_est": HLPESTScheduler,
     "hlp_ols": HLPOLSScheduler,
+    "hlp_jax_ols": HLPJaxOLSScheduler,
     "cahlp_ols": CommAwareHLPScheduler,
     "camhlp_ols": CommAwareMoldableScheduler,
     "mhlp_ols": MoldableHLPScheduler,

@@ -87,7 +87,9 @@ def test_every_module_is_listed_by_the_probe():
             "repro_torch.sim.pipeline", "repro_torch.search",
             "repro_torch.search.genome", "repro_torch.search.evolve",
             "repro_torch.launch.campaign", "repro_torch.obs.trace",
-            "repro_torch.obs.provenance"} <= names
+            "repro_torch.obs.provenance", "repro_torch.core.hlp_jax",
+            "repro_torch.kernels.hlp_fo.hlp_fo",
+            "repro_torch.kernels.hlp_fo.ref"} <= names
 
 
 @pytest.fixture

@@ -3,9 +3,9 @@
 ``tests/golden_width1.json`` holds the reference's makespans and SHA-256
 schedule hashes for every adapter; the port's ``simulate`` must reproduce
 each one (clean and under seeded lognormal noise) for every adapter it
-carries.  ``hlp_jax_ols`` needs the first-order LP, which the port does not
-have yet; the ``evo`` adapters have no golden cells (``tests/test_torch_search.py``
-holds them against the reference).  Beyond the
+carries, ``hlp_jax_ols`` (its first-order LP through the plain version of
+the ``hlp_fo`` kernel) among them; the ``evo`` adapters have no golden cells
+(``tests/test_torch_search.py`` holds them against the reference).  Beyond the
 goldens, every ported static adapter runs the communication-carrying
 default suite under the three network models, and the network helpers run
 on a contended instance, each against ``repro.sim`` in the same process.
@@ -30,7 +30,9 @@ import repro_torch.sim.scenarios as TS  # noqa: E402
 with open(os.path.join(os.path.dirname(__file__), "golden_width1.json")) as _f:
     GOLDEN_W1 = json.load(_f)
 
-NOT_PORTED = {"hlp_jax_ols"}
+NOT_PORTED: set[str] = set()
+# adapters that take the device they launch on: here, the plain versions
+ON_CPU = {"hlp_jax_ols": {"device": "cpu"}}
 STATIC = ("hlp_est", "hlp_ols", "cahlp_ols", "camhlp_ols", "mhlp_ols",
           "heft", "heft_nocomm")
 NETWORKS = ("instant", "fixed_latency", "maxmin_fair")
@@ -70,8 +72,10 @@ def test_width1_golden_replays_bit_for_bit(scenario):
     cells = {a: e for a, e in GOLDEN_W1[scenario].items() if a not in NOT_PORTED}
     assert cells
     for alg, exp in sorted(cells.items()):
-        r0 = T.simulate(g, sc.machine, T.make_scheduler(alg), seed=sc.seed)
-        r1 = T.simulate(g, sc.machine, T.make_scheduler(alg),
+        kw = ON_CPU.get(alg, {})
+        r0 = T.simulate(g, sc.machine, T.make_scheduler(alg, **kw),
+                        seed=sc.seed)
+        r1 = T.simulate(g, sc.machine, T.make_scheduler(alg, **kw),
                         noise=T.NoiseModel("lognormal", 0.2), seed=sc.seed)
         assert r0.makespan == exp["clean"], alg
         assert r1.makespan == exp["noisy"], alg
