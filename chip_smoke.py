@@ -95,19 +95,28 @@ Phases, each of which raises on failure (exit code not 0):
 9. lp      — the first-order LP (``repro_torch.core.hlp_jax``) on the
              solver target's instances (Chameleon potrf and getrf nb=10,
              potri nb=20, block 512, on (64, 8), 300 iterations) through
-             ``solve_hlp_jax`` on the card: the ``hlp_fo`` launch counter
-             set to 0 just before and required to equal the solves just
-             after.  Then each instance through the kernel
-             (``hlp_fo.cu``'s hybrid entry) and its plain version on CPU
-             copies from the same starting logits: λ at rtol 1e-5 and
-             identical threshold allocations; one comm-aware netbound
-             instance and one moldable instance through the choice entry
-             the same way (λ at 1e-3 on the netbound one: see
-             ``LP_NETBOUND_RTOL``).  Each solve timed from CUDA events
-             beside its chain floor (3 level steps a level a step, each
-             as ``hlp_fo_chain_probe`` measures it), its bound, the plain
-             version's host time and HiGHS's (``solve_hlp``), and the split
-             of its chain's clock cycles over the step's four phases.
+             ``solve_hlp_jax`` on the card: the ``hlp_fo`` counters set to
+             0 just before and required, just after, to show one launch a
+             solve, all of the default kernel (``hlp_fo_sm90.cu``) and
+             none of the first design (``hlp_fo.cu``, ``kernel="gather"``).
+             Then the first design's reverse pass split with clock64 on
+             potri nb=20 (successor gather, chain rule, Adam's loads and
+             stores; the slowest level and the chain of every level's
+             slowest task), and each instance through both kernels' bare
+             launches and the plain version on CPU copies from the same
+             starting logits: the two kernels' best x and λ bit for bit,
+             λ at rtol 1e-5 of the plain version and identical threshold
+             allocations; one comm-aware netbound instance and one moldable
+             instance through the choice entry the same way (λ at 1e-3 on
+             the netbound one: see ``LP_NETBOUND_RTOL``); and one
+             campaign-sized solve (the full grid's largest ``hlp_jax_ols``
+             graph, 43 tasks, one warp).  Each kernel timed from CUDA
+             events in turns (sm90, gather, gather, sm90) beside its chain
+             floor (2 level steps a level a step for sm90, 3 for gather,
+             each as ``hlp_fo_sm90_chain_probe`` measures it) and the
+             split of its chain's clock cycles over the phases of a step;
+             the bound, the plain version's host time and HiGHS's
+             (``solve_hlp``) beside them.
 10. campaign — ``python -m repro_torch.launch.campaign --bench-json X`` on
              the card in a fresh process (the ``sim`` and ``search``
              targets, their replay, contention and first-order LP launches
@@ -123,7 +132,7 @@ Phases, each of which raises on failure (exit code not 0):
              ``tests/torch_sim_full_pin.json``, the reference's own
              trajectory of that grid: the first-order LP's launches must
              equal the ``hlp_jax_ols`` solves (one a static-suite
-             scenario).
+             scenario), every one of the sm90 kernel.
 
 The tests that launch a kernel run apart, on the same card:
 
@@ -132,7 +141,8 @@ The tests that launch a kernel run apart, on the same card:
         tests/test_torch_replay_card.py tests/test_torch_replay_sm90_card.py \
         tests/test_torch_contention_card.py \
         tests/test_torch_contention_sm90_card.py \
-        tests/test_torch_pipeline_card.py tests/test_torch_hlp_fo_card.py
+        tests/test_torch_pipeline_card.py tests/test_torch_hlp_fo_card.py \
+        tests/test_torch_hlp_fo_sm90_card.py
 
 The line before the last is the card's name and power limit, the one before
 it a JSON object of per-kernel numbers; the last line is
@@ -251,8 +261,9 @@ CAMPAIGN_COUNTS = ("plans", "evals", "runs", "scenarios", "compiles",
 # the plain version at rtol 1e-5, allocations identical; on the netbound
 # instance λ at 1e-3: there the reference and the plain version themselves
 # differ by 2.9e-4 on the CPU (tests/test_torch_hlp_fo.py holds it under
-# 1e-3): Adam normalises gradients that are rounding noise along flat
-# directions, so any change of rounding moves the iterates.
+# 1e-3 and names the first value that differs: softmax's exp, ROADMAP C6),
+# and the trajectory moves with any change of rounding.  The two kernels
+# are held to each other bit for bit everywhere.
 LP_SOLVER = (("potrf", 10), ("getrf", 10), ("potri", 20))
 LP_MACHINE = (64, 8)
 LP_ITERS = 300
@@ -1272,8 +1283,8 @@ def contention_phase(torch) -> dict:
 
 def lp_probe_ns(torch, threads: int, steps: int = 20_000) -> float:
     """ns of one level step of the first-order LP's scans at a block of
-    ``threads`` threads, from ``hlp_fo_chain_probe`` (a shared-memory read
-    of another thread's last value, an expf and a logf, a store and a
+    ``threads`` threads, from ``hlp_fo_sm90_chain_probe`` (a shared-memory
+    read of another thread's last value, an expf and a logf, a store and a
     barrier): the difference of a run of 2 ``steps`` and one of ``steps``,
     the least of three, so the launch's own cost drops out."""
     from repro_torch.kernels.hlp_fo import hlp_fo as HF
@@ -1306,17 +1317,49 @@ def lp_bound_ms(d, iters: int, c: int = 1, q: int = 0,
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def lp_reverse_split(torch, HF, d, z0, m: int, k: int) -> dict:
+    """The gather kernel's reverse pass split with clock64 on ``d``: each
+    task's cycles in its successor gather, its chain rule and new x, and
+    its Adam step's loads and stores, summed over the steps.  A level's
+    time is its slowest task's; returned: the slowest level's split and
+    the split summed over every level's slowest task (the chain)."""
+    import numpy as np
+    tc = torch.zeros((d.n, len(HF.REVERSE_PARTS)), dtype=torch.int64,
+                     device=CARD)
+    HF.launch_hybrid(d, z0, m=m, k=k, iters=LP_ITERS, kernel="gather",
+                     task_cycles=tc)
+    tc = tc.cpu().numpy()
+    lp, lt = d.level_ptr.cpu().numpy(), d.level_task.cpu().numpy()
+    slowest = []
+    for lvl in range(d.levels):
+        tasks = lt[lp[lvl]:lp[lvl + 1]]
+        j = int(tasks[int(np.argmax(tc[tasks].sum(axis=1)))])
+        slowest.append((int(tc[j].sum()), lvl, j, len(tasks)))
+    top, lvl, j, width = max(slowest)
+    chain = tc[[s[2] for s in slowest]].sum(axis=0)
+    return {"level": lvl, "task": j, "width": width,
+            "cycles": dict(zip(HF.REVERSE_PARTS, tc[j].tolist())),
+            "shares": dict(zip(HF.REVERSE_PARTS, (tc[j] / top).tolist())),
+            "chain_shares": dict(zip(HF.REVERSE_PARTS,
+                                     (chain / chain.sum()).tolist()))}
+
+
 def lp_phase(torch) -> dict:
     """The first-order LP on the card.  The main path: ``solve_hlp_jax`` on
-    the solver target's instances (:data:`LP_SOLVER`), the launch counter
-    0 just before and one launch a solve just after.  Then each instance
-    through the kernel's bare launch and through the plain version on CPU
-    copies from the same starting logits (λ at :data:`LP_RTOL`, threshold
-    allocations identical, the main path's allocation the same), the
-    kernel timed from CUDA events beside its chain floor (3 level steps a
-    level a step, the probe's ns each), its bound, the plain version's
-    host time and HiGHS's (``solve_hlp``).  Then the choice entry on a
-    netbound and a moldable instance, the same way, one launch a solve."""
+    the solver target's instances (:data:`LP_SOLVER`), every counter 0 just
+    before and, just after, one launch a solve, all of the default kernel
+    (``hlp_fo_sm90.cu``).  Then the first design's reverse pass split with
+    clock64 on potri nb=20, and each instance through both kernels' bare
+    launches and through the plain version on CPU copies from the same
+    starting logits: the kernels' best x and λ bit for bit, each against
+    the plain version (λ at :data:`LP_RTOL`, threshold allocations
+    identical, the main path's allocation the same), timed from CUDA
+    events in turns (sm90, gather, gather, sm90) beside its chain floor (2
+    level steps a level a step for sm90, 3 for gather, the probe's ns
+    each), its bound, its phase split, the plain version's host time and
+    HiGHS's (``solve_hlp``).  Then the choice entry on a netbound and a
+    moldable instance, and one campaign-sized solve (the full grid's
+    largest ``hlp_jax_ols`` graph, one warp), the same way."""
     import numpy as np
     from repro_torch.core.allocation import AllocationProblem
     from repro_torch.core.hlp import solve_hlp
@@ -1324,7 +1367,8 @@ def lp_phase(torch) -> dict:
                                           solve_hlp_jax)
     from repro_torch.core.workloads import chameleon
     from repro_torch.kernels.hlp_fo import hlp_fo as HF
-    from repro_torch.sim.scenarios import moldable_suite, netbound_scenario
+    from repro_torch.sim.scenarios import (comm_suite, default_suite,
+                                           moldable_suite, netbound_scenario)
 
     m, k = LP_MACHINE
     graphs = {f"{a}{nb}": chameleon(a, nb, 512) for a, nb in LP_SOLVER}
@@ -1333,9 +1377,9 @@ def lp_phase(torch) -> dict:
     sols = {name: solve_hlp_jax(g, m, k, iters=LP_ITERS)
             for name, g in graphs.items()}
     path_s = time.perf_counter() - t0
-    launches = HF.launch_count()
-    check(launches == len(graphs), f"the first-order LP launched "
-          f"{launches} times for {len(graphs)} solves")
+    counts = HF.launch_counts()
+    check(counts == {"sm90": len(graphs), "gather": 0}, f"the first-order "
+          f"LP's main path launched {counts} for {len(graphs)} solves")
     probes: dict[int, float] = {}
 
     def probe(threads: int) -> float:
@@ -1345,19 +1389,67 @@ def lp_phase(torch) -> dict:
                   f"{threads} threads")
         return probes[threads]
 
-    def timed(d, run, c=1, q=0, comm=False) -> dict:
-        width = d.max_width
-        threads = HF.threads_for(width)
-        ms = time_ms(run, iters=5, warmup=1)
-        chain = 3 * d.levels * LP_ITERS
-        floor = chain * probe(threads) * 1e-6
-        bound, bound_by = lp_bound_ms(d, LP_ITERS, c, q, comm)
-        return {"levels": d.levels, "width": width, "threads": threads,
-                "edges": int(d.succ_task.shape[0]), "ms": ms,
-                "chain_steps": chain, "chain_floor_ms": floor,
-                "probe_ns": probes[threads], "bound_ms": bound,
-                "bound_by": bound_by}
+    walks = {"sm90": 2, "gather": 3}   # level walks a step
 
+    def both(d, run, name, c=1, q=0, comm=False) -> dict:
+        """Both kernels' results (bit-equal), times in turns, chain
+        floors and phase splits; ``run(kernel, cycles)`` launches."""
+        res = {kern: run(kern, None) for kern in HF.KERNELS}
+        (sx, sv), (gx, gv) = res["sm90"], res["gather"]
+        same = (torch.equal(sx.view(torch.int32), gx.view(torch.int32))
+                and torch.equal(sv.view(torch.int32), gv.view(torch.int32)))
+        check(same, f"lp {name}: the sm90 kernel's best x or λ "
+              f"({float(sv)!r}) differs from the gather kernel's "
+              f"({float(gv)!r})")
+        threads = HF.threads_for(d.max_width)
+        times = {kern: [] for kern in HF.KERNELS}
+        for kern in ("sm90", "gather", "gather", "sm90"):
+            times[kern].append(time_ms(lambda: run(kern, None), iters=5,
+                                       warmup=1))
+        bound, bound_by = lp_bound_ms(d, LP_ITERS, c, q, comm)
+        out = {"levels": d.levels, "width": d.max_width, "threads": threads,
+               "edges": int(d.succ_task.shape[0]), "bit_equal": same,
+               "probe_ns": probe(threads), "bound_ms": bound,
+               "bound_by": bound_by, "x": sx.cpu().numpy(),
+               "lam": float(sv)}
+        for kern in HF.KERNELS:
+            cycles = torch.zeros(len(HF.PHASES[kern]), dtype=torch.int64,
+                                 device=CARD)
+            _, cv = run(kern, cycles)
+            check(float(cv) == float(sv), f"lp {name}: the {kern} kernel's "
+                  "split launch changed λ")
+            cyc = cycles.cpu().tolist()
+            chain = walks[kern] * d.levels * LP_ITERS
+            out[kern] = {"ms": sum(times[kern]) / 2, "ms_turns": times[kern],
+                         "chain_steps": chain,
+                         "chain_floor_ms": chain * probes[threads] * 1e-6,
+                         "split": {ph: v / sum(cyc) for ph, v in
+                                   zip(HF.PHASES[kern], cyc)}}
+        return out
+
+    def show(row) -> str:
+        return "; ".join(
+            f"{kern} {row[kern]['ms']:.3f} ms a solve (turns "
+            + ", ".join(f"{t:.3f}" for t in row[kern]["ms_turns"])
+            + f"), floor {row[kern]['chain_floor_ms']:.3f} ms, split "
+            + ", ".join(f"{ph} {v:.3f}" for ph, v in row[kern]["split"].items())
+            for kern in HF.KERNELS)
+
+    def plain_check(name, x, lam, rx, rv, rtol, alloc) -> float:
+        rel = abs(lam - rv) / abs(rv)
+        check(rel <= rtol, f"lp {name}: kernel λ {lam} against the plain "
+              f"version's {rv} (rel {rel:.3e} > {rtol})")
+        check(np.array_equal(alloc(x), alloc(rx)), f"lp {name}: the "
+              "kernels' allocation differs from the plain version's")
+        return rel
+
+    def threshold(x):
+        return x >= 0.5
+
+    def argmax(x):
+        return x.argmax(1)
+
+    split = None
     rows = []
     for name, g in graphs.items():
         t0 = time.perf_counter()
@@ -1371,40 +1463,36 @@ def lp_phase(torch) -> dict:
         t0 = time.perf_counter()
         rx, rv = HF.hybrid(dc, torch.tensor(z0), m=m, k=k, iters=LP_ITERS)
         plain_s = time.perf_counter() - t0
+        rx, rv = rx.numpy(), float(rv)
         dg = PaddedDag.from_graph(g, CARD)
         zg = torch.tensor(z0, device=CARD)
-        kx, kv = HF.launch_hybrid(dg, zg, m=m, k=k, iters=LP_ITERS)
-        kx, kv, rx, rv = kx.cpu().numpy(), float(kv), rx.numpy(), float(rv)
-        rel = abs(kv - rv) / abs(rv)
-        check(rel <= LP_RTOL, f"lp {name}: kernel λ {kv} against the plain "
-              f"version's {rv} (rel {rel:.3e})")
-        check(np.array_equal(kx >= 0.5, rx >= 0.5), f"lp {name}: the "
-              "kernel's threshold allocation differs from the plain version's")
+        if name == "potri20":
+            split = lp_reverse_split(torch, HF, dg, zg, m, k)
+        row = both(dg, lambda kern, cyc: HF.launch_hybrid(
+            dg, zg, m=m, k=k, iters=LP_ITERS, kernel=kern, cycles=cyc),
+            name)
+        kx = row.pop("x")
+        rel = plain_check(name, kx, row["lam"], rx, rv, LP_RTOL, threshold)
         check(np.array_equal(sol.alloc, np.where(kx >= 0.5, 0, 1)),
               f"lp {name}: the main path's allocation differs")
-        cycles = torch.zeros(len(HF.PHASES), dtype=torch.int64, device=CARD)
-        sx, sv = HF.launch_hybrid(dg, zg, m=m, k=k, iters=LP_ITERS,
-                                  cycles=cycles)
-        check(float(sv) == kv, f"lp {name}: the split launch's λ differs")
-        cyc = cycles.cpu().tolist()
-        row = {"name": name, "n": g.n, "lam": kv, "plain_lam": rv,
-               "rel": rel, "max_abs_err": float(np.abs(kx - rx).max()),
-               "plain_ms": plain_s * 1e3, "highs_s": highs_s,
-               "lp_highs": exact.lp_value, "lp_first_order": sol.lp_value,
-               "gap_pct": (sol.lp_value / exact.lp_value - 1) * 100,
-               "split": {ph: c / sum(cyc) for ph, c in zip(HF.PHASES, cyc)},
-               **timed(dg, lambda: HF.launch_hybrid(
-                   dg, zg, m=m, k=k, iters=LP_ITERS))}
+        row.update({"name": name, "n": g.n, "plain_lam": rv, "rel": rel,
+                    "max_abs_err": float(np.abs(kx - rx).max()),
+                    "plain_ms": plain_s * 1e3, "highs_s": highs_s,
+                    "lp_highs": exact.lp_value,
+                    "lp_first_order": sol.lp_value,
+                    "gap_pct": (sol.lp_value / exact.lp_value - 1) * 100})
         rows.append(row)
         print(f"lp {name} (n={g.n}, {row['levels']} levels, widest "
-              f"{row['width']}, {row['threads']} threads): kernel "
-              f"{row['ms']:.3f} ms a solve, chain floor "
-              f"{row['chain_floor_ms']:.3f} ms ({row['chain_steps']} level "
-              f"steps), bound {row['bound_ms'] * 1e3:.3f} us "
-              f"({row['bound_by']}), plain {row['plain_ms']:.1f} ms (host), "
-              f"HiGHS {highs_s:.3f} s; λ rel {rel:.2e}, gap "
-              f"{row['gap_pct']:.3f}%; split "
-              + ", ".join(f"{ph} {v:.3f}" for ph, v in row["split"].items()))
+              f"{row['width']}, {row['threads']} threads): {show(row)}; "
+              f"bound {row['bound_ms'] * 1e3:.3f} us ({row['bound_by']}), "
+              f"plain {row['plain_ms']:.1f} ms (host), HiGHS {highs_s:.3f} "
+              f"s; λ rel {rel:.2e}, gap {row['gap_pct']:.3f}%; bit-equal")
+    print(f"lp gather reverse split on potri20 (clock64, 300 steps): slowest "
+          f"level {split['level']} (width {split['width']}, task "
+          f"{split['task']}): " + ", ".join(
+              f"{p} {v:.3f}" for p, v in split["shares"].items())
+          + "; over every level's slowest task: " + ", ".join(
+              f"{p} {v:.3f}" for p, v in split["chain_shares"].items()))
 
     nb = netbound_scenario(seed=300)
     mo = moldable_suite(seed=400, num=1, ccr=2.0)[0]
@@ -1426,36 +1514,65 @@ def lp_phase(torch) -> dict:
             t = [torch.tensor(np.asarray(a, np.float32), device=dev)
                  for a in ins]
             zt = torch.tensor(z0, device=dev)
-            before = HF.launch_count()
+            before = HF.launch_counts()
             t0 = time.perf_counter()
             x, v = HF.choice(d, zt, *t, iters=LP_ITERS,
                              use_comm=prob.comm_aware)
             res[dev] = (x.cpu().numpy(), float(v), time.perf_counter() - t0,
                         d, zt, t)
-            check(HF.launch_count() - before == (1 if dev == CARD else 0),
-                  f"lp {name}: {HF.launch_count() - before} launches on "
+            after = HF.launch_counts()
+            want = {"sm90": int(dev == CARD), "gather": 0}
+            check({kern: after[kern] - before[kern] for kern in after}
+                  == want, f"lp {name}: launches {before} -> {after} on "
                   f"{dev} for one solve")
-        (rx, rv, plain_s, *_), (kx, kv, _, dg, zg, tg) = res["cpu"], res[CARD]
-        rel = abs(kv - rv) / abs(rv)
-        check(rel <= rtol, f"lp {name}: kernel λ {kv} against the plain "
-              f"version's {rv} (rel {rel:.3e} > {rtol})")
-        check(np.array_equal(kx.argmax(1), rx.argmax(1)), f"lp {name}: the "
-              "kernel's allocation differs from the plain version's")
+        (rx, rv, plain_s, *_), (_, _, _, dg, zg, tg) = res["cpu"], res[CARD]
         c, q = p_dev.shape[1], prob.type_mask.shape[0]
-        row = {"name": name, "n": g.n, "choices": c, "comm": prob.comm_aware,
-               "lam": kv, "plain_lam": rv, "rel": rel, "rtol": rtol,
-               "max_abs_err": float(np.abs(kx - rx).max()),
-               "plain_ms": plain_s * 1e3,
-               **timed(dg, lambda: HF.launch_choice(
-                   dg, zg, *tg, iters=LP_ITERS, use_comm=prob.comm_aware),
-                   c, q, prob.comm_aware)}
+        row = both(dg, lambda kern, cyc: HF.launch_choice(
+            dg, zg, *tg, iters=LP_ITERS, use_comm=prob.comm_aware,
+            kernel=kern, cycles=cyc), name, c, q, prob.comm_aware)
+        kx = row.pop("x")
+        check(np.array_equal(kx, res[CARD][0]), f"lp {name}: the entry's "
+              "solve and the bare launch differ")
+        rel = plain_check(name, kx, row["lam"], rx, rv, rtol, argmax)
+        row.update({"name": name, "n": g.n, "choices": c,
+                    "comm": prob.comm_aware, "plain_lam": rv, "rel": rel,
+                    "rtol": rtol, "max_abs_err": float(np.abs(kx - rx).max()),
+                    "plain_ms": plain_s * 1e3})
         crows.append(row)
-        print(f"lp choice {name} (n={g.n}, C={c}, comm {prob.comm_aware}): "
-              f"kernel {row['ms']:.3f} ms a solve, chain floor "
-              f"{row['chain_floor_ms']:.3f} ms, plain {row['plain_ms']:.1f} "
-              f"ms (host); λ rel {rel:.2e} (limit {rtol})")
-    return {"launches": launches, "path_s": path_s, "hybrid": rows,
-            "choice": crows}
+        print(f"lp choice {name} (n={g.n}, C={c}, comm {prob.comm_aware}, "
+              f"{row['threads']} threads): {show(row)}; plain "
+              f"{row['plain_ms']:.1f} ms (host); λ rel {rel:.2e} (limit "
+              f"{rtol}); bit-equal")
+
+    # one campaign-sized solve: the full grid's largest hlp_jax_ols graph
+    scens = (default_suite(seed=0) + comm_suite(seed=50)
+             + default_suite(seed=100, counts=(16, 4))
+             + comm_suite(seed=150, counts=(16, 4)))
+    sc = max(scens, key=lambda s: s.graph.n)
+    g, (cm, ck) = sc.graph, sc.machine.counts
+    z0 = np.float32(0.01) * reference_normal(0, (g.n,))
+    t0 = time.perf_counter()
+    rx, rv = HF.hybrid(PaddedDag.from_graph(g, "cpu"), torch.tensor(z0),
+                       m=cm, k=ck, iters=LP_ITERS)
+    plain_s = time.perf_counter() - t0
+    dg = PaddedDag.from_graph(g, CARD)
+    zg = torch.tensor(z0, device=CARD)
+    row = both(dg, lambda kern, cyc: HF.launch_hybrid(
+        dg, zg, m=cm, k=ck, iters=LP_ITERS, kernel=kern, cycles=cyc),
+        sc.name)
+    check(row["threads"] == 32, f"lp {sc.name}: {row['threads']} threads")
+    kx = row.pop("x")
+    rel = plain_check(sc.name, kx, row["lam"], rx.numpy(), float(rv),
+                      LP_RTOL, threshold)
+    row.update({"name": sc.name, "n": g.n, "machine": [cm, ck],
+                "plain_lam": float(rv), "rel": rel,
+                "max_abs_err": float(np.abs(kx - rx.numpy()).max()),
+                "plain_ms": plain_s * 1e3})
+    print(f"lp campaign-sized {sc.name} (n={g.n}, {row['levels']} levels, "
+          f"one warp): {show(row)}; plain {row['plain_ms']:.1f} ms (host); "
+          f"λ rel {rel:.2e}; bit-equal")
+    return {"launches": counts, "path_s": path_s, "hybrid": rows,
+            "choice": crows, "campaign_solve": row, "reverse_split": split}
 
 
 def _campaign_run(args: list[str], pin_path: Path, name: str
@@ -1562,8 +1679,9 @@ def campaign_phase() -> dict:
     solves = len(default_suite(seed=0) + comm_suite(seed=50)
                  + default_suite(seed=100, counts=(16, 4))
                  + comm_suite(seed=150, counts=(16, 4)))
-    check(full["hlp_fo"] == solves, f"campaign full: {full['hlp_fo']} "
-          f"first-order LP launches for {solves} hlp_jax_ols solves")
+    check(full["hlp_fo"] == full["hlp_fo_sm90"] == solves, f"campaign full: "
+          f"{full['hlp_fo']} first-order LP launches ({full['hlp_fo_sm90']} "
+          f"of the sm90 kernel) for {solves} hlp_jax_ols solves")
     check(full["replay"] == full["replay_chunks"] == got["sim"]["buckets"],
           f"campaign full: {full['replay']} replay launches for "
           f"{full['replay_chunks']} chunks in {got['sim']['buckets']} "
@@ -1762,25 +1880,34 @@ def main() -> int:
     t0 = time.perf_counter()
     lp = lp_phase(torch)
     print(f"lp: {time.perf_counter() - t0:.1f} s")
-    hybrid = lp["hybrid"]
-    lp_row = {
-        "name": "hlp_fo_solve", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/hlp_fo.cu",
-        "replaces": "src/repro/core/hlp_jax.py:122",
-        "also_replaces": ["src/repro/core/hlp_jax.py:172"],
-        "shape": f"{', '.join(r['name'] for r in hybrid)} on "
-                 f"{LP_MACHINE}, {LP_ITERS} iterations, summed",
-        "launches": lp["launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in hybrid + lp["choice"]),
-        "ms": sum(r["ms"] for r in hybrid),
-        "plain_ms": sum(r["plain_ms"] for r in hybrid), "plain_on": "host",
-        "bound_ms": sum(r["bound_ms"] for r in hybrid),
-        "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in hybrid)
-                     else "operations"),
-        "library_ms": None,
-        "chain_floor_ms": sum(r["chain_floor_ms"] for r in hybrid),
-        "highs_ms": sum(r["highs_s"] for r in hybrid) * 1e3,
-        "instances": hybrid + lp["choice"]}
+    hybrid, lp_all = lp["hybrid"], lp["hybrid"] + lp["choice"]
+    lp_rows = {}
+    for kern, name, source in (
+            ("sm90", "hlp_fo_solve", "hlp_fo_sm90.cu"),
+            ("gather", "hlp_fo_solve_gather", "hlp_fo.cu")):
+        lp_rows[kern] = {
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": "src/repro/core/hlp_jax.py:122",
+            "also_replaces": ["src/repro/core/hlp_jax.py:172"],
+            "shape": f"{', '.join(r['name'] for r in hybrid)} on "
+                     f"{LP_MACHINE}, {LP_ITERS} iterations, summed",
+            "launches": lp["launches"][kern],
+            "max_abs_err": max(r["max_abs_err"] for r in lp_all),
+            "ms": sum(r[kern]["ms"] for r in hybrid),
+            "plain_ms": sum(r["plain_ms"] for r in hybrid),
+            "plain_on": "host",
+            "bound_ms": sum(r["bound_ms"] for r in hybrid),
+            "bound_by": ("bytes" if all(r["bound_by"] == "bytes"
+                                        for r in hybrid) else "operations"),
+            "library_ms": None,
+            "chain_floor_ms": sum(r[kern]["chain_floor_ms"] for r in hybrid),
+            "highs_ms": sum(r["highs_s"] for r in hybrid) * 1e3,
+            "instance_ms": {r["name"]: r[kern]["ms"]
+                            for r in lp_all + [lp["campaign_solve"]]},
+            "split": {r["name"]: r[kern]["split"] for r in hybrid}}
+    lp_rows["sm90"]["reverse_split_of_gather"] = lp["reverse_split"]
+    lp_rows["sm90"]["instances"] = lp_all + [lp["campaign_solve"]]
     print(f"lp summary: {json.dumps(lp)}")
 
     # the port's campaign entry in a fresh process, then the pinned gate;
@@ -1792,14 +1919,18 @@ def main() -> int:
         campaign[b]["launches"]["replay"] for b in ("sim", "search"))
     sm90_contention["campaign_launches"] = sum(
         campaign[b]["launches"]["contention"] for b in ("sim", "search"))
-    lp_row["campaign_launches"] = campaign["full"]["launches"]["hlp_fo"]
+    lp_rows["sm90"]["campaign_launches"] = (
+        campaign["full"]["launches"]["hlp_fo_sm90"])
+    lp_rows["gather"]["campaign_launches"] = (
+        campaign["full"]["launches"]["hlp_fo"]
+        - campaign["full"]["launches"]["hlp_fo_sm90"])
     print(f"campaign summary: {json.dumps(campaign)}")
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
           "imports, build included")
     print(json.dumps({"kernels": [flash_row, fp32_row, fma_row,
                                   maxplus_row, sm90_row, sm90_contention,
-                                  lp_row]}))
+                                  lp_rows["sm90"], lp_rows["gather"]]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,8 +15,8 @@ where CP(x) is the DAG longest path under fractional lengths
 ℓ_j(x) = p̄_j x_j + p_j (1 - x_j).  It is minimized with Adam on logits
 (x = σ(z)), a temperature-annealed soft longest path for the gradient, and
 the best *exact* iterate kept.  Each solve is one launch of the CUDA kernel
-``kernels/csrc/hlp_fo.cu`` (through ``kernels/hlp_fo/hlp_fo.py``), which
-runs every Adam step in one block; on the CPU the wrapper takes the plain
+``kernels/csrc/hlp_fo_sm90.cu`` (through ``kernels/hlp_fo/hlp_fo.py``),
+which runs every Adam step in one block; on the CPU the wrapper takes the plain
 version (``kernels/hlp_fo/ref.py``).  Two entry points: ``hybrid`` is the
 reference's ``_solve`` (sigmoid, Q = 2, comm-free), ``choice`` its
 ``_solve_choice`` (a softmax over an ``AllocationProblem``'s (n, C) choice
@@ -60,7 +60,9 @@ class PaddedDag:
     ``level_ptr`` (L + 1,) and ``level_task`` (n,) int32, the tasks sorted
     by level; ``succ_ptr`` (n + 1,), ``succ_task`` and ``succ_slot`` (E,)
     int32, each edge's successor and its slot in that successor's pred row;
-    ``max_width``, the most tasks of one level, which sizes the block.
+    ``pred_edge`` (n, P) int32, each real pred slot's place in that CSR
+    (-1 padded); ``max_width``, the most tasks of one level, which sizes
+    the block.
     """
     topo: torch.Tensor
     pred: torch.Tensor
@@ -73,6 +75,7 @@ class PaddedDag:
     succ_ptr: torch.Tensor
     succ_task: torch.Tensor
     succ_slot: torch.Tensor
+    pred_edge: torch.Tensor
     max_width: int
 
     @staticmethod
@@ -95,6 +98,8 @@ class PaddedDag:
         order = np.argsort(src, kind="stable")
         succ_ptr = np.concatenate([[0], np.cumsum(np.bincount(src,
                                                               minlength=g.n))])
+        pred_edge = np.full((g.n, P), -1, dtype=np.int32)
+        pred_edge[succ[order], slot[order]] = np.arange(order.size)
 
         def t(a, dtype):
             return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
@@ -108,6 +113,7 @@ class PaddedDag:
             pred_comm=t(pcomm, f32), level_ptr=t(level_ptr, i32),
             level_task=t(level_task, i32), succ_ptr=t(succ_ptr, i32),
             succ_task=t(succ[order], i32), succ_slot=t(slot[order], i32),
+            pred_edge=t(pred_edge, i32),
             max_width=int(np.diff(level_ptr).max()))
 
     @property

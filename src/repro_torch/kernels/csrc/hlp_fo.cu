@@ -116,6 +116,10 @@ struct Problem {
   long long* cycles;      // (4) out, or null: thread 0's clock cycles in
                           // the soft forward, the loss, the reverse pass
                           // and the exact pass, summed over the steps
+  long long* task_cycles; // (n, 3) out, or null: each task's clock cycles
+                          // in the reverse pass's successor gather, its
+                          // chain rule and new x, and its Adam step's
+                          // loads and stores, summed over the steps
   int n, P, levels, C, Q, iters, m, k;
 };
 
@@ -439,10 +443,12 @@ __device__ __forceinline__ void softmax_row(const float* z, float* out, int c) {
 template <bool CHOICE, bool COMM>
 __device__ void reverse(const Problem& p, const Smem& s, const Grad& g, float bc1, float bc2) {
   const float tau = g.tau;
+  const bool timed = p.task_cycles != nullptr;
   for (int l = p.levels - 1; l >= 0; --l) {
     const int lo = s.lp[l], hi = s.lp[l + 1];
     for (int i = lo + threadIdx.x; i < hi; i += blockDim.x) {
       const int j = __ldg(p.level_task + i);
+      long long t_start = timed ? clock64() : 0, t_adam = 0;
       const float fj = s.f[j];
       float gf = dvd(mul(g.cfin, expf(dvd(sub(fj, g.M), tau))), tau);
       float gX[MAX_Q];
@@ -461,6 +467,7 @@ __device__ void reverse(const Problem& p, const Smem& s, const Grad& g, float bc
             gX[q] = add(gX[q], mul(gd, s.X[static_cast<int64_t>(sj) * p.Q + q]));
         }
       }
+      const long long t_gather = timed ? clock64() : 0;
       const int* row = p.pred + static_cast<int64_t>(j) * p.P;
       float cj = 0.0f;
       if (__ldg(row) >= 0) {
@@ -488,7 +495,10 @@ __device__ void reverse(const Problem& p, const Smem& s, const Grad& g, float bc
         float gx = sub(mul(gf, pcj), mul(gf, pgj));
         gx = add(gx, mul(g.dc, pcj));
         gx = sub(gx, mul(g.dg, pgj));
-        const float zn = adam(p, j, mul(gx, mul(x, sub(1.0f, x))), bc1, bc2);
+        const float gz = mul(gx, mul(x, sub(1.0f, x)));
+        const long long ta = timed ? clock64() : 0;
+        const float zn = adam(p, j, gz, bc1, bc2);
+        if (timed) t_adam += clock64() - ta;
         s.x[j] = sigmoid(zn);
       } else {
         const int64_t base = static_cast<int64_t>(j) * p.C;
@@ -507,9 +517,20 @@ __device__ void reverse(const Problem& p, const Smem& s, const Grad& g, float bc
         }
 #pragma unroll
         for (int c = 0; c < MAX_C; ++c)
-          if (c < p.C)
-            zn[c] = adam(p, base + c, mul(s.x[base + c], sub(gx[c], dot)), bc1, bc2);
+          if (c < p.C) {
+            const float gz = mul(s.x[base + c], sub(gx[c], dot));
+            const long long ta = timed ? clock64() : 0;
+            zn[c] = adam(p, base + c, gz, bc1, bc2);
+            if (timed) t_adam += clock64() - ta;
+          }
         softmax_row(zn, s.x + base, p.C);
+      }
+      if (timed) {
+        long long* tc = p.task_cycles + 3 * static_cast<int64_t>(j);
+        const long long t_end = clock64();
+        tc[0] += t_gather - t_start;
+        tc[1] += t_end - t_gather - t_adam;
+        tc[2] += t_adam;
       }
     }
     __syncthreads();
@@ -638,12 +659,13 @@ extern "C" int hlp_fo_hybrid_f32(const int* level_ptr, const int* level_task, co
                                  const int* succ_slot, const float* pc, const float* pg,
                                  const float* sched, const float* z0, float* z, float* mu,
                                  float* nu, float* best_x, float* best_val,
-                                 long long* cycles, int n, int P, int levels, int iters,
-                                 int m, int k, int threads, cudaStream_t stream) {
+                                 long long* cycles, long long* task_cycles, int n, int P,
+                                 int levels, int iters, int m, int k, int threads,
+                                 cudaStream_t stream) {
   if (m <= 0 || k <= 0) return cudaErrorInvalidValue;
   Problem p{level_ptr, level_task, pred, succ_ptr, succ_task, succ_slot, pc, pg,
             nullptr, nullptr, nullptr, nullptr, nullptr, sched, z0, z, mu, nu,
-            best_x, best_val, cycles, n, P, levels, 1, 0, iters, m, k};
+            best_x, best_val, cycles, task_cycles, n, P, levels, 1, 0, iters, m, k};
   return launch<false, false>(p, threads, stream, 0);
 }
 
@@ -654,11 +676,12 @@ extern "C" int hlp_fo_choice_f32(const int* level_ptr, const int* level_task, co
                                  const float* inv_counts, const float* pred_comm,
                                  const float* sched, const float* z0, float* z, float* mu,
                                  float* nu, float* best_x, float* best_val,
-                                 long long* cycles, int n, int P, int levels, int C, int Q,
-                                 int iters, int use_comm, int threads, cudaStream_t stream) {
+                                 long long* cycles, long long* task_cycles, int n, int P,
+                                 int levels, int C, int Q, int iters, int use_comm,
+                                 int threads, cudaStream_t stream) {
   Problem p{level_ptr, level_task, pred, succ_ptr, succ_task, succ_slot, nullptr, nullptr,
             p_choice, area, type_mask, inv_counts, pred_comm, sched, z0, z, mu, nu,
-            best_x, best_val, cycles, n, P, levels, C, Q, iters, 1, 1};
+            best_x, best_val, cycles, task_cycles, n, P, levels, C, Q, iters, 1, 1};
   return use_comm ? launch<true, true>(p, threads, stream, 2)
                   : launch<true, false>(p, threads, stream, 1);
 }

@@ -420,14 +420,16 @@ def search_sweep(full: bool = False, verbose: bool = False,
 
 # ----------------------------------------------------------- bench targets
 def _launches() -> dict[str, int]:
-    """The replay, contention and first-order LP kernels' launch counters,
-    beside the replay chunks dispatched and the contention groups priced
-    (on the card, one launch each; on the CPU, none)."""
+    """The replay, contention and first-order LP kernels' launch counters
+    (the LP's total and its sm90 kernel's), beside the replay chunks
+    dispatched and the contention groups priced (on the card, one launch
+    each; on the CPU, none)."""
     from repro_torch.kernels.contention import contention as C
     from repro_torch.kernels.hlp_fo import hlp_fo as HF
     from repro_torch.kernels.replay import replay as R
     return {"replay": R.launch_count(), "contention": C.launch_count(),
             "hlp_fo": HF.launch_count(),
+            "hlp_fo_sm90": HF.launch_counts()["sm90"],
             "replay_chunks": _obs.counter_value("sim.replay.chunks"),
             "contended_groups": _obs.counter_value("sim.contended.groups")}
 

@@ -117,6 +117,7 @@ def test_trajectory_records_the_pipeline_and_the_host(bench):
     # on the CPU the wrappers take the plain versions: no kernel launches;
     # one replay chunk per bucket (one device), one contended group
     assert sim["launches"] == {"replay": 0, "contention": 0, "hlp_fo": 0,
+                               "hlp_fo_sm90": 0,
                                "replay_chunks": sim["buckets"],
                                "contended_groups": 1}
     search = doc["benches"]["search"]["launches"]

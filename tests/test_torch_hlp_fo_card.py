@@ -1,5 +1,6 @@
-"""The first-order LP kernel ``csrc/hlp_fo.cu`` against its plain version,
-on the card.
+"""The first-order LP's default kernel (``csrc/hlp_fo_sm90.cu``) against
+its plain version, on the card; the gather kernel ``csrc/hlp_fo.cu``
+against it bit for bit: ``tests/test_torch_hlp_fo_sm90_card.py``.
 
 Every test carries the ``card`` marker, asks for the ``card`` fixture
 (which skips without a card) and imports nothing of JAX:
@@ -149,7 +150,8 @@ def test_shared_memory_mirror_limits_and_checks(card):
     for args in ((4620, 60, 1, 0, 0), (43, 16, 2, 2, 1), (20, 7, 8, 2, 0),
                  (5011, 60, 1, 0, 0)):
         assert lib.hlp_fo_smem_bytes(*args) == HF.smem_bytes(
-            args[0], args[1], args[2], args[3], bool(args[4])), args
+            args[0], args[1], args[2], args[3], bool(args[4]),
+            kernel="gather"), args
     g = TW.chameleon("potri", 20, 512)
     d = TH.PaddedDag.from_graph(g, "cuda")
     C, Q = 8, 2
@@ -158,7 +160,11 @@ def test_shared_memory_mirror_limits_and_checks(card):
            torch.ones((Q, C), device="cuda"), torch.ones(Q, device="cuda")]
     with pytest.raises(ValueError, match=str(HF.SMEM_LIMIT)):
         HF.launch_choice(d, torch.zeros((g.n, C), device="cuda"), *big,
-                         iters=1, use_comm=True)
+                         iters=1, use_comm=True, kernel="gather")
+    # the sm90 kernel takes it in its global layout
+    x, v = HF.launch_choice(d, torch.zeros((g.n, C), device="cuda"), *big,
+                            iters=1, use_comm=True)
+    assert bool(torch.isfinite(x).all()) and bool(torch.isfinite(v))
     with pytest.raises(ValueError, match="card"):
         HF.launch_hybrid(TH.PaddedDag.from_graph(g, "cpu"), torch.zeros(g.n),
                          m=64, k=8, iters=1)
@@ -168,7 +174,8 @@ def test_shared_memory_mirror_limits_and_checks(card):
     torch.cuda.synchronize()
     assert out.item() == 0.0
     # the split launch returns the same solve and each phase's cycles
-    cycles = torch.zeros(len(HF.PHASES), dtype=torch.int64, device="cuda")
+    cycles = torch.zeros(len(HF.PHASES["sm90"]), dtype=torch.int64,
+                         device="cuda")
     z0 = torch.zeros(g.n, device="cuda")
     x1, v1 = HF.launch_hybrid(d, z0, m=64, k=8, iters=3, cycles=cycles)
     x2, v2 = HF.launch_hybrid(d, z0, m=64, k=8, iters=3)
