@@ -95,27 +95,23 @@ Phases, each of which raises on failure (exit code not 0):
 9. lp      — the first-order LP (``repro_torch.core.hlp_jax``) on the
              solver target's instances (Chameleon potrf and getrf nb=10,
              potri nb=20, block 512, on (64, 8), 300 iterations) through
-             ``solve_hlp_jax`` on the card: the ``hlp_fo`` counters set to
-             0 just before and required, just after, to show one launch a
-             solve, all of the default kernel (``hlp_fo_sm90.cu``) and
-             none of the first design (``hlp_fo.cu``, ``kernel="gather"``).
-             Then the first design's reverse pass split with clock64 on
-             potri nb=20 (successor gather, chain rule, Adam's loads and
-             stores; the slowest level and the chain of every level's
-             slowest task), and each instance through both kernels' bare
-             launches and the plain version on CPU copies from the same
-             starting logits: the two kernels' best x and λ bit for bit,
-             λ at rtol 1e-5 of the plain version and identical threshold
-             allocations; one comm-aware netbound instance and one moldable
-             instance through the choice entry the same way (λ at 1e-3 on
-             the netbound one: see ``LP_NETBOUND_RTOL``); and one
+             ``solve_hlp_jax`` on the card: the ``hlp_fo`` counter set to 0
+             just before and required, just after, to show one launch of
+             ``hlp_fo_sm90.cu`` a solve.  Then each instance through the
+             kernel's bare launch in both of its layouts (shared memory,
+             and the scratch buffer ``layout="global"`` forces) and the
+             plain version on CPU copies from the same starting logits:
+             the layouts' best x and λ bit for bit, λ at rtol 1e-5 of the
+             plain version and identical threshold allocations; one
+             comm-aware netbound instance and one moldable instance
+             through the choice entry the same way (λ at 1e-3 on the
+             netbound one: see ``LP_NETBOUND_RTOL``); and one
              campaign-sized solve (the full grid's largest ``hlp_jax_ols``
-             graph, 43 tasks, one warp).  Each kernel timed from CUDA
-             events in turns (sm90, gather, gather, sm90) beside its chain
-             floor (2 level steps a level a step for sm90, 3 for gather,
-             each as ``hlp_fo_sm90_chain_probe`` measures it) and the
-             split of its chain's clock cycles over the phases of a step;
-             the bound, the plain version's host time and HiGHS's
+             graph, 43 tasks, one warp).  The kernel timed from CUDA events
+             twice beside its chain floor (2 level steps a level a step,
+             each as ``hlp_fo_sm90_chain_probe`` measures it) and the split
+             of its chain's clock cycles over the phases of a step; the
+             bound, the plain version's host time and HiGHS's
              (``solve_hlp``) beside them.
 10. campaign — ``python -m repro_torch.launch.campaign --bench-json X`` on
              the card in a fresh process (the ``sim`` and ``search``
@@ -133,6 +129,27 @@ Phases, each of which raises on failure (exit code not 0):
              trajectory of that grid: the first-order LP's launches must
              equal the ``hlp_jax_ols`` solves (one a static-suite
              scenario), every one of the sm90 kernel.
+11. paper  — the paper's §6 experiments and the kernels target:
+             ``python -m repro_torch.launch.campaign --only
+             offline2,offline3,online,kernels`` on the card in a fresh
+             process (its counters from 0 in that process), each
+             experiment's dict held to ``tests/torch_paper_pin.json`` (the
+             reference's own outputs on the default grid) with ``==`` on
+             every float, 544 runs each, its CSVs' rows and SHA-256 (the
+             ``lp_seconds`` timing column taken out) and its lines (the µs
+             column taken out) equal to the pin's (where this host's HiGHS
+             returns another optimal LP vertex than the pin's, those rows
+             are reproduced from the pin's allocations and the dict and
+             lines held from the reconciled rows); the ``kernels`` target's
+             (max, +) and flash attention launches above 0 and its µs a
+             call printed.  Then the placement planner
+             (``repro_torch.core.placement.plan_pipeline``) on the full
+             published granite-3-2b and qwen2-1.5b configs at seq 4096 and
+             batch 8, on the pin's 2- and 3-pod platforms with 1 and 6
+             streams: each plan's allocation, makespan and LP bound equal
+             to the pin's (a plan on another optimal LP vertex: LP* within
+             rtol 1e-12 of the pin's, within the Q(Q+1) bound, and OLS on
+             the pin's allocation giving the pin's makespan exactly).
 
 The tests that launch a kernel run apart, on the same card:
 
@@ -269,6 +286,25 @@ LP_MACHINE = (64, 8)
 LP_ITERS = 300
 LP_RTOL = 1e-5
 LP_NETBOUND_RTOL = 1e-3
+
+# The paper phase: the reference's outputs of its §6 experiments on the
+# default grid (34 instances x 16 configurations) and its placement plans,
+# written by tests/test_torch_paper.py::write_pin
+PAPER_PIN = ROOT / "tests" / "torch_paper_pin.json"
+PAPER_TARGETS = ("offline2", "offline3", "online")
+PAPER_RUNS = 544
+# the offline experiments' CSV and the columns that read the LP's allocation
+# (the rest read its optimum or no LP): where the host's HiGHS returns
+# another optimal vertex than the reference's, only these may differ
+PAPER_LP_ROWS = {"offline2": ("offline_2type.csv", ("hlp_est", "hlp_ols")),
+                 "offline3": ("offline_3type.csv", ("qhlp_est", "qhlp_ols"))}
+# the kernels target's cases (launch/kernel_bench.py): (max, +) exact, flash
+# attention in float32 (causal) within FLASH_TOL's atol = rtol
+PAPER_KERNEL_TOL = {"kernels/maxplus_256x256x256": 0.0,
+                    "kernels/flash_attn_s512": FLASH_TOL["float32"]}
+# a placement plan on another optimal LP vertex: its LP* against the pin's,
+# which another HiGHS build rounds differently (1 ulp on the H100's host)
+PLAN_LP_RTOL = 1e-12
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1302,7 +1338,7 @@ def lp_bound_ms(d, iters: int, c: int = 1, q: int = 0,
     (the DAG's index arrays, the times or the choice grid, the schedule
     table, z0) and best x and λ written once, against the float32
     operations of ``iters`` steps counted as 13 a real pred slot (soft and
-    exact forward, the reverse gather) and 50 a task entry (its time, soft
+    exact forward, the reverse walk) and 50 a task entry (its time, soft
     max, chain rule, Adam, loads), each expf / logf as one."""
     n, P = d.pred.shape
     E = int(d.succ_task.shape[0])
@@ -1317,49 +1353,20 @@ def lp_bound_ms(d, iters: int, c: int = 1, q: int = 0,
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def lp_reverse_split(torch, HF, d, z0, m: int, k: int) -> dict:
-    """The gather kernel's reverse pass split with clock64 on ``d``: each
-    task's cycles in its successor gather, its chain rule and new x, and
-    its Adam step's loads and stores, summed over the steps.  A level's
-    time is its slowest task's; returned: the slowest level's split and
-    the split summed over every level's slowest task (the chain)."""
-    import numpy as np
-    tc = torch.zeros((d.n, len(HF.REVERSE_PARTS)), dtype=torch.int64,
-                     device=CARD)
-    HF.launch_hybrid(d, z0, m=m, k=k, iters=LP_ITERS, kernel="gather",
-                     task_cycles=tc)
-    tc = tc.cpu().numpy()
-    lp, lt = d.level_ptr.cpu().numpy(), d.level_task.cpu().numpy()
-    slowest = []
-    for lvl in range(d.levels):
-        tasks = lt[lp[lvl]:lp[lvl + 1]]
-        j = int(tasks[int(np.argmax(tc[tasks].sum(axis=1)))])
-        slowest.append((int(tc[j].sum()), lvl, j, len(tasks)))
-    top, lvl, j, width = max(slowest)
-    chain = tc[[s[2] for s in slowest]].sum(axis=0)
-    return {"level": lvl, "task": j, "width": width,
-            "cycles": dict(zip(HF.REVERSE_PARTS, tc[j].tolist())),
-            "shares": dict(zip(HF.REVERSE_PARTS, (tc[j] / top).tolist())),
-            "chain_shares": dict(zip(HF.REVERSE_PARTS,
-                                     (chain / chain.sum()).tolist()))}
-
-
 def lp_phase(torch) -> dict:
     """The first-order LP on the card.  The main path: ``solve_hlp_jax`` on
-    the solver target's instances (:data:`LP_SOLVER`), every counter 0 just
-    before and, just after, one launch a solve, all of the default kernel
-    (``hlp_fo_sm90.cu``).  Then the first design's reverse pass split with
-    clock64 on potri nb=20, and each instance through both kernels' bare
-    launches and through the plain version on CPU copies from the same
-    starting logits: the kernels' best x and λ bit for bit, each against
-    the plain version (λ at :data:`LP_RTOL`, threshold allocations
-    identical, the main path's allocation the same), timed from CUDA
-    events in turns (sm90, gather, gather, sm90) beside its chain floor (2
-    level steps a level a step for sm90, 3 for gather, the probe's ns
-    each), its bound, its phase split, the plain version's host time and
-    HiGHS's (``solve_hlp``).  Then the choice entry on a netbound and a
-    moldable instance, and one campaign-sized solve (the full grid's
-    largest ``hlp_jax_ols`` graph, one warp), the same way."""
+    the solver target's instances (:data:`LP_SOLVER`), the counter 0 just
+    before and, just after, one launch a solve (``hlp_fo_sm90.cu``).  Then
+    each instance through the kernel's bare launch in both layouts and
+    through the plain version on CPU copies from the same starting logits:
+    the layouts' best x and λ bit for bit, the kernel against the plain
+    version (λ at :data:`LP_RTOL`, threshold allocations identical, the
+    main path's allocation the same), timed from CUDA events twice beside
+    its chain floor (2 level steps a level a step, the probe's ns each),
+    its bound, its phase split, the plain version's host time and HiGHS's
+    (``solve_hlp``).  Then the choice entry on a netbound and a moldable
+    instance, and one campaign-sized solve (the full grid's largest
+    ``hlp_jax_ols`` graph, one warp), the same way."""
     import numpy as np
     from repro_torch.core.allocation import AllocationProblem
     from repro_torch.core.hlp import solve_hlp
@@ -1377,9 +1384,9 @@ def lp_phase(torch) -> dict:
     sols = {name: solve_hlp_jax(g, m, k, iters=LP_ITERS)
             for name, g in graphs.items()}
     path_s = time.perf_counter() - t0
-    counts = HF.launch_counts()
-    check(counts == {"sm90": len(graphs), "gather": 0}, f"the first-order "
-          f"LP's main path launched {counts} for {len(graphs)} solves")
+    counts = HF.launch_count()
+    check(counts == len(graphs), f"the first-order LP's main "
+          f"path launched {counts} for {len(graphs)} solves")
     probes: dict[int, float] = {}
 
     def probe(threads: int) -> float:
@@ -1389,51 +1396,44 @@ def lp_phase(torch) -> dict:
                   f"{threads} threads")
         return probes[threads]
 
-    walks = {"sm90": 2, "gather": 3}   # level walks a step
-
     def both(d, run, name, c=1, q=0, comm=False) -> dict:
-        """Both kernels' results (bit-equal), times in turns, chain
-        floors and phase splits; ``run(kernel, cycles)`` launches."""
-        res = {kern: run(kern, None) for kern in HF.KERNELS}
-        (sx, sv), (gx, gv) = res["sm90"], res["gather"]
+        """The kernel's result in both layouts (bit-equal), its times,
+        chain floor and phase split; ``run(layout, cycles)`` launches."""
+        fits = HF.layout_for(d.pred.shape[0], d.levels, c, q, comm,
+                             e=int(d.succ_task.shape[0]))
+        (sx, sv), (gx, gv) = (run(layout, None) for layout in
+                              (fits, "global"))
         same = (torch.equal(sx.view(torch.int32), gx.view(torch.int32))
                 and torch.equal(sv.view(torch.int32), gv.view(torch.int32)))
-        check(same, f"lp {name}: the sm90 kernel's best x or λ "
-              f"({float(sv)!r}) differs from the gather kernel's "
+        check(same, f"lp {name}: the kernel's best x or λ in the {fits} "
+              f"layout ({float(sv)!r}) differs from the global one's "
               f"({float(gv)!r})")
         threads = HF.threads_for(d.max_width)
-        times = {kern: [] for kern in HF.KERNELS}
-        for kern in ("sm90", "gather", "gather", "sm90"):
-            times[kern].append(time_ms(lambda: run(kern, None), iters=5,
-                                       warmup=1))
+        times = [time_ms(lambda: run(None, None), iters=5, warmup=1)
+                 for _ in range(2)]
         bound, bound_by = lp_bound_ms(d, LP_ITERS, c, q, comm)
-        out = {"levels": d.levels, "width": d.max_width, "threads": threads,
-               "edges": int(d.succ_task.shape[0]), "bit_equal": same,
-               "probe_ns": probe(threads), "bound_ms": bound,
-               "bound_by": bound_by, "x": sx.cpu().numpy(),
-               "lam": float(sv)}
-        for kern in HF.KERNELS:
-            cycles = torch.zeros(len(HF.PHASES[kern]), dtype=torch.int64,
-                                 device=CARD)
-            _, cv = run(kern, cycles)
-            check(float(cv) == float(sv), f"lp {name}: the {kern} kernel's "
-                  "split launch changed λ")
-            cyc = cycles.cpu().tolist()
-            chain = walks[kern] * d.levels * LP_ITERS
-            out[kern] = {"ms": sum(times[kern]) / 2, "ms_turns": times[kern],
-                         "chain_steps": chain,
-                         "chain_floor_ms": chain * probes[threads] * 1e-6,
-                         "split": {ph: v / sum(cyc) for ph, v in
-                                   zip(HF.PHASES[kern], cyc)}}
-        return out
+        cycles = torch.zeros(len(HF.PHASES), dtype=torch.int64,
+                             device=CARD)
+        _, cv = run(None, cycles)
+        check(float(cv) == float(sv), f"lp {name}: the split launch "
+              "changed λ")
+        cyc = cycles.cpu().tolist()
+        chain = 2 * d.levels * LP_ITERS      # two level walks a step
+        return {"levels": d.levels, "width": d.max_width, "threads": threads,
+                "edges": int(d.succ_task.shape[0]), "bit_equal": same,
+                "probe_ns": probe(threads), "bound_ms": bound,
+                "bound_by": bound_by, "x": sx.cpu().numpy(),
+                "lam": float(sv), "ms": sum(times) / 2, "ms_turns": times,
+                "chain_steps": chain,
+                "chain_floor_ms": chain * probes[threads] * 1e-6,
+                "split": {ph: v / sum(cyc) for ph, v in
+                          zip(HF.PHASES, cyc)}}
 
     def show(row) -> str:
-        return "; ".join(
-            f"{kern} {row[kern]['ms']:.3f} ms a solve (turns "
-            + ", ".join(f"{t:.3f}" for t in row[kern]["ms_turns"])
-            + f"), floor {row[kern]['chain_floor_ms']:.3f} ms, split "
-            + ", ".join(f"{ph} {v:.3f}" for ph, v in row[kern]["split"].items())
-            for kern in HF.KERNELS)
+        return (f"{row['ms']:.3f} ms a solve (runs "
+                + ", ".join(f"{t:.3f}" for t in row["ms_turns"])
+                + f"), floor {row['chain_floor_ms']:.3f} ms, split "
+                + ", ".join(f"{ph} {v:.3f}" for ph, v in row["split"].items()))
 
     def plain_check(name, x, lam, rx, rv, rtol, alloc) -> float:
         rel = abs(lam - rv) / abs(rv)
@@ -1449,7 +1449,6 @@ def lp_phase(torch) -> dict:
     def argmax(x):
         return x.argmax(1)
 
-    split = None
     rows = []
     for name, g in graphs.items():
         t0 = time.perf_counter()
@@ -1466,11 +1465,8 @@ def lp_phase(torch) -> dict:
         rx, rv = rx.numpy(), float(rv)
         dg = PaddedDag.from_graph(g, CARD)
         zg = torch.tensor(z0, device=CARD)
-        if name == "potri20":
-            split = lp_reverse_split(torch, HF, dg, zg, m, k)
-        row = both(dg, lambda kern, cyc: HF.launch_hybrid(
-            dg, zg, m=m, k=k, iters=LP_ITERS, kernel=kern, cycles=cyc),
-            name)
+        row = both(dg, lambda lay, cyc: HF.launch_hybrid(
+            dg, zg, m=m, k=k, iters=LP_ITERS, cycles=cyc, layout=lay), name)
         kx = row.pop("x")
         rel = plain_check(name, kx, row["lam"], rx, rv, LP_RTOL, threshold)
         check(np.array_equal(sol.alloc, np.where(kx >= 0.5, 0, 1)),
@@ -1486,13 +1482,8 @@ def lp_phase(torch) -> dict:
               f"{row['width']}, {row['threads']} threads): {show(row)}; "
               f"bound {row['bound_ms'] * 1e3:.3f} us ({row['bound_by']}), "
               f"plain {row['plain_ms']:.1f} ms (host), HiGHS {highs_s:.3f} "
-              f"s; λ rel {rel:.2e}, gap {row['gap_pct']:.3f}%; bit-equal")
-    print(f"lp gather reverse split on potri20 (clock64, 300 steps): slowest "
-          f"level {split['level']} (width {split['width']}, task "
-          f"{split['task']}): " + ", ".join(
-              f"{p} {v:.3f}" for p, v in split["shares"].items())
-          + "; over every level's slowest task: " + ", ".join(
-              f"{p} {v:.3f}" for p, v in split["chain_shares"].items()))
+              f"s; λ rel {rel:.2e}, gap {row['gap_pct']:.3f}%; layouts "
+              "bit-equal")
 
     nb = netbound_scenario(seed=300)
     mo = moldable_suite(seed=400, num=1, ccr=2.0)[0]
@@ -1514,22 +1505,21 @@ def lp_phase(torch) -> dict:
             t = [torch.tensor(np.asarray(a, np.float32), device=dev)
                  for a in ins]
             zt = torch.tensor(z0, device=dev)
-            before = HF.launch_counts()
+            before = HF.launch_count()
             t0 = time.perf_counter()
             x, v = HF.choice(d, zt, *t, iters=LP_ITERS,
                              use_comm=prob.comm_aware)
             res[dev] = (x.cpu().numpy(), float(v), time.perf_counter() - t0,
                         d, zt, t)
-            after = HF.launch_counts()
-            want = {"sm90": int(dev == CARD), "gather": 0}
-            check({kern: after[kern] - before[kern] for kern in after}
-                  == want, f"lp {name}: launches {before} -> {after} on "
+            after = HF.launch_count()
+            check(after - before == int(dev == CARD), f"lp {name}: "
+                  f"launches {before} -> {after} on "
                   f"{dev} for one solve")
         (rx, rv, plain_s, *_), (_, _, _, dg, zg, tg) = res["cpu"], res[CARD]
         c, q = p_dev.shape[1], prob.type_mask.shape[0]
-        row = both(dg, lambda kern, cyc: HF.launch_choice(
+        row = both(dg, lambda lay, cyc: HF.launch_choice(
             dg, zg, *tg, iters=LP_ITERS, use_comm=prob.comm_aware,
-            kernel=kern, cycles=cyc), name, c, q, prob.comm_aware)
+            cycles=cyc, layout=lay), name, c, q, prob.comm_aware)
         kx = row.pop("x")
         check(np.array_equal(kx, res[CARD][0]), f"lp {name}: the entry's "
               "solve and the bare launch differ")
@@ -1542,7 +1532,7 @@ def lp_phase(torch) -> dict:
         print(f"lp choice {name} (n={g.n}, C={c}, comm {prob.comm_aware}, "
               f"{row['threads']} threads): {show(row)}; plain "
               f"{row['plain_ms']:.1f} ms (host); λ rel {rel:.2e} (limit "
-              f"{rtol}); bit-equal")
+              f"{rtol}); layouts bit-equal")
 
     # one campaign-sized solve: the full grid's largest hlp_jax_ols graph
     scens = (default_suite(seed=0) + comm_suite(seed=50)
@@ -1557,8 +1547,8 @@ def lp_phase(torch) -> dict:
     plain_s = time.perf_counter() - t0
     dg = PaddedDag.from_graph(g, CARD)
     zg = torch.tensor(z0, device=CARD)
-    row = both(dg, lambda kern, cyc: HF.launch_hybrid(
-        dg, zg, m=cm, k=ck, iters=LP_ITERS, kernel=kern, cycles=cyc),
+    row = both(dg, lambda lay, cyc: HF.launch_hybrid(
+        dg, zg, m=cm, k=ck, iters=LP_ITERS, cycles=cyc, layout=lay),
         sc.name)
     check(row["threads"] == 32, f"lp {sc.name}: {row['threads']} threads")
     kx = row.pop("x")
@@ -1570,19 +1560,15 @@ def lp_phase(torch) -> dict:
                 "plain_ms": plain_s * 1e3})
     print(f"lp campaign-sized {sc.name} (n={g.n}, {row['levels']} levels, "
           f"one warp): {show(row)}; plain {row['plain_ms']:.1f} ms (host); "
-          f"λ rel {rel:.2e}; bit-equal")
+          f"λ rel {rel:.2e}; layouts bit-equal")
     return {"launches": counts, "path_s": path_s, "hybrid": rows,
-            "choice": crows, "campaign_solve": row, "reverse_split": split}
+            "choice": crows, "campaign_solve": row}
 
 
-def _campaign_run(args: list[str], pin_path: Path, name: str
-                  ) -> tuple[dict, dict, float, float, int]:
+def _entry_run(args: list[str], name: str) -> tuple[Path, float]:
     """``python -m repro_torch.launch.campaign ARGS`` on the card in a fresh
-    process, then ``benchmarks/render_tables --check-bench`` against
-    ``pin_path``; both must exit 0, every pinned metric must lie within
-    ``CAMPAIGN_RTOL`` of its pin and every pinned count equal it.  Returns
-    the trajectory's benches, the pins, the wall, the worst relative
-    difference and the number of counts held."""
+    process, its trajectory under ``build/campaign/``; it must exit 0.
+    Returns the trajectory's path and the wall."""
     out_dir = ROOT / "build" / "campaign"
     out_dir.mkdir(parents=True, exist_ok=True)
     path = out_dir / f"BENCH_{name}.json"
@@ -1598,6 +1584,17 @@ def _campaign_run(args: list[str], pin_path: Path, name: str
             print(f"{name} | {line}")
     check(run.returncode == 0, f"the campaign entry {args} exited "
           f"{run.returncode}:\n{run.stderr[-4000:]}")
+    return path, wall
+
+
+def _campaign_run(args: list[str], pin_path: Path, name: str
+                  ) -> tuple[dict, dict, float, float, int]:
+    """:func:`_entry_run`, then ``benchmarks/render_tables --check-bench``
+    against ``pin_path``; it must exit 0, every pinned metric must lie
+    within ``CAMPAIGN_RTOL`` of its pin and every pinned count equal it.
+    Returns the trajectory's benches, the pins, the wall, the worst
+    relative difference and the number of counts held."""
+    path, wall = _entry_run(args, name)
     gate = subprocess.run([sys.executable, "-m", "benchmarks.render_tables",
                            "--check-bench", str(path), str(pin_path)],
                           cwd=ROOT, capture_output=True, text=True,
@@ -1679,9 +1676,8 @@ def campaign_phase() -> dict:
     solves = len(default_suite(seed=0) + comm_suite(seed=50)
                  + default_suite(seed=100, counts=(16, 4))
                  + comm_suite(seed=150, counts=(16, 4)))
-    check(full["hlp_fo"] == full["hlp_fo_sm90"] == solves, f"campaign full: "
-          f"{full['hlp_fo']} first-order LP launches ({full['hlp_fo_sm90']} "
-          f"of the sm90 kernel) for {solves} hlp_jax_ols solves")
+    check(full["hlp_fo"] == solves, f"campaign full: {full['hlp_fo']} "
+          f"first-order LP launches for {solves} hlp_jax_ols solves")
     check(full["replay"] == full["replay_chunks"] == got["sim"]["buckets"],
           f"campaign full: {full['replay']} replay launches for "
           f"{full['replay_chunks']} chunks in {got['sim']['buckets']} "
@@ -1702,6 +1698,245 @@ def campaign_phase() -> dict:
           f"{sum(len(p['metrics']) for p in pins.values())} pinned metrics "
           f"within rtol {CAMPAIGN_RTOL} (worst {worst:.3e}), {counts} "
           "pinned counts exact")
+    return summary
+
+
+def paper_rows(target: str, pin: dict
+               ) -> tuple[dict, dict, list[str], str]:
+    """An offline experiment's CSV rows (``lp_seconds`` taken out) against
+    the pin's.  A row may differ only in the columns that read the LP's
+    allocation, and only where the host's HiGHS returns another optimal
+    vertex: then the port's own LP must reach the pin's LP* exactly with
+    another allocation, and the port's list schedulers on the reference's
+    allocation (kept in the pin) must give the pin's makespans exactly.
+    Returns the dict of the port's rows, the dict of the rows so
+    reconciled (``offline*_summary``, the experiment's own aggregation),
+    the rows that took another vertex and the SHA-256 of the reconciled
+    CSV (``lp_seconds`` taken out, as ``csv_digest`` hashes it)."""
+    import base64
+    import csv
+    import hashlib
+    import io
+    import zlib
+
+    import numpy as np
+    from repro_torch.core.hlp import solve_hlp, solve_qhlp
+    from repro_torch.core.listsched import hlp_est, hlp_ols
+    from repro_torch.launch import campaign as TC
+
+    name, lp_cols = PAPER_LP_ROWS[target]
+    with open(TC.ART / name, newline="") as f:
+        table = list(csv.reader(f))
+    keep = [i for i, h in enumerate(table[0]) if h != "lp_seconds"]
+    head = [table[0][i] for i in keep]
+    rows = [[row[i] for i in keep] for row in table[1:]]
+    want_rows = pin["rows"]
+    check(len(rows) == len(want_rows) == PAPER_RUNS, f"paper {target}: "
+          f"{len(rows)} rows, the pin {len(want_rows)}")
+    types = 2 if target == "offline2" else 3
+    graphs = {label: g for label, _, g in TC.instances(False, types)}
+    per = PAPER_RUNS // len(graphs)
+    sizes = [g.n for g in graphs.values() for _ in range(per)]
+    allocs = np.split(np.frombuffer(zlib.decompress(base64.b64decode(
+        pin["alloc"])), np.int8), np.cumsum(sizes)[:-1])
+    lp = head.index("lp_star")
+    cols = [head.index(c) for c in lp_cols]
+    vertex, reconciled = [], list(rows)
+    for i, (row, want) in enumerate(zip(rows, want_rows)):
+        if row == want:
+            continue
+        what = f"paper {target} row {i} ({want[:lp]})"
+        differ = sorted(h for h, a, b in zip(head, row, want) if a != b)
+        check(set(differ) <= set(lp_cols), f"{what}: {differ} differ from "
+              f"the pin: {row} against {want}")
+        g, counts = graphs[want[0]], [int(v) for v in want[2:lp]]
+        alloc = allocs[i].astype(np.int32)
+        sol = solve_hlp(g, *counts) if types == 2 else solve_qhlp(g, counts)
+        check(sol.lp_value == float(want[lp])
+              and not np.array_equal(sol.alloc, alloc), f"{what}: the "
+              f"port's LP* {sol.lp_value!r} (the pin's {want[lp]}) or its "
+              "allocation is the reference's, yet the row differs")
+        got = [hlp_est(g, counts, alloc).makespan,
+               hlp_ols(g, counts, alloc).makespan]
+        check(got == [float(want[c]) for c in cols], f"{what}: on the "
+              f"reference's allocation the port's schedules give {got}, "
+              f"the pin {[want[c] for c in cols]}")
+        vertex.append(f"{want[0]} {counts}")
+        reconciled[i] = want
+
+    def summary(rs):
+        fn = TC.offline2_summary if types == 2 else TC.offline3_summary
+        return json.loads(json.dumps(fn(
+            [[v if c < 2 else float(v) for c, v in enumerate(r)]
+             for r in rs])))
+    buf = io.StringIO()
+    csv.writer(buf).writerows([head] + reconciled)
+    return (summary(rows), summary(reconciled), vertex,
+            hashlib.sha256(buf.getvalue().encode()).hexdigest())
+
+
+def paper_experiments(got: dict, pin: dict) -> dict:
+    """Each experiment of ``got`` (a trajectory's benches) against the
+    pin: its dict, runs, CSV digests, lines and no kernel launch (see
+    :func:`paper_phase`); returns each one's wall, runs and the count of
+    rows that took another LP vertex."""
+    from repro_torch.launch.campaign import (ART, csv_digest, offline2_lines,
+                                             offline3_lines, without_us)
+
+    lines_of = {"offline2": offline2_lines, "offline3": offline3_lines}
+    summary = {}
+    for target in PAPER_TARGETS:
+        b, p = got[target], pin[target]
+        missing = sorted(set(p["result"]) - set(b))
+        check(not missing, f"paper {target}: the trajectory lacks {missing}")
+        mine = {key: b[key] for key in p["result"]}
+        vertex, digests = [], {}
+        if target in PAPER_LP_ROWS:
+            own, reconciled, vertex, digest = paper_rows(target, p)
+            digests[PAPER_LP_ROWS[target][0]] = digest
+            check(own == mine, f"paper {target}: the trajectory's dict "
+                  f"{mine} is not its rows' {own}")
+            mine = reconciled
+        for key, want in p["result"].items():
+            check(mine[key] == want, f"paper {target} {key}: "
+                  f"{mine[key]!r} against the pin {want!r}")
+        check(b["runs"] == PAPER_RUNS, f"paper {target}: {b['runs']} runs")
+        for name, want in p["csv"].items():
+            rows, digest = csv_digest(ART / name)
+            # a CSV with rows on another vertex: the reconciled one's
+            check(rows == want["rows"] and {"rows": rows, "sha256": digest}
+                  == b["csv"][name]
+                  and digests.get(name, digest) == want["sha256"],
+                  f"paper {target} {name}: {rows} rows, {digest} against the "
+                  f"pin {want} (trajectory {b['csv'][name]})")
+        if vertex:
+            print(f"paper {target}: {len(vertex)} of {PAPER_RUNS} rows took "
+                  f"another optimal LP vertex on this host's HiGHS "
+                  f"({'; '.join(vertex)}); each reproduced from the "
+                  "reference's allocation")
+        check(without_us(b["lines"]) == p["lines"] or (vertex and without_us(
+            lines_of[target](mine, 0)) == p["lines"]), f"paper {target}: "
+              f"lines {b['lines']} against the pin {p['lines']}")
+        check(not any(b["launches"].values()), f"paper {target}: kernel "
+              f"launches {b['launches']}")
+        summary[target] = {"wall_s": b["wall_s"], "runs": b["runs"],
+                           "other_vertex_rows": len(vertex)}
+        print(f"paper {target}: wall {b['wall_s']:.3f} s, {b['runs']} runs, "
+              f"dict ({len(p['result'])} keys), {len(p['csv'])} CSV digest(s) "
+              f"and {len(p['lines'])} lines equal to the pin")
+    return summary
+
+
+def placement_plans(cases: list[dict]) -> int:
+    """``plan_pipeline`` on each pinned case (a full published config, its
+    pods, seq, batch and streams): its allocation, makespan and LP* equal
+    to the pin's, or, on another optimal LP vertex of this host's HiGHS,
+    LP* within :data:`PLAN_LP_RTOL`, the plan within the Q(Q+1) bound and
+    OLS on the pin's allocation giving the pin's makespan exactly.
+    Returns the plans on another vertex."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.listsched import hlp_ols
+    from repro_torch.core.placement import PodType, layer_dag, plan_pipeline
+
+    vertex = 0
+    for case in cases:
+        pods = [PodType(*p) for p in case["pods"]]
+        cfg, shape = get_config(case["arch"]), {
+            "seq": case["seq"], "batch": case["batch"],
+            "streams": case["streams"]}
+        plan = plan_pipeline(cfg, pods, **shape)
+        what = (f"placement {case['arch']} on {len(pods)} pods, "
+                f"{case['streams']} stream(s)")
+        if (plan.assignment.tolist() == case["assignment"]
+                and plan.makespan == case["makespan"]
+                and plan.lp_bound == case["lp_bound"]):
+            print(f"{what}: {len(case['assignment'])} tasks, makespan "
+                  f"{plan.makespan:.6g} s, LP* {plan.lp_bound:.6g} s, equal "
+                  "to the pin")
+            continue
+        # another optimal vertex of the LP (see paper_rows): the optimum
+        # to HiGHS's own rounding, a valid plan within the Q(Q+1) bound,
+        # and on the reference's allocation the reference's OLS makespan
+        g = layer_dag(cfg, pods, **shape)
+        counts = [p.count for p in pods]
+        ref = hlp_ols(g, counts, np.asarray(case["assignment"], np.int32))
+        ref.validate(g, counts)
+        q = len(pods)
+        check(plan.assignment.tolist() != case["assignment"]
+              and abs(plan.lp_bound / case["lp_bound"] - 1) <= PLAN_LP_RTOL
+              and plan.makespan <= q * (q + 1) * plan.lp_bound
+              and ref.makespan == case["makespan"], f"{what}: makespan "
+              f"{plan.makespan!r}, LP* {plan.lp_bound!r} against the pin's "
+              f"{case['makespan']!r}, {case['lp_bound']!r}; OLS on the "
+              f"pin's allocation {ref.makespan!r}")
+        vertex += 1
+        print(f"{what}: another optimal LP vertex on this host's HiGHS "
+              f"(LP* {plan.lp_bound!r}, the pin's {case['lp_bound']!r}; "
+              f"makespan {plan.makespan:.6g} s, the pin's "
+              f"{case['makespan']:.6g}); on the pin's allocation OLS gives "
+              "the pin's makespan exactly")
+    return vertex
+
+
+def paper_phase() -> dict:
+    """The paper's §6 experiments and the ``kernels`` target through the
+    port's campaign entry on the card in a fresh process (its counters from
+    0 there), held to :data:`PAPER_PIN` (the reference's outputs on the
+    default grid): each experiment's dict with ``==`` on every float,
+    :data:`PAPER_RUNS` runs, its CSVs' rows and digests (``lp_seconds``
+    taken out) and its lines (µs taken out); the ``kernels`` target must
+    launch the (max, +) and flash attention kernels, each case's output
+    equal to its plain version's (maxplus) or within :data:`FLASH_TOL`
+    (flash, float32) on the same inputs.  Then the placement
+    planner on the pin's full published configs and platforms, each plan
+    equal to the pin's.
+
+    Where the host's HiGHS (scipy) is another version than the one that
+    wrote the pin, a degenerate LP may return another optimal vertex: LP*
+    is the same, the allocation and the HLP schedules' makespans are not.
+    The offline experiments' rows are then held by :func:`paper_rows`, and
+    their dicts (and lines) and CSV digests from the reconciled rows to the
+    pin with ``==``; the rows that took another vertex are printed and
+    counted.  On the host that wrote the pin, the port's own outputs equal
+    it with no row reconciled
+    (``tests/test_torch_paper.py::test_default_grid_equals_the_pin``)."""
+    pin = json.loads(PAPER_PIN.read_text())
+    path, wall = _entry_run(["--only", ",".join(PAPER_TARGETS + ("kernels",))],
+                            "paper")
+    got = json.loads(path.read_text())["benches"]
+    summary = {"wall_s": wall, **paper_experiments(got, pin)}
+    k = got["kernels"]
+    check(k["launches"]["maxplus"] > 0 and k["launches"]["flash"] > 0,
+          f"paper kernels: launches {k['launches']}")
+    check(set(k["cases"]) == set(k["us_per_call"]) == set(PAPER_KERNEL_TOL),
+          f"paper kernels: cases {sorted(k['cases'])}")
+    for name, c in k["cases"].items():
+        tol = PAPER_KERNEL_TOL[name]
+        rule = f"atol = rtol = {tol}" if tol else "exact equality required"
+        print(f"paper {name} {c['shape']}: kernel {k['us_per_call'][name]} "
+              f"us, plain {c['ref_us']:.0f} us, max|err| "
+              f"{c['max_abs_err']:.3e}, err_vs_plain {c['err_vs_plain']:.3e} "
+              f"({rule})")
+        check(c["err_vs_plain"] <= tol and (tol or c["max_abs_err"] == 0),
+              f"paper {name}: the kernel disagrees with its plain version "
+              f"at {c['shape']}: {c}")
+    summary["kernels"] = {"wall_s": k["wall_s"], "launches": k["launches"],
+                          "us_per_call": k["us_per_call"],
+                          "cases": k["cases"]}
+    print(f"paper kernels: wall {k['wall_s']:.3f} s, launches "
+          f"{k['launches']}, kernels.us_per_call {k['us_per_call']}")
+
+    t0 = time.perf_counter()
+    summary["placement_other_vertex"] = placement_plans(pin["placement"])
+    summary["placement_s"] = time.perf_counter() - t0
+    summary["placement_plans"] = len(pin["placement"])
+    print(f"paper: entry {wall:.1f} s in its own process (offline2 "
+          f"{summary['offline2']['wall_s']:.1f} s, offline3 "
+          f"{summary['offline3']['wall_s']:.1f} s, online "
+          f"{summary['online']['wall_s']:.1f} s, kernels "
+          f"{k['wall_s']:.1f} s); {len(pin['placement'])} placement plans in "
+          f"{summary['placement_s']:.1f} s")
     return summary
 
 
@@ -1881,33 +2116,28 @@ def main() -> int:
     lp = lp_phase(torch)
     print(f"lp: {time.perf_counter() - t0:.1f} s")
     hybrid, lp_all = lp["hybrid"], lp["hybrid"] + lp["choice"]
-    lp_rows = {}
-    for kern, name, source in (
-            ("sm90", "hlp_fo_solve", "hlp_fo_sm90.cu"),
-            ("gather", "hlp_fo_solve_gather", "hlp_fo.cu")):
-        lp_rows[kern] = {
-            "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{source}",
-            "replaces": "src/repro/core/hlp_jax.py:122",
-            "also_replaces": ["src/repro/core/hlp_jax.py:172"],
-            "shape": f"{', '.join(r['name'] for r in hybrid)} on "
-                     f"{LP_MACHINE}, {LP_ITERS} iterations, summed",
-            "launches": lp["launches"][kern],
-            "max_abs_err": max(r["max_abs_err"] for r in lp_all),
-            "ms": sum(r[kern]["ms"] for r in hybrid),
-            "plain_ms": sum(r["plain_ms"] for r in hybrid),
-            "plain_on": "host",
-            "bound_ms": sum(r["bound_ms"] for r in hybrid),
-            "bound_by": ("bytes" if all(r["bound_by"] == "bytes"
-                                        for r in hybrid) else "operations"),
-            "library_ms": None,
-            "chain_floor_ms": sum(r[kern]["chain_floor_ms"] for r in hybrid),
-            "highs_ms": sum(r["highs_s"] for r in hybrid) * 1e3,
-            "instance_ms": {r["name"]: r[kern]["ms"]
-                            for r in lp_all + [lp["campaign_solve"]]},
-            "split": {r["name"]: r[kern]["split"] for r in hybrid}}
-    lp_rows["sm90"]["reverse_split_of_gather"] = lp["reverse_split"]
-    lp_rows["sm90"]["instances"] = lp_all + [lp["campaign_solve"]]
+    lp_row = {
+        "name": "hlp_fo_solve", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/hlp_fo_sm90.cu",
+        "replaces": "src/repro/core/hlp_jax.py:122",
+        "also_replaces": ["src/repro/core/hlp_jax.py:172"],
+        "shape": f"{', '.join(r['name'] for r in hybrid)} on "
+                 f"{LP_MACHINE}, {LP_ITERS} iterations, summed",
+        "launches": lp["launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in lp_all),
+        "ms": sum(r["ms"] for r in hybrid),
+        "plain_ms": sum(r["plain_ms"] for r in hybrid),
+        "plain_on": "host",
+        "bound_ms": sum(r["bound_ms"] for r in hybrid),
+        "bound_by": ("bytes" if all(r["bound_by"] == "bytes"
+                                    for r in hybrid) else "operations"),
+        "library_ms": None,
+        "chain_floor_ms": sum(r["chain_floor_ms"] for r in hybrid),
+        "highs_ms": sum(r["highs_s"] for r in hybrid) * 1e3,
+        "instance_ms": {r["name"]: r["ms"]
+                        for r in lp_all + [lp["campaign_solve"]]},
+        "split": {r["name"]: r["split"] for r in hybrid},
+        "instances": lp_all + [lp["campaign_solve"]]}
     print(f"lp summary: {json.dumps(lp)}")
 
     # the port's campaign entry in a fresh process, then the pinned gate;
@@ -1919,18 +2149,23 @@ def main() -> int:
         campaign[b]["launches"]["replay"] for b in ("sim", "search"))
     sm90_contention["campaign_launches"] = sum(
         campaign[b]["launches"]["contention"] for b in ("sim", "search"))
-    lp_rows["sm90"]["campaign_launches"] = (
-        campaign["full"]["launches"]["hlp_fo_sm90"])
-    lp_rows["gather"]["campaign_launches"] = (
-        campaign["full"]["launches"]["hlp_fo"]
-        - campaign["full"]["launches"]["hlp_fo_sm90"])
+    lp_row["campaign_launches"] = campaign["full"]["launches"]["hlp_fo"]
     print(f"campaign summary: {json.dumps(campaign)}")
+
+    # the paper's experiments and the kernels target in a fresh process
+    # (its counters from 0 there), then the placement planner
+    t0 = time.perf_counter()
+    paper = paper_phase()
+    print(f"paper: {time.perf_counter() - t0:.1f} s")
+    maxplus_row["paper_launches"] = paper["kernels"]["launches"]["maxplus"]
+    fp32_row["paper_launches"] = paper["kernels"]["launches"]["flash"]
+    print(f"paper summary: {json.dumps(paper)}")
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
           "imports, build included")
     print(json.dumps({"kernels": [flash_row, fp32_row, fma_row,
                                   maxplus_row, sm90_row, sm90_contention,
-                                  lp_rows["sm90"], lp_rows["gather"]]}))
+                                  lp_row]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

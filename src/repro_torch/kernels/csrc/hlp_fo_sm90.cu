@@ -9,8 +9,8 @@
 //     x = softmax(z) over an (n, C) grid of (type, width) choices, with
 //     use_comm adding each pred edge's expected crossing delay
 //     pred_comm * (1 - X[pred] . X), X = x @ type_mask^T.
-// It computes what hlp_fo.cu (the first design, kept as a yardstick)
-// computes, bit for bit: every float operation keeps its operands and its
+// It computes what the first design, hlp_fo.cu (deleted; its loop lives on
+// as the gather design of tests/hlp_fo_emulation.py), computed, bit for bit: every float operation keeps its operands and its
 // single rounding (__fadd_rn / __fmul_rn / __fdiv_rn, no FMA, full-precision
 // expf / logf / sqrtf), and every sum keeps its order, so the best x and
 // lambda are the same.  hlp_fo/ref.py holds the plain versions; their
@@ -20,8 +20,8 @@
 //
 // What bounds it on the H100: a chain of dependent level steps, each ended
 // by a barrier; its inputs are a few hundred KB, read from L2 after the
-// first step.  hlp_fo.cu walks the levels three times a step (soft
-// forward, reverse, exact forward) and pays one expf and two divisions per
+// first step.  The first design walked the levels three times a step (soft
+// forward, reverse, exact forward) and paid one expf and two divisions per
 // edge in its reverse gather.  This design walks them twice:
 //   * The exact pass of step i and the soft forward of step i + 1 read the
 //     same x, task times and edge delays, so one walk computes each task's
@@ -41,12 +41,12 @@
 //   * Off the level chain, in passes over all tasks at once: the chain rule
 //     into the logits, the Adam step and the new x, each task's time on it
 //     (left in f for the next walk) and, with use_comm, the type-marginal
-//     cotangent from the stored gp (in hlp_fo.cu's order), the marginals of
+//     cotangent from the stored gp (in the first design's order), the marginals of
 //     the new x and each slot's crossing delay (left in w).
 //   * A task of up to PR pred slots keeps them in registers, so their
 //     divisions and expf overlap; a longer row goes PR slots at a time.
-//   * Adam's z, mu and nu stay in global memory: hlp_fo.cu's reverse split
-//     (chip_smoke.py, potri nb=20) gives their loads and stores under 10%
+//   * Adam's z, mu and nu stay in global memory: the first design's reverse
+//     split (clock64, potri nb=20) gave their loads and stores under 10%
 //     of its reverse pass, and the pass here is off the chain.
 //   * A block of one warp (the campaign's solves) ends each level with
 //     __syncwarp instead of __syncthreads.
@@ -54,7 +54,7 @@
 //     buffer in shared memory, or, past 227 KB, in a global scratch buffer
 //     the caller passes (L1-cached; only the level offsets, the type mask
 //     and the reductions' scratch stay in shared memory).  So every problem
-//     hlp_fo.cu takes, this kernel takes too.
+//     the first design took, this kernel takes too.
 //
 // C interface (loaded with ctypes): hlp_fo_sm90_hybrid_f32 and
 // hlp_fo_sm90_choice_f32 return the cudaError_t of the shared-memory
@@ -182,7 +182,7 @@ __device__ __forceinline__ void level_sync(bool one_warp) {
 }
 
 // Every thread gets the block's max of v[i] for each bit i of `maxes` and
-// the sum of the other v[i], i < nv, in hlp_fo.cu's tree: a butterfly
+// the sum of the other v[i], i < nv, in the first design's tree: a butterfly
 // within each warp (every lane gets the same value; each add is
 // commutative), then the warps' partials in order.  One warp needs no
 // scratch: its butterfly is the result.  Either way the shared-memory
@@ -570,7 +570,7 @@ __device__ __forceinline__ void softmax_row(const float* z, float* out, int c) {
 }
 
 // The chain rule from each task's g_f (and, with use_comm, the type
-// marginals' cotangent, gathered from the stored gp in hlp_fo.cu's order:
+// marginals' cotangent, gathered from the stored gp in the first design's order:
 // the successors' edges, then the task's own slots) into its logits, its
 // Adam step and its new x: every task at once, off the level chain.
 template <bool CHOICE, bool COMM>
@@ -771,7 +771,7 @@ hlp_fo_sm90_kernel(Problem p) {
 // expf and one logf on it (the soft step's two transcendentals), a store
 // into the other buffer and a barrier.  The values start at 0 and stay 0
 // (log(exp(0) + 1e-30) rounds to 0), which the compiler cannot know;
-// `out[0]` keeps the result.  hlp_fo.cu's probe, the same code.
+// `out[0]` keeps the result.
 __global__ void __launch_bounds__(MAX_THREADS)
 chain_probe_kernel(float* out, int steps, float tau) {
   __shared__ float buf[2][MAX_THREADS];

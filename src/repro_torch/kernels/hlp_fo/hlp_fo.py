@@ -1,5 +1,5 @@
 """The first-order LP's solves on the card: the wrapper of
-``csrc/hlp_fo_sm90.cu`` (and of ``csrc/hlp_fo.cu``, its first design).
+``csrc/hlp_fo_sm90.cu``.
 
 The counterpart of the JAX package's jitted ``repro.core.hlp_jax._solve``
 (:func:`hybrid`: x = σ(z), Q = 2, comm-free) and ``::_solve_choice``
@@ -9,23 +9,19 @@ from ``z0``, returning the iterate of least exact λ and that λ.  A tensor
 on the CPU takes the plain version (``ref.py``); a tensor on the card
 launches a kernel, one block for the whole solve, or raises.
 
-Two kernels (:data:`KERNELS`), both bit for bit the same solve:
+The kernel (:data:`SOURCE`) walks the levels twice a step
+(the exact pass fused into the next soft forward, and a reverse walk whose
+successors push their stored edge adjoints), the chain rule and Adam off
+the level chain.  Its arrays lie in shared memory where they fit
+(:data:`LAYOUTS` ``"shared"``), else the per-task ones in a scratch buffer
+on the card (``"global"``): :func:`layout_for` picks by size alone.  Its
+first design, ``csrc/hlp_fo.cu`` (three walks a step, a reverse pass that
+gathered from each successor), was deleted once this kernel took every
+problem it took; ``tests/hlp_fo_emulation.py`` keeps its loop as an
+independent model of the backward.
 
-* ``"sm90"`` (the default on every path) launches ``csrc/hlp_fo_sm90.cu``:
-  two level walks a step (the exact pass fused into the next soft
-  forward, and a reverse walk whose successors push their stored edge
-  adjoints), the chain rule and Adam off the level chain.  Its arrays lie
-  in shared memory where they fit (:data:`LAYOUTS` ``"shared"``), else the
-  per-task ones in a scratch buffer on the card (``"global"``):
-  :func:`layout_for` picks by size alone;
-* ``"gather"`` launches ``csrc/hlp_fo.cu``, the first design (three walks
-  a step, a reverse pass that gathers from each successor and recomputes
-  its edge weight), the yardstick ``chip_smoke.py`` times beside it, only
-  through the bare launches (``kernel=``).
-
-Every launch adds one to its kernel's counter (:func:`launch_counts`;
-:func:`launch_count` is their total), under a lock: the campaign's
-planning threads launch concurrently.
+Every launch adds one to the kernel's counter (:func:`launch_count`),
+under a lock: the campaign's planning threads launch concurrently.
 
 ``d`` holds the problem's DAG as ``repro_torch.core.hlp_jax.PaddedDag``
 does: ``pred`` (n, P) int32, -1 after the last real slot; ``pred_mask``
@@ -51,31 +47,27 @@ from repro_torch.kernels import build
 
 from .ref import choice_solve_ref, hybrid_solve_ref, schedule
 
-__all__ = ["KERNELS", "LAYOUTS", "MAX_C", "MAX_Q", "MAX_THREADS", "PHASES",
-           "REVERSE_PARTS", "SMEM_LIMIT", "chain_probe", "check_dag",
+__all__ = ["LAYOUTS", "MAX_C", "MAX_Q", "MAX_THREADS", "PHASES", "SMEM_LIMIT",
+           "SOURCE", "chain_probe", "check_dag",
            "check_indices", "choice", "hybrid", "launch_choice",
-           "launch_count", "launch_counts", "launch_hybrid", "layout_for",
+           "launch_count", "launch_hybrid", "layout_for",
            "reset_launch_count", "smem_bytes", "threads_for"]
 
-#: the kernels, by name: the source of each under ``csrc/``
-SOURCES = {"sm90": "hlp_fo_sm90", "gather": "hlp_fo"}
-KERNELS = tuple(SOURCES)
+#: the kernel's source under ``csrc/``
+SOURCE = "hlp_fo_sm90"
 #: the sm90 kernel's layouts: its arrays in shared memory, or the per-task
 #: ones in a scratch buffer on the card
 LAYOUTS = ("shared", "global")
-#: the phases of a step whose clock cycles a launch can return, per kernel
-PHASES = {"sm90": ("forward", "loss", "reverse", "adam"),
-          "gather": ("soft_forward", "loss", "reverse", "exact")}
-#: the parts of the gather kernel's reverse pass its per-task split times
-REVERSE_PARTS = ("successor_gather", "chain_rule", "adam_state")
+#: the phases of a step whose clock cycles a launch can return
+PHASES = ("forward", "loss", "reverse", "adam")
 MAX_C = 16                   # choices a task may have
 MAX_Q = 8                    # resource types
 MAX_THREADS = 512            # the kernels' largest block
 SMEM_LIMIT = 232448          # 227 KB, the most a block may take on the H100
-_MAX_V = {"sm90": MAX_C + 2, "gather": MAX_C + 1}   # values a reduction carries
+_MAX_V = MAX_C + 2           # values a reduction carries
 _MAX_WARPS = MAX_THREADS // 32
 
-_launches = dict.fromkeys(KERNELS, 0)
+_launches = 0
 _lock = threading.Lock()
 
 _INT = ("level_ptr", "level_task", "pred", "succ_ptr", "succ_task",
@@ -84,27 +76,15 @@ _FLOAT = ("pc", "pg", "pred_comm")
 
 
 def launch_count() -> int:
-    """Launches of both kernels since the last :func:`reset_launch_count`."""
-    return sum(_launches.values())
-
-
-def launch_counts() -> dict[str, int]:
-    """Launches of each kernel since the last :func:`reset_launch_count`."""
+    """Launches since the last :func:`reset_launch_count`."""
     with _lock:
-        return dict(_launches)
+        return _launches
 
 
 def reset_launch_count() -> None:
+    global _launches
     with _lock:
-        for name in _launches:
-            _launches[name] = 0
-
-
-def _kernel(kernel: str) -> str:
-    if kernel not in SOURCES:
-        raise ValueError(f"no first-order LP kernel {kernel!r}; the kernels "
-                         f"are {KERNELS}")
-    return kernel
+        _launches = 0
 
 
 def threads_for(width: int) -> int:
@@ -122,23 +102,16 @@ def _task_floats(n: int, c: int, q: int, comm: bool, e: int) -> int:
 
 
 def smem_bytes(n: int, levels: int, c: int = 1, q: int = 0,
-               comm: bool = False, *, e: int = 0, kernel: str = "sm90",
+               comm: bool = False, *, e: int = 0,
                layout: str = "shared") -> int:
-    """Dynamic shared memory of one block, as the kernel lays it out.
-
-    ``"sm90"``: in the ``"shared"`` layout its per-task arrays (``e`` the
-    DAG's edges), in both the type mask and inverse counts, the level
-    offsets and the reductions' scratch.  ``"gather"``: x, the finish
-    times, maxima and sums (3 n), the marginals and the same tail,
-    whatever ``e`` and ``layout``.
-    """
-    kernel = _kernel(kernel)
+    """Dynamic shared memory of one block, as the kernel lays it out: in
+    the ``"shared"`` layout its per-task arrays (``e`` the DAG's edges), in
+    both the type mask and inverse counts, the level offsets and the
+    reductions' scratch."""
     if layout not in LAYOUTS:
         raise ValueError(f"no layout {layout!r}; the layouts are {LAYOUTS}")
-    floats = q * c + q + levels + 1 + _MAX_WARPS * _MAX_V[kernel]
-    if kernel == "gather":
-        floats += n * c + (n * q if comm else 0) + 3 * n
-    elif layout == "shared":
+    floats = q * c + q + levels + 1 + _MAX_WARPS * _MAX_V
+    if layout == "shared":
         floats += _task_floats(n, c, q, comm, e)
     return 4 * floats
 
@@ -159,23 +132,15 @@ def layout_for(n: int, levels: int, c: int = 1, q: int = 0,
 
 
 @functools.cache
-def _lib(kernel: str):
-    lib = build.load(SOURCES[kernel])
+def _lib():
+    lib = build.load(SOURCE)
     p, i = ctypes.c_void_p, ctypes.c_int
-    if kernel == "sm90":
-        fns = (lib.hlp_fo_sm90_hybrid_f32, lib.hlp_fo_sm90_choice_f32,
-               lib.hlp_fo_sm90_chain_probe)
-        fns[0].argtypes = [p] * 18 + [i] * 8 + [p]
-        fns[1].argtypes = [p] * 21 + [i] * 9 + [p]
-        lib.hlp_fo_sm90_smem_bytes.argtypes = [i] * 7
-        lib.hlp_fo_sm90_smem_bytes.restype = ctypes.c_longlong
-    else:
-        fns = (lib.hlp_fo_hybrid_f32, lib.hlp_fo_choice_f32,
-               lib.hlp_fo_chain_probe)
-        fns[0].argtypes = [p] * 17 + [i] * 7 + [p]
-        fns[1].argtypes = [p] * 20 + [i] * 8 + [p]
-        lib.hlp_fo_smem_bytes.argtypes = [i] * 5
-        lib.hlp_fo_smem_bytes.restype = ctypes.c_longlong
+    fns = (lib.hlp_fo_sm90_hybrid_f32, lib.hlp_fo_sm90_choice_f32,
+           lib.hlp_fo_sm90_chain_probe)
+    fns[0].argtypes = [p] * 18 + [i] * 8 + [p]
+    fns[1].argtypes = [p] * 21 + [i] * 9 + [p]
+    lib.hlp_fo_sm90_smem_bytes.argtypes = [i] * 7
+    lib.hlp_fo_sm90_smem_bytes.restype = ctypes.c_longlong
     fns[2].argtypes = [p, i, i, p]
     for fn in fns:
         fn.restype = ctypes.c_int
@@ -266,13 +231,11 @@ def _check_z0(z0: torch.Tensor, shape: tuple, device) -> None:
         raise ValueError(f"z0 must be contiguous on {device}")
 
 
-def _launch(kernel: str, entry: str, d, pointers: list, dims: list,
-            iters: int, nC: int, z0: torch.Tensor, cycles, task_cycles,
+def _launch(entry: str, d, pointers: list, dims: list,
+            iters: int, nC: int, z0: torch.Tensor, cycles,
             scratch: int = 0):
     """Allocate the Adam state, the outputs and ``scratch`` floats (the
-    sm90 kernel's global layout; 0 for none), launch, count."""
-    if task_cycles is not None and kernel != "gather":
-        raise ValueError("task_cycles is the gather kernel's reverse split")
+    global layout; 0 for none), launch, count."""
     dev = d.pred.device
     if dev.type != "cuda":
         raise ValueError(f"the DAG is on {dev}; the kernel needs the card")
@@ -280,73 +243,55 @@ def _launch(kernel: str, entry: str, d, pointers: list, dims: list,
     best_x = torch.empty(nC, dtype=torch.float32, device=dev)
     best_val = torch.empty((), dtype=torch.float32, device=dev)
     sched = _schedule_on(iters, dev)
-    sm90 = kernel == "sm90"
     ptrs = [d.level_ptr, d.level_task, d.pred, d.succ_ptr, d.succ_task,
-            d.succ_slot] + ([d.pred_edge] if sm90 else [])
+            d.succ_slot, d.pred_edge]
     args = ([t.data_ptr() for t in ptrs] + pointers
             + [sched.data_ptr(), z0.data_ptr(), state[0].data_ptr(),
                state[1].data_ptr(), state[2].data_ptr(), best_x.data_ptr(),
                best_val.data_ptr()])
     buf = (torch.empty(scratch, dtype=torch.float32, device=dev)
            if scratch else None)
-    if sm90:
-        args.append(None if buf is None else buf.data_ptr())
-    args.append(None if cycles is None else _cycles_ptr(cycles, kernel, dev))
-    if not sm90:
-        args.append(None if task_cycles is None
-                    else _task_cycles_ptr(task_cycles, d.pred.shape[0], dev))
-    name = f"hlp_fo_sm90_{entry}_f32" if sm90 else f"hlp_fo_{entry}_f32"
+    args.append(None if buf is None else buf.data_ptr())
+    args.append(None if cycles is None else _cycles_ptr(cycles, dev))
+    name = f"hlp_fo_sm90_{entry}_f32"
     n, P = d.pred.shape
-    dims = ([n, P] + ([d.succ_task.shape[0]] if sm90 else [])
-            + [d.level_ptr.shape[0] - 1] + dims)
+    dims = [n, P, d.succ_task.shape[0], d.level_ptr.shape[0] - 1] + dims
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(_lib(kernel), name)(*args, *dims,
+        err = getattr(_lib(), name)(*args, *dims,
                                           threads_for(d.max_width), stream)
     if err != 0:
-        raise RuntimeError(f"{SOURCES[kernel]}.cu launch failed: CUDA error "
+        raise RuntimeError(f"{SOURCE}.cu launch failed: CUDA error "
                            f"{err}")
+    global _launches
     with _lock:
-        _launches[kernel] += 1
+        _launches += 1
     return best_x, best_val
 
 
-def _cycles_ptr(cycles: torch.Tensor, kernel: str, dev) -> int:
-    k = len(PHASES[kernel])
+def _cycles_ptr(cycles: torch.Tensor, dev) -> int:
+    k = len(PHASES)
     if (tuple(cycles.shape) != (k,) or cycles.dtype != torch.int64
             or cycles.device != dev):
         raise ValueError(f"cycles must be int64 ({k},) on {dev}")
     return cycles.data_ptr()
 
 
-def _task_cycles_ptr(task_cycles: torch.Tensor, n: int, dev) -> int:
-    shape = (n, len(REVERSE_PARTS))
-    if (tuple(task_cycles.shape) != shape or task_cycles.dtype != torch.int64
-            or task_cycles.device != dev or not task_cycles.is_contiguous()):
-        raise ValueError(f"task_cycles must be contiguous int64 {shape} on "
-                         f"{dev}")
-    return task_cycles.data_ptr()
-
-
-def _check_size(d, c: int, q: int, comm: bool, kernel: str = "sm90"
+def _check_size(d, c: int, q: int, comm: bool, layout: str | None = None
                 ) -> int:
-    """Raise unless the problem fits one of the kernel's layouts; return
-    the floats of scratch its launch needs: the sm90 kernel's per-task
-    arrays where :func:`layout_for` gives the global layout, else 0."""
+    """Raise unless the problem fits ``layout`` (by default
+    :func:`layout_for`'s); return the floats of scratch its launch needs:
+    the per-task arrays in the global layout, else 0."""
     n = d.pred.shape[0]
     levels = d.level_ptr.shape[0] - 1
     E = d.succ_task.shape[0]
-    if kernel == "sm90":
-        if layout_for(n, levels, c, q, comm, e=E) == "shared":
-            return 0
-        return _task_floats(n, c, q, comm, E)
-    need = smem_bytes(n, levels, c, q, comm, kernel=kernel)
-    if need > SMEM_LIMIT:
-        raise ValueError(
-            f"a problem of {n} tasks, {levels} levels and {c} choices needs "
-            f"{need} bytes of shared memory in the {kernel} kernel, more "
-            f"than the {SMEM_LIMIT} a block may have")
-    return 0
+    fits = layout_for(n, levels, c, q, comm, e=E)
+    if layout is None:
+        layout = fits
+    elif layout not in LAYOUTS or LAYOUTS.index(layout) < LAYOUTS.index(fits):
+        raise ValueError(f"a problem of {n} tasks, {levels} levels and {c} "
+                         f"choices takes the {fits} layout, not {layout!r}")
+    return 0 if layout == "shared" else _task_floats(n, c, q, comm, E)
 
 
 def _check_choice(d, z0, p_choice, area, type_mask, inv_counts) -> None:
@@ -369,35 +314,34 @@ def _check_choice(d, z0, p_choice, area, type_mask, inv_counts) -> None:
 
 
 def launch_hybrid(d, z0: torch.Tensor, *, m: int, k: int, iters: int,
-                  cycles: torch.Tensor | None = None, kernel: str = "sm90",
-                  task_cycles: torch.Tensor | None = None
+                  cycles: torch.Tensor | None = None,
+                  layout: str | None = None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """The bare launch of the hybrid solve on the card: checks layouts and
     sizes, not indices (:func:`check_indices` is the caller's).  Given an
     int64 (4,) ``cycles`` tensor on the card, the kernel writes thread 0's
-    clock cycles in each phase of ``PHASES[kernel]``, summed over the
-    steps; given an int64 (n, 3) ``task_cycles``, the gather kernel adds
-    each task's cycles in each part of :data:`REVERSE_PARTS`."""
-    kernel = _kernel(kernel)
+    clock cycles in each phase of :data:`PHASES`, summed over the
+    steps.  ``layout="global"`` puts a problem that fits shared memory in
+    the scratch buffer all the same (the same solve, bit for bit)."""
     check_dag(d)
     n = d.pred.shape[0]
     _check_z0(z0, (n,), d.pred.device)
     if m <= 0 or k <= 0 or iters < 0:
         raise ValueError(f"m, k = {m}, {k} and iters = {iters}: the solve "
                          "takes m, k >= 1 and iters >= 0")
-    scratch = _check_size(d, 1, 0, False, kernel)
-    return _launch(kernel, "hybrid", d, [d.pc.data_ptr(), d.pg.data_ptr()],
-                   [iters, m, k], iters, n, z0, cycles, task_cycles, scratch)
+    scratch = _check_size(d, 1, 0, False, layout)
+    return _launch("hybrid", d, [d.pc.data_ptr(), d.pg.data_ptr()],
+                   [iters, m, k], iters, n, z0, cycles, scratch)
 
 
 def launch_choice(d, z0: torch.Tensor, p_choice: torch.Tensor,
                   area: torch.Tensor, type_mask: torch.Tensor,
                   inv_counts: torch.Tensor, *, iters: int, use_comm: bool,
-                  cycles: torch.Tensor | None = None, kernel: str = "sm90"
+                  cycles: torch.Tensor | None = None,
+                  layout: str | None = None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """The bare launch of the choice solve on the card, as
-    :func:`launch_hybrid` (without ``task_cycles``)."""
-    kernel = _kernel(kernel)
+    :func:`launch_hybrid`."""
     check_dag(d)
     _check_choice(d, z0, p_choice, area, type_mask, inv_counts)
     (n, C), Q = p_choice.shape, type_mask.shape[0]
@@ -406,12 +350,12 @@ def launch_choice(d, z0: torch.Tensor, p_choice: torch.Tensor,
     if not (1 <= C <= MAX_C and 1 <= Q <= MAX_Q):
         raise ValueError(f"C = {C} choices and Q = {Q} types: the kernel "
                          f"takes 1 to {MAX_C} and 1 to {MAX_Q}")
-    scratch = _check_size(d, C, Q, use_comm, kernel)
+    scratch = _check_size(d, C, Q, use_comm, layout)
     best_x, best_val = _launch(
-        kernel, "choice", d,
+        "choice", d,
         [p_choice.data_ptr(), area.data_ptr(), type_mask.data_ptr(),
          inv_counts.data_ptr(), d.pred_comm.data_ptr()],
-        [C, Q, iters, int(bool(use_comm))], iters, n * C, z0, cycles, None,
+        [C, Q, iters, int(bool(use_comm))], iters, n * C, z0, cycles,
         scratch)
     return best_x.view(n, C), best_val
 
@@ -420,8 +364,7 @@ def hybrid(d, z0: torch.Tensor, *, m: int, k: int, iters: int
            ) -> tuple[torch.Tensor, torch.Tensor]:
     """``_solve`` from logits ``z0`` (n,) on ``m`` CPUs and ``k`` GPUs: the
     best x (n,) float32 and its exact λ (a float32 scalar), on ``d``'s
-    device: the plain version for CPU tensors, the sm90 kernel on the
-    card."""
+    device: the plain version for CPU tensors, the kernel on the card."""
     check_dag(d)
     _check_z0(z0, (d.pred.shape[0],), d.pred.device)
     if m <= 0 or k <= 0 or iters < 0:
@@ -460,7 +403,7 @@ def chain_probe(steps: int, threads: int,
     out = torch.empty(1, dtype=torch.float32, device=device)
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
-        err = _lib("sm90").hlp_fo_sm90_chain_probe(out.data_ptr(), steps,
+        err = _lib().hlp_fo_sm90_chain_probe(out.data_ptr(), steps,
                                                    threads, stream)
     if err != 0:
         raise RuntimeError(f"hlp_fo_sm90_chain_probe failed: CUDA error "

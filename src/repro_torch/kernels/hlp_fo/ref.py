@@ -11,8 +11,8 @@ The scans walk the topological levels (``d.level_slices``) and work on a
 whole level at once: a task depends only on the finish times of earlier
 levels, so each task's arithmetic is the reference's, in its order.  The
 gradient is ``torch.autograd.grad`` of the loss, which makes this version
-an independent check of the kernels' hand-written backward
-(``csrc/hlp_fo_sm90.cu``, ``csrc/hlp_fo.cu``).
+an independent check of the kernel's hand-written backward
+(``csrc/hlp_fo_sm90.cu``).
 
 ``d`` is any object with the fields of ``repro_torch.core.hlp_jax.PaddedDag``
 on the CPU.  The functions here take CPU tensors only.

@@ -1,9 +1,14 @@
-"""The port's campaign entry: the simulation sweep, the plan search and the
-allocation solvers.
+"""The port's campaign entry: the paper's §6 experiments, the simulation
+sweep, the plan search, the allocation solvers and the kernel benchmarks.
 
 The counterpart of the JAX package's ``benchmarks/campaign.py``
-(``sim_sweep``, ``search_sweep``) and of the ``sim`` / ``search`` /
-``solver`` targets of ``benchmarks/run.py``, run on ``repro_torch``: every
+(``offline_2type``, ``offline_3type``, ``online_2type``, ``sim_sweep``,
+``search_sweep``) and of the ``offline2`` / ``offline3`` / ``online`` /
+``sim`` / ``search`` / ``solver`` / ``kernels`` targets of
+``benchmarks/run.py``, run on ``repro_torch``.  The paper's experiments
+are host work (HiGHS LPs and list scheduling), one planning-pool job per
+(instance, configuration), with the reference's numbers; ``kernels``
+launches the (max, +) and flash attention kernels.  Every
 static plan of the sweep is replayed by the replay kernel on the card
 through the pipelined executor (``repro_torch.sim.pipeline``), the network
 sub-grid's ``maxmin_fair`` cells are priced by the contention kernel, every
@@ -17,8 +22,10 @@ package's gate holds the port to the pinned values::
   PYTHONPATH=src python -m repro_torch.launch.campaign --device cpu --bench-json X
   python -m benchmarks.render_tables --check-bench X benchmarks/BENCH_pinned.json
 
-``--full`` runs the reference's full grids (``benchmarks/run.py --full``):
-32 noise seeds, the (16, 4) suites and ``hlp_jax_ols`` among the static
+``--only offline2,offline3,online`` runs the paper's experiments on the
+default grid (34 instances, 544 runs each); ``--full`` runs the reference's
+full grids (``benchmarks/run.py --full``): 105 instances and all 64
+three-type configurations in the experiments, 32 noise seeds, the (16, 4) suites and ``hlp_jax_ols`` among the static
 adapters of ``sim``, the larger search, and potri nb=20 in ``solver``.
 ``sim`` runs before ``search`` in one process, as ``benchmarks/run.py``
 runs them: the ``compiles`` counts (new replay shapes, the reference's XLA
@@ -31,9 +38,12 @@ from __future__ import annotations
 import argparse
 import csv
 import json
+import hashlib
+import io
 import os
 import platform as _platform
 import sys
+import time
 from collections import defaultdict
 from dataclasses import replace as dataclasses_replace
 from pathlib import Path
@@ -43,7 +53,15 @@ from typing import TYPE_CHECKING
 import numpy as np
 
 from repro_torch import obs
+from repro_torch.core.hlp import solve_hlp, solve_qhlp
+from repro_torch.core.listsched import heft, hlp_est, hlp_ols
+from repro_torch.core.online import (eft_online, er_ls, greedy_online,
+                                     random_online)
+from repro_torch.core.workloads import (CHAMELEON_APPS, OFFLINE_CONFIGS_2,
+                                        OFFLINE_CONFIGS_3, chameleon,
+                                        fork_join)
 from repro_torch.obs import registry as _obs
+from repro_torch.sim.pipeline import pool_map
 
 if TYPE_CHECKING:
     import torch
@@ -59,6 +77,202 @@ def _write_csv(name: str, header: list[str], rows: list[list]) -> str:
         w.writerow(header)
         w.writerows(rows)
     return str(path)
+
+
+def csv_digest(path, drop: tuple[str, ...] = ("lp_seconds",)
+               ) -> tuple[int, str]:
+    """A per-instance CSV's data rows and the SHA-256 of its text with the
+    ``drop`` columns (timings) taken out, the rest written back as
+    ``csv.writer`` writes it."""
+    with open(path, newline="") as f:
+        table = list(csv.reader(f))
+    keep = [i for i, name in enumerate(table[0]) if name not in drop]
+    buf = io.StringIO()
+    csv.writer(buf).writerows([[row[i] for i in keep] for row in table])
+    return len(table) - 1, hashlib.sha256(buf.getvalue().encode()).hexdigest()
+
+
+def without_us(lines: list[str]) -> list[str]:
+    """``name,us_per_call,derived`` lines without their timing column."""
+    return [",".join(line.split(",", 2)[::2]) for line in lines]
+
+
+# ------------------------------------------------ the paper's §6 experiments
+def instances(full: bool, num_types: int = 2):
+    """Yield (label, app, TaskGraph).  The full grid matches §6.1 exactly."""
+    nbs = (5, 10, 20) if full else (5, 10)
+    bss = (64, 128, 320, 512, 768, 960) if full else (64, 320, 960)
+    widths = (100, 200, 300, 400, 500) if full else (100, 300)
+    phases = (2, 5, 10) if full else (2, 10)
+    for app in CHAMELEON_APPS:
+        for nb in nbs:
+            for bs in bss:
+                yield f"{app}_n{nb}_b{bs}", app, chameleon(app, nb, bs, num_types)
+    for w in widths:
+        for p in phases:
+            yield f"forkjoin_w{w}_p{p}", "forkjoin", fork_join(w, p, num_types)
+
+
+def _timed(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def _offline2_job(g, m: int, k: int):
+    """One (instance, (m, k)) run of :func:`offline_2type`: LP*, its
+    seconds, and each algorithm's makespan and seconds."""
+    sol, t_lp = _timed(lambda: solve_hlp(g, m, k))
+    runs, secs = {}, {}
+    for name, fn in (("hlp_est", lambda: hlp_est(g, [m, k], sol.alloc)),
+                     ("hlp_ols", lambda: hlp_ols(g, [m, k], sol.alloc)),
+                     ("heft", lambda: heft(g, [m, k]))):
+        sched, secs[name] = _timed(fn)
+        runs[name] = sched.makespan
+    return sol.lp_value, t_lp, runs, secs
+
+
+def _offline3_job(g, counts: list[int]):
+    """One (instance, counts) run of :func:`offline_3type`."""
+    sol = solve_qhlp(g, counts)
+    return sol.lp_value, {"qhlp_est": hlp_est(g, counts, sol.alloc).makespan,
+                          "qhlp_ols": hlp_ols(g, counts, sol.alloc).makespan,
+                          "qheft": heft(g, counts).makespan}
+
+
+def _online_job(g, m: int, k: int):
+    """One (instance, (m, k)) run of :func:`online_2type`."""
+    sol = solve_hlp(g, m, k)   # LP* as the ratio denominator (§6.3)
+    return sol.lp_value, {"er_ls": er_ls(g, [m, k]).makespan,
+                          "eft": eft_online(g, [m, k]).makespan,
+                          "greedy": greedy_online(g, [m, k]).makespan,
+                          "random": random_online(g, [m, k], seed=0).makespan}
+
+
+def _ratio_summary(rows, lp: int, algs: tuple[str, ...], pairs: dict
+                   ) -> dict:
+    """An offline experiment's dict from its CSV rows (the timing column
+    taken out; ``rows[i][lp]`` LP*, ``algs`` the makespan columns after
+    it, ``pairs`` each ratio's (numerator, denominator) algorithms), every
+    mean summed in row order, as the reference aggregates."""
+    agg = defaultdict(list)
+    for row in rows:
+        runs = dict(zip(algs, row[lp + 1:lp + 1 + len(algs)]))
+        for name, ms in runs.items():
+            agg[name].append(ms / row[lp])
+        for key, (num, den) in pairs.items():
+            agg[key].append(runs[num] / runs[den])
+    return {"ratios": {k: float(np.mean(v)) for k, v in agg.items()},
+            "max_ratio": {k: float(np.max(agg[k])) for k in algs},
+            "runs": len(rows)}
+
+
+def offline2_summary(rows) -> dict:
+    """:func:`offline_2type`'s dict (without ``alg_seconds``) from its CSV
+    rows without ``lp_seconds``."""
+    return _ratio_summary(rows, 4, ("hlp_est", "hlp_ols", "heft"),
+                          {"ols_vs_est": ("hlp_est", "hlp_ols"),
+                           "ols_vs_heft": ("heft", "hlp_ols")})
+
+
+def offline3_summary(rows) -> dict:
+    """:func:`offline_3type`'s dict from its CSV rows."""
+    return _ratio_summary(rows, 5, ("qhlp_est", "qhlp_ols", "qheft"),
+                          {"ols_vs_est": ("qhlp_est", "qhlp_ols"),
+                           "heft_vs_ols": ("qhlp_ols", "qheft")})
+
+
+def offline_2type(full: bool = False, verbose: bool = False,
+                  workers: int | None = None) -> dict:
+    """Fig. 3/4: HLP-EST vs HLP-OLS vs HEFT against LP* on (m CPUs, k GPUs)
+    — the JAX package's ``benchmarks/campaign.py::offline_2type`` on the
+    port, each (instance, configuration) one job of :func:`_run_jobs`,
+    aggregated in the reference's order (:func:`offline2_summary`)."""
+    rows = []
+    t_alg = defaultdict(float)
+    insts = list(instances(full, 2))
+    results = iter(pool_map(_offline2_job, [
+        (g, m, k) for _, _, g in insts for (m, k) in OFFLINE_CONFIGS_2],
+        workers))
+    for label, app, g in insts:
+        for (m, k) in OFFLINE_CONFIGS_2:
+            lp_value, t_lp, runs, secs = next(results)
+            for name, dt in secs.items():
+                t_alg[name] += dt
+            rows.append([label, app, m, k, lp_value, t_lp,
+                         runs["hlp_est"], runs["hlp_ols"], runs["heft"]])
+        if verbose:
+            print(f"  offline2 {label} done")
+    _write_csv("offline_2type.csv",
+               ["instance", "app", "m", "k", "lp_star", "lp_seconds",
+                "hlp_est", "hlp_ols", "heft"], rows)
+    return {**offline2_summary([row[:5] + row[6:] for row in rows]),
+            "alg_seconds": dict(t_alg)}
+
+
+def offline_3type(full: bool = False, verbose: bool = False,
+                  workers: int | None = None) -> dict:
+    """Fig. 5: QHLP-EST vs QHLP-OLS vs QHEFT on three resource types — the
+    JAX package's ``benchmarks/campaign.py::offline_3type`` on the port
+    (its dict: :func:`offline3_summary`)."""
+    rows = []
+    cfgs = OFFLINE_CONFIGS_3 if full else [(m, k, k) for m in (16, 32, 64, 128)
+                                           for k in (2, 4, 8, 16)]
+    insts = list(instances(full, 3))
+    results = iter(pool_map(_offline3_job, [
+        (g, list(counts)) for _, _, g in insts for counts in cfgs], workers))
+    for label, app, g in insts:
+        for counts in cfgs:
+            counts = list(counts)
+            lp_value, runs = next(results)
+            rows.append([label, app, *counts, lp_value,
+                         runs["qhlp_est"], runs["qhlp_ols"], runs["qheft"]])
+        if verbose:
+            print(f"  offline3 {label} done")
+    _write_csv("offline_3type.csv",
+               ["instance", "app", "m", "k1", "k2", "lp_star",
+                "qhlp_est", "qhlp_ols", "qheft"], rows)
+    return offline3_summary(rows)
+
+
+def online_2type(full: bool = False, verbose: bool = False,
+                 workers: int | None = None) -> dict:
+    """Fig. 6/7: ER-LS vs EFT vs Greedy vs Random against LP*, and the mean
+    competitive ratio as a function of sqrt(m/k) — the JAX package's
+    ``benchmarks/campaign.py::online_2type`` on the port.  It solves LP*
+    again, as the reference does, rather than share :func:`offline_2type`'s
+    solves."""
+    rows, agg = [], defaultdict(list)
+    by_sqrt = defaultdict(lambda: defaultdict(list))
+    n_runs = 0
+    insts = list(instances(full, 2))
+    results = iter(pool_map(_online_job, [
+        (g, m, k) for _, _, g in insts for (m, k) in OFFLINE_CONFIGS_2],
+        workers))
+    for label, app, g in insts:
+        for (m, k) in OFFLINE_CONFIGS_2:
+            lp_value, runs = next(results)
+            n_runs += 1
+            for name, ms in runs.items():
+                agg[name].append(ms / lp_value)
+                by_sqrt[round(np.sqrt(m / k), 2)][name].append(ms / lp_value)
+            agg["erls_vs_greedy"].append(runs["greedy"] / runs["er_ls"])
+            agg["erls_vs_eft"].append(runs["eft"] / runs["er_ls"])
+            rows.append([label, app, m, k, lp_value, runs["er_ls"],
+                         runs["eft"], runs["greedy"], runs["random"]])
+        if verbose:
+            print(f"  online {label} done")
+    _write_csv("online_2type.csv",
+               ["instance", "app", "m", "k", "lp_star", "er_ls", "eft",
+                "greedy", "random"], rows)
+    curve = {s: {alg: float(np.mean(v)) for alg, v in d.items()}
+             for s, d in sorted(by_sqrt.items())}
+    _write_csv("online_competitive_curve.csv",
+               ["sqrt_m_over_k", "er_ls", "eft", "greedy", "random"],
+               [[s, d.get("er_ls"), d.get("eft"), d.get("greedy"), d.get("random")]
+                for s, d in curve.items()])
+    return {"ratios": {k: float(np.mean(v)) for k, v in agg.items()},
+            "curve": curve, "runs": n_runs}
 
 
 def sim_sweep(full: bool = False, noise_scale: float = 0.2,
@@ -420,18 +634,111 @@ def search_sweep(full: bool = False, verbose: bool = False,
 
 # ----------------------------------------------------------- bench targets
 def _launches() -> dict[str, int]:
-    """The replay, contention and first-order LP kernels' launch counters
-    (the LP's total and its sm90 kernel's), beside the replay chunks
-    dispatched and the contention groups priced (on the card, one launch
-    each; on the CPU, none)."""
+    """The replay, contention, first-order LP, (max, +) and flash attention
+    kernels' launch counters, beside the replay chunks dispatched and the
+    contention groups priced (on the card, one launch each; on the CPU,
+    none)."""
     from repro_torch.kernels.contention import contention as C
+    from repro_torch.kernels.flash_attention import flash_attention as FA
     from repro_torch.kernels.hlp_fo import hlp_fo as HF
+    from repro_torch.kernels.maxplus import maxplus as MP
     from repro_torch.kernels.replay import replay as R
     return {"replay": R.launch_count(), "contention": C.launch_count(),
             "hlp_fo": HF.launch_count(),
-            "hlp_fo_sm90": HF.launch_counts()["sm90"],
+            "maxplus": MP.launch_count(), "flash": FA.launch_count(),
             "replay_chunks": _obs.counter_value("sim.replay.chunks"),
             "contended_groups": _obs.counter_value("sim.contended.groups")}
+
+
+def _paper_extras(r: dict, csvs: tuple[str, ...]) -> dict:
+    """An experiment's trajectory extras: its returned dict and, for each
+    CSV it wrote, the rows and digest of :func:`csv_digest`."""
+    out = dict(r)
+    out["csv"] = {}
+    for name in csvs:
+        rows, digest = csv_digest(ART / name)
+        out["csv"][name] = {"rows": rows, "sha256": digest}
+    return out
+
+
+def offline2_lines(r: dict, per: float) -> list[str]:
+    """The ``offline2`` target's CSV lines from its dict, ``per`` µs a run."""
+    lines = []
+    for alg in ("hlp_est", "hlp_ols", "heft"):
+        lines.append(f"offline2/{alg},{per:.0f},mean_ratio_lp={r['ratios'][alg]:.4f}")
+    ols_est = (r["ratios"]["ols_vs_est"] - 1) * 100
+    ols_heft = (r["ratios"]["ols_vs_heft"] - 1) * 100
+    lines.append(f"offline2/ols_vs_est,{per:.0f},improvement_pct={ols_est:.2f}")
+    lines.append(f"offline2/ols_vs_heft,{per:.0f},improvement_pct={ols_heft:.2f}")
+    return lines
+
+
+def offline3_lines(r: dict, per: float) -> list[str]:
+    """The ``offline3`` target's CSV lines from its dict."""
+    lines = [f"offline3/{alg},{per:.0f},mean_ratio_lp={r['ratios'][alg]:.4f}"
+             for alg in ("qhlp_est", "qhlp_ols", "qheft")]
+    est_ols = (r["ratios"]["ols_vs_est"] - 1) * 100
+    heft_ols = (r["ratios"]["heft_vs_ols"] - 1) * 100
+    lines.append(f"offline3/ols_vs_est,{per:.0f},improvement_pct={est_ols:.2f}")
+    lines.append(f"offline3/qheft_vs_ols,{per:.0f},qheft_advantage_pct={heft_ols:.2f}")
+    return lines
+
+
+def bench_offline2(full: bool, seed: int, device) -> tuple[list[str], dict]:
+    """The ``offline2`` target of ``benchmarks/run.py``: CSV lines, the
+    paper's claims, and :func:`offline_2type`'s dict as the extras."""
+    with obs.timer("bench.offline2") as sp:
+        r = offline_2type(full=full)
+    dt = sp.dur
+    lines = offline2_lines(r, dt / max(r["runs"], 1) * 1e6)
+    ols_est = (r["ratios"]["ols_vs_est"] - 1) * 100
+    ols_heft = (r["ratios"]["ols_vs_heft"] - 1) * 100
+    print(f"# offline-2type: {r['runs']} runs in {dt:.1f}s | "
+          f"mean ratios EST={r['ratios']['hlp_est']:.3f} "
+          f"OLS={r['ratios']['hlp_ols']:.3f} HEFT={r['ratios']['heft']:.3f} | "
+          f"max OLS ratio={r['max_ratio']['hlp_ols']:.3f}")
+    print(f"#   paper claims: OLS improves EST ~8-10% -> measured {ols_est:+.1f}%;"
+          f" OLS vs HEFT ~+2% -> measured {ols_heft:+.1f}%;"
+          f" ratios <= 2 -> max {max(r['max_ratio'].values()):.2f}")
+    return lines, _paper_extras(r, ("offline_2type.csv",))
+
+
+def bench_offline3(full: bool, seed: int, device) -> tuple[list[str], dict]:
+    """The ``offline3`` target of ``benchmarks/run.py``."""
+    with obs.timer("bench.offline3") as sp:
+        r = offline_3type(full=full)
+    dt = sp.dur
+    lines = offline3_lines(r, dt / max(r["runs"], 1) * 1e6)
+    heft_ols = (r["ratios"]["heft_vs_ols"] - 1) * 100
+    print(f"# offline-3type: {r['runs']} runs in {dt:.1f}s | mean ratios "
+          f"QEST={r['ratios']['qhlp_est']:.3f} QOLS={r['ratios']['qhlp_ols']:.3f} "
+          f"QHEFT={r['ratios']['qheft']:.3f}")
+    print(f"#   paper claims: QHEFT ~5% better than QHLP-OLS -> measured "
+          f"{heft_ols:+.1f}% ; ratios <= 2 -> max {max(r['max_ratio'].values()):.2f}")
+    return lines, _paper_extras(r, ("offline_3type.csv",))
+
+
+def bench_online(full: bool, seed: int, device) -> tuple[list[str], dict]:
+    """The ``online`` target of ``benchmarks/run.py``."""
+    with obs.timer("bench.online") as sp:
+        r = online_2type(full=full)
+    dt = sp.dur
+    per = dt / max(r["runs"], 1) * 1e6
+    lines = [f"online/{alg},{per:.0f},mean_ratio_lp={r['ratios'][alg]:.4f}"
+             for alg in ("er_ls", "eft", "greedy", "random")]
+    vs_greedy = (r["ratios"]["erls_vs_greedy"] - 1) * 100
+    vs_eft = (1 - 1 / r["ratios"]["erls_vs_eft"]) * 100
+    lines.append(f"online/erls_vs_greedy,{per:.0f},improvement_pct={vs_greedy:.2f}")
+    lines.append(f"online/erls_vs_eft,{per:.0f},deficit_pct={vs_eft:.2f}")
+    print(f"# online: {r['runs']} runs in {dt:.1f}s | mean ratios "
+          f"ER-LS={r['ratios']['er_ls']:.3f} EFT={r['ratios']['eft']:.3f} "
+          f"Greedy={r['ratios']['greedy']:.3f} Random={r['ratios']['random']:.3f}")
+    print(f"#   paper claims: ER-LS ~16% better than Greedy -> measured "
+          f"{vs_greedy:+.1f}%; EFT ~10% better than ER-LS -> measured {vs_eft:+.1f}%")
+    for s, d in r["curve"].items():
+        print(f"#   curve sqrt(m/k)={s}: ER-LS={d['er_ls']:.3f} (bound 4*{s})")
+    return lines, _paper_extras(r, ("online_2type.csv",
+                                    "online_competitive_curve.csv"))
 
 
 def bench_sim(full: bool, seed: int, device) -> tuple[list[str], dict]:
@@ -564,7 +871,30 @@ def bench_solver(full: bool, seed: int, device) -> tuple[list[str], dict]:
     return lines, {"instances": instances}
 
 
-BENCHES = {"sim": bench_sim, "search": bench_search, "solver": bench_solver}
+def bench_kernels(full: bool, seed: int, device) -> tuple[list[str], dict]:
+    """The ``kernels`` target of ``benchmarks/run.py``: the (max, +) and
+    flash attention kernels against their plain versions on ``device``
+    (``repro_torch.launch.kernel_bench``).  The extras hold each line's µs
+    a call as ``us_per_call`` and, under ``cases``, each case's shape, its
+    plain version's µs, ``max_abs_err`` and ``err_vs_plain`` (max |kernel -
+    plain| / (1 + |plain|)) on the same inputs."""
+    from repro_torch.launch import kernel_bench
+
+    results = kernel_bench.cases(full, device)
+    lines = kernel_bench.lines_of(results)
+    print(f"# kernels: {len(lines)} benchmarks "
+          f"({getattr(device, 'type', device)})")
+    timings = {line.split(",")[0]: float(line.split(",")[1])
+               for line in lines}
+    return lines, {"us_per_call": timings,
+                   "cases": {c["name"]: {k: c[k] for k in (
+                       "shape", "ref_us", "max_abs_err", "err_vs_plain")}
+                       for c in results}}
+
+
+BENCHES = {"offline2": bench_offline2, "offline3": bench_offline3,
+           "online": bench_online, "sim": bench_sim, "search": bench_search,
+           "solver": bench_solver, "kernels": bench_kernels}
 DEFAULT_TARGETS = ("sim", "search")   # what a run without --only runs
 
 
@@ -635,12 +965,14 @@ def main(argv: list[str] | None = None) -> int:
                     help="base seed: shifts every scenario generator seed")
     ap.add_argument("--full", action="store_true",
                     help="the reference's full grids (benchmarks/run.py "
-                         "--full): hlp_jax_ols and the (16, 4) suites in "
-                         "sim, the larger search, potri nb=20 in solver")
+                         "--full): 105 instances in the paper's experiments, "
+                         "hlp_jax_ols and the (16, 4) suites in sim, the "
+                         "larger search, potri nb=20 in solver, the larger "
+                         "kernel cases")
     ap.add_argument("--device", type=str, default="cuda",
-                    help="where the replay, contention and first-order LP "
-                         "run: cuda (the kernels) or cpu (their plain "
-                         "versions)")
+                    help="where the replay, contention, first-order LP and "
+                         "the kernels target run: cuda (the kernels) or cpu "
+                         "(their plain versions)")
     ap.add_argument("--bench-json", type=str,
                     default=str(ART / "BENCH_sim.json"),
                     help="where to write the repro.bench.v1 trajectory "

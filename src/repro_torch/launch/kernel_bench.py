@@ -45,9 +45,19 @@ def time_us(fn, dev: torch.device, reps: int = 3) -> float:
     return (time.perf_counter() - t0) * 1e6 / reps
 
 
-def run(full: bool, device: str = "cuda") -> list[str]:
+def err_vs_plain(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| / (1 + |want|): 0 only where the two are equal,
+    at most ``tol`` only where they agree within atol = rtol = ``tol``."""
+    got, want = got.double(), want.double()
+    return float(((got - want).abs() / (1 + want.abs())).max())
+
+
+def cases(full: bool, device: str = "cuda") -> list[dict]:
+    """Each case's name, its kernel's and plain version's µs a call, and
+    :func:`err_vs_plain` of the kernel's output against the plain
+    version's on the same inputs."""
     dev = resolve_device(device)
-    lines = []
+    out = []
     rng = np.random.default_rng(0)
     sizes = [(256, 256, 256)] + ([(512, 512, 512)] if full else [])
     for (m, k, n) in sizes:
@@ -55,9 +65,11 @@ def run(full: bool, device: str = "cuda") -> list[str]:
         b = torch.as_tensor(rng.normal(size=(k, n)).astype(np.float32), device=dev)
         t_ker = time_us(lambda: maxplus_matmul(a, b), dev)
         t_ref = time_us(lambda: maxplus_matmul_ref(a, b), dev)
-        err = float((maxplus_matmul(a, b) - maxplus_matmul_ref(a, b)).abs().max())
-        lines.append(f"kernels/maxplus_{m}x{k}x{n},{t_ker:.0f},"
-                     f"ref_us={t_ref:.0f};max_err={err:.1e}")
+        got, want = maxplus_matmul(a, b), maxplus_matmul_ref(a, b)
+        out.append({"name": f"kernels/maxplus_{m}x{k}x{n}", "us": t_ker,
+                    "ref_us": t_ref, "shape": [m, k, n],
+                    "max_abs_err": float((got - want).abs().max()),
+                    "err_vs_plain": err_vs_plain(got, want)})
 
     s, h, d = (512, 4, 64) if not full else (1024, 8, 64)
     q, kk, v = (torch.as_tensor(rng.normal(size=(2, s, h, d)).astype(np.float32),
@@ -69,8 +81,30 @@ def run(full: bool, device: str = "cuda") -> list[str]:
 
     fq, fk, fv = fold(q), fold(kk), fold(v)
     t_ref = time_us(lambda: attention_ref(fq, fk, fv, causal=True), dev)
-    lines.append(f"kernels/flash_attn_s{s},{t_ker:.0f},ref_us={t_ref:.0f}")
-    print(f"# kernels: {len(lines)} benchmarks ({dev.type})")
+    got = fold(fops.flash_attention(q, kk, v, causal=True))
+    want = attention_ref(fq, fk, fv, causal=True)
+    out.append({"name": f"kernels/flash_attn_s{s}", "us": t_ker,
+                "ref_us": t_ref, "shape": [2, s, h, h, d],
+                "max_abs_err": float((got - want).abs().max()),
+                "err_vs_plain": err_vs_plain(got, want)})
+    return out
+
+
+def lines_of(results: list[dict]) -> list[str]:
+    """The reference's CSV lines, ``kernels/<case>,<us>,ref_us=<plain>``
+    (the (max, +) product's with ``;max_err=``)."""
+    lines = []
+    for c in results:
+        line = f"{c['name']},{c['us']:.0f},ref_us={c['ref_us']:.0f}"
+        if c["name"].startswith("kernels/maxplus"):
+            line += f";max_err={c['max_abs_err']:.1e}"
+        lines.append(line)
+    return lines
+
+
+def run(full: bool, device: str = "cuda") -> list[str]:
+    lines = lines_of(cases(full, device))
+    print(f"# kernels: {len(lines)} benchmarks ({resolve_device(device).type})")
     return lines
 
 

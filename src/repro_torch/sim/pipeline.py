@@ -78,7 +78,7 @@ __all__ = [
     "PipelineStats", "build_plans", "cached_allocate", "cached_solve",
     "clear_plan_cache", "graph_fingerprint", "last_pipeline_stats",
     "pipelined_sweep_makespans", "plan_cache_stats", "plan_fingerprint",
-    "plan_workers",
+    "plan_workers", "pool_map",
 ]
 
 
@@ -314,6 +314,32 @@ def _reset_process_pool(disable: bool = False) -> None:
     _PROCESS_POOL, _PROCESS_POOL_SIZE = None, 0
     if disable:
         _PROCESS_POOL_DISABLED = True
+
+
+def pool_map(job, jobs: list[tuple], workers: int | None = None) -> list:
+    """``job(*args)`` for every ``args`` of ``jobs``, over the planning
+    process pool unless ``workers`` (default :func:`plan_workers`) is 1,
+    obs recording is on or the pool broke earlier; the results in
+    ``jobs``' order, the largest graphs (each ``args[0]``) submitted
+    first.  ``job`` must be a module-level function of a module that loads
+    no torch.  Every job of the campaign is deterministic, so a pooled run
+    equals a serial one; a broken pool is counted (``plan_pool.broken``)
+    and its jobs rerun here, as in :func:`build_plans`."""
+    workers = plan_workers() if workers is None else max(1, int(workers))
+    if workers == 1 or _obs.enabled() or _PROCESS_POOL_DISABLED:
+        return [job(*args) for args in jobs]
+    pool = _process_pool(workers)
+    order = sorted(range(len(jobs)), key=lambda i: -jobs[i][0].n)
+    futures = {i: pool.submit(job, *jobs[i]) for i in order}
+    out = []
+    for i in range(len(jobs)):
+        try:
+            out.append(futures[i].result())
+        except BrokenProcessPool:
+            _reset_process_pool(disable=True)
+            _obs.bump("plan_pool.broken")
+            out.append(job(*jobs[i]))
+    return out
 
 
 def build_plans(entries, *, workers: int | None = None, cache: bool = True,

@@ -1,7 +1,9 @@
-"""A numpy emulation of the first-order LP kernels' designs.
+"""A numpy emulation of the first-order LP kernel's designs, and the
+reference's backward in XLA's order.
 
-``csrc/hlp_fo.cu`` (the gather design) and ``csrc/hlp_fo_sm90.cu`` (its
-redesign) compute the loss's gradient with a hand-written reverse scan over
+``csrc/hlp_fo.cu`` (the gather design, since deleted; kept here as an
+independent model of the hand-written backward) and ``csrc/hlp_fo_sm90.cu``
+(its redesign, the kernel) compute the loss's gradient with a hand-written reverse scan over
 the topological levels; the plain version (``repro_torch/kernels/hlp_fo/
 ref.py``) takes it from autograd.  This module follows the kernels' scans
 task by task in float32, in their order, and their block reductions in
@@ -24,7 +26,9 @@ then the warps in order, at ``threads_for(widest level)`` threads):
 ``gradient`` (gather) and ``gradient_sm90`` return the logits' gradient at
 one step; ``solve`` runs whole solves in either design.  The tests hold
 the two designs to each other bit for bit and to autograd at rtol 1e-5,
-without a card.
+without a card.  ``choice_grad_xla_order`` is the reference's own
+gradient of ``_solve_choice``'s loss, written out in the order XLA:CPU
+compiles it (ROADMAP C6).
 """
 import numpy as np
 
@@ -478,3 +482,155 @@ def solve(d, z0, iters, sched, *, design, **kw):
         x = pr.mix(z)
         X = pr.marginals(x)
     return best_x, best, grads
+
+
+# ------------------------------------------------- the reference's backward
+def _fma(a, b, c):
+    """One rounding of a * b + c, as a contracted multiply-add."""
+    return (np.asarray(a, np.float64) * np.asarray(b, np.float64)
+            + np.asarray(c, np.float64)).astype(f32)
+
+
+def _seq_sum(vals):
+    """((0 + v0) + v1) + ... in float32, over the first axis."""
+    acc = np.zeros(np.shape(vals)[1:], f32)
+    for v in vals:
+        acc = (acc + v).astype(f32)
+    return acc
+
+
+def _window_sum(v):
+    """XLA:CPU's sum over the first axis of ``v``: windows of 32 (the axis
+    padded to a multiple of 32, the padding split between the ends), each
+    summed in order, then the windows' sums in order."""
+    n = v.shape[0]
+    lo = (-(-n // 32) * 32 - n) // 2
+    bounds = range(-lo, n, 32)
+    return _seq_sum([_seq_sum(v[max(b, 0):b + 32]) for b in bounds])
+
+
+def _dot_fma(a, b):
+    """sum_k a[..., k] b[..., k] as XLA:CPU's dot emits it: the first
+    product rounded, each later one added by a contracted multiply-add."""
+    acc = (a[..., 0] * b[..., 0]).astype(f32)
+    for k in range(1, a.shape[-1]):
+        acc = _fma(a[..., k], b[..., k], acc)
+    return acc
+
+
+def choice_grad_xla_order(topo, pred, mask, comm, z, tau, p, area, tm, inv,
+                          *, exp, log):
+    """The gradient of ``repro.core.hlp_jax._solve_choice``'s loss (with
+    ``use_comm``) at logits ``z`` (n, C), written out in the order of the
+    program XLA:CPU compiles for ``jax.jit(jax.grad(loss))``: its forward
+    scan over ``topo`` (one task a step, its residuals kept a step), the
+    smooth max's cotangents, the reverse scan (each task's cotangent set to
+    0 after use and scattered into its predecessors slot by slot), then
+    the marginals' and the softmax's transposes.  Every multiply-add that
+    XLA fuses into one kernel is one rounding (:func:`_fma`); every sum
+    runs in XLA:CPU's order (two-element rows left to right, sums over
+    tasks by :func:`_window_sum`, dots by :func:`_dot_fma`).  ``exp`` and
+    ``log`` map a float32 array to its float32 image (any array type):
+    jitted ``jnp.exp`` / ``jnp.log`` reproduce the reference's
+    transcendentals, ``torch.exp`` / ``torch.log`` the plain version's.  Float32 numpy arrays in and
+    out; ``pred`` -1 after the last real slot (a masked slot reads task
+    n - 1, as XLA's gather wraps it, and carries no cotangent)."""
+    def exp_(v, fn=exp):
+        return np.asarray(fn(np.asarray(v, f32)), f32)
+
+    def log_(v, fn=log):
+        return np.asarray(fn(np.asarray(v, f32)), f32)
+    exp, log = exp_, log_
+    n, C = z.shape
+    P = pred.shape[1]
+    tau = f32(tau)
+    z, p, area, tm, inv, comm = (np.asarray(a, f32) for a in
+                                 (z, p, area, tm, inv, comm))
+    predw = np.where(pred < 0, pred + n, pred)
+    # the softmax and the forward's inputs
+    e = exp((z - z.max(axis=1, keepdims=True)).astype(f32))
+    S = _seq_sum(e.T)
+    inv_s2 = (f32(1) / (S * S).astype(f32)).astype(f32)
+    x = (e / S[:, None]).astype(f32)
+    X = _dot_fma(x[:, None, :], tm[None, :, :])                  # (n, Q)
+    times = np.zeros(n, f32)
+    for c in range(C):
+        times = _fma(p[:, c], x[:, c], times)
+    colsum = _window_sum((area * x).astype(f32))                 # (C,)
+    loads_pre = _dot_fma(tm, colsum[None, :])                    # (Q,)
+    Xp = X[predw]                                                # (n, P, Q)
+    cross = _dot_fma(Xp, X[:, None, :])
+    delay = (comm * (f32(1) - cross)).astype(f32)
+    # the forward scan and its residuals, by scan position
+    finish = np.zeros(n, f32)
+    E = np.zeros((n, P), f32)
+    S1, cnt, tie = (np.zeros(n, f32) for _ in range(3))
+    IND = np.zeros((n, P), f32)
+    has = np.zeros(n, bool)
+    for i in range(n):
+        j = topo[i]
+        pf = np.where(mask[j], (finish[predw[j]] + delay[j]).astype(f32),
+                      NEG)
+        m = pf.max()
+        ee = exp(((pf - m).astype(f32) / tau).astype(f32))
+        E[i], IND[i] = ee, (pf == m).astype(f32)
+        cnt[i] = f32((pf == m).sum())
+        S1[i] = (_seq_sum(ee) + TINY).astype(f32)
+        soft = _fma(tau, log(np.asarray(S1[i], f32)), m)
+        top = max(soft, f32(0))
+        tie[i] = f32(float(soft == top) / (2.0 if top == 0 else 1.0))
+        has[i] = bool(mask[j].any())
+        finish[j] = ((top if has[i] else f32(0)) + times[j]).astype(f32)
+    # the smooth max of the critical path and the loads
+    mfin = finish.max()
+    ef = exp(((finish - mfin).astype(f32) / tau).astype(f32))
+    Sf = _window_sum(ef)
+    cntf = _window_sum((finish == mfin).astype(f32))
+    cp = _fma(tau, log(np.asarray(Sf + TINY, f32)), mfin)
+    loads = (loads_pre * inv).astype(f32)
+    mx = max(cp, loads.max())
+    terms = np.concatenate([[cp], loads]).astype(f32)
+    et = exp(((terms - mx).astype(f32) / tau).astype(f32))
+    r = (tau / _seq_sum(et)).astype(f32)
+    gterm = ((r * et).astype(f32) / tau).astype(f32)
+    gmx = ((-_seq_sum(gterm) + f32(1)).astype(f32)
+           / f32((terms == mx).sum())).astype(f32)
+    gsel = (gterm + np.where(terms == mx, gmx, f32(0))).astype(f32)
+    gload = (gsel[1:] * inv).astype(f32)
+    gcp = gsel[0]
+    gSf = ((tau * gcp).astype(f32) / (Sf + TINY).astype(f32)).astype(f32)
+    gcolsum = _dot_fma(gload[None, :], tm.T)                     # (C,)
+    gef = ((gSf * ef).astype(f32) / tau).astype(f32)
+    gmfin = ((gcp + (-_window_sum(gef))).astype(f32) / cntf).astype(f32)
+    gfinish = (gef + np.where(finish == mfin, gmfin, f32(0))).astype(f32)
+    # the reverse scan
+    gtimes = np.zeros(n, f32)
+    gdelay = np.zeros((n, P), f32)
+    for i in range(n - 1, -1, -1):
+        j = topo[i]
+        gsoft = ((gfinish[j] if has[i] else f32(0)) * tie[i]).astype(f32)
+        gS = ((tau * gsoft).astype(f32) / S1[i]).astype(f32)
+        gtimes[j] = (gtimes[j] + gfinish[j]).astype(f32)
+        gfinish[j] = f32(0)
+        ge = ((gS * E[i]).astype(f32) / tau).astype(f32)
+        gm = ((gsoft + (-_seq_sum(ge))).astype(f32) / cnt[i]).astype(f32)
+        gpf = np.where(mask[j], _fma(gm, IND[i], ge), f32(0))
+        gdelay[j] = (gdelay[j] + gpf).astype(f32)
+        for s in range(P):
+            gfinish[predw[j, s]] = (gfinish[predw[j, s]] + gpf[s]).astype(f32)
+    # the crossings' transpose into the marginals, then the softmax's
+    gcross = (-(comm * gdelay).astype(f32)).astype(f32)
+    gX = _dot_fma(np.swapaxes(Xp, 1, 2), gcross[:, None, :])     # (n, Q)
+    for a in range(n):
+        for s in range(P):
+            gX[predw[a, s]] = (gX[predw[a, s]]
+                               + (gcross[a, s] * X[a]).astype(f32)
+                               ).astype(f32)
+    gxX = _dot_fma(gX[:, None, :], tm.T[None, :, :])             # (n, C)
+    gx = (_fma(area, gcolsum[None, :], (p * gtimes[:, None]).astype(f32))
+          + gxX).astype(f32)
+    t = np.zeros(n, f32)
+    for c in range(C):
+        t = _fma((gx[:, c] * inv_s2).astype(f32), e[:, c], t)
+    return (((gx / S[:, None]).astype(f32) + (-t)[:, None]).astype(f32)
+            * e).astype(f32)

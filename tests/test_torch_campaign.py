@@ -117,7 +117,7 @@ def test_trajectory_records_the_pipeline_and_the_host(bench):
     # on the CPU the wrappers take the plain versions: no kernel launches;
     # one replay chunk per bucket (one device), one contended group
     assert sim["launches"] == {"replay": 0, "contention": 0, "hlp_fo": 0,
-                               "hlp_fo_sm90": 0,
+                               "maxplus": 0, "flash": 0,
                                "replay_chunks": sim["buckets"],
                                "contended_groups": 1}
     search = doc["benches"]["search"]["launches"]
@@ -212,7 +212,8 @@ def test_solver_target_runs_highs_against_the_first_order_lp(capsys):
 
 def test_entry_defaults_to_the_card_and_rejects_unknown_targets(monkeypatch,
                                                                 tmp_path):
-    assert campaign.main(["--only", "offline2", "--bench-json", ""]) == 2
+    # roofline waits for the sharding and launch port (ROADMAP A10)
+    assert campaign.main(["--only", "roofline", "--bench-json", ""]) == 2
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         campaign.main(["--bench-json", str(tmp_path / "x.json")])

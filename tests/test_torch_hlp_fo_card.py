@@ -1,6 +1,6 @@
-"""The first-order LP's default kernel (``csrc/hlp_fo_sm90.cu``) against
-its plain version, on the card; the gather kernel ``csrc/hlp_fo.cu``
-against it bit for bit: ``tests/test_torch_hlp_fo_sm90_card.py``.
+"""The first-order LP's kernel (``csrc/hlp_fo_sm90.cu``) against its plain
+version, on the card; its two layouts against each other bit for bit:
+``tests/test_torch_hlp_fo_sm90_card.py``.
 
 Every test carries the ``card`` marker, asks for the ``card`` fixture
 (which skips without a card) and imports nothing of JAX:
@@ -12,11 +12,10 @@ Both entry points run the same problems as the plain version
 best λ at rtol 1e-5 (the kernel's gradient is hand-written, autograd's
 agrees with it to rounding) and identical rounded allocations.  Also: one
 launch a solve, concurrent solves from threads, the ``hlp_jax_ols``
-adapter's golden cell through the kernel, the shared-memory mirror and
-limit, the argument checks, the chain probe and the split launch.
+adapter's golden cell through the kernel, the layout past 227 KB, the
+argument checks, the chain probe and the split launch.
 """
 import concurrent.futures
-import ctypes
 import hashlib
 import json
 from pathlib import Path
@@ -142,26 +141,17 @@ def test_the_adapter_replays_its_golden_cell_through_the_kernel(card):
     assert _sched_hash(r1.schedule) == exp["hash_noisy"]
 
 
-def test_shared_memory_mirror_limits_and_checks(card):
-    from repro_torch.kernels import build
-    lib = build.load("hlp_fo")
-    lib.hlp_fo_smem_bytes.argtypes = [ctypes.c_int] * 5
-    lib.hlp_fo_smem_bytes.restype = ctypes.c_longlong
-    for args in ((4620, 60, 1, 0, 0), (43, 16, 2, 2, 1), (20, 7, 8, 2, 0),
-                 (5011, 60, 1, 0, 0)):
-        assert lib.hlp_fo_smem_bytes(*args) == HF.smem_bytes(
-            args[0], args[1], args[2], args[3], bool(args[4]),
-            kernel="gather"), args
+def test_layout_limits_and_checks(card):
     g = TW.chameleon("potri", 20, 512)
     d = TH.PaddedDag.from_graph(g, "cuda")
     C, Q = 8, 2
     big = [torch.ones((g.n, C), device="cuda"),
            torch.ones((g.n, C), device="cuda"),
            torch.ones((Q, C), device="cuda"), torch.ones(Q, device="cuda")]
-    with pytest.raises(ValueError, match=str(HF.SMEM_LIMIT)):
+    # past 227 KB the kernel takes it in its global layout
+    with pytest.raises(ValueError, match="takes the global layout"):
         HF.launch_choice(d, torch.zeros((g.n, C), device="cuda"), *big,
-                         iters=1, use_comm=True, kernel="gather")
-    # the sm90 kernel takes it in its global layout
+                         iters=1, use_comm=True, layout="shared")
     x, v = HF.launch_choice(d, torch.zeros((g.n, C), device="cuda"), *big,
                             iters=1, use_comm=True)
     assert bool(torch.isfinite(x).all()) and bool(torch.isfinite(v))
@@ -174,7 +164,7 @@ def test_shared_memory_mirror_limits_and_checks(card):
     torch.cuda.synchronize()
     assert out.item() == 0.0
     # the split launch returns the same solve and each phase's cycles
-    cycles = torch.zeros(len(HF.PHASES["sm90"]), dtype=torch.int64,
+    cycles = torch.zeros(len(HF.PHASES), dtype=torch.int64,
                          device="cuda")
     z0 = torch.zeros(g.n, device="cuda")
     x1, v1 = HF.launch_hybrid(d, z0, m=64, k=8, iters=3, cycles=cycles)

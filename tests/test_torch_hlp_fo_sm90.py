@@ -1,7 +1,7 @@
 """The redesigned first-order LP kernel's design, on the CPU.
 
-``csrc/hlp_fo_sm90.cu`` claims to compute what ``csrc/hlp_fo.cu`` (the
-gather design) computes, bit for bit: its fused walk (the exact pass of a
+``csrc/hlp_fo_sm90.cu`` claims to compute what its first design (the
+gather design, ``csrc/hlp_fo.cu``, since deleted) computed, bit for bit: its fused walk (the exact pass of a
 step beside the next step's soft forward), its merged reductions and its
 reverse walk, in which each task turns its own pred slots' stored weights
 into edge adjoints and its predecessors sum them in the successor CSR's
@@ -15,10 +15,10 @@ by task and in the kernels' reduction tree; held here:
   gradient);
 * the redesign's gradient against autograd (``kernels/hlp_fo/ref.py``) at
   rtol 1e-5;
-* the wrapper: ``KERNELS`` and the bare launches' ``kernel=``, the
-  per-kernel counters, the shared-memory mirror of both kernels and of the
-  sm90 kernel's two layouts (its edge buffer one float an edge, so a join
-  500 wide fits), and no launch on the CPU.
+* the wrapper: one kernel (no ``kernel=``), its counter, the bare
+  launches' ``layout=``, the shared-memory mirror of the kernel's two
+  layouts (its edge buffer one float an edge, so a join 500 wide fits),
+  and no launch on the CPU.
 
 The kernels themselves run on the card: ``tests/test_torch_hlp_fo_sm90_card.py``.
 """
@@ -175,11 +175,12 @@ def test_redesigned_gradient_matches_autograd():
 
 
 def test_wrapper_names_its_kernels_and_counts_each():
-    """The bare launches take ``kernel=`` and refuse an unknown name; the
-    public entries take none (the card path is sm90) and on the CPU take
-    the plain version, launching nothing."""
-    assert HF.KERNELS == ("sm90", "gather")
-    assert set(HF.PHASES) == set(HF.KERNELS)
+    """One kernel is left (``hlp_fo_sm90.cu``; the gather kernel and the
+    ``kernel=`` choice are gone); the entries on the CPU take the plain
+    version, launching nothing."""
+    assert HF.SOURCE == "hlp_fo_sm90" and len(HF.PHASES) == 4
+    for name in ("KERNELS", "SOURCES", "REVERSE_PARTS", "launch_counts"):
+        assert not hasattr(HF, name)
     g = TW.chameleon("potrf", 4, 512)
     d = TH.PaddedDag.from_graph(g, "cpu")
     z0 = torch.zeros(g.n)
@@ -187,25 +188,23 @@ def test_wrapper_names_its_kernels_and_counts_each():
     x, v = HF.hybrid(d, z0, m=4, k=2, iters=3)
     rx, rv = R.hybrid_solve_ref(d, z0, m=4, k=2, iters=3)
     assert torch.equal(x, rx) and torch.equal(v, rv)
-    assert HF.launch_counts() == {"sm90": 0, "gather": 0}
     assert HF.launch_count() == 0
     for call in (lambda: HF.launch_hybrid(d, z0, m=4, k=2, iters=3,
-                                          kernel="sm80"),
-                 lambda: HF.smem_bytes(10, 2, kernel="warp")):
-        with pytest.raises(ValueError, match="no first-order LP kernel"):
+                                          kernel="gather"),
+                 lambda: HF.smem_bytes(10, 2, kernel="sm90"),
+                 lambda: HF.hybrid(d, z0, m=4, k=2, iters=3,
+                                   kernel="gather")):
+        with pytest.raises(TypeError, match="kernel"):
             call()
-    with pytest.raises(TypeError, match="kernel"):
-        HF.hybrid(d, z0, m=4, k=2, iters=3, kernel="gather")
+    with pytest.raises(TypeError, match="task_cycles"):
+        HF.launch_hybrid(d, z0, m=4, k=2, iters=3, task_cycles=None)
     with pytest.raises(TypeError, match="task_cycles"):
         HF.launch_choice(d, torch.zeros((g.n, 1)), *[torch.ones(1)] * 4,
                          iters=3, use_comm=False, task_cycles=None)
-    # the bare launches need the card, whichever kernel
-    for k in HF.KERNELS:
+    # the bare launches need the card, in either layout
+    for layout in HF.LAYOUTS:
         with pytest.raises(ValueError, match="card"):
-            HF.launch_hybrid(d, z0, m=4, k=2, iters=3, kernel=k)
-    with pytest.raises(ValueError, match="gather kernel's reverse split"):
-        HF._launch("sm90", "hybrid", d, [], [], 1, g.n, z0, None,
-                   torch.zeros((g.n, 3), dtype=torch.int64))
+            HF.launch_hybrid(d, z0, m=4, k=2, iters=3, layout=layout)
 
 
 def fork_join(width: int, joins: int, seed: int = 1):
@@ -221,19 +220,15 @@ def fork_join(width: int, joins: int, seed: int = 1):
 
 
 def test_shared_memory_mirror_of_both_layouts():
-    """``smem_bytes`` against the two kernels' layouts counted here, the
-    sm90 kernel's choice of layout, and the largest problem each layout
-    takes at P = 3 (the Chameleon DAGs' pred width)."""
-    tail = {"sm90": 16 * 18, "gather": 16 * 17}
+    """``smem_bytes`` against the kernel's two layouts counted here, its
+    choice of layout, and the largest problem each layout takes at P = 3
+    (the Chameleon DAGs' pred width)."""
+    tail = {"sm90": 16 * 18}
 
     def sm90(n, L, c, q, comm, e, layout):
         per_task = n * c + 4 * n + e + (n * q if comm else 0)
         return 4 * ((per_task if layout == "shared" else 0) + q * c + q
                     + L + 1 + tail["sm90"])
-
-    def gather(n, L, c, q, comm):
-        return 4 * (n * c + 3 * n + (n * q if comm else 0) + q * c + q + L
-                    + 1 + tail["gather"])
     for n, L, c, q, comm, e in ((4620, 60, 1, 0, False, 12840),
                                 (60, 5, 2, 2, True, 90),
                                 (20, 7, 8, 2, False, 40),
@@ -241,8 +236,6 @@ def test_shared_memory_mirror_of_both_layouts():
         for layout in HF.LAYOUTS:
             assert HF.smem_bytes(n, L, c, q, comm, e=e, layout=layout) == \
                 sm90(n, L, c, q, comm, e, layout)
-        assert HF.smem_bytes(n, L, c, q, comm, e=e, kernel="gather") == \
-            gather(n, L, c, q, comm)
     with pytest.raises(ValueError, match="no layout"):
         HF.smem_bytes(10, 2, layout="texture")
     # the edge buffer holds one float an edge, whatever the widest join:
@@ -254,27 +247,28 @@ def test_shared_memory_mirror_of_both_layouts():
     assert HF.layout_for(g.n, d.levels, e=E) == "shared"
     assert HF._check_size(d, 1, 0, False) == 0
     # at P = 3 and 60 levels (3 edges a task): the shared layout takes
-    # 7220 tasks (8 floats a task), the gather kernel 14444 (4); past
-    # them the sm90 kernel takes the global layout, whose shared part is
-    # the tail alone, until the level offsets fill shared memory
+    # 7220 tasks (8 floats a task); past them the kernel takes the global
+    # layout, whose shared part is the tail alone, until the level offsets
+    # fill shared memory
     assert HF.layout_for(4620, 60, e=3 * 4620) == "shared"
     assert HF.layout_for(7220, 60, e=3 * 7220) == "shared"
     assert HF.layout_for(7221, 60, e=3 * 7221) == "global"
     assert HF.layout_for(10 ** 6, 60, e=3 * 10 ** 6) == "global"
-    assert HF.smem_bytes(14444, 60, kernel="gather") <= HF.SMEM_LIMIT
-    assert HF.smem_bytes(14445, 60, kernel="gather") > HF.SMEM_LIMIT
     most = HF.SMEM_LIMIT // 4 - tail["sm90"] - 1
     assert HF.layout_for(100, most, e=99) == "global"
     with pytest.raises(ValueError, match=f"global layout, more than the "
                                          f"{HF.SMEM_LIMIT}"):
         HF.layout_for(100, most + 1, e=99)
     # the launch's scratch: 0 in the shared layout, the per-task arrays in
-    # the global one; past the gather kernel's layout, it raises
+    # the global one
     big = TH.PaddedDag.from_graph(TW.chameleon("potri", 20, 512), "cpu")
     E = int(big.succ_task.shape[0])
     assert HF._check_size(big, 1, 0, False) == 0
-    assert HF._check_size(big, 1, 0, False, "gather") == 0
     assert HF._check_size(big, 8, 2, True) == big.n * (8 + 4 + 2) + E
-    with pytest.raises(ValueError, match=f"gather kernel, more than the "
-                                         f"{HF.SMEM_LIMIT}"):
-        HF._check_size(big, 8, 2, True, "gather")
+    # a problem that fits shared memory may take the global layout (the
+    # card tests hold the two layouts to each other), not the other way
+    assert HF._check_size(big, 1, 0, False, "global") == \
+        big.n * (1 + 4) + E
+    for layout in ("shared", "texture"):
+        with pytest.raises(ValueError, match="takes the global layout"):
+            HF._check_size(big, 8, 2, True, layout)

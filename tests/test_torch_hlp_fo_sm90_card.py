@@ -1,19 +1,22 @@
-"""The redesigned first-order LP kernel ``csrc/hlp_fo_sm90.cu`` against the
-first design ``csrc/hlp_fo.cu``, bit for bit, on the card.
+"""The first-order LP kernel ``csrc/hlp_fo_sm90.cu`` in its two layouts,
+bit for bit, on the card.
 
 Every test carries the ``card`` marker, asks for the ``card`` fixture
 (which skips without a card) and imports nothing of JAX:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m card tests/test_torch_hlp_fo_sm90_card.py
 
-Both kernels keep every float operation's operands and rounding and every
-sum's order, so their best x and λ are the same bits: on random DAGs at
-widths on both sides of one warp, on the lp phase's Chameleon instances,
-on the choice grids with and without edge delays, at the edges of the
-redesign's two layouts (shared memory, and a scratch buffer past it) and
-on a join 500 wide.  Also: concurrent solves from threads equal serial
-ones, each kernel's counter, the unknown-kernel and oversize errors, and
-the library's shared-memory mirror.
+The shared layout (the per-task arrays and the edge buffer in shared
+memory) and the global one (the same arrays in a scratch buffer, which
+``layout="global"`` forces) run the same float operations in the same
+order, so their best x and λ are the same bits: on random DAGs at widths on
+both sides of one warp, on the lp phase's Chameleon instances, on the
+choice grids with and without edge delays, at the edge of the shared
+layout and on a join 500 wide.  Past the shared layout and past the first
+design's limit (14444 tasks, ``csrc/hlp_fo.cu``, since deleted) the kernel
+is held to the plain version.  Also: concurrent solves from threads equal
+serial ones, the counter, the phase split and the library's
+shared-memory mirror.
 """
 import concurrent.futures
 import ctypes
@@ -69,11 +72,12 @@ def _same(a, b, what):
 
 
 def _hybrid_both(g, m, k, iters=300):
+    """The solve in the shared and in the global layout."""
     d = TH.PaddedDag.from_graph(g, "cuda")
     z0 = torch.tensor(np.float32(0.01) * TH.reference_normal(0, (g.n,)),
                       device="cuda")
-    return [HF.launch_hybrid(d, z0, m=m, k=k, iters=iters, kernel=kern)
-            for kern in HF.KERNELS]
+    return [HF.launch_hybrid(d, z0, m=m, k=k, iters=iters, layout=layout)
+            for layout in HF.LAYOUTS]
 
 
 def _choice_inputs(g, machine, comm, rigid):
@@ -87,17 +91,17 @@ def _choice_inputs(g, machine, comm, rigid):
     return TH.PaddedDag.from_graph(g, "cuda"), z0, ins, prob.comm_aware
 
 
-def test_kernels_agree_bit_for_bit_on_random_dags(card):
+def test_layouts_agree_bit_for_bit_on_random_dags(card):
     HF.reset_launch_count()
     cases = [(20, 6, 1), (20, 6, 40), (90, 8, 3), (90, 8, 40), (300, 5, 12)]
     for seed, (width, levels, fan) in enumerate(cases):
         g = layered_dag(seed, width, levels, fan)
         a, b = _hybrid_both(g, 64, 64, iters=120)
         _same(a, b, f"width {width}, fan {fan}")
-    assert HF.launch_counts() == {"sm90": len(cases), "gather": len(cases)}
+    assert HF.launch_count() == 2 * len(cases)
 
 
-def test_kernels_agree_bit_for_bit_on_the_lp_instances(card):
+def test_layouts_agree_bit_for_bit_on_the_lp_instances(card):
     for app, nb in (("potrf", 10), ("getrf", 10), ("potri", 20)):
         a, b = _hybrid_both(TW.chameleon(app, nb, 512), 64, 8)
         _same(a, b, f"{app}{nb}")
@@ -107,7 +111,7 @@ def test_kernels_agree_bit_for_bit_on_the_lp_instances(card):
         _same(a, b, sc.name)
 
 
-def test_kernels_agree_bit_for_bit_on_choice_grids(card):
+def test_layouts_agree_bit_for_bit_on_choice_grids(card):
     nb = TS.netbound_scenario(seed=300)
     wide = TS.netbound_scenario(width=40, depth=5, seed=3)
     mo = TS.moldable_suite(seed=400, num=1, ccr=2.0)[0]
@@ -119,7 +123,7 @@ def test_kernels_agree_bit_for_bit_on_choice_grids(card):
         d, z0, ins, use_comm = _choice_inputs(g, machine, comm, rigid)
         assert use_comm == comm
         a, b = [HF.launch_choice(d, z0, *ins, iters=300, use_comm=use_comm,
-                                 kernel=kern) for kern in HF.KERNELS]
+                                 layout=layout) for layout in HF.LAYOUTS]
         _same(a, b, f"n={g.n} comm={comm}")
         np.testing.assert_allclose(a[0].sum(1).cpu().numpy(), 1, rtol=1e-5)
 
@@ -135,7 +139,7 @@ def test_concurrent_solves_from_threads_equal_serial_ones(card):
     HF.reset_launch_count()
     with concurrent.futures.ThreadPoolExecutor(8) as pool:
         threaded = list(pool.map(solve, graphs))
-    assert HF.launch_counts() == {"sm90": len(graphs), "gather": 0}
+    assert HF.launch_count() == len(graphs)
     for a, b in zip(serial, threaded):
         np.testing.assert_array_equal(a.x_frac, b.x_frac)
         assert a.lp_value == b.lp_value
@@ -143,12 +147,12 @@ def test_concurrent_solves_from_threads_equal_serial_ones(card):
 
 def test_both_layouts_agree_at_their_edges_and_on_a_wide_join(card):
     """At P = 3 and 60 levels (three preds a task past the first level),
-    the largest problem of the shared layout and one task more, which
-    takes the global layout, both equal the gather kernel bit for bit.
-    Past the gather kernel's limit (14444 tasks) the sm90 kernel still
-    runs, held to the plain version.  A fork-join of width 500 (a pred row
-    500 wide) fits the shared layout, its edge buffer one float an edge,
-    and equals the gather kernel."""
+    the largest problem of the shared layout equals its global-layout
+    solve bit for bit, and one task more takes the global layout.  Past
+    the first design's limit (14444 tasks) the kernel still runs, held to
+    the plain version.  A fork-join of width 500 (a pred row 500 wide)
+    fits the shared layout, its edge buffer one float an edge, and equals
+    its global-layout solve."""
     rng = np.random.default_rng(7)
 
     def edges(n):
@@ -164,26 +168,28 @@ def test_both_layouts_agree_at_their_edges_and_on_a_wide_join(card):
         return HF.layout_for(d.n, d.levels, e=int(d.succ_task.shape[0]))
     edge = max(n for n in range(6000, 9000)
                if HF.layout_for(n, 60, e=edges(n)) == "shared")
-    for n, want in ((edge, "shared"), (edge + 1, "global")):
-        d = TH.PaddedDag.from_graph(dag(n), "cuda")
-        assert d.pred.shape[1] == 3 and d.levels == 60
-        assert int(d.succ_task.shape[0]) == edges(n) and layout(d) == want
-        z0 = torch.zeros(n, device="cuda")
-        a, b = [HF.launch_hybrid(d, z0, m=64, k=8, iters=20, kernel=kern)
-                for kern in HF.KERNELS]
-        _same(a, b, f"{n} tasks, {want} layout")
-    g = dag(14445)
-    d = TH.PaddedDag.from_graph(g, "cuda")
-    assert layout(d) == "global"
-    z0 = torch.zeros(g.n, device="cuda")
-    with pytest.raises(ValueError, match=f"gather kernel, more than the "
-                                         f"{HF.SMEM_LIMIT}"):
-        HF.launch_hybrid(d, z0, m=64, k=8, iters=20, kernel="gather")
-    x, v = HF.launch_hybrid(d, z0, m=64, k=8, iters=20)
-    rx, rv = HF.hybrid(TH.PaddedDag.from_graph(g, "cpu"), z0.cpu(), m=64,
-                       k=8, iters=20)
-    np.testing.assert_allclose(float(v), float(rv), rtol=1e-5)
-    assert bool(torch.isfinite(x).all())
+    d = TH.PaddedDag.from_graph(dag(edge), "cuda")
+    assert d.pred.shape[1] == 3 and d.levels == 60
+    assert int(d.succ_task.shape[0]) == edges(edge)
+    assert layout(d) == "shared"
+    z0 = torch.zeros(edge, device="cuda")
+    a, b = [HF.launch_hybrid(d, z0, m=64, k=8, iters=20, layout=lay)
+            for lay in HF.LAYOUTS]
+    _same(a, b, f"{edge} tasks in both layouts")
+    with pytest.raises(ValueError, match="takes the global layout"):
+        HF.launch_hybrid(TH.PaddedDag.from_graph(dag(edge + 1), "cuda"),
+                         torch.zeros(edge + 1, device="cuda"), m=64, k=8,
+                         iters=20, layout="shared")
+    for n in (edge + 1, 14445):
+        g = dag(n)
+        d = TH.PaddedDag.from_graph(g, "cuda")
+        assert layout(d) == "global"
+        z0 = torch.zeros(g.n, device="cuda")
+        x, v = HF.launch_hybrid(d, z0, m=64, k=8, iters=20)
+        rx, rv = HF.hybrid(TH.PaddedDag.from_graph(g, "cpu"), z0.cpu(),
+                           m=64, k=8, iters=20)
+        np.testing.assert_allclose(float(v), float(rv), rtol=1e-5)
+        assert bool(torch.isfinite(x).all())
     rng2 = np.random.default_rng(1)
     fj_edges, prev, t = [], 0, 1
     for _ in range(2):
@@ -214,25 +220,14 @@ def test_errors_and_the_librarys_mirror(card):
     d = TH.PaddedDag.from_graph(g, "cuda")
     z0 = torch.zeros(g.n, device="cuda")
     HF.reset_launch_count()
-    with pytest.raises(ValueError, match="no first-order LP kernel"):
-        HF.launch_hybrid(d, z0, m=4, k=2, iters=3, kernel="fma")
-    with pytest.raises(ValueError, match="gather kernel's reverse split"):
-        HF.launch_hybrid(d, z0, m=4, k=2, iters=3,
-                         task_cycles=torch.zeros((g.n, 3), dtype=torch.int64,
-                                                 device="cuda"))
+    with pytest.raises(TypeError, match="kernel"):
+        HF.launch_hybrid(d, z0, m=4, k=2, iters=3, kernel="gather")
     assert HF.launch_count() == 0
-    # the phase splits and the gather kernel's reverse split
-    for kern in HF.KERNELS:
-        cycles = torch.zeros(len(HF.PHASES[kern]), dtype=torch.int64,
-                             device="cuda")
-        HF.launch_hybrid(d, z0, m=4, k=2, iters=3, kernel=kern,
-                         cycles=cycles)
-        assert bool((cycles > 0).all()), kern
-    split = torch.zeros((g.n, len(HF.REVERSE_PARTS)), dtype=torch.int64,
-                        device="cuda")
-    x1, v1 = HF.launch_hybrid(d, z0, m=4, k=2, iters=3, kernel="gather",
-                              task_cycles=split)
+    # the phase split
+    cycles = torch.zeros(len(HF.PHASES), dtype=torch.int64,
+                         device="cuda")
+    x1, v1 = HF.launch_hybrid(d, z0, m=4, k=2, iters=3, cycles=cycles)
+    assert bool((cycles > 0).all())
     x2, v2 = HF.launch_hybrid(d, z0, m=4, k=2, iters=3)
     _same((x1, v1), (x2, v2), "split launch")
-    assert bool((split[:, 0] > 0).all()) and bool((split[:, 2] > 0).all())
-    assert HF.launch_counts() == {"sm90": 2, "gather": 2}
+    assert HF.launch_count() == 2

@@ -43,6 +43,9 @@ _PLANNER_PROBE = """
 import sys
 import repro_torch.launch.campaign, repro_torch.sim.adapters
 import repro_torch.sim.pipeline, repro_torch.sim.scenarios
+import repro_torch.core.placement
+from repro_torch.launch.campaign import (_offline2_job, _offline3_job,
+                                         _online_job)
 print(sorted(m for m in sys.modules if m.split(".")[0] == "torch"))
 """
 
@@ -50,8 +53,9 @@ print(sorted(m for m in sys.modules if m.split(".")[0] == "torch"))
 def test_the_planners_import_no_torch():
     """What a planning worker of the process pool imports (the adapters,
     the pipeline module for its task function, the campaign entry it
-    re-runs as ``__main__``) loads no torch, whose import alone takes
-    seconds; the lazy names still resolve."""
+    re-runs as ``__main__``, whose module also holds the paper
+    experiments' jobs) and the placement planner load no torch, whose
+    import alone takes seconds; the lazy names still resolve."""
     proc = subprocess.run([sys.executable, "-c", _PLANNER_PROBE],
                           capture_output=True, text=True,
                           env={"PYTHONPATH": str(SRC)}, timeout=300,
@@ -89,7 +93,8 @@ def test_every_module_is_listed_by_the_probe():
             "repro_torch.launch.campaign", "repro_torch.obs.trace",
             "repro_torch.obs.provenance", "repro_torch.core.hlp_jax",
             "repro_torch.kernels.hlp_fo.hlp_fo",
-            "repro_torch.kernels.hlp_fo.ref"} <= names
+            "repro_torch.kernels.hlp_fo.ref",
+            "repro_torch.core.placement"} <= names
 
 
 @pytest.fixture
