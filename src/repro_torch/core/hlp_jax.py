@@ -61,8 +61,11 @@ class PaddedDag:
     by level; ``succ_ptr`` (n + 1,), ``succ_task`` and ``succ_slot`` (E,)
     int32, each edge's successor and its slot in that successor's pred row;
     ``pred_edge`` (n, P) int32, each real pred slot's place in that CSR
-    (-1 padded); ``max_width``, the most tasks of one level, which sizes
-    the block.
+    (-1 padded); ``pred_edge_topo`` (n, P) int32, the same in a CSR of the
+    same ranges whose lists run in descending order of the successor's
+    place in ``topo`` (the order in which the reference's reverse scan
+    adds a task's successors' cotangents: the choice entry's);
+    ``max_width``, the most tasks of one level, which sizes the block.
     """
     topo: torch.Tensor
     pred: torch.Tensor
@@ -76,6 +79,7 @@ class PaddedDag:
     succ_task: torch.Tensor
     succ_slot: torch.Tensor
     pred_edge: torch.Tensor
+    pred_edge_topo: torch.Tensor
     max_width: int
 
     @staticmethod
@@ -100,6 +104,11 @@ class PaddedDag:
                                                               minlength=g.n))])
         pred_edge = np.full((g.n, P), -1, dtype=np.int32)
         pred_edge[succ[order], slot[order]] = np.arange(order.size)
+        pos = np.empty(g.n, dtype=np.int64)
+        pos[g.topo] = np.arange(g.n)
+        by_topo = np.lexsort((-pos[succ], src))
+        pred_edge_topo = np.full((g.n, P), -1, dtype=np.int32)
+        pred_edge_topo[succ[by_topo], slot[by_topo]] = np.arange(by_topo.size)
 
         def t(a, dtype):
             return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
@@ -114,6 +123,7 @@ class PaddedDag:
             level_task=t(level_task, i32), succ_ptr=t(succ_ptr, i32),
             succ_task=t(succ[order], i32), succ_slot=t(slot[order], i32),
             pred_edge=t(pred_edge, i32),
+            pred_edge_topo=t(pred_edge_topo, i32),
             max_width=int(np.diff(level_ptr).max()))
 
     @property

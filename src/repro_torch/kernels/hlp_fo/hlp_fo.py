@@ -12,7 +12,10 @@ launches a kernel, one block for the whole solve, or raises.
 The kernel (:data:`SOURCE`) walks the levels twice a step
 (the exact pass fused into the next soft forward, and a reverse walk whose
 successors push their stored edge adjoints), the chain rule and Adam off
-the level chain.  Its arrays lie in shared memory where they fit
+the level chain.  The choice solve runs in the order of the program XLA:CPU
+compiles for the reference's gradient, as its plain version does
+(``ref.choice_grad``); its successor lists run in descending topological
+order (``d.pred_edge_topo``).  Its arrays lie in shared memory where they fit
 (:data:`LAYOUTS` ``"shared"``), else the per-task ones in a scratch buffer
 on the card (``"global"``): :func:`layout_for` picks by size alone.  Its
 first design, ``csrc/hlp_fo.cu`` (three walks a step, a reverse pass that
@@ -24,13 +27,18 @@ Every launch adds one to the kernel's counter (:func:`launch_count`),
 under a lock: the campaign's planning threads launch concurrently.
 
 ``d`` holds the problem's DAG as ``repro_torch.core.hlp_jax.PaddedDag``
-does: ``pred`` (n, P) int32, -1 after the last real slot; ``pred_mask``
+does: ``topo`` (n,) int32, a topological order (the order of the
+reference's scans, which the choice solve's backward follows); ``pred``
+(n, P) int32, -1 after the last real slot; ``pred_mask``
 (n, P) bool; ``pc``, ``pg`` (n,) and ``pred_comm`` (n, P) float32;
 ``level_ptr`` (L + 1,) and ``level_task`` (n,) int32, the tasks sorted by
 topological level; ``succ_ptr`` (n + 1,), ``succ_task`` and ``succ_slot``
 (E,) int32, each edge's successor and its slot in that successor's row;
 ``pred_edge`` (n, P) int32, each real slot's place in that CSR, -1 after
-the last; ``max_width``, the most tasks of one level (an int on the host).
+the last; ``pred_edge_topo`` (n, P) int32, the same in a CSR of the same
+ranges whose lists run in descending order of the successor's place in
+``topo`` (the choice entry's); ``max_width``, the most tasks of one level
+(an int on the host).
 :func:`check_indices` holds these to each other (a few waits for the
 card); :func:`launch_hybrid` and :func:`launch_choice` are the bare
 launches, which check layouts and sizes only.
@@ -48,10 +56,11 @@ from repro_torch.kernels import build
 from .ref import choice_solve_ref, hybrid_solve_ref, schedule
 
 __all__ = ["LAYOUTS", "MAX_C", "MAX_Q", "MAX_THREADS", "PHASES", "SMEM_LIMIT",
-           "SOURCE", "chain_probe", "check_dag",
-           "check_indices", "choice", "hybrid", "launch_choice",
+           "SOURCE", "chain_probe", "check_dag", "check_indices", "choice",
+           "hybrid", "launch_choice",
            "launch_count", "launch_hybrid", "layout_for",
-           "reset_launch_count", "smem_bytes", "threads_for"]
+           "reset_launch_count", "smem_bytes", "threads_for",
+           "transcendental"]
 
 #: the kernel's source under ``csrc/``
 SOURCE = "hlp_fo_sm90"
@@ -70,8 +79,8 @@ _MAX_WARPS = MAX_THREADS // 32
 _launches = 0
 _lock = threading.Lock()
 
-_INT = ("level_ptr", "level_task", "pred", "succ_ptr", "succ_task",
-        "succ_slot", "pred_edge")
+_INT = ("topo", "level_ptr", "level_task", "pred", "succ_ptr", "succ_task",
+        "succ_slot", "pred_edge", "pred_edge_topo")
 _FLOAT = ("pc", "pg", "pred_comm")
 
 
@@ -136,12 +145,13 @@ def _lib():
     lib = build.load(SOURCE)
     p, i = ctypes.c_void_p, ctypes.c_int
     fns = (lib.hlp_fo_sm90_hybrid_f32, lib.hlp_fo_sm90_choice_f32,
-           lib.hlp_fo_sm90_chain_probe)
+           lib.hlp_fo_sm90_chain_probe, lib.hlp_fo_sm90_transcendental_f32)
     fns[0].argtypes = [p] * 18 + [i] * 8 + [p]
-    fns[1].argtypes = [p] * 21 + [i] * 9 + [p]
+    fns[1].argtypes = [p] * 22 + [i] * 9 + [p]
     lib.hlp_fo_sm90_smem_bytes.argtypes = [i] * 7
     lib.hlp_fo_sm90_smem_bytes.restype = ctypes.c_longlong
     fns[2].argtypes = [p, i, i, p]
+    fns[3].argtypes = [p, p, ctypes.c_longlong, i, p]
     for fn in fns:
         fn.restype = ctypes.c_int
     return lib
@@ -150,11 +160,13 @@ def _lib():
 def check_dag(d) -> None:
     """Shapes, dtypes, contiguity and one device for the DAG's fields."""
     n, P = d.pred.shape
-    want = {"level_ptr": (d.level_ptr.shape[0],), "level_task": (n,),
+    want = {"topo": (n,), "level_ptr": (d.level_ptr.shape[0],),
+            "level_task": (n,),
             "pred": (n, P), "pred_mask": (n, P), "succ_ptr": (n + 1,),
             "succ_task": (d.succ_task.shape[0],),
             "succ_slot": (d.succ_task.shape[0],), "pred_edge": (n, P),
-            "pc": (n,), "pg": (n,), "pred_comm": (n, P)}
+            "pred_edge_topo": (n, P), "pc": (n,), "pg": (n,),
+            "pred_comm": (n, P)}
     dev = d.pred.device
     for name, shape in want.items():
         t = getattr(d, name)
@@ -175,9 +187,11 @@ def check_dag(d) -> None:
 
 def check_indices(d) -> None:
     """Raise unless the levels partition the tasks in a topological order,
-    every pred row is filled from the left with task ids, the mask marks
-    its real slots, and the successor CSR lists each real slot once, at
-    its predecessor, and ``pred_edge`` names each slot's place there."""
+    ``topo`` is one too, every pred row is filled from the left with task
+    ids, the mask marks its real slots, the successor CSR lists each real
+    slot once, at its predecessor, ``pred_edge`` names each slot's place
+    there, and ``pred_edge_topo`` each slot's place in a CSR of the same
+    ranges whose lists run in descending ``topo`` order."""
     n, P = d.pred.shape
     lp, lt = d.level_ptr.long(), d.level_task.long()
     pred = d.pred.long()
@@ -209,12 +223,50 @@ def check_indices(d) -> None:
                | (d.pred_edge.long()[st, ss]
                   != torch.arange(E, device=lt.device)).any())
     bad = bad | ((d.pred_edge >= 0) != real).any()
+    if not bool(bad):
+        bad = _bad_topo_edges(d, pred, real, sp)
     if bool(bad):
         raise ValueError("the levels are not a topological partition of the "
                          "tasks (of widest level max_width), the successor "
                          "CSR does not list each pred slot once at its "
-                         "predecessor, or pred_edge does not name each "
-                         "slot's place there")
+                         "predecessor, pred_edge does not name each "
+                         "slot's place there, or topo and pred_edge_topo "
+                         "do not order them topologically")
+
+
+def _bad_topo_edges(d, pred, real, sp) -> torch.Tensor:
+    """Whether ``topo`` is not a topological order or ``pred_edge_topo``
+    not a placement of the real slots in ``sp``'s ranges, each list in
+    descending ``topo`` place (two slots of one successor, a repeated
+    edge, in slot order)."""
+    n, P = pred.shape
+    dev = pred.device
+    topo = d.topo.long()
+    if bool((topo < 0).any() | (topo >= n).any()):
+        return torch.tensor(True)
+    pos = torch.full((n,), -1, dtype=torch.long, device=dev)
+    pos[topo] = torch.arange(n, device=dev)
+    bad = (pos < 0).any() | ((pos[pred.clamp_min(0)] >= pos[:, None])
+                             & real).any()
+    pe = d.pred_edge_topo.long()
+    E = int(real.sum())
+    bad = bad | ((pe >= 0) != real).any()
+    if bool(bad) or E == 0:
+        return bad
+    place = pe[real]
+    if bool((place >= E).any()):
+        return torch.tensor(True)
+    slot = torch.full((E,), -1, dtype=torch.long, device=dev)
+    slot[place] = torch.nonzero(real.reshape(-1)).reshape(-1)
+    if bool((slot < 0).any()):
+        return torch.tensor(True)
+    src = torch.repeat_interleave(torch.arange(n, device=dev),
+                                  sp[1:] - sp[:-1])
+    at = pos[slot // P]
+    late = ((at[1:] > at[:-1])
+            | ((at[1:] == at[:-1]) & (slot[1:] <= slot[:-1])))
+    return ((pred.reshape(-1)[slot] != src).any()
+            | (late & (src[1:] == src[:-1])).any())
 
 
 @functools.cache
@@ -233,22 +285,24 @@ def _check_z0(z0: torch.Tensor, shape: tuple, device) -> None:
 
 def _launch(entry: str, d, pointers: list, dims: list,
             iters: int, nC: int, z0: torch.Tensor, cycles,
-            scratch: int = 0):
-    """Allocate the Adam state, the outputs and ``scratch`` floats (the
-    global layout; 0 for none), launch, count."""
+            scratch: int = 0, pred_edge: torch.Tensor | None = None):
+    """Allocate the Adam state (and the choice entry's softmax exps), the
+    outputs and ``scratch`` floats (the global layout; 0 for none), launch,
+    count.  ``pred_edge`` stands in for ``d.pred_edge``."""
     dev = d.pred.device
     if dev.type != "cuda":
         raise ValueError(f"the DAG is on {dev}; the kernel needs the card")
-    state = torch.empty((3, nC), dtype=torch.float32, device=dev)
+    state = torch.empty((4 if entry == "choice" else 3, nC),
+                        dtype=torch.float32, device=dev)
     best_x = torch.empty(nC, dtype=torch.float32, device=dev)
     best_val = torch.empty((), dtype=torch.float32, device=dev)
     sched = _schedule_on(iters, dev)
     ptrs = [d.level_ptr, d.level_task, d.pred, d.succ_ptr, d.succ_task,
-            d.succ_slot, d.pred_edge]
+            d.succ_slot, d.pred_edge if pred_edge is None else pred_edge]
     args = ([t.data_ptr() for t in ptrs] + pointers
-            + [sched.data_ptr(), z0.data_ptr(), state[0].data_ptr(),
-               state[1].data_ptr(), state[2].data_ptr(), best_x.data_ptr(),
-               best_val.data_ptr()])
+            + [sched.data_ptr(), z0.data_ptr()]
+            + [row.data_ptr() for row in state]
+            + [best_x.data_ptr(), best_val.data_ptr()])
     buf = (torch.empty(scratch, dtype=torch.float32, device=dev)
            if scratch else None)
     args.append(None if buf is None else buf.data_ptr())
@@ -356,7 +410,7 @@ def launch_choice(d, z0: torch.Tensor, p_choice: torch.Tensor,
         [p_choice.data_ptr(), area.data_ptr(), type_mask.data_ptr(),
          inv_counts.data_ptr(), d.pred_comm.data_ptr()],
         [C, Q, iters, int(bool(use_comm))], iters, n * C, z0, cycles,
-        scratch)
+        scratch, d.pred_edge_topo)
     return best_x.view(n, C), best_val
 
 
@@ -393,6 +447,27 @@ def choice(d, z0: torch.Tensor, p_choice: torch.Tensor, area: torch.Tensor,
                                 iters=iters, use_comm=use_comm)
     return launch_choice(d, z0, p_choice, area, type_mask, inv_counts,
                          iters=iters, use_comm=use_comm)
+
+
+def transcendental(x: torch.Tensor, op: str) -> torch.Tensor:
+    """The card's float32 ``expf`` (``op="exp"``) or ``logf`` (``"log"``) of
+    each entry of ``x`` (float32, on the card), as the choice kernel takes
+    them; not a solve and not counted.  ``choice_solve_ref`` given these in
+    place of torch's is the kernel's solve bit for bit."""
+    if x.device.type != "cuda" or x.dtype != torch.float32:
+        raise ValueError(f"x is {x.dtype} on {x.device}; the card's "
+                         "transcendentals take float32 on the card")
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _lib().hlp_fo_sm90_transcendental_f32(
+            x.data_ptr(), out.data_ptr(), x.numel(),
+            {"exp": 0, "log": 1}[op], stream)
+    if err != 0:
+        raise RuntimeError(f"hlp_fo_sm90_transcendental_f32 failed: CUDA "
+                           f"error {err}")
+    return out
 
 
 def chain_probe(steps: int, threads: int,

@@ -3,16 +3,18 @@ sweep, the plan search, the allocation solvers and the kernel benchmarks.
 
 The counterpart of the JAX package's ``benchmarks/campaign.py``
 (``offline_2type``, ``offline_3type``, ``online_2type``, ``sim_sweep``,
-``search_sweep``) and of the ``offline2`` / ``offline3`` / ``online`` /
-``sim`` / ``search`` / ``solver`` / ``kernels`` targets of
-``benchmarks/run.py``, run on ``repro_torch``.  The paper's experiments
+``search_sweep``, ``streams_campaign``) and of the ``offline2`` /
+``offline3`` / ``online`` / ``sim`` / ``search`` / ``streams`` / ``solver``
+/ ``kernels`` targets of ``benchmarks/run.py``, run on ``repro_torch``.  The paper's experiments
 are host work (HiGHS LPs and list scheduling), one planning-pool job per
 (instance, configuration), with the reference's numbers; ``kernels``
 launches the (max, +) and flash attention kernels.  Every
 static plan of the sweep is replayed by the replay kernel on the card
 through the pipelined executor (``repro_torch.sim.pipeline``), the network
 sub-grid's ``maxmin_fair`` cells are priced by the contention kernel, every
-generation of the search is scored by one replay launch, and every
+generation of the search is scored by one replay launch, every
+simulation-in-the-loop rollout of the open-system ``streams`` grid is
+replayed by it too, and every
 first-order LP (the ``hlp_jax_ols`` adapter of the full grid, the
 ``solver`` target) is one launch of the ``hlp_fo`` kernel.  It writes the
 same ``repro.bench.v1`` trajectory as ``benchmarks/run.py``, so the JAX
@@ -633,6 +635,164 @@ def search_sweep(full: bool = False, verbose: bool = False,
 
 
 # ----------------------------------------------------------- bench targets
+# ------------------------------------------------------ open-system streams
+def streams_campaign(full: bool = False, noise_scale: float = 0.2,
+                     verbose: bool = False, base_seed: int = 0,
+                     device: str | torch.device = "cuda") -> dict:
+    """Open-system grid: (arrival process × policy × seed) job streams, the
+    JAX package's ``benchmarks/campaign.py::streams_campaign``.
+
+    Every cell runs a multi-tenant stream of whole-DAG jobs through
+    ``repro_torch.streams.run_stream`` under seeded runtime noise and
+    reports what each *tenant* experiences: mean/p50/p95 bounded slowdown,
+    per-type utilization and time-averaged queue depth.  Arrival processes
+    cover steady Poisson, bursty MMPP and closed-loop think-time tenants.
+    ``sim_in_the_loop`` — allocation search by state-conditioned rollouts,
+    replayed on ``device`` (the replay kernel on the card) — competes
+    against the paper's online rules and per-job HEFT planning; the summary
+    reports its mean-slowdown edge over plain ER-LS on the bursty stream
+    and the replay shapes (the reference's XLA compiles) the whole
+    campaign's rollouts cost.  The jobs carry no edge costs, so no
+    candidate solves an LP.  ``base_seed`` shifts every stream seed."""
+    from repro_torch.device import resolve_device
+    from repro_torch.sim import NoiseModel
+    from repro_torch.sim.batch import trace_count
+    from repro_torch.sim.engine import Machine
+    from repro_torch.streams import (ClosedLoopSource, JobFactory,
+                                     MMPPProcess, PoissonProcess,
+                                     make_policy, open_stream, run_stream)
+
+    device = resolve_device(device)
+    machine = Machine.hybrid(8, 2)
+    noise = NoiseModel("lognormal", noise_scale)
+    num_jobs = 32 if full else 16
+    num_tenants = 4
+    seeds = [base_seed + s for s in range(4 if full else 2)]
+    policies = ["er_ls", "eft", "greedy_r2", "heft", "sim_in_the_loop"]
+
+    def source(proc_name: str, seed: int):
+        fac = JobFactory(("fork_join", "layered", "random"))
+        if proc_name == "poisson":
+            return open_stream(PoissonProcess(0.06), fac, num_jobs=num_jobs,
+                               num_tenants=num_tenants, seed=seed)
+        if proc_name == "bursty":
+            return open_stream(MMPPProcess(rates=(0.04, 0.6),
+                                           dwell=(60.0, 25.0)), fac,
+                               num_jobs=num_jobs,
+                               num_tenants=num_tenants, seed=seed)
+        return ClosedLoopSource(fac, num_tenants=num_tenants, think=8.0,
+                                jobs_per_tenant=max(2,
+                                                    num_jobs // num_tenants),
+                                seed=seed)
+
+    traces0 = trace_count("bucket")
+    rows, agg = [], defaultdict(list)
+    n_runs = n_jobs = 0
+    for seed in seeds:
+        for proc_name in ("poisson", "bursty", "closed"):
+            for pol_name in policies:
+                # closed-loop feedback means each policy must see its own
+                # (identically seeded) source instance
+                res = run_stream(source(proc_name, seed), machine,
+                                 make_policy(pol_name, device=device),
+                                 noise=noise, seed=seed)
+                n_runs += 1
+                n_jobs += len(res.jobs)
+                util = res.utilization()
+                agg[(proc_name, pol_name)].append(res.mean_slowdown())
+                for tenant, m in res.tenant_table().items():
+                    rows.append([proc_name, pol_name, seed, tenant,
+                                 int(m["jobs"]), m["mean_response"],
+                                 m["mean_slowdown"], m["p50_slowdown"],
+                                 m["p95_slowdown"], util[0], util[1],
+                                 res.mean_queue_length()])
+                if verbose:
+                    print(f"  streams {proc_name}/{pol_name} seed={seed} "
+                          f"mean_sd={res.mean_slowdown():.3f}")
+    compiles = trace_count("bucket") - traces0
+    _write_csv("streams_campaign.csv",
+               ["process", "policy", "seed", "tenant", "jobs",
+                "mean_response", "mean_slowdown", "p50_slowdown",
+                "p95_slowdown", "util_cpu", "util_gpu", "mean_queue"], rows)
+    mean_sd = {k: float(np.mean(v)) for k, v in agg.items()}
+    return {"mean_slowdown": mean_sd,
+            "sitl_vs_erls_bursty": mean_sd[("bursty", "er_ls")]
+            / mean_sd[("bursty", "sim_in_the_loop")],
+            "policies": policies, "processes": ["poisson", "bursty", "closed"],
+            "runs": n_runs, "jobs": n_jobs, "compiles": compiles}
+
+
+def streams_lines(r: dict, per: float) -> list[str]:
+    """The ``streams`` target's 16 CSV lines from its dict, ``per`` µs a
+    stream run."""
+    lines = []
+    for proc in r["processes"]:
+        for pol in r["policies"]:
+            lines.append(f"streams/{proc}_{pol},{per:.0f},"
+                         f"mean_slowdown={r['mean_slowdown'][(proc, pol)]:.4f}")
+    edge = (r["sitl_vs_erls_bursty"] - 1) * 100
+    lines.append(f"streams/sitl_vs_erls_bursty,{per:.0f},"
+                 f"erls_excess_pct={edge:.2f}")
+    return lines
+
+
+def stream_summary(res) -> dict:
+    """One stream run as the pins hold it: its mean bounded slowdown, each
+    job's (jid, arrival, start, finish) and the SHA-256 of its task records
+    (every field, floats at full precision, in commit order)."""
+    recs = [[getattr(t, f) for f in ("jid", "task", "tenant", "rtype",
+                                     "proc", "arrival", "start", "finish",
+                                     "width")] + [list(t.units)]
+            for t in res.tasks]
+    return {"mean_slowdown": res.mean_slowdown(),
+            "jobs": [[j.jid, j.arrival, j.start, j.finish] for j in res.jobs],
+            "tasks": len(recs),
+            "tasks_sha256": hashlib.sha256(
+                json.dumps(recs).encode()).hexdigest()}
+
+
+def rollout_digest(sweeps: list) -> dict:
+    """The rollouts of one stream as the pins hold them: ``sweeps`` holds
+    each arrival's ``sweep_suite_makespans`` output (one array of seeds'
+    makespans a candidate).  Their count, each arrival's (candidates,
+    seeds) and the SHA-256 of every makespan's float32 bytes in order."""
+    h = hashlib.sha256()
+    for arrival in sweeps:
+        for s in arrival:
+            h.update(np.ascontiguousarray(s, dtype=np.float32).tobytes())
+    return {"rollouts": len(sweeps),
+            "rollout_shapes": [list(k) for k in
+                               sorted({(len(a), len(a[0])) for a in sweeps})],
+            "rollout_sha256": h.hexdigest()}
+
+
+def bench_streams(full: bool, seed: int, device) -> tuple[list[str], dict]:
+    """The ``streams`` target of ``benchmarks/run.py``: the 16 lines, and
+    as extras the dict (its (process, policy) keys joined by ``/``) and
+    the CSV's rows and digest."""
+    with obs.timer("bench.streams") as sp:
+        r = streams_campaign(full=full, base_seed=seed, device=device)
+    dt = sp.dur
+    per = dt / max(r["runs"], 1) * 1e6
+    lines = streams_lines(r, per)
+    edge = (r["sitl_vs_erls_bursty"] - 1) * 100
+    print(f"# streams: {r['runs']} stream runs ({r['jobs']} jobs) in "
+          f"{dt:.1f}s | rollout path: {r['compiles']} replay shapes")
+    for proc in r["processes"]:
+        print(f"#   {proc}: " + " ".join(
+            f"{pol}={r['mean_slowdown'][(proc, pol)]:.3f}"
+            for pol in r["policies"]))
+    print(f"#   sim-in-the-loop vs ER-LS on bursty: ER-LS pays {edge:+.1f}% "
+          f"mean bounded slowdown")
+    extras = dict(r)
+    extras["mean_slowdown"] = {f"{p}/{q}": v
+                               for (p, q), v in r["mean_slowdown"].items()}
+    rows, digest = csv_digest(ART / "streams_campaign.csv")
+    extras["csv"] = {"streams_campaign.csv": {"rows": rows,
+                                              "sha256": digest}}
+    return lines, extras
+
+
 def _launches() -> dict[str, int]:
     """The replay, contention, first-order LP, (max, +) and flash attention
     kernels' launch counters, beside the replay chunks dispatched and the
@@ -894,7 +1054,8 @@ def bench_kernels(full: bool, seed: int, device) -> tuple[list[str], dict]:
 
 BENCHES = {"offline2": bench_offline2, "offline3": bench_offline3,
            "online": bench_online, "sim": bench_sim, "search": bench_search,
-           "solver": bench_solver, "kernels": bench_kernels}
+           "streams": bench_streams, "solver": bench_solver,
+           "kernels": bench_kernels}
 DEFAULT_TARGETS = ("sim", "search")   # what a run without --only runs
 
 

@@ -3,32 +3,41 @@ reference's backward in XLA's order.
 
 ``csrc/hlp_fo.cu`` (the gather design, since deleted; kept here as an
 independent model of the hand-written backward) and ``csrc/hlp_fo_sm90.cu``
-(its redesign, the kernel) compute the loss's gradient with a hand-written reverse scan over
-the topological levels; the plain version (``repro_torch/kernels/hlp_fo/
-ref.py``) takes it from autograd.  This module follows the kernels' scans
-task by task in float32, in their order, and their block reductions in
-their tree (each thread's strided partial, a butterfly within each warp,
-then the warps in order, at ``threads_for(widest level)`` threads):
+(its redesign, the kernel) compute the loss's gradient with a hand-written
+reverse scan over the topological levels.  This module follows the
+kernels' scans task by task in float32, in their order, and the hybrid
+solve's block reductions in their tree (each thread's strided partial, a
+butterfly within each warp, then the warps in order, at
+``threads_for(widest level)`` threads):
 
 * the gather design: a soft forward (each task's finish f, max m and sum S
   over its pred slots), the loss's cotangents, and a reverse pass in which
   a task gathers its adjoint from its successors' softmax weights
-  (recomputed from their m and c), sets its own coefficient
-  c = g_soft τ / (S + 1e-30) and runs the chain rule into its logits; the
-  exact λ from a hard forward of its own;
+  (recomputed from their m and their stored coefficients), then runs the
+  chain rule into its logits; the exact λ from a hard forward of its own;
 * the sm90 design: one fused walk that computes each task's hard finish
   beside its soft f, m and S, keeping each pred slot's weight
   exp((pf - m) / τ) in an edge buffer w, one merged reduction, and a
-  reverse walk in which a task turns its own slots' weights into the
-  adjoints gp = c w / τ in place and its predecessors sum the stored gp in
-  the successor CSR's order; the chain rule and Adam after the walk.
+  reverse walk in which a task turns its own slots' weights into their
+  cotangents in place and its predecessors sum the stored values; the
+  chain rule and Adam after the walk.
 
-``gradient`` (gather) and ``gradient_sm90`` return the logits' gradient at
-one step; ``solve`` runs whole solves in either design.  The tests hold
-the two designs to each other bit for bit and to autograd at rtol 1e-5,
-without a card.  ``choice_grad_xla_order`` is the reference's own
-gradient of ``_solve_choice``'s loss, written out in the order XLA:CPU
-compiles it (ROADMAP C6).
+The sm90 design also runs the choice solve (x = softmax(z)), in the order
+of the program XLA:CPU compiles for the reference's gradient, as the plain
+version (``repro_torch/kernels/hlp_fo/ref.py::choice_grad``) does: every
+multiply-add XLA contracts one rounding, sums over tasks in windows of 32
+(``_window_sum``), the cotangents of each max, a task's successors'
+cotangents in descending order of their place in ``d.topo``
+(``d.pred_edge_topo``), and the transposes of the crossings, the
+marginals and the softmax in XLA's order.
+Given the same ``exp`` and ``log`` it is the plain version bit for bit.
+
+``gradient`` (gather, hybrid) and ``gradient_sm90`` return the logits'
+gradient at one step; ``solve`` runs whole solves in either design.
+``choice_grad_xla_order`` is the reference's own gradient of
+``_solve_choice``'s loss, written out scan step by scan step in the order
+XLA:CPU compiles it (ROADMAP C6): an independent model of
+``ref.choice_grad``, which runs a level at a time.
 """
 import numpy as np
 
@@ -94,10 +103,19 @@ class Problem:
     """One problem's arrays, as the kernels read them.  ``d`` is a
     ``PaddedDag``; the hybrid solve takes ``m`` and ``k``, the choice
     solve ``p_choice``, ``area``, ``type_mask``, ``inv_counts`` and
-    ``use_comm``; everything is float32."""
+    ``use_comm``; everything is float32.
+
+    The choice solve (the sm90 design's only) runs in the reference's
+    order (the plain version's, ``ref.choice_grad``): fused multiply-adds
+    where XLA contracts, sums over tasks in windows of 32, the max's own
+    cotangents, each task's successors' cotangents in descending order of
+    their place in ``d.topo`` (``d.pred_edge_topo``).  ``exp`` and
+    ``log`` (float32 in and out) are its transcendentals; the hybrid
+    solve uses numpy's."""
 
     def __init__(self, d, *, m=None, k=None, p_choice=None, area=None,
-                 type_mask=None, inv_counts=None, use_comm=False):
+                 type_mask=None, inv_counts=None, use_comm=False,
+                 exp=np.exp, log=np.log):
         self.pred, lp = _np(d.pred), _np(d.level_ptr)
         lt = _np(d.level_task)
         self.levels = [lt[a:b] for a, b in zip(lp[:-1], lp[1:])]
@@ -116,15 +134,30 @@ class Problem:
             self.C, self.Q = self.pch.shape[1], self.tm.shape[0]
             self.scale = f32(np.where(np.isfinite(self.pch), self.pch,
                                       f32(0)).max())
+            self.exp = lambda v: f32(np.asarray(exp(np.asarray(v, f32)), f32))
+            self.log = lambda v: f32(np.asarray(log(np.asarray(v, f32)), f32))
+            at = {int(e): (int(s), int(k)) for (s, k), e in
+                  np.ndenumerate(_np(d.pred_edge_topo)) if e >= 0}
+            self.succ_rev = [[at[e] for e in range(self.succ_ptr[j],
+                                                   self.succ_ptr[j + 1])]
+                             for j in range(self.n)]
         else:
             self.pc, self.pg = _np(d.pc).astype(f32), _np(d.pg).astype(f32)
             self.m, self.k = f32(m), f32(k)
             self.scale = f32(max(self.pc.max(), self.pg.max()))
 
     # ------------------------------------------------------------ pieces
+    def softmax_parts(self, z):
+        """Each row's exp(z - max) and their sum, left to right."""
+        e = np.array([[self.exp(f32(v - r.max())) for v in r] for r in z],
+                     f32)
+        S = np.array([_seq_sum(r) for r in e], f32)
+        return e, S
+
     def mix(self, z):
         if self.choice:
-            return np.stack([_softmax_row(r) for r in z])
+            e, S = self.softmax_parts(z)
+            return (e / S[:, None]).astype(f32)
         return _sigmoid(z)
 
     def marginals(self, x):
@@ -133,26 +166,20 @@ class Problem:
         X = np.empty((self.n, self.Q), f32)
         for j in range(self.n):
             for q in range(self.Q):
-                acc = f32(x[j, 0] * self.tm[q, 0])
-                for c in range(1, self.C):
-                    acc = f32(acc + f32(x[j, c] * self.tm[q, c]))
-                X[j, q] = acc
+                X[j, q] = _dot_fma(x[j], self.tm[q])
         return X
 
     def times(self, x):
         if not self.choice:
             return ((self.pc * x).astype(f32)
                     + (self.pg * (f32(1) - x)).astype(f32)).astype(f32)
-        t = (self.pch[:, 0] * x[:, 0]).astype(f32)
-        for c in range(1, self.C):
-            t = (t + (self.pch[:, c] * x[:, c]).astype(f32)).astype(f32)
+        t = np.zeros(self.n, f32)
+        for c in range(self.C):
+            t = _fma(self.pch[:, c], x[:, c], t)
         return t
 
     def delay(self, X, j, kk, q):
-        dot = f32(X[q, 0] * X[j, 0])
-        for t in range(1, self.Q):
-            dot = f32(dot + f32(X[q, t] * X[j, t]))
-        return f32(self.comm[j, kk] * f32(f32(1) - dot))
+        return f32(self.comm[j, kk] * f32(f32(1) - _dot_fma(X[q], X[j])))
 
     def slots(self, j):
         return [(kk, int(q)) for kk, q in enumerate(self.pred[j]) if q >= 0]
@@ -163,13 +190,18 @@ class Problem:
             pf = f32(pf + self.delay(X, j, kk, q))
         return pf
 
-    def load_sums(self, x):
-        """The reduced pool-load sums: (pc.x, pg.(1 - x)) or the per-choice
-        area sums."""
+    def soft_start(self, m, s, tau):
+        """m + τ log(S + 1e-30): one rounding of the multiply-add in the
+        choice solve (XLA contracts it), two in the hybrid's."""
         if self.choice:
-            return [block_reduce(list((self.ar[:, c] * x[:, c]).astype(f32)),
-                                 self.nt, _add, f32(0))
-                    for c in range(self.C)]
+            return _fma(tau, self.log(f32(s + TINY)), m)
+        return f32(m + f32(tau * np.log(f32(s + TINY))))
+
+    def load_sums(self, x):
+        """The reduced pool-load sums: (pc.x, pg.(1 - x)) in the block
+        tree, or the per-choice area sums in windows of 32."""
+        if self.choice:
+            return list(_window_sum((self.ar * x).astype(f32)))
         return [block_reduce(list((self.pc * x).astype(f32)), self.nt, _add,
                              f32(0)),
                 block_reduce(list((self.pg * (f32(1) - x)).astype(f32)),
@@ -178,22 +210,17 @@ class Problem:
     def pool_loads(self, sums):
         if not self.choice:
             return [f32(sums[0] / self.m), f32(sums[1] / self.k)]
-        out = []
-        for q in range(self.Q):
-            acc = f32(self.tm[q, 0] * sums[0])
-            for c in range(1, self.C):
-                acc = f32(acc + f32(self.tm[q, c] * sums[c]))
-            out.append(f32(acc * self.inv[q]))
-        return out
+        return [f32(_dot_fma(self.tm[q], np.asarray(sums, f32)) * self.inv[q])
+                for q in range(self.Q)]
 
     def lam(self, hard_max, sums):
         loads = self.pool_loads(sums)
         return _max(hard_max, max(loads))
 
     def cotangents(self, M, sum_f, sums, tau):
-        """The loss's cotangents: the final soft max's coefficient and the
-        loads' (dc, dg, or the per-choice gpc)."""
-        terms = [f32(M + f32(tau * np.log(f32(sum_f + TINY))))]
+        """The hybrid loss's cotangents: the final soft max's coefficient
+        and the loads' (dc, dg)."""
+        terms = [self.soft_start(M, sum_f, tau)]
         terms += self.pool_loads(sums)
         mx = max(terms)
         e = [np.exp(f32(f32(t - mx) / tau)) for t in terms]
@@ -202,29 +229,54 @@ class Problem:
             st = f32(st + v)
         w = f32(tau / st)
         cfin = f32(f32(f32(f32(w * e[0]) / tau) * tau) / f32(sum_f + TINY))
-        if not self.choice:
-            dc = f32(f32(f32(w * e[1]) / tau) / self.m)
-            dg = f32(f32(f32(w * e[2]) / tau) / self.k)
-            return cfin, (dc, dg)
-        gpc = np.zeros(self.C, f32)
-        for q in range(self.Q):
-            gq = f32(f32(f32(w * e[1 + q]) / tau) * self.inv[q])
-            for c in range(self.C):
-                gpc[c] = f32(gpc[c] + f32(self.tm[q, c] * gq))
-        return cfin, gpc
+        dc = f32(f32(f32(w * e[1]) / tau) / self.m)
+        dg = f32(f32(f32(w * e[2]) / tau) / self.k)
+        return cfin, (dc, dg)
 
-    def gX_gather(self, j, gp_succ, gp_own, X):
-        """The type marginals' cotangent of task j from its successors'
-        edge adjoints (CSR order), then its own slots'."""
-        gX = np.zeros(self.Q, f32)
-        for (s, kk), gp in zip(self.succ(j), gp_succ):
-            gd = -f32(gp * self.comm[s, kk])
-            for q in range(self.Q):
-                gX[q] = f32(gX[q] + f32(gd * X[s, q]))
-        for (kk, q), gp in zip(self.slots(j), gp_own):
-            gd = -f32(gp * self.comm[j, kk])
+    def choice_cotangents(self, f, M, sums, tau):
+        """The choice loss's cotangents in the reference's order: each
+        task's finish cotangent (the final soft max's, with the max's own
+        on the tasks at M) and the per-choice area sums'."""
+        ef = np.array([self.exp(f32(f32(v - M) / tau)) for v in f], f32)
+        at = f == M
+        Sf = _window_sum(ef)
+        cp = _fma(tau, self.log(f32(Sf + TINY)), M)
+        terms = [cp] + self.pool_loads(sums)
+        mx = max(terms)
+        et = [self.exp(f32(f32(t - mx) / tau)) for t in terms]
+        r = f32(tau / _seq_sum(et))
+        gterm = [f32(f32(r * e) / tau) for e in et]
+        gmx = f32(f32(f32(1) - _seq_sum(gterm))
+                  / f32(sum(t == mx for t in terms)))
+        gsel = [f32(g + (gmx if t == mx else f32(0)))
+                for g, t in zip(gterm, terms)]
+        gload = [f32(g * self.inv[q]) for q, g in enumerate(gsel[1:])]
+        gSf = f32(f32(tau * gsel[0]) / f32(Sf + TINY))
+        gcolsum = np.array([_dot_fma(np.asarray(gload, f32), self.tm[:, c])
+                            for c in range(self.C)], f32)
+        gef = (np.float32(gSf) * ef).astype(f32) / tau
+        gef = gef.astype(f32)
+        gmfin = f32(f32(gsel[0] - _window_sum(gef))
+                    / _window_sum(at.astype(f32)))
+        return (gef + np.where(at, gmfin, f32(0))).astype(f32), gcolsum
+
+    def gX_xla(self, j, gdelay, X):
+        """Task j's marginals' cotangent in the reference's order: its own
+        slots' crossings as a dot (fused multiply-adds), then each
+        successor's, in ascending order of successor id.  ``gdelay`` maps
+        (task, slot) to the slot delay's cotangent."""
+        own = self.slots(j)
+        if not own:
+            gX = np.full(self.Q, f32(-0.0), f32)
+        else:
+            gc = np.array([-f32(self.comm[j, kk] * gdelay[j, kk])
+                           for kk, _ in own], f32)
+            Xq = np.array([X[q] for _, q in own], f32)
+            gX = np.array([_dot_fma(Xq[:, t], gc) for t in range(self.Q)], f32)
+        for s, kk in self.succ(j):
+            gc = -f32(self.comm[s, kk] * gdelay[s, kk])
             for t in range(self.Q):
-                gX[t] = f32(gX[t] + f32(gd * X[q, t]))
+                gX[t] = f32(gX[t] + f32(gc * X[s, t]))
         return gX
 
     def succ(self, j):
@@ -232,22 +284,53 @@ class Problem:
                 for e in range(self.succ_ptr[j], self.succ_ptr[j + 1])]
 
     def chain(self, j, x, gf, grads, gX):
-        """d loss / d z of task j from its adjoint g_f."""
-        if not self.choice:
-            dc, dg = grads
-            gx = f32(f32(gf * self.pc[j]) - f32(gf * self.pg[j]))
-            gx = f32(f32(gx + f32(dc * self.pc[j])) - f32(dg * self.pg[j]))
-            return f32(gx * f32(x[j] * f32(f32(1) - x[j])))
-        gx = np.empty(self.C, f32)
-        dot = f32(0)
+        """The hybrid solve's d loss / d z of task j from its adjoint g_f."""
+        dc, dg = grads
+        gx = f32(f32(gf * self.pc[j]) - f32(gf * self.pg[j]))
+        gx = f32(f32(gx + f32(dc * self.pc[j])) - f32(dg * self.pg[j]))
+        return f32(gx * f32(x[j] * f32(f32(1) - x[j])))
+
+    def chain_xla(self, j, e, S, gtimes, gcolsum, gX):
+        """The choice solve's d loss / d z of task j in the reference's
+        order, from its times' cotangent, the area sums' and (with
+        use_comm) its marginals', through the softmax of row e / S."""
+        gx = np.array([_fma(self.ar[j, c], gcolsum[c],
+                            f32(self.pch[j, c] * gtimes))
+                       for c in range(self.C)], f32)
+        if gX is not None:
+            gx = np.array([f32(gx[c] + _dot_fma(gX, self.tm[:, c]))
+                           for c in range(self.C)], f32)
+        inv_s2 = f32(f32(1) / f32(S * S))
+        t = f32(0)
         for c in range(self.C):
-            gc = f32(f32(gf * self.pch[j, c]) + f32(grads[c] * self.ar[j, c]))
-            if gX is not None:
-                for q in range(self.Q):
-                    gc = f32(gc + f32(gX[q] * self.tm[q, c]))
-            gx[c] = gc
-            dot = f32(dot + f32(x[j, c] * gc))
-        return (x[j] * (gx - dot).astype(f32)).astype(f32)
+            t = _fma(f32(gx[c] * inv_s2), e[c], t)
+        return np.array([f32(f32(f32(gx[c] / S) - t) * e[c])
+                         for c in range(self.C)], f32)
+
+    def chain_all(self, e, S, gtimes, gcolsum, gdelay, X):
+        gz = np.zeros((self.n, self.C), f32)
+        for j in range(self.n):
+            gX = self.gX_xla(j, gdelay, X) if X is not None else None
+            gz[j] = self.chain_xla(j, e[j], S[j], gtimes[j], gcolsum, gX)
+        return gz
+
+    @staticmethod
+    def tie(soft, g):
+        """jnp.maximum(soft, 0)'s cotangent to soft: all of g above 0,
+        half at 0, none below (a product, as the reference takes it)."""
+        return f32(g * (f32(1) if soft > 0 else f32(0.5) if soft == 0
+                        else f32(0)))
+
+    def slot_adjoints(self, gs, st, E, ind, tau):
+        """A task's slots' cotangents from its soft start's ``gs`` and
+        S + 1e-30, its slots' weights E and which slots hit the max: each
+        slot's gm [hit] + gS E / τ, gS = τ gs / S and gm the max's
+        cotangent."""
+        gS = f32(f32(tau * gs) / st)
+        ge = [f32(f32(gS * v) / tau) for v in E]
+        gm = f32(f32(gs - _seq_sum(ge)) / f32(sum(ind)))
+        return [f32(f32(0) + _fma(gm, f32(1) if i else f32(0), v))
+                for v, i in zip(ge, ind)]
 
     # ------------------------------------------------------------ gather
     def soft_forward(self, x, X, tau):
@@ -266,12 +349,15 @@ class Problem:
                         m = _max(m, pf)
                     s = f32(0)
                     for pf in pfs:
-                        s = f32(s + np.exp(f32(f32(pf - m) / tau)))
+                        s = f32(s + self.weight(pf, m, tau))
                     mv[j], sc[j] = m, s
-                    soft = f32(m + f32(tau * np.log(f32(s + TINY))))
-                    start = _max(soft, f32(0))
+                    start = _max(self.soft_start(m, s, tau), f32(0))
                 f[j] = f32(start + t[j])
         return f, mv, sc
+
+    def weight(self, pf, m, tau):
+        ex = self.exp if self.choice else np.exp
+        return ex(f32(f32(pf - m) / tau))
 
     def hard_forward(self, x, X):
         t = self.times(x)
@@ -290,33 +376,27 @@ class Problem:
         for tasks in reversed(self.levels):
             for j in tasks:
                 gf = f32(f32(cfin * np.exp(f32(f32(f[j] - M) / tau))) / tau)
-                gp_succ = []
                 for s, kk in self.succ(j):
                     pf = self.slot_finish(f, X, s, kk, j)
                     gp = f32(f32(sc[s] * np.exp(f32(f32(pf - mv[s]) / tau)))
                              / tau)
                     gf = f32(gf + gp)
-                    gp_succ.append(gp)
-                cj, gp_own = f32(0), []
+                cj = f32(0)
                 if self.pred[j, 0] >= 0:
-                    soft = f32(mv[j] + f32(tau * np.log(f32(sc[j] + TINY))))
+                    soft = self.soft_start(mv[j], sc[j], tau)
                     gs = gf if soft > 0 else (f32(0.5) * gf if soft == 0
                                               else f32(0))
                     cj = f32(f32(gs * tau) / f32(sc[j] + TINY))
-                    if X is not None:
-                        for kk, q in self.slots(j):
-                            pf = self.slot_finish(f, X, j, kk, q)
-                            gp_own.append(f32(f32(cj * np.exp(
-                                f32(f32(pf - mv[j]) / tau))) / tau))
                 sc[j] = cj
-                gX = (self.gX_gather(j, gp_succ, gp_own, X)
-                      if X is not None else None)
-                gz[j] = self.chain(j, x, gf, grads, gX)
+                gz[j] = self.chain(j, x, gf, grads, None)
         return gz
 
     def step_gather(self, x, X, tau, sums):
         """The gather design's gradient at x from the exact pass's load
-        sums."""
+        sums (the hybrid solve only)."""
+        if self.choice:
+            raise ValueError("the gather design models the hybrid solve "
+                             "only")
         f, mv, sc = self.soft_forward(x, X, tau)
         M = block_reduce(list(f), self.nt, _max, NEG)
         sum_f = block_reduce([np.exp(f32(f32(v - M) / tau)) for v in f],
@@ -327,13 +407,15 @@ class Problem:
     # -------------------------------------------------------------- sm90
     def fused_forward(self, x, X, tau, soft):
         """One walk: every task's hard finish and, with ``soft``, its soft
-        finish, soft start and S + 1e-30, and each slot's weight in w."""
+        finish, soft start and S + 1e-30, and each slot's weight in w (and
+        whether it hit the max, in ``ind``)."""
         t = self.times(x)
         fh = np.zeros(self.n, f32)
         f = np.zeros(self.n, f32)
         sv = np.zeros(self.n, f32)
         st = np.zeros(self.n, f32)
         w = np.zeros((self.n, self.P), f32)
+        ind = np.zeros((self.n, self.P), bool)
         for tasks in self.levels:
             for j in tasks:
                 hard, m, s, start, soft_j = f32(0), NEG, f32(0), f32(0), f32(0)
@@ -348,20 +430,21 @@ class Problem:
                             w[j, kk] = pf
                     if soft:
                         for kk, _ in self.slots(j):
-                            e = np.exp(f32(f32(w[j, kk] - m) / tau))
+                            ind[j, kk] = w[j, kk] == m
+                            e = self.weight(w[j, kk], m, tau)
                             w[j, kk] = e
                             s = f32(s + e)
-                        soft_j = f32(m + f32(tau * np.log(f32(s + TINY))))
+                        soft_j = self.soft_start(m, s, tau)
                         start = _max(soft_j, f32(0))
                 fh[j] = f32(hard + t[j])
                 if soft:
                     f[j], sv[j], st[j] = f32(start + t[j]), soft_j, f32(s + TINY)
-        return fh, f, sv, st, w
+        return fh, f, sv, st, w, ind
 
     def reverse_push(self, x, X, e, sv, st, w, cfin, grads, tau):
-        """The reverse walk: each task's g_f from its successors' stored gp,
-        then its own slots' gp = c w / tau in place; then the chain rule
-        of every task."""
+        """The hybrid solve's reverse walk: each task's g_f from its
+        successors' stored gp, then its own slots' gp = c w / tau in place;
+        then the chain rule of every task."""
         w = w.copy()
         gfs = np.zeros(self.n, f32)
         for tasks in reversed(self.levels):
@@ -379,24 +462,47 @@ class Problem:
                 gfs[j] = gf
         gz = np.zeros_like(x)
         for j in range(self.n):
-            gX = None
-            if X is not None:
-                gX = self.gX_gather(j, [w[s, kk] for s, kk in self.succ(j)],
-                                    [w[j, kk] for kk, _ in self.slots(j)], X)
-            gz[j] = self.chain(j, x, gfs[j], grads, gX)
+            gz[j] = self.chain(j, x, gfs[j], grads, None)
         return gz
+
+    def reverse_push_xla(self, z, X, g0, sv, st, w, ind, gcolsum, tau):
+        """The choice solve's reverse walk: each task's g_f from its
+        finish cotangent and its successors' stored slot cotangents (in
+        descending topological order), then its own slots' cotangents in
+        place of their weights; then the chain rule of every task."""
+        w = w.copy()
+        gtimes = np.zeros(self.n, f32)
+        for tasks in reversed(self.levels):
+            for j in tasks:
+                gf = g0[j]
+                for s, kk in self.succ_rev[j]:
+                    gf = f32(gf + w[s, kk])
+                if self.pred[j, 0] >= 0:
+                    slots = [kk for kk, _ in self.slots(j)]
+                    gp = self.slot_adjoints(
+                        self.tie(sv[j], gf), st[j], [w[j, kk] for kk in slots],
+                        [ind[j, kk] for kk in slots], tau)
+                    for kk, v in zip(slots, gp):
+                        w[j, kk] = v
+                gtimes[j] = f32(f32(0) + gf)
+        e, S = self.softmax_parts(z)
+        return self.chain_all(e, S, gtimes, gcolsum, w, X)
 
     def forward_sm90(self, x, X, tau, soft=True):
         """The fused walk and its merged reduction: (λ, load sums, the
         walk's arrays, M)."""
-        fh, f, sv, st, w = self.fused_forward(x, X, tau, soft)
+        fh, f, sv, st, w, ind = self.fused_forward(x, X, tau, soft)
         sums = self.load_sums(x)
         lam = self.lam(block_reduce(list(fh), self.nt, _max, NEG), sums)
         M = block_reduce(list(f), self.nt, _max, NEG) if soft else None
-        return lam, sums, (f, sv, st, w), M
+        return lam, sums, (f, sv, st, w, ind), M
 
-    def step_sm90(self, x, X, tau, fwd, M, sums):
-        f, sv, st, w = fwd
+    def step_sm90(self, x, X, tau, fwd, M, sums, z=None):
+        f, sv, st, w, ind = fwd
+        if self.choice:
+            g0, gcolsum = self.choice_cotangents(f, M, sums, tau)
+            return self.reverse_push_xla(z, X, g0, sv, st, w, ind, gcolsum,
+                                         tau)
         e = np.array([np.exp(f32(f32(v - M) / tau)) for v in f], f32)
         sum_f = block_reduce(list(e), self.nt, _add, f32(0))
         cfin, grads = self.cotangents(M, sum_f, sums, tau)
@@ -408,26 +514,25 @@ def _problem(d, **kw):
     return Problem(d, **kw)
 
 
-def gradient(d, z, tau, *, m=None, k=None, p_choice=None, area=None,
-             type_mask=None, inv_counts=None, use_comm=False):
-    """The gather kernel's gradient of the loss at logits ``z`` and
-    temperature ``tau``: the hybrid solve's ((n,) logits, ``m`` and ``k``)
-    or, given ``p_choice``, the choice solve's ((n, C) logits)."""
-    pr = _problem(d, m=m, k=k, p_choice=p_choice, area=area,
-                  type_mask=type_mask, inv_counts=inv_counts,
-                  use_comm=use_comm)
+def gradient(d, z, tau, *, m, k):
+    """The gather kernel's gradient of the hybrid loss at logits ``z``
+    (n,) and temperature ``tau`` on ``m`` CPUs and ``k`` GPUs."""
+    pr = _problem(d, m=m, k=k)
     x = pr.mix(_np(z).astype(f32))
-    return pr.step_gather(x, pr.marginals(x), f32(tau), pr.load_sums(x))
+    return pr.step_gather(x, None, f32(tau), pr.load_sums(x))
 
 
 def gradient_sm90(d, z, tau, **kw):
-    """The sm90 kernel's gradient at ``z`` and ``tau``, as
-    :func:`gradient`."""
+    """The sm90 kernel's gradient of the loss at logits ``z`` and
+    temperature ``tau``: the hybrid solve's ((n,) logits, ``m`` and ``k``)
+    or, given ``p_choice``, the choice solve's ((n, C) logits; ``exp`` and
+    ``log`` its transcendentals, numpy's by default)."""
     pr = _problem(d, **kw)
-    x = pr.mix(_np(z).astype(f32))
+    z = _np(z).astype(f32)
+    x = pr.mix(z)
     X = pr.marginals(x)
     _, sums, fwd, M = pr.forward_sm90(x, X, f32(tau))
-    return pr.step_sm90(x, X, f32(tau), fwd, M, sums)
+    return pr.step_sm90(x, X, f32(tau), fwd, M, sums, z)
 
 
 def _adam(z, mu, nu, gz, bc1, bc2):
@@ -440,7 +545,8 @@ def _adam(z, mu, nu, gz, bc1, bc2):
 
 
 def solve(d, z0, iters, sched, *, design, **kw):
-    """A whole solve in one design (``"gather"`` or ``"sm90"``) from
+    """A whole solve in one design (``"gather"``, the hybrid solve only,
+    or ``"sm90"``) from
     logits ``z0`` over the schedule table ``sched`` ((iters, 3) float32):
     the best x, its λ and each step's gradient."""
     pr = _problem(d, **kw)
@@ -476,7 +582,7 @@ def solve(d, z0, iters, sched, *, design, **kw):
             best, best_x = lam, x
         if not soft:
             break
-        gz = pr.step_sm90(x, X, tau, fwd, M, sums)
+        gz = pr.step_sm90(x, X, tau, fwd, M, sums, z)
         grads.append(gz)
         z, mu, nu = _adam(z, mu, nu, gz, sched[i, 1], sched[i, 2])
         x = pr.mix(z)
@@ -486,9 +592,19 @@ def solve(d, z0, iters, sched, *, design, **kw):
 
 # ------------------------------------------------- the reference's backward
 def _fma(a, b, c):
-    """One rounding of a * b + c, as a contracted multiply-add."""
-    return (np.asarray(a, np.float64) * np.asarray(b, np.float64)
-            + np.asarray(c, np.float64)).astype(f32)
+    """One rounding of a * b + c (float32 inputs), as a fused multiply-add.
+    The float64 product is exact; the float64 sum is rounded to odd (an
+    inexact sum moves to its neighbour whose last bit is 1, from TwoSum's
+    exact error), so its rounding to float32 is the exact value's."""
+    p = np.asarray(a, np.float64) * np.asarray(b, np.float64)
+    c = np.asarray(c, np.float64)
+    s = np.asarray(p + c)
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    even = (s.view(np.int64) & 1) == 0
+    up = np.nextafter(s, np.where(err > 0, np.inf, -np.inf))
+    return np.where((err != 0) & even & np.isfinite(s), up,
+                    s).astype(f32)[()]
 
 
 def _seq_sum(vals):

@@ -6,13 +6,16 @@ step beside the next step's soft forward), its merged reductions and its
 reverse walk, in which each task turns its own pred slots' stored weights
 into edge adjoints and its predecessors sum them in the successor CSR's
 order.  ``tests/hlp_fo_emulation.py`` follows both designs in float32, task
-by task and in the kernels' reduction tree; held here:
+by task and in the kernels' reduction tree (the gather design the hybrid
+solve only; the sm90 design the choice solve too, in XLA's order, as the
+plain version runs it: ``tests/test_torch_hlp_fo_order.py``); held here:
 
-* the two designs' gradients bit for bit on the Chameleon DAGs at small nb,
-  on random DAGs with fan-outs of 1-40 at widths on both sides of one warp,
-  and on choice grids with and without the edges' crossing delays;
+* the two designs' gradients bit for bit on the Chameleon DAGs at small nb
+  and on random DAGs with fan-outs of 1-40 at widths on both sides of one
+  warp; the sm90 design's on choice grids with and without the edges'
+  crossing delays equal to the plain version's (``ref.choice_grad``);
 * whole solves in both designs bit for bit (best x, λ, every step's
-  gradient);
+  gradient), and the sm90 design's choice solve the plain version's;
 * the redesign's gradient against autograd (``kernels/hlp_fo/ref.py``) at
   rtol 1e-5;
 * the wrapper: one kernel (no ``kernel=``), its counter, the bare
@@ -72,6 +75,14 @@ def _hybrid(g, seed=0, scale=1.0, step=10, m=8, k=2):
     return d, z, tau, {"m": m, "k": k}
 
 
+def _torch_fn(fn):
+    """A float32 numpy map through a torch function (the plain version's
+    transcendentals)."""
+    def apply(v):
+        return fn(torch.from_numpy(np.array(v, np.float32))).numpy()
+    return apply
+
+
 def _choice(g, machine, comm, rigid, seed=3, scale=50.0):
     prob = AllocationProblem.build(g, machine, comm_aware=comm, rigid=rigid)
     p_dev = np.where(prob.finite, prob.p_choice, 1e12)
@@ -82,8 +93,16 @@ def _choice(g, machine, comm, rigid, seed=3, scale=50.0):
     z = np.float32(0.01 * scale) * TH.reference_normal(seed, p_dev.shape)
     tau = float(np.float32(ins[0].max() * R.schedule(300)[10, 0].item()))
     kw = dict(p_choice=ins[0], area=ins[1], type_mask=ins[2],
-              inv_counts=ins[3], use_comm=prob.comm_aware)
+              inv_counts=ins[3], use_comm=prob.comm_aware,
+              exp=_torch_fn(torch.exp), log=_torch_fn(torch.log))
     return d, z, tau, kw
+
+
+def _plain_choice(d, kw):
+    """The plain version's arguments from a choice case's keywords."""
+    return ([torch.from_numpy(kw[k]) for k in ("p_choice", "area",
+                                                "type_mask", "inv_counts")],
+            kw["use_comm"])
 
 
 def _designs_agree(d, z, tau, kw, what):
@@ -119,6 +138,9 @@ def test_designs_agree_bit_for_bit_on_random_fan_outs(width):
 
 
 def test_designs_agree_bit_for_bit_on_choice_grids():
+    """The sm90 design's choice gradient (the gather design models the
+    hybrid solve only) equals the plain version's, ``ref.choice_grad``,
+    given its exp and log, at logits 50 times the reference's scale."""
     nb = TS.netbound_scenario(seed=300)
     wide = TS.netbound_scenario(width=40, depth=4, seed=3)
     mo = TS.moldable_suite(seed=400, num=1, ccr=2.0)[0]
@@ -129,19 +151,31 @@ def test_designs_agree_bit_for_bit_on_choice_grids():
     for name, g, machine, comm, rigid in cases:
         d, z, tau, kw = _choice(g, machine, comm, rigid)
         assert kw["use_comm"] == comm, name
-        _designs_agree(d, z, tau, kw, name)
+        ins, use_comm = _plain_choice(d, kw)
+        want = R.choice_grad(d, torch.from_numpy(z), torch.tensor(tau), *ins,
+                             use_comm).numpy()
+        assert np.abs(want).max() > 0, name
+        _same(E.gradient_sm90(d, z, tau, **kw), want, name)
 
 
 def test_whole_solves_agree_bit_for_bit_in_both_designs():
     """Best x, λ and every step's gradient: the exact pass fused into the
     next step's forward picks the same iterate as the gather design's own
-    exact pass."""
+    exact pass.  A choice solve (the sm90 design's only) gives the plain
+    version's best x and λ."""
     nb = TS.netbound_scenario(seed=301)
     cases = [_hybrid(TS.default_suite(seed=0)[1].graph),
-             _hybrid(fan_dag(5, 240, 8), m=16, k=4),
-             _choice(nb.graph, nb.counts, True, True, scale=1.0)]
+             _hybrid(fan_dag(5, 240, 8), m=16, k=4)]
+    dc, zc, _, kc = _choice(nb.graph, nb.counts, True, True, scale=1.0)
+    ins, use_comm = _plain_choice(dc, kc)
     for iters in (0, 1, 12):
         sched = R.schedule(iters)
+        x1, v1, g1 = E.solve(dc, zc, iters, sched, design="sm90", **kc)
+        x0, v0 = R.choice_solve_ref(dc, torch.from_numpy(zc), *ins,
+                                    iters=iters, use_comm=use_comm)
+        _same(x1, x0.numpy(), f"choice best x, {iters} iterations")
+        _same(v1, v0.numpy(), f"choice best λ, {iters} iterations")
+        assert len(g1) == iters
         for d, z, _, kw in cases:
             x0, v0, g0 = E.solve(d, z, iters, sched, design="gather", **kw)
             x1, v1, g1 = E.solve(d, z, iters, sched, design="sm90", **kw)

@@ -12,7 +12,12 @@ memory) and the global one (the same arrays in a scratch buffer, which
 order, so their best x and λ are the same bits: on random DAGs at widths on
 both sides of one warp, on the lp phase's Chameleon instances, on the
 choice grids with and without edge delays, at the edge of the shared
-layout and on a join 500 wide.  Past the shared layout and past the first
+layout and on a join 500 wide.  On netbound seed 300 (ROADMAP C6) the
+choice entry holds the plain version at 4e-5, is the plain version given
+the card's own expf / logf (``hlp_fo.transcendental``) bit for bit, and
+lies within 5e-5 of the reference's pinned best x
+(``tests/torch_hlp_fo_netbound_pin.json``), above the reference's own
+one-ulp spread (3.6e-5) at 300 iterations: C6 stays open for the kernel.  Past the shared layout and past the first
 design's limit (14444 tasks, ``csrc/hlp_fo.cu``, since deleted) the kernel
 is held to the plain version.  Also: concurrent solves from threads equal
 serial ones, the counter, the phase split and the library's
@@ -20,6 +25,8 @@ shared-memory mirror.
 """
 import concurrent.futures
 import ctypes
+import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -34,6 +41,18 @@ from repro_torch.core.allocation import AllocationProblem  # noqa: E402
 from repro_torch.kernels.hlp_fo import hlp_fo as HF  # noqa: E402
 
 pytestmark = pytest.mark.card
+
+#: the kernel against the plain version on netbound seed 300, as
+#: ``chip_smoke.py``'s ``LP_NETBOUND_RTOL``: the card's expf / logf against
+#: torch's move λ by 3.79e-5 at 300 iterations on the H100 (2.0e-7 at 160,
+#: 7.3e-6 at 250)
+NETBOUND_RTOL = 4e-5
+#: the kernel against the reference's pinned best x on netbound seed 300,
+#: as ``chip_smoke.py``'s ``LP_NETBOUND_REF_RTOL``: 6.0e-7 / 2.43e-5 /
+#: 4.87e-5 at 160 / 250 / 300 iterations on the H100, above the
+#: reference's own one-ulp spread (3.6e-5) at 300 (ROADMAP C6)
+NETBOUND_REF_RTOL = 5e-5
+NETBOUND_PIN = Path(__file__).resolve().parent / "torch_hlp_fo_netbound_pin.json"
 
 
 @pytest.fixture
@@ -126,6 +145,69 @@ def test_layouts_agree_bit_for_bit_on_choice_grids(card):
                                  layout=layout) for layout in HF.LAYOUTS]
         _same(a, b, f"n={g.n} comm={comm}")
         np.testing.assert_allclose(a[0].sum(1).cpu().numpy(), 1, rtol=1e-5)
+
+
+def test_choice_kernel_holds_the_plain_version_on_netbound_s300(card):
+    """The ill-conditioned instance of ROADMAP C6: the choice entry's
+    backward runs in XLA's order in the kernel and in the plain version
+    (``ref.choice_grad``), so on netbound seed 300 the kernel's λ lies
+    within ``NETBOUND_RTOL`` of the plain version's at 160, 250 and 300
+    iterations, the allocations identical and the two layouts bit for bit;
+    only the transcendentals (the card's expf / logf against torch's)
+    differ."""
+    from repro_torch.kernels.hlp_fo import ref as R
+    nb = TS.netbound_scenario(seed=300)
+    d, z0, ins, use_comm = _choice_inputs(nb.graph, nb.counts, True, True)
+    dc = TH.PaddedDag.from_graph(nb.graph, "cpu")
+    for iters in (160, 250, 300):
+        a, b = [HF.launch_choice(d, z0, *ins, iters=iters, use_comm=use_comm,
+                                 layout=layout) for layout in HF.LAYOUTS]
+        _same(a, b, f"netbound s300, {iters} iterations")
+        rx, rv = R.choice_solve_ref(dc, z0.cpu(), *[t.cpu() for t in ins],
+                                    iters=iters, use_comm=use_comm)
+        kx, kv = a[0].cpu(), float(a[1])
+        print(f"{iters} iterations: λ kernel {kv!r}, plain {float(rv)!r}, "
+              f"rel {abs(kv / float(rv) - 1):.3e}")
+        assert kv == pytest.approx(float(rv), rel=NETBOUND_RTOL), iters
+        np.testing.assert_array_equal(kx.numpy().argmax(1),
+                                      rx.numpy().argmax(1))
+
+
+def test_choice_kernel_is_the_plain_version_given_the_cards_transcendentals(card):
+    """The witness of what separates the kernel from the plain version on
+    netbound seed 300: ``choice_solve_ref`` given the card's expf / logf in
+    place of torch's gives the kernel's best x and λ bit for bit at 160,
+    250 and 300 iterations.  Against the reference's pinned best x, the
+    kernel's λ (``frac_objective`` of x normalised) lies within
+    ``NETBOUND_REF_RTOL``, its allocation the reference's."""
+    from repro_torch.core.allocation import frac_objective
+    from repro_torch.kernels.hlp_fo import ref as R
+    nb = TS.netbound_scenario(seed=300)
+    d, z0, ins, use_comm = _choice_inputs(nb.graph, nb.counts, True, True)
+    dc = TH.PaddedDag.from_graph(nb.graph, "cpu")
+    prob = AllocationProblem.build(nb.graph, nb.counts, comm_aware=True,
+                                   rigid=True)
+    pin = json.loads(NETBOUND_PIN.read_text())
+
+    def on_card(op):
+        return lambda t: HF.transcendental(t.to(card), op).cpu()
+
+    def lam(x):
+        x = np.asarray(x, np.float64)
+        return frac_objective(prob, x / x.sum(axis=1, keepdims=True))
+    for iters in (160, 250, 300):
+        kx, kv = HF.launch_choice(d, z0, *ins, iters=iters,
+                                  use_comm=use_comm)
+        wx, wv = R.choice_solve_ref(dc, z0.cpu(), *[t.cpu() for t in ins],
+                                    iters=iters, use_comm=use_comm,
+                                    exp=on_card("exp"), log=on_card("log"))
+        _same((kx, kv), (wx, wv), f"netbound s300, {iters} iterations")
+        ref = pin[str(iters)]
+        gap = abs(lam(kx.cpu().numpy()) / ref["lam"] - 1)
+        print(f"{iters} iterations: kernel λ rel to the reference {gap:.3e}")
+        assert gap < NETBOUND_REF_RTOL, (iters, gap)
+        np.testing.assert_array_equal(kx.cpu().numpy().argmax(1),
+                                      np.asarray(ref["x"]).argmax(1))
 
 
 def test_concurrent_solves_from_threads_equal_serial_ones(card):

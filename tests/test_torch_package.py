@@ -94,7 +94,38 @@ def test_every_module_is_listed_by_the_probe():
             "repro_torch.obs.provenance", "repro_torch.core.hlp_jax",
             "repro_torch.kernels.hlp_fo.hlp_fo",
             "repro_torch.kernels.hlp_fo.ref",
-            "repro_torch.core.placement"} <= names
+            "repro_torch.core.placement", "repro_torch.streams",
+            "repro_torch.streams.arrivals", "repro_torch.streams.engine",
+            "repro_torch.streams.metrics", "repro_torch.streams.policy",
+            "repro_torch.streams.replay",
+            "repro_torch.streams.tenants"} <= names
+
+
+_STREAMS_PROBE = """
+import sys
+import repro_torch.streams.arrivals, repro_torch.streams.engine
+import repro_torch.streams.metrics, repro_torch.streams.replay
+import repro_torch.streams.tenants
+from repro_torch.streams import JobFactory, open_stream, run_stream
+print(sorted(m for m in sys.modules if m.split(".")[0] == "torch"))
+"""
+
+
+def test_the_stream_host_modules_import_no_torch():
+    """The open-system engine, its sources, metrics, trace replay and
+    tenant records are host code: they (and the package's eager names)
+    load no torch; the policy names load ``policy`` when first asked for."""
+    proc = subprocess.run([sys.executable, "-c", _STREAMS_PROBE],
+                          capture_output=True, text=True,
+                          env={"PYTHONPATH": str(SRC)}, timeout=300,
+                          check=True)
+    assert proc.stdout.strip() == "[]"
+    import repro_torch.streams as S
+    from repro_torch.streams import policy
+    assert S.SimInTheLoop is policy.SimInTheLoop
+    assert S.make_policy is policy.make_policy
+    with pytest.raises(AttributeError):
+        S.no_such_name
 
 
 @pytest.fixture

@@ -176,7 +176,7 @@ def test_targets_and_defaults():
     ``sim`` and ``search`` alone (what ``BENCH_pinned.json`` pins); the
     ``kernels`` target lands its µs a call on the CPU without a launch."""
     assert set(TC.BENCHES) == {"offline2", "offline3", "online", "sim",
-                               "search", "solver", "kernels"}
+                               "search", "streams", "solver", "kernels"}
     assert TC.DEFAULT_TARGETS == ("sim", "search")
     before = TC._launches()
     lines, extras = TC.bench_kernels(False, 0, "cpu")
