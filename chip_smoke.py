@@ -26,6 +26,27 @@ Phases, each of which raises on failure (exit code not 0):
              56 flash launches by the bf16 kernel); then prefill/decode
              consistency at full width with the kernels on, in fp32 (the
              3xTF32 kernel's path, 56 launches) and bf16;
+   Then olmo-1b at its full published config through
+             ``launch.serve.main`` and granite-34b at full width with 16 of
+             its 88 layers (``dataclasses.replace(get_config(...),
+             num_layers=16)``; all 88 do not fit the card in bf16) through
+             ``launch.serve.generate``: 8 requests in batches of 4,
+             prompt 512, 32 generated, every flash counter 0 just before
+             and layers x 2 bf16 launches just after; each model's bf16
+             prefill/decode consistency at 0.32 of its logits' std.
+   train   — olmo-1b's training path (``launch.train``'s step function) at
+             its full published config, bf16 compute, fp32 parameters,
+             batch 8 x 2048, 20 steps: the flash counter 0 before and 0
+             after (training takes the chunked attention), every loss and
+             grad norm finite, the first loss within 1.0 of ln(50304), the
+             last below the first; step s, tokens/s, peak memory and
+             (6 N + 12 L S H Dh) tokens / step s against the bf16 peak.
+             Two microbatches against one step in fp32 (atol 2e-5); the
+             card against the CPU in fp32 at full width and 2 layers, batch
+             2 x 512 (rtol 1e-4); the resilient loop with a failure against
+             an uninterrupted run bit for bit, at 2 layers, batch 2 x 256,
+             in a fresh process (``python3 chip_smoke.py --train-resume
+             DIR``) under deterministic algorithms.
 5. maxplus — the (max, +) kernel against its plain version on the card at
              the JAX kernel tests' sweep (fp32 and fp16 inputs) and at
              12 lanes of p = 512 and p = 2944, at exact equality; times of
@@ -104,10 +125,12 @@ Phases, each of which raises on failure (exit code not 0):
              the layouts' best x and λ bit for bit, λ at rtol 1e-5 of the
              plain version and identical threshold allocations; one
              comm-aware netbound instance and one moldable instance
-             through the choice entry the same way (the netbound one at
-             ``LP_NETBOUND_RTOL``, 4e-5, the plain version given the
-             card's expf / logf held to it bit for bit and the kernel
-             within 5e-5 of the reference's pinned best x); and one
+             through the choice entry the same way (the netbound one bit
+             for bit, ``LP_NETBOUND_RTOL`` 0: the card's XLA exp / log
+             twins equal the plain version's, and the kernel's λ against
+             the reference's pinned best x at ``LP_NETBOUND_REF_RTOL``,
+             0; the hybrid entry's best x and λ equal to
+             ``tests/torch_hlp_fo_hybrid_pin.json``'s bits); and one
              campaign-sized solve (the full grid's largest ``hlp_jax_ols``
              graph, 43 tasks, one warp).  The kernel timed from CUDA events
              twice beside its chain floor (2 level steps a level a step,
@@ -183,7 +206,8 @@ The tests that launch a kernel run apart, on the same card:
         tests/test_torch_contention_card.py \
         tests/test_torch_contention_sm90_card.py \
         tests/test_torch_pipeline_card.py tests/test_torch_hlp_fo_card.py \
-        tests/test_torch_hlp_fo_sm90_card.py tests/test_torch_streams_card.py
+        tests/test_torch_hlp_fo_sm90_card.py tests/test_torch_streams_card.py \
+        tests/test_torch_train_card.py
 
 The line before the last is the card's name and power limit, the one before
 it a JSON object of per-kernel numbers; the last line is
@@ -193,6 +217,7 @@ the repository beside it, the script exits with code 1 and prints no result.
 from __future__ import annotations
 
 import concurrent.futures
+import hashlib
 import json
 import os
 import subprocess
@@ -224,11 +249,59 @@ SERVE_ARGS = ["--arch", "qwen2-1.5b", "--requests", "8", "--batch", "4",
               "--prompt", "512", "--gen", "32"]
 SERVE_BATCHES = 2
 
+# The dense family's two further configs, served as qwen2-1.5b is (2
+# batches of 4 prompts of 512, 32 generated, bf16): olmo-1b at its full
+# published config through the serve entry point; granite-34b at full
+# width (d 6144, 48 query heads on 1 kv head, d_ff 24576) with its depth cut
+# to 16 of its 88 layers, through launch.serve.generate: 8.8 B parameters,
+# 35 GB in fp32 at init and 17.6 GB served in bf16, where all 88 layers
+# take 94 GB in bf16, more than the card's 80 GB.
+SERVE_MORE = (("olmo-1b", None), ("granite-34b", 16))
+SERVE_PROMPT, SERVE_GEN, SERVE_BATCH = 512, 32, 4
+
+# The training run: olmo-1b at its full published config (bf16 compute,
+# fp32 parameters and AdamW state, remat "full"), batch 8 x 2048 (OLMo's
+# context), TRAIN_STEPS steps of launch.train's step function at its
+# defaults (lr 3e-3, 20 warmup steps, cosine).  The first loss must lie
+# within TRAIN_LOSS0_TOL of ln(vocab): the tied head's random logits have
+# a std of about sqrt(2048) * 0.02 = 0.9, which adds about 0.4.  Then:
+# 2 microbatches against the whole batch in fp32 at the full config, the
+# summed gradients and the loss at TRAIN_GRAD_RTOL of each leaf's largest
+# entry, and the reference test's own claim (tests/test_system.py: one
+# step's parameters within atol 2e-5 of the single step's) at its own
+# config, the qwen2-1.5b smoke config; the card against the CPU in fp32
+# (TF32 off) at olmo-1b's full width cut to TRAIN_CPU_CHECK's depth and
+# batch: the loss, the grad norm and every gradient at rtol 1e-4 (an
+# absolute floor of 1e-4 of each leaf's largest entry: the tolerance of
+# tests/test_torch_train.py), then AdamW on those same gradients on both,
+# the parameters at the same tolerance.  (A first Adam step divides each
+# gradient by its own magnitude, so the parameters of two runs whose
+# gradients differ by rounding differ by up to the step size where a
+# gradient is near Adam's eps: at full width that showed as 3.3e-5 between
+# microbatched and whole steps in chip run 1, so the parameters are held
+# on the same gradients and the gradients on their own.)  Last, the
+# resilient loop with one injected failure against an uninterrupted run,
+# bit for bit, at TRAIN_RESUME's cut (its checkpoints hold the
+# 103 M-parameter embedding three times over).
+TRAIN_ARCH = "olmo-1b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 20
+TRAIN_LOSS0_TOL = 1.0
+TRAIN_MICRO_ATOL = 2e-5
+TRAIN_GRAD_RTOL = 1e-4
+TRAIN_CPU_CHECK = {"layers": 2, "batch": 2, "seq": 512}
+TRAIN_CPU_RTOL = 1e-4
+TRAIN_RESUME = {"layers": 2, "batch": 2, "seq": 256, "steps": 6,
+                "ckpt_every": 3, "fail_at": 4}
+TRAIN_CKPT = ROOT / "build" / "chip_smoke_train"
+BF16_FLOP_PER_S = 989e12       # the H100 SXM's dense bf16 peak, data sheet
+
 # Flash attention cases: (B, S, H, Hkv, D).  The serving shape first, then
-# tests/test_kernels.py's sweep (B=2), then a length that divides no tile.
+# tests/test_kernels.py's sweep (B=2), then a length that divides no tile,
+# then olmo-1b's and granite-34b's serving shapes (MHA 16:16; MQA 48:1).
 FLASH_SLICE = (4, 512, 12, 2, 128)
 FLASH_SWEEP = [(2, 256, 4, 4, 64), (2, 512, 4, 2, 64), (2, 256, 8, 1, 128),
-               (2, 384, 6, 2, 64), (2, 200, 4, 2, 64)]
+               (2, 384, 6, 2, 64), (2, 200, 4, 2, 64), (4, 512, 16, 16, 128),
+               (4, 512, 48, 1, 128)]
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # the JAX kernel tests'
 # the kernel each dtype must go through (flash_attention.KERNELS)
 FLASH_KERNEL = {"float32": "sm90_fp32", "bfloat16": "sm90_bf16"}
@@ -243,6 +316,9 @@ FLASH_LONG = (1, 8192, 12, 2, 128)
 # different paths (the kernel's fp32 P.V against decode's bf16 weights)
 # through 28 residual layers, on logits of standard deviation about 0.8.
 CONSIST_TOL = {"float32": 2e-3, "bfloat16": 0.25}
+# The other served models' bf16 limit: qwen2-1.5b's, 0.25 at its logits'
+# std of 0.784 (chip runs of PRs 11-23), as a share of each model's std
+CONSIST_BF16_STD = 0.32
 
 # (m, k, n) of tests/test_kernels.py's sweep, each in fp32 and fp16; then
 # the batched closure shapes: 12 lanes (6 block sizes x 2 types) at p = 512
@@ -300,27 +376,32 @@ CAMPAIGN_COUNTS = ("plans", "evals", "runs", "scenarios", "compiles",
 # comm-aware Q=2 grid) and on a moldable instance (moldable_suite seed 400
 # at CCR 2, its comm-aware (type, width) grid).  λ of the kernel against
 # the plain version at rtol 1e-5, allocations identical; on the netbound
-# instance at 4e-5.  That instance is ill-conditioned (its trajectory moves
-# with any change of rounding); the choice entry's backward runs in XLA's
-# order in the kernel and in the plain version alike (ROADMAP C6), so only
-# the card's expf / logf against torch's part them: by 3.79e-5 at 300
-# iterations on the H100 (the reference's own λ moves up to 3.6e-5 when
-# half its exps move by one ulp).  The witness: the plain version given the
-# card's expf / logf (hlp_fo.transcendental) is the kernel bit for bit at
-# 300 iterations.  Against the reference's pinned best x the kernel's λ
-# (frac_objective of x normalised) lies 6.0e-7 / 2.43e-5 / 4.87e-5 away at
-# 160 / 250 / 300 iterations on the H100, its allocation the reference's:
-# held at LP_NETBOUND_REF_RTOL, 5e-5, the most the port allows the kernel
-# on this instance (above the reference's spread: C6 is open for the
-# kernel).  The two layouts are held to each other bit for bit everywhere.
+# instance bit for bit (LP_NETBOUND_RTOL 0).  That instance is
+# ill-conditioned (its trajectory moves with any change of rounding), so it
+# is where the choice entry's order shows: the kernel and the plain version
+# both run the program XLA:CPU compiles for the reference's _solve_choice,
+# XLA's own exp and log included (csrc/xla_math.cuh, hlp_fo/xla_math.py;
+# ROADMAP C6, closed): the card's twins (hlp_fo.transcendental) equal the
+# plain version's bit for bit, the kernel is its plain version bit for bit,
+# and its λ (frac_objective of x normalised) against the reference's pinned
+# best x at 160 / 250 / 300 iterations is held at LP_NETBOUND_REF_RTOL, 0:
+# the plain version gives the pin's x bit for bit on the CPU
+# (tests/test_torch_xla_math.py).  Before, with the card's expf / logf, it
+# lay 3.79e-5 from the plain version and 4.87e-5 from the reference at 300
+# iterations (held at 4e-5 and 5e-5).  The two layouts are held to each
+# other bit for bit everywhere.
 LP_SOLVER = (("potrf", 10), ("getrf", 10), ("potri", 20))
 LP_MACHINE = (64, 8)
 LP_ITERS = 300
 LP_RTOL = 1e-5
-LP_NETBOUND_RTOL = 4e-5
+LP_NETBOUND_RTOL = 0.0
 LP_NETBOUND_PIN = ROOT / "tests" / "torch_hlp_fo_netbound_pin.json"
 LP_NETBOUND_ITERS = (160, 250, 300)
-LP_NETBOUND_REF_RTOL = 5e-5
+LP_NETBOUND_REF_RTOL = 0.0
+# The hybrid entry keeps the card's expf / logf: its best x and λ on the
+# three instances above are pinned (an H100 run before the choice entry
+# took XLA's transcendentals), and held bit for bit.
+LP_HYBRID_PIN = ROOT / "tests" / "torch_hlp_fo_hybrid_pin.json"
 
 # The paper phase: the reference's outputs of its §6 experiments on the
 # default grid (34 instances x 16 configurations) and its placement plans,
@@ -1396,51 +1477,71 @@ def lp_bound_ms(d, iters: int, c: int = 1, q: int = 0,
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def netbound_witness(torch, prob, cpu, card, kx, klam) -> dict:
-    """ROADMAP C6's witness on netbound seed 300: the plain version given
-    the card's expf / logf (``hlp_fo.transcendental``) in place of torch's
-    equals the kernel's best x ``kx`` and λ ``klam`` bit for bit at
-    :data:`LP_ITERS`; and the kernel's λ (``frac_objective`` of x
-    normalised) lies within :data:`LP_NETBOUND_REF_RTOL` of the reference's
-    pinned best x at each of :data:`LP_NETBOUND_ITERS`, its allocation the
-    reference's.  ``cpu`` and ``card`` are (DAG, z0, inputs) on each."""
+def netbound_witness(torch, prob, card, kx, klam, rx, rv) -> dict:
+    """ROADMAP C6 on netbound seed 300, closed: the choice entry takes
+    XLA:CPU's own exp and log (``csrc/xla_math.cuh``), so the card's twins
+    (``hlp_fo.transcendental``) equal the plain version's
+    (``xla_math.xla_exp_f32`` / ``xla_log_f32``) bit for bit on a sweep of
+    2^22 random float32 bit patterns and the solve's ranges; the kernel's
+    best x ``kx`` and λ ``klam`` equal the plain version's ``rx`` / ``rv``
+    bit for bit at :data:`LP_ITERS`; and at each of
+    :data:`LP_NETBOUND_ITERS` the kernel's best x is the reference's pinned
+    x bit for bit, and its λ (``frac_objective`` of x normalised) lies
+    within :data:`LP_NETBOUND_REF_RTOL` of the λ of the
+    reference's pinned best x, both taken on this host (the pin's own λ
+    was taken on another, whose float64 objective may differ in the ninth
+    digit), its allocation the reference's.  ``card``
+    is (DAG, z0, inputs) on the card."""
     import numpy as np
     from repro_torch.core.allocation import frac_objective
     from repro_torch.kernels.hlp_fo import hlp_fo as HF
-    from repro_torch.kernels.hlp_fo import ref as R
-
-    def on_card(op):
-        return lambda t: HF.transcendental(t.to(CARD), op).cpu()
+    from repro_torch.kernels.hlp_fo.xla_math import xla_exp_f32, xla_log_f32
 
     def lam(x):
         x = np.asarray(x, np.float64)
         return frac_objective(prob, x / x.sum(axis=1, keepdims=True))
-    (dc, zc, tc), (dg, zg, tg) = cpu, card
-    t0 = time.perf_counter()
-    wx, wv = R.choice_solve_ref(dc, zc, *tc, iters=LP_ITERS, use_comm=True,
-                                exp=on_card("exp"), log=on_card("log"))
-    witness_s = time.perf_counter() - t0
-    same = (np.array_equal(wx.numpy().view(np.int32),
-                           np.asarray(kx, np.float32).view(np.int32))
-            and float(wv) == klam)
-    check(same, f"lp netbound_s300: the plain version given the card's "
-          f"expf / logf ({float(wv)!r}) is not the kernel ({klam!r}) bit "
-          "for bit")
+    bits = np.random.default_rng(24).integers(0, 2 ** 32, 2 ** 22,
+                                              dtype=np.uint64)
+    sweep = torch.from_numpy(np.concatenate([
+        bits.astype(np.uint32).view(np.float32),
+        np.linspace(-90, 90, 2 ** 20, dtype=np.float32),
+        np.geomspace(1e-30, 1e4, 2 ** 20).astype(np.float32)]))
+    twins_equal = {}
+    for op, twin in (("exp", xla_exp_f32), ("log", xla_log_f32)):
+        got = HF.transcendental(sweep.to(CARD), op).cpu()
+        want = twin(sweep)
+        same = (got.view(torch.int32) == want.view(torch.int32)) | (
+            got.isnan() & want.isnan())
+        twins_equal[op] = bool(same.all())
+        check(twins_equal[op], f"lp netbound_s300: the card's {op} twin "
+              f"differs from the plain version's at {int((~same).sum())} of "
+              f"{sweep.numel()} inputs")
+    kernel_is_plain = (np.array_equal(np.asarray(kx, np.float32).view(
+        np.int32), np.asarray(rx, np.float32).view(np.int32)) and klam == rv)
+    check(kernel_is_plain, f"lp netbound_s300: the kernel ({klam!r}) is not "
+          f"its plain version ({rv!r}) bit for bit")
+    (dg, zg, tg) = card
     pin = json.loads(LP_NETBOUND_PIN.read_text())
-    gaps = {}
+    gaps, pin_bits = {}, {}
     for iters in LP_NETBOUND_ITERS:
         x, _ = HF.launch_choice(dg, zg, *tg, iters=iters, use_comm=True)
         x = x.cpu().numpy()
         ref = pin[str(iters)]
-        gaps[iters] = abs(lam(x) / ref["lam"] - 1)
-        check(gaps[iters] < LP_NETBOUND_REF_RTOL, f"lp netbound_s300: the "
+        gaps[iters] = abs(lam(x) / lam(ref["x"]) - 1)
+        pin_bits[iters] = bool(np.array_equal(
+            x.view(np.int32), np.asarray(ref["x"], np.float32).view(np.int32)))
+        check(pin_bits[iters], f"lp netbound_s300: the kernel's best x at "
+              f"{iters} iterations is not the reference's pinned x bit for "
+              "bit")
+        check(gaps[iters] <= LP_NETBOUND_REF_RTOL, f"lp netbound_s300: the "
               f"kernel's λ lies {gaps[iters]:.3e} from the reference's at "
               f"{iters} iterations (limit {LP_NETBOUND_REF_RTOL})")
         check(np.array_equal(x.argmax(1), np.asarray(ref["x"]).argmax(1)),
               f"lp netbound_s300: the kernel's allocation at {iters} "
               "iterations is not the reference's")
-    return {"witness_bit_equal": same, "witness_s": witness_s,
-            "ref_gap": gaps}
+    return {"twins_bit_equal": twins_equal,
+            "kernel_is_plain_bit_for_bit": kernel_is_plain,
+            "ref_gap": gaps, "ref_x_bit_equal": pin_bits}
 
 
 def lp_phase(torch) -> dict:
@@ -1470,6 +1571,7 @@ def lp_phase(torch) -> dict:
 
     m, k = LP_MACHINE
     graphs = {f"{a}{nb}": chameleon(a, nb, 512) for a, nb in LP_SOLVER}
+    hybrid_pin = json.loads(LP_HYBRID_PIN.read_text())["instances"]
     HF.reset_launch_count()
     t0 = time.perf_counter()
     sols = {name: solve_hlp_jax(g, m, k, iters=LP_ITERS)
@@ -1560,6 +1662,13 @@ def lp_phase(torch) -> dict:
             dg, zg, m=m, k=k, iters=LP_ITERS, cycles=cyc, layout=lay), name)
         kx = row.pop("x")
         rel = plain_check(name, kx, row["lam"], rx, rv, LP_RTOL, threshold)
+        pinned = hybrid_pin[name]
+        row["pinned_bits"] = (hashlib.sha256(np.asarray(kx, np.float32)
+                                             .tobytes()).hexdigest()
+                              == pinned["x_sha256"]
+                              and row["lam"] == pinned["lam"])
+        check(row["pinned_bits"], f"lp {name}: the hybrid entry's best x or "
+              f"λ moved from the pinned bits ({LP_HYBRID_PIN.name})")
         check(np.array_equal(sol.alloc, np.where(kx >= 0.5, 0, 1)),
               f"lp {name}: the main path's allocation differs")
         row.update({"name": name, "n": g.n, "plain_lam": rv, "rel": rel,
@@ -1620,16 +1729,21 @@ def lp_phase(torch) -> dict:
                     "rtol": rtol, "max_abs_err": float(np.abs(kx - rx).max()),
                     "plain_ms": plain_s * 1e3})
         crows.append(row)
+        row["bit_equal_to_plain"] = bool(np.array_equal(
+            kx.view(np.int32), np.asarray(rx, np.float32).view(np.int32)))
         if name == "netbound_s300":
-            row.update(netbound_witness(torch, prob, res["cpu"][3:],
-                                        (dg, zg, tg), kx, row["lam"]))
+            row.update(netbound_witness(torch, prob, (dg, zg, tg), kx,
+                                        row["lam"], rx, rv))
         print(f"lp choice {name} (n={g.n}, C={c}, comm {prob.comm_aware}, "
               f"{row['threads']} threads): {show(row)}; plain "
               f"{row['plain_ms']:.1f} ms (host); λ rel {rel:.2e} (limit "
               f"{rtol}); layouts bit-equal"
-              + (f"; the plain version given the card's expf / logf "
-                 f"bit-equal; λ rel to the reference "
-                 + ", ".join(f"{k} it {v:.3e}"
+              + f"; bit-equal to the plain version: "
+              f"{row['bit_equal_to_plain']}"
+              + (f"; the card's XLA twins bit-equal to the plain version's; "
+                 f"λ rel to the reference "
+                 + ", ".join(f"{k} it {v:.3e} (x bit-equal "
+                             f"{row['ref_x_bit_equal'][k]})"
                              for k, v in row["ref_gap"].items())
                  if "ref_gap" in row else ""))
 
@@ -2272,33 +2386,393 @@ def streams_phase() -> dict:
     return out
 
 
-def consistency(torch, dtype: str) -> float:
-    """max |decode(S-1 | prefill S-1) - prefill(S)| at full width."""
+def consistency(torch, dtype: str, cfg=None, params=None) -> dict:
+    """max |decode(S-1 | prefill S-1) - prefill(S)| at full width: qwen2-
+    1.5b by default (its own parameters from seed 1, the limit
+    CONSIST_TOL[dtype]); given ``cfg`` (and its served ``params``), that
+    model in bf16 at CONSIST_BF16_STD of its logits' std."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
 
-    cfg = dataclasses.replace(get_config("qwen2-1.5b"), dtype=dtype,
-                              use_kernels=True)
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    params = M.serving_params(cfg, M.init_params(cfg, gen))
+    if cfg is None:
+        cfg = get_config("qwen2-1.5b")
+    cfg = dataclasses.replace(cfg, dtype=dtype, use_kernels=True)
+    gen = torch.Generator(device=CARD).manual_seed(1)
+    if params is None:
+        params = M.serving_params(cfg, M.init_params(cfg, gen))
     b, s = 2, 512
     toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
-                         device="cuda")
-    logits_p, _ = M.prefill(cfg, params, toks, M.init_cache(cfg, b, s, "cuda"))
-    cache = M.init_cache(cfg, b, s, "cuda")
+                         device=CARD)
+    logits_p, _ = M.prefill(cfg, params, toks, M.init_cache(cfg, b, s, CARD))
+    cache = M.init_cache(cfg, b, s, CARD)
     _, cache = M.prefill(cfg, params, toks[:, :s - 1], cache)
     logits_d, _ = M.decode_step(cfg, params, cache, toks[:, s - 1:])
     v = cfg.vocab_size
     check(bool(torch.isfinite(logits_p[:, :v]).all()), "non-finite prefill logits")
-    check(float(logits_d[:, v:].max()) < -1e20, "padded vocab rows not masked")
+    if cfg.padded_vocab > v:
+        check(float(logits_d[:, v:].max()) < -1e20,
+              "padded vocab rows not masked")
     err = (logits_d[:, :v] - logits_p[:, :v]).abs().max().item()
+    std = logits_p[:, :v].std().item()
     same = (logits_d[:, :v].argmax(-1) == logits_p[:, :v].argmax(-1)).all().item()
-    print(f"prefill/decode consistency {dtype}: max|diff| {err:.3e} "
-          f"(limit {CONSIST_TOL[dtype]}), logits std "
-          f"{logits_p[:, :v].std().item():.3f}, same argmax {same}")
-    check(err <= CONSIST_TOL[dtype], f"prefill/decode disagree in {dtype}: {err}")
-    return err
+    limit = (CONSIST_TOL[dtype] if cfg.name == "qwen2-1.5b"
+             else CONSIST_BF16_STD * std)
+    print(f"prefill/decode consistency {cfg.name} {dtype}: max|diff| "
+          f"{err:.3e} (limit {limit:.3g}), logits std {std:.3f}, same argmax "
+          f"{same}")
+    check(err <= limit, f"{cfg.name}: prefill/decode disagree in {dtype}: "
+          f"{err}")
+    return {"max_abs_diff": err, "limit": limit, "logits_std": std,
+            "same_argmax": bool(same)}
+
+
+def serve_more(torch, card: str) -> dict:
+    """olmo-1b (full) through ``launch.serve.main`` and granite-34b (full
+    width, 16 of 88 layers) through ``launch.serve.generate``, each with
+    every flash counter at 0 just before and, just after, layers x prefill
+    batches launches, all of the bf16 kernel; then each model's bf16
+    prefill/decode consistency on the same parameters (2 prefills x layers
+    launches more)."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    out = {}
+    batches = -(-8 // SERVE_BATCH)
+    for arch, layers in SERVE_MORE:
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        cfg = dataclasses.replace(cfg, use_kernels=True)
+        row = {"layers": cfg.num_layers, "reduced": (
+            {} if layers is None else
+            {"num_layers": f"{layers} of {get_config(arch).num_layers}"}),
+            "params": cfg.num_params()}
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        if layers is None:          # the user's entry point, as qwen2-1.5b
+            fa.reset_launch_count()
+            summary = serve.main(["--arch", arch, "--requests", "8",
+                                  "--batch", str(SERVE_BATCH), "--prompt",
+                                  str(SERVE_PROMPT), "--gen", str(SERVE_GEN)],
+                                 device=CARD)
+            counts = fa.launch_counts()
+            check(summary["logits_finite"], f"{arch}: non-finite logits")
+            row.update({k: summary[k] for k in ("tok_per_s", "prefill_s",
+                                                "decode_s", "wall_s")})
+            gen = torch.Generator(device=CARD).manual_seed(0)
+            params = M.serving_params(cfg, M.init_params(cfg, gen))
+        else:                       # the cut config, through generate
+            gen = torch.Generator(device=CARD).manual_seed(0)
+            params = M.serving_params(cfg, M.init_params(cfg, gen))
+            rng = np.random.default_rng(0)
+            prefill_s = decode_s = 0.0
+            finite = True
+            fa.reset_launch_count()
+            t0 = time.perf_counter()
+            for _ in range(batches):
+                prompt = torch.as_tensor(rng.integers(
+                    0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT)),
+                    device=CARD)
+                g = serve.generate(cfg, params, prompt, SERVE_GEN,
+                                   SERVE_PROMPT + SERVE_GEN)
+                prefill_s += g.prefill_s
+                decode_s += g.decode_s
+                finite = finite and g.finite
+            wall = time.perf_counter() - t0
+            counts = fa.launch_counts()
+            check(finite, f"{arch}: non-finite logits")
+            row.update({"tok_per_s": 8 * SERVE_GEN / wall,
+                        "prefill_s": prefill_s, "decode_s": decode_s,
+                        "wall_s": wall})
+        want = cfg.num_layers * batches
+        check(counts == {**dict.fromkeys(counts, 0), "sm90_bf16": want},
+              f"{arch}: flash launches {counts}, expected {want} of sm90_bf16")
+        row["flash_launches"] = want
+        row["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        fa.reset_launch_count()
+        row["consistency"] = consistency(torch, "bfloat16", cfg, params)
+        counts = fa.launch_counts()
+        check(counts["sm90_bf16"] == 2 * cfg.num_layers and sum(
+            counts.values()) == counts["sm90_bf16"], f"{arch}: the "
+            f"consistency prefills launched {counts}")
+        print(f"serve {arch} ({cfg.num_layers} layers"
+              + (f", cut from {get_config(arch).num_layers}"
+                 if layers is not None else "")
+              + f", {cfg.num_params() / 1e9:.2f} B parameters) on {card}: "
+              f"{row['tok_per_s']:.1f} tok/s, prefill {row['prefill_s']:.3f}"
+              f" s, decode {row['decode_s']:.3f} s, wall {row['wall_s']:.3f} "
+              f"s, flash launches {want} (sm90_bf16), peak "
+              f"{row['peak_gb']:.1f} GB")
+        del params
+        out[arch] = row
+    torch.cuda.empty_cache()
+    return out
+
+
+def _train_flops(cfg, tokens: int, seq: int) -> float:
+    """6 N tokens + 12 L S (H Dh) tokens: the model's matrix products
+    forward and backward (N = ``cfg.num_params()``, the tied embedding
+    counted once, as the head's product) and attention's two products over
+    the whole S x S the chunked path computes; remat's recompute left
+    out."""
+    att = 12 * cfg.num_layers * seq * cfg.num_heads * cfg.resolved_head_dim
+    return (6 * cfg.num_params() + att) * tokens
+
+
+def _max_rel(torch, a, b) -> float:
+    return ((a.float() - b.float()).abs().max()
+            / b.float().abs().max().clamp_min(1e-30)).item()
+
+
+def train_phase(torch, card: str) -> dict:
+    """olmo-1b's training path on the card (TRAIN_*): the flash counter 0
+    just before the main run and 0 just after (training takes the chunked
+    attention, as the reference's trainer does); every loss and grad norm
+    finite, the first loss within TRAIN_LOSS0_TOL of ln(vocab), the last
+    below the first; step s (synchronised), tokens/s, peak memory and the
+    estimated TFLOP/s.  Then the microbatch, card-against-CPU and
+    resilient-loop checks."""
+    import dataclasses
+    import math
+    import shutil
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.launch import train as LT
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as TS
+    from repro_torch.tree import leaves, tree_map
+
+    dev = torch.device(CARD)
+    cfg = get_config(TRAIN_ARCH)
+    check(not cfg.use_kernels and cfg.dtype == "bfloat16"
+          and cfg.param_dtype == "float32", f"{TRAIN_ARCH}: not the "
+          "trainer's config")
+    oc = adamw.OptConfig(lr=3e-3, warmup_steps=20, total_steps=TRAIN_STEPS)
+    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                          global_batch=TRAIN_BATCH)
+    torch.cuda.empty_cache()
+    one_step = LT.make_step(cfg, oc, dev)
+    state = LT.init_state(cfg, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_count()
+    losses, gnorms, step_s = [], [], []
+    for step in range(TRAIN_STEPS):
+        batch = make_batch(data_cfg, step)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = one_step(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+    launches = fa.launch_count()
+    peak = torch.cuda.max_memory_allocated()
+    del state
+    torch.cuda.empty_cache()
+    check(launches == 0, f"training launched flash attention {launches} "
+          "times")
+    check(all(math.isfinite(v) for v in losses + gnorms),
+          f"non-finite loss or grad norm: {losses}, {gnorms}")
+    ln_v = math.log(cfg.vocab_size)
+    check(abs(losses[0] - ln_v) <= TRAIN_LOSS0_TOL, f"first loss "
+          f"{losses[0]} not within {TRAIN_LOSS0_TOL} of ln V = {ln_v}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = _train_flops(cfg, tokens, TRAIN_SEQ)
+    main = {"arch": TRAIN_ARCH, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "steps": TRAIN_STEPS, "losses": losses, "grad_norms": gnorms,
+            "step_s": step_s, "step_s_median": steady,
+            "tokens_per_s": tokens / steady, "peak_gb": peak / 1e9,
+            "flops_per_step": flops, "tflops": flops / steady / 1e12,
+            "mfu_vs_bf16_peak": flops / steady / BF16_FLOP_PER_S,
+            "flash_launches": launches, "params": cfg.num_params()}
+    print(f"train {TRAIN_ARCH} full config on {card}: loss {losses[0]:.4f} "
+          f"-> {losses[-1]:.4f} (ln V {ln_v:.4f}), step {steady:.3f} s "
+          f"(median of steps 2-{TRAIN_STEPS}; first {step_s[0]:.3f} s), "
+          f"{tokens / steady:.0f} tokens/s, peak {peak / 1e9:.1f} GB, "
+          f"~{flops / steady / 1e12:.1f} TFLOP/s = (6 N tokens + 12 L S H Dh "
+          f"tokens) / step s, N = {cfg.num_params()}, "
+          f"{flops / steady / BF16_FLOP_PER_S:.1%} of the bf16 dense peak "
+          f"989 TFLOP/s; flash launches {launches}")
+
+    # two microbatches against one, fp32 at the full config: the summed
+    # gradients and the mean loss; then the reference test's own claim
+    # (the updated parameters at its atol) at its own config on the card
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = LT.init_state(cfg32, dev)["params"]
+    batch = LT.batch_on(make_batch(data_cfg, 0), dev)
+    l1, _, g1 = TS.batch_grads(cfg32, params, batch, 1)
+    l2, _, g2 = TS.batch_grads(cfg32, params, batch, 2)
+    micro_rel = max(_max_rel(torch, a, b)
+                    for a, b in zip(leaves(g2), leaves(g1)))
+    micro_loss = abs(float(l2) / float(l1) - 1)
+    del params, g1, g2
+    torch.cuda.empty_cache()
+    check(micro_rel <= TRAIN_GRAD_RTOL and micro_loss <= TRAIN_GRAD_RTOL,
+          f"2 microbatches against one batch: gradients {micro_rel}, loss "
+          f"{micro_loss} (rtol {TRAIN_GRAD_RTOL})")
+    scfg = dataclasses.replace(get_smoke_config("qwen2-1.5b"),
+                               dtype="float32", remat="none")
+    oc1 = adamw.OptConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+    sbatch = make_batch(DataConfig(vocab_size=scfg.vocab_size, seq_len=16,
+                                   global_batch=4), 0)
+    stepped = [LT.make_step(scfg, oc1, dev, n)(LT.init_state(scfg, dev),
+                                              sbatch)[0]["params"]
+               for n in (1, 2)]
+    smoke_diff = max((a - b).abs().max().item()
+                     for a, b in zip(*map(leaves, stepped)))
+    check(smoke_diff <= TRAIN_MICRO_ATOL, f"2 microbatches against one step "
+          f"(qwen2-1.5b smoke): max|Δparam| {smoke_diff}")
+    print(f"train microbatches 2 vs 1 (fp32, full config, batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}): gradients max|Δ| / max|g| "
+          f"{micro_rel:.2e}, loss rel {micro_loss:.2e} (rtol "
+          f"{TRAIN_GRAD_RTOL}); one step of the qwen2-1.5b smoke config "
+          f"(tests/test_system.py's): max|Δparam| {smoke_diff:.3e} (atol "
+          f"{TRAIN_MICRO_ATOL})")
+
+    # the card against the CPU, fp32, TF32 off, full width cut in depth:
+    # the loss and every gradient, then AdamW on the same gradients
+    cut = TRAIN_CPU_CHECK
+    cfg2 = dataclasses.replace(cfg, num_layers=cut["layers"],
+                               dtype="float32")
+    cpu = torch.device("cpu")
+    p_cpu = LT.init_state(cfg2, cpu)["params"]
+    p_card = tree_map(lambda t: t.to(dev, copy=True), p_cpu)
+    b2 = make_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=cut["seq"],
+                               global_batch=cut["batch"]), 0)
+    l_card, _, g_card = TS.batch_grads(cfg2, p_card, LT.batch_on(b2, dev))
+    t0 = time.perf_counter()
+    l_cpu, _, g_cpu = TS.batch_grads(cfg2, p_cpu, LT.batch_on(b2, cpu))
+    cpu_s = time.perf_counter() - t0
+    rel = {"loss": abs(float(l_card) / float(l_cpu) - 1),
+           "grad_norm": abs(float(adamw.global_norm(g_card))
+                            / float(adamw.global_norm(g_cpu)) - 1)}
+
+    def close(a, b, what):
+        a = a.cpu()
+        floor = 1e-4 * b.abs().max().item()
+        check(bool(((a - b).abs() <= floor + TRAIN_CPU_RTOL * b.abs()).all()),
+              f"card against CPU: {what} {tuple(b.shape)} differs by "
+              f"{(a - b).abs().max().item()}")
+        return _max_rel(torch, a, b)
+    worst = {"grads": max(close(a, b, "gradient") for a, b in
+                          zip(leaves(g_card), leaves(g_cpu)))}
+    g_same = tree_map(lambda t: t.to(dev), g_cpu)
+    adamw.apply(oc1, g_same, adamw.init(p_card), p_card)
+    adamw.apply(oc1, g_cpu, adamw.init(p_cpu), p_cpu)
+    worst["params"] = max(close(a, b, "parameter") for a, b in
+                          zip(leaves(p_card), leaves(p_cpu)))
+    check(max(rel.values()) <= TRAIN_CPU_RTOL, f"card against CPU: {rel}")
+    del p_card, p_cpu, g_card, g_cpu, g_same
+    torch.cuda.empty_cache()
+    print(f"train card vs CPU (fp32, TF32 off, {cut['layers']} layers, batch "
+          f"{cut['batch']} x {cut['seq']}): loss rel {rel['loss']:.2e}, grad "
+          f"norm rel {rel['grad_norm']:.2e}, gradients max|Δ| / max|g| "
+          f"{worst['grads']:.2e}, AdamW's parameters on the same gradients "
+          f"max|Δ| / max|p| {worst['params']:.2e} (rtol {TRAIN_CPU_RTOL}); "
+          f"the CPU's gradients {cpu_s:.1f} s")
+
+    # the resilient loop in a fresh process: deterministic algorithms and
+    # cuBLAS's workspace set from its start
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                           "--train-resume", str(TRAIN_CKPT)], env=env,
+                          capture_output=True, text=True, timeout=900)
+    resume_s = time.perf_counter() - t0
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    print(proc.stdout[-3000:], end="")
+    check(proc.returncode == 0, f"train resume child failed: "
+          f"{proc.stderr[-3000:]}")
+    resume = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(resume["bit_equal"], f"the resilient loop's result differs from "
+          f"an uninterrupted run: {resume}")
+    resume["wall_s"] = resume_s
+    return {"main": main, "micro": {"grad_rel": micro_rel,
+                                    "loss_rel": micro_loss,
+                                    "smoke_param_diff": smoke_diff},
+            "cpu_check": {"rel": rel, "max_rel": worst, "cpu_s": cpu_s},
+            "resume": resume}
+
+
+def train_resume_child(ckpt_root: str) -> int:
+    """The resilient loop on the card at TRAIN_RESUME's cut of olmo-1b
+    (bf16 compute): first two uninterrupted runs with PyTorch's default
+    (nondeterministic) algorithms, to show whether they already agree bit
+    for bit; then, under ``torch.use_deterministic_algorithms(True)``, an
+    uninterrupted run and one with a failure injected at ``fail_at``
+    through ``resilient_train_loop``, each checkpointing every
+    ``ckpt_every`` steps; prints a JSON line."""
+    import dataclasses
+
+    import torch
+
+    sys.path.insert(0, str(SRC))
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.launch import train as LT
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.fault import FaultConfig, resilient_train_loop
+    from repro_torch.tree import leaves
+
+    r = TRAIN_RESUME
+    dev = torch.device(CARD)
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=r["layers"])
+    oc = adamw.OptConfig(lr=3e-3, warmup_steps=2, total_steps=r["steps"])
+    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=r["seq"],
+                          global_batch=r["batch"])
+    one_step = LT.make_step(cfg, oc, dev)
+
+    def init_state():
+        return LT.init_state(cfg, dev)
+
+    def same(a, b) -> bool:
+        return all(torch.equal(x, y) for x, y in zip(leaves(a), leaves(b)))
+
+    plain = []
+    for _ in range(2):
+        st = init_state()
+        for step in range(r["steps"]):
+            st, _ = one_step(st, make_batch(data_cfg, step))
+        plain.append(st)
+    default_equal = same(*plain)
+    del plain
+    torch.use_deterministic_algorithms(True)
+    runs, infos = [], []
+    for name, fail in (("clean", None), ("faulty", r["fail_at"])):
+        failed = {fail: True}
+        st, metrics, info = resilient_train_loop(
+            init_state, one_step, data_cfg, r["steps"],
+            FaultConfig(ckpt_dir=str(Path(ckpt_root) / name),
+                        ckpt_every=r["ckpt_every"], keep=2),
+            fail_at=lambda s: failed.pop(s, False), device=dev)
+        runs.append(st)
+        infos.append({"restarts": info["restarts"],
+                      "resumed_from": info["resumed_from"],
+                      "loss": float(metrics["loss"])})
+    equal = same(*runs)
+    print(f"train resume ({r['layers']} of "
+          f"{get_config(TRAIN_ARCH).num_layers} layers, batch {r['batch']} x "
+          f"{r['seq']}, {r['steps']} steps, failure at {r['fail_at']}): "
+          f"default algorithms repeat bit for bit: {default_equal}; "
+          f"deterministic, resumed run bit-equal: {equal} {infos}")
+    print(json.dumps({"bit_equal": equal and infos[1]["restarts"] == 1,
+                      "default_algorithms_bit_equal": default_equal,
+                      "runs": infos, "cut": r,
+                      "cublas_workspace": os.environ.get(
+                          "CUBLAS_WORKSPACE_CONFIG")}))
+    return 0
 
 
 def main() -> int:
@@ -2366,6 +2840,22 @@ def main() -> int:
             fp32_row["launches"] = counts[name]
         torch.cuda.empty_cache()
     print(f"serve summary: {json.dumps(summary)}")
+
+    # olmo-1b and granite-34b (16 of 88 layers): counters at 0 just before
+    # each, read just after
+    t0 = time.perf_counter()
+    more = serve_more(torch, card)
+    flash_row["serve_launches"] = {"qwen2-1.5b": launches, **{
+        k: v["flash_launches"] for k, v in more.items()}}
+    print(f"serve more: {time.perf_counter() - t0:.1f} s; "
+          f"{json.dumps(more)}")
+
+    # the dense training path: olmo-1b at its full config
+    t0 = time.perf_counter()
+    train = train_phase(torch, card)
+    flash_row["train_launches"] = train["main"]["flash_launches"]
+    print(f"train: {time.perf_counter() - t0:.1f} s")
+    print(f"train summary: {json.dumps(train)}")
 
     t0 = time.perf_counter()
     maxplus_row = maxplus_phase(torch)
@@ -2523,4 +3013,6 @@ if __name__ == "__main__":
         sys.exit(chameleon_child(sys.argv[2], sys.argv[3:]))
     if sys.argv[1:2] == ["--streams-entry"]:
         sys.exit(streams_entry_child(sys.argv[2:]))
+    if sys.argv[1:2] == ["--train-resume"]:
+        sys.exit(train_resume_child(sys.argv[2]))
     sys.exit(main())

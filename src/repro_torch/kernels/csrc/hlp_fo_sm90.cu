@@ -10,8 +10,9 @@
 //     use_comm adding each pred edge's expected crossing delay
 //     pred_comm * (1 - X[pred] . X), X = x @ type_mask^T.
 // Every float operation names its rounding (__fadd_rn / __fmul_rn /
-// __fdiv_rn / __fmaf_rn, full-precision expf / logf / sqrtf) and every sum
-// has a fixed order, so runs repeat bit for bit.
+// __fdiv_rn / __fmaf_rn, full-precision sqrtf; the hybrid solve's expf /
+// logf, the choice solve's XLA:CPU exp / log from xla_math.cuh) and every
+// sum has a fixed order, so runs repeat bit for bit.
 //   * The hybrid solve computes what the first design, hlp_fo.cu (deleted;
 //     its loop lives on as the gather design of tests/hlp_fo_emulation.py),
 //     computed, bit for bit: no FMA, sums in the block tree, and a reverse
@@ -26,9 +27,11 @@
 //     (window_sum), the cotangent through each max is kept, and a task's
 //     successors add their slot cotangents in descending topological order
 //     (the wrapper passes a pred_edge whose successor lists run that way).
-//     On an ill-conditioned instance the order of the backward's roundings
-//     is what separates a trajectory from the reference's.  Given the same
-//     expf and logf it is the plain version bit for bit (the emulation in
+//     Its exp and log are XLA:CPU's own (xla_math.cuh), its Adam moments
+//     one multiply-add each and x's cotangent takes the marginals' share
+//     first, as XLA's program for the solve does.  On an ill-conditioned
+//     instance every rounding counts: it is the plain version bit for bit,
+//     and so the reference's best x (the emulation in
 //     tests/hlp_fo_emulation.py holds the two to each other on the CPU).
 //
 // What bounds it on the H100: a chain of dependent level steps, each ended
@@ -77,15 +80,16 @@
 // attribute call or of the launch as an int, 0 on success, and, given a
 // `cycles` array, thread 0's clock cycles in each phase of the step;
 // hlp_fo_sm90_smem_bytes the bytes a launch takes; hlp_fo_sm90_chain_probe
-// times the chain floor; hlp_fo_sm90_transcendental_f32 gives the card's
-// expf or logf of an array (not a solve: a plain solve given them meets
-// the choice kernel bit for bit).
+// times the chain floor; hlp_fo_sm90_transcendental_f32 gives the choice
+// solve's exp or log (xla_math.cuh) of an array, not a solve: it is held
+// to the plain version's twins bit for bit.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "sm90_common.cuh"
+#include "xla_math.cuh"
 
 namespace {
 
@@ -112,6 +116,13 @@ __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b);
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float dvd(float a, float b) { return __fdiv_rn(a, b); }
 __device__ __forceinline__ float fma_rn(float a, float b, float c) { return __fmaf_rn(a, b, c); }
+
+// The solve's transcendentals: the choice entry takes XLA:CPU's own
+// (xla_math.cuh), the reference's bit for bit; the hybrid entry the card's.
+template <bool CHOICE>
+__device__ __forceinline__ float exp_(float v) { return CHOICE ? xla_math::xla_exp_f32(v) : expf(v); }
+template <bool CHOICE>
+__device__ __forceinline__ float log_(float v) { return CHOICE ? xla_math::xla_log_f32(v) : logf(v); }
 
 struct Problem {
   const int* level_ptr;   // (L + 1)
@@ -387,7 +398,7 @@ __device__ __forceinline__ void forward_task(const Problem& p, const Smem& s, co
         float e[PR];
 #pragma unroll
         for (int kk = 0; kk < PR; ++kk)
-          e[kk] = a.q[kk] >= 0 ? expf(dvd(sub(pf[kk], m), tau)) : 0.0f;
+          e[kk] = a.q[kk] >= 0 ? exp_<CHOICE>(dvd(sub(pf[kk], m), tau)) : 0.0f;
 #pragma unroll
         for (int kk = 0; kk < PR; ++kk)
           if (a.q[kk] >= 0) {
@@ -432,7 +443,7 @@ __device__ __forceinline__ void forward_task(const Problem& p, const Smem& s, co
           for (int u = 0; u < PR; ++u) {
             const float pf = k0 + u < np ? s.w[pe[u]] : 0.0f;
             hit[u] = CHOICE && pf == m;
-            e[u] = k0 + u < np ? expf(dvd(sub(pf, m), tau)) : 0.0f;
+            e[u] = k0 + u < np ? exp_<CHOICE>(dvd(sub(pf, m), tau)) : 0.0f;
           }
 #pragma unroll
           for (int u = 0; u < PR; ++u)
@@ -444,7 +455,7 @@ __device__ __forceinline__ void forward_task(const Problem& p, const Smem& s, co
       }
     }
     if (soft) {
-      sv = CHOICE ? fma_rn(tau, logf(add(sum, TINY)), m) : add(m, mul(tau, logf(add(sum, TINY))));
+      sv = CHOICE ? fma_rn(tau, log_<true>(add(sum, TINY)), m) : add(m, mul(tau, logf(add(sum, TINY))));
       start = max_nan(sv, 0.0f);
     }
   }
@@ -495,7 +506,7 @@ __device__ Grad choice_loss_grad(const Problem& p, const Smem& s, float tau, flo
                                  const float (&sums)[MAX_V], bool one_warp) {
   for (int j = threadIdx.x; j < p.n; j += blockDim.x) {
     const float f = s.f[j];
-    const float e = expf(dvd(sub(f, M), tau));
+    const float e = exp_<true>(dvd(sub(f, M), tau));
     s.f[j] = f == M ? -e : e;
   }
   float sf[2];   // the soft max's sum and the count of tasks at M
@@ -505,14 +516,14 @@ __device__ Grad choice_loss_grad(const Problem& p, const Smem& s, float tau, flo
   }, sf, one_warp);
   float terms[1 + MAX_Q];
   const int nt = 1 + p.Q;
-  terms[0] = fma_rn(tau, logf(add(sf[0], TINY)), M);
+  terms[0] = fma_rn(tau, log_<true>(add(sf[0], TINY)), M);
   for (int q = 0; q < p.Q; ++q) terms[1 + q] = pool_load(p, s, sums, q);
   float mx = terms[0];
   for (int i = 1; i < nt; ++i) mx = max_nan(mx, terms[i]);
   float e[1 + MAX_Q];
   float st = 0.0f;
   for (int i = 0; i < nt; ++i) {
-    e[i] = expf(dvd(sub(terms[i], mx), tau));
+    e[i] = exp_<true>(dvd(sub(terms[i], mx), tau));
     st = add(st, e[i]);
   }
   const float r = dvd(tau, st);
@@ -739,11 +750,15 @@ __device__ void reverse_walk(const Problem& p, const Smem& s, const Grad& g, boo
   }
 }
 
-// One Adam step on entry i; returns the new logit.
+// One Adam step on entry i; returns the new logit.  The choice entry takes
+// each moment as one multiply-add, b mu + ((1 - b) g), as XLA's program for
+// the reference contracts it.
+template <bool CHOICE>
 __device__ __forceinline__ float adam(float* z, float* mu, float* nu, int64_t i, float gz,
                                       float bc1, float bc2) {
-  const float m1 = add(mul(B1, mu[i]), mul(ONE_B1, gz));
-  const float v1 = add(mul(B2, nu[i]), mul(mul(ONE_B2, gz), gz));
+  const float m1 = CHOICE ? fma_rn(mu[i], B1, mul(gz, ONE_B1)) : add(mul(B1, mu[i]), mul(ONE_B1, gz));
+  const float v1 = CHOICE ? fma_rn(nu[i], B2, mul(mul(gz, ONE_B2), gz))
+                          : add(mul(B2, nu[i]), mul(mul(ONE_B2, gz), gz));
   mu[i] = m1;
   nu[i] = v1;
   const float zn = sub(z[i], dvd(mul(LR, dvd(m1, bc1)), add(sqrtf(dvd(v1, bc2)), EPS)));
@@ -766,7 +781,7 @@ __device__ __forceinline__ void softmax_row(const float* z, float* out, float* e
 #pragma unroll
   for (int i = 0; i < MAX_C; ++i)
     if (i < c) {
-      e[i] = expf(sub(z[i], mx));
+      e[i] = xla_math::xla_exp_f32(sub(z[i], mx));
       e_out[i] = e[i];
       sum = add(sum, e[i]);
     }
@@ -790,7 +805,7 @@ __device__ void adam_pass(const Problem& p, const Smem& s, const Grad& g, float 
       float gx = sub(mul(gf, pcj), mul(gf, pgj));
       gx = add(gx, mul(g.dc, pcj));
       gx = sub(gx, mul(g.dg, pgj));
-      const float xn = sigmoid(adam(p.z, p.mu, p.nu, j, mul(gx, mul(x, sub(1.0f, x))), bc1, bc2));
+      const float xn = sigmoid(adam<false>(p.z, p.mu, p.nu, j, mul(gx, mul(x, sub(1.0f, x))), bc1, bc2));
       s.x[j] = xn;
       s.f[j] = add(mul(pcj, xn), mul(pgj, sub(1.0f, xn)));   // the next walk's task time
       continue;
@@ -834,17 +849,20 @@ __device__ void adam_pass(const Problem& p, const Smem& s, const Grad& g, float 
         e[c] = p.ez[base + c];
         S = add(S, e[c]);
       }
-    // x's cotangent: the times', the area sums' and the marginals'
+    // x's cotangent: the times', the area sums' and the marginals'; with
+    // use_comm XLA's program for the solve adds the marginals' share first,
+    // p gf + (area gpc + that), two multiply-adds
 #pragma unroll
     for (int c = 0; c < MAX_C; ++c)
       if (c < p.C) {
-        float gc = fma_rn(__ldg(p.area + base + c), g.gpc[c], mul(__ldg(p.p_choice + base + c), gf));
+        const float ar = __ldg(p.area + base + c), pc = __ldg(p.p_choice + base + c);
         if (COMM) {
           float dot = mul(gX[0], s.tm[c]);
           for (int q = 1; q < p.Q; ++q) dot = fma_rn(gX[q], s.tm[q * p.C + c], dot);
-          gc = add(gc, dot);
+          gx[c] = fma_rn(pc, gf, fma_rn(ar, g.gpc[c], dot));
+        } else {
+          gx[c] = fma_rn(ar, g.gpc[c], mul(pc, gf));
         }
-        gx[c] = gc;
       }
     // through the softmax: (gx / S - sum_c gx e / S^2) e
     const float inv_s2 = dvd(1.0f, mul(S, S));
@@ -855,7 +873,7 @@ __device__ void adam_pass(const Problem& p, const Smem& s, const Grad& g, float 
 #pragma unroll
     for (int c = 0; c < MAX_C; ++c)
       if (c < p.C)
-        zn[c] = adam(p.z, p.mu, p.nu, base + c, mul(sub(dvd(gx[c], S), t), e[c]), bc1, bc2);
+        zn[c] = adam<true>(p.z, p.mu, p.nu, base + c, mul(sub(dvd(gx[c], S), t), e[c]), bc1, bc2);
     softmax_row(zn, s.x + base, p.ez + base, p.C);
     s.f[j] = task_time<true>(p, s, j);
   }
@@ -1019,14 +1037,14 @@ chain_probe_kernel(float* out, int steps, float tau) {
   if (tid == 0) out[0] = buf[steps & 1][0];
 }
 
-// The card's float32 expf (op 0) or logf (op 1) of n values: the choice
-// solve's transcendentals, for a plain solve to take in place of the
-// host's (what then separates it from the kernel is nothing else).
+// XLA:CPU's float32 exp (op 0) or log (op 1) of n values as the choice
+// solve computes them (xla_math.cuh), for the card tests to hold to the
+// plain version's twins.
 __global__ void transcendental_kernel(const float* x, float* y, int64_t n, int op) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
        i += stride)
-    y[i] = op == 0 ? expf(x[i]) : logf(x[i]);
+    y[i] = op == 0 ? xla_math::xla_exp_f32(x[i]) : xla_math::xla_log_f32(x[i]);
 }
 
 unsigned long long g_configured[6] = {0, 0, 0, 0, 0, 0};   // per kernel: devices set up

@@ -31,7 +31,17 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
-    """q: (B, S, H, Dh); k, v: (B, S, Hkv, Dh) with H = G·Hkv (GQA)."""
+    """q: (B, S, H, Dh); k, v: (B, S, Hkv, Dh) with H = G·Hkv (GQA).
+
+    Forward only, as the reference's Pallas kernel (it has no VJP): a call
+    that autograd would record, on either device, raises ``RuntimeError``
+    rather than return an output whose q, k and v get no gradient.  A
+    trainer takes the chunked attention (``use_kernels`` off), as the
+    reference's trainer does."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_attention is forward only (no backward "
+                           "kernel, as the reference's has no VJP): train "
+                           "with use_kernels=False, the chunked attention")
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal)
     return fa.launch_bshd(q, k, v, causal=causal)

@@ -270,9 +270,10 @@ def _bad_topo_edges(d, pred, real, sp) -> torch.Tensor:
 
 
 @functools.cache
-def _schedule_on(iters: int, device: torch.device) -> torch.Tensor:
-    """``ref.schedule(iters)`` on ``device``, copied there once."""
-    return schedule(iters).to(device)
+def _schedule_on(iters: int, device: torch.device,
+                 xla: bool = False) -> torch.Tensor:
+    """``ref.schedule(iters, xla)`` on ``device``, copied there once."""
+    return schedule(iters, xla).to(device)
 
 
 def _check_z0(z0: torch.Tensor, shape: tuple, device) -> None:
@@ -296,7 +297,7 @@ def _launch(entry: str, d, pointers: list, dims: list,
                         dtype=torch.float32, device=dev)
     best_x = torch.empty(nC, dtype=torch.float32, device=dev)
     best_val = torch.empty((), dtype=torch.float32, device=dev)
-    sched = _schedule_on(iters, dev)
+    sched = _schedule_on(iters, dev, entry == "choice")
     ptrs = [d.level_ptr, d.level_task, d.pred, d.succ_ptr, d.succ_task,
             d.succ_slot, d.pred_edge if pred_edge is None else pred_edge]
     args = ([t.data_ptr() for t in ptrs] + pointers
@@ -450,10 +451,11 @@ def choice(d, z0: torch.Tensor, p_choice: torch.Tensor, area: torch.Tensor,
 
 
 def transcendental(x: torch.Tensor, op: str) -> torch.Tensor:
-    """The card's float32 ``expf`` (``op="exp"``) or ``logf`` (``"log"``) of
-    each entry of ``x`` (float32, on the card), as the choice kernel takes
-    them; not a solve and not counted.  ``choice_solve_ref`` given these in
-    place of torch's is the kernel's solve bit for bit."""
+    """XLA:CPU's float32 exp (``op="exp"``) or log (``"log"``) of each entry
+    of ``x`` (float32, on the card) as the choice kernel computes them
+    (``csrc/xla_math.cuh``); not a solve and not counted.  They equal the
+    plain version's twins (``xla_math.xla_exp_f32`` / ``xla_log_f32``) bit
+    for bit."""
     if x.device.type != "cuda" or x.dtype != torch.float32:
         raise ValueError(f"x is {x.dtype} on {x.device}; the card's "
                          "transcendentals take float32 on the card")

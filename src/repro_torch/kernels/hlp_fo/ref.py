@@ -17,10 +17,12 @@ written out in the order of the program XLA:CPU compiles for the
 reference's ``jax.grad(loss)`` and ``lam_exact`` (:func:`choice_grad`,
 :func:`choice_lam`): every multiply-add XLA contracts is one rounding,
 every sum runs in XLA's order, and the reverse scan scatters each task's
-slot cotangents into its predecessors.  On an ill-conditioned instance
-(netbound seed 300) autograd's rounding order alone moves λ 8x further
-from the reference than the reference's own one-ulp spread; in XLA's order
-it lies inside that spread.
+slot cotangents into its predecessors.  The choice solve takes XLA:CPU's
+own exp and log (:mod:`.xla_math`), its anneal table
+(``schedule(iters, xla=True)``) and its fused Adam moments, so on an
+ill-conditioned instance (netbound seed 300, where autograd's rounding
+order alone moves λ 8x further from the reference than the reference's
+own one-ulp spread) it gives the reference's best x bit for bit.
 
 ``d`` is any object with the fields of ``repro_torch.core.hlp_jax.PaddedDag``
 on the CPU.  The functions here take CPU tensors only.
@@ -31,6 +33,8 @@ import functools
 
 import numpy as np
 import torch
+
+from .xla_math import fma, xla_exp_f32, xla_log_f32
 
 __all__ = ["ADAM", "NEG", "choice_grad", "choice_lam", "choice_loss",
            "choice_solve_ref", "fma", "hard_longest_path", "hybrid_loss",
@@ -54,21 +58,38 @@ def _cpu(*tensors) -> None:
 
 
 @functools.cache
-def schedule(iters: int) -> torch.Tensor:
+def schedule(iters: int, xla: bool = False) -> torch.Tensor:
     """(iters, 3) float32: step i's anneal factor of τ (τ = scale · factor,
     from scale/8 down to scale/512 over the run, ``hlp_jax.py:148-149``)
     and Adam's bias corrections 1 - b1^(i+1) and 1 - b2^(i+1), each in the
-    reference's float32 operations.  The kernel reads the same table."""
+    reference's float32 operations.  The kernel reads the same table.
+
+    With ``xla`` (the choice entry's table) the factor is the one XLA:CPU's
+    program for ``_solve_choice`` computes: i / (iters - 1) becomes
+    i · c with c = 1 / (iters - 1) in float32, (1 - i c) one fused
+    rounding, log(1/512) · i / (iters - 1) the folded constant
+    (log(1/512) · c) times i, contracted into the sum, and XLA's own exp
+    (:func:`xla_exp_f32`); b^(i+1) is libm's ``powf`` (XLA:CPU calls it;
+    torch's float32 ``pow`` of two scalars is the same call), where torch's
+    power by an integer multiplies out and may land an ulp away."""
     f32 = torch.float32
     b1 = torch.tensor(ADAM["b1"], dtype=f32)
     b2 = torch.tensor(ADAM["b2"], dtype=f32)
+    c = torch.tensor(1.0, dtype=f32) / max(iters - 1, 1)
     rows = []
     for i in range(iters):
-        frac = torch.tensor(i, dtype=f32) / max(iters - 1, 1)
-        factor = torch.exp(torch.tensor(LOG_8) * (1 - frac)
-                           + torch.tensor(LOG_512) * frac)
-        rows.append(torch.stack([factor, 1 - b1 ** (i + 1),
-                                 1 - b2 ** (i + 1)]))
+        if xla:
+            fi = torch.tensor(i, dtype=f32)
+            factor = xla_exp_f32(fma(fi, torch.tensor(LOG_512) * c,
+                                     fma(-fi, c, 1.0) * torch.tensor(LOG_8)))
+            k = torch.tensor(float(i + 1), dtype=f32)
+            bc1, bc2 = 1 - torch.pow(b1, k), 1 - torch.pow(b2, k)
+        else:
+            frac = torch.tensor(i, dtype=f32) / max(iters - 1, 1)
+            factor = torch.exp(torch.tensor(LOG_8) * (1 - frac)
+                               + torch.tensor(LOG_512) * frac)
+            bc1, bc2 = 1 - b1 ** (i + 1), 1 - b2 ** (i + 1)
+        rows.append(torch.stack([factor, bc1, bc2]))
     return (torch.stack(rows) if rows
             else torch.zeros((0, 3), dtype=f32))
 
@@ -146,21 +167,30 @@ def _autograd(loss):
 
 
 def _adam(z0: torch.Tensor, iters: int, scale: torch.Tensor, grad, mix, lam,
-          sqrt=torch.sqrt):
-    """Adam on logits from ``z0``, keeping the iterate of least exact λ."""
+          sqrt=torch.sqrt, xla: bool = False):
+    """Adam on logits from ``z0``, keeping the iterate of least exact λ;
+    ``xla`` runs the step as XLA's program for ``_solve_choice`` does: the
+    table of ``schedule(iters, xla=True)`` and each moment one fused
+    multiply-add."""
     a = ADAM
     z = z0.clone()
     mu = torch.zeros_like(z)
     nu = torch.zeros_like(z)
+    f32 = torch.float32
+    b1, b2 = torch.tensor(a["b1"], dtype=f32), torch.tensor(a["b2"], dtype=f32)
     with torch.no_grad():
         best_x = mix(z)
         best_val = lam(best_x)
-    for i, (factor, bc1, bc2) in enumerate(schedule(iters)):
+    for factor, bc1, bc2 in schedule(iters, xla):
         tau = scale * factor
         gz = grad(z, tau)
         with torch.no_grad():
-            mu = a["b1"] * mu + a["one_b1"] * gz
-            nu = a["b2"] * nu + a["one_b2"] * gz * gz
+            if xla:        # XLA contracts b mu + (1 - b) g into one rounding
+                mu = fma(mu, b1, gz * a["one_b1"])
+                nu = fma(nu, b2, gz * a["one_b2"] * gz)
+            else:
+                mu = a["b1"] * mu + a["one_b1"] * gz
+                nu = a["b2"] * nu + a["one_b2"] * gz * gz
             z = z - a["lr"] * (mu / bc1) / (sqrt(nu / bc2) + a["eps"])
             x = mix(z)
             val = lam(x)
@@ -189,8 +219,10 @@ def _seq_sum(cols) -> torch.Tensor:
     return acc
 
 
-def _softmax(z: torch.Tensor, exp=torch.exp) -> torch.Tensor:
-    """softmax over the choice axis, its sum taken left to right."""
+def _softmax(z: torch.Tensor, exp=xla_exp_f32) -> torch.Tensor:
+    """softmax over the choice axis, its sum taken left to right; ``exp``
+    is XLA's unless a caller passes another (``torch.exp`` keeps it
+    differentiable)."""
     e = exp(z - z.amax(dim=1, keepdim=True).detach())
     return e / _seq_sum(e.unbind(1))[:, None]
 
@@ -213,32 +245,10 @@ def choice_loss(d, z, tau, p_choice, area, type_mask, inv_counts,
     """``_solve_choice``'s loss at x = softmax(z) over the choice axis,
     differentiable (autograd's order, not XLA's: :func:`choice_grad` is
     the solve's gradient)."""
-    times, loads, delay = _choice_terms(d, _softmax(z), p_choice, area,
-                                        type_mask, inv_counts, use_comm)
+    times, loads, delay = _choice_terms(d, _softmax(z, torch.exp), p_choice,
+                                        area, type_mask, inv_counts, use_comm)
     cp = soft_longest_path(d, times, tau, delay)
     return _smooth_max(torch.cat([cp[None], loads]), tau)
-
-
-def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """float32 ``a * b + c`` rounded once, as a fused multiply-add.
-
-    The product of two float32 values is exact in float64 (24 + 24 bits);
-    the float64 sum with ``c`` may round, and a second rounding to float32
-    could then land on the wrong side of a float32 midpoint.  So the sum is
-    rounded to odd first (an inexact float64 sum moves to the neighbour
-    whose last bit is 1, found from TwoSum's exact error): a value rounded
-    to odd at 53 bits rounds to 24 bits exactly as the exact value does
-    (Boldo and Melquiond, 2008)."""
-    p = a.double() * b.double()
-    c = c.double()
-    s = p + c
-    bb = s - p
-    err = (p - (s - bb)) + (c - bb)
-    even = (s.view(torch.int64) & 1) == 0
-    up = torch.nextafter(s, torch.where(err > 0, torch.inf, -torch.inf)
-                         .to(s.dtype))
-    s = torch.where((err != 0) & even & torch.isfinite(s), up, s)
-    return s.float()
 
 
 def sqrt_rn(v: torch.Tensor) -> torch.Tensor:
@@ -341,7 +351,7 @@ def choice_lam(d, x, p_choice, area, type_mask, inv_counts,
 
 
 def choice_grad(d, z, tau, p_choice, area, type_mask, inv_counts,
-                use_comm: bool, *, exp=torch.exp, log=torch.log,
+                use_comm: bool, *, exp=xla_exp_f32, log=xla_log_f32,
                 scan: _Scan | None = None) -> torch.Tensor:
     """The gradient of ``_solve_choice``'s loss at logits ``z`` (n, C),
     written out in the order of the program XLA:CPU compiles for the
@@ -353,8 +363,11 @@ def choice_grad(d, z, tau, p_choice, area, type_mask, inv_counts,
     max's own, into its predecessors), then the transposes of the
     crossings, the marginals and the softmax.  The scans run a level at a
     time, which orders nothing: a task reads only earlier levels.
-    ``exp`` and ``log`` stand in for the transcendentals (a test passes
-    the reference's)."""
+    ``exp`` and ``log`` are XLA:CPU's (:mod:`.xla_math`) unless a caller
+    passes others (``torch.exp`` / ``torch.log``).  x's cotangent is
+    ordered as inside ``_solve_choice``: the marginals' share comes first,
+    ``p gtimes + (area gcolsum + that)`` as two multiply-adds (a program
+    of ``jax.grad(loss)`` alone adds it last)."""
     o = scan or _Scan(d)
     f32 = torch.float32
     n, C = z.shape
@@ -422,7 +435,6 @@ def choice_grad(d, z, tau, p_choice, area, type_mask, inv_counts,
                                          ge), 0.0)
         gpf_all.view(n, P)[idx] = 0.0 + gpf
     # the transposes: the crossings into the marginals, then the softmax
-    gx = fma(area, gcolsum.expand_as(area), p_choice * gtimes[:, None])
     if use_comm:
         gcross = -(d.pred_comm * gpf_all.view(n, P))
         gX = _dot_fma(X[o.predw].transpose(1, 2), gcross[:, None, :])
@@ -431,7 +443,11 @@ def choice_grad(d, z, tau, p_choice, area, type_mask, inv_counts,
             gX = torch.where(o.fwd_ok[:, k, None],
                              gX + flat[o.fwd[:, k], None] * X[o.fwd_task[:, k]],
                              gX)
-        gx = gx + _dot_fma(gX[:, None, :], type_mask.T[None, :, :])
+        gxc = _dot_fma(gX[:, None, :], type_mask.T[None, :, :])
+        gx = fma(p_choice, gtimes[:, None].expand_as(area),
+                 fma(area, gcolsum.expand_as(area), gxc))
+    else:
+        gx = fma(area, gcolsum.expand_as(area), p_choice * gtimes[:, None])
     t = torch.zeros(n)
     for c in range(C):
         t = fma(gx[:, c] * inv_s2, e[:, c], t)
@@ -441,12 +457,13 @@ def choice_grad(d, z, tau, p_choice, area, type_mask, inv_counts,
 def choice_solve_ref(d, z0: torch.Tensor, p_choice: torch.Tensor,
                      area: torch.Tensor, type_mask: torch.Tensor,
                      inv_counts: torch.Tensor, *, iters: int,
-                     use_comm: bool, exp=torch.exp, log=torch.log
+                     use_comm: bool, exp=xla_exp_f32, log=xla_log_f32
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """``_solve_choice`` from logits ``z0`` (n, C): the best x (n, C)
-    float32 and its exact λ, the gradient and λ in XLA's order.  ``exp``
-    and ``log`` stand in for the solve's transcendentals (the softmax's
-    and the gradient's; the anneal schedule's are the table's)."""
+    float32 and its exact λ, the gradient and λ in XLA's order, the anneal
+    factors of ``schedule(iters, xla=True)``.  ``exp`` and ``log`` are the
+    softmax's and the gradient's transcendentals: XLA:CPU's own
+    (:mod:`.xla_math`) unless a caller passes others."""
     _cpu(p_choice, area, type_mask, inv_counts, z0, d.pred_comm)
     scale = torch.where(torch.isfinite(p_choice), p_choice, 0.0).max()
     scan = _Scan(d)
@@ -455,4 +472,4 @@ def choice_solve_ref(d, z0: torch.Tensor, p_choice: torch.Tensor,
                  lambda z, tau: choice_grad(d, z, tau, *args, exp=exp,
                                             log=log, scan=scan),
                  lambda z: _softmax(z, exp), lambda x: choice_lam(d, x, *args),
-                 sqrt=sqrt_rn)
+                 sqrt=sqrt_rn, xla=True)

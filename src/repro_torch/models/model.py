@@ -1,16 +1,20 @@
-"""Model assembly for the dense family: init, prefill and decode.
+"""Model assembly for the dense family: init, the training loss, prefill
+and decode.
 
 The counterpart of the dense path of ``repro.models.model``.  Parameters are
 a nested dict of tensors with the JAX package's names and shapes, the layer
 blocks stacked with a leading layer dimension; the stack runs as a Python
-loop over layer views.  The decode cache keeps the JAX layout too —
+loop over layer views, each layer under the config's remat policy
+(``cfg.remat``) when it trains.  The decode cache keeps the JAX layout too —
 ``{"layers": {"k", "v"}: (L, B, max_len, Hkv, Dh), "pos": (B,)}`` — and is
-updated in place.  Training (``lm_loss``, ``train_loss``) and the other
-model families port in later slices.
+updated in place.  The other model families port in later slices.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -125,6 +129,92 @@ def _logits(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
                             < cfg.vocab_size, 0.0, -1e30)
         logits = logits + vmask
     return logits
+
+
+# ----------------------------------------------------------------- training
+def _apply_layer(cfg: ModelConfig, lp: Params, x: torch.Tensor,
+                 positions: torch.Tensor) -> torch.Tensor:
+    """Residual attention, then residual MLP, each behind its pre-norm."""
+    x = x + L.attn_apply(cfg, lp["attn"], L.norm_apply(cfg, lp["ln1"], x),
+                         positions, causal=True)
+    return x + L.mlp_apply(cfg, lp["mlp"], L.norm_apply(cfg, lp["ln2"], x))
+
+
+#: the products whose outputs the ``dots`` policy keeps: matrix products
+#: with no batch dimension, as ``checkpoint_dots_with_no_batch_dims`` keeps
+#: the reference's (attention's batched products are recomputed)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: ModelConfig, body):
+    """``body`` under the config's remat policy, as ``repro.models.model.
+    _remat``: ``none`` keeps every activation, ``full`` keeps the layer's
+    input and recomputes the rest in the backward pass, ``dots`` also keeps
+    the outputs of the matrix products with no batch dimension."""
+    if cfg.remat == "none":
+        return body
+    if cfg.remat == "dots":
+        context = functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                    _dots_policy)
+        return functools.partial(ckpt.checkpoint, body, use_reentrant=False,
+                                 context_fn=context)
+    if cfg.remat == "full":
+        return functools.partial(ckpt.checkpoint, body, use_reentrant=False)
+    raise ValueError(f"remat {cfg.remat!r}: expected none, dots or full")
+
+
+def lm_loss(cfg: ModelConfig, params: Params, h: torch.Tensor,
+            targets: torch.Tensor, loss_mask: torch.Tensor,
+            s_chunk: int = 512) -> torch.Tensor:
+    """Sequence-chunked cross entropy (never materializes (B, S, V) at
+    once): fp32 logits of each chunk of ``best_chunk(s, s_chunk)``
+    positions, the padded vocabulary rows at -1e30, the mean negative log
+    likelihood over the positions ``loss_mask`` keeps."""
+    head = params.get("lm_head")
+    if head is None:
+        head = params["embed"].T
+    s = h.shape[1]
+    cs = L.best_chunk(s, s_chunk)
+    vmask = None
+    if cfg.padded_vocab != cfg.vocab_size:
+        vmask = torch.where(torch.arange(cfg.padded_vocab, device=h.device)
+                            < cfg.vocab_size, 0.0, -1e30)
+    tot = cnt = torch.zeros((), device=h.device)
+    for c0 in range(0, s, cs):
+        logits = (h[:, c0:c0 + cs] @ head.to(h.dtype)).float()
+        if vmask is not None:
+            logits = logits + vmask
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, targets[:, c0:c0 + cs, None].long())[..., 0]
+        mask = loss_mask[:, c0:c0 + cs].float()
+        tot = tot + ((lse - gold) * mask).sum()
+        cnt = cnt + mask.sum()
+    return tot / torch.clamp_min(cnt, 1.0)
+
+
+def train_loss(cfg: ModelConfig, params: Params, batch: dict
+               ) -> tuple[torch.Tensor, dict]:
+    """batch: ``tokens``, ``targets`` (B, S) integer ids and ``loss_mask``
+    (B, S).  Returns (loss, metrics) with metrics ``lm_loss`` and
+    ``aux_loss`` (0 in the dense family, which has no router)."""
+    _require_dense(cfg)
+    tokens = batch["tokens"]
+    x = params["embed"][tokens.long()].to(L.compute_dtype(cfg))
+    b, s = tokens.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    layer = _remat(cfg, functools.partial(_apply_layer, cfg))
+    for i in range(cfg.num_layers):
+        x = layer(_layer(params["blocks"], i), x, positions)
+    x = L.norm_apply(cfg, params["final_norm"], x)
+    loss = lm_loss(cfg, params, x, batch["targets"], batch["loss_mask"])
+    aux = torch.zeros((), device=x.device)
+    return loss + cfg.router_aux_weight * aux, {"lm_loss": loss,
+                                                "aux_loss": aux}
 
 
 # ------------------------------------------------------------------ serving

@@ -294,11 +294,14 @@ class Problem:
         """The choice solve's d loss / d z of task j in the reference's
         order, from its times' cotangent, the area sums' and (with
         use_comm) its marginals', through the softmax of row e / S."""
-        gx = np.array([_fma(self.ar[j, c], gcolsum[c],
-                            f32(self.pch[j, c] * gtimes))
-                       for c in range(self.C)], f32)
-        if gX is not None:
-            gx = np.array([f32(gx[c] + _dot_fma(gX, self.tm[:, c]))
+        if gX is None:
+            gx = np.array([_fma(self.ar[j, c], gcolsum[c],
+                                f32(self.pch[j, c] * gtimes))
+                           for c in range(self.C)], f32)
+        else:       # inside the solve XLA adds the marginals' share first
+            gx = np.array([_fma(self.pch[j, c], gtimes,
+                                _fma(self.ar[j, c], gcolsum[c],
+                                     _dot_fma(gX, self.tm[:, c])))
                            for c in range(self.C)], f32)
         inv_s2 = f32(f32(1) / f32(S * S))
         t = f32(0)
@@ -535,10 +538,17 @@ def gradient_sm90(d, z, tau, **kw):
     return pr.step_sm90(x, X, f32(tau), fwd, M, sums, z)
 
 
-def _adam(z, mu, nu, gz, bc1, bc2):
+def _adam(z, mu, nu, gz, bc1, bc2, fused=False):
+    """One Adam step; ``fused`` takes each moment as one multiply-add, as
+    XLA's program for the choice solve does."""
     lr, b1, b2, eps, ob1, ob2 = ADAM
-    mu = (b1 * mu + (ob1 * gz).astype(f32)).astype(f32)
-    nu = (b2 * nu + ((ob2 * gz).astype(f32) * gz).astype(f32)).astype(f32)
+    if fused:
+        mu = _fma(mu, b1, (ob1 * gz).astype(f32))
+        nu = _fma(nu, b2, ((ob2 * gz).astype(f32) * gz).astype(f32))
+    else:
+        mu = (b1 * mu + (ob1 * gz).astype(f32)).astype(f32)
+        nu = (b2 * nu + ((ob2 * gz).astype(f32) * gz).astype(f32)
+              ).astype(f32)
     step = ((lr * (mu / bc1).astype(f32)).astype(f32)
             / (np.sqrt((nu / bc2).astype(f32)) + eps).astype(f32)).astype(f32)
     return (z - step).astype(f32), mu, nu
@@ -584,7 +594,8 @@ def solve(d, z0, iters, sched, *, design, **kw):
             break
         gz = pr.step_sm90(x, X, tau, fwd, M, sums, z)
         grads.append(gz)
-        z, mu, nu = _adam(z, mu, nu, gz, sched[i, 1], sched[i, 2])
+        z, mu, nu = _adam(z, mu, nu, gz, sched[i, 1], sched[i, 2],
+                          fused=pr.choice)
         x = pr.mix(z)
         X = pr.marginals(x)
     return best_x, best, grads
@@ -635,7 +646,7 @@ def _dot_fma(a, b):
 
 
 def choice_grad_xla_order(topo, pred, mask, comm, z, tau, p, area, tm, inv,
-                          *, exp, log):
+                          *, exp, log, in_solve: bool = False):
     """The gradient of ``repro.core.hlp_jax._solve_choice``'s loss (with
     ``use_comm``) at logits ``z`` (n, C), written out in the order of the
     program XLA:CPU compiles for ``jax.jit(jax.grad(loss))``: its forward
@@ -650,7 +661,10 @@ def choice_grad_xla_order(topo, pred, mask, comm, z, tau, p, area, tm, inv,
     jitted ``jnp.exp`` / ``jnp.log`` reproduce the reference's
     transcendentals, ``torch.exp`` / ``torch.log`` the plain version's.  Float32 numpy arrays in and
     out; ``pred`` -1 after the last real slot (a masked slot reads task
-    n - 1, as XLA's gather wraps it, and carries no cotangent)."""
+    n - 1, as XLA's gather wraps it, and carries no cotangent).  x's
+    cotangent adds the marginals' share last, as that program does;
+    ``in_solve`` adds it first, as the program of ``_solve_choice`` does
+    (and ``ref.choice_grad``)."""
     def exp_(v, fn=exp):
         return np.asarray(fn(np.asarray(v, f32)), f32)
 
@@ -743,8 +757,11 @@ def choice_grad_xla_order(topo, pred, mask, comm, z, tau, p, area, tm, inv,
                                + (gcross[a, s] * X[a]).astype(f32)
                                ).astype(f32)
     gxX = _dot_fma(gX[:, None, :], tm.T[None, :, :])             # (n, C)
-    gx = (_fma(area, gcolsum[None, :], (p * gtimes[:, None]).astype(f32))
-          + gxX).astype(f32)
+    if in_solve:
+        gx = _fma(p, gtimes[:, None], _fma(area, gcolsum[None, :], gxX))
+    else:
+        gx = (_fma(area, gcolsum[None, :], (p * gtimes[:, None]).astype(f32))
+              + gxX).astype(f32)
     t = np.zeros(n, f32)
     for c in range(C):
         t = _fma((gx[:, c] * inv_s2).astype(f32), e[:, c], t)

@@ -9,10 +9,11 @@ Held here, on the CPU:
 
 * the float32 fused multiply-add and XLA's window-of-32 sums against exact
   rational arithmetic;
-* ``ref.choice_grad`` against ``jax.grad`` of the reference's loss bit for
-  bit on the netbound instances (given XLA's own exp and log), and against
-  the independent scan-by-scan model ``tests/hlp_fo_emulation.py::
-  choice_grad_xla_order`` bit for bit at step 1 and along a trajectory;
+* the independent scan-by-scan model ``tests/hlp_fo_emulation.py::
+  choice_grad_xla_order`` against ``jax.grad`` of the reference's loss bit
+  for bit on the netbound instances (given XLA's own exp and log), and
+  ``ref.choice_grad`` against that model in the solve's order of x's
+  cotangent bit for bit at step 1 and along a trajectory;
 * the reordered plain version within the reference's own one-ulp spread on
   netbound seed 300 at 160, 250 and 300 iterations, allocations identical;
   the reference's best x there equal to the pin
@@ -47,6 +48,8 @@ from repro_torch.core.allocation import AllocationProblem  # noqa: E402
 from repro_torch.core.allocation import frac_objective  # noqa: E402
 from repro_torch.kernels.hlp_fo import hlp_fo as HF  # noqa: E402
 from repro_torch.kernels.hlp_fo import ref as R  # noqa: E402
+from repro_torch.kernels.hlp_fo.xla_math import xla_exp_f32  # noqa: E402
+from repro_torch.kernels.hlp_fo.xla_math import xla_log_f32  # noqa: E402
 
 import hlp_fo_emulation as E  # noqa: E402
 
@@ -167,10 +170,13 @@ def test_window_sum_is_xlas_order():
 
 
 def test_choice_grad_is_jax_grad_bit_for_bit_on_netbound():
-    """``ref.choice_grad`` given XLA's own exp and log equals
-    ``jax.jit(jax.grad(loss))`` of ``_solve_choice``'s loss (its inputs
-    traced arguments) in every entry, on netbound seeds 300 and 301, at
-    the reference's z0 and at logits 50 times larger."""
+    """The choice gradient in XLA's order given XLA's own exp and log
+    equals ``jax.jit(jax.grad(loss))`` of ``_solve_choice``'s loss (its
+    inputs traced arguments) in every entry, on netbound seeds 300 and
+    301, at the reference's z0 and at logits 50 times larger.  That
+    program adds x's cotangent in its own order, which the scan model
+    ``choice_grad_xla_order`` writes out; ``ref.choice_grad`` equals the
+    same model in the solve's order (``in_solve``) bit for bit."""
     def loss(z, tau, p, area, tm, inv, d):
         x = jax.nn.softmax(z, axis=1)
         X = x @ tm.T
@@ -181,18 +187,30 @@ def test_choice_grad_is_jax_grad_bit_for_bit_on_netbound():
         mx = jnp.max(terms)
         return mx + tau * jnp.log(jnp.sum(jnp.exp((terms - mx) / tau)))
     grad = jax.jit(jax.grad(loss))
+    twins = dict(exp=_torch_fn(xla_exp_f32), log=_torch_fn(xla_log_f32))
     for seed in (300, 301):
         jd, td, _, ins = _netbound(seed)
+        arrs = tuple(np.asarray(a) for a in (jd.topo, jd.pred, jd.pred_mask,
+                                             jd.pred_comm))
         for scale in (0.01, 0.5):
             z = _z0(0, ins[0].shape, scale)
             tau = np.asarray(jax.jit(lambda s: s * jnp.exp(jnp.log(1 / 8.0)))(
                 jnp.max(ins[0])))
             want = np.asarray(grad(jnp.asarray(z), tau,
                                    *map(jnp.asarray, ins), jd))
+            got = E.choice_grad_xla_order(*arrs, z, tau, *ins,
+                                          exp=_jax_fn(jnp.exp),
+                                          log=_jax_fn(jnp.log))
+            _same(got, want, f"seed {seed}, z0 x {scale / 0.01:g}")
+            # XLA's exp and log as the port's own twins
+            got = E.choice_grad_xla_order(*arrs, z, tau, *ins, **twins)
+            _same(got, want, f"twins, seed {seed}")
+            # the plain version: the twins by default, the solve's order
             got = R.choice_grad(td, torch.from_numpy(z), torch.tensor(tau),
-                                *map(torch.from_numpy, ins), True,
-                                exp=_jax_fn(jnp.exp), log=_jax_fn(jnp.log))
-            _same(got.numpy(), want, f"seed {seed}, z0 x {scale / 0.01:g}")
+                                *map(torch.from_numpy, ins), True)
+            _same(got.numpy(), E.choice_grad_xla_order(
+                *arrs, z, tau, *ins, in_solve=True, **twins),
+                f"ref.choice_grad, seed {seed}, z0 x {scale / 0.01:g}")
 
 
 def test_choice_grad_is_the_scan_model_bit_for_bit():
@@ -210,10 +228,11 @@ def test_choice_grad_is_the_scan_model_bit_for_bit():
     a = R.ADAM
     for i, (factor, bc1, bc2) in enumerate(R.schedule(120)):
         tau = scale * factor
-        gz = R.choice_grad(td, z, tau, *tins, True)
+        gz = R.choice_grad(td, z, tau, *tins, True, exp=torch.exp,
+                           log=torch.log)
         if i % 20 == 0:
             want = E.choice_grad_xla_order(
-                *arrs, z.numpy(), tau.numpy(), *ins,
+                *arrs, z.numpy(), tau.numpy(), *ins, in_solve=True,
                 exp=_torch_fn(torch.exp), log=_torch_fn(torch.log))
             _same(gz.numpy(), want, f"step {i}")
         mu = a["b1"] * mu + a["one_b1"] * gz
@@ -330,17 +349,18 @@ def test_sm90_emulation_is_the_plain_gradient_bit_for_bit():
         tau = _tau(ins[0], step=10)
         kw = dict(p_choice=ins[0], area=ins[1], type_mask=ins[2],
                   inv_counts=ins[3], use_comm=prob.comm_aware,
-                  exp=_torch_fn(torch.exp), log=_torch_fn(torch.log))
+                  exp=_torch_fn(xla_exp_f32), log=_torch_fn(xla_log_f32))
         want = R.choice_grad(d, torch.from_numpy(z), torch.tensor(tau),
                              *map(torch.from_numpy, ins),
                              prob.comm_aware).numpy()
         assert np.abs(want).max() > 0, name
         _same(E.gradient_sm90(d, z, tau, **kw), want, f"sm90: {name}")
         if prob.comm_aware:
+            # the scan model in the solve's order of x's cotangent
             _same(E.choice_grad_xla_order(
                 *(d.topo.numpy(), d.pred.numpy(), d.pred_mask.numpy(),
                   d.pred_comm.numpy()), z, tau, *ins, exp=kw["exp"],
-                log=kw["log"]), want, f"scan model: {name}")
+                log=kw["log"], in_solve=True), want, f"scan model: {name}")
 
 
 def test_sm90_emulation_solves_as_the_plain_version():
@@ -351,11 +371,12 @@ def test_sm90_emulation_solves_as_the_plain_version():
         d = TH.PaddedDag.from_graph(g, "cpu")
         z0 = np.float32(0.01) * TH.reference_normal(0, ins[0].shape)
         for iters in (0, 1, 15):
-            x, v, _ = E.solve(d, z0, iters, R.schedule(iters), design="sm90",
-                              p_choice=ins[0], area=ins[1], type_mask=ins[2],
-                              inv_counts=ins[3], use_comm=prob.comm_aware,
-                              exp=_torch_fn(torch.exp),
-                              log=_torch_fn(torch.log))
+            x, v, _ = E.solve(d, z0, iters, R.schedule(iters, xla=True),
+                              design="sm90", p_choice=ins[0], area=ins[1],
+                              type_mask=ins[2], inv_counts=ins[3],
+                              use_comm=prob.comm_aware,
+                              exp=_torch_fn(xla_exp_f32),
+                              log=_torch_fn(xla_log_f32))
             px, pv = R.choice_solve_ref(d, torch.from_numpy(z0),
                                         *map(torch.from_numpy, ins),
                                         iters=iters,

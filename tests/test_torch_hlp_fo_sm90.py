@@ -37,6 +37,8 @@ import repro_torch.sim.scenarios as TS  # noqa: E402
 from repro_torch.core.allocation import AllocationProblem  # noqa: E402
 from repro_torch.kernels.hlp_fo import hlp_fo as HF  # noqa: E402
 from repro_torch.kernels.hlp_fo import ref as R  # noqa: E402
+from repro_torch.kernels.hlp_fo.xla_math import xla_exp_f32  # noqa: E402
+from repro_torch.kernels.hlp_fo.xla_math import xla_log_f32  # noqa: E402
 
 import hlp_fo_emulation as E  # noqa: E402
 
@@ -94,7 +96,7 @@ def _choice(g, machine, comm, rigid, seed=3, scale=50.0):
     tau = float(np.float32(ins[0].max() * R.schedule(300)[10, 0].item()))
     kw = dict(p_choice=ins[0], area=ins[1], type_mask=ins[2],
               inv_counts=ins[3], use_comm=prob.comm_aware,
-              exp=_torch_fn(torch.exp), log=_torch_fn(torch.log))
+              exp=_torch_fn(xla_exp_f32), log=_torch_fn(xla_log_f32))
     return d, z, tau, kw
 
 
@@ -170,7 +172,8 @@ def test_whole_solves_agree_bit_for_bit_in_both_designs():
     ins, use_comm = _plain_choice(dc, kc)
     for iters in (0, 1, 12):
         sched = R.schedule(iters)
-        x1, v1, g1 = E.solve(dc, zc, iters, sched, design="sm90", **kc)
+        x1, v1, g1 = E.solve(dc, zc, iters, R.schedule(iters, xla=True),
+                             design="sm90", **kc)
         x0, v0 = R.choice_solve_ref(dc, torch.from_numpy(zc), *ins,
                                     iters=iters, use_comm=use_comm)
         _same(x1, x0.numpy(), f"choice best x, {iters} iterations")

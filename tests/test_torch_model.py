@@ -1,7 +1,9 @@
 """The port's dense model against the JAX package's, on carried-over weights.
 
-float32 smoke configs of qwen2-1.5b (QKV bias, head_dim 8) and granite-3-2b
-(GQA 8:2).  The JAX parameters of ``init_params(PRNGKey(0))`` go to the port
+float32 smoke configs of the dense family's four: qwen2-1.5b (QKV bias,
+head_dim 8), granite-3-2b (GQA 8:2), olmo-1b (the non-parametric LayerNorm,
+whose parameter groups are empty dicts, tied embeddings) and granite-34b
+(LayerNorm with bias, MQA 8:1).  The JAX parameters of ``init_params(PRNGKey(0))`` go to the port
 through ``params_from_jax``; both sides then take the same token ids.
 Tolerance: atol = rtol = 1e-4, because the two frameworks sum the same
 float32 products in another order (einsum contraction, softmax and norm
@@ -25,7 +27,7 @@ from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
 
-ARCHS = ["qwen2-1.5b", "granite-3-2b"]
+ARCHS = ["qwen2-1.5b", "granite-3-2b", "olmo-1b", "granite-34b"]
 TOL = dict(atol=1e-4, rtol=1e-4)
 
 
