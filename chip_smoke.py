@@ -34,6 +34,23 @@ Phases, each of which raises on failure (exit code not 0):
              prompt 512, 32 generated, every flash counter 0 just before
              and layers x 2 bf16 launches just after; each model's bf16
              prefill/decode consistency at 0.32 of its logits' std.
+   moe     — the MoE family (``kernels/csrc/moe_sm90.cu``: route, dispatch,
+             combine): each entry against its plain version on the card,
+             bit for bit, at qwen2-moe-a2.7b's and granite-moe-1b-a400m's
+             prefill (4 x 512 tokens) and decode (4) shapes, bf16 and fp32,
+             capacity factor 1.25 and 0.5 (entries drop), then NaN through
+             dropped entries; each entry timed at the prefill shape in bf16
+             (CUDA graphs; the plain versions eagerly) beside its byte
+             bound.  Then both configs at their full published configs
+             through ``launch.serve.main`` (8 requests in batches of 4,
+             prompt 512, 32 generated, bf16): every flash and MoE counter 0
+             just before, and just after layers x 2 bf16 flash launches and
+             layers x 2 x 32 launches of each MoE entry; one full-width
+             prefill through the kernels against the same prefill through
+             the plain versions, logits and cache bit for bit; the bf16
+             prefill/decode consistency of one sequence where the prefill
+             of S kept every choice of the last position (else recorded as
+             not applicable, with the layers that dropped one).
    train   — olmo-1b's training path (``launch.train``'s step function) at
              its full published config, bf16 compute, fp32 parameters,
              batch 8 x 2048, 20 steps: the flash counter 0 before and 0
@@ -207,7 +224,7 @@ The tests that launch a kernel run apart, on the same card:
         tests/test_torch_contention_sm90_card.py \
         tests/test_torch_pipeline_card.py tests/test_torch_hlp_fo_card.py \
         tests/test_torch_hlp_fo_sm90_card.py tests/test_torch_streams_card.py \
-        tests/test_torch_train_card.py
+        tests/test_torch_train_card.py tests/test_torch_moe_card.py
 
 The line before the last is the card's name and power limit, the one before
 it a JSON object of per-kernel numbers; the last line is
@@ -258,6 +275,29 @@ SERVE_BATCHES = 2
 # take 94 GB in bf16, more than the card's 80 GB.
 SERVE_MORE = (("olmo-1b", None), ("granite-34b", 16))
 SERVE_PROMPT, SERVE_GEN, SERVE_BATCH = 512, 32, 4
+
+# The MoE family, served as the dense models (2 batches of 4 prompts of 512,
+# 32 generated, bf16) at their full published configs: qwen2-moe-a2.7b (24
+# layers, d 2048, 60 experts top-4 of d_ff 1408 and 4 shared, 14.3 B
+# parameters, 28.6 GB served) and granite-moe-1b-a400m (24 layers, d 1024,
+# 32 experts top-8 of d_ff 512, 1.3 B).  The dispatch/combine kernel is held
+# to its plain version at each model's prefill (4 x 512 tokens) and decode
+# (4 tokens) shapes, bf16 and fp32, at capacity factors 1.25 (the configs')
+# and 0.5 (entries drop), bit for bit; the full-width prefill through the
+# kernels bit for bit against the same prefill through the plain versions.
+# Consistency: prefill(S) and decode(S-1 | prefill S-1) compute one function
+# for a sequence only where the routing agrees: the prefill of S kept every
+# choice of the last position in every layer, no top-k choice flipped between
+# the two paths (bf16 rounding can swap two experts of near-equal
+# probability), and the earlier positions were routed alike in both
+# prefills.  Each sequence is read where that holds, at the config's capacity
+# and at a capacity of every token (cf = E / k), where nothing drops.  With
+# random weights a qwen2-moe-a2.7b sequence flips a choice in some of its 24
+# layers more often than not (4 of 4 sequences at a capacity of every token
+# on an H100), so 32 sequences are run for a few that keep every choice.
+MOE_ARCHS = ("qwen2-moe-a2.7b", "granite-moe-1b-a400m")
+MOE_CAPACITY = (1.25, 0.5)
+MOE_CONSIST_BATCH = 32
 
 # The training run: olmo-1b at its full published config (bf16 compute,
 # fp32 parameters and AdamW state, remat "full"), batch 8 x 2048 (OLMo's
@@ -2386,11 +2426,16 @@ def streams_phase() -> dict:
     return out
 
 
-def consistency(torch, dtype: str, cfg=None, params=None) -> dict:
+def consistency(torch, dtype: str, cfg=None, params=None, batch: int = 2,
+                premise=None) -> dict:
     """max |decode(S-1 | prefill S-1) - prefill(S)| at full width: qwen2-
     1.5b by default (its own parameters from seed 1, the limit
     CONSIST_TOL[dtype]); given ``cfg`` (and its served ``params``), that
-    model in bf16 at CONSIST_BF16_STD of its logits' std."""
+    model in bf16 at CONSIST_BF16_STD of its logits' std.  ``premise``,
+    called after the prefill of S, the prefill of S-1 and the decode step,
+    returns (a flag for each sequence, why): the check reads the sequences
+    whose flag holds, and where none holds the row is recorded as not
+    applicable, with why."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
@@ -2401,30 +2446,41 @@ def consistency(torch, dtype: str, cfg=None, params=None) -> dict:
     gen = torch.Generator(device=CARD).manual_seed(1)
     if params is None:
         params = M.serving_params(cfg, M.init_params(cfg, gen))
-    b, s = 2, 512
+    b, s = batch, 512
     toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
                          device=CARD)
     logits_p, _ = M.prefill(cfg, params, toks, M.init_cache(cfg, b, s, CARD))
     cache = M.init_cache(cfg, b, s, CARD)
     _, cache = M.prefill(cfg, params, toks[:, :s - 1], cache)
     logits_d, _ = M.decode_step(cfg, params, cache, toks[:, s - 1:])
+    flags, why = premise() if premise is not None else ([True] * b, "")
     v = cfg.vocab_size
     check(bool(torch.isfinite(logits_p[:, :v]).all()), "non-finite prefill logits")
     if cfg.padded_vocab > v:
         check(float(logits_d[:, v:].max()) < -1e20,
               "padded vocab rows not masked")
-    err = (logits_d[:, :v] - logits_p[:, :v]).abs().max().item()
+    rows = torch.tensor(flags, device=CARD)
+    holds = bool(rows.any())
+    diff = (logits_d[:, :v] - logits_p[:, :v]).abs().amax(-1)
+    err = diff[rows].max().item() if holds else diff.max().item()
     std = logits_p[:, :v].std().item()
     same = (logits_d[:, :v].argmax(-1) == logits_p[:, :v].argmax(-1)).all().item()
     limit = (CONSIST_TOL[dtype] if cfg.name == "qwen2-1.5b"
              else CONSIST_BF16_STD * std)
-    print(f"prefill/decode consistency {cfg.name} {dtype}: max|diff| "
-          f"{err:.3e} (limit {limit:.3g}), logits std {std:.3f}, same argmax "
-          f"{same}")
-    check(err <= limit, f"{cfg.name}: prefill/decode disagree in {dtype}: "
-          f"{err}")
+    note = ("" if all(flags) else (", not read: " if holds
+                                   else ", NOT APPLICABLE: ") + why)
+    print(f"prefill/decode consistency {cfg.name} {dtype} (batch {b}, "
+          f"capacity factor {cfg.capacity_factor}): max|diff| {err:.3e} "
+          f"over {int(rows.sum())} of {b} sequences (limit {limit:.3g}"
+          f"{note}), per sequence "
+          f"{[round(x, 4) for x in diff.tolist()]}, logits std {std:.3f}, "
+          f"same argmax {same}")
+    if holds:
+        check(err <= limit, f"{cfg.name}: prefill/decode disagree in "
+              f"{dtype}: {err}")
     return {"max_abs_diff": err, "limit": limit, "logits_std": std,
-            "same_argmax": bool(same)}
+            "per_sequence": diff.tolist(), "checked": flags,
+            "same_argmax": bool(same), "applicable": holds, "why": why}
 
 
 def serve_more(torch, card: str) -> dict:
@@ -2513,6 +2569,369 @@ def serve_more(torch, card: str) -> dict:
         out[arch] = row
     torch.cuda.empty_cache()
     return out
+
+
+def _moe_equal(torch, got, want) -> float:
+    """Raises unless ``got`` equals ``want`` bit for bit, NaN in the same
+    places; returns the max |difference| over the other values (0.0)."""
+    nan_g, nan_w = torch.isnan(got), torch.isnan(want)
+    check(torch.equal(nan_g, nan_w), "NaN in other places")
+    bits = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+    g, w = got[~nan_g], want[~nan_w]
+    check(torch.equal(g.view(bits), w.view(bits)), "bits differ")
+    return (g.float() - w.float()).abs().max().item() if g.numel() else 0.0
+
+
+def moe_inputs(torch, seed: int, n: int, e: int, k: int, d: int, dtype):
+    """Router-like top-k experts and gates for n tokens, x (n, d) and a
+    generator for the expert outputs, on the card."""
+    gen = torch.Generator(device=CARD).manual_seed(seed)
+    probs = torch.softmax(torch.randn((n, e), generator=gen, device=CARD),
+                          dim=-1)
+    gates, top_e = torch.topk(probs, k, dim=-1)
+    gates = gates / gates.sum(-1, keepdim=True)
+    x = torch.randn((n, d), generator=gen, device=CARD).to(dtype)
+    return top_e, gates, x, gen
+
+
+def moe_bound_ms(torch, r, n: int, d: int, elem: int) -> dict:
+    """Each entry's least time at these inputs, bytes over the card's rate
+    (each input read once, each output written once; combine reads the
+    rows its entries point at, which the routing decides)."""
+    nk, ecap = r.slot.numel(), r.rows.numel()
+    e1 = r.stats.numel()
+    nd = int(r.stats[-1])
+    rows_read = int(torch.unique(r.slot).numel())
+    moved = {
+        "route": nk * 4 + nk * (4 + 1 + 4) + ecap * 4 + e1 * 4,
+        "dispatch": n * d * elem + ecap * d * elem + ecap * 4 + e1 * 4
+        + nd * 4 * 2,
+        "combine": rows_read * d * elem + n * d * elem + nk * (4 + 1 + 4 + 4)}
+    return {k: {"bytes": v, "bound_ms": v / HBM_BYTES_PER_S * 1e3}
+            for k, v in moved.items()}
+
+
+def moe_kernel_checks(torch) -> dict:
+    """(a): route, dispatch and combine against their plain versions on the
+    card, bit for bit, at both MoE configs' prefill and decode shapes, bf16
+    and fp32, capacity 1.25 and 0.5; then NaN through dropped entries;
+    then each entry's time at each config's prefill shape in bf16 at 1.25
+    (CUDA graphs; the plain versions eagerly, CUDA events), beside its
+    bound.  Launches here are comparisons, not the main path."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.moe import moe
+    from repro_torch.kernels.moe import ref
+
+    out = {"cases": [], "times": {}}
+    worst = 0.0
+    for seed, arch in enumerate(MOE_ARCHS):
+        cfg = get_config(arch)
+        e, k, d = cfg.moe_num_experts, cfg.moe_top_k, cfg.d_model
+        for phase, n in (("prefill", SERVE_BATCH * SERVE_PROMPT),
+                         ("decode", SERVE_BATCH)):
+            for cf in MOE_CAPACITY:
+                for dtype in (torch.bfloat16, torch.float32):
+                    cap = moe.capacity(n, k, e, cf)
+                    top_e, gates, x, gen = moe_inputs(torch, seed, n, e, k, d,
+                                                      dtype)
+                    r = moe.route(top_e, e, cap, distinct=True)
+                    want = ref.route_ref(top_e.int(), e, cap)
+                    for name in ("slot", "keep", "rows", "stats", "dropped"):
+                        check(torch.equal(getattr(r, name), getattr(want, name)),
+                              f"moe route {name} differs at {arch} {phase} "
+                              f"cf {cf}")
+                    ho = torch.randn((e * cap, d), generator=gen,
+                                     device=CARD).to(dtype)
+                    errs = [_moe_equal(torch, moe.dispatch(x, r),
+                                       ref.dispatch_ref(x, want)),
+                            _moe_equal(torch, moe.combine(ho, r, gates),
+                                       ref.combine_ref(ho, want, gates))]
+                    worst = max([worst] + errs)
+                    drops = int(want.stats[-1])
+                    check(cf == 1.25 or phase == "decode" or drops > 0,
+                          f"{arch} prefill at cf {cf} dropped nothing")
+                    out["cases"].append({"arch": arch, "phase": phase,
+                                         "n": n, "cap": cap, "cf": cf,
+                                         "dtype": str(dtype), "dropped": drops})
+                    print(f"moe kernel {arch} {phase} N={n} cap={cap} cf={cf} "
+                          f"{dtype}: route, dispatch, combine bit for bit "
+                          f"to the plain versions, {drops} entries dropped")
+    # NaN: a NaN in every row a dropped entry points at, an inf in the last
+    # row, a NaN in dropped tokens' x
+    cfg = get_config(MOE_ARCHS[0])
+    e, k, d = cfg.moe_num_experts, cfg.moe_top_k, cfg.d_model
+    n = SERVE_BATCH * SERVE_PROMPT
+    cap = moe.capacity(n, k, e, 0.5)
+    for dtype in (torch.bfloat16, torch.float32):
+        top_e, gates, x, gen = moe_inputs(torch, 9, n, e, k, d, dtype)
+        r = moe.route(top_e, e, cap)
+        want = ref.route_ref(top_e.int(), e, cap)
+        drop = want.dropped[want.dropped >= 0].long()
+        ho = torch.randn((e * cap, d), generator=gen, device=CARD).to(dtype)
+        ho[want.slot[drop].long(), 3] = float("nan")
+        ho[e * cap - 1, 5] = float("inf")
+        x[drop[:3] // k, 11] = float("nan")
+        got_o, want_o = moe.combine(ho, r, gates), ref.combine_ref(ho, want,
+                                                                   gates)
+        got_b, want_b = moe.dispatch(x, r), ref.dispatch_ref(x, want)
+        check(bool(torch.isnan(want_o[:, 3]).any())
+              and bool(torch.isnan(want_b[:, 11]).any()), "no NaN to keep")
+        _moe_equal(torch, got_o, want_o)
+        _moe_equal(torch, got_b, want_b)
+        nan_tokens = int(torch.isnan(got_o[:, 3]).sum())
+        print(f"moe kernel NaN {dtype}: {nan_tokens} tokens NaN through "
+              f"dropped entries, as the plain version; dispatch rows NaN "
+              f"{int(torch.isnan(got_b[:, 11]).sum())}")
+        out.setdefault("nan_tokens", {})[str(dtype)] = nan_tokens
+    out["max_abs_err"] = worst
+
+    for seed, arch in enumerate(MOE_ARCHS):
+        cfg = get_config(arch)
+        e, k, d = cfg.moe_num_experts, cfg.moe_top_k, cfg.d_model
+        n = SERVE_BATCH * SERVE_PROMPT
+        cap = moe.capacity(n, k, e, cfg.capacity_factor)
+        top_e, gates, x, gen = moe_inputs(torch, seed, n, e, k, d,
+                                          torch.bfloat16)
+        top_e = top_e.int()
+        r = moe.route(top_e, e, cap, distinct=True)
+        ho = torch.randn((e * cap, d), generator=gen,
+                         device=CARD).to(torch.bfloat16)
+        runs = {"route": (lambda: moe.route(top_e, e, cap, distinct=True),
+                          lambda: ref.route_ref(top_e, e, cap)),
+                "dispatch": (lambda: moe.dispatch(x, r),
+                             lambda: ref.dispatch_ref(x, r)),
+                "combine": (lambda: moe.combine(ho, r, gates),
+                            lambda: ref.combine_ref(ho, r, gates))}
+        bounds = moe_bound_ms(torch, r, n, d, 2)
+        times = {}
+        for name, (kernel, plain) in runs.items():
+            times[name] = {"ms": graph_ms(kernel, 20),
+                           "eager_ms": time_ms(kernel, 20),
+                           "plain_ms": time_ms(plain, 5, warmup=2),
+                           **bounds[name]}
+            t = times[name]
+            print(f"moe {name} {arch} prefill N={n} cap={cap} bf16: kernel "
+                  f"{t['ms'] * 1e3:.2f} us (eager {t['eager_ms'] * 1e3:.2f}"
+                  f" us), plain {t['plain_ms'] * 1e3:.2f} us, bound "
+                  f"{t['bound_ms'] * 1e3:.3f} us ({t['bytes'] / 1e6:.2f} MB),"
+                  f" kernel at {t['bound_ms'] / t['ms']:.1%} of it")
+        out["times"][arch] = {"n": n, "cap": cap, "dropped": int(r.stats[-1]),
+                              "entries": times}
+    return out
+
+
+def _plain_moe_ops():
+    """The MoE ops module's names bound to the plain versions: the model's
+    plain path on the card, for the kernel path's comparison."""
+    import types
+
+    from repro_torch.kernels.moe import ref
+
+    def route(top_e, e, cap, distinct=False):
+        return ref.route_ref(top_e.int(), e, cap)
+
+    return types.SimpleNamespace(capacity=ref.capacity, route=route,
+                                 dispatch=ref.dispatch_ref,
+                                 combine=ref.combine_ref)
+
+
+def _moe_premise(torch, cfg, calls: list, trace: list):
+    """The premise of prefill(S) against decode(S-1 | prefill S-1) for
+    each sequence, from the MoE layers' records in ``calls`` (the prefill
+    of S, the prefill of S-1, the decode step): the last position kept
+    every choice in every layer of the prefill of S; its choices (as sets)
+    are the decode step's in every layer (no top-k flip); the earlier
+    positions' choices and kept flags are the same in both prefills.  Then
+    the two compute one function and only rounding parts them.  Prints
+    each sequence's trace: the layers that broke the premise, and
+    max|diff| / std of the decode step's MoE output against the prefill of
+    S's over the layers before the first flip and at it, and of the last
+    layer's MoE input (after ln2)."""
+    nl = cfg.num_layers
+    check(len(calls) == 3 * nl, f"{cfg.name}: {len(calls)} MoE calls, "
+          f"expected {3 * nl}")
+    pre, pre1, dec = calls[:nl], calls[nl:2 * nl], calls[2 * nl:]
+
+    def rel(key, i, l):
+        a, b = dec[l][key][i], pre[l][key][i]
+        return ((a - b).abs().max() / b.std()).item()
+
+    flags = []
+    for i in range(pre[0]["top_e"].shape[0]):
+        lost = [l for l in range(nl) if not bool(pre[l]["keep"][i, -1].all())]
+        flip = [l for l in range(nl)
+                if not torch.equal(pre[l]["top_e"][i, -1], dec[l]["top_e"][i, 0])]
+        early = [l for l in range(nl)
+                 if not (torch.equal(pre[l]["top_e"][i, :-1], pre1[l]["top_e"][i])
+                         and torch.equal(pre[l]["keep"][i, :-1],
+                                         pre1[l]["keep"][i]))]
+        dy = [rel("y", i, l) for l in range(nl)]
+        first = min(flip) if flip else nl
+        t = {"lost": lost, "flip": flip, "earlier_differ": early,
+             "out_rel_before_flip": max(dy[:first], default=0.0),
+             "out_rel_at_flip": dy[first] if flip else None,
+             "in_rel_last": rel("x", i, nl - 1)}
+        trace.append(t)
+        print(f"{cfg.name} cf {cfg.capacity_factor} sequence {i}: layers "
+              f"where the last position lost a choice {lost}, flipped one "
+              f"{flip}, earlier positions routed otherwise {early}; MoE "
+              f"output max|diff|/std {t['out_rel_before_flip']:.3g} before "
+              f"the first flip" + (f", {t['out_rel_at_flip']:.3g} at it"
+                                   if flip else "")
+              + f"; last MoE input {t['in_rel_last']:.3g}")
+        flags.append(not (lost or flip or early))
+    out = [i for i, f in enumerate(flags) if not f]
+    why = (f"sequences {out}: {sum(bool(t['lost']) for t in trace)} lost a "
+           f"choice to capacity, {sum(bool(t['flip']) for t in trace)} "
+           f"flipped a top-k choice, "
+           f"{sum(bool(t['earlier_differ']) for t in trace)} routed earlier "
+           "positions otherwise")
+    return flags, why
+
+
+def moe_consistency(torch, cfg, params) -> dict:
+    """(d): the bf16 prefill/decode consistency of MOE_CONSIST_BATCH
+    sequences at the config's capacity and at a capacity of every token
+    (cf = E / k: cap = N, nothing drops), each read where
+    :func:`_moe_premise` holds, at the unchanged CONSIST_BF16_STD."""
+    import dataclasses
+
+    from repro_torch.models import layers as L
+
+    out = {}
+    roomy = dataclasses.replace(
+        cfg, capacity_factor=cfg.moe_num_experts / cfg.moe_top_k)
+    for name, c in (("consistency", cfg), ("consistency_no_drop", roomy)):
+        calls, trace = [], []
+        apply = L.moe_apply
+
+        def watch(cfg_, p, x):
+            y, (probs, r) = apply(cfg_, p, x)
+            b, s = x.shape[:2]
+            te, order = torch.sort(r.top_e.view(b, s, -1), dim=-1)
+            calls.append({"top_e": te,
+                          "keep": r.keep.view(b, s, -1).gather(-1, order),
+                          "x": x[:, -1].float(), "y": y[:, -1].float()})
+            return y, (probs, r)
+
+        L.moe_apply = watch
+        try:
+            out[name] = consistency(
+                torch, "bfloat16", c, params, batch=MOE_CONSIST_BATCH,
+                premise=lambda: _moe_premise(torch, c, calls, trace))
+        finally:
+            L.moe_apply = apply
+        out[name]["trace"] = trace
+    return out
+
+
+def moe_serve(torch, card: str) -> dict:
+    """(b)-(d) for each MoE config: ``launch.serve.main`` at the full
+    config, every flash and MoE counter 0 just before and read just after;
+    the kernel path's full-width prefill against the plain path's, bit for
+    bit; the bf16 prefill/decode consistency where its premise holds."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.moe import moe
+    from repro_torch.launch import serve
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+
+    out = {}
+    batches = -(-8 // SERVE_BATCH)
+    for arch in MOE_ARCHS:
+        cfg = dataclasses.replace(get_config(arch), use_kernels=True)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_count()
+        moe.reset_launch_count()
+        summary = serve.main(["--arch", arch, "--requests", "8", "--batch",
+                              str(SERVE_BATCH), "--prompt", str(SERVE_PROMPT),
+                              "--gen", str(SERVE_GEN)], device=CARD)
+        counts, moe_counts = fa.launch_counts(), moe.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        check(summary["logits_finite"], f"{arch}: non-finite logits")
+        want = cfg.num_layers * batches
+        check(counts == {**dict.fromkeys(counts, 0), "sm90_bf16": want},
+              f"{arch}: flash launches {counts}, expected {want} of sm90_bf16")
+        want_moe = cfg.num_layers * batches * SERVE_GEN
+        check(moe_counts == dict.fromkeys(moe_counts, want_moe)
+              and summary["moe_launches"] == moe_counts,
+              f"{arch}: MoE launches {moe_counts}, expected {want_moe} each")
+        row = {k: summary[k] for k in ("tok_per_s", "prefill_s", "decode_s",
+                                       "wall_s", "prefill_dropped")}
+        row.update(layers=cfg.num_layers, params=cfg.num_params(),
+                   flash_launches=want, moe_launches=moe_counts, peak_gb=peak)
+        print(f"serve {arch} ({cfg.num_layers} layers, "
+              f"{cfg.num_params() / 1e9:.2f} B parameters) on {card}: "
+              f"{row['tok_per_s']:.1f} tok/s, prefill {row['prefill_s']:.3f}"
+              f" s, decode {row['decode_s']:.3f} s, wall {row['wall_s']:.3f} "
+              f"s, flash launches {want} (sm90_bf16), MoE launches "
+              f"{moe_counts}, entries dropped in prefill "
+              f"{row['prefill_dropped']}, peak {peak:.1f} GB")
+        del summary
+
+        # (c) the kernel path against the plain path, one prefill of 4 x 512
+        gen = torch.Generator(device=CARD).manual_seed(0)
+        params = M.init_serving_params(cfg, gen)
+        toks = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                             generator=gen, device=CARD)
+        max_len = SERVE_PROMPT + 1
+        logits_k, cache_k = M.prefill(cfg, params, toks,
+                                      M.init_cache(cfg, SERVE_BATCH, max_len,
+                                                   CARD))
+        kernel_ops, L.moe_ops = L.moe_ops, _plain_moe_ops()
+        try:
+            logits_p, cache_p = M.prefill(cfg, params, toks, M.init_cache(
+                cfg, SERVE_BATCH, max_len, CARD))
+        finally:
+            L.moe_ops = kernel_ops
+        same = (torch.equal(logits_k, logits_p)
+                and torch.equal(cache_k["layers"]["k"], cache_p["layers"]["k"])
+                and torch.equal(cache_k["layers"]["v"], cache_p["layers"]["v"]))
+        check(same, f"{arch}: the kernel path's prefill differs from the "
+              "plain path's")
+        print(f"{arch}: full-width prefill (4 x 512) through the kernels "
+              "equals the plain path's bit for bit (logits and cache)")
+        row["plain_path_equal"] = True
+        del cache_k, cache_p, logits_k, logits_p
+
+        # (d) consistency, each sequence where its premise holds
+        row.update(moe_consistency(torch, cfg, params))
+        del params
+        out[arch] = row
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_phase(torch, card: str) -> dict:
+    """The MoE family: the kernel's checks and times, then the served
+    models; returns the summary and the ``kernels`` line's row."""
+    t0 = time.perf_counter()
+    checks = moe_kernel_checks(torch)
+    serving = moe_serve(torch, card)
+    times = checks["times"][MOE_ARCHS[0]]["entries"]
+    row = {"name": "moe_dispatch_combine", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/moe_sm90.cu",
+           "replaces": "src/repro/models/layers.py:262",
+           "shape": f"{MOE_ARCHS[0]} prefill, {SERVE_BATCH} x {SERVE_PROMPT}"
+                    " tokens, bf16, capacity 1.25: route + dispatch + combine",
+           "launches": sum(sum(v["moe_launches"].values())
+                           for v in serving.values()),
+           "max_abs_err": checks["max_abs_err"],
+           "ms": sum(t["ms"] for t in times.values()),
+           "plain_ms": sum(t["plain_ms"] for t in times.values()),
+           "bound_ms": sum(t["bound_ms"] for t in times.values()),
+           "bound_by": "bytes",
+           "bytes": sum(t["bytes"] for t in times.values()),
+           "library_ms": None,
+           "entries": times,
+           "other_configs": {a: checks["times"][a] for a in MOE_ARCHS[1:]},
+           "serve_launches": {a: v["moe_launches"] for a, v in serving.items()}}
+    print(f"moe: {time.perf_counter() - t0:.1f} s")
+    return {"checks": checks, "serve": serving, "row": row}
 
 
 def _train_flops(cfg, tokens: int, seq: int) -> float:
@@ -2850,6 +3269,14 @@ def main() -> int:
     print(f"serve more: {time.perf_counter() - t0:.1f} s; "
           f"{json.dumps(more)}")
 
+    # the MoE family: the dispatch/combine kernel against its plain version,
+    # then both MoE configs served at full width (counters at 0 just before
+    # each serve, read just after)
+    moe = moe_phase(torch, card)
+    flash_row["serve_launches"].update({
+        k: v["flash_launches"] for k, v in moe["serve"].items()})
+    print(f"moe summary: {json.dumps({k: moe[k] for k in ('checks', 'serve')})}")
+
     # the dense training path: olmo-1b at its full config
     t0 = time.perf_counter()
     train = train_phase(torch, card)
@@ -3000,7 +3427,7 @@ def main() -> int:
           "imports, build included")
     print(json.dumps({"kernels": [flash_row, fp32_row, fma_row,
                                   maxplus_row, sm90_row, sm90_contention,
-                                  lp_row]}))
+                                  lp_row, moe["row"]]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-"""Architecture registry of the port — the dense family's four configs.
+"""Architecture registry of the port — the dense family's four configs and
+the MoE family's two.
 
 ``get_config(name)`` returns the full published config; ``get_smoke_config``
 returns a reduced same-family config for CPU tests.  ``--arch <id>`` in the
@@ -8,7 +9,8 @@ JAX package register here as their model families are ported.
 from .base import ModelConfig, get_config, get_smoke_config, list_archs, register
 
 # importing the modules registers the configs
-from . import granite_3_2b, granite_34b, olmo_1b, qwen2_1_5b  # noqa: F401
+from . import (granite_3_2b, granite_34b, granite_moe_1b_a400m,  # noqa: F401
+               olmo_1b, qwen2_1_5b, qwen2_moe_a2_7b)
 
 ARCHS = list_archs()
 

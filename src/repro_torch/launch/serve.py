@@ -24,6 +24,7 @@ import torch
 from repro_torch.configs import ModelConfig, get_config, get_smoke_config
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import flash_attention as fa
+from repro_torch.kernels.moe import moe
 from repro_torch.models import model as M
 from repro_torch.serve.dispatch import ERLSDispatcher, Pool, Request, \
     token_cost_model
@@ -42,6 +43,7 @@ class Generation:
     finite: bool                # every logit row over the real vocab finite
     prefill_s: float
     decode_s: float
+    prefill_dropped: int        # MoE entries (token, choice) dropped in prefill
 
 
 def generate(cfg: ModelConfig, params: M.Params, prompt: torch.Tensor,
@@ -50,12 +52,14 @@ def generate(cfg: ModelConfig, params: M.Params, prompt: torch.Tensor,
     dev = prompt.device
     cache = M.init_cache(cfg, prompt.shape[0], max_len, dev)
     _sync(dev)
+    drops: list[torch.Tensor] = []
     t0 = time.perf_counter()
-    logits, cache = M.prefill(cfg, params, prompt, cache)
+    logits, cache = M.prefill(cfg, params, prompt, cache, drops)
     finite = torch.isfinite(logits[:, :cfg.vocab_size]).all()
     tok = logits.argmax(-1, keepdim=True)
     _sync(dev)
     t1 = time.perf_counter()
+    dropped = int(torch.stack(drops).sum()) if drops else 0
     out = [tok]
     for _ in range(gen - 1):
         logits, cache = M.decode_step(cfg, params, cache, tok)
@@ -64,7 +68,8 @@ def generate(cfg: ModelConfig, params: M.Params, prompt: torch.Tensor,
         out.append(tok)
     _sync(dev)
     t2 = time.perf_counter()
-    return Generation(torch.cat(out, dim=1), bool(finite), t1 - t0, t2 - t1)
+    return Generation(torch.cat(out, dim=1), bool(finite), t1 - t0, t2 - t1,
+                      dropped)
 
 
 def main(argv: list[str] | None = None, device: str = "cuda") -> dict:
@@ -83,7 +88,7 @@ def main(argv: list[str] | None = None, device: str = "cuda") -> dict:
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
     cfg = dataclasses.replace(cfg, use_kernels=dev.type == "cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    params = M.serving_params(cfg, M.init_params(cfg, gen))
+    params = M.init_serving_params(cfg, gen)
     max_len = args.prompt + args.gen
 
     # Dispatcher plans placement across a heterogeneous fleet model:
@@ -95,9 +100,11 @@ def main(argv: list[str] | None = None, device: str = "cuda") -> dict:
 
     rng = np.random.default_rng(0)
     launches0 = fa.launch_count()
+    moe0 = moe.launch_counts()
     _sync(dev)
     t0 = time.time()
     total_tokens, prefill_s, decode_s, finite = 0, 0.0, 0.0, True
+    dropped = 0
     for start in range(0, args.requests, args.batch):
         nb = min(args.batch, args.requests - start)
         reqs = [Request(rid=start + i, prompt_tokens=args.prompt,
@@ -111,6 +118,7 @@ def main(argv: list[str] | None = None, device: str = "cuda") -> dict:
         prefill_s += g.prefill_s
         decode_s += g.decode_s
         finite = finite and g.finite
+        dropped += g.prefill_dropped
         routed_fast = sum(p.pool == fast.name for ps in placements for p in ps)
         print(f"batch {start // args.batch}: prefill {g.prefill_s:.2f}s "
               f"decode {g.decode_s:.2f}s ({nb * args.gen} toks) "
@@ -118,14 +126,18 @@ def main(argv: list[str] | None = None, device: str = "cuda") -> dict:
     dt = time.time() - t0
     print(f"served {args.requests} requests, {total_tokens} generated tokens "
           f"in {dt:.1f}s ({total_tokens/dt:.1f} tok/s) | "
-          f"planned fleet makespan {disp.makespan:.3f}s")
+          f"planned fleet makespan {disp.makespan:.3f}s"
+          + (f" | MoE entries dropped in prefill {dropped}"
+             if cfg.family == "moe" else ""))
     return {"arch": cfg.name, "smoke": args.smoke, "device": str(dev),
             "requests": args.requests, "batch": args.batch,
             "prompt": args.prompt, "gen": args.gen, "tokens": total_tokens,
             "prefill_s": prefill_s, "decode_s": decode_s, "wall_s": dt,
             "tok_per_s": total_tokens / dt, "makespan": disp.makespan,
             "flash_launches": fa.launch_count() - launches0,
-            "logits_finite": finite}
+            "moe_launches": {k: v - moe0[k]
+                             for k, v in moe.launch_counts().items()},
+            "prefill_dropped": dropped, "logits_finite": finite}
 
 
 if __name__ == "__main__":

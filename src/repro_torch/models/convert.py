@@ -5,7 +5,8 @@
 example ``jax.tree.map(np.asarray, params)``) and returns the port's
 parameter dict.  The two share names and shapes — blocks stacked with a
 leading layer dimension, ``wq`` (d, h, hd), ``wo`` (h, hd, d), ``embed``
-(padded_vocab, d) — so the conversion is a checked copy.
+(padded_vocab, d) — so the conversion is a checked copy.  The MoE router stays float32, as the
+reference initialises it whatever ``param_dtype`` is.
 """
 from __future__ import annotations
 
@@ -40,7 +41,8 @@ def params_from_jax(cfg: ModelConfig, tree: Mapping,
             arr = np.asarray(node[key], dtype=np.float32)
             if arr.shape != tuple(want):
                 raise ValueError(f"{where}: shape {arr.shape} != expected {want}")
-            out[key] = torch.tensor(arr, device=device).to(pdt)
+            dtype = torch.float32 if key == "router" else pdt
+            out[key] = torch.tensor(arr, device=device).to(dtype)
         return out
 
     return walk(param_shapes(cfg), tree, "")

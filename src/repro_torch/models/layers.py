@@ -1,4 +1,5 @@
-"""Model building blocks — the dense path of ``repro.models.layers`` in torch.
+"""Model building blocks — the dense and MoE paths of ``repro.models.layers``
+in torch.
 
 Plain functions on tensors over a parameter dict with the JAX package's
 shapes (``wq`` is (d, h, hd), ``wo`` is (h, hd, d), ...), so parameters
@@ -6,7 +7,7 @@ carry over by copy (``repro_torch.models.convert``).  Compute dtype is
 ``cfg.dtype``, parameter dtype ``cfg.param_dtype``; each weight is cast to
 the compute dtype where it is used, as in the JAX package, which is a no-op
 for weights already held in the compute dtype (``model.serving_params``).
-MoE, SSM and cross-attention port with their model families.
+SSM and cross-attention port with their model families.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.moe import moe as moe_ops
 
 Params = dict
 
@@ -167,3 +169,50 @@ def mlp_apply(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     cdt = compute_dtype(cfg)
     h = F.silu(x @ p["w_gate"].to(cdt)) * (x @ p["w_up"].to(cdt))
     return h @ p["w_down"].to(cdt)
+
+
+# ---------------------------------------------------------------------- MoE
+def moe_apply(cfg: ModelConfig, p: Params, x: torch.Tensor
+              ) -> tuple[torch.Tensor, tuple[torch.Tensor, moe_ops.Routing]]:
+    """Sort-based dropping MoE, one dispatch group (the reference's
+    ``moe_apply`` without a mesh).  x (B, S, D) -> (out (B, S, D), (the
+    router's fp32 probs (B·S, E), the routing)): :func:`moe_aux_loss` takes
+    the pair; ``routing.stats[-1]`` is the count of dropped entries.
+
+    fp32 router logits, softmax, ``topk`` and gates renormalised in fp32;
+    the capacity routing, dispatch and ordered combine through
+    ``kernels/moe`` (the kernel on the card, the plain version on the CPU);
+    the expert SwiGLU as batched products over (E, cap, D); the shared
+    experts' MLP added in the compute dtype."""
+    cdt = compute_dtype(cfg)
+    b, s, d = x.shape
+    e, k = cfg.moe_num_experts, cfg.moe_top_k
+    n = b * s
+    xf = x.reshape(n, d)
+    logits = xf.float() @ p["router"].float()
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, top_e = torch.topk(probs, k, dim=-1)
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True)
+
+    cap = moe_ops.capacity(n, k, e, cfg.capacity_factor)
+    r = moe_ops.route(top_e, e, cap, distinct=True)
+    h = moe_ops.dispatch(xf.to(cdt), r).view(e, cap, d)
+    hg = F.silu(torch.bmm(h, p["w_gate"].to(cdt)))
+    hu = torch.bmm(h, p["w_up"].to(cdt))
+    ho = torch.bmm(hg * hu, p["w_down"].to(cdt))
+    out = moe_ops.combine(ho.view(e * cap, d), r, gate_vals)
+    if cfg.moe_num_shared:
+        out = out + mlp_apply(cfg, p["shared"], xf.to(cdt))
+    return out.view(b, s, d), (probs, r)
+
+
+def moe_aux_loss(cfg: ModelConfig,
+                 routed: tuple[torch.Tensor, moe_ops.Routing]) -> torch.Tensor:
+    """The Switch aux loss of one MoE layer from :func:`moe_apply`'s
+    (probs, routing): E · Σ_e density_e · mean prob_e, the density from
+    each token's first choice (the reference's ``:286-287``).  Serving
+    does not read it."""
+    probs, r = routed
+    e = cfg.moe_num_experts
+    density = F.one_hot(r.top_e[:, 0].long(), e).float().mean(0)
+    return e * torch.sum(density * probs.mean(0))

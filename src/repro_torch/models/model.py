@@ -1,13 +1,15 @@
-"""Model assembly for the dense family: init, the training loss, prefill
-and decode.
+"""Model assembly for the dense and MoE families: init, the training loss
+(dense), prefill and decode.
 
-The counterpart of the dense path of ``repro.models.model``.  Parameters are
-a nested dict of tensors with the JAX package's names and shapes, the layer
-blocks stacked with a leading layer dimension; the stack runs as a Python
-loop over layer views, each layer under the config's remat policy
-(``cfg.remat``) when it trains.  The decode cache keeps the JAX layout too —
-``{"layers": {"k", "v"}: (L, B, max_len, Hkv, Dh), "pos": (B,)}`` — and is
-updated in place.  The other model families port in later slices.
+The counterpart of the dense and MoE paths of ``repro.models.model``.
+Parameters are a nested dict of tensors with the JAX package's names and
+shapes, the layer blocks stacked with a leading layer dimension; the stack
+runs as a Python loop over layer views, each layer under the config's remat
+policy (``cfg.remat``) when it trains.  The decode cache keeps the JAX
+layout too — ``{"layers": {"k", "v"}: (L, B, max_len, Hkv, Dh), "pos":
+(B,)}`` — and is updated in place.  The MoE family serves here; its training
+needs the dispatch and combine kernels' backward and comes with the next
+slice.  The other model families port in later slices.
 """
 from __future__ import annotations
 
@@ -21,16 +23,24 @@ from repro_torch.models import layers as L
 
 Params = dict
 
-#: parameter groups that stay in ``param_dtype`` when serving: the norms
-#: read their scales in fp32 (``layers.norm_apply``)
-NORM_KEYS = ("ln1", "ln2", "final_norm")
+#: parameters that stay in ``param_dtype`` when serving: the norms read
+#: their scales in fp32 (``layers.norm_apply``) and the MoE router routes
+#: in fp32 (``layers.moe_apply``)
+KEEP_KEYS = ("ln1", "ln2", "final_norm", "router")
+
+#: the model families each entry point takes
+SERVED = ("dense", "moe")
+TRAINED = ("dense",)
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+def _require(cfg: ModelConfig, families: tuple[str, ...], what: str) -> None:
+    if cfg.family not in families:
+        nxt = (" (training the MoE family, with the backward of its dispatch "
+               "and combine kernels, is the next slice)"
+               if cfg.family == "moe" else "")
         raise NotImplementedError(
-            f"{cfg.name}: model family {cfg.family!r} is not ported yet "
-            "(the port serves the dense family)")
+            f"{cfg.name}: model family {cfg.family!r} is not ported for "
+            f"{what} yet; the port {what}s {', '.join(families)}{nxt}")
 
 
 def _norm_shapes(cfg: ModelConfig, lead: tuple[int, ...]) -> dict:
@@ -44,8 +54,8 @@ def _norm_shapes(cfg: ModelConfig, lead: tuple[int, ...]) -> dict:
 
 def param_shapes(cfg: ModelConfig) -> dict:
     """The parameter tree's shapes, as ``repro.models.model.init_params``
-    lays them out for a dense config."""
-    _require_dense(cfg)
+    lays them out for a dense or MoE config (every layer an MoE layer)."""
+    _require(cfg, SERVED, "serve")
     d, h, hk, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                     cfg.resolved_head_dim)
     n = (cfg.num_layers,)
@@ -53,63 +63,110 @@ def param_shapes(cfg: ModelConfig) -> dict:
             "wo": n + (h, hd, d)}
     if cfg.qkv_bias:
         attn.update(bq=n + (h, hd), bk=n + (hk, hd), bv=n + (hk, hd))
-    mlp = {"w_up": n + (d, cfg.d_ff), "w_down": n + (cfg.d_ff, d),
-           "w_gate": n + (d, cfg.d_ff)}
+    blocks = {"ln1": _norm_shapes(cfg, n), "attn": attn,
+              "ln2": _norm_shapes(cfg, n)}
+    if cfg.family == "moe":
+        if cfg.moe_every != 1:
+            raise NotImplementedError(f"{cfg.name}: MoE every {cfg.moe_every}"
+                                      " layers is the hybrid family's layout")
+        e, f = cfg.moe_num_experts, cfg.moe_ff
+        moe = {"router": n + (d, e), "w_gate": n + (e, d, f),
+               "w_up": n + (e, d, f), "w_down": n + (e, f, d)}
+        if cfg.moe_num_shared:
+            moe["shared"] = _mlp_shapes(n, d, f * cfg.moe_num_shared)
+        blocks["moe"] = moe
+    else:
+        blocks["mlp"] = _mlp_shapes(n, d, cfg.d_ff)
     shapes = {"embed": (cfg.padded_vocab, d),
-              "final_norm": _norm_shapes(cfg, ()),
-              "blocks": {"ln1": _norm_shapes(cfg, n), "attn": attn,
-                         "ln2": _norm_shapes(cfg, n), "mlp": mlp}}
+              "final_norm": _norm_shapes(cfg, ()), "blocks": blocks}
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (d, cfg.padded_vocab)
     return shapes
 
 
-def _fan_in(cfg: ModelConfig, name: str) -> int | None:
-    """Fan-in of a dense weight (``dense_init``'s scale), None for others."""
-    d = cfg.d_model
-    return {"wq": d, "wk": d, "wv": d, "w_up": d, "w_gate": d, "lm_head": d,
-            "wo": cfg.num_heads * cfg.resolved_head_dim,
-            "w_down": cfg.d_ff}.get(name)
+def _mlp_shapes(lead: tuple[int, ...], d: int, f: int) -> dict:
+    return {"w_up": lead + (d, f), "w_down": lead + (f, d),
+            "w_gate": lead + (d, f)}
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator) -> Params:
-    """Random parameters on the generator's device: the embedding
-    N(0, 0.02²), dense weights N(0, 1/fan_in), norm scales 1, biases 0.
-    The draws differ from ``jax.random``'s; tests carry JAX parameters over
-    with ``convert.params_from_jax`` instead."""
+def _fan_in(cfg: ModelConfig, path: tuple[str, ...]) -> int:
+    """Fan-in of the weight at ``path`` (``dense_init``'s scale): its input
+    width, which for ``w_down`` is the hidden width of its own MLP."""
+    d, name = cfg.d_model, path[-1]
+    if name == "wo":
+        return cfg.num_heads * cfg.resolved_head_dim
+    if name != "w_down":
+        return d
+    if "shared" in path:
+        return cfg.moe_ff * cfg.moe_num_shared
+    return cfg.moe_ff if "moe" in path else cfg.d_ff
+
+
+def _walk_init(cfg: ModelConfig, generator: torch.Generator, leaf) -> Params:
+    """The parameter tree, each leaf drawn in ``param_shapes``' order and
+    handed to ``leaf(path, tensor)``: the embedding N(0, 0.02²), dense
+    weights N(0, 1/fan_in), norm scales 1, biases 0; the MoE router in
+    float32 whatever ``param_dtype`` is, as the reference's."""
     dev, pdt = generator.device, getattr(torch, cfg.param_dtype)
 
-    def make(name: str, shape: tuple[int, ...]) -> torch.Tensor:
+    def make(path: tuple[str, ...], shape: tuple[int, ...]) -> torch.Tensor:
+        name = path[-1]
         if name == "scale":
             return torch.ones(shape, dtype=pdt, device=dev)
         if name in ("bias", "bq", "bk", "bv"):
             return torch.zeros(shape, dtype=pdt, device=dev)
-        std = 0.02 if name == "embed" else _fan_in(cfg, name) ** -0.5
+        std = 0.02 if name == "embed" else _fan_in(cfg, path) ** -0.5
         w = torch.randn(shape, generator=generator, device=dev)
-        return (w * std).to(pdt)
+        return w.mul_(std).to(torch.float32 if name == "router" else pdt)
 
-    def walk(tree: dict) -> Params:
-        return {k: walk(v) if isinstance(v, dict) else make(k, v)
+    def walk(tree: dict, path: tuple[str, ...]) -> Params:
+        return {k: walk(v, path + (k,)) if isinstance(v, dict)
+                else leaf(path + (k,), make(path + (k,), v))
                 for k, v in tree.items()}
 
-    return walk(param_shapes(cfg))
+    return walk(param_shapes(cfg), ())
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator) -> Params:
+    """Random parameters in ``param_dtype`` on the generator's device
+    (:func:`_walk_init`).  The draws differ from ``jax.random``'s; tests
+    carry JAX parameters over with ``convert.params_from_jax`` instead."""
+    return _walk_init(cfg, generator, lambda path, w: w)
+
+
+def _serving_leaf(cfg: ModelConfig, path: tuple[str, ...],
+                  w: torch.Tensor) -> torch.Tensor:
+    if any(k in KEEP_KEYS for k in path):
+        return w
+    return w.to(L.compute_dtype(cfg))
 
 
 def serving_params(cfg: ModelConfig, params: Params) -> Params:
     """The parameters with every matrix, bias and the embedding cast once to
-    ``cfg.dtype``; the norm scales stay as they are.
+    ``cfg.dtype``; the norm scales and the MoE router (:data:`KEEP_KEYS`)
+    stay as they are.
 
     The JAX package casts each weight to the compute dtype at every use, so
     casting once up front gives identical results and spares every decode
     step a read and conversion of the fp32 weights."""
-    cdt = L.compute_dtype(cfg)
 
-    def cast(tree: dict) -> Params:
-        return {k: (v if k in NORM_KEYS else
-                    cast(v) if isinstance(v, dict) else v.to(cdt))
+    def cast(tree: dict, path: tuple[str, ...]) -> Params:
+        return {k: cast(v, path + (k,)) if isinstance(v, dict)
+                else _serving_leaf(cfg, path + (k,), v)
                 for k, v in tree.items()}
 
-    return cast(params)
+    return cast(params, ())
+
+
+def init_serving_params(cfg: ModelConfig, generator: torch.Generator
+                        ) -> Params:
+    """``serving_params(cfg, init_params(cfg, generator))``, bit for bit,
+    drawn and cast leaf by leaf: the fp32 tree is never whole.  Its peak
+    is the served tree and one fp32 leaf with its cast (qwen2-moe-a2.7b:
+    28.6 GB served, one stacked expert matrix 16.6 GB in fp32, where the
+    whole fp32 tree beside its bf16 copy would take 86 GB)."""
+    return _walk_init(cfg, generator,
+                      functools.partial(_serving_leaf, cfg))
 
 
 def _layer(blocks: Params, i: int) -> Params:
@@ -202,7 +259,7 @@ def train_loss(cfg: ModelConfig, params: Params, batch: dict
     """batch: ``tokens``, ``targets`` (B, S) integer ids and ``loss_mask``
     (B, S).  Returns (loss, metrics) with metrics ``lm_loss`` and
     ``aux_loss`` (0 in the dense family, which has no router)."""
-    _require_dense(cfg)
+    _require(cfg, TRAINED, "train")
     tokens = batch["tokens"]
     x = params["embed"][tokens.long()].to(L.compute_dtype(cfg))
     b, s = tokens.shape
@@ -218,10 +275,24 @@ def train_loss(cfg: ModelConfig, params: Params, batch: dict
 
 
 # ------------------------------------------------------------------ serving
+def _ffn(cfg: ModelConfig, lp: Params, x: torch.Tensor,
+         dropped: list | None = None) -> torch.Tensor:
+    """The layer's feed-forward behind its pre-norm: the MLP, or the MoE
+    without its aux loss, which the reference's serving paths drop; the
+    MoE appends its dropped-entry count (on the device) to ``dropped``."""
+    h = L.norm_apply(cfg, lp["ln2"], x)
+    if "moe" not in lp:
+        return L.mlp_apply(cfg, lp["mlp"], h)
+    out, (_, r) = L.moe_apply(cfg, lp["moe"], h)
+    if dropped is not None:
+        dropped.append(r.stats[-1])
+    return out
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: torch.device | str) -> Params:
     """Decode cache, stacked over layers."""
-    _require_dense(cfg)
+    _require(cfg, SERVED, "serve")
     shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
              cfg.resolved_head_dim)
     cdt = L.compute_dtype(cfg)
@@ -231,12 +302,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
-            cache: Params) -> tuple[torch.Tensor, Params]:
+            cache: Params, dropped: list | None = None
+            ) -> tuple[torch.Tensor, Params]:
     """Process the full prompt, fill the cache, return last-position logits.
 
     tokens: (B, S) integer ids -> ((B, padded_vocab) fp32 logits, cache).
+    Each MoE layer appends its count of dropped entries, a device tensor, to
+    ``dropped`` where given.
     """
-    _require_dense(cfg)
+    _require(cfg, SERVED, "serve")
     cdt = L.compute_dtype(cfg)
     x = params["embed"][tokens.long()].to(cdt)
     b, s = tokens.shape
@@ -250,7 +324,7 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
         x = x + y
         ck[i, :, :s] = k
         cv[i, :, :s] = v
-        x = x + L.mlp_apply(cfg, lp["mlp"], L.norm_apply(cfg, lp["ln2"], x))
+        x = x + _ffn(cfg, lp, x, dropped)
     x = L.norm_apply(cfg, params["final_norm"], x)
     cache["pos"] = torch.full((b,), s, dtype=torch.long, device=x.device)
     return _logits(cfg, params, x[:, -1:])[:, 0], cache
@@ -259,7 +333,7 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 def decode_step(cfg: ModelConfig, params: Params, cache: Params,
                 tokens: torch.Tensor) -> tuple[torch.Tensor, Params]:
     """One token for every sequence. tokens: (B, 1) -> (logits, cache)."""
-    _require_dense(cfg)
+    _require(cfg, SERVED, "serve")
     cdt = L.compute_dtype(cfg)
     x = params["embed"][tokens.long()].to(cdt)
     pos = cache["pos"]
@@ -269,7 +343,7 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params,
         h, _ = L.attn_decode(cfg, lp["attn"], L.norm_apply(cfg, lp["ln1"], x),
                              ck[i], cv[i], pos)
         x = x + h
-        x = x + L.mlp_apply(cfg, lp["mlp"], L.norm_apply(cfg, lp["ln2"], x))
+        x = x + _ffn(cfg, lp, x)
     x = L.norm_apply(cfg, params["final_norm"], x)
     cache["pos"] = pos + 1
     return _logits(cfg, params, x)[:, 0], cache

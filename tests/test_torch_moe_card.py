@@ -1,0 +1,179 @@
+"""The MoE dispatch/combine CUDA kernel against its plain version, on the card.
+
+The kernel has no CPU mode, so every test here carries the ``card`` marker
+and asks for the ``card`` fixture, which skips it without a card.  This
+file imports nothing of JAX:
+
+    PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_moe_card.py
+
+Each entry must equal its plain version (``kernels/moe/ref.py``, run on CPU
+copies) bit for bit: route's integers, dispatch's copied rows, and the
+combine's sums, which take the plain version's order and rounding: the
+bits of every value that is not NaN are equal (so -0 and +0 differ), and
+NaN stands in the same places (its payload is the card's own).
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.kernels.moe import moe  # noqa: E402
+from repro_torch.kernels.moe.ref import (combine_ref, dispatch_ref,  # noqa: E402
+                                         route_ref)
+from repro_torch.models import layers as TL  # noqa: E402
+from repro_torch.models import model as TM  # noqa: E402
+
+ARCHS = ("qwen2-moe-a2.7b", "granite-moe-1b-a400m")
+#: tokens of a prefill (2 batches of 4 prompts of 512 serve in batches of
+#: 4: 2048 tokens) and of a decode step (4)
+TOKENS = (2048, 4)
+CAPACITY_FACTORS = (1.25, 0.5)
+
+
+@pytest.fixture
+def card():
+    """The card, for tests that launch the kernel; skips without one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _routing_inputs(seed, n, e, k):
+    """Router-like top-k experts and renormalised gates for n tokens."""
+    rng = np.random.default_rng(seed)
+    probs = torch.softmax(torch.from_numpy(rng.normal(size=(n, e))).float(),
+                          dim=-1)
+    gates, top_e = torch.topk(probs, k, dim=-1)
+    return top_e.int(), gates / gates.sum(-1, keepdim=True)
+
+
+def _rows(seed, rows, d, dtype):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.normal(size=(rows, d))).float().to(dtype)
+
+
+def _tree(tree, fn):
+    return {k: _tree(v, fn) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def _same(got, want):
+    """Bit for bit where not NaN, NaN in the same places."""
+    got, want = got.cpu(), want.cpu()
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan), "NaN in other places"
+    bits = torch.int16 if want.dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(got[~nan].view(bits), want[~nan].view(bits))
+
+
+def _check_routing(r, want):
+    for name in ("slot", "keep", "rows", "stats", "dropped"):
+        assert torch.equal(getattr(r, name).cpu(), getattr(want, name)), name
+
+
+def _cases():
+    for arch in ARCHS:
+        cfg = get_config(arch)
+        for n in TOKENS:
+            for cf in CAPACITY_FACTORS:
+                yield (cfg.moe_num_experts, cfg.moe_top_k, cfg.d_model, n, cf)
+    # ragged and extreme shapes: one token one expert; 64 experts, top-8
+    yield (1, 1, 64, 1, 1.25)
+    yield (64, 8, 256, 1000, 0.5)
+
+
+@pytest.mark.card
+def test_kernel_equals_plain_at_the_serving_shapes(card):
+    """route, dispatch and combine at both MoE configs' prefill and decode
+    shapes, bf16 and fp32, capacity 1.25 and 0.5 (entries drop), against
+    the plain versions on CPU copies, bit for bit (the decode shapes, where
+    cap >= N, without the dispatch's non-finite pass); the counters count
+    one launch an entry call."""
+    moe.reset_launch_count()
+    calls = 0
+    for seed, (e, k, d, n, cf) in enumerate(_cases()):
+        cap = moe.capacity(n, k, e, cf)
+        top_e, gates = _routing_inputs(seed, n, e, k)
+        want = route_ref(top_e, e, cap)
+        r = moe.route(top_e.to(card), e, cap, distinct=True)
+        _check_routing(r, want)
+        assert r.may_drop == (cap < n)      # decode: no non-finite pass
+        if cf == 0.5 and n == 2048:
+            assert int(want.stats[-1]) > 0
+        for dtype in (torch.bfloat16, torch.float32):
+            x = _rows(seed + 100, n, d, dtype)
+            _same(moe.dispatch(x.to(card), r), dispatch_ref(x, want))
+            ho = _rows(seed + 200, e * cap, d, dtype)
+            _same(moe.combine(ho.to(card), r, gates.to(card)),
+                  combine_ref(ho, want, gates))
+            calls += 1
+        assert moe.launch_counts() == {"route": seed + 1,
+                                       "dispatch": calls, "combine": calls}
+
+
+@pytest.mark.card
+def test_nan_reaches_the_output_through_dropped_entries(card):
+    """A NaN in every row a dropped entry points at reaches the combine's
+    output through the dropped entries' zero weights, and a NaN in a
+    dropped token's x reaches its slot's row of the dispatch buffer, as in
+    the plain version; out-of-range and repeated experts route alike."""
+    e, k, d, n = 60, 4, 2048, 2048
+    cap = moe.capacity(n, k, e, 0.5)
+    top_e, gates = _routing_inputs(7, n, e, k)
+    top_e[0, 0], top_e[1, :2] = e + 3, 5        # out of range; a repeat
+    want = route_ref(top_e, e, cap)
+    r = moe.route(top_e.to(card), e, cap)
+    _check_routing(r, want)
+    drop = want.dropped[want.dropped >= 0].long()
+    assert drop.numel() > 0
+    for dtype in (torch.bfloat16, torch.float32):
+        ho = _rows(8, e * cap, d, dtype)
+        ho[want.slot[drop].long(), 3] = float("nan")
+        ho[e * cap - 1, 5] = float("inf")
+        out_want = combine_ref(ho, want, gates)
+        assert bool(torch.isnan(out_want[:, 3]).any())
+        _same(moe.combine(ho.to(card), r, gates.to(card)), out_want)
+        x = _rows(9, n, d, dtype)
+        x[drop[:3] // k, 11] = float("nan")
+        x[drop[3:5] // k, 12] = float("-inf")
+        buf_want = dispatch_ref(x, want)
+        assert bool(torch.isnan(buf_want[:, 11]).any())
+        _same(moe.dispatch(x.to(card), r), buf_want)
+
+
+@pytest.mark.card
+def test_kernel_raises_under_autograd(card):
+    r = moe.route(torch.tensor([[0, 1], [1, 0]], device=card), 2, 2)
+    x = torch.ones((2, 8), device=card, requires_grad=True)
+    with pytest.raises(RuntimeError, match="forward only"):
+        moe.dispatch(x, r)
+    ho = torch.ones((4, 8), device=card, requires_grad=True)
+    with pytest.raises(RuntimeError, match="forward only"):
+        moe.combine(ho, r, torch.ones((2, 2), device=card))
+
+
+@pytest.mark.card
+def test_moe_apply_on_the_card_launches_each_entry_once(card):
+    """The model's MoE layer on the card goes through the three kernels
+    once each and agrees with the same layer on the CPU in float32 (the
+    expert products are cuBLAS's: rtol 1e-4)."""
+    for arch in ARCHS:
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+        blocks = TM.init_params(cfg, torch.Generator().manual_seed(0))[
+            "blocks"]
+        p = _tree(blocks["moe"], lambda v: v[0])
+        x = _rows(3, 2 * 64, cfg.d_model, torch.float32).view(2, 64, -1)
+        want, routed = TL.moe_apply(cfg, p, x)
+        want_aux = TL.moe_aux_loss(cfg, routed)
+        pc = _tree(p, lambda v: v.to(card))
+        moe.reset_launch_count()
+        got, routed = TL.moe_apply(cfg, pc, x.to(card))
+        aux = TL.moe_aux_loss(cfg, routed)
+        assert moe.launch_counts() == {"route": 1, "dispatch": 1,
+                                       "combine": 1}
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(float(aux), float(want_aux), rtol=1e-5)
