@@ -39,18 +39,24 @@ Phases, each of which raises on failure (exit code not 0):
              bit for bit, at qwen2-moe-a2.7b's and granite-moe-1b-a400m's
              prefill (4 x 512 tokens) and decode (4) shapes, bf16 and fp32,
              capacity factor 1.25 and 0.5 (entries drop), then NaN through
-             dropped entries; each entry timed at the prefill shape in bf16
-             (CUDA graphs; the plain versions eagerly) beside its byte
-             bound.  Then both configs at their full published configs
-             through ``launch.serve.main`` (8 requests in batches of 4,
-             prompt 512, 32 generated, bf16): every flash and MoE counter 0
-             just before, and just after layers x 2 bf16 flash launches and
+             dropped entries, then the route's edge shapes (MOE_EDGE: the
+             one-warp and the cluster routes, ragged shares, E = 1 and 64,
+             k = 1 and 8, cap 1, every expert over capacity, experts out of
+             range, 65,536 entries); each entry timed at both configs'
+             prefill and decode shapes in bf16 (CUDA graphs; the plain
+             versions eagerly) beside its byte bound and its launch floor
+             (an empty kernel launched and timed as the entry).  Then both
+             configs at their full published configs through
+             ``launch.serve.main`` (8 requests in batches of 4, prompt 512,
+             32 generated, bf16): every flash and MoE counter 0 just
+             before, and just after layers x 2 bf16 flash launches and
              layers x 2 x 32 launches of each MoE entry; one full-width
              prefill through the kernels against the same prefill through
              the plain versions, logits and cache bit for bit; the bf16
-             prefill/decode consistency of one sequence where the prefill
-             of S kept every choice of the last position (else recorded as
-             not applicable, with the layers that dropped one).
+             prefill/decode consistency of 32 sequences, each read where
+             its routing premise holds (else recorded as not applicable,
+             with the layers that broke it), and for granite-moe-1b-a400m
+             the same in fp32 at CONSIST_TOL["float32"].
    train   — olmo-1b's training path (``launch.train``'s step function) at
              its full published config, bf16 compute, fp32 parameters,
              batch 8 x 2048, 20 steps: the flash counter 0 before and 0
@@ -226,6 +232,10 @@ The tests that launch a kernel run apart, on the same card:
         tests/test_torch_hlp_fo_sm90_card.py tests/test_torch_streams_card.py \
         tests/test_torch_train_card.py tests/test_torch_moe_card.py
 
+To compare the MoE kernels of two trees on one card, run
+``python3 chip_smoke.py --moe-pair TREE LABEL [--serve]`` for each side in
+turns (parent, change, change, parent): one JSON line a side.
+
 The line before the last is the card's name and power limit, the one before
 it a JSON object of per-kernel numbers; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or without the rest of
@@ -298,6 +308,26 @@ SERVE_PROMPT, SERVE_GEN, SERVE_BATCH = 512, 32, 4
 MOE_ARCHS = ("qwen2-moe-a2.7b", "granite-moe-1b-a400m")
 MOE_CAPACITY = (1.25, 0.5)
 MOE_CONSIST_BATCH = 32
+# The fp32 prefill/decode consistency at full config, at CONSIST_TOL
+# ["float32"] where the premise holds, as qwen2-1.5b's: granite-moe-1b-
+# a400m's fp32 tree is 5.3 GB (qwen2-moe-a2.7b's, 57 GB, is not run).
+MOE_FP32_CONSIST = ("granite-moe-1b-a400m",)
+# The route's edge shapes, each entry bit for bit to its plain version on
+# the card (tests/test_torch_moe_sm90.py emulates the route on the same
+# cases): (name, tokens, experts, top-k, cap; None: capacity 1.25 / 0.5).
+# Contiguous shares whole and ragged, one block and a few, E = 1 and 64,
+# top-1 and top-8, cap 1, every expert over its capacity, the decode
+# shapes' one warp (a repeated expert and one out of range), experts out
+# of range, and 65,536 entries (the consistency prefill of qwen2-moe).
+MOE_EDGE = (("shares_whole_tiles", 2048, 60, 4, 176),
+            ("shares_ragged", 2091, 32, 4, 80), ("one_block", 11, 8, 3, 2),
+            ("few_blocks", 450, 12, 4, 40), ("one_expert", 700, 1, 1, 300),
+            ("e64_top8", 1000, 64, 8, 40), ("top1", 3000, 16, 1, 200),
+            ("cap_one", 777, 24, 2, 1), ("all_overflow", 2048, 32, 8, 12),
+            ("warp_1x1", 1, 60, 1, 4), ("warp_4x4", 4, 60, 4, 4),
+            ("warp_4x8", 4, 60, 8, 4), ("out_of_range", 1500, 36, 4, 50),
+            ("entries_65536_cf1.25", 16384, 60, 4, None),
+            ("entries_65536_cf0.5", 16384, 60, 4, None))
 
 # The training run: olmo-1b at its full published config (bf16 compute,
 # fp32 parameters and AdamW state, remat "full"), batch 8 x 2048 (OLMo's
@@ -2466,7 +2496,7 @@ def consistency(torch, dtype: str, cfg=None, params=None, batch: int = 2,
     std = logits_p[:, :v].std().item()
     same = (logits_d[:, :v].argmax(-1) == logits_p[:, :v].argmax(-1)).all().item()
     limit = (CONSIST_TOL[dtype] if cfg.name == "qwen2-1.5b"
-             else CONSIST_BF16_STD * std)
+             or dtype == "float32" else CONSIST_BF16_STD * std)
     note = ("" if all(flags) else (", not read: " if holds
                                    else ", NOT APPLICABLE: ") + why)
     print(f"prefill/decode consistency {cfg.name} {dtype} (batch {b}, "
@@ -2611,13 +2641,123 @@ def moe_bound_ms(torch, r, n: int, d: int, elem: int) -> dict:
             for k, v in moved.items()}
 
 
+def moe_edge_inputs(torch, seed: int, name: str, n: int, e: int, k: int):
+    """An edge shape's choices (N, k) on the card: a router's top-k of
+    logits skewed toward the low experts (they overflow), with a repeat
+    and an expert out of range in the warp cases; uniform in [-3, 40) for
+    ``out_of_range``."""
+    gen = torch.Generator(device=CARD).manual_seed(seed)
+    if name == "out_of_range":
+        return torch.randint(-3, 40, (n, k), generator=gen, device=CARD,
+                             dtype=torch.int32)
+    skew = 1.0 if name.startswith("entries") else 3.0
+    logits = (torch.randn((n, max(e, k)), generator=gen, device=CARD)
+              - skew * torch.arange(max(e, k), device=CARD) / max(e - 1, 1))
+    top_e = (torch.topk(logits, k, dim=-1).indices % e).int()
+    if name.startswith("warp") and n * k > 2:
+        flat = top_e.view(-1)
+        flat[1], flat[-1] = flat[0], e + 5
+    return top_e
+
+
+def moe_edge_checks(torch) -> list:
+    """The edge shapes (MOE_EDGE): route, dispatch and combine bit for bit
+    to their plain versions on the card, in bf16 at D = 2048 and fp32 at
+    D = 64; each route the launch ``moe.geometry`` gives (one warp up to
+    32 entries, else a cluster)."""
+    from repro_torch.kernels.moe import moe
+    from repro_torch.kernels.moe import ref
+
+    cmax = moe.library_geometry("route", 16384, 4, 8, 60, 8,
+                                torch.bfloat16)["cluster"]
+    out = []
+    for seed, (name, n, e, k, cap) in enumerate(MOE_EDGE):
+        top_e = moe_edge_inputs(torch, 100 + seed, name, n, e, k)
+        caps = ([cap] if cap is not None else
+                [moe.capacity(n, k, e, float(name.split("cf")[-1]))])
+        for c in caps:
+            g = moe.library_geometry("route", n, k, 8, e, c, torch.bfloat16)
+            check(g == moe.geometry("route", n, k, 8, e, c, 2, cmax),
+                  f"moe edge {name}: route launch {g}")
+            r = moe.route(top_e, e, c)
+            want = ref.route_ref(top_e, e, c)
+            for field in ("slot", "keep", "rows", "stats", "dropped"):
+                check(torch.equal(getattr(r, field), getattr(want, field)),
+                      f"moe edge {name}: route {field} differs")
+            gen = torch.Generator(device=CARD).manual_seed(seed)
+            gates = torch.rand((n, k), generator=gen, device=CARD)
+            for dtype, d in ((torch.bfloat16, 2048), (torch.float32, 64)):
+                x = torch.randn((n, d), generator=gen, device=CARD).to(dtype)
+                ho = torch.randn((e * c, d), generator=gen,
+                                 device=CARD).to(dtype)
+                _moe_equal(torch, moe.dispatch(x, r), ref.dispatch_ref(x, want))
+                _moe_equal(torch, moe.combine(ho, r, gates),
+                           ref.combine_ref(ho, want, gates))
+            check(r.scratch.tolist() == [0, 0, 0],
+                  f"moe edge {name}: counters left at {r.scratch.tolist()}")
+            row = {"name": name, "entries": n * k, "experts": e, "cap": c,
+                   "dropped": int(want.stats[-1]), "route": g}
+            out.append(row)
+            print(f"moe edge {name}: N*k={n * k} E={e} k={k} cap={c}, "
+                  f"{row['dropped']} dropped, route {g['blocks']} x "
+                  f"{g['threads']} (cluster {g['cluster']}): route, "
+                  "dispatch, combine bit for bit to the plain versions")
+    return out
+
+
+def moe_times(torch, arch: str, seed: int, phase: str, n: int) -> dict:
+    """Each entry at ``arch``'s ``phase`` shape (n tokens) in bf16 at the
+    config's capacity: the kernel replayed from a CUDA graph (device time)
+    and eagerly, the plain version eagerly, the launch floor (an empty
+    kernel launched and timed as the entry) and the byte bound; the share
+    is the larger yardstick over the kernel's time."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.moe import moe
+    from repro_torch.kernels.moe import ref
+
+    cfg = get_config(arch)
+    e, k, d = cfg.moe_num_experts, cfg.moe_top_k, cfg.d_model
+    cap = moe.capacity(n, k, e, cfg.capacity_factor)
+    top_e, gates, x, gen = moe_inputs(torch, seed, n, e, k, d, torch.bfloat16)
+    top_e = top_e.int()
+    r = moe.route(top_e, e, cap, distinct=True)
+    ho = torch.randn((e * cap, d), generator=gen,
+                     device=CARD).to(torch.bfloat16)
+    runs = {"route": (lambda: moe.route(top_e, e, cap, distinct=True),
+                      lambda: ref.route_ref(top_e, e, cap)),
+            "dispatch": (lambda: moe.dispatch(x, r),
+                         lambda: ref.dispatch_ref(x, r)),
+            "combine": (lambda: moe.combine(ho, r, gates),
+                        lambda: ref.combine_ref(ho, r, gates))}
+    bounds = moe_bound_ms(torch, r, n, d, 2)
+    times = {}
+    for name, (kernel, plain) in runs.items():
+        t = {"ms": graph_ms(kernel, 20), "eager_ms": time_ms(kernel, 20),
+             "plain_ms": time_ms(plain, 5, warmup=2),
+             "floor_ms": graph_ms(lambda name=name: moe.launch_floor(
+                 name, n, k, d, e, cap, torch.bfloat16), 20),
+             "launch": moe.library_geometry(name, n, k, d, e, cap,
+                                            torch.bfloat16),
+             **bounds[name]}
+        t["share"] = max(t["bound_ms"], t["floor_ms"]) / t["ms"]
+        times[name] = t
+        print(f"moe {name} {arch} {phase} N={n} cap={cap} bf16: kernel "
+              f"{t['ms'] * 1e3:.2f} us (eager {t['eager_ms'] * 1e3:.2f} us), "
+              f"plain {t['plain_ms'] * 1e3:.2f} us, launch floor "
+              f"{t['floor_ms'] * 1e3:.2f} us, bound {t['bound_ms'] * 1e3:.3f}"
+              f" us ({t['bytes'] / 1e6:.2f} MB), kernel at {t['share']:.1%} "
+              f"of the larger; launch {t['launch']}")
+    return {"n": n, "cap": cap, "dropped": int(r.stats[-1]), "entries": times}
+
+
 def moe_kernel_checks(torch) -> dict:
     """(a): route, dispatch and combine against their plain versions on the
     card, bit for bit, at both MoE configs' prefill and decode shapes, bf16
-    and fp32, capacity 1.25 and 0.5; then NaN through dropped entries;
-    then each entry's time at each config's prefill shape in bf16 at 1.25
-    (CUDA graphs; the plain versions eagerly, CUDA events), beside its
-    bound.  Launches here are comparisons, not the main path."""
+    and fp32, capacity 1.25 and 0.5; then NaN through dropped entries; then
+    the edge shapes (MOE_EDGE); then each entry's time at each config's
+    prefill and decode shapes in bf16 at 1.25 (CUDA graphs; the plain
+    versions eagerly, CUDA events), beside its bound and its launch floor.
+    Launches here are comparisons, not the main path."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.moe import moe
     from repro_torch.kernels.moe import ref
@@ -2678,45 +2818,21 @@ def moe_kernel_checks(torch) -> dict:
               and bool(torch.isnan(want_b[:, 11]).any()), "no NaN to keep")
         _moe_equal(torch, got_o, want_o)
         _moe_equal(torch, got_b, want_b)
+        check(r.scratch.tolist() == [0, 0, 0], "moe dispatch left its "
+              f"counters at {r.scratch.tolist()}")
         nan_tokens = int(torch.isnan(got_o[:, 3]).sum())
         print(f"moe kernel NaN {dtype}: {nan_tokens} tokens NaN through "
               f"dropped entries, as the plain version; dispatch rows NaN "
               f"{int(torch.isnan(got_b[:, 11]).sum())}")
         out.setdefault("nan_tokens", {})[str(dtype)] = nan_tokens
     out["max_abs_err"] = worst
+    out["edge"] = moe_edge_checks(torch)
 
     for seed, arch in enumerate(MOE_ARCHS):
-        cfg = get_config(arch)
-        e, k, d = cfg.moe_num_experts, cfg.moe_top_k, cfg.d_model
-        n = SERVE_BATCH * SERVE_PROMPT
-        cap = moe.capacity(n, k, e, cfg.capacity_factor)
-        top_e, gates, x, gen = moe_inputs(torch, seed, n, e, k, d,
-                                          torch.bfloat16)
-        top_e = top_e.int()
-        r = moe.route(top_e, e, cap, distinct=True)
-        ho = torch.randn((e * cap, d), generator=gen,
-                         device=CARD).to(torch.bfloat16)
-        runs = {"route": (lambda: moe.route(top_e, e, cap, distinct=True),
-                          lambda: ref.route_ref(top_e, e, cap)),
-                "dispatch": (lambda: moe.dispatch(x, r),
-                             lambda: ref.dispatch_ref(x, r)),
-                "combine": (lambda: moe.combine(ho, r, gates),
-                            lambda: ref.combine_ref(ho, r, gates))}
-        bounds = moe_bound_ms(torch, r, n, d, 2)
-        times = {}
-        for name, (kernel, plain) in runs.items():
-            times[name] = {"ms": graph_ms(kernel, 20),
-                           "eager_ms": time_ms(kernel, 20),
-                           "plain_ms": time_ms(plain, 5, warmup=2),
-                           **bounds[name]}
-            t = times[name]
-            print(f"moe {name} {arch} prefill N={n} cap={cap} bf16: kernel "
-                  f"{t['ms'] * 1e3:.2f} us (eager {t['eager_ms'] * 1e3:.2f}"
-                  f" us), plain {t['plain_ms'] * 1e3:.2f} us, bound "
-                  f"{t['bound_ms'] * 1e3:.3f} us ({t['bytes'] / 1e6:.2f} MB),"
-                  f" kernel at {t['bound_ms'] / t['ms']:.1%} of it")
-        out["times"][arch] = {"n": n, "cap": cap, "dropped": int(r.stats[-1]),
-                              "entries": times}
+        out["times"][arch] = {
+            phase: moe_times(torch, arch, seed, phase, n)
+            for phase, n in (("prefill", SERVE_BATCH * SERVE_PROMPT),
+                             ("decode", SERVE_BATCH))}
     return out
 
 
@@ -2789,11 +2905,12 @@ def _moe_premise(torch, cfg, calls: list, trace: list):
     return flags, why
 
 
-def moe_consistency(torch, cfg, params) -> dict:
-    """(d): the bf16 prefill/decode consistency of MOE_CONSIST_BATCH
-    sequences at the config's capacity and at a capacity of every token
-    (cf = E / k: cap = N, nothing drops), each read where
-    :func:`_moe_premise` holds, at the unchanged CONSIST_BF16_STD."""
+def moe_consistency(torch, cfg, params, dtype: str = "bfloat16") -> dict:
+    """(d): the prefill/decode consistency of MOE_CONSIST_BATCH sequences
+    at the config's capacity and at a capacity of every token (cf = E / k:
+    cap = N, nothing drops), each read where :func:`_moe_premise` holds:
+    in bf16 at the unchanged CONSIST_BF16_STD of the logits' std, in fp32
+    at CONSIST_TOL["float32"]."""
     import dataclasses
 
     from repro_torch.models import layers as L
@@ -2817,7 +2934,7 @@ def moe_consistency(torch, cfg, params) -> dict:
         L.moe_apply = watch
         try:
             out[name] = consistency(
-                torch, "bfloat16", c, params, batch=MOE_CONSIST_BATCH,
+                torch, dtype, c, params, batch=MOE_CONSIST_BATCH,
                 premise=lambda: _moe_premise(torch, c, calls, trace))
         finally:
             L.moe_apply = apply
@@ -2901,6 +3018,13 @@ def moe_serve(torch, card: str) -> dict:
         # (d) consistency, each sequence where its premise holds
         row.update(moe_consistency(torch, cfg, params))
         del params
+        if arch in MOE_FP32_CONSIST:
+            torch.cuda.empty_cache()
+            c32 = dataclasses.replace(cfg, dtype="float32")
+            params = M.init_serving_params(
+                c32, torch.Generator(device=CARD).manual_seed(1))
+            row["float32"] = moe_consistency(torch, c32, params, "float32")
+            del params
         out[arch] = row
     torch.cuda.empty_cache()
     return out
@@ -2912,7 +3036,8 @@ def moe_phase(torch, card: str) -> dict:
     t0 = time.perf_counter()
     checks = moe_kernel_checks(torch)
     serving = moe_serve(torch, card)
-    times = checks["times"][MOE_ARCHS[0]]["entries"]
+    first = checks["times"][MOE_ARCHS[0]]
+    times = first["prefill"]["entries"]
     row = {"name": "moe_dispatch_combine", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/moe_sm90.cu",
            "replaces": "src/repro/models/layers.py:262",
@@ -2926,12 +3051,69 @@ def moe_phase(torch, card: str) -> dict:
            "bound_ms": sum(t["bound_ms"] for t in times.values()),
            "bound_by": "bytes",
            "bytes": sum(t["bytes"] for t in times.values()),
+           "floor_ms": sum(t["floor_ms"] for t in times.values()),
            "library_ms": None,
            "entries": times,
+           "decode": first["decode"],
            "other_configs": {a: checks["times"][a] for a in MOE_ARCHS[1:]},
+           "edge_cases": len(checks["edge"]),
            "serve_launches": {a: v["moe_launches"] for a, v in serving.items()}}
     print(f"moe: {time.perf_counter() - t0:.1f} s")
     return {"checks": checks, "serve": serving, "row": row}
+
+
+def moe_pair_child(tree: str, label: str, serve_too: bool) -> int:
+    """One side of a parent / change comparison of the MoE kernels, in a
+    fresh process: ``python3 chip_smoke.py --moe-pair TREE LABEL
+    [--serve]`` imports TREE's ``repro_torch`` (a checkout; the parent's
+    unpacked from ``git archive`` into a directory ``.gitignore`` lists),
+    times route, dispatch and combine at both MoE configs' prefill and
+    decode shapes in bf16 at capacity 1.25 (CUDA graphs of 20 calls, the
+    best of 3) and, with ``--serve``, serves both configs through
+    ``launch.serve.main`` (8 requests in batches of 4, prompt 512, 32
+    generated); prints one JSON line.  Run the sides in turns (parent,
+    change, change, parent) within one chip call."""
+    import torch
+
+    check(torch.cuda.is_available(), "the MoE pair needs a card")
+    root = Path(tree).resolve()
+    sys.path.insert(0, str(root / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.moe import moe
+    from repro_torch.launch import serve
+
+    check(Path(moe.__file__).resolve().is_relative_to(root),
+          f"imported {moe.__file__}, not {root}'s")
+    out = {"label": label, "card": card_line(), "times_us": {}, "serve": {}}
+    for seed, arch in enumerate(MOE_ARCHS):
+        cfg = get_config(arch)
+        e, k, d = cfg.moe_num_experts, cfg.moe_top_k, cfg.d_model
+        for phase, n in (("prefill", SERVE_BATCH * SERVE_PROMPT),
+                         ("decode", SERVE_BATCH)):
+            cap = moe.capacity(n, k, e, cfg.capacity_factor)
+            top_e, gates, x, gen = moe_inputs(torch, seed, n, e, k, d,
+                                              torch.bfloat16)
+            top_e = top_e.int()
+            r = moe.route(top_e, e, cap, distinct=True)
+            ho = torch.randn((e * cap, d), generator=gen,
+                             device=CARD).to(torch.bfloat16)
+            runs = {"route": lambda: moe.route(top_e, e, cap, distinct=True),
+                    "dispatch": lambda: moe.dispatch(x, r),
+                    "combine": lambda: moe.combine(ho, r, gates)}
+            for name, fn in runs.items():
+                out["times_us"][f"{arch} {phase} {name}"] = min(
+                    graph_ms(fn, 20) for _ in range(3)) * 1e3
+    for arch in MOE_ARCHS if serve_too else ():
+        moe.reset_launch_count()
+        summary = serve.main(["--arch", arch, "--requests", "8", "--batch",
+                              str(SERVE_BATCH), "--prompt", str(SERVE_PROMPT),
+                              "--gen", str(SERVE_GEN)], device=CARD)
+        out["serve"][arch] = {k: summary[k] for k in (
+            "tok_per_s", "prefill_s", "decode_s", "wall_s")}
+        out["serve"][arch]["launches"] = moe.launch_counts()
+        torch.cuda.empty_cache()
+    print(json.dumps(out))
+    return 0
 
 
 def _train_flops(cfg, tokens: int, seq: int) -> float:
@@ -3442,4 +3624,7 @@ if __name__ == "__main__":
         sys.exit(streams_entry_child(sys.argv[2:]))
     if sys.argv[1:2] == ["--train-resume"]:
         sys.exit(train_resume_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--moe-pair"]:
+        sys.exit(moe_pair_child(sys.argv[2], sys.argv[3],
+                                sys.argv[4:5] == ["--serve"]))
     sys.exit(main())

@@ -16,119 +16,272 @@
 // +0, each term bf16(ho[slot] * bf16(gate * keep)) and each add rounded to
 // the compute dtype: the order in which the reference's scatter-add meets a
 // token's entries, which are sorted by expert.  The products and sums are
-// taken in fp32 with __fmul_rn / __fadd_rn (no contraction) and rounded
-// with __float2bfloat16_rn, as the CPU's and torch's bf16 arithmetic does.
-// A dropped entry is multiplied by 0, not skipped, so a non-finite value in
-// its row reaches the output (NaN kept, ROADMAP C5).  dispatch copies each
-// kept token's row; a dropped entry adds x * 0 to its slot in the
-// reference, which changes the row only where x is not finite: the second
-// pass (dispatch_nonfinite_kernel) writes NaN there.
+// taken in fp32 with __fmul_rn / __fadd_rn (no contraction) and rounded to
+// bf16 to nearest even two at a time (cvt.rn.bf16x2.f32), as the CPU's and
+// torch's bf16 arithmetic rounds each value.  A dropped entry is multiplied
+// by 0, not skipped, so a non-finite value in its row reaches the output
+// (NaN kept, ROADMAP C5).  dispatch copies each kept token's row; a dropped
+// entry adds x * 0 to its slot in the reference, which changes the row only
+// where x is not finite: the second pass writes NaN there.
 //
-// What bounds it on the H100: bytes.  dispatch reads each token row once and
-// writes E*cap rows; combine reads the N*k rows it gathers and writes N
-// rows; route reads N*k ints and writes their slots and flags.  None does
-// more than a few operations a byte.
-//
-// Design (a simple kernel that is right; not tuned):
-//   * route: one block of 1024 threads walks the N*k entries in tiles of
-//     1024.  Within a warp __match_any_sync groups the lanes of one expert
-//     and a lane's rank is the popcount of its lower peers; the counts of
-//     each (warp, expert) go to shared memory, where a thread per expert
-//     scans them over the 32 warps on top of the expert's running total.
-//     That is the stable position of every entry without a sort.  The
-//     dropped entries are compacted in entry order the same way (a ballot
-//     per warp, a scan over the warps).  E <= 64.
-//   * dispatch: a block a row of the buffer, 16-byte vector copies (or
-//     zeros for an empty row); the non-finite pass walks the dropped list
-//     with a grid-stride loop (its length is read on the card) and only
-//     stores where a value is not finite, the same NaN from every writer.
-//   * combine: a block a token.  Each thread loads the token's k (expert,
-//     slot, weight) and sorts them by expert with an odd-even transposition
-//     network of MAX_K rounds in registers (stable: it swaps only on >),
-//     then accumulates its 16-byte vectors of the output over the k rows.
+// What bounds each entry on the H100, and what the design does about it:
+//   * route: latency.  Its bytes (N*k ints in, slots, flags and rows out)
+//     take well under a microsecond; the time is the chain of barriers
+//     that ranks the entries stably.  At N*k <= 32 (a decode step) one
+//     warp does everything in registers: __match_any_sync groups the lanes
+//     of an expert, a lane's position is the popcount of its lower peers,
+//     a ballot compacts the dropped entries; no __syncthreads.  Above that,
+//     one thread-block cluster of up to 16 blocks of 512 threads (the size
+//     the card can co-schedule, probed once) splits the entries into
+//     contiguous shares in block order.  Pass 1: each block counts its
+//     share's entries per expert in shared memory.  After cluster.sync()
+//     each block reads the counts of every block through distributed
+//     shared memory: the sum over the blocks before it, in block order, is
+//     each expert's base, so the positions are the stable ones with no
+//     sort and no global atomic; the dropped entries before the block are
+//     sum_e max(base_e - cap, 0) plus its earlier out-of-range entries,
+//     the totals give stats, and the -1 fills of rows and dropped cover
+//     only places no entry writes (rows past each expert's count, dropped
+//     past the total), spread over the cluster with no ordering needed.
+//     Pass 2: each block walks its share in tiles of 512 (one or two at
+//     the serving shapes): a match per warp, the per-(warp, expert) counts
+//     scanned over the warps with shuffles on top of the running base, a
+//     ballot and a scan for the dropped list; three __syncthreads a tile.
+//     A second cluster barrier, arrived at after the reads and waited at
+//     the end, keeps each block's shared counts alive while others read.
+//   * dispatch: bytes.  It reads the kept tokens' rows and writes E*cap
+//     rows.  A block of 256 threads copies 8 KB: each thread issues two
+//     16-byte loads (rows of the buffer in order, several rows a block
+//     where D is small) before its two stores, which stream (st.global.cs,
+//     evict first: the buffer is written once and read once).  Where the
+//     routing may have dropped an entry and did, the same launch runs the
+//     non-finite pass: every block checks its share of the dropped tokens'
+//     values and flags a non-finite one, the blocks take tickets as they
+//     finish, and the last 264 wait until every copy is done; only if a
+//     value was flagged do they store NaN at the dropped entries' columns
+//     that are not finite, the same NaN from every writer.  The routing's
+//     three counters (zeroed by the route) order this and are left at 0.
+//   * combine: bytes, and in bf16 the roundings.  It reads the N*k rows its
+//     entries point at and writes N rows.  A block takes one token or
+//     several (2 at D = 1024 bf16): one thread a token sorts its k choices
+//     by expert (a stable odd-even transposition network in registers) into
+//     shared memory; then each thread issues the k 16-byte loads of its
+//     output vector before the ordered adds, two roundings an element
+//     packed two to an instruction.  Kernels for k <= 4 and k <= 8: the
+//     registers of the loads in flight decide how many threads an SM holds.
+// An empty kernel launched with an entry's geometry (moe_floor_sm90) is the
+// least time a launch of that entry can take: the launch floor.
 //
 // C interface (loaded with ctypes): each entry returns the cudaError_t of
 // its launches as an int, 0 on success.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int ROUTE_THREADS = 1024;
-constexpr int ROUTE_WARPS = ROUTE_THREADS / 32;
+constexpr unsigned FULL = 0xffffffffu;
 constexpr int MAX_E = 64;
 constexpr int MAX_K = 8;
-constexpr int ROW_THREADS = 256;
-constexpr int NONFINITE_BLOCKS = 264;   // two a streaming multiprocessor
+constexpr int WARP_ENTRIES = 32;          // N*k up to this: the one-warp route
+constexpr int ROUTE_THREADS = 512;
+constexpr int ROUTE_WARPS = ROUTE_THREADS / 32;
+constexpr int MAX_CLUSTER = 16;
+constexpr int OUT_OF_RANGE = MAX_E;       // the route's key of an expert not in [0, E)
+constexpr int COPY_THREADS = 256;
+constexpr int COPY_UNROLL = 2;            // 16-byte loads a thread before its stores
+constexpr int NONFINITE_BLOCKS = 264;     // the waiters: two a streaming multiprocessor
+constexpr int NONFINITE_UNROLL = 4;
+constexpr int COMBINE_THREADS = 256;
+constexpr int MAX_TOKENS = 32;            // tokens a combine block
+
+enum Entry { ROUTE = 0, DISPATCH = 1, COMBINE = 2 };
 
 // ---------------------------------------------------------------- route
-__global__ void __launch_bounds__(ROUTE_THREADS, 1)
-route_kernel(const int* __restrict__ top_e, int n, int k, int e, int cap,
-             int* __restrict__ slot, bool* __restrict__ keep,
-             int* __restrict__ rows, int* __restrict__ stats,
-             int* __restrict__ dropped) {
-  __shared__ int cnt[ROUTE_WARPS][MAX_E];   // per tile: counts, then offsets
-  __shared__ int base[MAX_E];               // entries of each expert so far
-  __shared__ int wdrop[ROUTE_WARPS];
-  __shared__ int drop_base;
-  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
-  const int nk = n * k, ecap = e * cap;
+// The route's key of entry i: its expert, OUT_OF_RANGE, or -1 past `end`.
+__device__ __forceinline__ int route_key(const int* __restrict__ top_e, int i,
+                                         int end, int e) {
+  if (i >= end) return -1;
+  const int ex = top_e[i];
+  return ex >= 0 && ex < e ? ex : OUT_OF_RANGE;
+}
+
+__device__ __forceinline__ int slot_of(int key, int pos, int cap, int ecap) {
+  if (key == OUT_OF_RANGE) return ecap - 1;
+  const long long s = static_cast<long long>(key) * cap + pos;
+  return static_cast<int>(s < ecap - 1 ? s : ecap - 1);
+}
+
+// Inclusive sum over the first `width` lanes (the others hold 0).
+__device__ __forceinline__ int warp_scan(int v, int lane, int width) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    if (o >= width) break;
+    const int u = __shfl_up_sync(FULL, v, o);
+    if (lane >= o) v += u;
+  }
+  return v;
+}
+
+// N*k <= 32: one warp, everything in registers.  The -1 and 0 fills come
+// first and __syncwarp orders them before the writes that overwrite them.
+__global__ void __launch_bounds__(32)
+route_warp_kernel(const int* __restrict__ top_e, int nk, int e, int cap,
+                  int* __restrict__ slot, bool* __restrict__ keep,
+                  int* __restrict__ rows, int* __restrict__ stats,
+                  int* __restrict__ dropped, unsigned* __restrict__ scratch) {
+  const int lane = threadIdx.x, ecap = e * cap;
   const unsigned below = (1u << lane) - 1u;
+  if (lane < 3) scratch[lane] = 0u;
+  for (int i = lane; i < ecap; i += 32) rows[i] = -1;
+  for (int i = lane; i <= e; i += 32) stats[i] = 0;
+  if (lane < nk) dropped[lane] = -1;
+  const int key = route_key(top_e, lane, nk, e);
+  const bool valid = key >= 0, ok = valid && key != OUT_OF_RANGE;
+  const unsigned peers = __match_any_sync(FULL, key);
+  const int pos = __popc(peers & below);
+  const bool kept = ok && pos < cap;
+  const unsigned lost = __ballot_sync(FULL, valid && !kept);
+  __syncwarp();
+  if (valid) {
+    slot[lane] = slot_of(key, pos, cap, ecap);
+    keep[lane] = kept;
+    if (kept) rows[key * cap + pos] = lane;
+    if (!kept) dropped[__popc(lost & below)] = lane;
+  }
+  if (ok && __ffs(peers) - 1 == lane) stats[key] = __popc(peers);
+  if (lane == 0) stats[e] = __popc(lost);
+}
 
-  for (int i = tid; i < ecap; i += ROUTE_THREADS) rows[i] = -1;
-  for (int i = tid; i < nk; i += ROUTE_THREADS) dropped[i] = -1;
-  if (tid < MAX_E) base[tid] = 0;
-  if (tid == 0) drop_base = 0;
+// N*k > 32: one cluster; block `rank` ranks entries [rank*share, ...).
+__global__ void __launch_bounds__(ROUTE_THREADS)
+route_cluster_kernel(const int* __restrict__ top_e, int nk, int e, int cap,
+                     int share, int* __restrict__ slot,
+                     bool* __restrict__ keep, int* __restrict__ rows,
+                     int* __restrict__ stats, int* __restrict__ dropped,
+                     unsigned* __restrict__ scratch) {
+  __shared__ int bcnt[MAX_E + 1];         // this block's entries a key (read by the cluster)
+  __shared__ int cnt[ROUTE_WARPS][MAX_E]; // per tile: counts, then positions
+  __shared__ int base[MAX_E];             // each expert's next position
+  __shared__ int total[MAX_E];            // the cluster's entries of each expert
+  __shared__ int wdrop[ROUTE_WARPS];
+  __shared__ int red[3][2];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int nblk = static_cast<int>(cluster.num_blocks());
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  const int lo = rank * share;
+  const int hi = lo + share < nk ? lo + share : nk;
+  const int ecap = e * cap;
 
-  for (int t0 = 0; t0 < nk; t0 += ROUTE_THREADS) {
-    const int i = t0 + tid;
-    const bool valid = i < nk;
-    int ex = valid ? top_e[i] : -1;
-    const bool ok = valid && ex >= 0 && ex < e;
-    if (!ok) ex = -1;
-    for (int j = lane; j < MAX_E; j += 32) cnt[w][j] = 0;
-    __syncwarp();
-    const unsigned peers = __match_any_sync(0xffffffffu, ex);
-    if (ok && __ffs(peers) - 1 == lane) cnt[w][ex] = __popc(peers);
-    __syncthreads();                        // also orders the -1 fills
-    if (tid < e) {
-      int run = base[tid];
-      for (int ww = 0; ww < ROUTE_WARPS; ++ww) {
-        const int c = cnt[ww][tid];
-        cnt[ww][tid] = run;
-        run += c;
+  // pass 1: this block's entries of each key
+  for (int j = tid; j <= MAX_E; j += ROUTE_THREADS) bcnt[j] = 0;
+  __syncthreads();
+  for (int t0 = lo; t0 < hi; t0 += ROUTE_THREADS) {
+    const int key = route_key(top_e, t0 + tid, hi, e);
+    const unsigned peers = __match_any_sync(FULL, key);
+    if (key >= 0 && __ffs(peers) - 1 == lane) atomicAdd(&bcnt[key], __popc(peers));
+  }
+  cluster.sync();
+
+  // every block's counts, in block order: this block's bases and the totals
+  int before = 0, all = 0;
+  if (tid <= e) {
+    const int j = tid < e ? tid : OUT_OF_RANGE;
+#pragma unroll
+    for (int r = 0; r < MAX_CLUSTER; ++r) {
+      if (r < nblk) {
+        const int c = cluster.map_shared_rank(bcnt, r)[j];
+        all += c;
+        if (r < rank) before += c;
       }
-      base[tid] = run;
+    }
+    if (tid < e) {
+      base[tid] = before;
+      total[tid] = all;
+    }
+  }
+  // the dropped entries before this block, and all of them: an expert's
+  // entries past its first cap, and every out-of-range entry
+  int d_before = 0, d_all = 0;
+  if (tid < e) {
+    d_before = before > cap ? before - cap : 0;
+    d_all = all > cap ? all - cap : 0;
+  } else if (tid == e) {
+    d_before = before;
+    d_all = all;
+  }
+  if (w < 3) {                             // threads 0..95 hold keys 0..E
+    d_before = __reduce_add_sync(FULL, d_before);
+    d_all = __reduce_add_sync(FULL, d_all);
+    if (lane == 0) {
+      red[w][0] = d_before;
+      red[w][1] = d_all;
+    }
+  }
+  __syncthreads();
+  // done reading the other blocks' counts; waited for at the end
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  int drun = red[0][0] + red[1][0] + red[2][0];
+  const int n_dropped = red[0][1] + red[1][1] + red[2][1];
+
+  // the fills: places no entry writes, spread over the cluster
+  const int stride = nblk * ROUTE_THREADS;
+  for (int idx = rank * ROUTE_THREADS + tid; idx < ecap; idx += stride) {
+    const int x = idx / cap;
+    if (idx - x * cap >= total[x]) rows[idx] = -1;
+  }
+  for (int idx = n_dropped + rank * ROUTE_THREADS + tid; idx < nk; idx += stride)
+    dropped[idx] = -1;
+  if (rank == 0) {
+    if (tid < e) stats[tid] = total[tid];
+    if (tid == 0) stats[e] = n_dropped;
+    if (tid < 3) scratch[tid] = 0u;
+  }
+
+  // pass 2: positions, tile by tile, on top of each expert's base
+  for (int t0 = lo; t0 < hi; t0 += ROUTE_THREADS) {
+    const int i = t0 + tid;
+    const int key = route_key(top_e, i, hi, e);
+    const bool valid = key >= 0, ok = valid && key != OUT_OF_RANGE;
+    const unsigned peers = __match_any_sync(FULL, key);
+    cnt[w][lane] = 0;
+    cnt[w][lane + 32] = 0;
+    __syncwarp();
+    if (ok && __ffs(peers) - 1 == lane) cnt[w][key] = __popc(peers);
+    __syncthreads();
+    for (int x = w; x < e; x += ROUTE_WARPS) {
+      const int c = lane < ROUTE_WARPS ? cnt[lane][x] : 0;
+      const int incl = warp_scan(c, lane, ROUTE_WARPS);
+      const int b = base[x];
+      if (lane < ROUTE_WARPS) cnt[lane][x] = b + incl - c;
+      __syncwarp();
+      if (lane == ROUTE_WARPS - 1) base[x] = b + incl;
     }
     __syncthreads();
-    const int pos = ok ? cnt[w][ex] + __popc(peers & below) : 0;
+    const int pos = ok ? cnt[w][key] + __popc(peers & below) : 0;
     const bool kept = ok && pos < cap;
     if (valid) {
-      const long long s = ok ? static_cast<long long>(ex) * cap + pos : ecap;
-      slot[i] = static_cast<int>(s < ecap - 1 ? s : ecap - 1);
+      slot[i] = slot_of(key, pos, cap, ecap);
       keep[i] = kept;
-      if (kept) rows[ex * cap + pos] = i;
+      if (kept) rows[key * cap + pos] = i;
     }
-    const unsigned lost = __ballot_sync(0xffffffffu, valid && !kept);
+    const unsigned lost = __ballot_sync(FULL, valid && !kept);
     if (lane == 0) wdrop[w] = __popc(lost);
     __syncthreads();
-    if (tid == 0) {
-      int run = drop_base;
-      for (int ww = 0; ww < ROUTE_WARPS; ++ww) {
-        const int c = wdrop[ww];
-        wdrop[ww] = run;
-        run += c;
-      }
-      drop_base = run;
-    }
-    __syncthreads();
-    if (valid && !kept) dropped[wdrop[w] + __popc(lost & below)] = i;
-    __syncthreads();                        // before the next tile's counts
+    const int c = lane < ROUTE_WARPS ? wdrop[lane] : 0;
+    const int incl = warp_scan(c, lane, ROUTE_WARPS);
+    const int off = __shfl_sync(FULL, incl - c, w);
+    const int tile_lost = __shfl_sync(FULL, incl, ROUTE_WARPS - 1);
+    if (valid && !kept) dropped[drun + off + __popc(lost & below)] = i;
+    drun += tile_lost;
   }
-  if (tid < e) stats[tid] = base[tid];
-  if (tid == 0) stats[e] = drop_base;
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 // ------------------------------------------------------------ element types
@@ -137,6 +290,7 @@ struct F32 {
   static constexpr int VEC = 4;             // elements a 16-byte vector
   __device__ static float f(raw v) { return v; }
   __device__ static raw r(float v) { return v; }
+  __device__ static bool finite(raw v) { return isfinite(v); }
   __device__ static raw nan() { return __int_as_float(0x7fc00000); }
 };
 
@@ -149,6 +303,7 @@ struct BF16 {
   __device__ static raw r(float v) {
     return __bfloat16_as_ushort(__float2bfloat16_rn(v));
   }
+  __device__ static bool finite(raw v) { return (v & 0x7f80) != 0x7f80; }
   __device__ static raw nan() { return 0x7fc0; }
 };
 
@@ -159,143 +314,399 @@ union Vec {
 };
 
 // -------------------------------------------------------------- dispatch
-__global__ void __launch_bounds__(ROW_THREADS)
-dispatch_kernel(const uint4* __restrict__ x, const int* __restrict__ rows,
-                int k, int vecs, uint4* __restrict__ out) {
-  const int i = rows[blockIdx.x];
-  uint4* dst = out + static_cast<int64_t>(blockIdx.x) * vecs;
-  if (i >= 0) {
-    const uint4* src = x + static_cast<int64_t>(i / k) * vecs;
-    for (int v = threadIdx.x; v < vecs; v += blockDim.x) dst[v] = src[v];
-  } else {
-    for (int v = threadIdx.x; v < vecs; v += blockDim.x)
-      dst[v] = make_uint4(0u, 0u, 0u, 0u);
+__device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// The (dropped entry, 16-byte vector) pairs f = first + tid, first + step,
+// ...: f / vecs indexes the dropped list, f % vecs the vector.  `visit`
+// gets the entry and the vector's values, NONFINITE_UNROLL loads in flight.
+template <typename T, typename Visit>
+__device__ __forceinline__ void walk_dropped(const uint4* __restrict__ x,
+                                             const int* __restrict__ dropped,
+                                             int nd, int k, int vecs,
+                                             int64_t first, int64_t step,
+                                             Visit visit) {
+  const int64_t span = static_cast<int64_t>(nd) * vecs;
+  for (int64_t f0 = first + threadIdx.x; f0 < span; f0 += step * NONFINITE_UNROLL) {
+    int ent[NONFINITE_UNROLL], v[NONFINITE_UNROLL];
+#pragma unroll
+    for (int u = 0; u < NONFINITE_UNROLL; ++u) {
+      const int64_t f = f0 + u * step;
+      ent[u] = -1;
+      v[u] = 0;
+      if (f < span) {
+        const int64_t j = f / vecs;
+        ent[u] = dropped[j];
+        v[u] = static_cast<int>(f - j * vecs);
+      }
+    }
+    Vec<T> h[NONFINITE_UNROLL];
+#pragma unroll
+    for (int u = 0; u < NONFINITE_UNROLL; ++u)
+      if (ent[u] >= 0) h[u].u = x[static_cast<int64_t>(ent[u] / k) * vecs + v[u]];
+#pragma unroll
+    for (int u = 0; u < NONFINITE_UNROLL; ++u)
+      if (ent[u] >= 0) visit(ent[u], v[u], h[u]);
   }
 }
 
 template <typename T>
-__global__ void __launch_bounds__(ROW_THREADS)
-dispatch_nonfinite_kernel(const typename T::raw* __restrict__ x,
-                          const int* __restrict__ slot,
-                          const int* __restrict__ n_dropped,
-                          const int* __restrict__ dropped, int k, int d,
-                          typename T::raw* __restrict__ out) {
-  const int nd = *n_dropped;
-  for (int j = blockIdx.x; j < nd; j += gridDim.x) {
-    const int i = dropped[j];
-    const typename T::raw* src = x + static_cast<int64_t>(i / k) * d;
-    typename T::raw* dst = out + static_cast<int64_t>(slot[i]) * d;
-    for (int c = threadIdx.x; c < d; c += blockDim.x)
-      if (!isfinite(T::f(src[c]))) dst[c] = T::nan();
+__device__ __forceinline__ bool any_nonfinite(const Vec<T>& h) {
+  bool bad = false;
+#pragma unroll
+  for (int c = 0; c < T::VEC; ++c) bad |= !T::finite(h.el[c]);
+  return bad;
+}
+
+// Block b copies rows [b*rpb, ...) of the buffer, COPY_UNROLL vectors a
+// thread, every load before any store; the stores stream (st.global.cs:
+// evict first, the buffer is written once and read once by the expert
+// products).  Where the routing may have dropped an entry and did
+// (stats[e] > 0), every block then checks its share of the dropped
+// entries' values and flags a non-finite one (scratch[2]); the blocks
+// take tickets as they finish (scratch[0]), and the last `waiters` wait
+// until every block's copy is done.  Only if a value was flagged do they
+// store NaN at the dropped entries' non-finite columns, each store after
+// the copy of its row; the last of them to finish (scratch[1]) sets the
+// counters back to 0 for the next dispatch of this routing.
+template <typename T>
+__global__ void __launch_bounds__(COPY_THREADS)
+dispatch_kernel(const uint4* __restrict__ x, const int* __restrict__ rows,
+                const int* __restrict__ slot, const int* __restrict__ stats,
+                const int* __restrict__ dropped, int k, int e, int ecap,
+                int vecs, int rpb, int may_drop,
+                unsigned* __restrict__ scratch, uint4* __restrict__ out) {
+  __shared__ int s_ticket, s_flagged;
+  const int nd = may_drop ? stats[e] : 0;
+  const int r0 = blockIdx.x * rpb;
+  const int nr = rpb < ecap - r0 ? rpb : ecap - r0;
+  const int span = nr * vecs;
+  for (int f0 = 0; f0 < span; f0 += COPY_THREADS * COPY_UNROLL) {
+    int tok[COPY_UNROLL], v[COPY_UNROLL];   // tok -1: a row of zeros, -2: none
+    int64_t dst[COPY_UNROLL];
+#pragma unroll
+    for (int u = 0; u < COPY_UNROLL; ++u) {
+      const int f = f0 + u * COPY_THREADS + threadIdx.x;
+      tok[u] = -2;
+      v[u] = 0;
+      dst[u] = 0;
+      if (f < span) {
+        const int rr = f / vecs;
+        const int i = rows[r0 + rr];
+        v[u] = f - rr * vecs;
+        tok[u] = i >= 0 ? i / k : -1;
+        dst[u] = static_cast<int64_t>(r0 + rr) * vecs + v[u];
+      }
+    }
+    uint4 val[COPY_UNROLL];
+#pragma unroll
+    for (int u = 0; u < COPY_UNROLL; ++u) {
+      val[u] = make_uint4(0u, 0u, 0u, 0u);
+      if (tok[u] >= 0) val[u] = x[static_cast<int64_t>(tok[u]) * vecs + v[u]];
+    }
+#pragma unroll
+    for (int u = 0; u < COPY_UNROLL; ++u)
+      if (tok[u] != -2) __stcs(out + dst[u], val[u]);
+  }
+  if (nd == 0) return;
+
+  const int blocks = static_cast<int>(gridDim.x);
+  const int waiters = blocks < NONFINITE_BLOCKS ? blocks : NONFINITE_BLOCKS;
+  bool bad = false;
+  walk_dropped<T>(x, dropped, nd, k, vecs,
+                  static_cast<int64_t>(blockIdx.x) * COPY_THREADS,
+                  static_cast<int64_t>(blocks) * COPY_THREADS,
+                  [&](int, int, const Vec<T>& h) { bad |= any_nonfinite<T>(h); });
+  bad = __syncthreads_or(bad);              // also: the block's copy issued
+  if (threadIdx.x == 0) {
+    if (bad) atomicOr(scratch + 2, 1u);
+    __threadfence();                        // the copy visible to the card
+    s_ticket = static_cast<int>(atomicAdd(scratch, 1u));
+  }
+  __syncthreads();
+  const int w = s_ticket - (blocks - waiters);
+  if (w < 0) return;
+  if (threadIdx.x == 0) {
+    while (load_acquire(scratch) < static_cast<unsigned>(blocks)) __nanosleep(64);
+    __threadfence();
+    s_flagged = static_cast<int>(load_acquire(scratch + 2));
+  }
+  __syncthreads();
+  if (s_flagged)
+    walk_dropped<T>(x, dropped, nd, k, vecs,
+                    static_cast<int64_t>(w) * COPY_THREADS,
+                    static_cast<int64_t>(waiters) * COPY_THREADS,
+                    [&](int i, int v, const Vec<T>& h) {
+                      if (!any_nonfinite<T>(h)) return;
+                      typename T::raw* dst = reinterpret_cast<typename T::raw*>(
+                          out + static_cast<int64_t>(slot[i]) * vecs + v);
+#pragma unroll
+                      for (int c = 0; c < T::VEC; ++c)
+                        if (!T::finite(h.el[c])) dst[c] = T::nan();
+                    });
+  __syncthreads();
+  if (threadIdx.x == 0 &&
+      atomicAdd(scratch + 1, 1u) == static_cast<unsigned>(waiters - 1)) {
+    scratch[0] = 0u;                        // every waiter is past its wait
+    scratch[1] = 0u;
+    scratch[2] = 0u;
   }
 }
 
 // --------------------------------------------------------------- combine
+__device__ __forceinline__ float lo_f(unsigned u) { return __uint_as_float(u << 16); }
+__device__ __forceinline__ float hi_f(unsigned u) {
+  return __uint_as_float(u & 0xffff0000u);
+}
+// two floats rounded to bf16, nearest even, in one instruction
+__device__ __forceinline__ unsigned pack_rn(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&p);
+}
+
 template <typename T>
-__global__ void __launch_bounds__(ROW_THREADS)
+struct Terms;
+
+template <>
+struct Terms<F32> {
+  // acc += ho * w, each product and add in fp32
+  __device__ static void add(float (&acc)[8], uint4 h, float w) {
+    const float hv[4] = {__uint_as_float(h.x), __uint_as_float(h.y),
+                         __uint_as_float(h.z), __uint_as_float(h.w)};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[c] = __fadd_rn(acc[c], __fmul_rn(hv[c], w));
+  }
+  __device__ static uint4 out(const float (&acc)[8]) {
+    return make_uint4(__float_as_uint(acc[0]), __float_as_uint(acc[1]),
+                      __float_as_uint(acc[2]), __float_as_uint(acc[3]));
+  }
+};
+
+template <>
+struct Terms<BF16> {
+  // acc = bf16(acc + bf16(ho * w)), two elements at a time
+  __device__ static void add(float (&acc)[8], uint4 h, float w) {
+    const unsigned hv[4] = {h.x, h.y, h.z, h.w};
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      const unsigned t = pack_rn(__fmul_rn(lo_f(hv[p]), w), __fmul_rn(hi_f(hv[p]), w));
+      const unsigned s = pack_rn(__fadd_rn(acc[2 * p], lo_f(t)),
+                                 __fadd_rn(acc[2 * p + 1], hi_f(t)));
+      acc[2 * p] = lo_f(s);
+      acc[2 * p + 1] = hi_f(s);
+    }
+  }
+  __device__ static uint4 out(const float (&acc)[8]) {
+    return make_uint4(pack_rn(acc[0], acc[1]), pack_rn(acc[2], acc[3]),
+                      pack_rn(acc[4], acc[5]), pack_rn(acc[6], acc[7]));
+  }
+};
+
+// Block b combines tokens [b*tpb, ...); k <= KM choices a token (KM 4 or 8:
+// the registers of the k loads in flight decide how many threads an SM
+// holds).
+template <typename T, int KM>
+__global__ void __launch_bounds__(COMBINE_THREADS)
 combine_kernel(const uint4* __restrict__ ho, const int* __restrict__ slot,
                const bool* __restrict__ keep, const float* __restrict__ gates,
-               const int* __restrict__ top_e, int k, int vecs,
+               const int* __restrict__ top_e, int n, int k, int vecs, int tpb,
                uint4* __restrict__ out) {
-  const int64_t t = blockIdx.x;
-  int ex[MAX_K], sl[MAX_K];
-  float wt[MAX_K];
+  __shared__ int s_slot[MAX_TOKENS][KM];
+  __shared__ float s_wt[MAX_TOKENS][KM];
+  const int t0 = blockIdx.x * tpb;
+  const int nt = tpb < n - t0 ? tpb : n - t0;
+  if (threadIdx.x < nt) {
+    const int64_t t = t0 + threadIdx.x;
+    int ex[KM], sl[KM];
+    float wt[KM];
 #pragma unroll
-  for (int j = 0; j < MAX_K; ++j) {
-    if (j < k) {
-      const int64_t idx = t * k + j;
-      ex[j] = top_e[idx];
-      sl[j] = slot[idx];
-      // gate * keep in fp32, rounded to the compute dtype
-      wt[j] = T::f(T::r(__fmul_rn(gates[idx], keep[idx] ? 1.f : 0.f)));
-    } else {
-      ex[j] = 0x7fffffff;                   // padding sorts last
-      sl[j] = 0;
-      wt[j] = 0.f;
-    }
-  }
-#pragma unroll
-  for (int round = 0; round < MAX_K; ++round) {
-#pragma unroll
-    for (int p = round & 1; p + 1 < MAX_K; p += 2) {
-      if (ex[p] > ex[p + 1]) {
-        const int e0 = ex[p], s0 = sl[p];
-        const float w0 = wt[p];
-        ex[p] = ex[p + 1];
-        sl[p] = sl[p + 1];
-        wt[p] = wt[p + 1];
-        ex[p + 1] = e0;
-        sl[p + 1] = s0;
-        wt[p + 1] = w0;
+    for (int j = 0; j < KM; ++j) {
+      if (j < k) {
+        const int64_t idx = t * k + j;
+        ex[j] = top_e[idx];
+        sl[j] = slot[idx];
+        // gate * keep in fp32, rounded to the compute dtype
+        wt[j] = T::f(T::r(__fmul_rn(gates[idx], keep[idx] ? 1.f : 0.f)));
+      } else {
+        ex[j] = 0x7fffffff;                 // padding sorts last
+        sl[j] = 0;
+        wt[j] = 0.f;
       }
     }
-  }
-  for (int v = threadIdx.x; v < vecs; v += blockDim.x) {
-    float acc[T::VEC];
 #pragma unroll
-    for (int c = 0; c < T::VEC; ++c) acc[c] = 0.f;
+    for (int round = 0; round < KM; ++round) {
 #pragma unroll
-    for (int j = 0; j < MAX_K; ++j) {
-      if (j < k) {
-        Vec<T> h;
-        h.u = ho[static_cast<int64_t>(sl[j]) * vecs + v];
-#pragma unroll
-        for (int c = 0; c < T::VEC; ++c) {
-          const float term = T::f(T::r(__fmul_rn(T::f(h.el[c]), wt[j])));
-          acc[c] = T::f(T::r(__fadd_rn(acc[c], term)));
+      for (int p = round & 1; p + 1 < KM; p += 2) {
+        if (ex[p] > ex[p + 1]) {            // stable: swaps only on >
+          const int e0 = ex[p], s0 = sl[p];
+          const float w0 = wt[p];
+          ex[p] = ex[p + 1];
+          sl[p] = sl[p + 1];
+          wt[p] = wt[p + 1];
+          ex[p + 1] = e0;
+          sl[p + 1] = s0;
+          wt[p + 1] = w0;
         }
       }
     }
-    Vec<T> o;
 #pragma unroll
-    for (int c = 0; c < T::VEC; ++c) o.el[c] = T::r(acc[c]);
-    out[t * vecs + v] = o.u;
+    for (int j = 0; j < KM; ++j) {
+      s_slot[threadIdx.x][j] = sl[j];
+      s_wt[threadIdx.x][j] = wt[j];
+    }
+  }
+  __syncthreads();
+  for (int f = threadIdx.x; f < nt * vecs; f += COMBINE_THREADS) {
+    const int tt = f / vecs, v = f - tt * vecs;
+    uint4 h[KM];
+#pragma unroll
+    for (int j = 0; j < KM; ++j)
+      if (j < k) h[j] = ho[static_cast<int64_t>(s_slot[tt][j]) * vecs + v];
+    float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < KM; ++j)
+      if (j < k) Terms<T>::add(acc, h[j], s_wt[tt][j]);
+    out[static_cast<int64_t>(t0 + tt) * vecs + v] = Terms<T>::out(acc);
   }
 }
 
-int row_threads(int vecs) {
-  const int warps = (vecs + 31) / 32;
-  return warps * 32 < ROW_THREADS ? warps * 32 : ROW_THREADS;
+// The launch floor's kernel (a parameter, as every entry has some).
+__global__ void empty_kernel(int) {}
+
+// ---------------------------------------------------------------- launch
+struct Geometry {
+  int blocks, threads, cluster;             // cluster 0: an ordinary launch
+  int per_block;                            // route: entries; dispatch: rows;
+                                            // combine: tokens
+};
+
+// The largest cluster of route blocks the card co-schedules (16, 8, ...),
+// probed once: any size gives the same result.
+int route_cluster_max() {
+  static const int value = [] {
+    cudaFuncSetAttribute(route_cluster_kernel,
+                         cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    cudaFuncSetAttribute(empty_kernel,
+                         cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    for (int c = MAX_CLUSTER; c > 1; c /= 2) {
+      cudaLaunchAttribute attr;
+      attr.id = cudaLaunchAttributeClusterDimension;
+      attr.val.clusterDim.x = c;
+      attr.val.clusterDim.y = 1;
+      attr.val.clusterDim.z = 1;
+      cudaLaunchConfig_t cfg = {};
+      cfg.gridDim = dim3(c);
+      cfg.blockDim = dim3(ROUTE_THREADS);
+      cfg.attrs = &attr;
+      cfg.numAttrs = 1;
+      int clusters = 0;
+      if (cudaOccupancyMaxActiveClusters(&clusters, route_cluster_kernel,
+                                         &cfg) == cudaSuccess &&
+          clusters > 0)
+        return c;
+      cudaGetLastError();
+    }
+    return 1;
+  }();
+  return value;
+}
+
+int elem_bytes(int dtype) { return dtype == 1 ? 2 : 4; }
+
+int div_up(int a, int b) { return (a + b - 1) / b; }
+
+Geometry geometry(int entry, int n, int k, int d, int e, int cap, int dtype) {
+  const int nk = n * k;
+  const int vecs = d * elem_bytes(dtype) / 16;
+  if (entry == ROUTE) {
+    if (nk <= WARP_ENTRIES) return {1, 32, 0, nk};
+    const int cmax = route_cluster_max();
+    const int c = div_up(nk, ROUTE_THREADS) < cmax ? div_up(nk, ROUTE_THREADS)
+                                                   : cmax;
+    return {c, ROUTE_THREADS, c, div_up(nk, c)};
+  }
+  if (entry == DISPATCH) {
+    const int rpb = vecs < COPY_THREADS * COPY_UNROLL
+                        ? COPY_THREADS * COPY_UNROLL / vecs : 1;
+    return {div_up(e * cap, rpb), COPY_THREADS, 0, rpb};
+  }
+  int tpb = COMBINE_THREADS / vecs;
+  tpb = tpb < 1 ? 1 : (tpb > MAX_TOKENS ? MAX_TOKENS : tpb);
+  return {div_up(n, tpb), COMBINE_THREADS, 0, tpb};
+}
+
+template <typename... P, typename... A>
+int launch(void (*kernel)(P...), Geometry g, cudaStream_t stream, A... args) {
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = g.cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(g.blocks);
+  cfg.blockDim = dim3(g.threads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = g.cluster > 0 ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+bool bad_route(int n, int k, int e, int cap) {
+  return n < 1 || k < 1 || k > MAX_K || e < 1 || e > MAX_E || cap < 1;
+}
+
+bool bad_rows(int d, int dtype) {
+  return d < 1 || (dtype != 0 && dtype != 1) || (d * elem_bytes(dtype)) % 16;
+}
+
+bool bad_entry(int entry, int n, int k, int d, int e, int cap, int dtype) {
+  return entry < ROUTE || entry > COMBINE || bad_route(n, k, e, cap) ||
+         bad_rows(d, dtype);
 }
 
 }  // namespace
 
 extern "C" int moe_route_sm90(const int* top_e, int n, int k, int e, int cap,
                               int* slot, bool* keep, int* rows, int* stats,
-                              int* dropped, cudaStream_t stream) {
-  if (n < 1 || k < 1 || k > MAX_K || e < 1 || e > MAX_E || cap < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  route_kernel<<<1, ROUTE_THREADS, 0, stream>>>(top_e, n, k, e, cap, slot,
-                                                keep, rows, stats, dropped);
-  return static_cast<int>(cudaGetLastError());
+                              int* dropped, unsigned* scratch,
+                              cudaStream_t stream) {
+  if (bad_route(n, k, e, cap)) return static_cast<int>(cudaErrorInvalidValue);
+  const Geometry g = geometry(ROUTE, n, k, 8, e, cap, 1);
+  if (g.cluster == 0)
+    return launch(route_warp_kernel, g, stream, top_e, n * k, e, cap, slot,
+                  keep, rows, stats, dropped, scratch);
+  return launch(route_cluster_kernel, g, stream, top_e, n * k, e, cap,
+                g.per_block, slot, keep, rows, stats, dropped, scratch);
 }
 
 // dtype: 0 float32, 1 bfloat16.  x (n, d), out (e * cap, d).  may_drop 0:
 // the caller knows no entry dropped (each token's k experts distinct and in
-// range, cap >= n), and the non-finite pass is not launched.
+// range, cap >= n), and the non-finite tail is not run.  scratch: the
+// routing's two counters, 0 on entry and on exit.
 extern "C" int moe_dispatch_sm90(const void* x, const int* rows,
                                  const int* slot, const int* stats,
                                  const int* dropped, int n, int k, int d,
                                  int e, int cap, int dtype, int may_drop,
-                                 void* out, cudaStream_t stream) {
-  const int elem = dtype == 1 ? 2 : 4;
-  if (n < 1 || k < 1 || e < 1 || cap < 1 || (d * elem) % 16 ||
-      (dtype != 0 && dtype != 1))
+                                 unsigned* scratch, void* out,
+                                 cudaStream_t stream) {
+  if (bad_entry(DISPATCH, n, k, d, e, cap, dtype))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int vecs = d * elem / 16;
-  dispatch_kernel<<<e * cap, row_threads(vecs), 0, stream>>>(
-      static_cast<const uint4*>(x), rows, k, vecs, static_cast<uint4*>(out));
-  if (!may_drop) return static_cast<int>(cudaGetLastError());
-  const int blocks = n * k < NONFINITE_BLOCKS ? n * k : NONFINITE_BLOCKS;
+  const int vecs = d * elem_bytes(dtype) / 16;
+  const Geometry g = geometry(DISPATCH, n, k, d, e, cap, dtype);
+  const uint4* xs = static_cast<const uint4*>(x);
+  uint4* o = static_cast<uint4*>(out);
   if (dtype == 1)
-    dispatch_nonfinite_kernel<BF16><<<blocks, ROW_THREADS, 0, stream>>>(
-        static_cast<const BF16::raw*>(x), slot, stats + e, dropped, k, d,
-        static_cast<BF16::raw*>(out));
-  else
-    dispatch_nonfinite_kernel<F32><<<blocks, ROW_THREADS, 0, stream>>>(
-        static_cast<const F32::raw*>(x), slot, stats + e, dropped, k, d,
-        static_cast<F32::raw*>(out));
-  return static_cast<int>(cudaGetLastError());
+    return launch(dispatch_kernel<BF16>, g, stream, xs, rows, slot, stats,
+                  dropped, k, e, e * cap, vecs, g.per_block, may_drop, scratch,
+                  o);
+  return launch(dispatch_kernel<F32>, g, stream, xs, rows, slot, stats,
+                dropped, k, e, e * cap, vecs, g.per_block, may_drop, scratch,
+                o);
 }
 
 // ho (rows, d), gates (n, k) float32, out (n, d).
@@ -303,18 +714,44 @@ extern "C" int moe_combine_sm90(const void* ho, const int* slot,
                                 const bool* keep, const float* gates,
                                 const int* top_e, int n, int k, int d,
                                 int dtype, void* out, cudaStream_t stream) {
-  const int elem = dtype == 1 ? 2 : 4;
-  if (n < 1 || k < 1 || k > MAX_K || (d * elem) % 16 ||
-      (dtype != 0 && dtype != 1))
+  if (bad_entry(COMBINE, n, k, d, 1, 1, dtype))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int vecs = d * elem / 16;
+  const int vecs = d * elem_bytes(dtype) / 16;
+  const Geometry g = geometry(COMBINE, n, k, d, 1, 1, dtype);
   const uint4* h = static_cast<const uint4*>(ho);
   uint4* o = static_cast<uint4*>(out);
+  if (dtype == 1 && k <= 4)
+    return launch(combine_kernel<BF16, 4>, g, stream, h, slot, keep, gates,
+                  top_e, n, k, vecs, g.per_block, o);
   if (dtype == 1)
-    combine_kernel<BF16><<<n, row_threads(vecs), 0, stream>>>(
-        h, slot, keep, gates, top_e, k, vecs, o);
-  else
-    combine_kernel<F32><<<n, row_threads(vecs), 0, stream>>>(
-        h, slot, keep, gates, top_e, k, vecs, o);
+    return launch(combine_kernel<BF16, 8>, g, stream, h, slot, keep, gates,
+                  top_e, n, k, vecs, g.per_block, o);
+  if (k <= 4)
+    return launch(combine_kernel<F32, 4>, g, stream, h, slot, keep, gates,
+                  top_e, n, k, vecs, g.per_block, o);
+  return launch(combine_kernel<F32, 8>, g, stream, h, slot, keep, gates,
+                top_e, n, k, vecs, g.per_block, o);
+}
+
+// entry 0 route, 1 dispatch, 2 combine: out[0..3] = blocks, threads,
+// cluster size (0: an ordinary launch) and entries / rows / tokens a block.
+extern "C" int moe_geometry_sm90(int entry, int n, int k, int d, int e,
+                                 int cap, int dtype, int* out) {
+  if (bad_entry(entry, n, k, d, e, cap, dtype))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Geometry g = geometry(entry, n, k, d, e, cap, dtype);
+  out[0] = g.blocks;
+  out[1] = g.threads;
+  out[2] = g.cluster;
+  out[3] = g.per_block;
   return static_cast<int>(cudaGetLastError());
+}
+
+// The launch floor: an empty kernel launched as the entry launches.
+extern "C" int moe_floor_sm90(int entry, int n, int k, int d, int e, int cap,
+                              int dtype, cudaStream_t stream) {
+  if (bad_entry(entry, n, k, d, e, cap, dtype))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch(empty_kernel, geometry(entry, n, k, d, e, cap, dtype), stream,
+                0);
 }

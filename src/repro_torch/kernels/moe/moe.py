@@ -9,24 +9,40 @@ scatter-add into the tokens.  The expert products between the dispatch and
 the combine stay ``torch.bmm`` (the reference's ``einsum``s).  Three
 entries, each one plain version in ``ref.py``:
 
-* :func:`route`: ``top_e`` (N, k) -> :class:`~.ref.Routing`; one block of
-  1024 threads ranks the N·k entries tile by tile (``__match_any_sync``
-  within a warp, a scan over the warps per expert in shared memory), so the
-  positions are the stable ones without a sort.
-* :func:`dispatch`: x (N, D) -> (E·cap, D); a block a row, 16-byte vector
-  copies, then the dropped entries' non-finite columns (the reference adds
-  ``x · 0`` for them) in a second launch on the same stream, left out where
-  the routing cannot have dropped an entry (``Routing.may_drop``).
-* :func:`combine`: (E·cap, D) -> (N, D); a block a token, its k choices
-  sorted by expert in registers and added in that order, each product and
-  add in fp32 rounded to the compute dtype (``__float2bfloat16_rn``), which
-  is the reference's bf16 arithmetic: the kernel equals the plain version
-  bit for bit.
+* :func:`route`: ``top_e`` (N, k) -> :class:`~.ref.Routing`.  Up to 32
+  entries (a decode step) one warp ranks them in registers (a match, a
+  popcount, a ballot); above that one thread-block cluster of up to 16
+  blocks of 512 splits them into contiguous shares, counts each share per
+  expert, reads every block's counts through distributed shared memory
+  after ``cluster.sync()`` (each expert's base is the sum over the blocks
+  before, in block order), then ranks its share tile by tile on top of
+  those bases: the stable positions, with no sort and no global atomic.
+  What bounds it: latency (a chain of barriers), not its bytes.
+* :func:`dispatch`: x (N, D) -> (E·cap, D); a block of 256 threads copies
+  8 KB of the buffer (several rows where D is small), each thread's two
+  16-byte loads before its streaming stores.  Where the routing may have
+  dropped an entry (``Routing.may_drop``) and did, every block also checks
+  its share of the dropped tokens' values and flags a non-finite one; the
+  blocks take tickets as they finish and the last 264 wait for every
+  copy, then, if a value was flagged, store NaN at the dropped entries'
+  non-finite columns (the reference adds ``x · 0`` for them): one launch,
+  ordered by the routing's counters (``Routing.scratch``, zeroed by the
+  route and left at zero), so a routing's dispatches run one at a time.
+  Bounded by bytes.
+* :func:`combine`: (E·cap, D) -> (N, D); a block takes one token or
+  several (D·elem small), a thread a token sorts its k choices by expert
+  into shared memory, then each thread issues its k row loads before the
+  ordered adds, each product and add in fp32 rounded to the compute dtype
+  (two values an instruction), which is the reference's bf16 arithmetic:
+  the kernel equals the plain version bit for bit.  Bounded by bytes.
 
-What bounds them: bytes.  dispatch reads each token row once and writes the
-E·cap rows; combine reads the N·k rows it gathers and writes N rows; route
-reads N·k ints.  ``torch.index_add_`` / ``scatter_add_`` on the card add
-with atomics in no fixed order, so no PyTorch call gives this function.
+:func:`geometry` mirrors the launches' shapes (the route's cluster and
+shares); :func:`launch_floor` launches an empty kernel as an entry
+launches, the least time a launch of it can take.  The bytes: dispatch
+reads each token row once and writes the E·cap rows; combine reads the N·k
+rows it gathers and writes N rows; route reads N·k ints.
+``torch.index_add_`` / ``scatter_add_`` on the card add with atomics in no
+fixed order, so no PyTorch call gives this function.
 
 A tensor on the CPU takes the plain version; a tensor on the card launches
 the kernel or raises.  Every launch adds one to its entry's counter
@@ -45,15 +61,22 @@ from repro_torch.kernels import build
 
 from .ref import Routing, capacity, combine_ref, dispatch_ref, route_ref
 
-__all__ = ["Routing", "capacity", "combine", "dispatch", "launch_count",
-           "launch_counts", "reset_launch_count", "route"]
+__all__ = ["Routing", "capacity", "combine", "dispatch", "geometry",
+           "launch_count", "launch_counts", "launch_floor",
+           "library_geometry", "reset_launch_count", "route"]
 
 ENTRIES = ("route", "dispatch", "combine")
 #: dtype codes of the C interface
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: the route kernel's shared counts hold 64 experts of 32 warps
+#: the route kernel's shared counts hold 64 experts
 MAX_EXPERTS = 64
 MAX_TOP_K = 8
+#: the kernel's launch constants (``moe_sm90.cu``), mirrored by :func:`geometry`
+WARP_ENTRIES = 32
+ROUTE_THREADS = 512
+MAX_CLUSTER = 16
+COPY_THREADS, COPY_UNROLL = 256, 2
+COMBINE_THREADS, MAX_TOKENS = 256, 32
 
 _launches = dict.fromkeys(ENTRIES, 0)
 
@@ -87,19 +110,27 @@ def _fns():
     lib = build.load("moe_sm90")
     route_fn = lib.moe_route_sm90
     route_fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4 + \
-        [ctypes.c_void_p] * 6
+        [ctypes.c_void_p] * 7
     dispatch_fn = lib.moe_dispatch_sm90
     dispatch_fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + \
-        [ctypes.c_void_p] * 2
+        [ctypes.c_void_p] * 3
     combine_fn = lib.moe_combine_sm90
     combine_fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + \
         [ctypes.c_void_p] * 2
-    for fn in (route_fn, dispatch_fn, combine_fn):
+    geometry_fn = lib.moe_geometry_sm90
+    geometry_fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    floor_fn = lib.moe_floor_sm90
+    floor_fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fns = {"route": route_fn, "dispatch": dispatch_fn, "combine": combine_fn,
+           "geometry": geometry_fn, "floor": floor_fn}
+    for fn in fns.values():
         fn.restype = ctypes.c_int
-    return {"route": route_fn, "dispatch": dispatch_fn, "combine": combine_fn}
+    return fns
 
 
 def _call(name: str, dev: torch.device, args: list) -> None:
+    """Launch ``name`` on ``dev``'s current stream; raises on a CUDA error.
+    An entry's launch adds one to its counter, the floor's does not."""
     fn = _fns()[name]
     if len(args) + 1 != len(fn.argtypes):      # ctypes would pass the rest as int
         raise TypeError(f"moe {name}: {len(args)} arguments and the stream "
@@ -109,7 +140,68 @@ def _call(name: str, dev: torch.device, args: list) -> None:
         err = fn(*args, torch.cuda.current_stream(idx).cuda_stream)
     if err != 0:
         raise RuntimeError(f"moe {name} launch failed: CUDA error {err}")
-    _launches[name] += 1
+    if name in _launches:
+        _launches[name] += 1
+
+
+def _div_up(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def geometry(entry: str, n: int, k: int, d: int, e: int, cap: int,
+             elem: int, cluster_max: int = MAX_CLUSTER) -> dict:
+    """The launch of ``entry`` (``route``, ``dispatch``, ``combine``) at N
+    tokens of k choices, D columns of ``elem`` bytes, E experts of ``cap``
+    rows, as ``moe_sm90.cu`` shapes it (its first launch, for dispatch):
+    ``blocks``, ``threads``, ``cluster`` (0: an ordinary launch) and
+    ``per_block`` (route: entries, each block's contiguous share; dispatch:
+    buffer rows; combine: tokens).  ``cluster_max`` is the largest route
+    cluster the card co-schedules (the kernel probes it once)."""
+    nk, vecs = n * k, d * elem // 16
+    if entry == "route":
+        if nk <= WARP_ENTRIES:
+            return {"blocks": 1, "threads": 32, "cluster": 0, "per_block": nk}
+        c = min(cluster_max, _div_up(nk, ROUTE_THREADS))
+        return {"blocks": c, "threads": ROUTE_THREADS, "cluster": c,
+                "per_block": _div_up(nk, c)}
+    if entry == "dispatch":
+        rpb = max(1, COPY_THREADS * COPY_UNROLL // vecs)
+        return {"blocks": _div_up(e * cap, rpb), "threads": COPY_THREADS,
+                "cluster": 0, "per_block": rpb}
+    if entry == "combine":
+        tpb = min(max(1, COMBINE_THREADS // vecs), MAX_TOKENS)
+        return {"blocks": _div_up(n, tpb), "threads": COMBINE_THREADS,
+                "cluster": 0, "per_block": tpb}
+    raise ValueError(f"no MoE entry {entry!r}; one of {ENTRIES}")
+
+
+def _codes(entry: str, dtype: torch.dtype) -> tuple[int, int]:
+    if entry not in ENTRIES or dtype not in DTYPES:
+        raise ValueError(f"entry {entry!r} of {ENTRIES}, dtype {dtype} of "
+                         f"{tuple(DTYPES)}")
+    return ENTRIES.index(entry), DTYPES[dtype]
+
+
+def library_geometry(entry: str, n: int, k: int, d: int, e: int, cap: int,
+                     dtype: torch.dtype) -> dict:
+    """:func:`geometry` as the built kernel computes it on the current
+    card (its probed cluster size included)."""
+    code, dt = _codes(entry, dtype)
+    out = (ctypes.c_int * 4)()
+    err = _fns()["geometry"](code, n, k, d, e, cap, dt, ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"moe geometry failed: CUDA error {err}")
+    return dict(zip(("blocks", "threads", "cluster", "per_block"), out))
+
+
+def launch_floor(entry: str, n: int, k: int, d: int, e: int, cap: int,
+                 dtype: torch.dtype, device: torch.device | str = "cuda"
+                 ) -> None:
+    """An empty kernel launched as ``entry`` launches at these shapes, on
+    the current stream: timed as the entry is timed, the least a launch of
+    it can take.  Counts as no launch of the entry."""
+    code, dt = _codes(entry, dtype)
+    _call("floor", torch.device(device), [code, n, k, d, e, cap, dt])
 
 
 def _check_cuda(*named: tuple[str, torch.Tensor]) -> None:
@@ -155,11 +247,13 @@ def route(top_e: torch.Tensor, num_experts: int, cap: int,
     rows = torch.empty(num_experts * cap, dtype=torch.int32, device=dev)
     stats = torch.empty(num_experts + 1, dtype=torch.int32, device=dev)
     dropped = torch.empty(n * k, dtype=torch.int32, device=dev)
+    scratch = torch.empty(3, dtype=torch.int32, device=dev)
     _call("route", dev, [top_e.data_ptr(), n, k, num_experts, cap,
                          slot.data_ptr(), keep.data_ptr(), rows.data_ptr(),
-                         stats.data_ptr(), dropped.data_ptr()])
+                         stats.data_ptr(), dropped.data_ptr(),
+                         scratch.data_ptr()])
     return Routing(top_e, slot, keep, rows, stats, dropped, num_experts, cap,
-                   may_drop)
+                   may_drop, scratch)
 
 
 def _check_rows(t: torch.Tensor, name: str) -> None:
@@ -180,15 +274,20 @@ def dispatch(x: torch.Tensor, r: Routing) -> torch.Tensor:
                          f"{r.slot.numel() // r.top_k}")
     if x.device.type == "cpu":
         return dispatch_ref(x, r)
+    if r.scratch is None:
+        raise ValueError("the routing has no kernel counters: route on the "
+                         "card with moe.route")
     _check_cuda(("x", x), ("rows", r.rows), ("slot", r.slot),
-                ("stats", r.stats), ("dropped", r.dropped))
+                ("stats", r.stats), ("dropped", r.dropped),
+                ("scratch", r.scratch))
     n, d = x.shape
     buf = torch.empty((r.rows.numel(), d), dtype=x.dtype, device=x.device)
     _call("dispatch", x.device, [x.data_ptr(), r.rows.data_ptr(),
                                  r.slot.data_ptr(), r.stats.data_ptr(),
                                  r.dropped.data_ptr(), n, r.top_k, d,
                                  r.num_experts, r.cap, DTYPES[x.dtype],
-                                 int(r.may_drop), buf.data_ptr()])
+                                 int(r.may_drop), r.scratch.data_ptr(),
+                                 buf.data_ptr()])
     return buf
 
 

@@ -44,7 +44,10 @@ class Routing:
     ``dropped`` (N·k,) int32 the dropped entries in entry order, then −1.
     An expert outside [0, E) drops its entry into the last row.
     ``may_drop`` False: the host knows no entry dropped (``moe.route``'s
-    ``distinct``), so the dispatch has no dropped row to mark."""
+    ``distinct``), so the dispatch has no dropped row to mark.
+    ``scratch``: the kernel's (3,) int32 counters on the card, zeroed by
+    the route and left at zero by each dispatch (None in the plain
+    version)."""
 
     top_e: torch.Tensor
     slot: torch.Tensor
@@ -55,6 +58,7 @@ class Routing:
     num_experts: int
     cap: int
     may_drop: bool = True
+    scratch: torch.Tensor | None = None
 
     @property
     def top_k(self) -> int:

@@ -13,6 +13,7 @@ bits of every value that is not NaN are equal (so -0 and +0 differ), and
 NaN stands in the same places (its payload is the card's own).
 """
 import dataclasses
+import zlib
 
 import numpy as np
 import pytest
@@ -25,6 +26,7 @@ from repro_torch.kernels.moe.ref import (combine_ref, dispatch_ref,  # noqa: E40
                                          route_ref)
 from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
+from test_torch_moe_sm90 import CASES, _topk  # noqa: E402
 
 ARCHS = ("qwen2-moe-a2.7b", "granite-moe-1b-a400m")
 #: tokens of a prefill (2 batches of 4 prompts of 512 serve in batches of
@@ -141,7 +143,9 @@ def test_nan_reaches_the_output_through_dropped_entries(card):
         x[drop[3:5] // k, 12] = float("-inf")
         buf_want = dispatch_ref(x, want)
         assert bool(torch.isnan(buf_want[:, 11]).any())
-        _same(moe.dispatch(x.to(card), r), buf_want)
+        for _ in range(2):          # the routing's counters back at zero
+            _same(moe.dispatch(x.to(card), r), buf_want)
+            assert r.scratch.tolist() == [0, 0, 0]
 
 
 @pytest.mark.card
@@ -177,3 +181,78 @@ def test_moe_apply_on_the_card_launches_each_entry_once(card):
         np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
                                    rtol=1e-4, atol=1e-4)
         np.testing.assert_allclose(float(aux), float(want_aux), rtol=1e-5)
+
+
+def _edge_cases():
+    """The route emulation's cases (``tests/test_torch_moe_sm90.py``) on the
+    card, with a D for the dispatch and combine: contiguous shares whole and
+    ragged, one block and a few, E = 1 and 64, top-1 and top-8, cap 1,
+    every expert over capacity, the decode shapes' one warp, experts out of
+    range, and 65,536 entries."""
+    for name, n, e, k, cap in CASES:
+        yield name, _topk(zlib.crc32(name.encode()), n, e, k, skew=3.0), e, cap
+    for n, k in ((1, 1), (4, 4), (4, 8)):
+        top_e = _topk(n * k, n, 60, k).reshape(-1)
+        if top_e.size > 2:
+            top_e[1], top_e[-1] = top_e[0], 65
+        yield f"warp_{n}x{k}", top_e.reshape(n, k), 60, 4
+    rng = np.random.default_rng(5)
+    yield ("out_of_range", rng.integers(-3, 40, size=(1500, 4)).astype(
+        np.int32), 36, 50)
+    top_e = _topk(11, 16384, 60, 4, skew=1.0)
+    for cf in (1.25, 0.5):
+        yield f"entries_65536_cf{cf}", top_e, 60, moe.capacity(16384, 4, 60, cf)
+
+
+@pytest.mark.card
+def test_kernel_equals_plain_at_the_edge_shapes(card):
+    """route, dispatch and combine bit for bit to the plain versions at the
+    edge shapes, bf16 and fp32, D = 64 and 2048; each route is the launch
+    :func:`moe.geometry` gives (one warp up to 32 entries, else a cluster)."""
+    for seed, (name, top_e, e, cap) in enumerate(_edge_cases()):
+        top_e = torch.from_numpy(np.ascontiguousarray(top_e, np.int32))
+        n, k = top_e.shape
+        want = route_ref(top_e, e, cap)
+        r = moe.route(top_e.to(card), e, cap)
+        _check_routing(r, want)
+        gates = torch.from_numpy(np.random.default_rng(seed).random(
+            (n, k))).float()
+        for dtype, d in ((torch.bfloat16, 2048), (torch.float32, 64)):
+            x = _rows(seed + 300, n, d, dtype)
+            _same(moe.dispatch(x.to(card), r), dispatch_ref(x, want))
+            ho = _rows(seed + 400, e * cap, d, dtype)
+            _same(moe.combine(ho.to(card), r, gates.to(card)),
+                  combine_ref(ho, want, gates))
+
+
+@pytest.mark.card
+def test_geometry_mirrors_the_library(card):
+    """:func:`moe.geometry` (the emulation's partition) is the built
+    kernel's launch, at the card's probed route cluster (16 or 8 blocks)."""
+    cmax = moe.library_geometry("route", 16384, 4, 8, 60, 8, torch.bfloat16)[
+        "cluster"]
+    assert cmax in (8, 16)
+    shapes = [(2048, 4, 2048, 60, 176), (2048, 8, 1024, 32, 640),
+              (4, 4, 2048, 60, 4), (4, 8, 1024, 32, 4), (11, 3, 64, 8, 2),
+              (16384, 4, 2048, 60, 88), (1, 1, 8, 1, 1)]
+    for n, k, d, e, cap in shapes:
+        for dtype in (torch.bfloat16, torch.float32):
+            for entry in moe.ENTRIES:
+                want = moe.geometry(entry, n, k, d, e, cap,
+                                    torch.empty((), dtype=dtype).element_size(),
+                                    cmax)
+                assert moe.library_geometry(entry, n, k, d, e, cap,
+                                            dtype) == want, (entry, n, k, d)
+
+
+@pytest.mark.card
+def test_launch_floor_counts_no_launch(card):
+    """The launch floor (an empty kernel launched as each entry launches)
+    runs at both configs' shapes and leaves the entries' counters alone."""
+    moe.reset_launch_count()
+    for n, k, d, e, cap in ((2048, 4, 2048, 60, 176), (4, 8, 1024, 32, 4)):
+        for entry in moe.ENTRIES:
+            moe.launch_floor(entry, n, k, d, e, cap, torch.bfloat16,
+                             device=card)
+    torch.cuda.synchronize()
+    assert moe.launch_count() == 0
