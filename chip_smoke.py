@@ -70,6 +70,25 @@ Phases, each of which raises on failure (exit code not 0):
              an uninterrupted run bit for bit, at 2 layers, batch 2 x 256,
              in a fresh process (``python3 chip_smoke.py --train-resume
              DIR``) under deterministic algorithms.
+             Then the MoE family (``moe_sm90.cu``'s backward entries:
+             dispatch_grad, the combine with unit gates; combine_grad;
+             gate_grad): each bit for bit to its plain version at both MoE
+             configs' training shape (8 x 2048 tokens), bf16 and fp32,
+             capacity 1.25 and 0.5, and in NaN cases, and timed there
+             (CUDA graphs) beside its byte bound and launch floor; a
+             full-width MoE layer's gradients (x, router, experts, shared)
+             through the kernels bit for bit those through the plain
+             versions; granite-moe-1b-a400m at its full config through the
+             trainer's step (bf16, fp32 state, remat full, batch 8 x 2048,
+             20 steps): the flash and MoE counters 0 just before and, just
+             after, 0 flash launches and layers x steps x (route 2,
+             dispatch 2, combine 3, combine_grad 1, gate_grad 1); finite
+             falling losses from ln V, each step's aux loss and dropped
+             share, step s, tokens/s, peak GB and (6 N_active + 12 L S H
+             Dh) tokens / step s; qwen2-moe-a2.7b at full width and 2 of
+             24 layers, 6 steps, the same checks; granite-moe at 2 layers
+             in fp32 on the card against the CPU (rtol 1e-4) where no
+             top-k choice flips between the two.
 5. maxplus — the (max, +) kernel against its plain version on the card at
              the JAX kernel tests' sweep (fp32 and fp16 inputs) and at
              12 lanes of p = 512 and p = 2944, at exact equality; times of
@@ -328,6 +347,37 @@ MOE_EDGE = (("shares_whole_tiles", 2048, 60, 4, 176),
             ("warp_4x8", 4, 60, 8, 4), ("out_of_range", 1500, 36, 4, 50),
             ("entries_65536_cf1.25", 16384, 60, 4, None),
             ("entries_65536_cf0.5", 16384, 60, 4, None))
+
+# The MoE entries of the forward pass (serving launches only these).
+MOE_FORWARD = ("route", "dispatch", "combine")
+
+# The MoE family's training run: granite-moe-1b-a400m at its full published
+# config ([hf:ibm-granite/granite-3.0-1b-a400m-base]: 24 layers, d 1024,
+# GQA 16:8, 32 experts top-8 of d_ff 512; 1.33 B parameters, 0.42 B
+# active), as olmo-1b's run below: bf16 compute, fp32 parameters and AdamW
+# state, remat "full", batch 8 x 2048, TRAIN_STEPS steps.  Per MoE layer
+# and step the forward and remat's recompute launch route, dispatch and
+# combine twice each, and the backward launches the combine once more (the
+# dispatch's cotangent, unit gates), combine_grad and gate_grad once each:
+# MOE_TRAIN_LAUNCHES.  Then qwen2-moe-a2.7b at full width cut to 2 of its
+# 24 layers (its 14.3 B parameters' fp32 state, 229 GB, does not fit the
+# card; 2 layers hold 1.76 B, 28 GB of state), MOE_TRAIN_CUT's steps: the
+# one config with shared experts, E = 60 and the k <= 4 kernels.  The
+# backward entries are held to their plain versions at both configs'
+# training shape (8 x 2048 tokens) and timed there; a full-width MoE layer's
+# gradients through the kernels to those through the plain versions, bit
+# for bit; and granite-moe's whole model, fp32, 2 layers, on the card
+# against the CPU at TRAIN_CPU_RTOL where no top-k choice flips between the
+# two.
+MOE_TRAIN_ARCH = "granite-moe-1b-a400m"
+MOE_TRAIN_LAUNCHES = {"route": 2, "dispatch": 2, "combine": 3,
+                      "combine_grad": 1, "gate_grad": 1}
+MOE_TRAIN_CUT = {"arch": "qwen2-moe-a2.7b", "layers": 2, "steps": 6,
+                 "warmup": 6}
+#: the backward entries, timed at the training shape, and the entry whose
+#: launch each makes (its launch floor)
+MOE_BACKWARD = {"dispatch_grad": "combine", "combine_grad": "combine_grad",
+                "gate_grad": "gate_grad"}
 
 # The training run: olmo-1b at its full published config (bf16 compute,
 # fp32 parameters and AdamW state, remat "full"), batch 8 x 2048 (OLMo's
@@ -2626,8 +2676,8 @@ def moe_inputs(torch, seed: int, n: int, e: int, k: int, d: int, dtype):
 
 def moe_bound_ms(torch, r, n: int, d: int, elem: int) -> dict:
     """Each entry's least time at these inputs, bytes over the card's rate
-    (each input read once, each output written once; combine reads the
-    rows its entries point at, which the routing decides)."""
+    (each input read once, each output written once; combine and gate_grad
+    read the rows their entries point at, which the routing decides)."""
     nk, ecap = r.slot.numel(), r.rows.numel()
     e1 = r.stats.numel()
     nd = int(r.stats[-1])
@@ -2637,8 +2687,32 @@ def moe_bound_ms(torch, r, n: int, d: int, elem: int) -> dict:
         "dispatch": n * d * elem + ecap * d * elem + ecap * 4 + e1 * 4
         + nd * 4 * 2,
         "combine": rows_read * d * elem + n * d * elem + nk * (4 + 1 + 4 + 4)}
+    # the backward: the dispatch's cotangent is the combine's function
+    # (unit gates); combine_grad moves the dispatch's bytes and the kept
+    # entries' gates; gate_grad reads the token rows and the rows its
+    # entries point at, and writes a float an entry
+    moved["dispatch_grad"] = moved["combine"]
+    moved["combine_grad"] = moved["dispatch"] + (nk - nd) * 4
+    moved["gate_grad"] = (n * d * elem + rows_read * d * elem
+                          + nk * (4 + 1) + nk * 4)
     return {k: {"bytes": v, "bound_ms": v / HBM_BYTES_PER_S * 1e3}
             for k, v in moved.items()}
+
+
+def _moe_backward_equal(torch, r, want, dout, dbuf, ho, gates) -> float:
+    """The three backward entries on the routing ``r`` against their plain
+    versions on ``want`` (the same routing), bit for bit; returns the max
+    |difference| over the values that are not NaN (0.0)."""
+    from repro_torch.kernels.moe import moe
+    from repro_torch.kernels.moe import ref
+
+    return max(
+        _moe_equal(torch, moe.dispatch_grad(dbuf, r),
+                   ref.dispatch_grad_ref(dbuf, want)),
+        _moe_equal(torch, moe.combine_grad(dout, r, gates),
+                   ref.combine_grad_ref(dout, want, gates)),
+        _moe_equal(torch, moe.gate_grad(dout, ho, r),
+                   ref.gate_grad_ref(dout, ho, want)))
 
 
 def moe_edge_inputs(torch, seed: int, name: str, n: int, e: int, k: int):
@@ -2661,10 +2735,10 @@ def moe_edge_inputs(torch, seed: int, name: str, n: int, e: int, k: int):
 
 
 def moe_edge_checks(torch) -> list:
-    """The edge shapes (MOE_EDGE): route, dispatch and combine bit for bit
-    to their plain versions on the card, in bf16 at D = 2048 and fp32 at
-    D = 64; each route the launch ``moe.geometry`` gives (one warp up to
-    32 entries, else a cluster)."""
+    """The edge shapes (MOE_EDGE): route, dispatch and combine, and the
+    backward's three entries, bit for bit to their plain versions on the
+    card, in bf16 at D = 2048 and fp32 at D = 64; each route the launch
+    ``moe.geometry`` gives (one warp up to 32 entries, else a cluster)."""
     from repro_torch.kernels.moe import moe
     from repro_torch.kernels.moe import ref
 
@@ -2693,6 +2767,9 @@ def moe_edge_checks(torch) -> list:
                 _moe_equal(torch, moe.dispatch(x, r), ref.dispatch_ref(x, want))
                 _moe_equal(torch, moe.combine(ho, r, gates),
                            ref.combine_ref(ho, want, gates))
+                dbuf = torch.randn((e * c, d), generator=gen,
+                                   device=CARD).to(dtype)
+                _moe_backward_equal(torch, r, want, x, dbuf, ho, gates)
             check(r.scratch.tolist() == [0, 0, 0],
                   f"moe edge {name}: counters left at {r.scratch.tolist()}")
             row = {"name": name, "entries": n * k, "experts": e, "cap": c,
@@ -2701,7 +2778,8 @@ def moe_edge_checks(torch) -> list:
             print(f"moe edge {name}: N*k={n * k} E={e} k={k} cap={c}, "
                   f"{row['dropped']} dropped, route {g['blocks']} x "
                   f"{g['threads']} (cluster {g['cluster']}): route, "
-                  "dispatch, combine bit for bit to the plain versions")
+                  "dispatch, combine and the backward's dispatch_grad, "
+                  "combine_grad, gate_grad bit for bit to the plain versions")
     return out
 
 
@@ -2837,8 +2915,10 @@ def moe_kernel_checks(torch) -> dict:
 
 
 def _plain_moe_ops():
-    """The MoE ops module's names bound to the plain versions: the model's
-    plain path on the card, for the kernel path's comparison."""
+    """The MoE ops module's names bound to the plain versions (dispatch and
+    combine with their plain backward, ``ref.dispatch`` / ``ref.combine``):
+    the model's plain path on the card, for the kernel path's
+    comparison."""
     import types
 
     from repro_torch.kernels.moe import ref
@@ -2847,8 +2927,7 @@ def _plain_moe_ops():
         return ref.route_ref(top_e.int(), e, cap)
 
     return types.SimpleNamespace(capacity=ref.capacity, route=route,
-                                 dispatch=ref.dispatch_ref,
-                                 combine=ref.combine_ref)
+                                 dispatch=ref.dispatch, combine=ref.combine)
 
 
 def _moe_premise(torch, cfg, calls: list, trace: list):
@@ -2974,9 +3053,11 @@ def moe_serve(torch, card: str) -> dict:
         check(counts == {**dict.fromkeys(counts, 0), "sm90_bf16": want},
               f"{arch}: flash launches {counts}, expected {want} of sm90_bf16")
         want_moe = cfg.num_layers * batches * SERVE_GEN
-        check(moe_counts == dict.fromkeys(moe_counts, want_moe)
+        check(moe_counts == {**dict.fromkeys(moe_counts, 0),
+                             **dict.fromkeys(MOE_FORWARD, want_moe)}
               and summary["moe_launches"] == moe_counts,
-              f"{arch}: MoE launches {moe_counts}, expected {want_moe} each")
+              f"{arch}: MoE launches {moe_counts}, expected {want_moe} of "
+              f"each forward entry and no backward launch")
         row = {k: summary[k] for k in ("tok_per_s", "prefill_s", "decode_s",
                                        "wall_s", "prefill_dropped")}
         row.update(layers=cfg.num_layers, params=cfg.num_params(),
@@ -3116,14 +3197,485 @@ def moe_pair_child(tree: str, label: str, serve_too: bool) -> int:
     return 0
 
 
+def moe_backward_checks(torch) -> dict:
+    """The backward entries (``dispatch_grad``, the combine with unit
+    gates; ``combine_grad``; ``gate_grad``) against their plain versions on
+    the card, bit for bit, at both MoE configs' training shape
+    (TRAIN_BATCH x TRAIN_SEQ tokens), bf16 and fp32, capacity 1.25 and
+    0.5; then NaN: a non-finite dout at tokens whose dropped entries' slots
+    are rows, a NaN in ho under dropped entries and in dbuf at their slots,
+    twice on one routing (its counters back at 0).  The edge shapes run in
+    the moe phase (:func:`moe_edge_checks`).  Launches here are
+    comparisons, not the main path."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.moe import moe
+    from repro_torch.kernels.moe import ref
+
+    n = TRAIN_BATCH * TRAIN_SEQ
+    out, worst = {"cases": []}, 0.0
+    for seed, arch in enumerate(MOE_ARCHS):
+        cfg = get_config(arch)
+        e, k, d = cfg.moe_num_experts, cfg.moe_top_k, cfg.d_model
+        for cf in MOE_CAPACITY:
+            cap = moe.capacity(n, k, e, cf)
+            for dtype in (torch.bfloat16, torch.float32):
+                top_e, gates, dout, gen = moe_inputs(torch, 20 + seed, n, e,
+                                                     k, d, dtype)
+                r = moe.route(top_e, e, cap, distinct=True)
+                want = ref.route_ref(top_e.int(), e, cap)
+                rows = [torch.randn((e * cap, d), generator=gen,
+                                    device=CARD).to(dtype) for _ in range(2)]
+                worst = max(worst, _moe_backward_equal(
+                    torch, r, want, dout, rows[0], rows[1], gates))
+                drops = int(want.stats[-1])
+                check(cf == 1.25 or drops > 0,
+                      f"{arch} training shape at cf {cf} dropped nothing")
+                out["cases"].append({"arch": arch, "n": n, "cap": cap,
+                                     "cf": cf, "dtype": str(dtype),
+                                     "dropped": drops})
+                print(f"moe backward {arch} N={n} cap={cap} cf={cf} {dtype}:"
+                      " dispatch_grad, combine_grad, gate_grad bit for bit "
+                      f"to the plain versions, {drops} entries dropped")
+    cfg = get_config(MOE_ARCHS[0])
+    e, k, d = cfg.moe_num_experts, cfg.moe_top_k, cfg.d_model
+    cap = moe.capacity(n, k, e, 0.5)
+    for dtype in (torch.bfloat16, torch.float32):
+        top_e, gates, dout, gen = moe_inputs(torch, 29, n, e, k, d, dtype)
+        r = moe.route(top_e, e, cap)
+        want = ref.route_ref(top_e.int(), e, cap)
+        drop = want.dropped[want.dropped >= 0].long()
+        ho, dbuf = (torch.randn((e * cap, d), generator=gen,
+                                device=CARD).to(dtype) for _ in range(2))
+        dout[drop[:3] // k, 5] = float("inf")
+        dout[drop[3:5] // k, 6] = float("nan")
+        ho[want.slot[drop[5:8]].long(), 7] = float("nan")
+        dbuf[want.slot[drop[8:10]].long(), 9] = float("nan")
+        dho = ref.combine_grad_ref(dout, want, gates)
+        dg = ref.gate_grad_ref(dout, ho, want).view(-1)
+        dx = ref.dispatch_grad_ref(dbuf, want)
+        check(bool(torch.isnan(dho[want.slot[drop[:3]].long(), 5]).all())
+              and bool(torch.isnan(dg[drop[5:8]]).all())
+              and bool(torch.isnan(dx[drop[8:10] // k, 9]).all()),
+              "moe backward: no NaN to keep")
+        for _ in range(2):
+            _moe_backward_equal(torch, r, want, dout, dbuf, ho, gates)
+            check(r.scratch.tolist() == [0, 0, 0], "moe combine_grad left "
+                  f"its counters at {r.scratch.tolist()}")
+        out.setdefault("nan", {})[str(dtype)] = {
+            "dho_rows": int(torch.isnan(dho).any(1).sum()),
+            "gates": int(torch.isnan(dg).sum()),
+            "dx_tokens": int(torch.isnan(dx).any(1).sum())}
+        print(f"moe backward NaN {dtype}: dho rows NaN "
+              f"{out['nan'][str(dtype)]['dho_rows']}, gate cotangents "
+              f"{out['nan'][str(dtype)]['gates']}, dx tokens "
+              f"{out['nan'][str(dtype)]['dx_tokens']}, as the plain versions")
+    out["max_abs_err"] = worst
+    return out
+
+
+def moe_backward_times(torch, arch: str, seed: int) -> dict:
+    """Each backward entry at ``arch``'s training shape (TRAIN_BATCH x
+    TRAIN_SEQ tokens) in bf16 at the config's capacity: the kernel from a
+    CUDA graph and eagerly, the plain version eagerly, the launch floor of
+    the entry it launches (MOE_BACKWARD) and the byte bound; the share is
+    the larger yardstick over the kernel's time."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.moe import moe
+    from repro_torch.kernels.moe import ref
+
+    cfg = get_config(arch)
+    e, k, d = cfg.moe_num_experts, cfg.moe_top_k, cfg.d_model
+    n = TRAIN_BATCH * TRAIN_SEQ
+    cap = moe.capacity(n, k, e, cfg.capacity_factor)
+    top_e, gates, dout, gen = moe_inputs(torch, seed, n, e, k, d,
+                                         torch.bfloat16)
+    r = moe.route(top_e, e, cap, distinct=True)
+    ho, dbuf = (torch.randn((e * cap, d), generator=gen,
+                            device=CARD).to(torch.bfloat16) for _ in range(2))
+    runs = {"dispatch_grad": (lambda: moe.dispatch_grad(dbuf, r),
+                              lambda: ref.dispatch_grad_ref(dbuf, r)),
+            "combine_grad": (lambda: moe.combine_grad(dout, r, gates),
+                             lambda: ref.combine_grad_ref(dout, r, gates)),
+            "gate_grad": (lambda: moe.gate_grad(dout, ho, r),
+                          lambda: ref.gate_grad_ref(dout, ho, r))}
+    bounds = moe_bound_ms(torch, r, n, d, 2)
+    times = {}
+    for name, (kernel, plain) in runs.items():
+        entry = MOE_BACKWARD[name]
+        t = {"ms": graph_ms(kernel, 20), "eager_ms": time_ms(kernel, 20),
+             "plain_ms": time_ms(plain, 5, warmup=2),
+             "floor_ms": graph_ms(lambda entry=entry: moe.launch_floor(
+                 entry, n, k, d, e, cap, torch.bfloat16), 20),
+             "launch": moe.library_geometry(entry, n, k, d, e, cap,
+                                            torch.bfloat16),
+             **bounds[name]}
+        t["share"] = max(t["bound_ms"], t["floor_ms"]) / t["ms"]
+        times[name] = t
+        print(f"moe {name} {arch} train N={n} cap={cap} bf16: kernel "
+              f"{t['ms'] * 1e3:.2f} us (eager {t['eager_ms'] * 1e3:.2f} us), "
+              f"plain {t['plain_ms'] * 1e3:.2f} us, launch floor "
+              f"{t['floor_ms'] * 1e3:.2f} us, bound {t['bound_ms'] * 1e3:.3f}"
+              f" us ({t['bytes'] / 1e6:.2f} MB), kernel at {t['share']:.1%} "
+              f"of the larger; launch {t['launch']}")
+    # the forward dispatch on the same routing: combine_grad's kernel
+    # without its weights, the yardstick of its share
+    fwd = {"ms": graph_ms(lambda: moe.dispatch(dout, r), 20),
+           **bounds["dispatch"]}
+    fwd["share"] = fwd["bound_ms"] / fwd["ms"]
+    print(f"moe dispatch (forward) {arch} train N={n} cap={cap} bf16: "
+          f"{fwd['ms'] * 1e3:.2f} us, bound {fwd['bound_ms'] * 1e3:.3f} us, "
+          f"at {fwd['share']:.1%}")
+    return {"n": n, "cap": cap, "dropped": int(r.stats[-1]), "entries": times,
+            "forward_dispatch": fwd}
+
+
+def _moe_layer_params(torch, cfg, seed: int) -> dict:
+    """One MoE layer's parameters at ``cfg``'s full width, fp32 on the card
+    (``init_params`` of a one-layer copy; the rest dropped)."""
+    import dataclasses
+
+    from repro_torch.models import model as M
+
+    one = dataclasses.replace(cfg, num_layers=1)
+    blocks = M.init_params(one, torch.Generator(device=CARD).manual_seed(
+        seed))["blocks"]
+    return M._layer(blocks, 0)["moe"]
+
+
+def _leaf_names(tree: dict, path: str = "") -> list:
+    """The leaves' paths in ``tree.leaves``' order (sorted keys)."""
+    return [name for k in sorted(tree)
+            for name in (_leaf_names(tree[k], f"{path}{k}/")
+                         if isinstance(tree[k], dict) else [path + k])]
+
+
+def moe_layer_grad_check(torch) -> dict:
+    """A MoE layer of each config at full width on the card, bf16 compute
+    and fp32 parameters at the training shape, capacity 1.25 and 0.5: the
+    gradients for x, the router, ``w_gate``, ``w_up``, ``w_down`` and the
+    shared experts through the kernels bit for bit those through the
+    plain versions (:func:`_plain_moe_ops`), on the same inputs; the aux
+    loss's gradient included."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.tree import leaves, unflatten_like
+
+    n, out = TRAIN_BATCH * TRAIN_SEQ, {}
+    for seed, arch in enumerate(MOE_ARCHS):
+        base = get_config(arch)
+        p = _moe_layer_params(torch, base, 40 + seed)
+        gen = torch.Generator(device=CARD).manual_seed(50 + seed)
+        x, dy = (torch.randn((TRAIN_BATCH, TRAIN_SEQ, base.d_model),
+                             generator=gen, device=CARD).to(torch.bfloat16)
+                 for _ in range(2))
+        for cf in MOE_CAPACITY:
+            cfg = dataclasses.replace(base, capacity_factor=cf)
+            grads, drops = [], []
+            for ops in (L.moe_ops, _plain_moe_ops()):
+                kernel_ops, L.moe_ops = L.moe_ops, ops
+                flat = [x.clone().requires_grad_()] + [
+                    w.detach().requires_grad_() for w in leaves(p)]
+                try:
+                    y, routed = L.moe_apply(cfg, unflatten_like(p, flat[1:]),
+                                            flat[0])
+                    loss = (y.float() * dy.float()).sum() + L.moe_aux_loss(
+                        cfg, routed)
+                    grads.append(torch.autograd.grad(loss, flat))
+                    drops.append(int(routed[1].stats[-1]))
+                finally:
+                    L.moe_ops = kernel_ops
+            check(drops[0] == drops[1], f"{arch}: routings differ {drops}")
+            worst = max(_moe_equal(torch, a, b) for a, b in zip(*grads))
+            names = ["x"] + _leaf_names(p)
+            out[f"{arch} cf {cf}"] = {"dropped": drops[0], "leaves": names,
+                                      "max_abs_err": worst}
+            print(f"moe layer {arch} full width, N={n} cf {cf} bf16: "
+                  f"{len(names)} gradients ({', '.join(names)}) through the "
+                  "kernels bit for bit those through the plain versions, "
+                  f"{drops[0]} entries dropped")
+            del grads
+        del p, x, dy
+        torch.cuda.empty_cache()
+    return out
+
+
+def _routing_watch(torch, records: list):
+    """``layers.moe_apply`` wrapped to append each call's routing (top_e
+    sorted within each token, the kept flags in that order, and the dropped
+    count, all on the device) to ``records``; returns (wrapper, original)."""
+    from repro_torch.models import layers as L
+
+    apply = L.moe_apply
+
+    def watch(cfg, p, x):
+        y, (probs, r) = apply(cfg, p, x)
+        te, order = torch.sort(r.top_e, dim=-1)
+        records.append({"top_e": te, "keep": r.keep.view(te.shape).gather(
+            -1, order), "dropped": r.stats[-1]})
+        return y, (probs, r)
+
+    return watch, apply
+
+
+def moe_train_run(torch, card: str, arch: str, layers: int | None,
+                  steps: int, warmup: int) -> dict:
+    """``arch`` (cut to ``layers`` where given) trained for ``steps`` steps
+    through ``launch.train``'s step function at TRAIN_BATCH x TRAIN_SEQ:
+    every flash and MoE counter 0 just before, read just after (0 flash
+    launches; each MoE entry MOE_TRAIN_LAUNCHES a layer a step); every loss
+    and grad norm finite, the first loss within TRAIN_LOSS0_TOL of ln V,
+    the last below the first; each step's aux loss and share of dropped
+    entries (the forward's routings' ``stats[-1]``, read after the step,
+    off its clock); step s (synchronised; the median of steps 2-N),
+    tokens/s, peak GB and (6 N_active + 12 L S H Dh) tokens / step s."""
+    import dataclasses
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.moe import moe
+    from repro_torch.launch import train as LT
+    from repro_torch.models import layers as L
+    from repro_torch.optim import adamw
+
+    dev = torch.device(CARD)
+    cfg = get_config(arch)
+    full_layers = cfg.num_layers
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    check(cfg.family == "moe" and not cfg.use_kernels
+          and cfg.dtype == "bfloat16" and cfg.param_dtype == "float32"
+          and cfg.remat == "full", f"{arch}: not the trainer's config")
+    oc = adamw.OptConfig(lr=3e-3, warmup_steps=warmup, total_steps=steps)
+    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                          global_batch=TRAIN_BATCH)
+    torch.cuda.empty_cache()
+    one_step = LT.make_step(cfg, oc, dev)
+    state = LT.init_state(cfg, dev)
+    records = []
+    watch, apply = _routing_watch(torch, records)
+    nk = TRAIN_BATCH * TRAIN_SEQ * cfg.moe_top_k
+    losses, gnorms, aux, dropped, step_s = [], [], [], [], []
+    L.moe_apply = watch
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_count()
+        moe.reset_launch_count()
+        for step in range(steps):
+            batch = make_batch(data_cfg, step)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = one_step(state, batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            fwd = records[:cfg.num_layers]      # the forward's; then remat's
+            records.clear()
+            losses.append(float(metrics["loss"]))
+            gnorms.append(float(metrics["grad_norm"]))
+            aux.append(float(metrics["aux_loss"]))
+            dropped.append(sum(int(r["dropped"]) for r in fwd)
+                           / (nk * cfg.num_layers))
+            print(f"train {arch} step {step}: loss {losses[-1]:.4f}, aux "
+                  f"{aux[-1]:.4f}, dropped {dropped[-1]:.2%} of entries, "
+                  f"{step_s[-1]:.3f} s")
+        launches, flash = moe.launch_counts(), fa.launch_count()
+    finally:
+        L.moe_apply = apply
+    peak = torch.cuda.max_memory_allocated()
+    del state
+    torch.cuda.empty_cache()
+    want = {k: v * cfg.num_layers * steps
+            for k, v in MOE_TRAIN_LAUNCHES.items()}
+    check(launches == want, f"{arch}: MoE launches {launches}, expected "
+          f"{want}")
+    check(flash == 0, f"{arch}: training launched flash attention {flash} "
+          "times")
+    check(all(math.isfinite(v) for v in losses + gnorms + aux),
+          f"{arch}: non-finite loss, grad norm or aux loss: {losses}, "
+          f"{gnorms}, {aux}")
+    ln_v = math.log(cfg.vocab_size)
+    check(abs(losses[0] - ln_v) <= TRAIN_LOSS0_TOL, f"{arch}: first loss "
+          f"{losses[0]} not within {TRAIN_LOSS0_TOL} of ln V = {ln_v}")
+    check(losses[-1] < losses[0], f"{arch}: loss did not fall: {losses}")
+    steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = _train_flops(cfg, tokens, TRAIN_SEQ)
+    cut = (f"{cfg.num_layers} of {full_layers} layers"
+           if layers is not None else "full config")
+    row = {"arch": arch, "cut": cut, "layers": cfg.num_layers,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": steps,
+           "losses": losses, "grad_norms": gnorms, "aux_losses": aux,
+           "dropped_share": dropped, "step_s": step_s,
+           "step_s_median": steady, "tokens_per_s": tokens / steady,
+           "peak_gb": peak / 1e9, "flops_per_step": flops,
+           "tflops": flops / steady / 1e12,
+           "mfu_vs_bf16_peak": flops / steady / BF16_FLOP_PER_S,
+           "moe_launches": launches, "flash_launches": flash,
+           "params": cfg.num_params(), "active_params": cfg.active_params()}
+    print(f"train {arch} ({cut}) on {card}: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} (ln V {ln_v:.4f}), aux {aux[0]:.4f} -> "
+          f"{aux[-1]:.4f}, dropped {min(dropped):.2%}-{max(dropped):.2%}, "
+          f"step {steady:.3f} s (median of steps 2-{steps}; first "
+          f"{step_s[0]:.3f} s), {tokens / steady:.0f} tokens/s, peak "
+          f"{peak / 1e9:.1f} GB, ~{flops / steady / 1e12:.1f} TFLOP/s = (6 "
+          f"N_active tokens + 12 L S H Dh tokens) / step s, N_active = "
+          f"{cfg.active_params()} of {cfg.num_params()}, "
+          f"{flops / steady / BF16_FLOP_PER_S:.1%} of the bf16 dense peak; "
+          f"MoE launches {launches}, flash launches {flash}")
+    return row
+
+
+def moe_cpu_check(torch, card: str) -> dict:
+    """granite-moe-1b-a400m at full width cut to TRAIN_CPU_CHECK's depth
+    and batch, fp32 (TF32 off), on the card against the CPU from the same
+    parameters: the routing of every MoE layer compared first (each token's
+    choice set and kept flags); where no choice flipped, the loss, the aux
+    loss, the grad norm and every gradient at TRAIN_CPU_RTOL (an absolute
+    floor of 1e-4 of each leaf's largest entry); else "not applicable",
+    with the flips counted and printed."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.launch import train as LT
+    from repro_torch.models import layers as L
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as TS
+    from repro_torch.tree import leaves, tree_map
+
+    cut = TRAIN_CPU_CHECK
+    dev, cpu = torch.device(CARD), torch.device("cpu")
+    cfg = dataclasses.replace(get_config(MOE_TRAIN_ARCH),
+                              num_layers=cut["layers"], dtype="float32")
+    p_cpu = LT.init_state(cfg, cpu)["params"]
+    p_card = tree_map(lambda t: t.to(dev, copy=True), p_cpu)
+    b = make_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=cut["seq"],
+                              global_batch=cut["batch"]), 0)
+    runs = {}
+    for name, params, where in (("card", p_card, dev), ("cpu", p_cpu, cpu)):
+        records = []
+        watch, apply = _routing_watch(torch, records)
+        L.moe_apply = watch
+        try:
+            t0 = time.perf_counter()
+            loss, metrics, grads = TS.batch_grads(cfg, params,
+                                                  LT.batch_on(b, where))
+            runs[name] = {"loss": loss, "metrics": metrics, "grads": grads,
+                          "routing": records[:cfg.num_layers],
+                          "s": time.perf_counter() - t0}
+        finally:
+            L.moe_apply = apply
+    card_r, cpu_r = runs["card"]["routing"], runs["cpu"]["routing"]
+    flips = sum(int((a["top_e"].cpu() != b_["top_e"]).any(-1).sum())
+                for a, b_ in zip(card_r, cpu_r))
+    kept = sum(int((a["keep"].cpu() != b_["keep"]).any(-1).sum())
+               for a, b_ in zip(card_r, cpu_r))
+    out = {"layers": cut["layers"], "batch": cut["batch"], "seq": cut["seq"],
+           "flipped_tokens": flips, "kept_differ_tokens": kept,
+           "cpu_s": runs["cpu"]["s"]}
+    if flips or kept:
+        out["held"] = "not applicable"
+        print(f"train {MOE_TRAIN_ARCH} card vs CPU (fp32, {cut['layers']} "
+              f"layers): {flips} tokens flipped a top-k choice and {kept} "
+              "kept other entries between the two: not applicable")
+        return out
+    c, h = runs["card"], runs["cpu"]
+
+    def close(a, b_, what):
+        a = a.cpu()
+        floor = 1e-4 * b_.abs().max().item()
+        within = (a - b_).abs() <= floor + TRAIN_CPU_RTOL * b_.abs()
+        check(bool(within.all()), f"moe card against CPU: {what} "
+              f"{tuple(b_.shape)} differs by {(a - b_).abs().max().item()}")
+        return _max_rel(torch, a, b_)
+
+    rel = {"loss": abs(float(c["loss"]) / float(h["loss"]) - 1),
+           "aux_loss": abs(float(c["metrics"]["aux_loss"])
+                           / float(h["metrics"]["aux_loss"]) - 1),
+           "grad_norm": abs(float(adamw.global_norm(c["grads"]))
+                            / float(adamw.global_norm(h["grads"])) - 1)}
+    check(max(rel.values()) <= TRAIN_CPU_RTOL, f"moe card against CPU: {rel}")
+    worst = max(close(a, b_, "gradient") for a, b_ in
+                zip(leaves(c["grads"]), leaves(h["grads"])))
+    out.update(held=True, rel=rel, grads_max_rel=worst)
+    print(f"train {MOE_TRAIN_ARCH} card vs CPU (fp32, TF32 off, "
+          f"{cut['layers']} layers, batch {cut['batch']} x {cut['seq']}): no "
+          f"top-k choice flipped; loss rel {rel['loss']:.2e}, aux rel "
+          f"{rel['aux_loss']:.2e}, grad norm rel {rel['grad_norm']:.2e}, "
+          f"gradients max|Δ| / max|g| {worst:.2e} (rtol {TRAIN_CPU_RTOL}); "
+          f"the CPU's gradients {runs['cpu']['s']:.1f} s")
+    del runs, p_card, p_cpu
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_train_phase(torch, card: str) -> dict:
+    """The MoE family's training (MOE_TRAIN_*): the backward entries
+    against their plain versions at the training shapes, their times, a
+    full-width MoE layer's gradients through the kernels against the plain
+    versions; then granite-moe-1b-a400m at its full config and
+    qwen2-moe-a2.7b at 2 layers through the trainer's step, each with its
+    counters 0 just before and read just after; then the card against the
+    CPU.  Returns the summary and the ``kernels`` line's row."""
+    t0 = time.perf_counter()
+    checks = moe_backward_checks(torch)
+    times = {a: moe_backward_times(torch, a, 30 + i)
+             for i, a in enumerate(MOE_ARCHS)}
+    layer = moe_layer_grad_check(torch)
+    full = moe_train_run(torch, card, MOE_TRAIN_ARCH, None, TRAIN_STEPS,
+                         TRAIN_STEPS)
+    c = MOE_TRAIN_CUT
+    cut = moe_train_run(torch, card, c["arch"], c["layers"], c["steps"],
+                        c["warmup"])
+    cpu = moe_cpu_check(torch, card)
+    mine = times[MOE_TRAIN_ARCH]["entries"]
+    launches = full["moe_launches"]
+    # the backward's launches; the combine's third a layer a step is its
+    # dispatch_grad
+    per = launches["combine"] // MOE_TRAIN_LAUNCHES["combine"]
+    backward = {"dispatch_grad": per,
+                "combine_grad": launches["combine_grad"],
+                "gate_grad": launches["gate_grad"]}
+    row = {"name": "moe_backward", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/moe_sm90.cu",
+           "replaces": "src/repro/models/layers.py:262",
+           "shape": f"{MOE_TRAIN_ARCH} training, {TRAIN_BATCH} x {TRAIN_SEQ}"
+                    " tokens, bf16, capacity 1.25: dispatch_grad (the "
+                    "combine, unit gates) + combine_grad + gate_grad",
+           "launches": sum(backward.values()),
+           "launches_by_entry": backward,
+           "max_abs_err": max(checks["max_abs_err"],
+                              max(v["max_abs_err"] for v in layer.values())),
+           "ms": sum(t["ms"] for t in mine.values()),
+           "plain_ms": sum(t["plain_ms"] for t in mine.values()),
+           "bound_ms": sum(t["bound_ms"] for t in mine.values()),
+           "bound_by": "bytes",
+           "bytes": sum(t["bytes"] for t in mine.values()),
+           "floor_ms": sum(t["floor_ms"] for t in mine.values()),
+           "library_ms": None,
+           "entries": mine,
+           "other_configs": {a: times[a] for a in MOE_ARCHS
+                             if a != MOE_TRAIN_ARCH}}
+    print(f"train moe: {time.perf_counter() - t0:.1f} s")
+    return {"checks": checks, "times": times, "layer": layer, "train": full,
+            "train_cut": cut, "cpu_check": cpu, "row": row}
+
+
 def _train_flops(cfg, tokens: int, seq: int) -> float:
     """6 N tokens + 12 L S (H Dh) tokens: the model's matrix products
-    forward and backward (N = ``cfg.num_params()``, the tied embedding
-    counted once, as the head's product) and attention's two products over
-    the whole S x S the chunked path computes; remat's recompute left
+    forward and backward (N = ``cfg.active_params()``, as the reference's
+    ``launch/shapes.py::model_flops``: every parameter of a dense model, the
+    tied embedding counted once, as the head's product; a MoE model's
+    top-k and shared experts and the rest) and attention's two products
+    over the whole S x S the chunked path computes; remat's recompute and
+    the MoE capacity's padded rows (up to 1.25x the routed ones) left
     out."""
     att = 12 * cfg.num_layers * seq * cfg.num_heads * cfg.resolved_head_dim
-    return (6 * cfg.num_params() + att) * tokens
+    return (6 * cfg.active_params() + att) * tokens
 
 
 def _max_rel(torch, a, b) -> float:
@@ -3466,6 +4018,16 @@ def main() -> int:
     print(f"train: {time.perf_counter() - t0:.1f} s")
     print(f"train summary: {json.dumps(train)}")
 
+    # the MoE family's training: granite-moe-1b-a400m at its full config,
+    # qwen2-moe-a2.7b at 2 layers (counters at 0 just before each run, read
+    # just after), the backward entries against their plain versions
+    moe_train = moe_train_phase(torch, card)
+    flash_row["train_launches_moe"] = moe_train["train"]["flash_launches"]
+    moe["row"]["train_launches"] = {
+        k: moe_train["train"]["moe_launches"][k] for k in MOE_FORWARD}
+    moe_train_out = {k: v for k, v in moe_train.items() if k != "row"}
+    print(f"train moe summary: {json.dumps(moe_train_out)}")
+
     t0 = time.perf_counter()
     maxplus_row = maxplus_phase(torch)
     torch.cuda.empty_cache()
@@ -3609,7 +4171,7 @@ def main() -> int:
           "imports, build included")
     print(json.dumps({"kernels": [flash_row, fp32_row, fma_row,
                                   maxplus_row, sm90_row, sm90_contention,
-                                  lp_row, moe["row"]]}))
+                                  lp_row, moe["row"], moe_train["row"]]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

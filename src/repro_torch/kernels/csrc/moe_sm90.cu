@@ -1,16 +1,23 @@
-// MoE capacity dispatch and expert-ordered combine for Hopper, CUDA C++ for
-// sm_90a.
+// MoE capacity dispatch and expert-ordered combine for Hopper, and their
+// backward, CUDA C++ for sm_90a.
 //
 // Replaces the reference's XLA program for the sort-based capacity MoE,
 //   src/repro/models/layers.py:262::moe_apply,
-// around its expert products (which stay matrix products in torch):
+// around its expert products (which stay matrix products in torch), and
+// the program jax.grad makes of it:
 //   * route     its stable argsort by expert, each entry's position within
 //               its expert, keep = pos < cap and slot = min(e*cap + pos,
 //               E*cap - 1), as one dispatch group;
 //   * dispatch  its scatter-add of the kept tokens into (E*cap, D) rows;
-//   * combine   its gated gather-back and scatter-add into the tokens.
+//   * combine   its gated gather-back and scatter-add into the tokens; with
+//               unit gates also the dispatch's cotangent for x;
+//   * combine_grad  the combine's cotangent for the experts' outputs: the
+//               dispatch with a weight an entry, +0 + dout[token] * w;
+//   * gate_grad the combine's cotangent for the gates: a dot product an
+//               entry, keep * fp32(cdt(sum_d dout[token, d] * ho[slot, d])).
 // The plain versions are kernels/moe/ref.py (route_ref, dispatch_ref,
-// combine_ref); every entry equals its plain version bit for bit.
+// combine_ref, dispatch_grad_ref, combine_grad_ref, gate_grad_ref); every
+// entry equals its plain version bit for bit.
 //
 // Numbers.  combine adds a token's k terms in ascending expert order, from
 // +0, each term bf16(ho[slot] * bf16(gate * keep)) and each add rounded to
@@ -22,7 +29,15 @@
 // by 0, not skipped, so a non-finite value in its row reaches the output
 // (NaN kept, ROADMAP C5).  dispatch copies each kept token's row; a dropped
 // entry adds x * 0 to its slot in the reference, which changes the row only
-// where x is not finite: the second pass writes NaN there.
+// where x is not finite: the second pass writes NaN there.  combine_grad
+// writes each kept row as +0 + bf16(dout * bf16(gate)) (the reference's
+// scatter-add into zeros turns -0 into +0) and runs the same NaN pass on
+// dout.  gate_grad takes each product in fp32 (exact for bf16 values) and
+// sums in fp32 in one fixed order: lane l adds its 16-byte vectors l,
+// l + 32, ... element by element, then the lanes fold by xor shuffles in
+// halves (16, 8, 4, 2, 1); the sum is rounded to the compute dtype and
+// multiplied by keep, so a dropped entry gives +-0, or NaN where its dot
+// is not finite.
 //
 // What bounds each entry on the H100, and what the design does about it:
 //   * route: latency.  Its bytes (N*k ints in, slots, flags and rows out)
@@ -69,6 +84,15 @@
 //     output vector before the ordered adds, two roundings an element
 //     packed two to an instruction.  Kernels for k <= 4 and k <= 8: the
 //     registers of the loads in flight decide how many threads an SM holds.
+//   * combine_grad: bytes, as dispatch: the same kernel, instantiated with
+//     a weight an entry (read beside the row's loads), and the same NaN
+//     pass ordered by the routing's counters.
+//   * gate_grad: bytes.  It reads the N token rows of dout and the N*k rows
+//     of ho its entries point at and writes N*k floats.  One warp an entry,
+//     8 a block (a block holds one token's entries at top-8, so its dout
+//     row is read from device memory once); each lane issues up to four
+//     pairs of 16-byte loads before its adds.  A simple kernel: one
+//     accumulator a lane keeps the order that the plain version mirrors.
 // An empty kernel launched with an entry's geometry (moe_floor_sm90) is the
 // least time a launch of that entry can take: the launch floor.
 //
@@ -98,8 +122,11 @@ constexpr int NONFINITE_BLOCKS = 264;     // the waiters: two a streaming multip
 constexpr int NONFINITE_UNROLL = 4;
 constexpr int COMBINE_THREADS = 256;
 constexpr int MAX_TOKENS = 32;            // tokens a combine block
+constexpr int GATE_THREADS = 256;
+constexpr int GATE_WARPS = GATE_THREADS / 32;   // entries a gate_grad block
+constexpr int GATE_UNROLL = 4;            // vector pairs a lane loads before its adds
 
-enum Entry { ROUTE = 0, DISPATCH = 1, COMBINE = 2 };
+enum Entry { ROUTE = 0, DISPATCH = 1, COMBINE = 2, COMBINE_GRAD = 3, GATE_GRAD = 4 };
 
 // ---------------------------------------------------------------- route
 // The route's key of entry i: its expert, OUT_OF_RANGE, or -1 past `end`.
@@ -313,6 +340,55 @@ union Vec {
   typename T::raw el[T::VEC];
 };
 
+// ------------------------------------------------------------ the roundings
+__device__ __forceinline__ float lo_f(unsigned u) { return __uint_as_float(u << 16); }
+__device__ __forceinline__ float hi_f(unsigned u) {
+  return __uint_as_float(u & 0xffff0000u);
+}
+// two floats rounded to bf16, nearest even, in one instruction
+__device__ __forceinline__ unsigned pack_rn(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&p);
+}
+
+template <typename T>
+struct Terms;
+
+template <>
+struct Terms<F32> {
+  // acc += ho * w, each product and add in fp32
+  __device__ static void add(float (&acc)[8], uint4 h, float w) {
+    const float hv[4] = {__uint_as_float(h.x), __uint_as_float(h.y),
+                         __uint_as_float(h.z), __uint_as_float(h.w)};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[c] = __fadd_rn(acc[c], __fmul_rn(hv[c], w));
+  }
+  __device__ static uint4 out(const float (&acc)[8]) {
+    return make_uint4(__float_as_uint(acc[0]), __float_as_uint(acc[1]),
+                      __float_as_uint(acc[2]), __float_as_uint(acc[3]));
+  }
+};
+
+template <>
+struct Terms<BF16> {
+  // acc = bf16(acc + bf16(ho * w)), two elements at a time
+  __device__ static void add(float (&acc)[8], uint4 h, float w) {
+    const unsigned hv[4] = {h.x, h.y, h.z, h.w};
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      const unsigned t = pack_rn(__fmul_rn(lo_f(hv[p]), w), __fmul_rn(hi_f(hv[p]), w));
+      const unsigned s = pack_rn(__fadd_rn(acc[2 * p], lo_f(t)),
+                                 __fadd_rn(acc[2 * p + 1], hi_f(t)));
+      acc[2 * p] = lo_f(s);
+      acc[2 * p + 1] = hi_f(s);
+    }
+  }
+  __device__ static uint4 out(const float (&acc)[8]) {
+    return make_uint4(pack_rn(acc[0], acc[1]), pack_rn(acc[2], acc[3]),
+                      pack_rn(acc[4], acc[5]), pack_rn(acc[6], acc[7]));
+  }
+};
+
 // -------------------------------------------------------------- dispatch
 __device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
   unsigned v;
@@ -371,12 +447,14 @@ __device__ __forceinline__ bool any_nonfinite(const Vec<T>& h) {
 // until every block's copy is done.  Only if a value was flagged do they
 // store NaN at the dropped entries' non-finite columns, each store after
 // the copy of its row; the last of them to finish (scratch[1]) sets the
-// counters back to 0 for the next dispatch of this routing.
-template <typename T>
+// counters back to 0 for the next dispatch of this routing.  WEIGHTED
+// (combine_grad): each kept row is +0 + x[token] * cdt(gates[entry]).
+template <typename T, bool WEIGHTED>
 __global__ void __launch_bounds__(COPY_THREADS)
 dispatch_kernel(const uint4* __restrict__ x, const int* __restrict__ rows,
                 const int* __restrict__ slot, const int* __restrict__ stats,
-                const int* __restrict__ dropped, int k, int e, int ecap,
+                const int* __restrict__ dropped,
+                const float* __restrict__ gates, int k, int e, int ecap,
                 int vecs, int rpb, int may_drop,
                 unsigned* __restrict__ scratch, uint4* __restrict__ out) {
   __shared__ int s_ticket, s_flagged;
@@ -387,18 +465,21 @@ dispatch_kernel(const uint4* __restrict__ x, const int* __restrict__ rows,
   for (int f0 = 0; f0 < span; f0 += COPY_THREADS * COPY_UNROLL) {
     int tok[COPY_UNROLL], v[COPY_UNROLL];   // tok -1: a row of zeros, -2: none
     int64_t dst[COPY_UNROLL];
+    float wt[COPY_UNROLL];
 #pragma unroll
     for (int u = 0; u < COPY_UNROLL; ++u) {
       const int f = f0 + u * COPY_THREADS + threadIdx.x;
       tok[u] = -2;
       v[u] = 0;
       dst[u] = 0;
+      wt[u] = 0.f;
       if (f < span) {
         const int rr = f / vecs;
         const int i = rows[r0 + rr];
         v[u] = f - rr * vecs;
         tok[u] = i >= 0 ? i / k : -1;
         dst[u] = static_cast<int64_t>(r0 + rr) * vecs + v[u];
+        if (WEIGHTED && i >= 0) wt[u] = T::f(T::r(gates[i]));  // gate * keep(1)
       }
     }
     uint4 val[COPY_UNROLL];
@@ -406,6 +487,15 @@ dispatch_kernel(const uint4* __restrict__ x, const int* __restrict__ rows,
     for (int u = 0; u < COPY_UNROLL; ++u) {
       val[u] = make_uint4(0u, 0u, 0u, 0u);
       if (tok[u] >= 0) val[u] = x[static_cast<int64_t>(tok[u]) * vecs + v[u]];
+    }
+    if constexpr (WEIGHTED) {
+#pragma unroll
+      for (int u = 0; u < COPY_UNROLL; ++u) {
+        if (tok[u] < 0) continue;
+        float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+        Terms<T>::add(acc, val[u], wt[u]);  // +0 + cdt(x * w)
+        val[u] = Terms<T>::out(acc);
+      }
     }
 #pragma unroll
     for (int u = 0; u < COPY_UNROLL; ++u)
@@ -457,54 +547,6 @@ dispatch_kernel(const uint4* __restrict__ x, const int* __restrict__ rows,
 }
 
 // --------------------------------------------------------------- combine
-__device__ __forceinline__ float lo_f(unsigned u) { return __uint_as_float(u << 16); }
-__device__ __forceinline__ float hi_f(unsigned u) {
-  return __uint_as_float(u & 0xffff0000u);
-}
-// two floats rounded to bf16, nearest even, in one instruction
-__device__ __forceinline__ unsigned pack_rn(float lo, float hi) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&p);
-}
-
-template <typename T>
-struct Terms;
-
-template <>
-struct Terms<F32> {
-  // acc += ho * w, each product and add in fp32
-  __device__ static void add(float (&acc)[8], uint4 h, float w) {
-    const float hv[4] = {__uint_as_float(h.x), __uint_as_float(h.y),
-                         __uint_as_float(h.z), __uint_as_float(h.w)};
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[c] = __fadd_rn(acc[c], __fmul_rn(hv[c], w));
-  }
-  __device__ static uint4 out(const float (&acc)[8]) {
-    return make_uint4(__float_as_uint(acc[0]), __float_as_uint(acc[1]),
-                      __float_as_uint(acc[2]), __float_as_uint(acc[3]));
-  }
-};
-
-template <>
-struct Terms<BF16> {
-  // acc = bf16(acc + bf16(ho * w)), two elements at a time
-  __device__ static void add(float (&acc)[8], uint4 h, float w) {
-    const unsigned hv[4] = {h.x, h.y, h.z, h.w};
-#pragma unroll
-    for (int p = 0; p < 4; ++p) {
-      const unsigned t = pack_rn(__fmul_rn(lo_f(hv[p]), w), __fmul_rn(hi_f(hv[p]), w));
-      const unsigned s = pack_rn(__fadd_rn(acc[2 * p], lo_f(t)),
-                                 __fadd_rn(acc[2 * p + 1], hi_f(t)));
-      acc[2 * p] = lo_f(s);
-      acc[2 * p + 1] = hi_f(s);
-    }
-  }
-  __device__ static uint4 out(const float (&acc)[8]) {
-    return make_uint4(pack_rn(acc[0], acc[1]), pack_rn(acc[2], acc[3]),
-                      pack_rn(acc[4], acc[5]), pack_rn(acc[6], acc[7]));
-  }
-};
-
 // Block b combines tokens [b*tpb, ...); k <= KM choices a token (KM 4 or 8:
 // the registers of the k loads in flight decide how many threads an SM
 // holds).
@@ -573,14 +615,78 @@ combine_kernel(const uint4* __restrict__ ho, const int* __restrict__ slot,
   }
 }
 
+// ------------------------------------------------------------- gate_grad
+template <typename T>
+struct Dot;
+
+template <>
+struct Dot<F32> {
+  // acc += a * b element by element, each product and add in fp32
+  __device__ static float add(float acc, uint4 a, uint4 b) {
+    acc = __fadd_rn(acc, __fmul_rn(__uint_as_float(a.x), __uint_as_float(b.x)));
+    acc = __fadd_rn(acc, __fmul_rn(__uint_as_float(a.y), __uint_as_float(b.y)));
+    acc = __fadd_rn(acc, __fmul_rn(__uint_as_float(a.z), __uint_as_float(b.z)));
+    return __fadd_rn(acc, __fmul_rn(__uint_as_float(a.w), __uint_as_float(b.w)));
+  }
+};
+
+template <>
+struct Dot<BF16> {
+  // the products of bf16 values are exact in fp32; elements 2p, 2p + 1
+  // are the low and high halves of word p
+  __device__ static float add(float acc, uint4 a, uint4 b) {
+    const unsigned av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      acc = __fadd_rn(acc, __fmul_rn(lo_f(av[p]), lo_f(bv[p])));
+      acc = __fadd_rn(acc, __fmul_rn(hi_f(av[p]), hi_f(bv[p])));
+    }
+    return acc;
+  }
+};
+
+// Warp w of block b takes entry i = b*GATE_WARPS + w (token i / k, row
+// slot[i]); lane l adds its vectors l, l + 32, ... in order, GATE_UNROLL
+// pairs of loads in flight, then the lanes fold by xor shuffles: lane 0
+// ends with ((a0 + a16) + (a8 + a24)) + ..., the plain version's order.
+template <typename T>
+__global__ void __launch_bounds__(GATE_THREADS)
+gate_grad_kernel(const uint4* __restrict__ dout, const uint4* __restrict__ ho,
+                 const int* __restrict__ slot, const bool* __restrict__ keep,
+                 int nk, int k, int vecs, float* __restrict__ out) {
+  const int i = blockIdx.x * GATE_WARPS + static_cast<int>(threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (i >= nk) return;                      // the whole warp
+  const uint4* a = dout + static_cast<int64_t>(i / k) * vecs;
+  const uint4* b = ho + static_cast<int64_t>(slot[i]) * vecs;
+  float acc = 0.f;
+  for (int v0 = lane; v0 < vecs; v0 += 32 * GATE_UNROLL) {
+    uint4 ha[GATE_UNROLL], hb[GATE_UNROLL];
+#pragma unroll
+    for (int u = 0; u < GATE_UNROLL; ++u) {
+      if (v0 + 32 * u < vecs) {
+        ha[u] = a[v0 + 32 * u];
+        hb[u] = b[v0 + 32 * u];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < GATE_UNROLL; ++u)
+      if (v0 + 32 * u < vecs) acc = Dot<T>::add(acc, ha[u], hb[u]);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) acc = __fadd_rn(acc, __shfl_xor_sync(FULL, acc, o));
+  if (lane == 0) out[i] = __fmul_rn(T::f(T::r(acc)), keep[i] ? 1.f : 0.f);
+}
+
 // The launch floor's kernel (a parameter, as every entry has some).
 __global__ void empty_kernel(int) {}
 
 // ---------------------------------------------------------------- launch
 struct Geometry {
   int blocks, threads, cluster;             // cluster 0: an ordinary launch
-  int per_block;                            // route: entries; dispatch: rows;
-                                            // combine: tokens
+  int per_block;                            // route: entries; dispatch and
+                                            // combine_grad: rows; combine:
+                                            // tokens; gate_grad: entries
 };
 
 // The largest cluster of route blocks the card co-schedules (16, 8, ...),
@@ -628,11 +734,12 @@ Geometry geometry(int entry, int n, int k, int d, int e, int cap, int dtype) {
                                                    : cmax;
     return {c, ROUTE_THREADS, c, div_up(nk, c)};
   }
-  if (entry == DISPATCH) {
+  if (entry == DISPATCH || entry == COMBINE_GRAD) {
     const int rpb = vecs < COPY_THREADS * COPY_UNROLL
                         ? COPY_THREADS * COPY_UNROLL / vecs : 1;
     return {div_up(e * cap, rpb), COPY_THREADS, 0, rpb};
   }
+  if (entry == GATE_GRAD) return {div_up(nk, GATE_WARPS), GATE_THREADS, 0, GATE_WARPS};
   int tpb = COMBINE_THREADS / vecs;
   tpb = tpb < 1 ? 1 : (tpb > MAX_TOKENS ? MAX_TOKENS : tpb);
   return {div_up(n, tpb), COMBINE_THREADS, 0, tpb};
@@ -665,7 +772,7 @@ bool bad_rows(int d, int dtype) {
 }
 
 bool bad_entry(int entry, int n, int k, int d, int e, int cap, int dtype) {
-  return entry < ROUTE || entry > COMBINE || bad_route(n, k, e, cap) ||
+  return entry < ROUTE || entry > GATE_GRAD || bad_route(n, k, e, cap) ||
          bad_rows(d, dtype);
 }
 
@@ -700,13 +807,38 @@ extern "C" int moe_dispatch_sm90(const void* x, const int* rows,
   const Geometry g = geometry(DISPATCH, n, k, d, e, cap, dtype);
   const uint4* xs = static_cast<const uint4*>(x);
   uint4* o = static_cast<uint4*>(out);
+  const float* none = nullptr;
   if (dtype == 1)
-    return launch(dispatch_kernel<BF16>, g, stream, xs, rows, slot, stats,
-                  dropped, k, e, e * cap, vecs, g.per_block, may_drop, scratch,
-                  o);
-  return launch(dispatch_kernel<F32>, g, stream, xs, rows, slot, stats,
-                dropped, k, e, e * cap, vecs, g.per_block, may_drop, scratch,
-                o);
+    return launch(dispatch_kernel<BF16, false>, g, stream, xs, rows, slot,
+                  stats, dropped, none, k, e, e * cap, vecs, g.per_block,
+                  may_drop, scratch, o);
+  return launch(dispatch_kernel<F32, false>, g, stream, xs, rows, slot, stats,
+                dropped, none, k, e, e * cap, vecs, g.per_block, may_drop,
+                scratch, o);
+}
+
+// The combine's cotangent for ho: dout (n, d), gates (n, k) float32, out
+// (e * cap, d); the routing's arrays and counters as for the dispatch.
+extern "C" int moe_combine_grad_sm90(const void* dout, const int* rows,
+                                     const int* slot, const int* stats,
+                                     const int* dropped, const float* gates,
+                                     int n, int k, int d, int e, int cap,
+                                     int dtype, int may_drop,
+                                     unsigned* scratch, void* out,
+                                     cudaStream_t stream) {
+  if (bad_entry(COMBINE_GRAD, n, k, d, e, cap, dtype))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int vecs = d * elem_bytes(dtype) / 16;
+  const Geometry g = geometry(COMBINE_GRAD, n, k, d, e, cap, dtype);
+  const uint4* xs = static_cast<const uint4*>(dout);
+  uint4* o = static_cast<uint4*>(out);
+  if (dtype == 1)
+    return launch(dispatch_kernel<BF16, true>, g, stream, xs, rows, slot,
+                  stats, dropped, gates, k, e, e * cap, vecs, g.per_block,
+                  may_drop, scratch, o);
+  return launch(dispatch_kernel<F32, true>, g, stream, xs, rows, slot, stats,
+                dropped, gates, k, e, e * cap, vecs, g.per_block, may_drop,
+                scratch, o);
 }
 
 // ho (rows, d), gates (n, k) float32, out (n, d).
@@ -733,8 +865,28 @@ extern "C" int moe_combine_sm90(const void* ho, const int* slot,
                 top_e, n, k, vecs, g.per_block, o);
 }
 
-// entry 0 route, 1 dispatch, 2 combine: out[0..3] = blocks, threads,
-// cluster size (0: an ordinary launch) and entries / rows / tokens a block.
+// The combine's cotangent for the gates: dout (n, d), ho (rows, d), out
+// (n, k) float32.
+extern "C" int moe_gate_grad_sm90(const void* dout, const void* ho,
+                                  const int* slot, const bool* keep, int n,
+                                  int k, int d, int dtype, float* out,
+                                  cudaStream_t stream) {
+  if (bad_entry(GATE_GRAD, n, k, d, 1, 1, dtype))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int vecs = d * elem_bytes(dtype) / 16;
+  const Geometry g = geometry(GATE_GRAD, n, k, d, 1, 1, dtype);
+  const uint4* a = static_cast<const uint4*>(dout);
+  const uint4* b = static_cast<const uint4*>(ho);
+  if (dtype == 1)
+    return launch(gate_grad_kernel<BF16>, g, stream, a, b, slot, keep, n * k,
+                  k, vecs, out);
+  return launch(gate_grad_kernel<F32>, g, stream, a, b, slot, keep, n * k, k,
+                vecs, out);
+}
+
+// entry 0 route, 1 dispatch, 2 combine, 3 combine_grad, 4 gate_grad:
+// out[0..3] = blocks, threads, cluster size (0: an ordinary launch) and
+// entries / rows / tokens / rows / entries a block.
 extern "C" int moe_geometry_sm90(int entry, int n, int k, int d, int e,
                                  int cap, int dtype, int* out) {
   if (bad_entry(entry, n, k, d, e, cap, dtype))

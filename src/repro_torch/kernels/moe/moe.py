@@ -1,13 +1,14 @@
-"""The MoE capacity dispatch and ordered combine: the wrapper of
-``csrc/moe_sm90.cu``.
+"""The MoE capacity dispatch and ordered combine, and their backward: the
+wrapper of ``csrc/moe_sm90.cu``.
 
 The counterpart of the reference's XLA program for the sort-based capacity
-MoE, ``repro.models.layers.moe_apply`` (``src/repro/models/layers.py:262``):
-its stable argsort by expert with per-expert positions, the scatter-add of
-the kept tokens into (E·cap, D) rows, and the gated gather-back with its
-scatter-add into the tokens.  The expert products between the dispatch and
-the combine stay ``torch.bmm`` (the reference's ``einsum``s).  Three
-entries, each one plain version in ``ref.py``:
+MoE, ``repro.models.layers.moe_apply`` (``src/repro/models/layers.py:262``),
+and of its ``jax.grad``: its stable argsort by expert with per-expert
+positions, the scatter-add of the kept tokens into (E·cap, D) rows, and the
+gated gather-back with its scatter-add into the tokens.  The expert
+products between the dispatch and the combine stay ``torch.bmm`` (the
+reference's ``einsum``s).  Five entries, each one plain version in
+``ref.py``:
 
 * :func:`route`: ``top_e`` (N, k) -> :class:`~.ref.Routing`.  Up to 32
   entries (a decode step) one warp ranks them in registers (a match, a
@@ -27,45 +28,65 @@ entries, each one plain version in ``ref.py``:
   copy, then, if a value was flagged, store NaN at the dropped entries'
   non-finite columns (the reference adds ``x · 0`` for them): one launch,
   ordered by the routing's counters (``Routing.scratch``, zeroed by the
-  route and left at zero), so a routing's dispatches run one at a time.
-  Bounded by bytes.
+  route and left at zero), so a routing's dispatches (and its
+  :func:`combine_grad` calls) run one at a time.  Bounded by bytes.
 * :func:`combine`: (E·cap, D) -> (N, D); a block takes one token or
   several (D·elem small), a thread a token sorts its k choices by expert
   into shared memory, then each thread issues its k row loads before the
   ordered adds, each product and add in fp32 rounded to the compute dtype
   (two values an instruction), which is the reference's bf16 arithmetic:
   the kernel equals the plain version bit for bit.  Bounded by bytes.
+  With unit gates it is the dispatch's backward (:func:`dispatch_grad`).
+* :func:`combine_grad`: the combine's cotangent for ho, dout (N, D) ->
+  (E·cap, D): the dispatch's kernel with a weight an entry, each kept row
+  ``+0 + dout[token] · cdt(gate)``, zeros elsewhere, the same NaN pass for
+  the dropped entries (``dout · 0``).  Bounded by bytes.
+* :func:`gate_grad`: the combine's cotangent for the gates, (N, k) fp32:
+  one warp an entry, each lane summing its 16-byte vectors' products in
+  fp32 in order, the lanes folded by shuffles in halves
+  (``ref.gate_grad_ref``'s order), rounded to the compute dtype, times
+  ``keep``.  Bounded by bytes: it reads the N·k rows its entries point at.
+
+:func:`dispatch` and :func:`combine` run through ``torch.autograd.Function``
+classes (``ref.Dispatch``, ``ref.Combine``): the routing passes through with no
+gradient, and the backward takes the kernels on the card and the plain
+versions on the CPU, as the forward does.
 
 :func:`geometry` mirrors the launches' shapes (the route's cluster and
 shares); :func:`launch_floor` launches an empty kernel as an entry
 launches, the least time a launch of it can take.  The bytes: dispatch
-reads each token row once and writes the E·cap rows; combine reads the N·k
-rows it gathers and writes N rows; route reads N·k ints.
-``torch.index_add_`` / ``scatter_add_`` on the card add with atomics in no
-fixed order, so no PyTorch call gives this function.
+reads each token row once and writes the E·cap rows (combine_grad also
+the kept entries' gates); combine reads the N·k rows it gathers and writes
+N rows; gate_grad reads the N token rows and the rows its entries point
+at and writes N·k floats; route reads N·k ints.  ``torch.index_add_`` /
+``scatter_add_`` on the card add with atomics in no fixed order, so no
+PyTorch call gives these functions.
 
 A tensor on the CPU takes the plain version; a tensor on the card launches
 the kernel or raises.  Every launch adds one to its entry's counter
-(:func:`launch_counts`).  Forward only: a call that autograd would record
-raises ``RuntimeError`` (training the MoE needs the backward kernels).
-A routing's dropped count is ``stats[-1]``, on its device.
+(:func:`launch_counts`).  A routing's dropped count is ``stats[-1]``, on
+its device.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import types
 
 import torch
 
 from repro_torch.kernels import build
 
-from .ref import Routing, capacity, combine_ref, dispatch_ref, route_ref
+from .ref import (Combine, Dispatch, Routing, capacity, combine_grad_ref,
+                  combine_ref, dispatch_grad_ref, dispatch_ref, gate_grad_ref,
+                  route_ref)
 
-__all__ = ["Routing", "capacity", "combine", "dispatch", "geometry",
-           "launch_count", "launch_counts", "launch_floor",
-           "library_geometry", "reset_launch_count", "route"]
+__all__ = ["Routing", "capacity", "combine", "combine_grad", "dispatch",
+           "dispatch_grad", "gate_grad", "geometry", "launch_count",
+           "launch_counts", "launch_floor", "library_geometry",
+           "reset_launch_count", "route"]
 
-ENTRIES = ("route", "dispatch", "combine")
+ENTRIES = ("route", "dispatch", "combine", "combine_grad", "gate_grad")
 #: dtype codes of the C interface
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the route kernel's shared counts hold 64 experts
@@ -77,32 +98,27 @@ ROUTE_THREADS = 512
 MAX_CLUSTER = 16
 COPY_THREADS, COPY_UNROLL = 256, 2
 COMBINE_THREADS, MAX_TOKENS = 256, 32
+GATE_THREADS = 256                      # one warp an entry
 
 _launches = dict.fromkeys(ENTRIES, 0)
 
 
 def launch_count() -> int:
-    """Launches of the three entries since :func:`reset_launch_count`."""
+    """Launches of all entries since :func:`reset_launch_count`."""
     return sum(_launches.values())
 
 
 def launch_counts() -> dict[str, int]:
-    """Launches of each entry, by name (``route``, ``dispatch``,
-    ``combine``); a dispatch is its copy and, where the routing may have
-    dropped an entry, its non-finite pass."""
+    """Launches of each entry, by name (:data:`ENTRIES`); a dispatch (and
+    a combine_grad) is its copy and, where the routing may have dropped an
+    entry, its non-finite pass; :func:`dispatch_grad` launches the
+    combine."""
     return dict(_launches)
 
 
 def reset_launch_count() -> None:
     for name in _launches:
         _launches[name] = 0
-
-
-def _no_grad(*tensors: torch.Tensor) -> None:
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError("the MoE dispatch and combine are forward only "
-                           "(no backward kernel yet): serve under "
-                           "torch.no_grad() or with inputs that need no grad")
 
 
 @functools.cache
@@ -117,11 +133,18 @@ def _fns():
     combine_fn = lib.moe_combine_sm90
     combine_fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + \
         [ctypes.c_void_p] * 2
+    combine_grad_fn = lib.moe_combine_grad_sm90
+    combine_grad_fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + \
+        [ctypes.c_void_p] * 3
+    gate_grad_fn = lib.moe_gate_grad_sm90
+    gate_grad_fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + \
+        [ctypes.c_void_p] * 2
     geometry_fn = lib.moe_geometry_sm90
     geometry_fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
     floor_fn = lib.moe_floor_sm90
     floor_fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fns = {"route": route_fn, "dispatch": dispatch_fn, "combine": combine_fn,
+           "combine_grad": combine_grad_fn, "gate_grad": gate_grad_fn,
            "geometry": geometry_fn, "floor": floor_fn}
     for fn in fns.values():
         fn.restype = ctypes.c_int
@@ -150,13 +173,14 @@ def _div_up(a: int, b: int) -> int:
 
 def geometry(entry: str, n: int, k: int, d: int, e: int, cap: int,
              elem: int, cluster_max: int = MAX_CLUSTER) -> dict:
-    """The launch of ``entry`` (``route``, ``dispatch``, ``combine``) at N
-    tokens of k choices, D columns of ``elem`` bytes, E experts of ``cap``
-    rows, as ``moe_sm90.cu`` shapes it (its first launch, for dispatch):
-    ``blocks``, ``threads``, ``cluster`` (0: an ordinary launch) and
-    ``per_block`` (route: entries, each block's contiguous share; dispatch:
-    buffer rows; combine: tokens).  ``cluster_max`` is the largest route
-    cluster the card co-schedules (the kernel probes it once)."""
+    """The launch of ``entry`` (one of :data:`ENTRIES`) at N tokens of k
+    choices, D columns of ``elem`` bytes, E experts of ``cap`` rows, as
+    ``moe_sm90.cu`` shapes it: ``blocks``, ``threads``, ``cluster`` (0: an
+    ordinary launch) and ``per_block`` (route: entries, each block's
+    contiguous share; dispatch and combine_grad: buffer rows; combine:
+    tokens; gate_grad: entries, one a warp).  ``cluster_max`` is the
+    largest route cluster the card co-schedules (the kernel probes it
+    once)."""
     nk, vecs = n * k, d * elem // 16
     if entry == "route":
         if nk <= WARP_ENTRIES:
@@ -164,7 +188,7 @@ def geometry(entry: str, n: int, k: int, d: int, e: int, cap: int,
         c = min(cluster_max, _div_up(nk, ROUTE_THREADS))
         return {"blocks": c, "threads": ROUTE_THREADS, "cluster": c,
                 "per_block": _div_up(nk, c)}
-    if entry == "dispatch":
+    if entry in ("dispatch", "combine_grad"):
         rpb = max(1, COPY_THREADS * COPY_UNROLL // vecs)
         return {"blocks": _div_up(e * cap, rpb), "threads": COPY_THREADS,
                 "cluster": 0, "per_block": rpb}
@@ -172,6 +196,10 @@ def geometry(entry: str, n: int, k: int, d: int, e: int, cap: int,
         tpb = min(max(1, COMBINE_THREADS // vecs), MAX_TOKENS)
         return {"blocks": _div_up(n, tpb), "threads": COMBINE_THREADS,
                 "cluster": 0, "per_block": tpb}
+    if entry == "gate_grad":
+        wpb = GATE_THREADS // 32
+        return {"blocks": _div_up(nk, wpb), "threads": GATE_THREADS,
+                "cluster": 0, "per_block": wpb}
     raise ValueError(f"no MoE entry {entry!r}; one of {ENTRIES}")
 
 
@@ -202,6 +230,13 @@ def launch_floor(entry: str, n: int, k: int, d: int, e: int, cap: int,
     it can take.  Counts as no launch of the entry."""
     code, dt = _codes(entry, dtype)
     _call("floor", torch.device(device), [code, n, k, d, e, cap, dt])
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned (autograd may hand a backward
+    an expanded, strided or offset cotangent)."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
 
 
 def _check_cuda(*named: tuple[str, torch.Tensor]) -> None:
@@ -265,50 +300,141 @@ def _check_rows(t: torch.Tensor, name: str) -> None:
                          "16-byte vectors")
 
 
-def dispatch(x: torch.Tensor, r: Routing) -> torch.Tensor:
-    """x (N, D) -> the (E·cap, D) expert buffer (:func:`~.ref.dispatch_ref`)."""
-    _no_grad(x)
-    _check_rows(x, "x")
+def _check_dispatch(x: torch.Tensor, r: Routing, name: str) -> None:
+    _check_rows(x, name)
     if x.shape[0] * r.top_k != r.slot.numel():
-        raise ValueError(f"x has {x.shape[0]} tokens; the routing "
+        raise ValueError(f"{name} has {x.shape[0]} tokens; the routing "
                          f"{r.slot.numel() // r.top_k}")
-    if x.device.type == "cpu":
-        return dispatch_ref(x, r)
-    if r.scratch is None:
+    if x.device.type != "cpu" and r.scratch is None:
         raise ValueError("the routing has no kernel counters: route on the "
                          "card with moe.route")
-    _check_cuda(("x", x), ("rows", r.rows), ("slot", r.slot),
-                ("stats", r.stats), ("dropped", r.dropped),
-                ("scratch", r.scratch))
+
+
+def _dispatch(x: torch.Tensor, r: Routing,
+              gates: torch.Tensor | None = None) -> torch.Tensor:
+    """The dispatch kernel's launch: x's rows to the (E·cap, D) buffer,
+    each scaled by its entry's gate where ``gates`` is given
+    (``combine_grad``)."""
+    args = [("x", x), ("rows", r.rows), ("slot", r.slot), ("stats", r.stats),
+            ("dropped", r.dropped), ("scratch", r.scratch)]
+    if gates is not None:
+        gates = gates.float().contiguous()
+        args.append(("gates", gates))
+    _check_cuda(*args)
     n, d = x.shape
     buf = torch.empty((r.rows.numel(), d), dtype=x.dtype, device=x.device)
-    _call("dispatch", x.device, [x.data_ptr(), r.rows.data_ptr(),
-                                 r.slot.data_ptr(), r.stats.data_ptr(),
-                                 r.dropped.data_ptr(), n, r.top_k, d,
-                                 r.num_experts, r.cap, DTYPES[x.dtype],
-                                 int(r.may_drop), r.scratch.data_ptr(),
-                                 buf.data_ptr()])
+    ptrs = [x.data_ptr(), r.rows.data_ptr(), r.slot.data_ptr(),
+            r.stats.data_ptr(), r.dropped.data_ptr()]
+    ints = [n, r.top_k, d, r.num_experts, r.cap, DTYPES[x.dtype],
+            int(r.may_drop)]
+    if gates is None:
+        _call("dispatch", x.device, ptrs + ints + [r.scratch.data_ptr(),
+                                                   buf.data_ptr()])
+    else:
+        _call("combine_grad", x.device, ptrs + [gates.data_ptr()] + ints
+              + [r.scratch.data_ptr(), buf.data_ptr()])
     return buf
 
 
-def combine(ho: torch.Tensor, r: Routing, gates: torch.Tensor) -> torch.Tensor:
-    """ho (E·cap, D) the experts' outputs and gates (N, k) -> (N, D) in ho's
-    dtype (:func:`~.ref.combine_ref`)."""
-    _no_grad(ho, gates)
+def _forward_dispatch(x: torch.Tensor, r: Routing) -> torch.Tensor:
+    _check_dispatch(x, r, "x")
+    if x.device.type == "cpu":
+        return dispatch_ref(x, r)
+    return _dispatch(x, r)
+
+
+def combine_grad(dout: torch.Tensor, r: Routing, gates: torch.Tensor
+                 ) -> torch.Tensor:
+    """The combine's cotangent for ho: dout (N, D), gates (N, k) ->
+    (E·cap, D) in dout's dtype (:func:`~.ref.combine_grad_ref`)."""
+    _check_dispatch(dout, r, "dout")
+    if gates.shape != r.top_e.shape:
+        raise ValueError(f"gates {tuple(gates.shape)} do not fit the "
+                         f"routing's {tuple(r.top_e.shape)} choices")
+    if dout.device.type == "cpu":
+        return combine_grad_ref(dout, r, gates)
+    return _dispatch(_aligned(dout), r, gates)
+
+
+def _check_combine(ho: torch.Tensor, r: Routing,
+                   gates: torch.Tensor | None = None) -> None:
     _check_rows(ho, "ho")
     n, k = r.top_e.shape
-    if ho.shape[0] != r.rows.numel() or gates.shape != (n, k):
+    if ho.shape[0] != r.rows.numel() or (gates is not None
+                                         and gates.shape != (n, k)):
         raise ValueError(f"ho {tuple(ho.shape)} and gates "
-                         f"{tuple(gates.shape)} do not fit the routing's "
-                         f"{r.rows.numel()} rows and ({n}, {k}) choices")
+                         f"{None if gates is None else tuple(gates.shape)} "
+                         f"do not fit the routing's {r.rows.numel()} rows "
+                         f"and ({n}, {k}) choices")
+
+
+def _forward_combine(ho: torch.Tensor, r: Routing, gates: torch.Tensor
+                     ) -> torch.Tensor:
+    _check_combine(ho, r, gates)
     if ho.device.type == "cpu":
         return combine_ref(ho, r, gates)
     gates = gates.float().contiguous()
     _check_cuda(("ho", ho), ("gates", gates), ("slot", r.slot),
                 ("keep", r.keep), ("top_e", r.top_e))
+    n, k = r.top_e.shape
     out = torch.empty((n, ho.shape[1]), dtype=ho.dtype, device=ho.device)
     _call("combine", ho.device, [ho.data_ptr(), r.slot.data_ptr(),
                                  r.keep.data_ptr(), gates.data_ptr(),
                                  r.top_e.data_ptr(), n, k, ho.shape[1],
                                  DTYPES[ho.dtype], out.data_ptr()])
     return out
+
+
+def dispatch_grad(dbuf: torch.Tensor, r: Routing) -> torch.Tensor:
+    """The dispatch's cotangent for x: dbuf (E·cap, D) -> (N, D), the
+    combine with unit gates (:func:`~.ref.dispatch_grad_ref`); a launch
+    of the combine."""
+    if dbuf.device.type == "cpu":
+        _check_combine(dbuf, r)
+        return dispatch_grad_ref(dbuf, r)
+    ones = torch.ones(r.top_e.shape, device=dbuf.device)
+    return _forward_combine(_aligned(dbuf), r, ones)
+
+
+def gate_grad(dout: torch.Tensor, ho: torch.Tensor, r: Routing
+              ) -> torch.Tensor:
+    """The combine's cotangent for the gates: dout (N, D), ho (E·cap, D) in
+    one dtype -> (N, k) float32 (:func:`~.ref.gate_grad_ref`)."""
+    _check_rows(dout, "dout")
+    _check_combine(ho, r)
+    n, k = r.top_e.shape
+    if dout.shape != (n, ho.shape[1]) or dout.dtype != ho.dtype:
+        raise ValueError(f"dout {tuple(dout.shape)} {dout.dtype} does not "
+                         f"fit {n} tokens of ho's {tuple(ho.shape[1:])} "
+                         f"{ho.dtype}")
+    if dout.device.type == "cpu":
+        return gate_grad_ref(dout, ho, r)
+    dout, ho = _aligned(dout), _aligned(ho)
+    _check_cuda(("dout", dout), ("ho", ho), ("slot", r.slot),
+                ("keep", r.keep))
+    out = torch.empty((n, k), dtype=torch.float32, device=dout.device)
+    _call("gate_grad", dout.device, [dout.data_ptr(), ho.data_ptr(),
+                                     r.slot.data_ptr(), r.keep.data_ptr(),
+                                     n, k, ho.shape[1], DTYPES[ho.dtype],
+                                     out.data_ptr()])
+    return out
+
+
+#: the entries as ``ref.Dispatch`` and ``ref.Combine`` take them
+_OPS = types.SimpleNamespace(dispatch=_forward_dispatch,
+                             combine=_forward_combine,
+                             dispatch_grad=dispatch_grad,
+                             combine_grad=combine_grad, gate_grad=gate_grad)
+
+
+def dispatch(x: torch.Tensor, r: Routing) -> torch.Tensor:
+    """x (N, D) -> the (E·cap, D) expert buffer (:func:`~.ref.dispatch_ref`);
+    differentiable in x (:func:`dispatch_grad`)."""
+    return Dispatch.apply(x, r, _OPS)
+
+
+def combine(ho: torch.Tensor, r: Routing, gates: torch.Tensor) -> torch.Tensor:
+    """ho (E·cap, D) the experts' outputs and gates (N, k) -> (N, D) in ho's
+    dtype (:func:`~.ref.combine_ref`); differentiable in ho
+    (:func:`combine_grad`) and the gates (:func:`gate_grad`)."""
+    return Combine.apply(ho, r, gates, _OPS)

@@ -1,8 +1,9 @@
-"""The plain versions of the MoE capacity dispatch and the ordered combine.
+"""The plain versions of the MoE capacity dispatch and the ordered combine,
+and of their backward.
 
 The function is the reference's ``repro.models.layers.moe_apply`` between
 the router's ``top_k`` and the expert products, and after them, for one
-dispatch group:
+dispatch group, and its ``jax.grad``:
 
 * :func:`route_ref`: the entries ``i = t·k + j`` (token t's j-th choice)
   taken in a stable order by expert; ``pos`` is an entry's place among its
@@ -21,6 +22,29 @@ dispatch group:
   result.  A dropped entry is multiplied by 0, not skipped, so a non-finite
   value in its row reaches the output.
 
+The backward, three cotangents, each in a fixed order:
+
+* :func:`dispatch_grad_ref`, the dispatch's for x: each token's k slot
+  rows of the buffer's cotangent times ``keep``, added from +0 in
+  ascending expert order: :func:`combine_ref` with unit gates, which is the
+  reference's bf16 VJP bit for bit.
+* :func:`combine_grad_ref`, the combine's for the experts' outputs: at a
+  kept entry's row ``+0 + dout[token] · w`` (``w`` the entry's weight in
+  the combine), +0 at a row that holds no entry, and NaN where a dropped
+  entry's slot meets a token whose ``dout`` is not finite (its ``dout · 0``
+  added): the dispatch's structure, each row scaled by its weight.  The
+  rows are ``+0 + p``, not a copy of ``p``: the reference's scatter-add
+  into zeros turns -0 into +0.
+* :func:`gate_grad_ref`, the combine's for the gates: ``keep · fp32(
+  cdt(Σ_d dout[token, d] · ho[slot, d]))``, the sum in fp32 in the order
+  of :data:`LANES` lanes folded in halves, which the kernel follows.  XLA
+  sums it in another order in bf16 (1-2 bf16 ulps apart, ROADMAP C7); in
+  fp32 both are the same function to rounding.
+
+:class:`Dispatch` and :class:`Combine` are the two ops with their backward
+as ``torch.autograd.Function`` classes over a table of implementations;
+:func:`dispatch` and :func:`combine` take the plain ones on any device.
+
 Plain torch, no scatter that adds with atomics: every index write goes to
 distinct places.  The CPU and the tests use these; a tensor on the card
 takes the kernel (``moe.py``).
@@ -29,8 +53,13 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import types
 
 import torch
+import torch.nn.functional as F
+
+#: the gate cotangent's sum order (:func:`gate_grad_ref`): one warp's lanes
+LANES = 32
 
 
 @dataclasses.dataclass
@@ -102,10 +131,23 @@ def route_ref(top_e: torch.Tensor, num_experts: int, cap: int,
 
 def dispatch_ref(x: torch.Tensor, r: Routing) -> torch.Tensor:
     """x (N, D) -> the (E·cap, D) expert buffer in x's dtype."""
+    return _to_rows(x, r, None)
+
+
+def _to_rows(x: torch.Tensor, r: Routing, gates: torch.Tensor | None
+             ) -> torch.Tensor:
+    """Each kept entry's token row of ``x`` at its slot, zeros elsewhere,
+    NaN where a dropped entry's slot meets a non-finite value of its
+    token; with ``gates`` each kept row is ``+0 + x[token] · cdt(gate)``."""
     buf = torch.zeros((r.rows.numel(), x.shape[1]), dtype=x.dtype,
                       device=x.device)
     full = torch.nonzero(r.rows >= 0)[:, 0]
-    buf[full] = x[r.rows[full].long() // r.top_k]
+    ent = r.rows[full].long()
+    src = x[ent // r.top_k]
+    if gates is not None:
+        w = gates.reshape(-1).float()[ent].to(x.dtype)    # kept: gate · 1
+        src = buf[full] + src * w[:, None]
+    buf[full] = src
     drop = r.dropped[r.dropped >= 0].long()
     if drop.numel():
         bad, col = torch.nonzero(~torch.isfinite(x[drop // r.top_k]),
@@ -127,3 +169,99 @@ def combine_ref(ho: torch.Tensor, r: Routing, gates: torch.Tensor
     for j in range(k):
         acc = acc + ho[slot[:, j]] * w[:, j, None]
     return acc
+
+
+def dispatch_grad_ref(dbuf: torch.Tensor, r: Routing) -> torch.Tensor:
+    """The dispatch's cotangent for x: dbuf (E·cap, D) -> (N, D), each
+    token's slot rows times ``keep`` added in ascending expert order."""
+    n, k = r.top_e.shape
+    return combine_ref(dbuf, r, torch.ones((n, k), device=dbuf.device))
+
+
+def combine_grad_ref(dout: torch.Tensor, r: Routing, gates: torch.Tensor
+                     ) -> torch.Tensor:
+    """The combine's cotangent for the experts' outputs: dout (N, D),
+    gates (N, k) -> (E·cap, D) in dout's dtype."""
+    return _to_rows(dout, r, gates)
+
+
+def gate_grad_ref(dout: torch.Tensor, ho: torch.Tensor, r: Routing
+                  ) -> torch.Tensor:
+    """The combine's cotangent for the gates: dout (N, D), ho (E·cap, D) in
+    one dtype -> (N, k) float32.
+
+    Each entry's products ``dout[token, d] · ho[slot, d]`` in fp32 (exact
+    for bf16 values), summed in fp32: lane l of :data:`LANES` adds, from
+    +0, the elements of its 16-byte vectors l, l + 32, ... in order; then
+    the lanes fold in halves (lane l + 16 onto lane l, then 8, 4, 2, 1).
+    The sum is rounded to the compute dtype and multiplied by ``keep``: a
+    dropped entry gives ±0, or NaN where its dot is not finite."""
+    n, k = r.top_e.shape
+    nk, d = n * k, dout.shape[1]
+    vec = 16 // dout.element_size()
+    m = -(-d // (vec * LANES))
+    tok = torch.arange(nk, device=dout.device) // k
+    prod = dout[tok].float() * ho[r.slot.long()].float()
+    prod = F.pad(prod, (0, m * LANES * vec - d)).view(nk, m, LANES, vec)
+    acc = torch.zeros((nk, LANES), device=dout.device)
+    for i in range(m):
+        for c in range(vec):
+            acc = acc + prod[:, i, :, c]
+    h = LANES // 2
+    while h:
+        acc = acc[:, :h] + acc[:, h:2 * h]
+        h //= 2
+    return (acc[:, 0].to(dout.dtype).float() * r.keep.float()).view(n, k)
+
+
+class Dispatch(torch.autograd.Function):
+    """``ops.dispatch(x, r)``, its backward ``ops.dispatch_grad``; the
+    routing and the table pass through with no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, r, ops):
+        ctx.r, ctx.ops = r, ops
+        return ops.dispatch(x, r)
+
+    @staticmethod
+    def backward(ctx, dbuf):
+        return ctx.ops.dispatch_grad(dbuf, ctx.r), None, None
+
+
+class Combine(torch.autograd.Function):
+    """``ops.combine(ho, r, gates)``, its backward ``ops.combine_grad``
+    (for ho) and ``ops.gate_grad`` (for the gates); ho and the gates are
+    saved with ``save_for_backward``, so remat's hooks see them."""
+
+    @staticmethod
+    def forward(ctx, ho, r, gates, ops):
+        ctx.r, ctx.ops = r, ops
+        ctx.save_for_backward(ho, gates)
+        return ops.combine(ho, r, gates)
+
+    @staticmethod
+    def backward(ctx, dout):
+        ho, gates = ctx.saved_tensors
+        ops, r = ctx.ops, ctx.r
+        dho = (ops.combine_grad(dout, r, gates) if ctx.needs_input_grad[0]
+               else None)
+        dg = ops.gate_grad(dout, ho, r) if ctx.needs_input_grad[2] else None
+        return dho, None, dg, None
+
+
+#: the plain versions as :class:`Dispatch` and :class:`Combine` take them
+PLAIN = types.SimpleNamespace(dispatch=dispatch_ref, combine=combine_ref,
+                              dispatch_grad=dispatch_grad_ref,
+                              combine_grad=combine_grad_ref,
+                              gate_grad=gate_grad_ref)
+
+
+def dispatch(x: torch.Tensor, r: Routing) -> torch.Tensor:
+    """:func:`dispatch_ref` with its plain backward, on any device."""
+    return Dispatch.apply(x, r, PLAIN)
+
+
+def combine(ho: torch.Tensor, r: Routing, gates: torch.Tensor
+            ) -> torch.Tensor:
+    """:func:`combine_ref` with its plain backward, on any device."""
+    return Combine.apply(ho, r, gates, PLAIN)

@@ -181,9 +181,11 @@ def moe_apply(cfg: ModelConfig, p: Params, x: torch.Tensor
 
     fp32 router logits, softmax, ``topk`` and gates renormalised in fp32;
     the capacity routing, dispatch and ordered combine through
-    ``kernels/moe`` (the kernel on the card, the plain version on the CPU);
-    the expert SwiGLU as batched products over (E, cap, D); the shared
-    experts' MLP added in the compute dtype."""
+    ``kernels/moe`` (the kernel on the card, the plain version on the CPU),
+    the dispatch and combine differentiable through their backward entries
+    (the routing carries no gradient); the expert SwiGLU as batched
+    products over (E, cap, D); the shared experts' MLP added in the compute
+    dtype."""
     cdt = compute_dtype(cfg)
     b, s, d = x.shape
     e, k = cfg.moe_num_experts, cfg.moe_top_k
@@ -210,8 +212,9 @@ def moe_aux_loss(cfg: ModelConfig,
                  routed: tuple[torch.Tensor, moe_ops.Routing]) -> torch.Tensor:
     """The Switch aux loss of one MoE layer from :func:`moe_apply`'s
     (probs, routing): E · Σ_e density_e · mean prob_e, the density from
-    each token's first choice (the reference's ``:286-287``).  Serving
-    does not read it."""
+    each token's first choice (the reference's ``:286-287``), a constant
+    to autograd, so the gradient flows through the probs alone.  Serving
+    does not read it; training does (``model.train_loss``)."""
     probs, r = routed
     e = cfg.moe_num_experts
     density = F.one_hot(r.top_e[:, 0].long(), e).float().mean(0)

@@ -1,5 +1,5 @@
-"""Model assembly for the dense and MoE families: init, the training loss
-(dense), prefill and decode.
+"""Model assembly for the dense and MoE families: init, the training loss,
+prefill and decode.
 
 The counterpart of the dense and MoE paths of ``repro.models.model``.
 Parameters are a nested dict of tensors with the JAX package's names and
@@ -7,9 +7,9 @@ shapes, the layer blocks stacked with a leading layer dimension; the stack
 runs as a Python loop over layer views, each layer under the config's remat
 policy (``cfg.remat``) when it trains.  The decode cache keeps the JAX
 layout too — ``{"layers": {"k", "v"}: (L, B, max_len, Hkv, Dh), "pos":
-(B,)}`` — and is updated in place.  The MoE family serves here; its training
-needs the dispatch and combine kernels' backward and comes with the next
-slice.  The other model families port in later slices.
+(B,)}`` — and is updated in place.  Both families serve and train; the
+MoE layer trains through the dispatch and combine kernels' backward
+(``kernels/moe``).  The other model families port in later slices.
 """
 from __future__ import annotations
 
@@ -30,17 +30,14 @@ KEEP_KEYS = ("ln1", "ln2", "final_norm", "router")
 
 #: the model families each entry point takes
 SERVED = ("dense", "moe")
-TRAINED = ("dense",)
+TRAINED = ("dense", "moe")
 
 
 def _require(cfg: ModelConfig, families: tuple[str, ...], what: str) -> None:
     if cfg.family not in families:
-        nxt = (" (training the MoE family, with the backward of its dispatch "
-               "and combine kernels, is the next slice)"
-               if cfg.family == "moe" else "")
         raise NotImplementedError(
             f"{cfg.name}: model family {cfg.family!r} is not ported for "
-            f"{what} yet; the port {what}s {', '.join(families)}{nxt}")
+            f"{what} yet; the port {what}s {', '.join(families)}")
 
 
 def _norm_shapes(cfg: ModelConfig, lead: tuple[int, ...]) -> dict:
@@ -190,11 +187,19 @@ def _logits(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
 
 # ----------------------------------------------------------------- training
 def _apply_layer(cfg: ModelConfig, lp: Params, x: torch.Tensor,
-                 positions: torch.Tensor) -> torch.Tensor:
-    """Residual attention, then residual MLP, each behind its pre-norm."""
+                 positions: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Residual attention, then the residual MLP or MoE, each behind its
+    pre-norm, as the reference's ``_apply_sublayer``; returns (x, the
+    layer's aux loss: the MoE's, 0 for an MLP)."""
     x = x + L.attn_apply(cfg, lp["attn"], L.norm_apply(cfg, lp["ln1"], x),
                          positions, causal=True)
-    return x + L.mlp_apply(cfg, lp["mlp"], L.norm_apply(cfg, lp["ln2"], x))
+    h = L.norm_apply(cfg, lp["ln2"], x)
+    if "moe" not in lp:
+        return (x + L.mlp_apply(cfg, lp["mlp"], h),
+                torch.zeros((), device=x.device))
+    out, routed = L.moe_apply(cfg, lp["moe"], h)
+    return x + out, L.moe_aux_loss(cfg, routed)
 
 
 #: the products whose outputs the ``dots`` policy keeps: matrix products
@@ -212,7 +217,9 @@ def _remat(cfg: ModelConfig, body):
     """``body`` under the config's remat policy, as ``repro.models.model.
     _remat``: ``none`` keeps every activation, ``full`` keeps the layer's
     input and recomputes the rest in the backward pass, ``dots`` also keeps
-    the outputs of the matrix products with no batch dimension."""
+    the outputs of the matrix products with no batch dimension.  A MoE
+    layer's recompute reruns its route, dispatch and combine, which give
+    the same results again."""
     if cfg.remat == "none":
         return body
     if cfg.remat == "dots":
@@ -257,19 +264,22 @@ def lm_loss(cfg: ModelConfig, params: Params, h: torch.Tensor,
 def train_loss(cfg: ModelConfig, params: Params, batch: dict
                ) -> tuple[torch.Tensor, dict]:
     """batch: ``tokens``, ``targets`` (B, S) integer ids and ``loss_mask``
-    (B, S).  Returns (loss, metrics) with metrics ``lm_loss`` and
-    ``aux_loss`` (0 in the dense family, which has no router)."""
+    (B, S).  Returns (``lm_loss + router_aux_weight · aux_loss``, metrics)
+    with metrics ``lm_loss`` and ``aux_loss``: the MoE layers' aux losses
+    summed in layer order (0 only in the dense family, which has no
+    router)."""
     _require(cfg, TRAINED, "train")
     tokens = batch["tokens"]
     x = params["embed"][tokens.long()].to(L.compute_dtype(cfg))
     b, s = tokens.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     layer = _remat(cfg, functools.partial(_apply_layer, cfg))
+    aux = torch.zeros((), device=x.device)
     for i in range(cfg.num_layers):
-        x = layer(_layer(params["blocks"], i), x, positions)
+        x, a = layer(_layer(params["blocks"], i), x, positions)
+        aux = aux + a
     x = L.norm_apply(cfg, params["final_norm"], x)
     loss = lm_loss(cfg, params, x, batch["targets"], batch["loss_mask"])
-    aux = torch.zeros((), device=x.device)
     return loss + cfg.router_aux_weight * aux, {"lm_loss": loss,
                                                 "aux_loss": aux}
 

@@ -292,28 +292,43 @@ def test_serve_main_runs_the_moe_family_on_the_cpu(arch):
                           "--batch", "2", "--prompt", "32", "--gen", "4"],
                          device="cpu")
     assert summary["tokens"] == 16 and summary["logits_finite"]
-    assert summary["moe_launches"] == {"route": 0, "dispatch": 0,
-                                       "combine": 0}
+    assert summary["moe_launches"] == dict.fromkeys(moe.ENTRIES, 0)
+    assert set(moe.ENTRIES) == {"route", "dispatch", "combine",
+                                "combine_grad", "gate_grad"}
     assert summary["flash_launches"] == 0
     assert summary["prefill_dropped"] >= 0
 
 
 def test_train_loss_refuses_moe_and_the_wrapper_is_forward_only():
+    """Under its earlier name, the opposite of what it once held:
+    ``train_loss`` accepts the MoE family, and ``moe.dispatch`` /
+    ``moe.combine`` record autograd on the CPU (their plain backward: each
+    token's kept rows summed into x's gradient, the gate's weight into
+    ho's, ho's row into the gate's); without grad they record nothing.
+    ``tests/test_torch_moe_train.py`` holds the gradients to the
+    reference."""
     cfg = get_smoke_config("granite-moe-1b-a400m")
     params = TM.init_params(cfg, torch.Generator().manual_seed(0))
     toks = torch.zeros((1, 8), dtype=torch.long)
     batch = {"tokens": toks, "targets": toks, "loss_mask": torch.ones(1, 8)}
-    with pytest.raises(NotImplementedError, match="next slice"):
-        TM.train_loss(cfg, params, batch)
+    assert "moe" in TM.TRAINED
+    loss, metrics = TM.train_loss(cfg, params, batch)
+    assert bool(torch.isfinite(loss)) and float(metrics["aux_loss"]) > 0
     r = moe.route(torch.tensor([[0, 1], [1, 0]]), 2, 2)
     x = torch.ones((2, 8), requires_grad=True)
-    with pytest.raises(RuntimeError, match="forward only"):
-        moe.dispatch(x, r)
-    with pytest.raises(RuntimeError, match="forward only"):
-        moe.combine(torch.ones((4, 8), requires_grad=True), r,
-                    torch.ones(2, 2))
+    buf = moe.dispatch(x, r)
+    assert buf.requires_grad and buf.shape == (4, 8)
+    buf.sum().backward()
+    assert torch.equal(x.grad, torch.full((2, 8), 2.0))
+    ho = torch.arange(32.0).view(4, 8).requires_grad_()
+    gates = torch.tensor([[0.25, 0.75], [0.5, 0.5]], requires_grad=True)
+    moe.combine(ho, r, gates).sum().backward()
+    rows = torch.tensor([0, 2, 3, 1])          # entry i's slot
+    assert torch.equal(ho.grad[rows], gates.detach().reshape(4, 1).expand(
+        4, 8))
+    assert torch.equal(gates.grad.reshape(-1), ho.detach()[rows].sum(1))
     with torch.no_grad():
-        assert moe.dispatch(x, r).shape == (4, 8)
+        assert not moe.dispatch(x, r).requires_grad
     # the reference's capacities at the full configs' serving shapes
     assert moe.capacity(2048, 4, 60, 1.25) == 176
     assert moe.capacity(2048, 8, 32, 1.25) == 640

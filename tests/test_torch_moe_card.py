@@ -1,4 +1,5 @@
-"""The MoE dispatch/combine CUDA kernel against its plain version, on the card.
+"""The MoE dispatch/combine CUDA kernel and its backward entries against
+their plain versions, on the card.
 
 The kernel has no CPU mode, so every test here carries the ``card`` marker
 and asks for the ``card`` fixture, which skips it without a card.  This
@@ -8,9 +9,12 @@ file imports nothing of JAX:
 
 Each entry must equal its plain version (``kernels/moe/ref.py``, run on CPU
 copies) bit for bit: route's integers, dispatch's copied rows, and the
-combine's sums, which take the plain version's order and rounding: the
-bits of every value that is not NaN are equal (so -0 and +0 differ), and
-NaN stands in the same places (its payload is the card's own).
+combine's sums, which take the plain version's order and rounding, and
+the backward's three cotangents (``dispatch_grad``, the combine with unit
+gates; ``combine_grad``; ``gate_grad``): the bits of every value that is
+not NaN are equal (so -0 and +0 differ), and NaN stands in the same places
+(its payload is the card's own).  A full MoE layer's gradients through
+the kernels equal those through the plain versions on the card.
 """
 import dataclasses
 import zlib
@@ -22,6 +26,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.kernels.moe import moe  # noqa: E402
+from repro_torch.kernels.moe import ref  # noqa: E402
 from repro_torch.kernels.moe.ref import (combine_ref, dispatch_ref,  # noqa: E402
                                          route_ref)
 from repro_torch.models import layers as TL  # noqa: E402
@@ -113,7 +118,8 @@ def test_kernel_equals_plain_at_the_serving_shapes(card):
                   combine_ref(ho, want, gates))
             calls += 1
         assert moe.launch_counts() == {"route": seed + 1,
-                                       "dispatch": calls, "combine": calls}
+                                       "dispatch": calls, "combine": calls,
+                                       "combine_grad": 0, "gate_grad": 0}
 
 
 @pytest.mark.card
@@ -148,15 +154,141 @@ def test_nan_reaches_the_output_through_dropped_entries(card):
             assert r.scratch.tolist() == [0, 0, 0]
 
 
+def _same_backward(dout, dbuf, ho, gates, r, want):
+    """The three backward entries on the card (inputs on CPU copies)
+    against their plain versions on the routing ``want``."""
+    dev = r.slot.device
+    _same(moe.dispatch_grad(dbuf.to(dev), r),
+          ref.dispatch_grad_ref(dbuf, want))
+    _same(moe.combine_grad(dout.to(dev), r, gates.to(dev)),
+          ref.combine_grad_ref(dout, want, gates))
+    _same(moe.gate_grad(dout.to(dev), ho.to(dev), r),
+          ref.gate_grad_ref(dout, ho, want))
+
+
 @pytest.mark.card
-def test_kernel_raises_under_autograd(card):
-    r = moe.route(torch.tensor([[0, 1], [1, 0]], device=card), 2, 2)
-    x = torch.ones((2, 8), device=card, requires_grad=True)
-    with pytest.raises(RuntimeError, match="forward only"):
-        moe.dispatch(x, r)
-    ho = torch.ones((4, 8), device=card, requires_grad=True)
-    with pytest.raises(RuntimeError, match="forward only"):
-        moe.combine(ho, r, torch.ones((2, 2), device=card))
+def test_autograd_runs_the_backward_entries(card):
+    """``moe.dispatch`` and ``moe.combine`` record autograd on the card;
+    the backward launches combine (the dispatch's cotangent), combine_grad
+    and gate_grad once each, equal to the plain backward on CPU copies."""
+    e, k, d, n = 8, 2, 64, 40
+    top_e, gates = _routing_inputs(1, n, e, k)
+    cap = moe.capacity(n, k, e, 0.5)
+    want = route_ref(top_e, e, cap)
+    r = moe.route(top_e.to(card), e, cap)
+    x = _rows(2, n, d, torch.bfloat16).to(card).requires_grad_()
+    ho = _rows(3, e * cap, d, torch.bfloat16).to(card).requires_grad_()
+    g = gates.to(card).requires_grad_()
+    dbuf = _rows(4, e * cap, d, torch.bfloat16)
+    dout = _rows(5, n, d, torch.bfloat16)
+    moe.reset_launch_count()
+    (dx,) = torch.autograd.grad(moe.dispatch(x, r), x, dbuf.to(card))
+    dho, dg = torch.autograd.grad(moe.combine(ho, r, g), (ho, g),
+                                  dout.to(card))
+    assert moe.launch_counts() == {"route": 0, "dispatch": 1, "combine": 2,
+                                   "combine_grad": 1, "gate_grad": 1}
+    _same(dx, ref.dispatch_grad_ref(dbuf, want))
+    _same(dho, ref.combine_grad_ref(dout, want, gates))
+    _same(dg, ref.gate_grad_ref(dout, ho.detach().cpu(), want))
+    assert r.scratch.tolist() == [0, 0, 0]
+
+
+@pytest.mark.card
+def test_backward_entries_equal_plain_at_small_and_training_shapes(card):
+    """dispatch_grad, combine_grad and gate_grad bit for bit to the plain
+    versions at both MoE configs' training shape (16,384 tokens) and
+    small shapes, bf16 and fp32, capacity 1.25 and 0.5."""
+    shapes = [(get_config(a).moe_num_experts, get_config(a).moe_top_k,
+               get_config(a).d_model, 16384) for a in ARCHS]
+    shapes += [(8, 4, 64, 96), (60, 4, 40, 33), (1, 1, 8, 1)]
+    for seed, (e, k, d, n) in enumerate(shapes):
+        for cf in CAPACITY_FACTORS:
+            cap = moe.capacity(n, k, e, cf)
+            top_e, gates = _routing_inputs(seed, n, e, k)
+            want = route_ref(top_e, e, cap)
+            r = moe.route(top_e.to(card), e, cap, distinct=True)
+            for dtype in (torch.bfloat16, torch.float32):
+                _same_backward(_rows(seed + 10, n, d, dtype),
+                               _rows(seed + 20, e * cap, d, dtype),
+                               _rows(seed + 30, e * cap, d, dtype), gates, r,
+                               want)
+            assert r.scratch.tolist() == [0, 0, 0]
+
+
+@pytest.mark.card
+def test_backward_keeps_nan_through_dropped_entries(card):
+    """A non-finite dout at a token whose dropped entry's slot is a row
+    turns that row's column of dho NaN; a NaN in ho under a dropped entry
+    turns its gate's cotangent NaN; a NaN in dbuf at a dropped entry's
+    slot reaches dx: each as the plain version, twice (the routing's
+    counters back at zero)."""
+    e, k, d, n = 60, 4, 2048, 2048
+    cap = moe.capacity(n, k, e, 0.5)
+    top_e, gates = _routing_inputs(7, n, e, k)
+    want = route_ref(top_e, e, cap)
+    r = moe.route(top_e.to(card), e, cap)
+    drop = want.dropped[want.dropped >= 0].long()
+    for dtype in (torch.bfloat16, torch.float32):
+        dout = _rows(11, n, d, dtype)
+        dout[drop[:3] // k, 5] = float("inf")
+        dout[drop[3:5] // k, 6] = float("nan")
+        ho = _rows(12, e * cap, d, dtype)
+        ho[want.slot[drop[5:8]].long(), 7] = float("nan")
+        dbuf = _rows(13, e * cap, d, dtype)
+        dbuf[want.slot[drop[8:10]].long(), 9] = float("nan")
+        assert bool(torch.isnan(ref.combine_grad_ref(dout, want, gates)[
+            want.slot[drop[:3]].long(), 5]).all())
+        for _ in range(2):
+            _same_backward(dout, dbuf, ho, gates, r, want)
+            assert r.scratch.tolist() == [0, 0, 0]
+
+
+@pytest.mark.card
+def test_moe_layer_gradients_equal_the_plain_path(card):
+    """One MoE layer of each smoke config on the card, bf16 and fp32 at
+    capacity 0.5: the gradients for x and every parameter (router,
+    experts, shared) through the kernels equal those through the plain
+    versions (``ref.dispatch`` / ``ref.combine``, differentiable) on the
+    same card, bit for bit."""
+    import types
+    plain = types.SimpleNamespace(
+        capacity=ref.capacity, dispatch=ref.dispatch, combine=ref.combine,
+        route=lambda top_e, e, cap, distinct=False: route_ref(top_e.int(), e,
+                                                              cap))
+    for arch in ARCHS:
+        for dtype in ("bfloat16", "float32"):
+            cfg = dataclasses.replace(get_smoke_config(arch), dtype=dtype,
+                                      capacity_factor=0.5)
+            blocks = TM.init_params(cfg, torch.Generator().manual_seed(0))[
+                "blocks"]
+            p = _tree(blocks["moe"], lambda v: v[0].to(card))
+            x = _rows(3, 2 * 64, cfg.d_model, getattr(torch, dtype)).view(
+                2, 64, -1).to(card)
+            dy = _rows(4, 2 * 64, cfg.d_model, getattr(torch, dtype)).view(
+                2, 64, -1).to(card)
+            grads = []
+            for ops in (moe, plain):
+                kernel_ops, TL.moe_ops = TL.moe_ops, ops
+                try:
+                    xs = x.clone().requires_grad_()
+                    flat = [xs] + [v.requires_grad_() for v in
+                                   _leaves(p)]
+                    y, routed = TL.moe_apply(cfg, p, xs)
+                    aux = TL.moe_aux_loss(cfg, routed)
+                    grads.append(torch.autograd.grad(
+                        (y * dy).float().sum() + aux, flat))
+                finally:
+                    TL.moe_ops = kernel_ops
+                    for v in _leaves(p):
+                        v.requires_grad_(False)
+            assert int(routed[1].stats[-1]) > 0
+            for a, b in zip(*grads):
+                _same(a, b)
+
+
+def _leaves(tree):
+    return [w for v in tree.values()
+            for w in (_leaves(v) if isinstance(v, dict) else [v])]
 
 
 @pytest.mark.card
@@ -177,7 +309,8 @@ def test_moe_apply_on_the_card_launches_each_entry_once(card):
         got, routed = TL.moe_apply(cfg, pc, x.to(card))
         aux = TL.moe_aux_loss(cfg, routed)
         assert moe.launch_counts() == {"route": 1, "dispatch": 1,
-                                       "combine": 1}
+                                       "combine": 1, "combine_grad": 0,
+                                       "gate_grad": 0}
         np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
                                    rtol=1e-4, atol=1e-4)
         np.testing.assert_allclose(float(aux), float(want_aux), rtol=1e-5)
@@ -206,9 +339,10 @@ def _edge_cases():
 
 @pytest.mark.card
 def test_kernel_equals_plain_at_the_edge_shapes(card):
-    """route, dispatch and combine bit for bit to the plain versions at the
-    edge shapes, bf16 and fp32, D = 64 and 2048; each route is the launch
-    :func:`moe.geometry` gives (one warp up to 32 entries, else a cluster)."""
+    """route, dispatch, combine and the three backward entries bit for bit
+    to the plain versions at the edge shapes, bf16 and fp32, D = 64 and
+    2048; each route is the launch :func:`moe.geometry` gives (one warp up
+    to 32 entries, else a cluster)."""
     for seed, (name, top_e, e, cap) in enumerate(_edge_cases()):
         top_e = torch.from_numpy(np.ascontiguousarray(top_e, np.int32))
         n, k = top_e.shape
@@ -223,6 +357,8 @@ def test_kernel_equals_plain_at_the_edge_shapes(card):
             ho = _rows(seed + 400, e * cap, d, dtype)
             _same(moe.combine(ho.to(card), r, gates.to(card)),
                   combine_ref(ho, want, gates))
+            _same_backward(x, _rows(seed + 500, e * cap, d, dtype), ho,
+                           gates, r, want)
 
 
 @pytest.mark.card

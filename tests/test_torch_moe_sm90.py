@@ -310,3 +310,87 @@ def test_geometry_mirrors_the_kernels_launches():
     assert g("combine", 2048, 4, 2048, 60, 176, 4)["per_block"] == 1
     with pytest.raises(ValueError):
         g("sort", 1, 1, 8, 1, 1, 2)
+
+
+def emulate_gate_grad(dout: torch.Tensor, ho: torch.Tensor, slot, keep,
+                      k: int, unroll: int = 4) -> np.ndarray:
+    """``gate_grad_kernel``'s loop in numpy float32: warp i takes entry i;
+    lane l walks its vectors v0 = l, l + 32·unroll, ..., each round the
+    vectors v0 + 32·u below ``vecs`` (a lane past the end adds nothing),
+    each vector's elements in order, one product and one add at a time;
+    then the xor butterfly over all 32 lanes, lane 0's value rounded to the
+    compute dtype, times keep."""
+    vec = 16 // dout.element_size()
+    d = dout.shape[1]
+    vecs = d // vec
+    a = dout.float().numpy()[np.arange(slot.numel()) // k]
+    b = ho.float().numpy()[slot.numpy()]
+    acc = np.zeros((a.shape[0], WARP), np.float32)
+    lane = np.arange(WARP)
+    for v0 in range(0, vecs, WARP * unroll):
+        for u in range(unroll):
+            v = v0 + WARP * u + lane
+            ok = v < vecs
+            for c in range(vec):
+                col = np.minimum(v, vecs - 1) * vec + c
+                p = (a[:, col] * b[:, col]).astype(np.float32)
+                acc = np.where(ok, (acc + p).astype(np.float32), acc)
+    o = WARP // 2
+    while o:
+        acc = (acc + acc[:, lane ^ o]).astype(np.float32)
+        o //= 2
+    dw = torch.from_numpy(acc[:, 0].copy()).to(dout.dtype).float().numpy()
+    with np.errstate(invalid="ignore"):             # a dropped NaN's * 0
+        return dw * keep.numpy().astype(np.float32)
+
+
+def test_gate_grad_and_combine_grad_emulations_equal_the_plain_versions():
+    """The backward entries' arithmetic before the card: the gate_grad
+    kernel's lane walk and xor butterfly (:func:`emulate_gate_grad`) and
+    the weighted dispatch of combine_grad (each kept row ``+0 +
+    cdt(dout · cdt(gate))``, a dropped entry's slot NaN where its token's
+    dout is not finite) against ``ref.gate_grad_ref`` and
+    ``ref.combine_grad_ref`` bit for bit, in bf16 and fp32, at D whose
+    vectors fill no whole round of lanes (9, 10), a ragged last round (1000
+    bf16: 125 vectors) and several rounds (2048 fp32: 512), with -0, inf
+    and NaN among the values and entries dropped."""
+    from repro_torch.kernels.moe import ref
+
+    rng = np.random.default_rng(21)
+    for dtype, d in ((torch.bfloat16, 72), (torch.float32, 40),
+                     (torch.bfloat16, 1000), (torch.float32, 2048)):
+        n, e, k = 64, 8, 4
+        top_e = torch.from_numpy(_topk(d, n, e, k, skew=2.0))
+        cap = moe.capacity(n, k, e, 0.5)
+        r = route_ref(top_e, e, cap)
+        drop = r.dropped[r.dropped >= 0].long()
+        assert drop.numel() > 0
+        dout = torch.from_numpy(rng.normal(size=(n, d))).to(dtype)
+        ho = torch.from_numpy(rng.normal(size=(e * cap, d))).to(dtype)
+        dout[0, :5] = -0.0
+        dout[drop[:2] // k, 3] = float("inf")
+        ho[r.slot[drop[2:4]].long(), 1] = float("nan")
+        gates = torch.from_numpy(rng.random((n, k))).float()
+        got = torch.from_numpy(emulate_gate_grad(dout, ho, r.slot, r.keep, k))
+        want = ref.gate_grad_ref(dout, ho, r).view(-1)
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        ok = ~torch.isnan(want)
+        assert torch.equal(got[ok].view(torch.int32), want[ok].view(torch.int32))
+        assert bool(torch.isnan(want[drop[:4]]).all())
+
+        w = (gates.reshape(-1) * r.keep).to(dtype)
+        buf = torch.zeros((e * cap, d), dtype=dtype)
+        for row in range(e * cap):
+            i = int(r.rows[row])
+            if i >= 0:
+                buf[row] = torch.zeros(d, dtype=dtype) + dout[i // k] * w[i]
+        for i in drop.tolist():
+            bad = ~torch.isfinite(dout[i // k])
+            buf[int(r.slot[i]), bad] = float("nan")
+        dho = ref.combine_grad_ref(dout, r, gates)
+        assert torch.equal(torch.isnan(dho), torch.isnan(buf))
+        bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        ok = ~torch.isnan(buf)
+        assert torch.equal(dho[ok].view(bits), buf[ok].view(bits))
+        assert not bool((dho.view(bits) == torch.tensor(-0.0, dtype=dtype)
+                         .view(bits)).any())          # +0 + p: no -0
