@@ -57,6 +57,23 @@ Phases, each of which raises on failure (exit code not 0):
              its routing premise holds (else recorded as not applicable,
              with the layers that broke it), and for granite-moe-1b-a400m
              the same in fp32 at CONSIST_TOL["float32"].
+   ssm     — the SSM and hybrid families (no kernel of their own: the SSD
+             scan runs as torch ops; ROADMAP B7): mamba2-130m at its full
+             published config through ``launch.serve.main`` (8 requests in
+             batches of 4, prompt 512, 32 generated, bf16), every flash and
+             MoE counter 0 just before and 0 just after; prefill(S) plus
+             one decode step against prefill(S + 1) in fp32 at
+             CONSIST_TOL["float32"] and bf16 at CONSIST_TOL["bfloat16"];
+             one SSM layer's ``ssm_apply`` (4 x 512) and ``ssm_decode`` (4)
+             timed beside their bounds; one ``torch.profiler`` trace each
+             of a prefill batch and a decode step (device time by op, the
+             SSD recurrence's share, the busy share).  jamba-v0.1-52b at
+             full width and 16 of its 32 layers through
+             ``launch.serve.generate``: flash launches = 2 attention layers
+             x 2 prefill batches, each MoE forward entry 8 MoE layers x 2 x
+             32; entries dropped; the kernel path's prefill bit for bit the
+             plain path's; bf16 consistency under the MoE premise, and in
+             fp32 at 8 layers (one period) where it fits beside its caches.
    train   — olmo-1b's training path (``launch.train``'s step function) at
              its full published config, bf16 compute, fp32 parameters,
              batch 8 x 2048, 20 steps: the flash counter 0 before and 0
@@ -167,11 +184,12 @@ Phases, each of which raises on failure (exit code not 0):
              the layouts' best x and λ bit for bit, λ at rtol 1e-5 of the
              plain version and identical threshold allocations; one
              comm-aware netbound instance and one moldable instance
-             through the choice entry the same way (the netbound one bit
-             for bit, ``LP_NETBOUND_RTOL`` 0: the card's XLA exp / log
-             twins equal the plain version's, and the kernel's λ against
-             the reference's pinned best x at ``LP_NETBOUND_REF_RTOL``,
-             0; the hybrid entry's best x and λ equal to
+             through the choice entry the same way (both bit for bit,
+             ``LP_NETBOUND_RTOL`` and ``LP_MOLDABLE_RTOL`` 0: the card's XLA
+             exp / log twins equal the plain version's, and the kernel's
+             best x the reference's pinned best x bit for bit at 160 / 250
+             / 300 iterations, the moldable one from the pinned z0 of the
+             reference's program; the hybrid entry's best x and λ equal to
              ``tests/torch_hlp_fo_hybrid_pin.json``'s bits); and one
              campaign-sized solve (the full grid's largest ``hlp_jax_ols``
              graph, 43 tasks, one warp).  The kernel timed from CUDA events
@@ -351,6 +369,30 @@ MOE_EDGE = (("shares_whole_tiles", 2048, 60, 4, 176),
 # The MoE entries of the forward pass (serving launches only these).
 MOE_FORWARD = ("route", "dispatch", "combine")
 
+# The SSM and hybrid families, served as the others (2 batches of 4 prompts
+# of 512, 32 generated, bf16).  mamba2-130m at its full published config
+# ([arXiv:2405.21060]: 24 layers, d 768, d_inner 1536, 24 heads of 64,
+# state 128, chunk 256, tied embeddings; 0.129 B parameters) through
+# launch.serve.main: no flash and no MoE launch; its prefill(S) plus one
+# decode step against prefill(S + 1), the chunked scan against the
+# recurrence, in fp32 at CONSIST_TOL["float32"] and in bf16 at
+# CONSIST_TOL["bfloat16"]; one torch.profiler trace of a prefill batch and
+# of a decode step.  jamba-v0.1-52b at full width ([arXiv:2403.19887; hf]:
+# d 4096, GQA 32:8, d_ff 14336, 16 experts top-2 every 2nd layer, attention
+# at offset 4 of each period of 8, SSM state 16, 128 heads of 64) cut to
+# HYBRID_LAYERS of its 32 layers (26.0 B parameters, 52 GB served in bf16;
+# all 32 take 103 GB), as granite-34b is cut: flash launches = attention
+# layers x prefill batches, each MoE entry = MoE layers x prefill batches x
+# SERVE_GEN; the kernel path's prefill bit for bit the plain path's
+# (layers.moe_ops bound to the plain versions); the bf16 consistency of
+# HYBRID_CONSIST_BATCH sequences under the MoE premise; and in fp32 at
+# HYBRID_FP32's depth (one period, 13.3 B parameters, 53 GB) where it fits
+# beside its caches.
+SSM_ARCH = "mamba2-130m"
+HYBRID_ARCH, HYBRID_LAYERS = "jamba-v0.1-52b", 16
+HYBRID_CONSIST_BATCH = 8
+HYBRID_FP32 = {"layers": 8, "batch": 4}
+
 # The MoE family's training run: granite-moe-1b-a400m at its full published
 # config ([hf:ibm-granite/granite-3.0-1b-a400m-base]: 24 layers, d 1024,
 # GQA 16:8, 32 experts top-8 of d_ff 512; 1.33 B parameters, 0.42 B
@@ -518,6 +560,14 @@ LP_NETBOUND_RTOL = 0.0
 LP_NETBOUND_PIN = ROOT / "tests" / "torch_hlp_fo_netbound_pin.json"
 LP_NETBOUND_ITERS = (160, 250, 300)
 LP_NETBOUND_REF_RTOL = 0.0
+# The moldable instance (20 tasks, 8 choices, 3 pred slots; ROADMAP C6,
+# closed in its second half): the kernel starts from the z0 of the
+# reference's own program (pinned: XLA folds 0.01 * sqrt(2) into one
+# constant) and is its plain version bit for bit (LP_MOLDABLE_RTOL 0); its
+# best x at 160 / 250 / 300 iterations is the reference's pinned x bit for
+# bit, as netbound's is.
+LP_MOLDABLE_RTOL = 0.0
+LP_MOLDABLE_PIN = ROOT / "tests" / "torch_hlp_fo_moldable_pin.json"
 # The hybrid entry keeps the card's expf / logf: its best x and λ on the
 # three instances above are pinned (an H100 run before the choice entry
 # took XLA's transcendentals), and held bit for bit.
@@ -1810,7 +1860,8 @@ def lp_phase(torch) -> dict:
     choice_cases = [("netbound_s300", nb.graph, nb.counts, True,
                      LP_NETBOUND_RTOL),
                     ("moldable_s400_ccr2", mo.graph, mo.machine, False,
-                     LP_RTOL)]
+                     LP_MOLDABLE_RTOL)]
+    moldable_pin = json.loads(LP_MOLDABLE_PIN.read_text())["comm"]
     crows = []
     for name, g, machine, rigid, rtol in choice_cases:
         prob = AllocationProblem.build(g, machine, comm_aware=True,
@@ -1818,7 +1869,8 @@ def lp_phase(torch) -> dict:
         p_dev = np.where(prob.finite, prob.p_choice, 1e12)
         ins = [p_dev, p_dev * prob.width_of.astype(np.float64),
                prob.type_mask, 1.0 / np.asarray(prob.counts, np.float64)]
-        z0 = np.float32(0.01) * reference_normal(0, p_dev.shape)
+        z0 = (np.float32(0.01) * reference_normal(0, p_dev.shape)
+              if rigid else np.asarray(moldable_pin["z0"], np.float32))
         res = {}
         for dev in ("cpu", CARD):
             d = PaddedDag.from_graph(g, dev)
@@ -1851,9 +1903,22 @@ def lp_phase(torch) -> dict:
         crows.append(row)
         row["bit_equal_to_plain"] = bool(np.array_equal(
             kx.view(np.int32), np.asarray(rx, np.float32).view(np.int32)))
+        check(rtol > 0 or row["bit_equal_to_plain"], f"lp {name}: the "
+              "kernel is not its plain version bit for bit")
         if name == "netbound_s300":
             row.update(netbound_witness(torch, prob, (dg, zg, tg), kx,
                                         row["lam"], rx, rv))
+        else:
+            row["ref_x_bit_equal"] = {}
+            for iters in LP_NETBOUND_ITERS:
+                x, _ = HF.launch_choice(dg, zg, *tg, iters=iters,
+                                        use_comm=prob.comm_aware)
+                want = np.asarray(moldable_pin[str(iters)]["x"], np.float32)
+                row["ref_x_bit_equal"][iters] = bool(np.array_equal(
+                    x.cpu().numpy().view(np.int32), want.view(np.int32)))
+                check(row["ref_x_bit_equal"][iters], f"lp {name}: the "
+                      f"kernel's best x at {iters} iterations is not the "
+                      "reference's pinned x bit for bit")
         print(f"lp choice {name} (n={g.n}, C={c}, comm {prob.comm_aware}, "
               f"{row['threads']} threads): {show(row)}; plain "
               f"{row['plain_ms']:.1f} ms (host); λ rel {rel:.2e} (limit "
@@ -1865,7 +1930,9 @@ def lp_phase(torch) -> dict:
                  + ", ".join(f"{k} it {v:.3e} (x bit-equal "
                              f"{row['ref_x_bit_equal'][k]})"
                              for k, v in row["ref_gap"].items())
-                 if "ref_gap" in row else ""))
+                 if "ref_gap" in row else
+                 f"; the reference's pinned best x bit for bit at "
+                 f"{row['ref_x_bit_equal']}"))
 
     # one campaign-sized solve: the full grid's largest hlp_jax_ols graph
     scens = (default_suite(seed=0) + comm_suite(seed=50)
@@ -2507,11 +2574,12 @@ def streams_phase() -> dict:
 
 
 def consistency(torch, dtype: str, cfg=None, params=None, batch: int = 2,
-                premise=None) -> dict:
+                premise=None, limit: float | None = None) -> dict:
     """max |decode(S-1 | prefill S-1) - prefill(S)| at full width: qwen2-
     1.5b by default (its own parameters from seed 1, the limit
     CONSIST_TOL[dtype]); given ``cfg`` (and its served ``params``), that
-    model in bf16 at CONSIST_BF16_STD of its logits' std.  ``premise``,
+    model in bf16 at CONSIST_BF16_STD of its logits' std, or at ``limit``
+    where given.  ``premise``,
     called after the prefill of S, the prefill of S-1 and the decode step,
     returns (a flag for each sequence, why): the check reads the sequences
     whose flag holds, and where none holds the row is recorded as not
@@ -2545,8 +2613,9 @@ def consistency(torch, dtype: str, cfg=None, params=None, batch: int = 2,
     err = diff[rows].max().item() if holds else diff.max().item()
     std = logits_p[:, :v].std().item()
     same = (logits_d[:, :v].argmax(-1) == logits_p[:, :v].argmax(-1)).all().item()
-    limit = (CONSIST_TOL[dtype] if cfg.name == "qwen2-1.5b"
-             or dtype == "float32" else CONSIST_BF16_STD * std)
+    if limit is None:
+        limit = (CONSIST_TOL[dtype] if cfg.name == "qwen2-1.5b"
+                 or dtype == "float32" else CONSIST_BF16_STD * std)
     note = ("" if all(flags) else (", not read: " if holds
                                    else ", NOT APPLICABLE: ") + why)
     print(f"prefill/decode consistency {cfg.name} {dtype} (batch {b}, "
@@ -2942,7 +3011,7 @@ def _moe_premise(torch, cfg, calls: list, trace: list):
     max|diff| / std of the decode step's MoE output against the prefill of
     S's over the layers before the first flip and at it, and of the last
     layer's MoE input (after ln2)."""
-    nl = cfg.num_layers
+    nl = sum(cfg.is_moe_layer(i) for i in range(cfg.num_layers))
     check(len(calls) == 3 * nl, f"{cfg.name}: {len(calls)} MoE calls, "
           f"expected {3 * nl}")
     pre, pre1, dec = calls[:nl], calls[nl:2 * nl], calls[2 * nl:]
@@ -2984,8 +3053,9 @@ def _moe_premise(torch, cfg, calls: list, trace: list):
     return flags, why
 
 
-def moe_consistency(torch, cfg, params, dtype: str = "bfloat16") -> dict:
-    """(d): the prefill/decode consistency of MOE_CONSIST_BATCH sequences
+def moe_consistency(torch, cfg, params, dtype: str = "bfloat16",
+                    batch: int = MOE_CONSIST_BATCH) -> dict:
+    """(d): the prefill/decode consistency of ``batch`` sequences
     at the config's capacity and at a capacity of every token (cf = E / k:
     cap = N, nothing drops), each read where :func:`_moe_premise` holds:
     in bf16 at the unchanged CONSIST_BF16_STD of the logits' std, in fp32
@@ -3013,7 +3083,7 @@ def moe_consistency(torch, cfg, params, dtype: str = "bfloat16") -> dict:
         L.moe_apply = watch
         try:
             out[name] = consistency(
-                torch, dtype, c, params, batch=MOE_CONSIST_BATCH,
+                torch, dtype, c, params, batch=batch,
                 premise=lambda: _moe_premise(torch, c, calls, trace))
         finally:
             L.moe_apply = apply
@@ -3928,6 +3998,322 @@ def train_resume_child(ckpt_root: str) -> int:
     return 0
 
 
+def _kernel_us(evt) -> float:
+    """The device time of the kernels a profiler event and its descendants
+    launched, each kernel counted once (from the op that launched it), in
+    us."""
+    return (sum(k.duration for k in getattr(evt, "kernels", []))
+            + sum(_kernel_us(c) for c in evt.cpu_children))
+
+
+def ssm_profile(torch, cfg, params) -> dict:
+    """One ``torch.profiler`` trace each of a prefill batch (SERVE_BATCH x
+    SERVE_PROMPT) and of the decode step after it, warmed up first: the
+    device time of every kernel (each counted once, from the op that
+    launched it) summed by kernel and by op, the SSD recurrence's share
+    (the kernels under ``layers.SCAN_SPAN`` / ``STEP_SPAN``), and the busy
+    share: the kernels' time over the host wall time of the call, traced
+    (the profiler's cost lengthens it; a first traced call takes the
+    tracer's start-up)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+
+    b, s = SERVE_BATCH, SERVE_PROMPT
+    gen = torch.Generator(device=CARD).manual_seed(5)
+    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                         device=CARD)
+    out = {}
+
+    def run(which):
+        cache = M.init_cache(cfg, b, s + 1, CARD)
+        logits, cache = M.prefill(cfg, params, toks, cache)
+        if which == "prefill":
+            return logits
+        torch.cuda.synchronize()
+        return lambda: M.decode_step(cfg, params, cache,
+                                     logits.argmax(-1, keepdim=True))
+
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=activities):        # the tracer's own start-up
+        run("prefill")
+        torch.cuda.synchronize()
+    for which, span in (("prefill", L.SCAN_SPAN), ("decode", L.STEP_SPAN)):
+        fn = (lambda: run("prefill")) if which == "prefill" else run("decode")
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        with profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        events = prof.events()
+        by_kernel, by_op = {}, {}
+        for e in events:
+            for k in getattr(e, "kernels", []):
+                by_kernel[k.name] = by_kernel.get(k.name, 0.0) + k.duration
+                by_op[e.name] = by_op.get(e.name, 0.0) + k.duration
+        device_us = sum(by_kernel.values())
+        scan_us = sum(_kernel_us(e) for e in events if e.name == span)
+        top = dict(sorted(by_op.items(), key=lambda kv: -kv[1])[:12])
+        row = {"wall_ms": wall_us / 1e3, "device_ms": device_us / 1e3,
+               "busy": device_us / wall_us,
+               "scan_ms": scan_us / 1e3, "span": span,
+               "scan_share": scan_us / device_us if device_us else None,
+               "by_op_ms": {k: v / 1e3 for k, v in top.items()},
+               "by_kernel_ms": {k: v / 1e3 for k, v in sorted(
+                   by_kernel.items(), key=lambda kv: -kv[1])[:8]}}
+        if not device_us:
+            row["note"] = ("the profiler recorded no device time: not "
+                           "measured")
+        out[which] = row
+        print(f"profile {cfg.name} {which} ({b} x {s if which == 'prefill' else 1}"
+              f" tokens): device {row['device_ms']:.3f} ms of "
+              f"{row['wall_ms']:.3f} ms wall (busy {row['busy']:.1%}); "
+              f"{span} {row['scan_ms']:.3f} ms "
+              f"({(row['scan_share'] or 0):.1%} of device time); by op "
+              + ", ".join(f"{k} {v:.3f}" for k, v in
+                          list(row["by_op_ms"].items())[:8]))
+    return out
+
+
+def ssd_bound_ms(cfg, b: int, s: int) -> dict:
+    """The least time of one SSM layer's ``ssm_apply`` (s > 1) or
+    ``ssm_decode`` (s = 1) on b sequences in bf16: its bytes (x in, the
+    weights, out; at decode also the state and the conv window read and
+    written) over HBM_BYTES_PER_S against its operations (the projections,
+    the chunk's products over all lc x lc places as computed, the inter-
+    chunk and state products) over BF16_FLOP_PER_S."""
+    d, di, ns, nh, hd = (cfg.d_model, cfg.ssm_d_inner, cfg.ssm_state,
+                         cfg.ssm_num_heads, cfg.ssm_head_dim)
+    cw, e = cfg.ssm_conv_width, 2
+    weights = d * (2 * di + 2 * ns + nh) + di * d + cw * (di + 2 * ns)
+    moved = e * (weights + 2 * b * s * d)
+    flops = 2 * b * s * (d * (2 * di + 2 * ns + nh) + di * d)
+    if s > 1:
+        lc = min(cfg.ssm_chunk, s)
+        flops += 2 * b * (-(-s // lc) * lc) * (lc * ns + lc * nh * hd
+                                                + 2 * ns * nh * hd)
+    else:
+        moved += e * 2 * b * (nh * hd * ns + (cw - 1) * (di + 2 * ns))
+        flops += 2 * b * 2 * ns * nh * hd
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bytes": moved, "flops": flops,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def ssd_times(torch, cfg, params) -> dict:
+    """One SSM layer of ``cfg`` at the serving shapes in bf16: ``ssm_apply``
+    on SERVE_BATCH x SERVE_PROMPT and ``ssm_decode`` on SERVE_BATCH tokens
+    (CUDA events, eagerly: the plain torch ops are the implementation),
+    each beside :func:`ssd_bound_ms`."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+
+    lp = M._layer(params["blocks"], 0)["ssm"]
+    gen = torch.Generator(device=CARD).manual_seed(6)
+    b, s = SERVE_BATCH, SERVE_PROMPT
+    x = torch.randn((b, s, cfg.d_model), generator=gen, device=CARD).to(
+        L.compute_dtype(cfg))
+    _, (state, conv) = L.ssm_apply(cfg, lp, x, return_state=True)
+    xt = x[:, -1:].contiguous()
+    out = {"apply": {"ms": time_ms(lambda: L.ssm_apply(cfg, lp, x), 20),
+                     **ssd_bound_ms(cfg, b, s),
+                     "shape": f"{b} x {s}"},
+           "decode": {"ms": time_ms(lambda: L.ssm_decode(cfg, lp, xt, state,
+                                                         conv), 50),
+                      **ssd_bound_ms(cfg, b, 1), "shape": f"{b} x 1"}}
+    for name, t in out.items():
+        t["share"] = t["bound_ms"] / t["ms"]
+        print(f"ssd {name} {cfg.name} {t['shape']} bf16: {t['ms'] * 1e3:.1f}"
+              f" us a layer, bound {t['bound_ms'] * 1e3:.2f} us "
+              f"({t['bound_by']}), {t['share']:.1%} of it")
+    return out
+
+
+def ssm_serve(torch, card: str) -> dict:
+    """mamba2-130m at its full config through ``launch.serve.main``, every
+    flash and MoE counter 0 just before and 0 just after; its fp32 and bf16
+    prefill/decode consistency; the SSD layer's times; the profile."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.moe import moe
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(get_config(SSM_ARCH), use_kernels=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_count()
+    moe.reset_launch_count()
+    summary = serve.main(["--arch", SSM_ARCH, "--requests", "8", "--batch",
+                          str(SERVE_BATCH), "--prompt", str(SERVE_PROMPT),
+                          "--gen", str(SERVE_GEN)], device=CARD)
+    counts, moe_counts = fa.launch_counts(), moe.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(summary["logits_finite"], f"{SSM_ARCH}: non-finite logits")
+    check(summary["tokens"] == 8 * SERVE_GEN, f"{SSM_ARCH}: served "
+          f"{summary['tokens']} tokens")
+    check(not any(counts.values()) and not any(moe_counts.values())
+          and summary["flash_launches"] == 0,
+          f"{SSM_ARCH}: flash {counts}, MoE {moe_counts}: expected none")
+    row = {k: summary[k] for k in ("tok_per_s", "prefill_s", "decode_s",
+                                   "wall_s")}
+    row.update(layers=cfg.num_layers, params=cfg.num_params(), peak_gb=peak,
+               flash_launches=0, moe_launches=moe_counts)
+    print(f"serve {SSM_ARCH} ({cfg.num_layers} layers, "
+          f"{cfg.num_params() / 1e9:.3f} B parameters) on {card}: "
+          f"{row['tok_per_s']:.1f} tok/s, prefill {row['prefill_s']:.3f} s, "
+          f"decode {row['decode_s']:.3f} s, wall {row['wall_s']:.3f} s, "
+          f"peak {peak:.2f} GB, flash and MoE launches 0")
+    row["float32"] = consistency(torch, "float32", cfg)
+    params = M.init_serving_params(cfg, torch.Generator(device=CARD)
+                                   .manual_seed(0))
+    row["bfloat16"] = consistency(torch, "bfloat16", cfg, params,
+                                  limit=CONSIST_TOL["bfloat16"])
+    check(not any(fa.launch_counts().values()), "the SSM consistency "
+          "prefills launched flash attention")
+    row["ssd"] = ssd_times(torch, cfg, params)
+    row["ssd"]["launches"] = {
+        "apply": cfg.num_layers * -(-8 // SERVE_BATCH),
+        "decode": cfg.num_layers * -(-8 // SERVE_BATCH) * (SERVE_GEN - 1)}
+    row["profile"] = ssm_profile(torch, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    return row
+
+
+def hybrid_serve(torch, card: str) -> dict:
+    """jamba-v0.1-52b at full width and HYBRID_LAYERS layers through
+    ``launch.serve.generate``, as granite-34b: every counter 0 just before;
+    just after, the bf16 flash kernel launched attention layers x prefill
+    batches times and each MoE forward entry MoE layers x prefill batches x
+    SERVE_GEN times; the entries dropped; the kernel path's prefill bit for
+    bit the plain path's; bf16 consistency under the MoE premise; fp32
+    consistency at HYBRID_FP32's depth where it fits."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.moe import moe
+    from repro_torch.launch import serve
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+
+    full = get_config(HYBRID_ARCH)
+    cfg = dataclasses.replace(full, num_layers=HYBRID_LAYERS, use_kernels=True)
+    attn = sum(cfg.is_attn_layer(i) for i in range(cfg.num_layers))
+    moe_layers = sum(cfg.is_moe_layer(i) for i in range(cfg.num_layers))
+    batches = -(-8 // SERVE_BATCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_serving_params(cfg, torch.Generator(device=CARD)
+                                   .manual_seed(0))
+    rng = np.random.default_rng(0)
+    prefill_s = decode_s = 0.0
+    finite, dropped = True, 0
+    fa.reset_launch_count()
+    moe.reset_launch_count()
+    t0 = time.perf_counter()
+    for _ in range(batches):
+        prompt = torch.as_tensor(rng.integers(
+            0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT)), device=CARD)
+        g = serve.generate(cfg, params, prompt, SERVE_GEN,
+                           SERVE_PROMPT + SERVE_GEN)
+        prefill_s += g.prefill_s
+        decode_s += g.decode_s
+        finite = finite and g.finite
+        dropped += g.prefill_dropped
+    wall = time.perf_counter() - t0
+    counts, moe_counts = fa.launch_counts(), moe.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(finite, f"{HYBRID_ARCH}: non-finite logits")
+    want = attn * batches
+    check(counts == {**dict.fromkeys(counts, 0), "sm90_bf16": want},
+          f"{HYBRID_ARCH}: flash launches {counts}, expected {want} of "
+          "sm90_bf16")
+    want_moe = moe_layers * batches * SERVE_GEN
+    check(moe_counts == {**dict.fromkeys(moe_counts, 0),
+                         **dict.fromkeys(MOE_FORWARD, want_moe)},
+          f"{HYBRID_ARCH}: MoE launches {moe_counts}, expected {want_moe} "
+          "of each forward entry")
+    row = {"layers": cfg.num_layers, "reduced": {
+        "num_layers": f"{HYBRID_LAYERS} of {full.num_layers}"},
+        "params": cfg.num_params(), "tok_per_s": 8 * SERVE_GEN / wall,
+        "prefill_s": prefill_s, "decode_s": decode_s, "wall_s": wall,
+        "prefill_dropped": dropped, "flash_launches": want,
+        "moe_launches": moe_counts, "peak_gb": peak}
+    print(f"serve {HYBRID_ARCH} ({cfg.num_layers} of {full.num_layers} "
+          f"layers, {cfg.num_params() / 1e9:.2f} B parameters) on {card}: "
+          f"{row['tok_per_s']:.1f} tok/s, prefill {prefill_s:.3f} s, decode "
+          f"{decode_s:.3f} s, wall {wall:.3f} s, flash launches {want} "
+          f"(sm90_bf16), MoE launches {moe_counts}, entries dropped in "
+          f"prefill {dropped}, peak {peak:.1f} GB")
+
+    # the kernel path against the plain path, one prefill of 4 x 512
+    gen = torch.Generator(device=CARD).manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                         generator=gen, device=CARD)
+    logits_k, cache_k = M.prefill(cfg, params, toks, M.init_cache(
+        cfg, SERVE_BATCH, SERVE_PROMPT + 1, CARD))
+    kernel_ops, L.moe_ops = L.moe_ops, _plain_moe_ops()
+    try:
+        logits_p, cache_p = M.prefill(cfg, params, toks, M.init_cache(
+            cfg, SERVE_BATCH, SERVE_PROMPT + 1, CARD))
+    finally:
+        L.moe_ops = kernel_ops
+    same = torch.equal(logits_k, logits_p) and all(
+        torch.equal(t, cache_p["layers"][sub][key])
+        for sub, leaves in cache_k["layers"].items()
+        for key, t in leaves.items())
+    check(same, f"{HYBRID_ARCH}: the kernel path's prefill differs from the "
+          "plain path's")
+    print(f"{HYBRID_ARCH}: full-width prefill (4 x 512) through the kernels "
+          "equals the plain path's bit for bit (logits and every cache leaf)")
+    row["plain_path_equal"] = True
+    del cache_k, cache_p, logits_k, logits_p
+    row.update(moe_consistency(torch, cfg, params,
+                               batch=HYBRID_CONSIST_BATCH))
+    del params
+    torch.cuda.empty_cache()
+
+    # fp32 at one period, where its tree fits beside its caches
+    c32 = dataclasses.replace(cfg, num_layers=HYBRID_FP32["layers"],
+                              dtype="float32")
+    need = 4 * c32.num_params()
+    free = torch.cuda.mem_get_info()[0]
+    if need * 1.25 > free:
+        why = (f"not run: the fp32 tree at {c32.num_layers} layers takes "
+               f"{need / 1e9:.1f} GB, {free / 1e9:.1f} GB free")
+        print(f"{HYBRID_ARCH} float32: {why}")
+        row["float32"] = {"layers": c32.num_layers, "why": why}
+    else:
+        params = M.init_serving_params(c32, torch.Generator(device=CARD)
+                                       .manual_seed(1))
+        row["float32"] = moe_consistency(torch, c32, params, "float32",
+                                         batch=HYBRID_FP32["batch"])
+        row["float32"]["layers"] = c32.num_layers
+        row["float32"]["params"] = c32.num_params()
+        del params
+    torch.cuda.empty_cache()
+    return row
+
+
+def ssm_phase(torch, card: str) -> dict:
+    """The SSM and hybrid families served: :func:`ssm_serve` and
+    :func:`hybrid_serve`."""
+    t0 = time.perf_counter()
+    out = {"ssm": ssm_serve(torch, card), "hybrid": hybrid_serve(torch, card)}
+    print(f"ssm: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4010,6 +4396,15 @@ def main() -> int:
     flash_row["serve_launches"].update({
         k: v["flash_launches"] for k, v in moe["serve"].items()})
     print(f"moe summary: {json.dumps({k: moe[k] for k in ('checks', 'serve')})}")
+
+    # the SSM and hybrid families: mamba2-130m through launch.serve.main,
+    # jamba-v0.1-52b at full width and 16 layers (counters at 0 just before
+    # each serve, read just after)
+    ssm = ssm_phase(torch, card)
+    flash_row["serve_launches"][HYBRID_ARCH] = ssm["hybrid"]["flash_launches"]
+    flash_row["serve_launches"][SSM_ARCH] = 0
+    moe["row"]["serve_launches"][HYBRID_ARCH] = ssm["hybrid"]["moe_launches"]
+    print(f"ssm summary: {json.dumps(ssm)}")
 
     # the dense training path: olmo-1b at its full config
     t0 = time.perf_counter()

@@ -1,5 +1,6 @@
-"""Architecture registry of the port — the dense family's four configs and
-the MoE family's two.
+"""Architecture registry of the port — the dense family's four configs, the
+MoE family's two, the SSM family's mamba2-130m and the hybrid family's
+jamba-v0.1-52b.
 
 ``get_config(name)`` returns the full published config; ``get_smoke_config``
 returns a reduced same-family config for CPU tests.  ``--arch <id>`` in the
@@ -10,7 +11,8 @@ from .base import ModelConfig, get_config, get_smoke_config, list_archs, registe
 
 # importing the modules registers the configs
 from . import (granite_3_2b, granite_34b, granite_moe_1b_a400m,  # noqa: F401
-               olmo_1b, qwen2_1_5b, qwen2_moe_a2_7b)
+               jamba_v0_1_52b, mamba2_130m, olmo_1b, qwen2_1_5b,
+               qwen2_moe_a2_7b)
 
 ARCHS = list_archs()
 

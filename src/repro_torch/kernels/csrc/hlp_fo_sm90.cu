@@ -29,7 +29,14 @@
 //     (the wrapper passes a pred_edge whose successor lists run that way).
 //     Its exp and log are XLA:CPU's own (xla_math.cuh), its Adam moments
 //     one multiply-add each and x's cotangent takes the marginals' share
-//     first, as XLA's program for the solve does.  On an ill-conditioned
+//     first, as XLA's program for the solve does.  Where that program sums
+//     otherwise at some shapes, so does the kernel (ROADMAP C6): the pool
+//     loads as a tiled GEMV (pool_load), the marginals in Eigen's lanes of
+//     4 at C = 4 / 8 / 12, the task times as rounded products at
+//     VECTOR_CHOICES, the area sums over n <= WINDOW tasks as a
+//     multiply-add chain (area_chain), the marginals' cotangent's first
+//     type unfused at 3 <= P < 8, and without the delays gx / S from the
+//     other contraction at VECTOR_CHOICES.  On an ill-conditioned
 //     instance every rounding counts: it is the plain version bit for bit,
 //     and so the reference's best x (the emulation in
 //     tests/hlp_fo_emulation.py holds the two to each other on the CPU).
@@ -102,6 +109,11 @@ constexpr int MAX_THREADS = 512;
 constexpr int MAX_WARPS = MAX_THREADS / 32;
 constexpr int SMEM_LIMIT = 232448; // 227 KB, the most a block may take
 constexpr int PR = 4;              // pred slots a task holds in registers
+// XLA:CPU's program for the reference's choice solve sums differently at
+// some shapes (hlp_fo/ref.py, ROADMAP C6): over more than WINDOW tasks in
+// reduce-windows, at VECTOR_CHOICES choices two tasks to a 16-lane register
+constexpr int WINDOW = 32;
+constexpr int VECTOR_CHOICES = 8;
 
 // Adam's constants as the reference's Python floats round to float32.
 constexpr float LR = 0.25f;
@@ -296,6 +308,23 @@ __device__ void window_sum(const Problem& p, const Smem& s, int K, F val, float*
   for (int c = 0; c < K; ++c) out[c] = s.red[c];
 }
 
+// The per-choice area sums over n <= WINDOW tasks, as XLA:CPU's program
+// takes them without a reduce-window: thread c a multiply-add chain from 0
+// over the tasks in order.  Every thread gets the C sums in out.
+__device__ void area_chain(const Problem& p, const Smem& s, float* out, bool one_warp) {
+  level_sync(one_warp);   // the scratch's last readers are done
+  if (threadIdx.x < p.C) {
+    float acc = 0.0f;
+    for (int j = 0; j < p.n; ++j) {
+      const int64_t i = static_cast<int64_t>(j) * p.C + threadIdx.x;
+      acc = fma_rn(__ldg(p.area + i), s.x[i], acc);
+    }
+    s.red[threadIdx.x] = acc;
+  }
+  level_sync(one_warp);
+  for (int c = 0; c < p.C; ++c) out[c] = s.red[c];
+}
+
 template <bool CHOICE>
 __device__ __forceinline__ float task_time(const Problem& p, const Smem& s, int j) {
   if (!CHOICE) {
@@ -304,6 +333,11 @@ __device__ __forceinline__ float task_time(const Problem& p, const Smem& s, int 
   }
   const float* pr = p.p_choice + static_cast<int64_t>(j) * p.C;
   const float* xr = s.x + static_cast<int64_t>(j) * p.C;
+  if (p.C == VECTOR_CHOICES) {   // rounded products, added in order from 0
+    float t = 0.0f;
+    for (int c = 0; c < p.C; ++c) t = add(t, mul(__ldg(pr + c), xr[c]));
+    return t;
+  }
   float t = mul(__ldg(pr), xr[0]);
   for (int c = 1; c < p.C; ++c) t = fma_rn(__ldg(pr + c), xr[c], t);
   return t;
@@ -319,14 +353,26 @@ __device__ __forceinline__ float edge_delay(const Problem& p, const Smem& s, int
   return mul(__ldg(p.pred_comm + static_cast<int64_t>(j) * p.P + kk), sub(1.0f, dot));
 }
 
-// X = x @ type_mask^T for every task.
+// X = x @ type_mask^T for every task, in the order of XLA:CPU's small
+// matrix product (hlp_fo/ref.py::_gemm_xla): at C = 4, 8 and 12 lane i < 4
+// a multiply-add chain over c = i, i + 4, ..., then (l0 + l1) + (l2 + l3);
+// else one multiply-add chain.
 __device__ void marginals(const Problem& p, const Smem& s) {
+  const bool lanes = p.C == 4 || p.C == 8 || p.C == 12;
   for (int j = threadIdx.x; j < p.n; j += blockDim.x) {
     const float* xr = s.x + static_cast<int64_t>(j) * p.C;
     for (int q = 0; q < p.Q; ++q) {
       const float* tr = s.tm + q * p.C;
-      float acc = mul(xr[0], tr[0]);
-      for (int c = 1; c < p.C; ++c) acc = fma_rn(xr[c], tr[c], acc);
+      float acc;
+      if (lanes) {
+        float l[4];
+        for (int i = 0; i < 4; ++i) l[i] = mul(xr[i], tr[i]);
+        for (int c = 4; c < p.C; ++c) l[c & 3] = fma_rn(xr[c], tr[c], l[c & 3]);
+        acc = add(add(l[0], l[1]), add(l[2], l[3]));
+      } else {
+        acc = mul(xr[0], tr[0]);
+        for (int c = 1; c < p.C; ++c) acc = fma_rn(xr[c], tr[c], acc);
+      }
       s.X[static_cast<int64_t>(j) * p.Q + q] = acc;
     }
   }
@@ -482,12 +528,27 @@ __device__ void fused_forward(const Problem& p, const Smem& s, float tau, bool s
 }
 
 // Pool q's load from the per-choice area sums v[1..C]:
-// (type_mask @ sums)[q] * inv_counts[q], the dot in multiply-adds.
+// (type_mask @ sums)[q] * inv_counts[q], the dot as XLA:CPU's tiled
+// matrix-vector product (hlp_fo/ref.py::_gemv_xla): the first C - C % 8
+// columns in 8 lanes, each a multiply-add chain from 0 over the tiles, the
+// lanes folded in halves; the rest one multiply-add chain, added last.
 __device__ __forceinline__ float pool_load(const Problem& p, const Smem& s,
                                            const float (&v)[MAX_V], int q) {
   const float* tr = s.tm + q * p.C;
-  float acc = mul(tr[0], v[1]);
-  for (int c = 1; c < p.C; ++c) acc = fma_rn(tr[c], v[1 + c], acc);
+  const int full = p.C - p.C % 8;
+  float acc;
+  if (full) {
+    float l[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    for (int c = 0; c < full; ++c) l[c & 7] = fma_rn(tr[c], v[1 + c], l[c & 7]);
+    for (int h = 4; h > 0; h >>= 1)
+      for (int i = 0; i < h; ++i) l[i] = add(l[i], l[i + h]);
+    float tail = 0.0f;
+    for (int c = full; c < p.C; ++c) tail = fma_rn(tr[c], v[1 + c], tail);
+    acc = add(l[0], tail);
+  } else {
+    acc = mul(tr[0], v[1]);
+    for (int c = 1; c < p.C; ++c) acc = fma_rn(tr[c], v[1 + c], acc);
+  }
   return mul(acc, s.inv[q]);
 }
 
@@ -824,9 +885,11 @@ __device__ void adam_pass(const Problem& p, const Smem& s, const Grad& g, float 
         if (q < 0) break;
         const int64_t slot = static_cast<int64_t>(j) * p.P + kk;
         const float gc = -mul(__ldg(p.pred_comm + slot), s.w[__ldg(p.pred_edge + slot)]);
-        for (int t = 0; t < p.Q; ++t) {
+        for (int t = 0; t < p.Q; ++t) {   // at 3 <= P < 8 type 0 unfused, as XLA's
           const float xv = s.X[static_cast<int64_t>(q) * p.Q + t];
-          gX[t] = kk == 0 ? mul(xv, gc) : fma_rn(xv, gc, gX[t]);
+          gX[t] = kk == 0 ? mul(xv, gc)
+                  : (t == 0 && p.P >= 3 && p.P < 8) ? add(gX[t], mul(xv, gc))
+                                                    : fma_rn(xv, gc, gX[t]);
         }
       }
       const int e1 = __ldg(p.succ_ptr + j + 1);
@@ -841,7 +904,7 @@ __device__ void adam_pass(const Problem& p, const Smem& s, const Grad& g, float 
     // the softmax of the current logits: e = exp(z - max), kept from it,
     // and S their sum
     const int64_t base = static_cast<int64_t>(j) * p.C;
-    float e[MAX_C], zn[MAX_C], gx[MAX_C];
+    float e[MAX_C], zn[MAX_C], gx[MAX_C], gxs[MAX_C];
     float S = 0.0f;
 #pragma unroll
     for (int c = 0; c < MAX_C; ++c)
@@ -860,8 +923,10 @@ __device__ void adam_pass(const Problem& p, const Smem& s, const Grad& g, float 
           float dot = mul(gX[0], s.tm[c]);
           for (int q = 1; q < p.Q; ++q) dot = fma_rn(gX[q], s.tm[q * p.C + c], dot);
           gx[c] = fma_rn(pc, gf, fma_rn(ar, g.gpc[c], dot));
-        } else {
+          gxs[c] = gx[c];
+        } else {   // at VECTOR_CHOICES, gx / S contracts the other product
           gx[c] = fma_rn(ar, g.gpc[c], mul(pc, gf));
+          gxs[c] = p.C == VECTOR_CHOICES ? fma_rn(pc, gf, mul(ar, g.gpc[c])) : gx[c];
         }
       }
     // through the softmax: (gx / S - sum_c gx e / S^2) e
@@ -873,7 +938,7 @@ __device__ void adam_pass(const Problem& p, const Smem& s, const Grad& g, float 
 #pragma unroll
     for (int c = 0; c < MAX_C; ++c)
       if (c < p.C)
-        zn[c] = adam<true>(p.z, p.mu, p.nu, base + c, mul(sub(dvd(gx[c], S), t), e[c]), bc1, bc2);
+        zn[c] = adam<true>(p.z, p.mu, p.nu, base + c, mul(sub(dvd(gxs[c], S), t), e[c]), bc1, bc2);
     softmax_row(zn, s.x + base, p.ez + base, p.C);
     s.f[j] = task_time<true>(p, s, j);
   }
@@ -974,11 +1039,13 @@ hlp_fo_sm90_kernel(Problem p) {
     }
     block_reduce(v, soft ? nl + 1 : nl, 1u | (1u << nl), s.red, one_warp);
     const float M = v[nl];
-    if (CHOICE)   // the per-choice area sums, in XLA's windows, into v[1..C]
+    if (CHOICE && p.n > WINDOW)   // the per-choice area sums, in XLA's windows
       window_sum(p, s, p.C, [&](int j, int c) {
         const int64_t i = static_cast<int64_t>(j) * p.C + c;
         return mul(__ldg(p.area + i), s.x[i]);
       }, v + 1, one_warp);
+    else if (CHOICE)              // over one window: a multiply-add chain
+      area_chain(p, s, v + 1, one_warp);
     float lam = v[0];
     if (!CHOICE) {
       lam = max_nan(lam, max_nan(dvd(v[1], static_cast<float>(p.m)),

@@ -32,12 +32,13 @@
 // where x is not finite: the second pass writes NaN there.  combine_grad
 // writes each kept row as +0 + bf16(dout * bf16(gate)) (the reference's
 // scatter-add into zeros turns -0 into +0) and runs the same NaN pass on
-// dout.  gate_grad takes each product in fp32 (exact for bf16 values) and
-// sums in fp32 in one fixed order: lane l adds its 16-byte vectors l,
-// l + 32, ... element by element, then the lanes fold by xor shuffles in
-// halves (16, 8, 4, 2, 1); the sum is rounded to the compute dtype and
-// multiplied by keep, so a dropped entry gives +-0, or NaN where its dot
-// is not finite.
+// dout.  gate_grad sums in the order of the program XLA:CPU compiles for the
+// reference's VJP (ref.xla_row_sum): each product taken in fp32 and rounded
+// to the compute dtype, windows of 32 consecutive products summed in order
+// from +0 with every add rounded to the compute dtype, the window sums
+// summed in windows again while more than 32 remain, then in order; the
+// sum times keep is added to +0 (the reference's scatter-add into zeros),
+// so a dropped entry gives +0, or NaN where its dot is not finite.
 //
 // What bounds each entry on the H100, and what the design does about it:
 //   * route: latency.  Its bytes (N*k ints in, slots, flags and rows out)
@@ -90,9 +91,9 @@
 //   * gate_grad: bytes.  It reads the N token rows of dout and the N*k rows
 //     of ho its entries point at and writes N*k floats.  One warp an entry,
 //     8 a block (a block holds one token's entries at top-8, so its dout
-//     row is read from device memory once); each lane issues up to four
-//     pairs of 16-byte loads before its adds.  A simple kernel: one
-//     accumulator a lane keeps the order that the plain version mirrors.
+//     row is read from device memory once).  Lane l loads the whole windows
+//     l, l + 32, ... (4 vectors in bf16, 8 in fp32) before its adds, so its
+//     chain of roundings is XLA's; the window sums meet in shared memory.
 // An empty kernel launched with an entry's geometry (moe_floor_sm90) is the
 // least time a launch of that entry can take: the launch floor.
 //
@@ -124,7 +125,8 @@ constexpr int COMBINE_THREADS = 256;
 constexpr int MAX_TOKENS = 32;            // tokens a combine block
 constexpr int GATE_THREADS = 256;
 constexpr int GATE_WARPS = GATE_THREADS / 32;   // entries a gate_grad block
-constexpr int GATE_UNROLL = 4;            // vector pairs a lane loads before its adds
+constexpr int WINDOW = 32;                // XLA:CPU's reduce-window in a row sum
+constexpr int GATE_MAX_WINDOWS = 256;     // gate_grad's D up to 8192
 
 enum Entry { ROUTE = 0, DISPATCH = 1, COMBINE = 2, COMBINE_GRAD = 3, GATE_GRAD = 4 };
 
@@ -616,66 +618,75 @@ combine_kernel(const uint4* __restrict__ ho, const int* __restrict__ slot,
 }
 
 // ------------------------------------------------------------- gate_grad
+// acc + cdt(x * y), rounded to the compute dtype: one term of a window
 template <typename T>
-struct Dot;
-
-template <>
-struct Dot<F32> {
-  // acc += a * b element by element, each product and add in fp32
-  __device__ static float add(float acc, uint4 a, uint4 b) {
-    acc = __fadd_rn(acc, __fmul_rn(__uint_as_float(a.x), __uint_as_float(b.x)));
-    acc = __fadd_rn(acc, __fmul_rn(__uint_as_float(a.y), __uint_as_float(b.y)));
-    acc = __fadd_rn(acc, __fmul_rn(__uint_as_float(a.z), __uint_as_float(b.z)));
-    return __fadd_rn(acc, __fmul_rn(__uint_as_float(a.w), __uint_as_float(b.w)));
-  }
-};
-
-template <>
-struct Dot<BF16> {
-  // the products of bf16 values are exact in fp32; elements 2p, 2p + 1
-  // are the low and high halves of word p
-  __device__ static float add(float acc, uint4 a, uint4 b) {
-    const unsigned av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int p = 0; p < 4; ++p) {
-      acc = __fadd_rn(acc, __fmul_rn(lo_f(av[p]), lo_f(bv[p])));
-      acc = __fadd_rn(acc, __fmul_rn(hi_f(av[p]), hi_f(bv[p])));
-    }
-    return acc;
-  }
-};
+__device__ __forceinline__ float window_add(float acc, float x, float y) {
+  return T::f(T::r(__fadd_rn(acc, T::f(T::r(__fmul_rn(x, y))))));
+}
 
 // Warp w of block b takes entry i = b*GATE_WARPS + w (token i / k, row
-// slot[i]); lane l adds its vectors l, l + 32, ... in order, GATE_UNROLL
-// pairs of loads in flight, then the lanes fold by xor shuffles: lane 0
-// ends with ((a0 + a16) + (a8 + a24)) + ..., the plain version's order.
+// slot[i]), in XLA:CPU's order for the row sum (ref.xla_row_sum).  Lane l
+// takes windows l, l + 32, ... of WINDOW elements (D a multiple of WINDOW:
+// no padding), loads each window's vectors of dout and ho, and sums its
+// products in order from +0, each product and each add rounded to the
+// compute dtype, into the warp's shared row.  While more than WINDOW sums
+// remain, lane u sums window u of them (padded with pad / 2 zeros in front,
+// which add nothing) and the warp writes them back; lane 0 sums what is
+// left in order and writes +0 + sum * keep.
 template <typename T>
 __global__ void __launch_bounds__(GATE_THREADS)
 gate_grad_kernel(const uint4* __restrict__ dout, const uint4* __restrict__ ho,
                  const int* __restrict__ slot, const bool* __restrict__ keep,
-                 int nk, int k, int vecs, float* __restrict__ out) {
-  const int i = blockIdx.x * GATE_WARPS + static_cast<int>(threadIdx.x >> 5);
+                 int nk, int k, int d, float* __restrict__ out) {
+  constexpr int VPW = WINDOW / T::VEC;     // vectors a window
+  __shared__ float s_sum[GATE_WARPS][GATE_MAX_WINDOWS];
+  const int warp = static_cast<int>(threadIdx.x >> 5);
+  const int i = blockIdx.x * GATE_WARPS + warp;
   const int lane = threadIdx.x & 31;
   if (i >= nk) return;                      // the whole warp
-  const uint4* a = dout + static_cast<int64_t>(i / k) * vecs;
-  const uint4* b = ho + static_cast<int64_t>(slot[i]) * vecs;
-  float acc = 0.f;
-  for (int v0 = lane; v0 < vecs; v0 += 32 * GATE_UNROLL) {
-    uint4 ha[GATE_UNROLL], hb[GATE_UNROLL];
+  const int windows = d / WINDOW;
+  const uint4* a = dout + static_cast<int64_t>(i / k) * (windows * VPW);
+  const uint4* b = ho + static_cast<int64_t>(slot[i]) * (windows * VPW);
+  float* sum = s_sum[warp];
+  for (int w = lane; w < windows; w += 32) {
+    uint4 ha[VPW], hb[VPW];
 #pragma unroll
-    for (int u = 0; u < GATE_UNROLL; ++u) {
-      if (v0 + 32 * u < vecs) {
-        ha[u] = a[v0 + 32 * u];
-        hb[u] = b[v0 + 32 * u];
+    for (int u = 0; u < VPW; ++u) {
+      ha[u] = a[w * VPW + u];
+      hb[u] = b[w * VPW + u];
+    }
+    float acc = 0.f;
+#pragma unroll
+    for (int u = 0; u < VPW; ++u) {
+      const typename T::raw* x = reinterpret_cast<const typename T::raw*>(&ha[u]);
+      const typename T::raw* y = reinterpret_cast<const typename T::raw*>(&hb[u]);
+#pragma unroll
+      for (int c = 0; c < T::VEC; ++c) acc = window_add<T>(acc, T::f(x[c]), T::f(y[c]));
+    }
+    sum[w] = acc;
+  }
+  __syncwarp();
+  int n = windows;
+  while (n > WINDOW) {
+    const int pad = (WINDOW - n % WINDOW) % WINDOW;
+    const int m = (n + pad) / WINDOW;       // <= 32: GATE_MAX_WINDOWS <= 1024
+    float acc = 0.f;
+    if (lane < m) {
+      for (int j = 0; j < WINDOW; ++j) {
+        const int at = lane * WINDOW - pad / 2 + j;
+        if (at >= 0 && at < n) acc = T::f(T::r(__fadd_rn(acc, sum[at])));
       }
     }
-#pragma unroll
-    for (int u = 0; u < GATE_UNROLL; ++u)
-      if (v0 + 32 * u < vecs) acc = Dot<T>::add(acc, ha[u], hb[u]);
+    __syncwarp();
+    if (lane < m) sum[lane] = acc;
+    __syncwarp();
+    n = m;
   }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) acc = __fadd_rn(acc, __shfl_xor_sync(FULL, acc, o));
-  if (lane == 0) out[i] = __fmul_rn(T::f(T::r(acc)), keep[i] ? 1.f : 0.f);
+  if (lane == 0) {
+    float acc = 0.f;
+    for (int j = 0; j < n; ++j) acc = T::f(T::r(__fadd_rn(acc, sum[j])));
+    out[i] = __fadd_rn(0.f, __fmul_rn(acc, keep[i] ? 1.f : 0.f));
+  }
 }
 
 // The launch floor's kernel (a parameter, as every entry has some).
@@ -866,22 +877,22 @@ extern "C" int moe_combine_sm90(const void* ho, const int* slot,
 }
 
 // The combine's cotangent for the gates: dout (n, d), ho (rows, d), out
-// (n, k) float32.
+// (n, k) float32; d a multiple of WINDOW, at most WINDOW * GATE_MAX_WINDOWS.
 extern "C" int moe_gate_grad_sm90(const void* dout, const void* ho,
                                   const int* slot, const bool* keep, int n,
                                   int k, int d, int dtype, float* out,
                                   cudaStream_t stream) {
-  if (bad_entry(GATE_GRAD, n, k, d, 1, 1, dtype))
+  if (bad_entry(GATE_GRAD, n, k, d, 1, 1, dtype) || d % WINDOW ||
+      d > WINDOW * GATE_MAX_WINDOWS)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int vecs = d * elem_bytes(dtype) / 16;
   const Geometry g = geometry(GATE_GRAD, n, k, d, 1, 1, dtype);
   const uint4* a = static_cast<const uint4*>(dout);
   const uint4* b = static_cast<const uint4*>(ho);
   if (dtype == 1)
     return launch(gate_grad_kernel<BF16>, g, stream, a, b, slot, keep, n * k,
-                  k, vecs, out);
+                  k, d, out);
   return launch(gate_grad_kernel<F32>, g, stream, a, b, slot, keep, n * k, k,
-                vecs, out);
+                d, out);
 }
 
 // entry 0 route, 1 dispatch, 2 combine, 3 combine_grad, 4 gate_grad:

@@ -22,7 +22,12 @@ own exp and log (:mod:`.xla_math`), its anneal table
 (``schedule(iters, xla=True)``) and its fused Adam moments, so on an
 ill-conditioned instance (netbound seed 300, where autograd's rounding
 order alone moves λ 8x further from the reference than the reference's
-own one-ulp spread) it gives the reference's best x bit for bit.
+own one-ulp spread) it gives the reference's best x bit for bit.  Some of
+XLA's orders depend on the shapes (its tiled GEMV, Eigen's small product,
+LLVM's vectorized loops); the plain version follows those read from the
+program at netbound's (60 tasks, 2 choices, 2 pred slots) and the moldable
+instance's (20 tasks, 8 choices, 3 pred slots), and there gives the
+reference's best x bit for bit from the z0 of the reference's program.
 
 ``d`` is any object with the fields of ``repro_torch.core.hlp_jax.PaddedDag``
 on the CPU.  The functions here take CPU tensors only.
@@ -42,6 +47,19 @@ __all__ = ["ADAM", "NEG", "choice_grad", "choice_lam", "choice_loss",
            "window_sum"]
 
 NEG = -1e30
+#: XLA:CPU's reduce-window in a sum over more than this many values
+WINDOW = 32
+#: the pred-slot counts [lo, hi) at which the marginals' cotangent over a
+#: task's slots is XLA's column-major product without vector tiles, whose
+#: first type is unfused (:func:`_dot_unfused`; read at P = 3, while P = 2
+#: fuses both)
+UNFUSED_SLOTS = (3, 8)
+#: the choice count whose rows XLA:CPU's program for ``_solve_choice``
+#: packs two tasks to a 16-lane register (moldable_suite's 2 types x 4
+#: widths): its task times are then a sum of rounded products, and
+#: without the crossing delays x's cotangent over the softmax's sum
+#: contracts the other product (:func:`_xla_terms`, :func:`choice_grad`)
+VECTOR_CHOICES = 8
 #: Adam's constants as the reference writes them: Python floats, which
 #: round to float32 where they meet a float32 tensor, as in JAX
 ADAM = {"lr": 0.25, "b1": 0.9, "b2": 0.999, "eps": 1e-8,
@@ -260,13 +278,14 @@ def sqrt_rn(v: torch.Tensor) -> torch.Tensor:
 
 
 def window_sum(v: torch.Tensor) -> torch.Tensor:
-    """XLA:CPU's float32 sum over the first axis of ``v``: windows of 32
-    (the axis padded to a multiple of 32, the padding split between the
-    two ends), each summed in order, then the windows' sums in order."""
+    """XLA:CPU's float32 sum over the first axis of ``v``: windows of
+    :data:`WINDOW` (the axis padded to a multiple of it, the padding split
+    between the two ends), each summed in order, then the windows' sums in
+    order."""
     n = v.shape[0]
-    lo = (-(-n // 32) * 32 - n) // 2
-    return _seq_sum(_seq_sum(v[max(b, 0):b + 32].unbind(0))
-                    for b in range(-lo, n, 32))
+    lo = (-(-n // WINDOW) * WINDOW - n) // 2
+    return _seq_sum(_seq_sum(v[max(b, 0):b + WINDOW].unbind(0))
+                    for b in range(-lo, n, WINDOW))
 
 
 def _dot_fma(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -277,6 +296,58 @@ def _dot_fma(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     for k in range(1, a.shape[-1]):
         acc = fma(a[..., k], b[..., k], acc)
     return acc
+
+
+def _dot_unfused(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """sum_k a[..., k] b[..., k], each product rounded, added in order
+    from the first: XLA's column-major matrix-vector product over
+    :data:`UNFUSED_SLOTS` columns (its loop without vector tiles) computes
+    its first row so (the multiply and the add sit in two basic blocks,
+    which LLVM does not fuse) and the other rows as :func:`_dot_fma`
+    does."""
+    acc = a[..., 0] * b[..., 0]
+    for k in range(1, a.shape[-1]):
+        acc = acc + a[..., k] * b[..., k]
+    return acc
+
+
+def _gemv_xla(a: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """a (M, K) @ v (K,) as XLA:CPU's tiled row-major matrix-vector product
+    (``row_major_gemv``): the first ``K - K % 8`` columns in vector tiles
+    of 8, each lane a chain of fused multiply-adds from 0 over the tiles,
+    the 8 lanes folded in halves (l + 4, then + 2, then + 1); the remaining
+    columns a chain of fused multiply-adds from 0, added last.  K < 8 is
+    that chain alone, which :func:`_dot_fma` writes."""
+    K = a.shape[-1]
+    full = K - K % 8
+    if not full:
+        return _dot_fma(a, v)
+    acc = torch.zeros(a.shape[:-1] + (8,))
+    for t in range(0, full, 8):
+        acc = fma(a[..., t:t + 8], v[t:t + 8], acc)
+    for h in (4, 2, 1):
+        acc = acc[..., :h] + acc[..., h:2 * h]
+    tail = torch.zeros(a.shape[:-1])
+    for k in range(full, K):
+        tail = fma(a[..., k], v[k], tail)
+    return acc[..., 0] + tail
+
+
+def _gemm_xla(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """sum_k a[..., k] b[..., k] in the order of XLA:CPU's small matrix
+    product (Eigen's, through a DotThunk): below K = 4 a chain of fused
+    multiply-adds; at K = 4, 8 and 12 lane i (i < 4) a chain of fused
+    multiply-adds over k = i, i + 4, ..., the lanes summed as (l0 + l1) +
+    (l2 + l3).  Other widths keep the chain, which is not XLA's order
+    there (ROADMAP C6)."""
+    K = a.shape[-1]
+    if K not in (4, 8, 12):
+        return _dot_fma(a, b)
+    a, b = torch.broadcast_tensors(a, b)
+    lane = [a[..., i] * b[..., i] for i in range(4)]
+    for k in range(4, K):
+        lane[k % 4] = fma(a[..., k], b[..., k], lane[k % 4])
+    return (lane[0] + lane[1]) + (lane[2] + lane[3])
 
 
 def _csr_rows(d, edge: torch.Tensor):
@@ -325,17 +396,29 @@ class _Scan:
 
 def _xla_terms(d, x, p_choice, area, type_mask, inv_counts, use_comm):
     """The loss's terms in XLA's order: task times (a chain of fused
-    multiply-adds), the per-choice area sums (:func:`window_sum`), the pool
-    loads and, with ``use_comm``, the type marginals X and each pred slot's
+    multiply-adds; at :data:`VECTOR_CHOICES` choices a sum of rounded
+    products), the per-choice area sums (over more than :data:`WINDOW`
+    tasks :func:`window_sum`, else a chain of fused multiply-adds over
+    the tasks), the pool loads (:func:`_gemv_xla`) and, with ``use_comm``,
+    the type marginals X (:func:`_gemm_xla`) and each pred slot's
     expected crossing delay."""
-    times = torch.zeros(x.shape[0])
-    for c in range(x.shape[1]):
-        times = fma(p_choice[:, c], x[:, c], times)
-    colsum = window_sum(area * x)
-    loads = _dot_fma(type_mask, colsum[None, :]) * inv_counts
+    n, C = x.shape
+    if C == VECTOR_CHOICES:
+        times = _seq_sum((p_choice * x).unbind(1))
+    else:
+        times = torch.zeros(n)
+        for c in range(C):
+            times = fma(p_choice[:, c], x[:, c], times)
+    if n <= WINDOW:             # no reduce-window: a chain over the tasks
+        colsum = torch.zeros(C)
+        for j in range(n):
+            colsum = fma(area[j], x[j], colsum)
+    else:
+        colsum = window_sum(area * x)
+    loads = _gemv_xla(type_mask, colsum) * inv_counts
     X = delay = None
     if use_comm:
-        X = _dot_fma(x[:, None, :], type_mask[None, :, :])          # (n, Q)
+        X = _gemm_xla(x[:, None, :], type_mask[None, :, :])         # (n, Q)
         delay = d.pred_comm * (1.0 - _dot_fma(X[_wrapped_pred(d)],
                                               X[:, None, :]))
     return times, colsum, loads, X, delay
@@ -438,6 +521,8 @@ def choice_grad(d, z, tau, p_choice, area, type_mask, inv_counts,
     if use_comm:
         gcross = -(d.pred_comm * gpf_all.view(n, P))
         gX = _dot_fma(X[o.predw].transpose(1, 2), gcross[:, None, :])
+        if UNFUSED_SLOTS[0] <= P < UNFUSED_SLOTS[1]:
+            gX[:, 0] = _dot_unfused(X[o.predw][:, :, 0], gcross)
         flat = gcross.reshape(-1)
         for k in range(o.fwd.shape[1]):
             gX = torch.where(o.fwd_ok[:, k, None],
@@ -446,12 +531,17 @@ def choice_grad(d, z, tau, p_choice, area, type_mask, inv_counts,
         gxc = _dot_fma(gX[:, None, :], type_mask.T[None, :, :])
         gx = fma(p_choice, gtimes[:, None].expand_as(area),
                  fma(area, gcolsum.expand_as(area), gxc))
+        gx_s = gx
     else:
         gx = fma(area, gcolsum.expand_as(area), p_choice * gtimes[:, None])
+        gx_s = gx
+        if C == VECTOR_CHOICES:
+            gx_s = fma(p_choice, gtimes[:, None].expand_as(area),
+                       area * gcolsum)
     t = torch.zeros(n)
     for c in range(C):
         t = fma(gx[:, c] * inv_s2, e[:, c], t)
-    return (gx / S[:, None] + (-t)[:, None]) * e
+    return (gx_s / S[:, None] + (-t)[:, None]) * e
 
 
 def choice_solve_ref(d, z0: torch.Tensor, p_choice: torch.Tensor,

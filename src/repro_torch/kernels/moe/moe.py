@@ -42,10 +42,13 @@ reference's ``einsum``s).  Five entries, each one plain version in
   ``+0 + dout[token] · cdt(gate)``, zeros elsewhere, the same NaN pass for
   the dropped entries (``dout · 0``).  Bounded by bytes.
 * :func:`gate_grad`: the combine's cotangent for the gates, (N, k) fp32:
-  one warp an entry, each lane summing its 16-byte vectors' products in
-  fp32 in order, the lanes folded by shuffles in halves
-  (``ref.gate_grad_ref``'s order), rounded to the compute dtype, times
-  ``keep``.  Bounded by bytes: it reads the N·k rows its entries point at.
+  one warp an entry, in the order of XLA:CPU's program for the reference's
+  VJP (``ref.xla_row_sum``): each lane sums its windows of 32 products in
+  order, each product and add rounded to the compute dtype, the window
+  sums summed again in windows, lane 0 the rest in order; +0 + sum ·
+  ``keep``.  D a multiple of 32 up to 8192 (the kernel's windows are
+  whole; the plain version takes any D).  Bounded by bytes: it reads the
+  N·k rows its entries point at.
 
 :func:`dispatch` and :func:`combine` run through ``torch.autograd.Function``
 classes (``ref.Dispatch``, ``ref.Combine``): the routing passes through with no
@@ -77,9 +80,9 @@ import torch
 
 from repro_torch.kernels import build
 
-from .ref import (Combine, Dispatch, Routing, capacity, combine_grad_ref,
-                  combine_ref, dispatch_grad_ref, dispatch_ref, gate_grad_ref,
-                  route_ref)
+from .ref import (WINDOW, Combine, Dispatch, Routing, capacity,
+                  combine_grad_ref, combine_ref, dispatch_grad_ref,
+                  dispatch_ref, gate_grad_ref, route_ref)
 
 __all__ = ["Routing", "capacity", "combine", "combine_grad", "dispatch",
            "dispatch_grad", "gate_grad", "geometry", "launch_count",
@@ -92,6 +95,8 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the route kernel's shared counts hold 64 experts
 MAX_EXPERTS = 64
 MAX_TOP_K = 8
+#: gate_grad's windows a warp holds in shared memory (D up to 8192)
+GATE_MAX_WINDOWS = 256
 #: the kernel's launch constants (``moe_sm90.cu``), mirrored by :func:`geometry`
 WARP_ENTRIES = 32
 ROUTE_THREADS = 512
@@ -409,6 +414,12 @@ def gate_grad(dout: torch.Tensor, ho: torch.Tensor, r: Routing
                          f"{ho.dtype}")
     if dout.device.type == "cpu":
         return gate_grad_ref(dout, ho, r)
+    d = ho.shape[1]
+    if d % WINDOW or d > WINDOW * GATE_MAX_WINDOWS:
+        raise ValueError(f"gate_grad: D={d} is not a multiple of {WINDOW} "
+                         f"up to {WINDOW * GATE_MAX_WINDOWS}: XLA pads a "
+                         "ragged last window, which the kernel's windows of"
+                         " whole 16-byte vectors do not")
     dout, ho = _aligned(dout), _aligned(ho)
     _check_cuda(("dout", dout), ("ho", ho), ("slot", r.slot),
                 ("keep", r.keep))

@@ -35,11 +35,12 @@ The backward, three cotangents, each in a fixed order:
   added): the dispatch's structure, each row scaled by its weight.  The
   rows are ``+0 + p``, not a copy of ``p``: the reference's scatter-add
   into zeros turns -0 into +0.
-* :func:`gate_grad_ref`, the combine's for the gates: ``keep · fp32(
-  cdt(Σ_d dout[token, d] · ho[slot, d]))``, the sum in fp32 in the order
-  of :data:`LANES` lanes folded in halves, which the kernel follows.  XLA
-  sums it in another order in bf16 (1-2 bf16 ulps apart, ROADMAP C7); in
-  fp32 both are the same function to rounding.
+* :func:`gate_grad_ref`, the combine's for the gates: ``+0 + keep ·
+  Σ_d cdt(dout[token, d] · ho[slot, d])``, summed in the compute dtype in
+  the order of the program XLA:CPU compiles for the reference's VJP
+  (:func:`xla_row_sum`: windows of :data:`WINDOW` elements), which the
+  kernel follows.  That is the reference's ``jax.vjp`` bit for bit, in
+  bf16 and in fp32.
 
 :class:`Dispatch` and :class:`Combine` are the two ops with their backward
 as ``torch.autograd.Function`` classes over a table of implementations;
@@ -58,8 +59,8 @@ import types
 import torch
 import torch.nn.functional as F
 
-#: the gate cotangent's sum order (:func:`gate_grad_ref`): one warp's lanes
-LANES = 32
+#: the width of XLA:CPU's reduce-window in a row sum (:func:`xla_row_sum`)
+WINDOW = 32
 
 
 @dataclasses.dataclass
@@ -185,33 +186,45 @@ def combine_grad_ref(dout: torch.Tensor, r: Routing, gates: torch.Tensor
     return _to_rows(dout, r, gates)
 
 
+def xla_row_sum(v: torch.Tensor) -> torch.Tensor:
+    """Each row of ``v`` (M, D) summed in its dtype, in the order XLA:CPU
+    compiles a row sum whose reducer rounds to that dtype: while more than
+    :data:`WINDOW` values remain, a reduce-window of :data:`WINDOW`, stride
+    :data:`WINDOW`, padded with ``pad // 2`` zeros in front and the rest
+    behind (``pad = -D mod WINDOW``), each window summed in order from +0,
+    every add taken in fp32 and rounded to the dtype; then the values left
+    summed in order from +0 the same way.  -> (M,) in ``v``'s dtype."""
+    m = v.shape[0]
+    while v.shape[1] > WINDOW:
+        pad = -v.shape[1] % WINDOW
+        w = F.pad(v, (pad // 2, pad - pad // 2)).view(m, -1, WINDOW)
+        acc = torch.zeros(w.shape[:2], dtype=v.dtype, device=v.device)
+        for j in range(WINDOW):
+            acc = (acc.float() + w[:, :, j].float()).to(v.dtype)
+        v = acc
+    acc = torch.zeros(m, dtype=v.dtype, device=v.device)
+    for j in range(v.shape[1]):
+        acc = (acc.float() + v[:, j].float()).to(v.dtype)
+    return acc
+
+
 def gate_grad_ref(dout: torch.Tensor, ho: torch.Tensor, r: Routing
                   ) -> torch.Tensor:
     """The combine's cotangent for the gates: dout (N, D), ho (E·cap, D) in
     one dtype -> (N, k) float32.
 
-    Each entry's products ``dout[token, d] · ho[slot, d]`` in fp32 (exact
-    for bf16 values), summed in fp32: lane l of :data:`LANES` adds, from
-    +0, the elements of its 16-byte vectors l, l + 32, ... in order; then
-    the lanes fold in halves (lane l + 16 onto lane l, then 8, 4, 2, 1).
-    The sum is rounded to the compute dtype and multiplied by ``keep``: a
-    dropped entry gives ±0, or NaN where its dot is not finite."""
+    Each entry's products ``dout[token, d] · ho[slot, d]`` taken in fp32
+    and rounded to the compute dtype, summed by :func:`xla_row_sum`, as
+    XLA:CPU's program for the reference's VJP sums them; the sum in fp32
+    times ``keep``, added to +0 (the transpose of the reference's
+    ``take_along_axis`` of the gates is a scatter-add into zeros, which
+    turns -0 into +0): a dropped entry gives +0, or NaN where its dot is
+    not finite."""
     n, k = r.top_e.shape
-    nk, d = n * k, dout.shape[1]
-    vec = 16 // dout.element_size()
-    m = -(-d // (vec * LANES))
-    tok = torch.arange(nk, device=dout.device) // k
-    prod = dout[tok].float() * ho[r.slot.long()].float()
-    prod = F.pad(prod, (0, m * LANES * vec - d)).view(nk, m, LANES, vec)
-    acc = torch.zeros((nk, LANES), device=dout.device)
-    for i in range(m):
-        for c in range(vec):
-            acc = acc + prod[:, i, :, c]
-    h = LANES // 2
-    while h:
-        acc = acc[:, :h] + acc[:, h:2 * h]
-        h //= 2
-    return (acc[:, 0].to(dout.dtype).float() * r.keep.float()).view(n, k)
+    tok = torch.arange(n * k, device=dout.device) // k
+    prod = (dout[tok].float() * ho[r.slot.long()].float()).to(dout.dtype)
+    dot = xla_row_sum(prod).float()
+    return (dot * r.keep.float() + 0.0).view(n, k)
 
 
 class Dispatch(torch.autograd.Function):

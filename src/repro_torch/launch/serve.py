@@ -128,7 +128,7 @@ def main(argv: list[str] | None = None, device: str = "cuda") -> dict:
           f"in {dt:.1f}s ({total_tokens/dt:.1f} tok/s) | "
           f"planned fleet makespan {disp.makespan:.3f}s"
           + (f" | MoE entries dropped in prefill {dropped}"
-             if cfg.family == "moe" else ""))
+             if cfg.moe_num_experts else ""))
     return {"arch": cfg.name, "smoke": args.smoke, "device": str(dev),
             "requests": args.requests, "batch": args.batch,
             "prompt": args.prompt, "gen": args.gen, "tokens": total_tokens,

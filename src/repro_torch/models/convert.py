@@ -5,8 +5,9 @@
 example ``jax.tree.map(np.asarray, params)``) and returns the port's
 parameter dict.  The two share names and shapes — blocks stacked with a
 leading layer dimension, ``wq`` (d, h, hd), ``wo`` (h, hd, d), ``embed``
-(padded_vocab, d) — so the conversion is a checked copy.  The MoE router stays float32, as the
-reference initialises it whatever ``param_dtype`` is.
+(padded_vocab, d) — so the conversion is a checked copy.  The MoE router and
+the SSM's ``A_log``, ``D`` and ``dt_bias`` (``model.FP32_KEYS``) stay
+float32, as the reference initialises them whatever ``param_dtype`` is.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.model import Params, param_shapes
+from repro_torch.models.model import FP32_KEYS, Params, param_shapes
 
 
 def params_from_jax(cfg: ModelConfig, tree: Mapping,
@@ -41,7 +42,7 @@ def params_from_jax(cfg: ModelConfig, tree: Mapping,
             arr = np.asarray(node[key], dtype=np.float32)
             if arr.shape != tuple(want):
                 raise ValueError(f"{where}: shape {arr.shape} != expected {want}")
-            dtype = torch.float32 if key == "router" else pdt
+            dtype = torch.float32 if key in FP32_KEYS else pdt
             out[key] = torch.tensor(arr, device=device).to(dtype)
         return out
 

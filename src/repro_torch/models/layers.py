@@ -1,5 +1,5 @@
-"""Model building blocks — the dense and MoE paths of ``repro.models.layers``
-in torch.
+"""Model building blocks — the dense, MoE and SSM paths of
+``repro.models.layers`` in torch.
 
 Plain functions on tensors over a parameter dict with the JAX package's
 shapes (``wq`` is (d, h, hd), ``wo`` is (h, hd, d), ...), so parameters
@@ -7,7 +7,7 @@ carry over by copy (``repro_torch.models.convert``).  Compute dtype is
 ``cfg.dtype``, parameter dtype ``cfg.param_dtype``; each weight is cast to
 the compute dtype where it is used, as in the JAX package, which is a no-op
 for weights already held in the compute dtype (``model.serving_params``).
-SSM and cross-attention port with their model families.
+Cross-attention ports with its model family.
 """
 from __future__ import annotations
 
@@ -219,3 +219,163 @@ def moe_aux_loss(cfg: ModelConfig,
     e = cfg.moe_num_experts
     density = F.one_hot(r.top_e[:, 0].long(), e).float().mean(0)
     return e * torch.sum(density * probs.mean(0))
+
+
+# ------------------------------------------------------------- Mamba2 (SSD)
+#: the profiler spans of the SSD recurrence: ``ssm_apply``'s chunk scan and
+#: ``ssm_decode``'s state update and readout (the projections, the conv and
+#: the gated norm around them are not in them)
+SCAN_SPAN, STEP_SPAN = "ssd.scan", "ssd.step"
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv along time. x: (B, S, C); w: (cw, C); the
+    taps summed in order i = 0 ... cw-1, as the reference's ``sum``."""
+    cw, s = w.shape[0], x.shape[1]
+    pad = F.pad(x, (0, 0, cw - 1, 0))
+    acc = pad[:, 0:s] * w[0]
+    for i in range(1, cw):
+        acc = acc + pad[:, i:i + s] * w[i]
+    return acc
+
+
+def _gated_rmsnorm(p: Params, x: torch.Tensor, z: torch.Tensor
+                   ) -> torch.Tensor:
+    xf = (x * F.silu(z)).float()
+    xf = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + 1e-6)
+    return (xf * p["scale"].float()).to(x.dtype)
+
+
+def _ssm_in(cfg: ModelConfig, p: Params, x: torch.Tensor):
+    """The input projections z, x, B, C and dt of x (B, S, D)."""
+    cdt = compute_dtype(cfg)
+    return tuple(x @ p[name].to(cdt)
+                 for name in ("w_z", "w_x", "w_B", "w_C", "w_dt"))
+
+
+def _ssm_out(cfg: ModelConfig, p: Params, y: torch.Tensor, xh: torch.Tensor,
+             z: torch.Tensor) -> torch.Tensor:
+    """The skip ``D · x``, the gated norm and the output projection: y and
+    xh (B, S, nh, hd), z (B, S, d_inner) -> (B, S, D)."""
+    cdt = compute_dtype(cfg)
+    b, s = y.shape[:2]
+    y = y + xh * p["D"][None, None, :, None].to(cdt)
+    y = _gated_rmsnorm(p["norm"], y.reshape(b, s, cfg.ssm_d_inner), z)
+    return y @ p["w_out"].to(cdt)
+
+
+def _chunk_scan(dt: torch.Tensor, xh: torch.Tensor, Bmat: torch.Tensor,
+                Cmat: torch.Tensor, A: torch.Tensor, lc: int):
+    """The SSD recurrence over chunks of ``lc`` steps, the reference's
+    ``chunk_step`` under its ``lax.scan``: dt (b, s, nh) fp32, xh (b, s, nh,
+    hd), Bmat and Cmat (b, s, ns) in the compute dtype, A (nh,) fp32 ->
+    (y (b, s, nh, hd), the final state (b, nh, hd, ns)), both in the
+    compute dtype."""
+    cdt = xh.dtype
+    b, s, nh, hd = xh.shape
+    mask = torch.tril(torch.ones((lc, lc), dtype=torch.bool, device=xh.device))
+    state = torch.zeros((b, nh, hd, Bmat.shape[-1]), dtype=cdt,
+                        device=xh.device)
+    ys = []
+    with torch.profiler.record_function(SCAN_SPAN):
+        for c0 in range(0, s, lc):
+            dtc, xc = dt[:, c0:c0 + lc], xh[:, c0:c0 + lc]
+            Bc, Cc = Bmat[:, c0:c0 + lc], Cmat[:, c0:c0 + lc]
+            cums = torch.cumsum(dtc * A, dim=1)                   # (b, lc, nh)
+            seg = cums[:, -1, :]                                  # (b, nh)
+            # intra-chunk: y[i] += C_i·B_j · exp(cums_i - cums_j) · dt_j x_j
+            decay = torch.exp(cums[:, :, None, :] - cums[:, None, :, :])
+            cb = torch.einsum("bin,bjn->bij", Cc, Bc)
+            att = cb[..., None] * decay * dtc[:, None, :, :]
+            att = torch.where(mask[None, :, :, None], att, 0.0)
+            y = torch.einsum("bijh,bjhp->bihp", att.to(cdt), xc)
+            # inter-chunk: y[i] += exp(cums_i) · C_i · S_prev
+            y = y + (torch.einsum("bin,bhpn->bihp", Cc, state)
+                     * torch.exp(cums).to(cdt)[..., None])
+            # S <- exp(seg)·S + Σ_j exp(seg - cums_j) dt_j B_j ⊗ x_j
+            sdecay = (torch.exp(seg[:, None, :] - cums) * dtc).to(cdt)
+            contrib = torch.einsum("bjn,bjhp->bhpn", Bc,
+                                   sdecay[..., None] * xc)
+            state = state * torch.exp(seg)[:, :, None, None].to(cdt) + contrib
+            ys.append(y)
+    return (torch.cat(ys, dim=1) if len(ys) > 1 else ys[0]), state
+
+
+def ssm_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
+              return_state: bool = False):
+    """Chunked SSD (state-space duality) forward over a full sequence, the
+    reference's ``ssm_apply``.
+
+    x: (B, S, D).  Within chunks of ``lc = min(ssm_chunk, S)`` steps the
+    recurrence is decay-masked matrix products (the decay and the masked
+    scores in fp32, cast to the compute dtype before the product with x);
+    across chunks a Python loop carries the (B, nh, hd, ns) state in the
+    compute dtype.  S is padded to a multiple of ``lc`` with steps of dt = 0,
+    which leave the state as it is.  With ``return_state`` also returns
+    (the final state, the conv tail): the last cw - 1 steps of the
+    projections before the conv, laid out [x (d_inner), B (ns), C (ns)],
+    which the decode cache holds.
+    """
+    cdt = compute_dtype(cfg)
+    b, s_in, _ = x.shape
+    nh, hd, cw = cfg.ssm_num_heads, cfg.ssm_head_dim, cfg.ssm_conv_width
+    lc = min(cfg.ssm_chunk, s_in)
+    s = -(-s_in // lc) * lc
+    if return_state and s_in < cw - 1:
+        raise ValueError(f"a prompt of {s_in} steps holds no conv tail of "
+                         f"{cw - 1}")
+    if s != s_in:
+        x = F.pad(x, (0, 0, 0, s - s_in))
+    z, xp, Bp, Cp, dt = _ssm_in(cfg, p, x)
+    xin = F.silu(_causal_conv(xp, p["conv_x"].to(cdt)))
+    Bmat = F.silu(_causal_conv(Bp, p["conv_B"].to(cdt)))
+    Cmat = F.silu(_causal_conv(Cp, p["conv_C"].to(cdt)))
+    dt = F.softplus(dt.float() + p["dt_bias"].float())            # (B, S, nh)
+    valid = torch.arange(s, device=x.device) < s_in
+    dt = dt * valid[None, :, None]                    # freeze padded steps
+    A = -torch.exp(p["A_log"].float())                            # (nh,)
+    xh = xin.reshape(b, s, nh, hd)
+    y, state = _chunk_scan(dt, xh, Bmat, Cmat, A, lc)
+    out = _ssm_out(cfg, p, y[:, :s_in], xh[:, :s_in], z[:, :s_in])
+    if not return_state:
+        return out
+    tail = torch.cat([t[:, s_in - (cw - 1):s_in] for t in (xp, Bp, Cp)],
+                     dim=-1)
+    return out, (state, tail)
+
+
+def ssm_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
+               state: torch.Tensor, conv: torch.Tensor):
+    """Single-token SSD step, the reference's ``ssm_decode``.  x: (B, 1,
+    D); state (B, nh, hd, ns) and the conv window's last cw - 1 steps
+    ``conv`` (B, cw-1, d_inner + 2·ns), both in the compute dtype, are
+    updated in place (the reference returns copies); returns (out, (state,
+    conv)).  No value goes to the host."""
+    cdt = compute_dtype(cfg)
+    b = x.shape[0]
+    di, ns, nh, hd = (cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_num_heads,
+                      cfg.ssm_head_dim)
+    cw = cfg.ssm_conv_width
+    z, xp, Bp, Cp, dt = _ssm_in(cfg, p, x)
+    window = torch.cat([conv, torch.cat([xp, Bp, Cp], dim=-1)], dim=1)
+
+    def dconv(w: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+        win, w = window[..., lo:hi], w.to(cdt)
+        acc = win[:, 0] * w[0]
+        for i in range(1, cw):
+            acc = acc + win[:, i] * w[i]
+        return F.silu(acc)
+
+    xin = dconv(p["conv_x"], 0, di)                               # (B, di)
+    Bv = dconv(p["conv_B"], di, di + ns)
+    Cv = dconv(p["conv_C"], di + ns, di + 2 * ns)
+    dtv = F.softplus(dt[:, 0].float() + p["dt_bias"].float())     # (B, nh)
+    with torch.profiler.record_function(STEP_SPAN):
+        da = torch.exp(dtv * -torch.exp(p["A_log"].float()))
+        xh = xin.reshape(b, nh, hd)
+        upd = (xh * dtv.to(cdt)[:, :, None])[..., None] * Bv[:, None, None, :]
+        state.copy_(state * da[:, :, None, None].to(cdt) + upd)
+        conv.copy_(window[:, 1:])
+        y = torch.einsum("bn,bhpn->bhp", Cv, state)
+    out = _ssm_out(cfg, p, y[:, None], xh[:, None], z)
+    return out, (state, conv)

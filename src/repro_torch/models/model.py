@@ -1,15 +1,20 @@
-"""Model assembly for the dense and MoE families: init, the training loss,
-prefill and decode.
+"""Model assembly for the dense, MoE, SSM and hybrid families: init, the
+training loss, prefill and decode.
 
-The counterpart of the dense and MoE paths of ``repro.models.model``.
-Parameters are a nested dict of tensors with the JAX package's names and
-shapes, the layer blocks stacked with a leading layer dimension; the stack
-runs as a Python loop over layer views, each layer under the config's remat
-policy (``cfg.remat``) when it trains.  The decode cache keeps the JAX
-layout too — ``{"layers": {"k", "v"}: (L, B, max_len, Hkv, Dh), "pos":
-(B,)}`` — and is updated in place.  Both families serve and train; the
-MoE layer trains through the dispatch and combine kernels' backward
-(``kernels/moe``).  The other model families port in later slices.
+The counterpart of the dense, MoE, SSM and hybrid paths of
+``repro.models.model``.  Parameters are a nested dict of tensors with the
+JAX package's names and shapes, the layer blocks stacked with a leading
+layer dimension (the hybrid's blocks ``sub0`` ... ``sub{attn_every-1}``,
+one a layer of a period, each stacked over the periods); the stack runs as
+a Python loop over layer views, each layer under the config's remat policy
+(``cfg.remat``) when it trains.  The decode cache keeps the JAX layout too
+— ``{"layers": {"k", "v"}: (L, B, max_len, Hkv, Dh), "pos": (B,)}``, an
+SSM layer's ``{"state": (L, B, nh, hd, ns), "conv": (L, B, cw-1,
+d_inner + 2·ns)}``, the hybrid's per sub-layer over the periods — and is
+updated in place.  The dense and MoE families serve and train; the MoE
+layer trains through the dispatch and combine kernels' backward
+(``kernels/moe``).  The SSM and hybrid families serve; their training (the
+SSD scan's backward) and the other model families port in later slices.
 """
 from __future__ import annotations
 
@@ -23,13 +28,18 @@ from repro_torch.models import layers as L
 
 Params = dict
 
-#: parameters that stay in ``param_dtype`` when serving: the norms read
-#: their scales in fp32 (``layers.norm_apply``) and the MoE router routes
-#: in fp32 (``layers.moe_apply``)
-KEEP_KEYS = ("ln1", "ln2", "final_norm", "router")
+#: parameters that stay as they are when serving: the norms read their
+#: scales in fp32 (``layers.norm_apply``, the SSM's gated ``norm``), the MoE
+#: router routes in fp32 (``layers.moe_apply``), and the SSM takes
+#: ``exp(A_log)``, adds ``dt_bias`` in fp32 and casts ``D`` at its use
+KEEP_KEYS = ("ln1", "ln2", "final_norm", "router", "norm", "A_log", "D",
+             "dt_bias")
+#: parameters the reference initialises in float32 whatever
+#: ``param_dtype`` is
+FP32_KEYS = ("router", "A_log", "D", "dt_bias")
 
 #: the model families each entry point takes
-SERVED = ("dense", "moe")
+SERVED = ("dense", "moe", "ssm", "hybrid")
 TRAINED = ("dense", "moe")
 
 
@@ -49,35 +59,78 @@ def _norm_shapes(cfg: ModelConfig, lead: tuple[int, ...]) -> dict:
     return {"scale": lead + (d,)}
 
 
-def param_shapes(cfg: ModelConfig) -> dict:
-    """The parameter tree's shapes, as ``repro.models.model.init_params``
-    lays them out for a dense or MoE config (every layer an MoE layer)."""
-    _require(cfg, SERVED, "serve")
+def _attn_shapes(cfg: ModelConfig, n: tuple[int, ...]) -> dict:
     d, h, hk, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                     cfg.resolved_head_dim)
-    n = (cfg.num_layers,)
     attn = {"wq": n + (d, h, hd), "wk": n + (d, hk, hd), "wv": n + (d, hk, hd),
             "wo": n + (h, hd, d)}
     if cfg.qkv_bias:
         attn.update(bq=n + (h, hd), bk=n + (hk, hd), bv=n + (hk, hd))
-    blocks = {"ln1": _norm_shapes(cfg, n), "attn": attn,
-              "ln2": _norm_shapes(cfg, n)}
-    if cfg.family == "moe":
-        if cfg.moe_every != 1:
+    return attn
+
+
+def _ssm_shapes(cfg: ModelConfig, n: tuple[int, ...]) -> dict:
+    d, di, ns, nh = (cfg.d_model, cfg.ssm_d_inner, cfg.ssm_state,
+                     cfg.ssm_num_heads)
+    cw = cfg.ssm_conv_width
+    return {"w_z": n + (d, di), "w_x": n + (d, di), "w_B": n + (d, ns),
+            "w_C": n + (d, ns), "w_dt": n + (d, nh), "conv_x": n + (cw, di),
+            "conv_B": n + (cw, ns), "conv_C": n + (cw, ns), "A_log": n + (nh,),
+            "D": n + (nh,), "dt_bias": n + (nh,),
+            "norm": {"scale": n + (di,)}, "w_out": n + (di, d)}
+
+
+def _moe_shapes(cfg: ModelConfig, n: tuple[int, ...]) -> dict:
+    d, e, f = cfg.d_model, cfg.moe_num_experts, cfg.moe_ff
+    moe = {"router": n + (d, e), "w_gate": n + (e, d, f),
+           "w_up": n + (e, d, f), "w_down": n + (e, f, d)}
+    if cfg.moe_num_shared:
+        moe["shared"] = _mlp_shapes(n, d, f * cfg.moe_num_shared)
+    return moe
+
+
+def _layer_shapes(cfg: ModelConfig, i: int, n: tuple[int, ...]) -> dict:
+    """Layer ``i``'s tree (the reference's ``_layer_init`` over its
+    ``_layer_kinds``): attention or SSM behind ``ln1``, then the MLP or MoE
+    behind ``ln2``; the SSM family has no feed-forward."""
+    block = {"ln1": _norm_shapes(cfg, n)}
+    if cfg.is_attn_layer(i):
+        block["attn"] = _attn_shapes(cfg, n)
+    else:
+        block["ssm"] = _ssm_shapes(cfg, n)
+    if cfg.family == "ssm":
+        return block
+    if cfg.is_moe_layer(i):
+        block["ln2"] = _norm_shapes(cfg, n)
+        block["moe"] = _moe_shapes(cfg, n)
+    elif cfg.d_ff:
+        block["ln2"] = _norm_shapes(cfg, n)
+        block["mlp"] = _mlp_shapes(n, cfg.d_model, cfg.d_ff)
+    return block
+
+
+def param_shapes(cfg: ModelConfig) -> dict:
+    """The parameter tree's shapes, as ``repro.models.model.init_params``
+    lays them out: every layer alike, stacked over the layers (a MoE
+    config's every layer an MoE layer), or the hybrid's period of
+    ``attn_every`` sub-layers ``sub{i}``, each stacked over the periods."""
+    _require(cfg, SERVED, "serve")
+    if cfg.family == "hybrid":
+        if cfg.num_layers % cfg.attn_every:
+            raise ValueError(f"{cfg.name}: {cfg.num_layers} layers are not "
+                             f"whole periods of {cfg.attn_every}")
+        n = (cfg.num_layers // cfg.attn_every,)
+        blocks = {f"sub{i}": _layer_shapes(cfg, i, n)
+                  for i in range(cfg.attn_every)}
+    else:
+        if cfg.family == "moe" and cfg.moe_every != 1:
             raise NotImplementedError(f"{cfg.name}: MoE every {cfg.moe_every}"
                                       " layers is the hybrid family's layout")
-        e, f = cfg.moe_num_experts, cfg.moe_ff
-        moe = {"router": n + (d, e), "w_gate": n + (e, d, f),
-               "w_up": n + (e, d, f), "w_down": n + (e, f, d)}
-        if cfg.moe_num_shared:
-            moe["shared"] = _mlp_shapes(n, d, f * cfg.moe_num_shared)
-        blocks["moe"] = moe
-    else:
-        blocks["mlp"] = _mlp_shapes(n, d, cfg.d_ff)
-    shapes = {"embed": (cfg.padded_vocab, d),
+        blocks = _layer_shapes(cfg, 0, (cfg.num_layers,))
+    shapes = {"embed": (cfg.padded_vocab, cfg.d_model),
               "final_norm": _norm_shapes(cfg, ()), "blocks": blocks}
     if not cfg.tie_embeddings:
-        shapes["lm_head"] = (d, cfg.padded_vocab)
+        shapes["lm_head"] = (cfg.d_model, cfg.padded_vocab)
     return shapes
 
 
@@ -88,10 +141,15 @@ def _mlp_shapes(lead: tuple[int, ...], d: int, f: int) -> dict:
 
 def _fan_in(cfg: ModelConfig, path: tuple[str, ...]) -> int:
     """Fan-in of the weight at ``path`` (``dense_init``'s scale): its input
-    width, which for ``w_down`` is the hidden width of its own MLP."""
+    width, which for ``w_down`` is the hidden width of its own MLP, for
+    the SSM's conv filters the conv width and for its ``w_out`` d_inner."""
     d, name = cfg.d_model, path[-1]
     if name == "wo":
         return cfg.num_heads * cfg.resolved_head_dim
+    if name.startswith("conv_"):
+        return cfg.ssm_conv_width
+    if name == "w_out":
+        return cfg.ssm_d_inner
     if name != "w_down":
         return d
     if "shared" in path:
@@ -102,9 +160,12 @@ def _fan_in(cfg: ModelConfig, path: tuple[str, ...]) -> int:
 def _walk_init(cfg: ModelConfig, generator: torch.Generator, leaf) -> Params:
     """The parameter tree, each leaf drawn in ``param_shapes``' order and
     handed to ``leaf(path, tensor)``: the embedding N(0, 0.02²), dense
-    weights N(0, 1/fan_in), norm scales 1, biases 0; the MoE router in
-    float32 whatever ``param_dtype`` is, as the reference's."""
+    weights N(0, 1/fan_in), norm scales 1, biases 0, the SSM's ``A_log``
+    and ``dt_bias`` 0 and ``D`` 1; the MoE router and those three
+    (:data:`FP32_KEYS`) in float32 whatever ``param_dtype`` is, as the
+    reference's."""
     dev, pdt = generator.device, getattr(torch, cfg.param_dtype)
+    f32 = torch.float32
 
     def make(path: tuple[str, ...], shape: tuple[int, ...]) -> torch.Tensor:
         name = path[-1]
@@ -112,9 +173,12 @@ def _walk_init(cfg: ModelConfig, generator: torch.Generator, leaf) -> Params:
             return torch.ones(shape, dtype=pdt, device=dev)
         if name in ("bias", "bq", "bk", "bv"):
             return torch.zeros(shape, dtype=pdt, device=dev)
+        if name in ("A_log", "dt_bias", "D"):
+            fill = torch.ones if name == "D" else torch.zeros
+            return fill(shape, dtype=f32, device=dev)
         std = 0.02 if name == "embed" else _fan_in(cfg, path) ** -0.5
         w = torch.randn(shape, generator=generator, device=dev)
-        return w.mul_(std).to(torch.float32 if name == "router" else pdt)
+        return w.mul_(std).to(f32 if name in FP32_KEYS else pdt)
 
     def walk(tree: dict, path: tuple[str, ...]) -> Params:
         return {k: walk(v, path + (k,)) if isinstance(v, dict)
@@ -301,14 +365,48 @@ def _ffn(cfg: ModelConfig, lp: Params, x: torch.Tensor,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: torch.device | str) -> Params:
-    """Decode cache, stacked over layers."""
+    """Decode cache in the compute dtype, stacked over layers (the
+    hybrid's per sub-layer, over the periods): an attention layer's ``k``
+    and ``v`` (B, max_len, Hkv, Dh), an SSM layer's ``state`` (B, nh, hd,
+    ns) and ``conv`` (B, cw-1, d_inner + 2·ns); ``pos`` (B,)."""
     _require(cfg, SERVED, "serve")
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
     cdt = L.compute_dtype(cfg)
-    return {"layers": {"k": torch.zeros(shape, dtype=cdt, device=device),
-                       "v": torch.zeros(shape, dtype=cdt, device=device)},
+
+    def layer(i: int, n: int) -> Params:
+        if cfg.is_attn_layer(i):
+            shape = (n, batch, max_len, cfg.num_kv_heads,
+                     cfg.resolved_head_dim)
+            return {"k": torch.zeros(shape, dtype=cdt, device=device),
+                    "v": torch.zeros(shape, dtype=cdt, device=device)}
+        return {"state": torch.zeros((n, batch, cfg.ssm_num_heads,
+                                      cfg.ssm_head_dim, cfg.ssm_state),
+                                     dtype=cdt, device=device),
+                "conv": torch.zeros((n, batch, cfg.ssm_conv_width - 1,
+                                     cfg.ssm_d_inner + 2 * cfg.ssm_state),
+                                    dtype=cdt, device=device)}
+
+    if cfg.family == "hybrid":
+        n = cfg.num_layers // cfg.attn_every
+        layers = {f"sub{i}": layer(i, n) for i in range(cfg.attn_every)}
+    else:
+        layers = layer(0, cfg.num_layers)
+    return {"layers": layers,
             "pos": torch.zeros((batch,), dtype=torch.long, device=device)}
+
+
+def _stack(cfg: ModelConfig, params: Params, cache: Params):
+    """Each layer's parameters and cache in order, views into the stacked
+    trees: the hybrid's sub-layers of each period in turn."""
+    if cfg.family != "hybrid":
+        for i in range(cfg.num_layers):
+            yield (_layer(params["blocks"], i),
+                   _layer(cache["layers"], i))
+        return
+    for per in range(cfg.num_layers // cfg.attn_every):
+        for i in range(cfg.attn_every):
+            sub = f"sub{i}"
+            yield (_layer(params["blocks"][sub], per),
+                   _layer(cache["layers"][sub], per))
 
 
 def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
@@ -317,24 +415,30 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     """Process the full prompt, fill the cache, return last-position logits.
 
     tokens: (B, S) integer ids -> ((B, padded_vocab) fp32 logits, cache).
-    Each MoE layer appends its count of dropped entries, a device tensor, to
-    ``dropped`` where given.
+    Attention layers write their K/V into the cache, SSM layers their final
+    state and conv tail.  Each MoE layer appends its count of dropped
+    entries, a device tensor, to ``dropped`` where given.
     """
     _require(cfg, SERVED, "serve")
     cdt = L.compute_dtype(cfg)
     x = params["embed"][tokens.long()].to(cdt)
     b, s = tokens.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
-    ck, cv = cache["layers"]["k"], cache["layers"]["v"]
-    for i in range(cfg.num_layers):
-        lp = _layer(params["blocks"], i)
-        y, (k, v) = L.attn_apply(cfg, lp["attn"],
-                                 L.norm_apply(cfg, lp["ln1"], x), positions,
-                                 causal=True, return_kv=True)
+    for lp, lc in _stack(cfg, params, cache):
+        h = L.norm_apply(cfg, lp["ln1"], x)
+        if "attn" in lp:
+            y, (k, v) = L.attn_apply(cfg, lp["attn"], h, positions,
+                                     causal=True, return_kv=True)
+            lc["k"][:, :s] = k
+            lc["v"][:, :s] = v
+        else:
+            y, (state, conv) = L.ssm_apply(cfg, lp["ssm"], h,
+                                           return_state=True)
+            lc["state"].copy_(state)
+            lc["conv"].copy_(conv)
         x = x + y
-        ck[i, :, :s] = k
-        cv[i, :, :s] = v
-        x = x + _ffn(cfg, lp, x, dropped)
+        if "ln2" in lp:
+            x = x + _ffn(cfg, lp, x, dropped)
     x = L.norm_apply(cfg, params["final_norm"], x)
     cache["pos"] = torch.full((b,), s, dtype=torch.long, device=x.device)
     return _logits(cfg, params, x[:, -1:])[:, 0], cache
@@ -342,18 +446,21 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 
 def decode_step(cfg: ModelConfig, params: Params, cache: Params,
                 tokens: torch.Tensor) -> tuple[torch.Tensor, Params]:
-    """One token for every sequence. tokens: (B, 1) -> (logits, cache)."""
+    """One token for every sequence. tokens: (B, 1) -> (logits, cache).
+    Every layer's cache is written in place; nothing goes to the host."""
     _require(cfg, SERVED, "serve")
     cdt = L.compute_dtype(cfg)
     x = params["embed"][tokens.long()].to(cdt)
     pos = cache["pos"]
-    ck, cv = cache["layers"]["k"], cache["layers"]["v"]
-    for i in range(cfg.num_layers):
-        lp = _layer(params["blocks"], i)
-        h, _ = L.attn_decode(cfg, lp["attn"], L.norm_apply(cfg, lp["ln1"], x),
-                             ck[i], cv[i], pos)
-        x = x + h
-        x = x + _ffn(cfg, lp, x)
+    for lp, lc in _stack(cfg, params, cache):
+        h = L.norm_apply(cfg, lp["ln1"], x)
+        if "attn" in lp:
+            y, _ = L.attn_decode(cfg, lp["attn"], h, lc["k"], lc["v"], pos)
+        else:
+            y, _ = L.ssm_decode(cfg, lp["ssm"], h, lc["state"], lc["conv"])
+        x = x + y
+        if "ln2" in lp:
+            x = x + _ffn(cfg, lp, x)
     x = L.norm_apply(cfg, params["final_norm"], x)
     cache["pos"] = pos + 1
     return _logits(cfg, params, x)[:, 0], cache

@@ -166,17 +166,14 @@ class Problem:
         X = np.empty((self.n, self.Q), f32)
         for j in range(self.n):
             for q in range(self.Q):
-                X[j, q] = _dot_fma(x[j], self.tm[q])
+                X[j, q] = _gemm_xla(x[j], self.tm[q])
         return X
 
     def times(self, x):
         if not self.choice:
             return ((self.pc * x).astype(f32)
                     + (self.pg * (f32(1) - x)).astype(f32)).astype(f32)
-        t = np.zeros(self.n, f32)
-        for c in range(self.C):
-            t = _fma(self.pch[:, c], x[:, c], t)
-        return t
+        return _times(self.pch, x)
 
     def delay(self, X, j, kk, q):
         return f32(self.comm[j, kk] * f32(f32(1) - _dot_fma(X[q], X[j])))
@@ -201,7 +198,7 @@ class Problem:
         """The reduced pool-load sums: (pc.x, pg.(1 - x)) in the block
         tree, or the per-choice area sums in windows of 32."""
         if self.choice:
-            return list(_window_sum((self.ar * x).astype(f32)))
+            return list(_area_sums(self.ar, x))
         return [block_reduce(list((self.pc * x).astype(f32)), self.nt, _add,
                              f32(0)),
                 block_reduce(list((self.pg * (f32(1) - x)).astype(f32)),
@@ -210,8 +207,8 @@ class Problem:
     def pool_loads(self, sums):
         if not self.choice:
             return [f32(sums[0] / self.m), f32(sums[1] / self.k)]
-        return [f32(_dot_fma(self.tm[q], np.asarray(sums, f32)) * self.inv[q])
-                for q in range(self.Q)]
+        loads = _gemv_xla(self.tm, np.asarray(sums, f32))
+        return [f32(loads[q] * self.inv[q]) for q in range(self.Q)]
 
     def lam(self, hard_max, sums):
         loads = self.pool_loads(sums)
@@ -273,6 +270,8 @@ class Problem:
                            for kk, _ in own], f32)
             Xq = np.array([X[q] for _, q in own], f32)
             gX = np.array([_dot_fma(Xq[:, t], gc) for t in range(self.Q)], f32)
+            if UNFUSED_SLOTS[0] <= self.P < UNFUSED_SLOTS[1]:
+                gX[0] = _dot_unfused(Xq[:, 0], gc)
         for s, kk in self.succ(j):
             gc = -f32(self.comm[s, kk] * gdelay[s, kk])
             for t in range(self.Q):
@@ -294,10 +293,15 @@ class Problem:
         """The choice solve's d loss / d z of task j in the reference's
         order, from its times' cotangent, the area sums' and (with
         use_comm) its marginals', through the softmax of row e / S."""
+        gxs = None
         if gX is None:
             gx = np.array([_fma(self.ar[j, c], gcolsum[c],
                                 f32(self.pch[j, c] * gtimes))
                            for c in range(self.C)], f32)
+            if self.C == VECTOR_CHOICES:   # gx / S contracts the other one
+                gxs = np.array([_fma(self.pch[j, c], gtimes,
+                                     f32(self.ar[j, c] * gcolsum[c]))
+                                for c in range(self.C)], f32)
         else:       # inside the solve XLA adds the marginals' share first
             gx = np.array([_fma(self.pch[j, c], gtimes,
                                 _fma(self.ar[j, c], gcolsum[c],
@@ -307,7 +311,8 @@ class Problem:
         t = f32(0)
         for c in range(self.C):
             t = _fma(f32(gx[c] * inv_s2), e[c], t)
-        return np.array([f32(f32(f32(gx[c] / S) - t) * e[c])
+        gxs = gx if gxs is None else gxs
+        return np.array([f32(f32(f32(gxs[c] / S) - t) * e[c])
                          for c in range(self.C)], f32)
 
     def chain_all(self, e, S, gtimes, gcolsum, gdelay, X):
@@ -645,6 +650,76 @@ def _dot_fma(a, b):
     return acc
 
 
+#: the shapes at which XLA:CPU's program for the choice solve sums
+#: otherwise (ROADMAP C6; ``ref.py`` names them the same)
+WINDOW, VECTOR_CHOICES, UNFUSED_SLOTS = 32, 8, (3, 8)
+
+
+def _dot_unfused(a, b):
+    """sum_k a[..., k] b[..., k]: each product rounded, added in order from
+    the first (XLA's column-major product's first row)."""
+    acc = (a[..., 0] * b[..., 0]).astype(f32)
+    for k in range(1, a.shape[-1]):
+        acc = (acc + (a[..., k] * b[..., k]).astype(f32)).astype(f32)
+    return acc
+
+
+def _gemv_xla(a, v):
+    """a (M, K) @ v (K,) as XLA:CPU's tiled row-major matrix-vector
+    product: 8 lanes, each a multiply-add chain from 0 over the tiles of
+    8, folded in halves, then the K % 8 remainder's chain added."""
+    K = a.shape[-1]
+    full = K - K % 8
+    if not full:
+        return _dot_fma(a, v)
+    acc = np.zeros(a.shape[:-1] + (8,), f32)
+    for t in range(0, full, 8):
+        acc = _fma(a[..., t:t + 8], v[t:t + 8], acc)
+    for h in (4, 2, 1):
+        acc = (acc[..., :h] + acc[..., h:2 * h]).astype(f32)
+    tail = np.zeros(a.shape[:-1], f32)
+    for k in range(full, K):
+        tail = _fma(a[..., k], v[k], tail)
+    return (acc[..., 0] + tail).astype(f32)
+
+
+def _gemm_xla(a, b):
+    """sum_k a[..., k] b[..., k] as XLA:CPU's small matrix product: at K =
+    4, 8 and 12 lane i < 4 a multiply-add chain over k = i, i + 4, ...,
+    then (l0 + l1) + (l2 + l3); else :func:`_dot_fma`."""
+    K = a.shape[-1]
+    if K not in (4, 8, 12):
+        return _dot_fma(a, b)
+    a, b = np.broadcast_arrays(a, b)
+    lane = [(a[..., i] * b[..., i]).astype(f32) for i in range(4)]
+    for k in range(4, K):
+        lane[k % 4] = _fma(a[..., k], b[..., k], lane[k % 4])
+    return ((lane[0] + lane[1]).astype(f32)
+            + (lane[2] + lane[3]).astype(f32)).astype(f32)
+
+
+def _times(p, x):
+    """The task times in XLA's order: a multiply-add chain over the
+    choices, or at VECTOR_CHOICES a sum of rounded products from 0."""
+    if p.shape[-1] == VECTOR_CHOICES:
+        return _seq_sum(np.moveaxis((p * x).astype(f32), -1, 0))
+    t = np.zeros(p.shape[:-1], f32)
+    for c in range(p.shape[-1]):
+        t = _fma(p[..., c], x[..., c], t)
+    return t
+
+
+def _area_sums(area, x):
+    """The per-choice area sums over the tasks in XLA's order: its
+    windows over more than WINDOW tasks, else a multiply-add chain."""
+    if area.shape[0] > WINDOW:
+        return _window_sum((area * x).astype(f32))
+    acc = np.zeros(area.shape[1], f32)
+    for j in range(area.shape[0]):
+        acc = _fma(area[j], x[j], acc)
+    return acc
+
+
 def choice_grad_xla_order(topo, pred, mask, comm, z, tau, p, area, tm, inv,
                           *, exp, log, in_solve: bool = False):
     """The gradient of ``repro.core.hlp_jax._solve_choice``'s loss (with
@@ -682,12 +757,10 @@ def choice_grad_xla_order(topo, pred, mask, comm, z, tau, p, area, tm, inv,
     S = _seq_sum(e.T)
     inv_s2 = (f32(1) / (S * S).astype(f32)).astype(f32)
     x = (e / S[:, None]).astype(f32)
-    X = _dot_fma(x[:, None, :], tm[None, :, :])                  # (n, Q)
-    times = np.zeros(n, f32)
-    for c in range(C):
-        times = _fma(p[:, c], x[:, c], times)
-    colsum = _window_sum((area * x).astype(f32))                 # (C,)
-    loads_pre = _dot_fma(tm, colsum[None, :])                    # (Q,)
+    X = _gemm_xla(x[:, None, :], tm[None, :, :])                 # (n, Q)
+    times = _times(p, x)
+    colsum = _area_sums(area, x)                                 # (C,)
+    loads_pre = _gemv_xla(tm, colsum)                            # (Q,)
     Xp = X[predw]                                                # (n, P, Q)
     cross = _dot_fma(Xp, X[:, None, :])
     delay = (comm * (f32(1) - cross)).astype(f32)
@@ -751,12 +824,15 @@ def choice_grad_xla_order(topo, pred, mask, comm, z, tau, p, area, tm, inv,
     # the crossings' transpose into the marginals, then the softmax's
     gcross = (-(comm * gdelay).astype(f32)).astype(f32)
     gX = _dot_fma(np.swapaxes(Xp, 1, 2), gcross[:, None, :])     # (n, Q)
+    if UNFUSED_SLOTS[0] <= P < UNFUSED_SLOTS[1]:
+        gX[:, 0] = _dot_unfused(Xp[:, :, 0], gcross)
     for a in range(n):
         for s in range(P):
             gX[predw[a, s]] = (gX[predw[a, s]]
                                + (gcross[a, s] * X[a]).astype(f32)
                                ).astype(f32)
     gxX = _dot_fma(gX[:, None, :], tm.T[None, :, :])             # (n, C)
+    gxs = None
     if in_solve:
         gx = _fma(p, gtimes[:, None], _fma(area, gcolsum[None, :], gxX))
     else:
@@ -765,5 +841,6 @@ def choice_grad_xla_order(topo, pred, mask, comm, z, tau, p, area, tm, inv,
     t = np.zeros(n, f32)
     for c in range(C):
         t = _fma((gx[:, c] * inv_s2).astype(f32), e[:, c], t)
-    return (((gx / S[:, None]).astype(f32) + (-t)[:, None]).astype(f32)
+    gxs = gx if gxs is None else gxs
+    return (((gxs / S[:, None]).astype(f32) + (-t)[:, None]).astype(f32)
             * e).astype(f32)

@@ -14,7 +14,10 @@ made from seeds with numpy:
   (``tests/hlp_fo_emulation.py``) against that autograd gradient, at the
   same tolerance;
 * whole solves from the reference's own starting logits: best λ at rtol
-  1e-5 and identical rounded allocations; on the ill-conditioned netbound
+  1e-5 and identical rounded allocations, on the moldable instances (8
+  choices, with and without the crossing delays) the best x bit for bit;
+  the emulated kernel's choice gradient bit for bit the plain version's
+  in XLA's order; on the ill-conditioned netbound
   seed 300, within the reference's own one-ulp spread (3.6e-5): the choice
   solve's gradient is written out in XLA's order (``ref.choice_grad``),
   which the independent model ``choice_grad_xla_order`` holds to
@@ -47,6 +50,8 @@ from repro_torch.core.hlp import (canonical_round, solve_hlp,  # noqa: E402
 from repro_torch.core.listsched import hlp_ols  # noqa: E402
 from repro_torch.kernels.hlp_fo import hlp_fo as HF  # noqa: E402
 from repro_torch.kernels.hlp_fo import ref as R  # noqa: E402
+from repro_torch.kernels.hlp_fo.xla_math import xla_exp_f32  # noqa: E402
+from repro_torch.kernels.hlp_fo.xla_math import xla_log_f32  # noqa: E402
 from repro_torch.platform import Platform  # noqa: E402
 
 from hlp_fo_emulation import choice_grad_xla_order  # noqa: E402
@@ -73,6 +78,19 @@ def _random_pair(seed: int, n: int, p_edge: float = 0.15):
 def _jax_z0(seed: int, shape) -> np.ndarray:
     return np.asarray(0.01 * jax.random.normal(jax.random.PRNGKey(seed),
                                                shape))
+
+
+def _twin(fn):
+    """A float32 numpy map through one of the plain version's XLA twins."""
+    return lambda v: fn(torch.from_numpy(np.array(v, np.float32))).numpy()
+
+
+def _program_z0(seed: int, shape) -> np.ndarray:
+    """The z0 of the reference's jitted solve: XLA folds 0.01 · √2 into
+    one constant before the product with erfinv(u), so some entries lie
+    an ulp from the eager ``_jax_z0``'s."""
+    return np.array(jax.jit(lambda: 0.01 * jax.random.normal(
+        jax.random.PRNGKey(seed), shape))(), np.float32)
 
 
 def _choice_inputs(prob):
@@ -175,7 +193,7 @@ def _gradient_cases():
         zt = torch.tensor(z, requires_grad=True)
         tg, = torch.autograd.grad(R.hybrid_loss(td, zt, tau, 8, 2), zt)
         eg = emulated_gradient(td, z, float(tau), m=8, k=2)
-        cases.append((f"hybrid step {i}", jg, tg.numpy(), eg))
+        cases.append((f"hybrid step {i}", jg, tg.numpy(), eg, None))
     # choice, with and without comm
     for name, (js, ts), machine, rigid in (
             ("choice+comm rigid", (jcm, tcm), (8, 2), True),
@@ -202,16 +220,28 @@ def _gradient_cases():
             comm), zt)
         eg = emulated_sm90(td, z, tau, p_choice=ins[0], area=ins[1],
                            type_mask=ins[2], inv_counts=ins[3],
-                           use_comm=comm)
-        cases.append((name, jg, tg.numpy(), eg))
+                           use_comm=comm, exp=_twin(xla_exp_f32),
+                           log=_twin(xla_log_f32))
+        xg = R.choice_grad(td, torch.tensor(z), torch.tensor(tau),
+                           *[torch.tensor(a) for a in ins], comm)
+        cases.append((name, jg, tg.numpy(), eg, xg.numpy()))
     return cases
 
 
 def test_plain_gradient_matches_jax_grad_and_the_emulated_kernel():
-    for name, jg, tg, eg in _gradient_cases():
+    """Autograd's gradient against ``jax.grad`` and the emulated kernel's
+    against autograd's, at rtol 1e-5 (other sum orders); on the choice
+    grids (the moldable instance with and without the crossing delays
+    among them) the emulated kernel also equals the plain version's
+    gradient in XLA's order, ``ref.choice_grad``, bit for bit."""
+    for name, jg, tg, eg, xg in _gradient_cases():
         assert np.abs(jg).max() > 0, name
         _close(tg, jg, f"autograd vs jax.grad: {name}")
         _close(eg, tg, f"emulated kernel vs autograd: {name}")
+        if xg is not None:
+            np.testing.assert_array_equal(
+                np.asarray(eg, np.float32).view(np.int32),
+                np.asarray(xg, np.float32).view(np.int32), err_msg=name)
 
 
 def test_hybrid_solve_from_the_reference_z0_matches_it():
@@ -230,23 +260,34 @@ def test_hybrid_solve_from_the_reference_z0_matches_it():
 
 
 def test_choice_solve_from_the_reference_z0_matches_it():
-    cases = [(a.graph, b.graph, (8, 2), True)
+    """Whole choice solves, 200 iterations, from the z0 of the reference's
+    own program: on comm_suite's rigid grids λ at rtol 1e-5 and the
+    allocation; on both moldable instances (20 tasks, 8 choices), with and
+    without the crossing delays, the reference's best x and λ bit for bit
+    (ROADMAP C6, closed)."""
+    cases = [(a.graph, b.graph, (8, 2), True, True)
              for a, b in zip(JS.comm_suite(seed=50)[:3],
                              TS.comm_suite(seed=50)[:3])]
     for a, b in zip(JS.moldable_suite(seed=400, num=2, ccr=2.0),
                     TS.moldable_suite(seed=400, num=2, ccr=2.0)):
-        cases.append((a.graph, b.graph, b.machine, False))
-    for jg, tg, machine, rigid in cases:
-        prob = AllocationProblem.build(tg, machine, comm_aware=True,
+        cases += [(a.graph, b.graph, b.machine, False, comm)
+                  for comm in (True, False)]
+    for jg, tg, machine, rigid, comm in cases:
+        prob = AllocationProblem.build(tg, machine, comm_aware=comm,
                                        rigid=rigid)
         ins = _choice_inputs(prob)
-        z0 = _jax_z0(0, ins[0].shape)
+        z0 = _program_z0(0, ins[0].shape)
         jx, jv = JH._solve_choice(JH.PaddedDag.from_graph(jg),
                                   *[jnp.asarray(a) for a in ins], 200, 0,
                                   use_comm=prob.comm_aware)
         tx, tv = TH._solve_choice(TH.PaddedDag.from_graph(tg, "cpu"),
                                   *[torch.tensor(a) for a in ins], 200, 0,
                                   use_comm=prob.comm_aware, z0=z0)
+        if not rigid:
+            np.testing.assert_array_equal(
+                tx.numpy().view(np.int32),
+                np.asarray(jx, np.float32).view(np.int32))
+            assert float(tv) == float(jv)
         assert float(tv) == pytest.approx(float(jv), rel=RTOL), tg.n
         np.testing.assert_array_equal(tx.numpy().argmax(1),
                                       np.asarray(jx).argmax(1))

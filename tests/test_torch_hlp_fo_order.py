@@ -24,7 +24,11 @@ Held here, on the CPU:
 * the hybrid solve unchanged: still autograd's gradient, bit for bit;
 * the sm90 kernel's emulation (both designs) equal to the reordered plain
   version bit for bit, gradients and whole solves, and the choice entry's
-  successor lists in descending topological order.
+  successor lists in descending topological order;
+* the moldable instance (8 choices, 3 pred slots), with and without the
+  crossing delays, whole solves from the z0 of the reference's program
+  equal to the reference's best x bit for bit, pinned in
+  ``tests/torch_hlp_fo_moldable_pin.json``.
 """
 import dataclasses
 import fractions
@@ -60,6 +64,9 @@ SPREAD = 3.6e-5
 #: the reference's best x on netbound seed 300 at each of :data:`ITERS`
 PIN = Path(__file__).resolve().parent / "torch_hlp_fo_netbound_pin.json"
 ITERS = (160, 250, 300)
+#: the z0 of the reference's own program and its best x at :data:`ITERS`
+#: on the moldable instance, with and without the crossing delays
+MOLDABLE_PIN = Path(__file__).resolve().parent / "torch_hlp_fo_moldable_pin.json"
 
 
 def _bits(a):
@@ -326,6 +333,77 @@ def test_hybrid_solve_keeps_autograds_gradient():
         assert _bits(bv) == _bits(best)
 
 
+def _moldable(comm):
+    """moldable_suite seed 400's first instance (20 tasks, 8 choices, 3
+    pred slots), with or without the crossing delays: the reference's
+    PaddedDag, the port's, the problem and the float32 inputs."""
+    a = JS.moldable_suite(seed=400, num=1, ccr=2.0)[0]
+    b = TS.moldable_suite(seed=400, num=1, ccr=2.0)[0]
+    prob, ins = _inputs(b.graph, b.machine, comm, False)
+    return (JH.PaddedDag.from_graph(a.graph),
+            TH.PaddedDag.from_graph(b.graph, "cpu"), prob, ins)
+
+
+def _program_z0(shape, seed=0):
+    """The z0 of the reference's jitted ``_solve_choice``: XLA folds
+    0.01 · √2 into one constant before the product with erfinv(u), where
+    the eager :func:`_z0` rounds √2 · erfinv(u) first."""
+    return np.array(jax.jit(lambda: 0.01 * jax.random.normal(
+        jax.random.PRNGKey(seed), shape))(), np.float32)
+
+
+def write_moldable_pin(path: Path = MOLDABLE_PIN) -> None:
+    """The program's z0 and the reference's best x and λ (``frac_objective``
+    of x normalised) on the moldable instance at :data:`ITERS`, with and
+    without the crossing delays."""
+    pin = {"scenario": "moldable_suite(seed=400, num=1, ccr=2.0)[0], "
+                       "moldable (rigid=False)"}
+    for comm in (True, False):
+        jd, _, prob, ins = _moldable(comm)
+        entry = {"z0": _program_z0(ins[0].shape).tolist()}
+        for iters in ITERS:
+            rx, _ = JH._solve_choice(jd, *map(jnp.asarray, ins), iters, 0,
+                                     use_comm=comm)
+            x = np.asarray(rx, np.float32)
+            entry[str(iters)] = {"x": x.tolist(), "lam": frac_objective(
+                prob, x.astype(np.float64) / x.sum(axis=1, keepdims=True))}
+        pin["comm" if comm else "no_comm"] = entry
+    path.write_text(json.dumps(pin, indent=1) + "\n")
+
+
+@pytest.mark.parametrize("comm", [True, False])
+def test_moldable_solves_are_the_references_bit_for_bit(comm):
+    """ROADMAP C6 closed on the moldable instance (8 choices, 3 pred
+    slots), with and without the crossing delays: from the z0 of the
+    reference's own program (pinned; some entries an ulp from the eager
+    one), the plain choice solve gives the reference's best x and λ bit
+    for bit at 3 and 50 iterations and at :data:`ITERS`, and the
+    reference's best x there equals ``tests/torch_hlp_fo_moldable_pin.json``
+    (remake it with ``JAX_PLATFORMS=cpu PYTHONPATH=src:tests python -c
+    "import test_torch_hlp_fo_order as t; t.write_moldable_pin()"``).  What
+    XLA:CPU's program does at this shape and the plain version follows:
+    the pool loads a tiled GEMV (lanes folded in halves), the marginals
+    Eigen's lanes of 4, the task times a sum of rounded products, the area
+    sums over 20 tasks a multiply-add chain, the marginals' cotangent over
+    3 slots unfused in its first type, and without the delays x's
+    cotangent contracted two ways."""
+    jd, td, prob, ins = _moldable(comm)
+    pin = json.loads(MOLDABLE_PIN.read_text())["comm" if comm else "no_comm"]
+    z0 = np.asarray(pin["z0"], np.float32)
+    _same(_program_z0(ins[0].shape), z0, "the pin's z0")
+    assert (z0.view(np.int32) != _z0(0, ins[0].shape).view(np.int32)).any()
+    for iters in (3, 50) + ITERS:
+        rx, rv = JH._solve_choice(jd, *map(jnp.asarray, ins), iters, 0,
+                                  use_comm=comm)
+        if str(iters) in pin:
+            _same(rx, np.asarray(pin[str(iters)]["x"], np.float32),
+                  f"the pin at {iters}")
+        tx, tv = TH._solve_choice(td, *map(torch.from_numpy, ins), iters, 0,
+                                  use_comm=comm, z0=z0)
+        _same(tx.numpy(), rx, f"{iters} iterations")
+        assert _bits(tv) == _bits(rv), iters
+
+
 def _emulation_cases():
     nb = TS.netbound_scenario(seed=300)
     wide = TS.netbound_scenario(width=40, depth=4, seed=3)
@@ -365,8 +443,11 @@ def test_sm90_emulation_is_the_plain_gradient_bit_for_bit():
 
 def test_sm90_emulation_solves_as_the_plain_version():
     """Whole solves: the sm90 design's best x and λ equal
-    ``choice_solve_ref``'s bit for bit (its λ in XLA's order too)."""
-    for name, g, machine, comm, rigid in _emulation_cases()[::2]:
+    ``choice_solve_ref``'s bit for bit (its λ in XLA's order too), on
+    netbound s300 and on the moldable instance with and without the
+    crossing delays."""
+    for name, g, machine, comm, rigid in [_emulation_cases()[i]
+                                          for i in (0, 2, 3)]:
         prob, ins = _inputs(g, machine, comm, rigid)
         d = TH.PaddedDag.from_graph(g, "cpu")
         z0 = np.float32(0.01) * TH.reference_normal(0, ins[0].shape)

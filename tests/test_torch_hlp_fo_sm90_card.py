@@ -54,6 +54,7 @@ NETBOUND_RTOL = 0.0
 #: card's expf / logf; the plain version now gives the pin's x bit for bit)
 NETBOUND_REF_RTOL = 0.0
 NETBOUND_PIN = Path(__file__).resolve().parent / "torch_hlp_fo_netbound_pin.json"
+MOLDABLE_PIN = Path(__file__).resolve().parent / "torch_hlp_fo_moldable_pin.json"
 #: the hybrid entry's best x (SHA-256 of its float32 bytes) and λ on the
 #: H100 (:func:`test_hybrid_solves_keep_their_pinned_bits`)
 HYBRID_PIN = Path(__file__).resolve().parent / "torch_hlp_fo_hybrid_pin.json"
@@ -224,6 +225,33 @@ def test_choice_kernel_is_the_plain_version_given_the_cards_transcendentals(card
         np.testing.assert_array_equal(
             kx.cpu().numpy().view(np.int32),
             np.asarray(ref["x"], np.float32).view(np.int32))
+
+
+def test_choice_kernel_gives_the_references_moldable_x(card):
+    """ROADMAP C6's moldable half, closed: on moldable_suite seed 400 (20
+    tasks, 8 choices, 3 pred slots), with and without the crossing delays,
+    from the pinned z0 of the reference's own program, the kernel's best x
+    and λ equal the plain version's (``ref.choice_solve_ref``) bit for bit
+    and its best x the reference's pinned one at 160, 250 and 300
+    iterations (``tests/torch_hlp_fo_moldable_pin.json``)."""
+    from repro_torch.kernels.hlp_fo import ref as R
+    mo = TS.moldable_suite(seed=400, num=1, ccr=2.0)[0]
+    dc = TH.PaddedDag.from_graph(mo.graph, "cpu")
+    pins = json.loads(MOLDABLE_PIN.read_text())
+    for comm in (True, False):
+        d, _, ins, use_comm = _choice_inputs(mo.graph, mo.machine, comm,
+                                             False)
+        pin = pins["comm" if comm else "no_comm"]
+        z0 = torch.tensor(np.asarray(pin["z0"], np.float32), device=card)
+        for iters in (160, 250, 300):
+            kx, kv = HF.launch_choice(d, z0, *ins, iters=iters,
+                                      use_comm=use_comm)
+            wx, wv = R.choice_solve_ref(dc, z0.cpu(), *[t.cpu() for t in ins],
+                                        iters=iters, use_comm=use_comm)
+            _same((kx, kv), (wx, wv), f"moldable comm={comm}, {iters}")
+            np.testing.assert_array_equal(
+                kx.cpu().numpy().view(np.int32),
+                np.asarray(pin[str(iters)]["x"], np.float32).view(np.int32))
 
 
 def test_hybrid_solves_keep_their_pinned_bits(card):

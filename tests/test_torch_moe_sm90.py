@@ -312,53 +312,74 @@ def test_geometry_mirrors_the_kernels_launches():
         g("sort", 1, 1, 8, 1, 1, 2)
 
 
+def _round(x: np.ndarray, dtype: torch.dtype) -> np.ndarray:
+    """float32 values rounded to ``dtype`` (nearest even) and back."""
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(
+        dtype).float().numpy()
+
+
 def emulate_gate_grad(dout: torch.Tensor, ho: torch.Tensor, slot, keep,
-                      k: int, unroll: int = 4) -> np.ndarray:
+                      k: int) -> np.ndarray:
     """``gate_grad_kernel``'s loop in numpy float32: warp i takes entry i;
-    lane l walks its vectors v0 = l, l + 32·unroll, ..., each round the
-    vectors v0 + 32·u below ``vecs`` (a lane past the end adds nothing),
-    each vector's elements in order, one product and one add at a time;
-    then the xor butterfly over all 32 lanes, lane 0's value rounded to the
-    compute dtype, times keep."""
-    vec = 16 // dout.element_size()
+    lane l takes windows l, l + 32, ... of 32 elements, each window's
+    vectors' elements in order, each product and each add rounded to the
+    compute dtype, into the warp's shared row; while more than 32 sums
+    remain, lane u sums window u of them (the first ``pad // 2`` places
+    before the row add nothing) and the warp writes them back; lane 0 sums
+    the rest in order and writes +0 + sum · keep."""
+    dt = dout.dtype
     d = dout.shape[1]
-    vecs = d // vec
+    assert d % 32 == 0
     a = dout.float().numpy()[np.arange(slot.numel()) // k]
     b = ho.float().numpy()[slot.numpy()]
-    acc = np.zeros((a.shape[0], WARP), np.float32)
-    lane = np.arange(WARP)
-    for v0 in range(0, vecs, WARP * unroll):
-        for u in range(unroll):
-            v = v0 + WARP * u + lane
-            ok = v < vecs
-            for c in range(vec):
-                col = np.minimum(v, vecs - 1) * vec + c
-                p = (a[:, col] * b[:, col]).astype(np.float32)
-                acc = np.where(ok, (acc + p).astype(np.float32), acc)
-    o = WARP // 2
-    while o:
-        acc = (acc + acc[:, lane ^ o]).astype(np.float32)
-        o //= 2
-    dw = torch.from_numpy(acc[:, 0].copy()).to(dout.dtype).float().numpy()
-    with np.errstate(invalid="ignore"):             # a dropped NaN's * 0
-        return dw * keep.numpy().astype(np.float32)
+    windows = d // 32
+    row = np.zeros((a.shape[0], windows), np.float32)
+    with np.errstate(invalid="ignore", over="ignore"):
+        for lane in range(WARP):
+            for w in range(lane, windows, WARP):
+                acc = np.zeros(a.shape[0], np.float32)
+                for c in range(32 * w, 32 * w + 32):
+                    p = _round(a[:, c] * b[:, c], dt)
+                    acc = _round(acc + p, dt)
+                row[:, w] = acc
+        n = windows
+        while n > 32:
+            pad = (32 - n % 32) % 32
+            m = (n + pad) // 32
+            nxt = np.zeros((a.shape[0], m), np.float32)
+            for lane in range(m):
+                acc = np.zeros(a.shape[0], np.float32)
+                for j in range(32):
+                    at = lane * 32 - pad // 2 + j
+                    if 0 <= at < n:
+                        acc = _round(acc + row[:, at], dt)
+                nxt[:, lane] = acc
+            row[:, :m] = nxt
+            n = m
+        acc = np.zeros(a.shape[0], np.float32)
+        for j in range(n):
+            acc = _round(acc + row[:, j], dt)
+        return (np.float32(0) + acc * keep.numpy().astype(np.float32)
+                ).astype(np.float32)
 
 
 def test_gate_grad_and_combine_grad_emulations_equal_the_plain_versions():
     """The backward entries' arithmetic before the card: the gate_grad
-    kernel's lane walk and xor butterfly (:func:`emulate_gate_grad`) and
-    the weighted dispatch of combine_grad (each kept row ``+0 +
-    cdt(dout · cdt(gate))``, a dropped entry's slot NaN where its token's
-    dout is not finite) against ``ref.gate_grad_ref`` and
-    ``ref.combine_grad_ref`` bit for bit, in bf16 and fp32, at D whose
-    vectors fill no whole round of lanes (9, 10), a ragged last round (1000
-    bf16: 125 vectors) and several rounds (2048 fp32: 512), with -0, inf
-    and NaN among the values and entries dropped."""
+    kernel's windows (:func:`emulate_gate_grad`) and the weighted dispatch
+    of combine_grad (each kept row ``+0 + cdt(dout · cdt(gate))``, a
+    dropped entry's slot NaN where its token's dout is not finite) against
+    ``ref.gate_grad_ref`` and ``ref.combine_grad_ref`` bit for bit, in bf16
+    and fp32, at D of 3 windows (fewer than a warp's lanes), 2 and 32
+    windows (one sum of the window sums), 64 windows (a second level of
+    windows, 2 of them) and 130 windows (a second level whose windows are
+    padded: 5 windows, 15 and 15 zeros), with -0, inf and NaN among the
+    values and entries dropped (+0 at a dropped finite entry)."""
     from repro_torch.kernels.moe import ref
 
     rng = np.random.default_rng(21)
-    for dtype, d in ((torch.bfloat16, 72), (torch.float32, 40),
-                     (torch.bfloat16, 1000), (torch.float32, 2048)):
+    for dtype, d in ((torch.bfloat16, 96), (torch.float32, 64),
+                     (torch.bfloat16, 1024), (torch.float32, 2048),
+                     (torch.bfloat16, 4160)):
         n, e, k = 64, 8, 4
         top_e = torch.from_numpy(_topk(d, n, e, k, skew=2.0))
         cap = moe.capacity(n, k, e, 0.5)
@@ -377,6 +398,8 @@ def test_gate_grad_and_combine_grad_emulations_equal_the_plain_versions():
         ok = ~torch.isnan(want)
         assert torch.equal(got[ok].view(torch.int32), want[ok].view(torch.int32))
         assert bool(torch.isnan(want[drop[:4]]).all())
+        finite = drop[4:][torch.isfinite(want[drop[4:]])]
+        assert finite.numel() and not bool(torch.signbit(want[finite]).any())
 
         w = (gates.reshape(-1) * r.keep).to(dtype)
         buf = torch.zeros((e * cap, d), dtype=dtype)

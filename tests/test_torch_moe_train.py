@@ -21,11 +21,12 @@ same float32 products in another order):
   is not the step on one batch where something drops), and 2 equal to 1
   where nothing drops;
 * 60 smoke steps lowering the loss; ``launch.train --smoke --device cpu``;
-* in bf16 on the reference's own routing: the dispatch's cotangent for x
-  and the combine's for the experts' outputs bit for bit against
-  ``jax.vjp`` of the reference's lines, the combine's for the gates within
-  2 bf16 ulps of each entry's Σ|dout · ho| (XLA sums it in an order not
-  reproduced, ROADMAP C7: 1-1.5 ulps measured);
+* in bf16 on the reference's own routing: the dispatch's cotangent for x,
+  the combine's for the experts' outputs and the combine's for the gates
+  bit for bit against ``jax.vjp`` of the reference's lines (the gates'
+  sum in XLA:CPU's windows of 32, ``ref.xla_row_sum``; ROADMAP C7, closed)
+  at the smoke width and at both MoE configs' widths, 1024 and 2048; the
+  gates' in fp32 and at widths that are not a multiple of 32 too;
 * the plain backward against autograd through the plain forward, NaN
   through dropped entries included.
 """
@@ -61,8 +62,9 @@ from test_torch_train import _close, _jleaves  # noqa: E402
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = ["qwen2-moe-a2.7b", "granite-moe-1b-a400m"]
 CAPACITY_FACTORS = (1.25, 0.5)
-#: the bf16 gate cotangent's bound, in bf16 ulps of each entry's Σ|dout · ho|
-GATE_ULPS = 2.0
+#: the model width of each MoE config, where the bf16 gate cotangent is
+#: also checked (besides the smoke width)
+WIDTH = {"qwen2-moe-a2.7b": 2048, "granite-moe-1b-a400m": 1024}
 
 
 def _pair(arch, **kw):
@@ -264,14 +266,47 @@ def _reference_vjps(jcfg, jp, x, seed):
                        "dho": dho[0], "dg": np.asarray(dg, np.float32)}
 
 
+def _moe_layer_at(arch, dtype, cf, d):
+    """:func:`test_torch_moe._moe_layer` at model width ``d`` (None: the
+    smoke config's): (jax cfg, the layer-0 MoE params, x (2, 64, d))."""
+    if d is None:
+        jcfg, _, jp, _, x = _moe_layer(arch, dtype, cf)
+        return jcfg, jp, x
+    jcfg = dataclasses.replace(jax_smoke(arch), dtype=dtype,
+                               capacity_factor=cf, d_model=d)
+    params = JM.init_params(jcfg, jax.random.PRNGKey(0))
+    jp = jax.tree.map(lambda a: a[0], params["blocks"]["moe"])
+    x = np.random.default_rng(5).normal(size=(2, 64, d))
+    return jcfg, jp, jnp.asarray(x, dtype)
+
+
+def _gate_bits_equal(arch, dtype, cf, d):
+    """``ref.gate_grad_ref`` (what ``moe.gate_grad`` runs on the CPU; the
+    card's kernel equals it bit for bit) on the reference's routing and
+    expert outputs against ``jax.vjp`` of its combine, bit for bit; the
+    number of dropped entries."""
+    jcfg, jp, x = _moe_layer_at(arch, dtype, cf, d)
+    steps, v = _reference_vjps(jcfg, jp, x, seed=3)
+    r = ref.route_ref(torch.tensor(_np(steps["top_e"])),
+                      jcfg.moe_num_experts, steps["cap"])
+    if dtype == "bfloat16":
+        dout, ho = _bf16_torch(v["dout"]), _bf16_torch(steps["ho"])
+    else:
+        dout = torch.tensor(np.asarray(v["dout"]))
+        ho = torch.tensor(np.asarray(steps["ho"]))
+    dg = ref.gate_grad_ref(dout, ho, r)
+    np.testing.assert_array_equal(_np(dg.view(torch.int32)),
+                                  v["dg"].view(np.int32))
+    return int(r.stats[-1])
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_bf16_backward_against_the_references_vjp(arch):
     """On the reference's routing and expert outputs in bf16: the plain
-    dispatch_grad (the combine with unit gates) and combine_grad equal the
-    reference's VJP bit for bit (+0 where its scatter-add into zeros gives
-    +0); gate_grad lies within GATE_ULPS bf16 ulps of each entry's
-    Σ|dout · ho| of it, and its order is not XLA's (some entries differ)."""
-    differ = 0
+    dispatch_grad (the combine with unit gates), combine_grad and gate_grad
+    equal the reference's VJP bit for bit (+0 where its scatter-add into
+    zeros gives +0), at capacity 1.25 and 0.5; gate_grad also at the
+    config's own model width (:data:`WIDTH`: 2048 and 1024)."""
     for cf in CAPACITY_FACTORS:
         jcfg, _, jp, _, x = _moe_layer(arch, "bfloat16", cf)
         steps, v = _reference_vjps(jcfg, jp, x, seed=3)
@@ -285,14 +320,23 @@ def test_bf16_backward_against_the_references_vjp(arch):
         dho = moe.combine_grad(dout, r, gates)
         np.testing.assert_array_equal(_bits(dho), _bits(_bf16_torch(v["dho"])))
         dg = moe.gate_grad(dout, ho, r)
-        n, k = dg.shape
-        tok = torch.arange(n * k) // k
-        scale = (dout.float()[tok] * ho.float()[r.slot.long()]).abs().sum(1)
-        ulp = 2.0 ** (torch.floor(torch.log2(scale.clamp_min(1e-30))) - 7)
-        diff = (dg - torch.tensor(v["dg"])).abs().view(-1)
-        assert bool((diff <= GATE_ULPS * ulp).all()), float((diff / ulp).max())
-        differ += int((diff > 0).sum())
-    assert differ > 0          # the sum order is not the reference's (C7)
+        np.testing.assert_array_equal(_np(dg.view(torch.int32)),
+                                      v["dg"].view(np.int32))
+        dropped = _gate_bits_equal(arch, "bfloat16", cf, WIDTH[arch])
+        assert (dropped > 0) == (cf == 0.5)
+
+
+def test_gate_grad_in_fp32_and_ragged_widths_against_the_references_vjp():
+    """gate_grad's plain version bit for bit against ``jax.vjp`` in fp32
+    (XLA:CPU's program has the same windows of 32 there, its adds in fp32)
+    at the smoke width, 1024 and 2048, and at widths that are not a
+    multiple of 32 (XLA pads the windows, ``pad // 2`` zeros in front:
+    1001 and 1000 one level, 4100 two levels), with entries dropped."""
+    arch = "granite-moe-1b-a400m"
+    for dtype, d in (("float32", None), ("float32", 1024), ("float32", 2048),
+                     ("bfloat16", 1001), ("bfloat16", 4100),
+                     ("float32", 1000)):
+        assert _gate_bits_equal(arch, dtype, 0.5, d) > 0
 
 
 def test_plain_backward_against_autograd_of_the_plain_forward():
