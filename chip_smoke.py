@@ -57,23 +57,44 @@ Phases, each of which raises on failure (exit code not 0):
              its routing premise holds (else recorded as not applicable,
              with the layers that broke it), and for granite-moe-1b-a400m
              the same in fp32 at CONSIST_TOL["float32"].
-   ssm     — the SSM and hybrid families (no kernel of their own: the SSD
-             scan runs as torch ops; ROADMAP B7): mamba2-130m at its full
-             published config through ``launch.serve.main`` (8 requests in
-             batches of 4, prompt 512, 32 generated, bf16), every flash and
-             MoE counter 0 just before and 0 just after; prefill(S) plus
-             one decode step against prefill(S + 1) in fp32 at
-             CONSIST_TOL["float32"] and bf16 at CONSIST_TOL["bfloat16"];
-             one SSM layer's ``ssm_apply`` (4 x 512) and ``ssm_decode`` (4)
-             timed beside their bounds; one ``torch.profiler`` trace each
-             of a prefill batch and a decode step (device time by op, the
-             SSD recurrence's share, the busy share).  jamba-v0.1-52b at
-             full width and 16 of its 32 layers through
-             ``launch.serve.generate``: flash launches = 2 attention layers
-             x 2 prefill batches, each MoE forward entry 8 MoE layers x 2 x
-             32; entries dropped; the kernel path's prefill bit for bit the
-             plain path's; bf16 consistency under the MoE premise, and in
-             fp32 at 8 layers (one period) where it fits beside its caches.
+   ssm     — the SSM and hybrid families.  First ``ssd_sm90.cu`` (scan,
+             scan_grad, step; ROADMAP B7) against its plain versions on the
+             card (SSD_SHAPES: mamba2-130m's serving and training shapes,
+             jamba-v0.1-52b's SSM at 4 x 512 and 2 x 2048, a prompt of 1000
+             padded to chunks of 256, a chunk of 13; step at both configs'
+             decode shapes), bf16 and fp32: scan within 1e-5 (fp32) / 2e-2
+             (bf16) and scan_grad within 1e-4 / 2e-2 of each tensor's
+             largest magnitude, step's state and conv window bit for bit, every
+             entry twice bit for bit; each timed from a CUDA graph beside
+             its bound and its launch floor, the plain version eagerly.
+             Then mamba2-130m at its full published config through
+             ``launch.serve.main`` (8 requests in batches of 4, prompt 512,
+             32 generated, bf16): every flash, MoE and SSD counter 0 just
+             before, and just after flash and MoE 0, scan layers x 2 and
+             step layers x 2 x 31; prefill(S) plus one decode step against
+             prefill(S + 1) in fp32 at CONSIST_TOL["float32"] and bf16 at
+             CONSIST_TOL["bfloat16"]; the kernel path's full-width prefill
+             against the plain path's (``layers.ssd_ops`` bound to the plain
+             versions): in fp32 at 1e-5; in bf16 each layer's scan against
+             the plain scan on the same inputs at 2e-2, and the whole
+             prefill's difference printed beside a control (the plain path
+             on the CPU against it on the card; each against fp32); one SSM
+             layer's ``ssm_apply`` (4 x 512) and ``ssm_decode`` (4) timed
+             beside their bounds; one ``torch.profiler`` trace each of a
+             prefill batch and a decode step (device time by op, the SSD
+             recurrence's share, the busy share, traced and untraced).  jamba-v0.1-52b at full width and 16 of its 32 layers
+             through ``launch.serve.generate``: flash launches = 2
+             attention layers x 2 prefill batches, each MoE forward entry 8
+             MoE layers x 2 x 32, scan 14 SSM layers x 2 and step 14 x 2 x
+             31; entries dropped; each batch's decode s beside a warm
+             batch's, and a profiler trace of a prefill and a decode step;
+             the kernel path's prefill bit for bit the path with the MoE's
+             plain versions, each of its scans against the plain scan on
+             the same inputs at 2e-2, the all-plain prefill's difference
+             printed; bf16 consistency under the MoE premise; in fp32 at 8
+             layers (one period), where it fits beside its caches, the
+             kernel path's prefill against the all-plain path's at 1e-5
+             and the consistency.
    train   — olmo-1b's training path (``launch.train``'s step function) at
              its full published config, bf16 compute, fp32 parameters,
              batch 8 x 2048, 20 steps: the flash counter 0 before and 0
@@ -106,6 +127,21 @@ Phases, each of which raises on failure (exit code not 0):
              24 layers, 6 steps, the same checks; granite-moe at 2 layers
              in fp32 on the card against the CPU (rtol 1e-4) where no
              top-k choice flips between the two.
+             Then the SSM family: mamba2-130m at its full published config
+             through the trainer's step (bf16, fp32 state, remat full, batch
+             8 x 2048, 20 steps): every flash, MoE and SSD counter 0 just
+             before and, just after, flash and MoE 0, scan layers x steps x
+             2 (the forward and remat's recompute) and scan_grad layers x
+             steps; finite falling losses from ln V, step s, tokens/s, peak
+             GB and (6 N tokens + 3 x the scan's operations a layer) / step
+             s; the card against the CPU in fp32 at full width and 2
+             layers, batch 2 x 512 (the loss, the grad norm, every gradient
+             and AdamW on the same gradients at rtol 1e-4); the kernel path
+             against the plain path on the card at that cut in bf16 (the
+             loss and every gradient within 2e-2 of each leaf's largest
+             magnitude); jamba-v0.1-52b's smoke config 6 steps on the card
+             with the SSD and MoE launches exact, and card against CPU in
+             fp32 where no top-k choice flips.
 5. maxplus — the (max, +) kernel against its plain version on the card at
              the JAX kernel tests' sweep (fp32 and fp16 inputs) and at
              12 lanes of p = 512 and p = 2944, at exact equality; times of
@@ -267,11 +303,13 @@ The tests that launch a kernel run apart, on the same card:
         tests/test_torch_contention_sm90_card.py \
         tests/test_torch_pipeline_card.py tests/test_torch_hlp_fo_card.py \
         tests/test_torch_hlp_fo_sm90_card.py tests/test_torch_streams_card.py \
-        tests/test_torch_train_card.py tests/test_torch_moe_card.py
+        tests/test_torch_train_card.py tests/test_torch_moe_card.py \
+        tests/test_torch_ssm_card.py tests/test_torch_ssd_card.py
 
-To compare the MoE kernels of two trees on one card, run
-``python3 chip_smoke.py --moe-pair TREE LABEL [--serve]`` for each side in
-turns (parent, change, change, parent): one JSON line a side.
+To compare two trees on one card, run ``python3 chip_smoke.py --pair
+TREE LABEL ARCH...`` for each side in turns (parent, change, change,
+parent): one JSON line a side, with the MoE entries' times of each ARCH
+that has experts and each ARCH's serving.
 
 The line before the last is the card's name and power limit, the one before
 it a JSON object of per-kernel numbers; the last line is
@@ -389,9 +427,53 @@ MOE_FORWARD = ("route", "dispatch", "combine")
 # HYBRID_FP32's depth (one period, 13.3 B parameters, 53 GB) where it fits
 # beside its caches.
 SSM_ARCH = "mamba2-130m"
+PROFILE_UNTRACED = 3     # untraced calls timed beside each profiled one
 HYBRID_ARCH, HYBRID_LAYERS = "jamba-v0.1-52b", 16
 HYBRID_CONSIST_BATCH = 8
 HYBRID_FP32 = {"layers": 8, "batch": 4}
+
+# The SSD kernels (ssd_sm90.cu: scan, scan_grad, step; ROADMAP B7), each
+# against its plain version (kernels/ssd/ref.py) on the same card inputs in
+# bf16 and fp32: scan within SSD_TOL[dtype][0] and scan_grad within
+# SSD_TOL[dtype][1] of each tensor's largest magnitude, each run twice bit
+# for bit; step's state and conv window bit for bit, its readout at the
+# forward's tolerance.  Shapes (b, s, valid steps, nh, hd, ns, lc):
+# mamba2-130m's serving prefill and training batch, jamba-v0.1-52b's SSM at
+# its serving prefill and its training length, a prompt of 1000 padded to 4
+# chunks of 256 (dt 0 on the padded steps, as ssm_apply pads), a chunk of
+# 13; step at both configs' decode shapes (b, nh, hd, ns, conv window
+# width).  Each entry timed from a CUDA graph (bf16) beside its bound and
+# its launch floor (an empty kernel launched as the entry launches its
+# kernels); the plain versions eagerly.
+SSD_SHAPES = {"mamba2-130m serving": (4, 512, 512, 24, 64, 128, 256),
+              "mamba2-130m training": (8, 2048, 2048, 24, 64, 128, 256),
+              "jamba-v0.1-52b serving": (4, 512, 512, 128, 64, 16, 256),
+              "jamba-v0.1-52b": (2, 2048, 2048, 128, 64, 16, 256),
+              "padded S=1000": (2, 1024, 1000, 24, 64, 128, 256),
+              "S=13": (2, 13, 13, 24, 64, 128, 13)}
+SSD_TIMED = ("mamba2-130m serving", "mamba2-130m training", "jamba-v0.1-52b")
+SSD_STEP = {"mamba2-130m": (4, 24, 64, 128, 1792),
+            "jamba-v0.1-52b": (4, 128, 64, 16, 8224)}
+SSD_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (2e-2, 2e-2)}
+
+# The SSM family's training: mamba2-130m at its full published config
+# ([arXiv:2405.21060]: 24 layers, d 768, state 128; 0.129 B parameters) as
+# olmo-1b's run: bf16 compute, fp32 parameters and AdamW state, remat
+# "full", batch TRAIN_BATCH x TRAIN_SEQ, TRAIN_STEPS steps.  A layer a step
+# launches the scan twice (the forward and remat's recompute, whose
+# per-chunk states the backward takes) and scan_grad once:
+# SSM_TRAIN_LAUNCHES.  Then the card against the CPU in fp32 at
+# TRAIN_CPU_CHECK's cut (the loss, the grad norm, every gradient, AdamW on
+# the same gradients, at TRAIN_CPU_RTOL); the kernel path against the plain
+# path (layers.ssd_ops bound to ref) at that cut in bf16, within
+# SSD_TOL["bfloat16"] of each leaf's largest magnitude; and the hybrid,
+# jamba-v0.1-52b's smoke config, HYBRID_TRAIN's steps on the card with the
+# SSD and MoE launches exact, then card against CPU in fp32 where no top-k
+# choice flips.  (jamba at full width does not train on one card: one
+# period of 8 layers holds 13.3 B parameters, 213 GB of fp32 parameters,
+# gradients and AdamW state.)
+SSM_TRAIN_LAUNCHES = {"scan": 2, "scan_grad": 1, "step": 0}
+HYBRID_TRAIN = {"steps": 6, "batch": 4, "seq": 64}
 
 # The MoE family's training run: granite-moe-1b-a400m at its full published
 # config ([hf:ibm-granite/granite-3.0-1b-a400m-base]: 24 layers, d 1024,
@@ -3213,34 +3295,41 @@ def moe_phase(torch, card: str) -> dict:
     return {"checks": checks, "serve": serving, "row": row}
 
 
-def moe_pair_child(tree: str, label: str, serve_too: bool) -> int:
-    """One side of a parent / change comparison of the MoE kernels, in a
-    fresh process: ``python3 chip_smoke.py --moe-pair TREE LABEL
-    [--serve]`` imports TREE's ``repro_torch`` (a checkout; the parent's
-    unpacked from ``git archive`` into a directory ``.gitignore`` lists),
-    times route, dispatch and combine at both MoE configs' prefill and
-    decode shapes in bf16 at capacity 1.25 (CUDA graphs of 20 calls, the
-    best of 3) and, with ``--serve``, serves both configs through
-    ``launch.serve.main`` (8 requests in batches of 4, prompt 512, 32
-    generated); prints one JSON line.  Run the sides in turns (parent,
-    change, change, parent) within one chip call."""
+def pair_child(tree: str, label: str, archs: list[str]) -> int:
+    """One side of a parent / change comparison on one card, in a fresh
+    process: ``python3 chip_smoke.py --pair TREE LABEL ARCH...`` imports
+    TREE's ``repro_torch`` (a checkout; the parent's unpacked from ``git
+    archive`` into a directory ``.gitignore`` lists).  For each ARCH with
+    experts it times route, dispatch and combine at the config's prefill
+    and decode shapes in bf16 at its capacity factor (CUDA graphs of 20
+    calls, the best of 3); then it serves each ARCH: HYBRID_ARCH at full
+    width and HYBRID_LAYERS layers through ``launch.serve.generate`` (a
+    first batch of 4 x 512 + 4 builds and warms the kernels, untimed), any
+    other at its full config through ``launch.serve.main``; each 8 requests
+    in batches of 4, prompt 512, 32 generated.  Prints one JSON line.  Run
+    the sides in turns (parent, change, change, parent) within one chip
+    call; the first process of each tree builds its kernels."""
+    import dataclasses
+
+    import numpy as np
     import torch
 
-    check(torch.cuda.is_available(), "the MoE pair needs a card")
+    check(torch.cuda.is_available(), "the pair needs a card")
     root = Path(tree).resolve()
     sys.path.insert(0, str(root / "src"))
     from repro_torch.configs import get_config
     from repro_torch.kernels.moe import moe
     from repro_torch.launch import serve
+    from repro_torch.models import model as M
 
-    check(Path(moe.__file__).resolve().is_relative_to(root),
-          f"imported {moe.__file__}, not {root}'s")
+    check(Path(serve.__file__).resolve().is_relative_to(root),
+          f"imported {serve.__file__}, not {root}'s")
     out = {"label": label, "card": card_line(), "times_us": {}, "serve": {}}
-    for seed, arch in enumerate(MOE_ARCHS):
+    for seed, arch in enumerate(archs):
         cfg = get_config(arch)
         e, k, d = cfg.moe_num_experts, cfg.moe_top_k, cfg.d_model
         for phase, n in (("prefill", SERVE_BATCH * SERVE_PROMPT),
-                         ("decode", SERVE_BATCH)):
+                         ("decode", SERVE_BATCH)) if e else ():
             cap = moe.capacity(n, k, e, cfg.capacity_factor)
             top_e, gates, x, gen = moe_inputs(torch, seed, n, e, k, d,
                                               torch.bfloat16)
@@ -3254,14 +3343,40 @@ def moe_pair_child(tree: str, label: str, serve_too: bool) -> int:
             for name, fn in runs.items():
                 out["times_us"][f"{arch} {phase} {name}"] = min(
                     graph_ms(fn, 20) for _ in range(3)) * 1e3
-    for arch in MOE_ARCHS if serve_too else ():
-        moe.reset_launch_count()
-        summary = serve.main(["--arch", arch, "--requests", "8", "--batch",
-                              str(SERVE_BATCH), "--prompt", str(SERVE_PROMPT),
-                              "--gen", str(SERVE_GEN)], device=CARD)
-        out["serve"][arch] = {k: summary[k] for k in (
-            "tok_per_s", "prefill_s", "decode_s", "wall_s")}
-        out["serve"][arch]["launches"] = moe.launch_counts()
+    for arch in archs:
+        if arch != HYBRID_ARCH:
+            summary = serve.main(["--arch", arch, "--requests", "8",
+                                  "--batch", str(SERVE_BATCH), "--prompt",
+                                  str(SERVE_PROMPT), "--gen", str(SERVE_GEN)],
+                                 device=CARD)
+            out["serve"][arch] = {k: summary[k] for k in (
+                "tok_per_s", "prefill_s", "decode_s", "wall_s")}
+            torch.cuda.empty_cache()
+            continue
+        cfg = dataclasses.replace(get_config(arch), num_layers=HYBRID_LAYERS,
+                                  use_kernels=True)
+        params = M.init_serving_params(cfg, torch.Generator(device=CARD)
+                                       .manual_seed(0))
+        rng = np.random.default_rng(0)
+
+        def prompt():
+            return torch.as_tensor(rng.integers(
+                0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT)), device=CARD)
+
+        serve.generate(cfg, params, prompt(), 4, SERVE_PROMPT + 4)
+        torch.cuda.synchronize()
+        prefill_s = decode_s = 0.0
+        t0 = time.perf_counter()
+        for _ in range(-(-8 // SERVE_BATCH)):
+            g = serve.generate(cfg, params, prompt(), SERVE_GEN,
+                               SERVE_PROMPT + SERVE_GEN)
+            prefill_s += g.prefill_s
+            decode_s += g.decode_s
+        wall = time.perf_counter() - t0
+        out["serve"][arch] = {"tok_per_s": 8 * SERVE_GEN / wall,
+                              "prefill_s": prefill_s, "decode_s": decode_s,
+                              "wall_s": wall}
+        del params
         torch.cuda.empty_cache()
     print(json.dumps(out))
     return 0
@@ -3599,17 +3714,16 @@ def moe_train_run(torch, card: str, arch: str, layers: int | None,
     return row
 
 
-def moe_cpu_check(torch, card: str) -> dict:
-    """granite-moe-1b-a400m at full width cut to TRAIN_CPU_CHECK's depth
-    and batch, fp32 (TF32 off), on the card against the CPU from the same
-    parameters: the routing of every MoE layer compared first (each token's
+def train_cpu_check(torch, cfg, batch: int, seq: int, label: str,
+                    adamw_too: bool = False) -> dict:
+    """``cfg`` (fp32) on the card against the CPU from the same parameters
+    and batch: the routing of every MoE layer compared first (each token's
     choice set and kept flags); where no choice flipped, the loss, the aux
     loss, the grad norm and every gradient at TRAIN_CPU_RTOL (an absolute
-    floor of 1e-4 of each leaf's largest entry); else "not applicable",
-    with the flips counted and printed."""
-    import dataclasses
-
-    from repro_torch.configs import get_config
+    floor of 1e-4 of each leaf's largest entry), and with ``adamw_too`` one
+    AdamW step on the same gradients on both, the parameters at that
+    tolerance; else "not applicable", with the flips counted and
+    printed."""
     from repro_torch.data.pipeline import DataConfig, make_batch
     from repro_torch.launch import train as LT
     from repro_torch.models import layers as L
@@ -3617,14 +3731,12 @@ def moe_cpu_check(torch, card: str) -> dict:
     from repro_torch.train import step as TS
     from repro_torch.tree import leaves, tree_map
 
-    cut = TRAIN_CPU_CHECK
     dev, cpu = torch.device(CARD), torch.device("cpu")
-    cfg = dataclasses.replace(get_config(MOE_TRAIN_ARCH),
-                              num_layers=cut["layers"], dtype="float32")
     p_cpu = LT.init_state(cfg, cpu)["params"]
     p_card = tree_map(lambda t: t.to(dev, copy=True), p_cpu)
-    b = make_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=cut["seq"],
-                              global_batch=cut["batch"]), 0)
+    b = make_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                              global_batch=batch), 0)
+    moe_layers = sum(cfg.is_moe_layer(i) for i in range(cfg.num_layers))
     runs = {}
     for name, params, where in (("card", p_card, dev), ("cpu", p_cpu, cpu)):
         records = []
@@ -3635,7 +3747,7 @@ def moe_cpu_check(torch, card: str) -> dict:
             loss, metrics, grads = TS.batch_grads(cfg, params,
                                                   LT.batch_on(b, where))
             runs[name] = {"loss": loss, "metrics": metrics, "grads": grads,
-                          "routing": records[:cfg.num_layers],
+                          "routing": records[:moe_layers],
                           "s": time.perf_counter() - t0}
         finally:
             L.moe_apply = apply
@@ -3644,14 +3756,13 @@ def moe_cpu_check(torch, card: str) -> dict:
                 for a, b_ in zip(card_r, cpu_r))
     kept = sum(int((a["keep"].cpu() != b_["keep"]).any(-1).sum())
                for a, b_ in zip(card_r, cpu_r))
-    out = {"layers": cut["layers"], "batch": cut["batch"], "seq": cut["seq"],
+    out = {"layers": cfg.num_layers, "batch": batch, "seq": seq,
            "flipped_tokens": flips, "kept_differ_tokens": kept,
            "cpu_s": runs["cpu"]["s"]}
     if flips or kept:
         out["held"] = "not applicable"
-        print(f"train {MOE_TRAIN_ARCH} card vs CPU (fp32, {cut['layers']} "
-              f"layers): {flips} tokens flipped a top-k choice and {kept} "
-              "kept other entries between the two: not applicable")
+        print(f"train {label}: {flips} tokens flipped a top-k choice and "
+              f"{kept} kept other entries between the two: not applicable")
         return out
     c, h = runs["card"], runs["cpu"]
 
@@ -3659,25 +3770,38 @@ def moe_cpu_check(torch, card: str) -> dict:
         a = a.cpu()
         floor = 1e-4 * b_.abs().max().item()
         within = (a - b_).abs() <= floor + TRAIN_CPU_RTOL * b_.abs()
-        check(bool(within.all()), f"moe card against CPU: {what} "
-              f"{tuple(b_.shape)} differs by {(a - b_).abs().max().item()}")
+        check(bool(within.all()), f"{label}: {what} {tuple(b_.shape)} "
+              f"differs by {(a - b_).abs().max().item()}")
         return _max_rel(torch, a, b_)
 
-    rel = {"loss": abs(float(c["loss"]) / float(h["loss"]) - 1),
-           "aux_loss": abs(float(c["metrics"]["aux_loss"])
-                           / float(h["metrics"]["aux_loss"]) - 1),
-           "grad_norm": abs(float(adamw.global_norm(c["grads"]))
-                            / float(adamw.global_norm(h["grads"])) - 1)}
-    check(max(rel.values()) <= TRAIN_CPU_RTOL, f"moe card against CPU: {rel}")
+    def rel(x, y):
+        x, y = float(x), float(y)
+        return abs(x / y - 1) if y else abs(x)
+
+    rels = {"loss": rel(c["loss"], h["loss"]),
+            "aux_loss": rel(c["metrics"]["aux_loss"],
+                            h["metrics"]["aux_loss"]),
+            "grad_norm": rel(adamw.global_norm(c["grads"]),
+                             adamw.global_norm(h["grads"]))}
+    check(max(rels.values()) <= TRAIN_CPU_RTOL, f"{label}: {rels}")
     worst = max(close(a, b_, "gradient") for a, b_ in
                 zip(leaves(c["grads"]), leaves(h["grads"])))
-    out.update(held=True, rel=rel, grads_max_rel=worst)
-    print(f"train {MOE_TRAIN_ARCH} card vs CPU (fp32, TF32 off, "
-          f"{cut['layers']} layers, batch {cut['batch']} x {cut['seq']}): no "
-          f"top-k choice flipped; loss rel {rel['loss']:.2e}, aux rel "
-          f"{rel['aux_loss']:.2e}, grad norm rel {rel['grad_norm']:.2e}, "
-          f"gradients max|Δ| / max|g| {worst:.2e} (rtol {TRAIN_CPU_RTOL}); "
-          f"the CPU's gradients {runs['cpu']['s']:.1f} s")
+    out.update(held=True, rel=rels, grads_max_rel=worst)
+    note = ""
+    if adamw_too:
+        oc = adamw.OptConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+        g_same = tree_map(lambda t: t.to(dev), h["grads"])
+        adamw.apply(oc, g_same, adamw.init(p_card), p_card)
+        adamw.apply(oc, h["grads"], adamw.init(p_cpu), p_cpu)
+        out["params_max_rel"] = max(close(a, b_, "parameter") for a, b_ in
+                                    zip(leaves(p_card), leaves(p_cpu)))
+        note = (f", AdamW's parameters on the same gradients max|Δ| / max|p|"
+                f" {out['params_max_rel']:.2e}")
+    print(f"train {label} (TF32 off, batch {batch} x {seq}): no top-k choice "
+          f"flipped; loss rel {rels['loss']:.2e}, aux rel "
+          f"{rels['aux_loss']:.2e}, grad norm rel {rels['grad_norm']:.2e}, "
+          f"gradients max|Δ| / max|g| {worst:.2e}{note} (rtol "
+          f"{TRAIN_CPU_RTOL}); the CPU's gradients {runs['cpu']['s']:.1f} s")
     del runs, p_card, p_cpu
     torch.cuda.empty_cache()
     return out
@@ -3691,6 +3815,10 @@ def moe_train_phase(torch, card: str) -> dict:
     qwen2-moe-a2.7b at 2 layers through the trainer's step, each with its
     counters 0 just before and read just after; then the card against the
     CPU.  Returns the summary and the ``kernels`` line's row."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
     t0 = time.perf_counter()
     checks = moe_backward_checks(torch)
     times = {a: moe_backward_times(torch, a, 30 + i)
@@ -3701,7 +3829,13 @@ def moe_train_phase(torch, card: str) -> dict:
     c = MOE_TRAIN_CUT
     cut = moe_train_run(torch, card, c["arch"], c["layers"], c["steps"],
                         c["warmup"])
-    cpu = moe_cpu_check(torch, card)
+    cpu = train_cpu_check(
+        torch, dataclasses.replace(get_config(MOE_TRAIN_ARCH),
+                                   num_layers=TRAIN_CPU_CHECK["layers"],
+                                   dtype="float32"),
+        TRAIN_CPU_CHECK["batch"], TRAIN_CPU_CHECK["seq"],
+        f"{MOE_TRAIN_ARCH} card vs CPU (fp32, {TRAIN_CPU_CHECK['layers']} "
+        "layers)")
     mine = times[MOE_TRAIN_ARCH]["entries"]
     launches = full["moe_launches"]
     # the backward's launches; the combine's third a layer a step is its
@@ -3733,6 +3867,286 @@ def moe_train_phase(torch, card: str) -> dict:
     print(f"train moe: {time.perf_counter() - t0:.1f} s")
     return {"checks": checks, "times": times, "layer": layer, "train": full,
             "train_cut": cut, "cpu_check": cpu, "row": row}
+
+
+def _ssm_layers(cfg) -> int:
+    return sum(not cfg.is_attn_layer(i) for i in range(cfg.num_layers))
+
+
+def ssm_train_run(torch, card: str) -> dict:
+    """mamba2-130m at its full config through ``launch.train``'s step
+    function (TRAIN_BATCH x TRAIN_SEQ, TRAIN_STEPS steps): every flash, MoE
+    and SSD counter 0 just before, read just after (0 flash and MoE
+    launches; the SSD entries SSM_TRAIN_LAUNCHES a layer a step); every
+    loss and grad norm finite, the first loss within TRAIN_LOSS0_TOL of ln
+    V, the last below the first; step s (synchronised; the median of steps
+    2-N), tokens/s, peak GB and (6 N tokens + 3 x the scan's operations a
+    layer) / step s: the model's products forward and backward and the
+    scan's forward and backward (its backward two products for each of the
+    forward's), remat's recompute left out."""
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.moe import moe
+    from repro_torch.kernels.ssd import ssd
+    from repro_torch.launch import train as LT
+    from repro_torch.optim import adamw
+
+    dev = torch.device(CARD)
+    cfg = get_config(SSM_ARCH)
+    check(cfg.family == "ssm" and not cfg.use_kernels
+          and cfg.dtype == "bfloat16" and cfg.param_dtype == "float32"
+          and cfg.remat == "full", f"{SSM_ARCH}: not the trainer's config")
+    oc = adamw.OptConfig(lr=3e-3, warmup_steps=TRAIN_STEPS,
+                         total_steps=TRAIN_STEPS)
+    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                          global_batch=TRAIN_BATCH)
+    torch.cuda.empty_cache()
+    one_step = LT.make_step(cfg, oc, dev)
+    state = LT.init_state(cfg, dev)
+    losses, gnorms, step_s = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_count()
+    moe.reset_launch_count()
+    ssd.reset_launch_count()
+    for step in range(TRAIN_STEPS):
+        batch = make_batch(data_cfg, step)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = one_step(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+    counts = ssd.launch_counts()
+    flash, moe_n = fa.launch_count(), moe.launch_count()
+    peak = torch.cuda.max_memory_allocated()
+    del state
+    torch.cuda.empty_cache()
+    want = {k: v * cfg.num_layers * TRAIN_STEPS
+            for k, v in SSM_TRAIN_LAUNCHES.items()}
+    check(counts == want, f"{SSM_ARCH}: SSD launches {counts}, expected "
+          f"{want}")
+    check(flash == 0 and moe_n == 0, f"{SSM_ARCH}: training launched flash "
+          f"{flash} and MoE {moe_n} times")
+    check(all(math.isfinite(v) for v in losses + gnorms),
+          f"{SSM_ARCH}: non-finite loss or grad norm: {losses}, {gnorms}")
+    ln_v = math.log(cfg.vocab_size)
+    check(abs(losses[0] - ln_v) <= TRAIN_LOSS0_TOL, f"{SSM_ARCH}: first loss "
+          f"{losses[0]} not within {TRAIN_LOSS0_TOL} of ln V = {ln_v}")
+    check(losses[-1] < losses[0], f"{SSM_ARCH}: loss did not fall: {losses}")
+    steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    scan_flops = ssd_bound("scan", TRAIN_BATCH, TRAIN_SEQ, cfg.ssm_num_heads,
+                           cfg.ssm_head_dim, cfg.ssm_state,
+                           min(cfg.ssm_chunk, TRAIN_SEQ), 2)["flops"]
+    flops = 6 * cfg.num_params() * tokens + 3 * scan_flops * cfg.num_layers
+    row = {"arch": SSM_ARCH, "cut": "full config", "layers": cfg.num_layers,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+           "losses": losses, "grad_norms": gnorms, "step_s": step_s,
+           "step_s_median": steady, "tokens_per_s": tokens / steady,
+           "peak_gb": peak / 1e9, "flops_per_step": flops,
+           "tflops": flops / steady / 1e12,
+           "mfu_vs_bf16_peak": flops / steady / BF16_FLOP_PER_S,
+           "ssd_launches": counts, "flash_launches": flash,
+           "moe_launches": moe_n, "params": cfg.num_params()}
+    print(f"train {SSM_ARCH} (full config) on {card}: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} (ln V {ln_v:.4f}), step {steady:.3f} s (median "
+          f"of steps 2-{TRAIN_STEPS}; first {step_s[0]:.3f} s), "
+          f"{tokens / steady:.0f} tokens/s, peak {peak / 1e9:.1f} GB, "
+          f"~{flops / steady / 1e12:.1f} TFLOP/s = (6 N tokens + 3 x the "
+          f"scan's {scan_flops / 1e9:.2f} GFLOP a layer) / step s, N = "
+          f"{cfg.num_params()}, {flops / steady / BF16_FLOP_PER_S:.1%} of the"
+          f" bf16 dense peak; SSD launches {counts}, flash {flash}, MoE "
+          f"{moe_n}")
+    return row
+
+
+def ssm_plain_path_grads(torch) -> dict:
+    """mamba2-130m at full width cut to TRAIN_CPU_CHECK's depth and batch,
+    bf16 compute, remat full, on the card: the loss and every gradient
+    through ``ssd_sm90.cu`` against those through the plain versions
+    (``layers.ssd_ops`` bound to :func:`_plain_ssd_ops`), within
+    SSD_TOL["bfloat16"] of each leaf's largest magnitude; the kernel path's
+    launches counted."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.kernels.ssd import ssd
+    from repro_torch.launch import train as LT
+    from repro_torch.models import layers as L
+    from repro_torch.train import step as TS
+    from repro_torch.tree import leaves
+
+    cut = TRAIN_CPU_CHECK
+    cfg = dataclasses.replace(get_config(SSM_ARCH), num_layers=cut["layers"])
+    dev = torch.device(CARD)
+    params = LT.init_state(cfg, dev)["params"]
+    batch = LT.batch_on(make_batch(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=cut["seq"],
+        global_batch=cut["batch"]), 0), dev)
+    runs = []
+    ssd.reset_launch_count()
+    for ops in (L.ssd_ops, _plain_ssd_ops()):
+        kernel_ops, L.ssd_ops = L.ssd_ops, ops
+        try:
+            runs.append(TS.batch_grads(cfg, params, batch))
+        finally:
+            L.ssd_ops = kernel_ops
+        if len(runs) == 1:
+            counts = ssd.launch_counts()
+    want = {k: v * cfg.num_layers for k, v in SSM_TRAIN_LAUNCHES.items()}
+    check(counts == want, f"{SSM_ARCH} kernel path: SSD launches {counts}, "
+          f"expected {want}")
+    (lk, _, gk), (lp, _, gp) = runs
+    tol = SSD_TOL["bfloat16"][1]
+    loss_err = abs(float(lk) / float(lp) - 1)
+    errs = [_ssd_err(torch, a, b)[0] for a, b in zip(leaves(gk), leaves(gp))]
+    check(loss_err <= tol and max(errs) <= tol and all(
+        bool(torch.isfinite(g).all()) for g in leaves(gk)),
+        f"{SSM_ARCH}: kernel path against the plain path: loss {loss_err}, "
+        f"gradients {errs} (limit {tol})")
+    names = _leaf_names(params)
+    worst = max(range(len(errs)), key=errs.__getitem__)
+    print(f"train {SSM_ARCH} kernel path vs plain path on the card (bf16, "
+          f"{cfg.num_layers} layers, batch {cut['batch']} x {cut['seq']}): "
+          f"loss rel {loss_err:.2e}, {len(errs)} gradients max|Δ| / max|g| "
+          f"up to {errs[worst]:.2e} ({names[worst]}; limit {tol}); SSD "
+          f"launches {counts}")
+    del runs, params
+    torch.cuda.empty_cache()
+    return {"loss_rel": loss_err, "grads_max_rel": errs[worst],
+            "worst_leaf": names[worst], "launches": counts}
+
+
+def hybrid_train(torch, card: str) -> dict:
+    """jamba-v0.1-52b's smoke config (4 layers: 3 SSM, 1 attention, 2 MoE)
+    trained HYBRID_TRAIN's steps on the card through ``launch.train``'s
+    step (bf16, fp32 state, remat full, one remat a period): every counter
+    0 just before; just after, 0 flash launches, each SSD entry
+    SSM_TRAIN_LAUNCHES a SSM layer a step and each MoE entry
+    MOE_TRAIN_LAUNCHES a MoE layer a step; every loss finite.  Then the
+    card against the CPU in fp32 (:func:`train_cpu_check`)."""
+    import dataclasses
+    import math
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.moe import moe
+    from repro_torch.kernels.ssd import ssd
+    from repro_torch.launch import train as LT
+    from repro_torch.optim import adamw
+
+    h = HYBRID_TRAIN
+    cfg = get_smoke_config(HYBRID_ARCH)
+    check(cfg.remat == "full" and cfg.dtype == "bfloat16",
+          f"{HYBRID_ARCH} smoke: not the trainer's config")
+    dev = torch.device(CARD)
+    oc = adamw.OptConfig(lr=3e-3, warmup_steps=h["steps"],
+                         total_steps=h["steps"])
+    one_step = LT.make_step(cfg, oc, dev)
+    state = LT.init_state(cfg, dev)
+    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=h["seq"],
+                          global_batch=h["batch"])
+    fa.reset_launch_count()
+    moe.reset_launch_count()
+    ssd.reset_launch_count()
+    losses, aux = [], []
+    for step in range(h["steps"]):
+        state, metrics = one_step(state, make_batch(data_cfg, step))
+        losses.append(float(metrics["loss"]))
+        aux.append(float(metrics["aux_loss"]))
+    counts, moe_counts = ssd.launch_counts(), moe.launch_counts()
+    flash = fa.launch_count()
+    moe_layers = sum(cfg.is_moe_layer(i) for i in range(cfg.num_layers))
+    want = {k: v * _ssm_layers(cfg) * h["steps"]
+            for k, v in SSM_TRAIN_LAUNCHES.items()}
+    want_moe = {k: v * moe_layers * h["steps"]
+                for k, v in MOE_TRAIN_LAUNCHES.items()}
+    check(counts == want and moe_counts == want_moe and flash == 0,
+          f"{HYBRID_ARCH} smoke training: SSD {counts} (expected {want}), "
+          f"MoE {moe_counts} (expected {want_moe}), flash {flash}")
+    check(all(math.isfinite(v) for v in losses + aux),
+          f"{HYBRID_ARCH} smoke training: non-finite {losses}, {aux}")
+    print(f"train {HYBRID_ARCH} smoke ({cfg.num_layers} layers: "
+          f"{_ssm_layers(cfg)} SSM, {moe_layers} MoE) on {card}: "
+          f"{h['steps']} steps, loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+          f"aux {aux[0]:.4f} -> {aux[-1]:.4f}; SSD launches {counts}, MoE "
+          f"launches {moe_counts}, flash 0")
+    del state
+    cpu = train_cpu_check(
+        torch, dataclasses.replace(cfg, dtype="float32"), h["batch"],
+        h["seq"], f"{HYBRID_ARCH} smoke card vs CPU (fp32)")
+    return {"losses": losses, "aux_losses": aux, "ssd_launches": counts,
+            "moe_launches": moe_counts, "flash_launches": flash,
+            "cpu_check": cpu}
+
+
+def ssm_train_phase(torch, card: str) -> dict:
+    """The SSM and hybrid families' training: :func:`ssm_train_run`, the
+    card against the CPU (:func:`train_cpu_check`, mamba2-130m at full
+    width and TRAIN_CPU_CHECK's cut, with AdamW on the same gradients),
+    :func:`ssm_plain_path_grads` and :func:`hybrid_train`."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    out = {"train": ssm_train_run(torch, card)}
+    cut = TRAIN_CPU_CHECK
+    cfg = dataclasses.replace(get_config(SSM_ARCH), num_layers=cut["layers"],
+                              dtype="float32")
+    out["cpu_check"] = train_cpu_check(
+        torch, cfg, cut["batch"], cut["seq"],
+        f"{SSM_ARCH} card vs CPU (fp32, {cut['layers']} layers)",
+        adamw_too=True)
+    check(out["cpu_check"]["held"] is True, f"{SSM_ARCH}: card vs CPU not "
+          "held")
+    out["plain_path"] = ssm_plain_path_grads(torch)
+    out["hybrid"] = hybrid_train(torch, card)
+    print(f"train ssm: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def ssd_rows(ssm: dict, ssm_train: dict) -> list:
+    """The ``kernels`` line's rows of ``ssd_sm90.cu``'s entries: each at
+    mamba2-130m's training shape (step: its decode shape), its launches on
+    the main path (the training run's for scan and scan_grad, the serve
+    run's for step), the other shapes beside."""
+    checks, times = ssm["ssd"], ssm["ssd"]["times"]
+    serve_counts = ssm["ssm"]["ssd_launches"]
+    train_counts = ssm_train["train"]["ssd_launches"]
+    rows = []
+    for entry, key, replaces in (
+            ("scan", "scan mamba2-130m training", "src/repro/models/layers.py:404"),
+            ("scan_grad", "scan_grad mamba2-130m training",
+             "src/repro/models/layers.py:404"),
+            ("step", "step mamba2-130m decode",
+             "src/repro/models/layers.py:474")):
+        t = times[key]
+        launches = (serve_counts if entry == "step" else train_counts)[entry]
+        rows.append({
+            "name": f"ssd_{entry}", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_sm90.cu",
+            "replaces": replaces, "shape": key.split(" ", 1)[1] + ", bf16",
+            "launches": launches,
+            "serve_launches": {SSM_ARCH: serve_counts[entry],
+                               HYBRID_ARCH: ssm["hybrid"]["ssd_launches"][entry]},
+            "max_abs_err": checks["max_abs_err"][entry],
+            "max_rel_err": checks["max_rel_err"][entry],
+            "ms": t["ms"], "eager_ms": t["eager_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "floor_ms": t["floor_ms"], "library_ms": None,
+            "other_shapes": {k: {f: v[f] for f in ("ms", "plain_ms",
+                                                   "bound_ms", "floor_ms")}
+                             for k, v in times.items()
+                             if k.split(" ", 1)[0] == entry and k != key}})
+    return rows
 
 
 def _train_flops(cfg, tokens: int, seq: int) -> float:
@@ -4014,7 +4428,9 @@ def ssm_profile(torch, cfg, params) -> dict:
     (the kernels under ``layers.SCAN_SPAN`` / ``STEP_SPAN``), and the busy
     share: the kernels' time over the host wall time of the call, traced
     (the profiler's cost lengthens it; a first traced call takes the
-    tracer's start-up)."""
+    tracer's start-up), and over the mean wall time of PROFILE_UNTRACED
+    untraced calls.  The decode steps (warm-up, untraced, traced) run on
+    one cache, which holds a position for each."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import layers as L
@@ -4027,7 +4443,7 @@ def ssm_profile(torch, cfg, params) -> dict:
     out = {}
 
     def run(which):
-        cache = M.init_cache(cfg, b, s + 1, CARD)
+        cache = M.init_cache(cfg, b, s + 3 + PROFILE_UNTRACED, CARD)
         logits, cache = M.prefill(cfg, params, toks, cache)
         if which == "prefill":
             return logits
@@ -4044,6 +4460,11 @@ def ssm_profile(torch, cfg, params) -> dict:
         for _ in range(2):
             fn()
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_UNTRACED):
+            fn()
+        torch.cuda.synchronize()
+        untraced_us = (time.perf_counter() - t0) * 1e6 / PROFILE_UNTRACED
         with profile(activities=activities) as prof:
             t0 = time.perf_counter()
             fn()
@@ -4060,6 +4481,8 @@ def ssm_profile(torch, cfg, params) -> dict:
         top = dict(sorted(by_op.items(), key=lambda kv: -kv[1])[:12])
         row = {"wall_ms": wall_us / 1e3, "device_ms": device_us / 1e3,
                "busy": device_us / wall_us,
+               "untraced_wall_ms": untraced_us / 1e3,
+               "untraced_busy": device_us / untraced_us,
                "scan_ms": scan_us / 1e3, "span": span,
                "scan_share": scan_us / device_us if device_us else None,
                "by_op_ms": {k: v / 1e3 for k, v in top.items()},
@@ -4071,8 +4494,9 @@ def ssm_profile(torch, cfg, params) -> dict:
         out[which] = row
         print(f"profile {cfg.name} {which} ({b} x {s if which == 'prefill' else 1}"
               f" tokens): device {row['device_ms']:.3f} ms of "
-              f"{row['wall_ms']:.3f} ms wall (busy {row['busy']:.1%}); "
-              f"{span} {row['scan_ms']:.3f} ms "
+              f"{row['wall_ms']:.3f} ms wall (busy {row['busy']:.1%}; "
+              f"untraced {row['untraced_wall_ms']:.3f} ms, busy "
+              f"{row['untraced_busy']:.1%}); {span} {row['scan_ms']:.3f} ms "
               f"({(row['scan_share'] or 0):.1%} of device time); by op "
               + ", ".join(f"{k} {v:.3f}" for k, v in
                           list(row["by_op_ms"].items())[:8]))
@@ -4084,8 +4508,8 @@ def ssd_bound_ms(cfg, b: int, s: int) -> dict:
     ``ssm_decode`` (s = 1) on b sequences in bf16: its bytes (x in, the
     weights, out; at decode also the state and the conv window read and
     written) over HBM_BYTES_PER_S against its operations (the projections,
-    the chunk's products over all lc x lc places as computed, the inter-
-    chunk and state products) over BF16_FLOP_PER_S."""
+    the chunk's products over its lc (lc + 1) / 2 places on and below the
+    diagonal, the inter-chunk and state products) over BF16_FLOP_PER_S."""
     d, di, ns, nh, hd = (cfg.d_model, cfg.ssm_d_inner, cfg.ssm_state,
                          cfg.ssm_num_heads, cfg.ssm_head_dim)
     cw, e = cfg.ssm_conv_width, 2
@@ -4094,8 +4518,8 @@ def ssd_bound_ms(cfg, b: int, s: int) -> dict:
     flops = 2 * b * s * (d * (2 * di + 2 * ns + nh) + di * d)
     if s > 1:
         lc = min(cfg.ssm_chunk, s)
-        flops += 2 * b * (-(-s // lc) * lc) * (lc * ns + lc * nh * hd
-                                                + 2 * ns * nh * hd)
+        flops += 2 * b * -(-s // lc) * (lc * (lc + 1) // 2 * (ns + nh * hd)
+                                        + lc * 2 * ns * nh * hd)
     else:
         moved += e * 2 * b * (nh * hd * ns + (cw - 1) * (di + 2 * ns))
         flops += 2 * b * 2 * ns * nh * hd
@@ -4134,6 +4558,364 @@ def ssd_times(torch, cfg, params) -> dict:
     return out
 
 
+def _plain_ssd_ops():
+    """The SSD ops module's names bound to the plain versions (the scan
+    with its plain backward, ``ref.scan``; ``ref.step_ref``): the model's
+    plain path on the card, for the kernel path's comparison."""
+    import types
+
+    from repro_torch.kernels.ssd import ref
+
+    return types.SimpleNamespace(scan=ref.scan, step=ref.step_ref)
+
+
+def ssd_inputs(torch, b: int, s: int, s_in: int, nh: int, hd: int, ns: int,
+               dtype, seed: int):
+    """Scan inputs on the card as ``ssm_apply`` makes them: dt a softplus,
+    0 past ``s_in`` (the padded steps); A = -exp(A_log)."""
+    gen = torch.Generator(device=CARD).manual_seed(seed)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, s, nh), generator=gen, device=CARD) - 1.0)
+    dt[:, s_in:] = 0.0
+    xh = torch.randn((b, s, nh, hd), generator=gen, device=CARD).to(dtype)
+    B = torch.randn((b, s, ns), generator=gen, device=CARD).to(dtype)
+    C = torch.randn((b, s, ns), generator=gen, device=CARD).to(dtype)
+    A = -torch.exp(0.5 * torch.randn((nh,), generator=gen, device=CARD))
+    return dt, xh, B, C, A
+
+
+def ssd_bound(entry: str, b: int, s: int, nh: int, hd: int, ns: int,
+              lc: int, elem: int, width: int = 0, cw: int = 4) -> dict:
+    """The least time of one SSD entry on the H100: its bytes (each input
+    read once, each output written once) over HBM_BYTES_PER_S against its
+    operations over the peak of the compute dtype (bf16's tensor cores,
+    fp32's FMA).  scan: dt, xh, B, C, A in, y, the final state and the
+    per-chunk states out; its products over each chunk's lc (lc + 1) / 2
+    places on and below the diagonal (the scores, the masked scores times
+    x; the kernel skips the tiles above it) and the state's (C times the
+    state, the contribution), 2 b nc (lc (lc + 1) / 2 (ns + nh hd)
+    + 2 lc ns nh hd).
+    scan_grad: the inputs, the states and dy in, dxh, ddt, dB, dC, dA out;
+    two products for each of the forward's.  step: the state read and
+    written, the conv window read and its tail written, xh, B, C, dt in, y
+    out; bound by bytes (its ~8 operations a state value are not
+    counted)."""
+    nc = s // lc
+    peak = BF16_FLOP_PER_S if elem == 2 else FP32_FLOP_PER_S
+    fwd = 2 * b * nc * (lc * (lc + 1) // 2 * (ns + nh * hd)
+                        + lc * 2 * ns * nh * hd)
+    if entry == "scan":
+        moved = (4 * (b * s * nh + nh)
+                 + elem * (2 * b * s * nh * hd + 2 * b * s * ns
+                           + (1 + nc) * b * nh * hd * ns))
+        flops = fwd
+    elif entry == "scan_grad":
+        moved = (4 * (2 * b * s * nh + 2 * nh)
+                 + elem * (3 * b * s * nh * hd + 4 * b * s * ns
+                           + nc * b * nh * hd * ns))
+        flops = 2 * fwd
+    else:
+        moved = (4 * (b * nh + nh)
+                 + elem * (2 * b * nh * hd * ns + (2 * cw - 1) * b * width
+                           + 2 * b * nh * hd + 2 * b * ns))
+        flops = 0
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return {"bytes": moved, "flops": flops,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _ssd_err(torch, got, want) -> tuple[float, float]:
+    """(max |got - want| / max |want|, max |got - want|)."""
+    d = (got.float() - want.float()).abs().max().item()
+    return d / max(want.float().abs().max().item(), 1e-30), d
+
+
+def ssd_kernel_checks(torch) -> dict:
+    """``ssd_sm90.cu``'s three entries against their plain versions on the
+    card at SSD_SHAPES and SSD_STEP in bf16 and fp32 (SSD_TOL; step's state
+    and conv window bit for bit), each run twice bit for bit; then each
+    entry at SSD_TIMED's shapes and the step shapes in bf16 timed from a
+    CUDA graph beside its bound (:func:`ssd_bound`) and launch floor, the
+    plain version eagerly.  Launches here are comparisons, not the main
+    path."""
+    from repro_torch.kernels.ssd import ref, ssd
+
+    def bits(t):
+        return t.view(torch.int16 if t.dtype == torch.bfloat16
+                      else torch.int32)
+
+    out = {"cases": [], "times": {}}
+    worst = {"scan": 0.0, "scan_grad": 0.0, "step": 0.0}
+    worst_abs = dict(worst)
+    for seed, (name, (b, s, s_in, nh, hd, ns, lc)) in enumerate(
+            SSD_SHAPES.items()):
+        for dtype in (torch.bfloat16, torch.float32):
+            tol_f, tol_b = SSD_TOL[str(dtype).split(".")[-1]]
+            args = ssd_inputs(torch, b, s, s_in, nh, hd, ns, dtype, 60 + seed)
+            got = ssd._forward_scan(*args, lc)
+            again = ssd._forward_scan(*args, lc)
+            want = ref.scan_ref(*args, lc)
+            errs = {}
+            for key, g, a, w in zip(("y", "final", "states"), got, again,
+                                    want):
+                check(torch.equal(bits(g), bits(a)), f"ssd scan {name} "
+                      f"{dtype}: {key} differs between two runs")
+                errs[key], d = _ssd_err(torch, g, w)
+                worst_abs["scan"] = max(worst_abs["scan"], d)
+                check(errs[key] <= tol_f, f"ssd scan {name} {dtype}: {key} "
+                      f"{errs[key]} of its largest magnitude (limit {tol_f})")
+            worst["scan"] = max([worst["scan"]] + list(errs.values()))
+            gen = torch.Generator(device=CARD).manual_seed(70 + seed)
+            dy = torch.randn(args[1].shape, generator=gen, device=CARD).to(
+                dtype)
+            dy[:, s_in:] = 0
+            states = want[2]
+            del got, again, want
+            grads = ssd.scan_grad(*args, lc, states, dy, None)
+            twice = ssd.scan_grad(*args, lc, states, dy, None)
+            plain = ref.scan_grad_ref(*args, lc, states, dy, None)
+            for key, g, a, w in zip(("dxh", "ddt", "dB", "dC", "dA"), grads,
+                                    twice, plain):
+                check(torch.equal(bits(g), bits(a)), f"ssd scan_grad {name} "
+                      f"{dtype}: {key} differs between two runs")
+                errs[key], d = _ssd_err(torch, g, w)
+                worst_abs["scan_grad"] = max(worst_abs["scan_grad"], d)
+                check(bool(torch.isfinite(g).all()) and errs[key] <= tol_b,
+                      f"ssd scan_grad {name} {dtype}: {key} {errs[key]} of "
+                      f"its largest magnitude (limit {tol_b})")
+            worst["scan_grad"] = max([worst["scan_grad"]] + [
+                errs[k] for k in ("dxh", "ddt", "dB", "dC", "dA")])
+            del grads, twice, plain, states
+            torch.cuda.empty_cache()
+            out["cases"].append({"shape": name, "dtype": str(dtype),
+                                 "errors": errs})
+            print(f"ssd {name} (b {b}, S {s_in} -> {s}, nh {nh}, hd {hd}, ns "
+                  f"{ns}, lc {lc}) {dtype}: scan and scan_grad against the "
+                  "plain versions, max|Δ| / max|ref| "
+                  + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+                  + f" (limits {tol_f} / {tol_b}); two runs bit for bit")
+    for arch, (b, nh, hd, ns, width) in SSD_STEP.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            gen = torch.Generator(device=CARD).manual_seed(80)
+
+            def t(*shape):
+                return torch.randn(shape, generator=gen, device=CARD).to(
+                    dtype)
+
+            state, conv, window = t(b, nh, hd, ns), t(b, 3, width), \
+                t(b, 4, width)
+            xh, Bv, Cv = t(b, nh, hd), t(b, ns), t(b, ns)
+            dtv = torch.nn.functional.softplus(
+                torch.randn((b, nh), generator=gen, device=CARD))
+            A = -torch.exp(torch.randn((nh,), generator=gen, device=CARD))
+            runs = []
+            for _ in range(2):
+                st, cv = state.clone(), conv.clone()
+                runs.append((ssd.step(st, cv, window, xh, dtv, A, Bv, Cv),
+                             st, cv))
+            st, cv = state.clone(), conv.clone()
+            want = ref.step_ref(st, cv, window, xh, dtv, A, Bv, Cv)
+            for k in range(3):
+                check(torch.equal(bits(runs[0][k]), bits(runs[1][k])),
+                      f"ssd step {arch} {dtype}: two runs differ")
+            check(torch.equal(bits(runs[0][1]), bits(st))
+                  and torch.equal(bits(runs[0][2]), bits(cv)),
+                  f"ssd step {arch} {dtype}: the state or the conv window "
+                  "differs from the plain version's")
+            err, d = _ssd_err(torch, runs[0][0], want)
+            tol_f = SSD_TOL[str(dtype).split(".")[-1]][0]
+            check(err <= tol_f, f"ssd step {arch} {dtype}: y {err}")
+            worst["step"] = max(worst["step"], err)
+            worst_abs["step"] = max(worst_abs["step"], d)
+            out["cases"].append({"shape": f"{arch} decode", "dtype":
+                                 str(dtype), "errors": {"y": err}})
+            print(f"ssd step {arch} decode (b {b}, nh {nh}, hd {hd}, ns {ns})"
+                  f" {dtype}: state and conv window bit for bit the plain "
+                  f"version's, y max|Δ| / max|ref| {err:.2e}; two runs bit for"
+                  " bit")
+    out["max_rel_err"], out["max_abs_err"] = worst, worst_abs
+    # times, bf16
+    for seed, name in enumerate(SSD_TIMED):
+        b, s, s_in, nh, hd, ns, lc = SSD_SHAPES[name]
+        args = ssd_inputs(torch, b, s, s_in, nh, hd, ns, torch.bfloat16,
+                          90 + seed)
+        _, _, states = ssd._forward_scan(*args, lc)
+        dy = torch.randn(args[1].shape, device=CARD).to(torch.bfloat16)
+        runs = {"scan": (lambda: ssd._forward_scan(*args, lc),
+                         lambda: ref.scan_ref(*args, lc)),
+                "scan_grad": (lambda: ssd.scan_grad(*args, lc, states, dy),
+                              lambda: ref.scan_grad_ref(*args, lc, states,
+                                                        dy))}
+        for entry, (kernel, plain) in runs.items():
+            t = {"ms": graph_ms(kernel, 10), "eager_ms": time_ms(kernel, 10),
+                 "plain_ms": time_ms(plain, 3, warmup=1),
+                 "floor_ms": graph_ms(lambda entry=entry: ssd.launch_floor(
+                     entry, b, s, nh, hd, ns, lc, torch.bfloat16), 10),
+                 **ssd_bound(entry, b, s, nh, hd, ns, lc, 2)}
+            t["share"] = max(t["bound_ms"], t["floor_ms"]) / t["ms"]
+            out["times"][f"{entry} {name}"] = t
+            print(f"ssd {entry} {name} bf16: kernel {t['ms'] * 1e3:.1f} us "
+                  f"(eager {t['eager_ms'] * 1e3:.1f} us), plain "
+                  f"{t['plain_ms'] * 1e3:.1f} us, launch floor "
+                  f"{t['floor_ms'] * 1e3:.2f} us, bound "
+                  f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}: "
+                  f"{t['bytes'] / 1e6:.1f} MB, {t['flops'] / 1e9:.2f} GFLOP),"
+                  f" kernel at {t['share']:.1%} of the larger")
+        del states, args
+        torch.cuda.empty_cache()
+    for arch, (b, nh, hd, ns, width) in SSD_STEP.items():
+        gen = torch.Generator(device=CARD).manual_seed(81)
+        t16 = [torch.randn(shape, generator=gen, device=CARD).to(
+            torch.bfloat16) for shape in ((b, nh, hd, ns), (b, 3, width),
+                                          (b, 4, width), (b, nh, hd), (b, ns),
+                                          (b, ns))]
+        state, conv, window, xh, Bv, Cv = t16
+        dtv = torch.nn.functional.softplus(torch.randn((b, nh), device=CARD))
+        A = -torch.exp(torch.randn((nh,), device=CARD))
+        step_args = (state, conv, window, xh, dtv, A, Bv, Cv)
+        t = {"ms": graph_ms(lambda: ssd.step(*step_args), 50),
+             "eager_ms": time_ms(lambda: ssd.step(*step_args), 50),
+             "plain_ms": time_ms(lambda: ref.step_ref(*step_args), 20),
+             "floor_ms": graph_ms(lambda: ssd.launch_floor(
+                 "step", b, 1, nh, hd, ns, 1, torch.bfloat16), 50),
+             **ssd_bound("step", b, 1, nh, hd, ns, 1, 2, width)}
+        t["share"] = max(t["bound_ms"], t["floor_ms"]) / t["ms"]
+        out["times"][f"step {arch} decode"] = t
+        print(f"ssd step {arch} decode bf16: kernel {t['ms'] * 1e3:.2f} us "
+              f"(eager {t['eager_ms'] * 1e3:.2f} us), plain "
+              f"{t['plain_ms'] * 1e3:.1f} us, launch floor "
+              f"{t['floor_ms'] * 1e3:.2f} us, bound {t['bound_ms'] * 1e3:.2f}"
+              f" us ({t['bytes'] / 1e6:.2f} MB), kernel at {t['share']:.1%} "
+              "of the larger")
+    return out
+
+
+def _checked_ssd_ops(torch, worst: list):
+    """The SSD ops through ``ssd_sm90.cu`` whose every scan also runs the
+    plain scan on the same inputs: ``worst`` gains, a call, the larger of
+    y's and the final state's max|Δ| / max|plain|; the kernel's results go
+    on, so a prefill through these is the kernel path's."""
+    import types
+
+    from repro_torch.kernels.ssd import ref, ssd
+
+    def scan(*args):
+        got = ssd.scan(*args)
+        worst.append(max(_ssd_err(torch, g, w)[0]
+                         for g, w in zip(got, ref.scan(*args))))
+        return got
+
+    return types.SimpleNamespace(scan=scan, step=ssd.step)
+
+
+def _prefill_with(torch, cfg, params, toks, ssd_ops=None, moe_ops=None):
+    """``model.prefill`` of ``toks`` into a fresh cache on toks' device,
+    with ``layers.ssd_ops`` / ``layers.moe_ops`` bound to the given
+    namespaces for the call."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+
+    kept = L.ssd_ops, L.moe_ops
+    L.ssd_ops, L.moe_ops = ssd_ops or L.ssd_ops, moe_ops or L.moe_ops
+    try:
+        return M.prefill(cfg, params, toks, M.init_cache(
+            cfg, toks.shape[0], toks.shape[1] + 1, toks.device))
+    finally:
+        L.ssd_ops, L.moe_ops = kept
+
+
+def _prefill_errs(torch, cfg, a, b) -> dict:
+    """max|Δ| / max|b| of two mamba prefills' real-vocabulary logits and
+    state and conv caches."""
+    (la, ca), (lb, cb) = a, b
+    v = cfg.vocab_size
+    out = {"logits": _ssd_err(torch, la[:, :v].cpu(), lb[:, :v].cpu())[0]}
+    for key in ("state", "conv"):
+        out[key] = _ssd_err(torch, ca["layers"][key].cpu(),
+                            cb["layers"][key].cpu())[0]
+    return out
+
+
+def ssm_plain_prefill(torch, cfg, params) -> dict:
+    """One full-width prefill (SERVE_BATCH x SERVE_PROMPT) through the SSD
+    kernels against the same prefill through the plain versions
+    (``layers.ssd_ops`` bound to :func:`_plain_ssd_ops`).  In fp32 (its own
+    parameters) the logits of the real vocabulary and every cache leaf
+    within SSD_TOL["float32"][0] of their largest magnitude.  In bf16 (the
+    served ``params``) every layer's scan on the kernel path's own inputs
+    against the plain scan on them within SSD_TOL["bfloat16"][0]; the whole
+    prefill's errors are printed beside a control: the plain path on the
+    CPU (the same roundings, other summation orders) against the plain path
+    on the card, and each of the three bf16 prefills against the fp32
+    prefill of the same parameters (the control is not held: a bf16
+    rounding a layer flips now and then, and 24 layers carry it on)."""
+    import dataclasses
+
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_map
+
+    gen = torch.Generator(device=CARD).manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                         generator=gen, device=CARD)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = M.init_serving_params(cfg32, torch.Generator(device=CARD)
+                                .manual_seed(0))
+    tol = SSD_TOL["float32"][0]
+    errs = _prefill_errs(torch, cfg32,
+                         _prefill_with(torch, cfg32, p32, toks),
+                         _prefill_with(torch, cfg32, p32, toks,
+                                       _plain_ssd_ops()))
+    check(max(errs.values()) <= tol, f"{cfg.name}: the kernel path's fp32 "
+          f"prefill against the plain path's {errs} (limit {tol})")
+    print(f"{cfg.name}: full-width prefill ({SERVE_BATCH} x {SERVE_PROMPT}, "
+          "float32) through ssd_sm90.cu against the plain versions: "
+          + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
+          + f" of the largest magnitude (limit {tol})")
+    out = {"float32": {"errors": errs, "limit": tol}}
+    del p32
+
+    calls: list = []
+    kernel = _prefill_with(torch, cfg, params, toks,
+                           _checked_ssd_ops(torch, calls))
+    plain = _prefill_with(torch, cfg, params, toks, _plain_ssd_ops())
+    t0 = time.perf_counter()
+    cpu = _prefill_with(torch, cfg, tree_map(lambda t: t.cpu(), params),
+                        toks.cpu())
+    cpu_s = time.perf_counter() - t0
+    truth = _prefill_with(torch, cfg32, tree_map(lambda t: t.float(), params),
+                          toks)
+    tol_b = SSD_TOL["bfloat16"][0]
+    check(len(calls) == cfg.num_layers and max(calls) <= tol_b,
+          f"{cfg.name}: the bf16 prefill's scans against the plain scan on "
+          f"the same inputs {calls} (limit {tol_b})")
+    row = {"scan_calls": calls, "scan_limit": tol_b,
+           "kernel_vs_plain": _prefill_errs(torch, cfg, kernel, plain),
+           "cpu_plain_vs_plain": _prefill_errs(torch, cfg, cpu, plain),
+           "vs_float32": {k: _prefill_errs(torch, cfg, v, truth) for k, v in
+                          (("kernel", kernel), ("plain", plain),
+                           ("cpu_plain", cpu))},
+           "cpu_s": cpu_s}
+    out["bfloat16"] = row
+
+    def fmt(e):
+        return ", ".join(f"{k} {v:.2e}" for k, v in e.items())
+
+    print(f"{cfg.name}: full-width prefill ({SERVE_BATCH} x {SERVE_PROMPT}, "
+          f"bfloat16): each of its {len(calls)} scans through ssd_sm90.cu "
+          f"against the plain scan on the same inputs, worst {max(calls):.2e}"
+          f" of the largest magnitude (limit {tol_b}); the whole prefill, "
+          f"kernel path against the plain path: {fmt(row['kernel_vs_plain'])}"
+          f"; control, the plain path on the CPU ({cpu_s:.1f} s) against it "
+          f"on the card: {fmt(row['cpu_plain_vs_plain'])}; against the fp32 "
+          "prefill of the same parameters: "
+          + "; ".join(f"{k} {fmt(e)}" for k, e in row["vs_float32"].items()))
+    del kernel, plain, cpu, truth
+    torch.cuda.empty_cache()
+    return out
+
+
 def ssm_serve(torch, card: str) -> dict:
     """mamba2-130m at its full config through ``launch.serve.main``, every
     flash and MoE counter 0 just before and 0 just after; its fp32 and bf16
@@ -4143,18 +4925,22 @@ def ssm_serve(torch, card: str) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.moe import moe
+    from repro_torch.kernels.ssd import ssd
     from repro_torch.launch import serve
     from repro_torch.models import model as M
 
     cfg = dataclasses.replace(get_config(SSM_ARCH), use_kernels=True)
+    batches = -(-8 // SERVE_BATCH)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_count()
     moe.reset_launch_count()
+    ssd.reset_launch_count()
     summary = serve.main(["--arch", SSM_ARCH, "--requests", "8", "--batch",
                           str(SERVE_BATCH), "--prompt", str(SERVE_PROMPT),
                           "--gen", str(SERVE_GEN)], device=CARD)
     counts, moe_counts = fa.launch_counts(), moe.launch_counts()
+    ssd_counts = ssd.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
     check(summary["logits_finite"], f"{SSM_ARCH}: non-finite logits")
     check(summary["tokens"] == 8 * SERVE_GEN, f"{SSM_ARCH}: served "
@@ -4162,15 +4948,21 @@ def ssm_serve(torch, card: str) -> dict:
     check(not any(counts.values()) and not any(moe_counts.values())
           and summary["flash_launches"] == 0,
           f"{SSM_ARCH}: flash {counts}, MoE {moe_counts}: expected none")
+    want_ssd = {"scan": cfg.num_layers * batches, "scan_grad": 0,
+                "step": cfg.num_layers * batches * (SERVE_GEN - 1)}
+    check(ssd_counts == want_ssd, f"{SSM_ARCH}: SSD launches {ssd_counts}, "
+          f"expected {want_ssd}")
     row = {k: summary[k] for k in ("tok_per_s", "prefill_s", "decode_s",
                                    "wall_s")}
     row.update(layers=cfg.num_layers, params=cfg.num_params(), peak_gb=peak,
-               flash_launches=0, moe_launches=moe_counts)
+               flash_launches=0, moe_launches=moe_counts,
+               ssd_launches=ssd_counts)
     print(f"serve {SSM_ARCH} ({cfg.num_layers} layers, "
           f"{cfg.num_params() / 1e9:.3f} B parameters) on {card}: "
           f"{row['tok_per_s']:.1f} tok/s, prefill {row['prefill_s']:.3f} s, "
           f"decode {row['decode_s']:.3f} s, wall {row['wall_s']:.3f} s, "
-          f"peak {peak:.2f} GB, flash and MoE launches 0")
+          f"peak {peak:.2f} GB, flash and MoE launches 0, SSD launches "
+          f"{ssd_counts}")
     row["float32"] = consistency(torch, "float32", cfg)
     params = M.init_serving_params(cfg, torch.Generator(device=CARD)
                                    .manual_seed(0))
@@ -4178,10 +4970,10 @@ def ssm_serve(torch, card: str) -> dict:
                                   limit=CONSIST_TOL["bfloat16"])
     check(not any(fa.launch_counts().values()), "the SSM consistency "
           "prefills launched flash attention")
+    row["plain_path"] = ssm_plain_prefill(torch, cfg, params)
     row["ssd"] = ssd_times(torch, cfg, params)
-    row["ssd"]["launches"] = {
-        "apply": cfg.num_layers * -(-8 // SERVE_BATCH),
-        "decode": cfg.num_layers * -(-8 // SERVE_BATCH) * (SERVE_GEN - 1)}
+    row["ssd"]["launches"] = {"apply": want_ssd["scan"],
+                              "decode": want_ssd["step"]}
     row["profile"] = ssm_profile(torch, cfg, params)
     del params
     torch.cuda.empty_cache()
@@ -4193,17 +4985,24 @@ def hybrid_serve(torch, card: str) -> dict:
     ``launch.serve.generate``, as granite-34b: every counter 0 just before;
     just after, the bf16 flash kernel launched attention layers x prefill
     batches times and each MoE forward entry MoE layers x prefill batches x
-    SERVE_GEN times; the entries dropped; the kernel path's prefill bit for
-    bit the plain path's; bf16 consistency under the MoE premise; fp32
-    consistency at HYBRID_FP32's depth where it fits."""
+    SERVE_GEN times, scan SSM layers x batches and step SSM layers x
+    batches x (SERVE_GEN - 1); the entries dropped; the decode time of each
+    batch beside a warm batch's, and a ``torch.profiler`` trace of a
+    prefill and a decode step (:func:`ssm_profile`); the kernel path's
+    prefill bit for bit the path with the MoE's plain versions, each of its
+    scans against the plain scan on the same inputs, and the whole prefill
+    against the all-plain path's (reported); bf16 consistency under the MoE
+    premise; at HYBRID_FP32's depth where it fits, the kernel path's fp32
+    prefill against the all-plain path's within SSD_TOL and the fp32
+    consistency."""
     import dataclasses
 
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.moe import moe
+    from repro_torch.kernels.ssd import ssd
     from repro_torch.launch import serve
-    from repro_torch.models import layers as L
     from repro_torch.models import model as M
 
     full = get_config(HYBRID_ARCH)
@@ -4216,24 +5015,32 @@ def hybrid_serve(torch, card: str) -> dict:
     params = M.init_serving_params(cfg, torch.Generator(device=CARD)
                                    .manual_seed(0))
     rng = np.random.default_rng(0)
-    prefill_s = decode_s = 0.0
+    batch_prefill, batch_decode = [], []
     finite, dropped = True, 0
     fa.reset_launch_count()
     moe.reset_launch_count()
+    ssd.reset_launch_count()
     t0 = time.perf_counter()
     for _ in range(batches):
         prompt = torch.as_tensor(rng.integers(
             0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT)), device=CARD)
         g = serve.generate(cfg, params, prompt, SERVE_GEN,
                            SERVE_PROMPT + SERVE_GEN)
-        prefill_s += g.prefill_s
-        decode_s += g.decode_s
+        batch_prefill.append(g.prefill_s)
+        batch_decode.append(g.decode_s)
         finite = finite and g.finite
         dropped += g.prefill_dropped
     wall = time.perf_counter() - t0
+    prefill_s, decode_s = sum(batch_prefill), sum(batch_decode)
     counts, moe_counts = fa.launch_counts(), moe.launch_counts()
+    ssd_counts = ssd.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
     check(finite, f"{HYBRID_ARCH}: non-finite logits")
+    ssm_layers = cfg.num_layers - attn
+    want_ssd = {"scan": ssm_layers * batches, "scan_grad": 0,
+                "step": ssm_layers * batches * (SERVE_GEN - 1)}
+    check(ssd_counts == want_ssd, f"{HYBRID_ARCH}: SSD launches "
+          f"{ssd_counts}, expected {want_ssd}")
     want = attn * batches
     check(counts == {**dict.fromkeys(counts, 0), "sm90_bf16": want},
           f"{HYBRID_ARCH}: flash launches {counts}, expected {want} of "
@@ -4248,42 +5055,74 @@ def hybrid_serve(torch, card: str) -> dict:
         "params": cfg.num_params(), "tok_per_s": 8 * SERVE_GEN / wall,
         "prefill_s": prefill_s, "decode_s": decode_s, "wall_s": wall,
         "prefill_dropped": dropped, "flash_launches": want,
-        "moe_launches": moe_counts, "peak_gb": peak}
+        "moe_launches": moe_counts, "ssd_launches": ssd_counts,
+        "peak_gb": peak}
     print(f"serve {HYBRID_ARCH} ({cfg.num_layers} of {full.num_layers} "
           f"layers, {cfg.num_params() / 1e9:.2f} B parameters) on {card}: "
           f"{row['tok_per_s']:.1f} tok/s, prefill {prefill_s:.3f} s, decode "
           f"{decode_s:.3f} s, wall {wall:.3f} s, flash launches {want} "
-          f"(sm90_bf16), MoE launches {moe_counts}, entries dropped in "
-          f"prefill {dropped}, peak {peak:.1f} GB")
+          f"(sm90_bf16), MoE launches {moe_counts}, SSD launches "
+          f"{ssd_counts}, entries dropped in prefill {dropped}, peak "
+          f"{peak:.1f} GB")
 
-    # the kernel path against the plain path, one prefill of 4 x 512
+    # a warm batch after the counted ones: the first counted batch builds
+    # nothing, but is the first at these shapes in this process
+    warm = serve.generate(cfg, params, torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT)), device=CARD),
+        SERVE_GEN, SERVE_PROMPT + SERVE_GEN)
+    row.update(batch_prefill_s=batch_prefill, batch_decode_s=batch_decode,
+               warm_prefill_s=warm.prefill_s, warm_decode_s=warm.decode_s)
+    print(f"{HYBRID_ARCH}: decode s by batch {batch_decode}, then a warm "
+          f"batch {warm.decode_s:.3f} s (prefill s {batch_prefill}, warm "
+          f"{warm.prefill_s:.3f} s)")
+    row["profile"] = ssm_profile(torch, cfg, params)
+
+    # the kernel path against the plain paths, one prefill of 4 x 512: with
+    # only the MoE entries bound to their plain versions, bit for bit; with
+    # the SSD ops bound to theirs as well, each of the kernel path's scans
+    # against the plain scan on its inputs within SSD_TOL (bf16), the whole
+    # prefill's difference printed
     gen = torch.Generator(device=CARD).manual_seed(0)
     toks = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
                          generator=gen, device=CARD)
-    logits_k, cache_k = M.prefill(cfg, params, toks, M.init_cache(
-        cfg, SERVE_BATCH, SERVE_PROMPT + 1, CARD))
-    kernel_ops, L.moe_ops = L.moe_ops, _plain_moe_ops()
-    try:
-        logits_p, cache_p = M.prefill(cfg, params, toks, M.init_cache(
-            cfg, SERVE_BATCH, SERVE_PROMPT + 1, CARD))
-    finally:
-        L.moe_ops = kernel_ops
+    calls: list = []
+    logits_k, cache_k = _prefill_with(torch, cfg, params, toks,
+                                      _checked_ssd_ops(torch, calls))
+    logits_p, cache_p = _prefill_with(torch, cfg, params, toks,
+                                      moe_ops=_plain_moe_ops())
     same = torch.equal(logits_k, logits_p) and all(
         torch.equal(t, cache_p["layers"][sub][key])
         for sub, leaves in cache_k["layers"].items()
         for key, t in leaves.items())
     check(same, f"{HYBRID_ARCH}: the kernel path's prefill differs from the "
-          "plain path's")
-    print(f"{HYBRID_ARCH}: full-width prefill (4 x 512) through the kernels "
-          "equals the plain path's bit for bit (logits and every cache leaf)")
-    row["plain_path_equal"] = True
-    del cache_k, cache_p, logits_k, logits_p
+          "path with the MoE entries' plain versions")
+    del logits_p, cache_p
+    tol_b = SSD_TOL["bfloat16"][0]
+    check(len(calls) == ssm_layers and max(calls) <= tol_b,
+          f"{HYBRID_ARCH}: the prefill's scans against the plain scan on the "
+          f"same inputs {calls} (limit {tol_b})")
+    logits_p, _ = _prefill_with(torch, cfg, params, toks, _plain_ssd_ops(),
+                                _plain_moe_ops())
+    v = cfg.vocab_size
+    whole = _ssd_err(torch, logits_k[:, :v], logits_p[:, :v])[0]
+    print(f"{HYBRID_ARCH}: full-width prefill (4 x 512, bf16) through the "
+          "kernels equals, bit for bit, the path with the MoE entries' plain "
+          "versions (logits and every cache leaf); each of its "
+          f"{len(calls)} scans against the plain scan on the same inputs, "
+          f"worst {max(calls):.2e} of the largest magnitude (limit {tol_b}); "
+          "with the SSD's plain versions too, the logits differ by "
+          f"{whole:.2e} of their largest magnitude (reported)")
+    row["plain_path"] = {"moe_plain_equal": True, "scan_calls": calls,
+                         "scan_limit": tol_b, "all_plain_logits": whole}
+    del cache_k, logits_k, logits_p
     row.update(moe_consistency(torch, cfg, params,
                                batch=HYBRID_CONSIST_BATCH))
     del params
     torch.cuda.empty_cache()
 
-    # fp32 at one period, where its tree fits beside its caches
+    # fp32 at one period, where its tree fits beside its caches: the kernel
+    # path's prefill against the plain path's (the MoE's and the SSD's plain
+    # versions) within SSD_TOL (fp32), then the consistency
     c32 = dataclasses.replace(cfg, num_layers=HYBRID_FP32["layers"],
                               dtype="float32")
     need = 4 * c32.num_params()
@@ -4296,20 +5135,42 @@ def hybrid_serve(torch, card: str) -> dict:
     else:
         params = M.init_serving_params(c32, torch.Generator(device=CARD)
                                        .manual_seed(1))
+        (lk, ck), (lp, cp) = (
+            _prefill_with(torch, c32, params, toks),
+            _prefill_with(torch, c32, params, toks, _plain_ssd_ops(),
+                          _plain_moe_ops()))
+        errs = {"logits": _ssd_err(torch, lk[:, :v], lp[:, :v])[0]}
+        for sub, leaves in ck["layers"].items():
+            for key, t in leaves.items():
+                errs[f"{sub}.{key}"] = _ssd_err(torch, t,
+                                                cp["layers"][sub][key])[0]
+        del lk, ck, lp, cp
+        tol = SSD_TOL["float32"][0]
+        worst = max(errs.values())
+        check(worst <= tol, f"{HYBRID_ARCH}: the kernel path's fp32 prefill "
+              f"at {c32.num_layers} layers against the plain path's {errs} "
+              f"(limit {tol})")
+        print(f"{HYBRID_ARCH}: prefill (4 x 512, float32, {c32.num_layers} "
+              "layers) through the kernels against the plain path (the MoE's "
+              f"and the SSD's plain versions): logits {errs['logits']:.2e}, "
+              f"worst cache leaf {worst:.2e} of the largest magnitude (limit "
+              f"{tol})")
         row["float32"] = moe_consistency(torch, c32, params, "float32",
                                          batch=HYBRID_FP32["batch"])
-        row["float32"]["layers"] = c32.num_layers
-        row["float32"]["params"] = c32.num_params()
+        row["float32"].update(layers=c32.num_layers,
+                              params=c32.num_params(), plain_path=errs)
         del params
     torch.cuda.empty_cache()
     return row
 
 
 def ssm_phase(torch, card: str) -> dict:
-    """The SSM and hybrid families served: :func:`ssm_serve` and
-    :func:`hybrid_serve`."""
+    """The SSD kernels against their plain versions and timed
+    (:func:`ssd_kernel_checks`), then the SSM and hybrid families served:
+    :func:`ssm_serve` and :func:`hybrid_serve`."""
     t0 = time.perf_counter()
-    out = {"ssm": ssm_serve(torch, card), "hybrid": hybrid_serve(torch, card)}
+    out = {"ssd": ssd_kernel_checks(torch)}
+    out.update(ssm=ssm_serve(torch, card), hybrid=hybrid_serve(torch, card))
     print(f"ssm: {time.perf_counter() - t0:.1f} s")
     return out
 
@@ -4422,6 +5283,12 @@ def main() -> int:
         k: moe_train["train"]["moe_launches"][k] for k in MOE_FORWARD}
     moe_train_out = {k: v for k, v in moe_train.items() if k != "row"}
     print(f"train moe summary: {json.dumps(moe_train_out)}")
+
+    # the SSM family's training: mamba2-130m at its full config (counters
+    # at 0 just before the run, read just after), card against CPU, the
+    # kernel path against the plain path, the hybrid's smoke config
+    ssm_train = ssm_train_phase(torch, card)
+    print(f"train ssm summary: {json.dumps(ssm_train)}")
 
     t0 = time.perf_counter()
     maxplus_row = maxplus_phase(torch)
@@ -4566,7 +5433,8 @@ def main() -> int:
           "imports, build included")
     print(json.dumps({"kernels": [flash_row, fp32_row, fma_row,
                                   maxplus_row, sm90_row, sm90_contention,
-                                  lp_row, moe["row"], moe_train["row"]]}))
+                                  lp_row, moe["row"], moe_train["row"],
+                                  *ssd_rows(ssm, ssm_train)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4581,7 +5449,6 @@ if __name__ == "__main__":
         sys.exit(streams_entry_child(sys.argv[2:]))
     if sys.argv[1:2] == ["--train-resume"]:
         sys.exit(train_resume_child(sys.argv[2]))
-    if sys.argv[1:2] == ["--moe-pair"]:
-        sys.exit(moe_pair_child(sys.argv[2], sys.argv[3],
-                                sys.argv[4:5] == ["--serve"]))
+    if sys.argv[1:2] == ["--pair"]:
+        sys.exit(pair_child(sys.argv[2], sys.argv[3], sys.argv[4:]))
     sys.exit(main())

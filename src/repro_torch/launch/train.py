@@ -3,14 +3,15 @@ pipeline, the train step and the resilient loop (checkpoint / restart /
 watchdog).
 
 The counterpart of ``repro.launch.train``, on one device: the card unless
-``--device cpu``.  It trains the dense and the MoE families.  Flash
-attention stays off in training (``use_kernels`` False), as the
+``--device cpu``.  It trains the dense, MoE, SSM and hybrid families.
+Flash attention stays off in training (``use_kernels`` False), as the
 reference's trainer leaves ``use_pallas``: the flash kernel is forward
-only, and attention trains through the chunked path.  The MoE ops take
-their kernels on the card whatever ``use_kernels`` says, as in serving:
-route, dispatch and combine forward, and the backward entries of
+only, and attention trains through the chunked path.  The MoE and SSD ops
+take their kernels on the card whatever ``use_kernels`` says, as in
+serving: route, dispatch and combine forward, and the backward entries of
 ``kernels/csrc/moe_sm90.cu`` (the combine again for the dispatch's
-cotangent, ``combine_grad`` and ``gate_grad``).
+cotangent, ``combine_grad`` and ``gate_grad``); the SSD scan and its
+backward ``scan_grad`` of ``kernels/csrc/ssd_sm90.cu``.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b --smoke \\
       --device cpu --steps 50 --batch 8 --seq 64
@@ -18,6 +19,10 @@ cotangent, ``combine_grad`` and ``gate_grad``).
       --steps 20 --batch 8 --seq 2048 --ckpt-dir /tmp/ckpt
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch granite-moe-1b-a400m --steps 20 --batch 8 --seq 2048
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m \\
+      --steps 20 --batch 8 --seq 2048
+  PYTHONPATH=src python -m repro_torch.launch.train --arch jamba-v0.1-52b \\
+      --smoke --device cpu --steps 30 --batch 4 --seq 32
 """
 from __future__ import annotations
 

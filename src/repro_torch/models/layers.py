@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.moe import moe as moe_ops
+from repro_torch.kernels.ssd import ssd as ssd_ops
 
 Params = dict
 
@@ -264,54 +265,18 @@ def _ssm_out(cfg: ModelConfig, p: Params, y: torch.Tensor, xh: torch.Tensor,
     return y @ p["w_out"].to(cdt)
 
 
-def _chunk_scan(dt: torch.Tensor, xh: torch.Tensor, Bmat: torch.Tensor,
-                Cmat: torch.Tensor, A: torch.Tensor, lc: int):
-    """The SSD recurrence over chunks of ``lc`` steps, the reference's
-    ``chunk_step`` under its ``lax.scan``: dt (b, s, nh) fp32, xh (b, s, nh,
-    hd), Bmat and Cmat (b, s, ns) in the compute dtype, A (nh,) fp32 ->
-    (y (b, s, nh, hd), the final state (b, nh, hd, ns)), both in the
-    compute dtype."""
-    cdt = xh.dtype
-    b, s, nh, hd = xh.shape
-    mask = torch.tril(torch.ones((lc, lc), dtype=torch.bool, device=xh.device))
-    state = torch.zeros((b, nh, hd, Bmat.shape[-1]), dtype=cdt,
-                        device=xh.device)
-    ys = []
-    with torch.profiler.record_function(SCAN_SPAN):
-        for c0 in range(0, s, lc):
-            dtc, xc = dt[:, c0:c0 + lc], xh[:, c0:c0 + lc]
-            Bc, Cc = Bmat[:, c0:c0 + lc], Cmat[:, c0:c0 + lc]
-            cums = torch.cumsum(dtc * A, dim=1)                   # (b, lc, nh)
-            seg = cums[:, -1, :]                                  # (b, nh)
-            # intra-chunk: y[i] += C_i·B_j · exp(cums_i - cums_j) · dt_j x_j
-            decay = torch.exp(cums[:, :, None, :] - cums[:, None, :, :])
-            cb = torch.einsum("bin,bjn->bij", Cc, Bc)
-            att = cb[..., None] * decay * dtc[:, None, :, :]
-            att = torch.where(mask[None, :, :, None], att, 0.0)
-            y = torch.einsum("bijh,bjhp->bihp", att.to(cdt), xc)
-            # inter-chunk: y[i] += exp(cums_i) · C_i · S_prev
-            y = y + (torch.einsum("bin,bhpn->bihp", Cc, state)
-                     * torch.exp(cums).to(cdt)[..., None])
-            # S <- exp(seg)·S + Σ_j exp(seg - cums_j) dt_j B_j ⊗ x_j
-            sdecay = (torch.exp(seg[:, None, :] - cums) * dtc).to(cdt)
-            contrib = torch.einsum("bjn,bjhp->bhpn", Bc,
-                                   sdecay[..., None] * xc)
-            state = state * torch.exp(seg)[:, :, None, None].to(cdt) + contrib
-            ys.append(y)
-    return (torch.cat(ys, dim=1) if len(ys) > 1 else ys[0]), state
-
-
 def ssm_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
               return_state: bool = False):
     """Chunked SSD (state-space duality) forward over a full sequence, the
     reference's ``ssm_apply``.
 
-    x: (B, S, D).  Within chunks of ``lc = min(ssm_chunk, S)`` steps the
-    recurrence is decay-masked matrix products (the decay and the masked
-    scores in fp32, cast to the compute dtype before the product with x);
-    across chunks a Python loop carries the (B, nh, hd, ns) state in the
-    compute dtype.  S is padded to a multiple of ``lc`` with steps of dt = 0,
-    which leave the state as it is.  With ``return_state`` also returns
+    x: (B, S, D).  The projections, the causal conv and the gated norm are
+    torch ops; the recurrence over chunks of ``lc = min(ssm_chunk, S)``
+    steps is ``kernels/ssd``'s scan (``ssd_sm90.cu`` on the card, the plain
+    version on the CPU; differentiable): within a chunk decay-masked
+    matrix products, across chunks the (B, nh, hd, ns) state in the compute
+    dtype.  S is padded to a multiple of ``lc`` with steps of dt = 0, which
+    leave the state as it is.  With ``return_state`` also returns
     (the final state, the conv tail): the last cw - 1 steps of the
     projections before the conv, laid out [x (d_inner), B (ns), C (ns)],
     which the decode cache holds.
@@ -335,7 +300,8 @@ def ssm_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
     dt = dt * valid[None, :, None]                    # freeze padded steps
     A = -torch.exp(p["A_log"].float())                            # (nh,)
     xh = xin.reshape(b, s, nh, hd)
-    y, state = _chunk_scan(dt, xh, Bmat, Cmat, A, lc)
+    with torch.profiler.record_function(SCAN_SPAN):
+        y, state = ssd_ops.scan(dt, xh, Bmat, Cmat, A, lc)
     out = _ssm_out(cfg, p, y[:, :s_in], xh[:, :s_in], z[:, :s_in])
     if not return_state:
         return out
@@ -349,8 +315,8 @@ def ssm_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
     """Single-token SSD step, the reference's ``ssm_decode``.  x: (B, 1,
     D); state (B, nh, hd, ns) and the conv window's last cw - 1 steps
     ``conv`` (B, cw-1, d_inner + 2·ns), both in the compute dtype, are
-    updated in place (the reference returns copies); returns (out, (state,
-    conv)).  No value goes to the host."""
+    updated in place (the reference returns copies) by ``kernels/ssd``'s
+    step; returns (out, (state, conv)).  No value goes to the host."""
     cdt = compute_dtype(cfg)
     b = x.shape[0]
     di, ns, nh, hd = (cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_num_heads,
@@ -370,12 +336,9 @@ def ssm_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
     Bv = dconv(p["conv_B"], di, di + ns)
     Cv = dconv(p["conv_C"], di + ns, di + 2 * ns)
     dtv = F.softplus(dt[:, 0].float() + p["dt_bias"].float())     # (B, nh)
+    xh = xin.reshape(b, nh, hd)
     with torch.profiler.record_function(STEP_SPAN):
-        da = torch.exp(dtv * -torch.exp(p["A_log"].float()))
-        xh = xin.reshape(b, nh, hd)
-        upd = (xh * dtv.to(cdt)[:, :, None])[..., None] * Bv[:, None, None, :]
-        state.copy_(state * da[:, :, None, None].to(cdt) + upd)
-        conv.copy_(window[:, 1:])
-        y = torch.einsum("bn,bhpn->bhp", Cv, state)
+        y = ssd_ops.step(state, conv, window, xh, dtv,
+                         -torch.exp(p["A_log"].float()), Bv, Cv)
     out = _ssm_out(cfg, p, y[:, None], xh[:, None], z)
     return out, (state, conv)

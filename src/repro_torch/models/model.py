@@ -11,10 +11,10 @@ a Python loop over layer views, each layer under the config's remat policy
 — ``{"layers": {"k", "v"}: (L, B, max_len, Hkv, Dh), "pos": (B,)}``, an
 SSM layer's ``{"state": (L, B, nh, hd, ns), "conv": (L, B, cw-1,
 d_inner + 2·ns)}``, the hybrid's per sub-layer over the periods — and is
-updated in place.  The dense and MoE families serve and train; the MoE
-layer trains through the dispatch and combine kernels' backward
-(``kernels/moe``).  The SSM and hybrid families serve; their training (the
-SSD scan's backward) and the other model families port in later slices.
+updated in place.  The dense, MoE, SSM and hybrid families serve and
+train; the MoE layer trains through the dispatch and combine kernels'
+backward (``kernels/moe``), the SSM layer through the SSD scan's
+(``kernels/ssd``).  The other model families port in later slices.
 """
 from __future__ import annotations
 
@@ -40,7 +40,7 @@ FP32_KEYS = ("router", "A_log", "D", "dt_bias")
 
 #: the model families each entry point takes
 SERVED = ("dense", "moe", "ssm", "hybrid")
-TRAINED = ("dense", "moe")
+TRAINED = ("dense", "moe", "ssm", "hybrid")
 
 
 def _require(cfg: ModelConfig, families: tuple[str, ...], what: str) -> None:
@@ -253,17 +253,34 @@ def _logits(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
 def _apply_layer(cfg: ModelConfig, lp: Params, x: torch.Tensor,
                  positions: torch.Tensor
                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Residual attention, then the residual MLP or MoE, each behind its
-    pre-norm, as the reference's ``_apply_sublayer``; returns (x, the
-    layer's aux loss: the MoE's, 0 for an MLP)."""
-    x = x + L.attn_apply(cfg, lp["attn"], L.norm_apply(cfg, lp["ln1"], x),
-                         positions, causal=True)
-    h = L.norm_apply(cfg, lp["ln2"], x)
-    if "moe" not in lp:
-        return (x + L.mlp_apply(cfg, lp["mlp"], h),
-                torch.zeros((), device=x.device))
-    out, routed = L.moe_apply(cfg, lp["moe"], h)
-    return x + out, L.moe_aux_loss(cfg, routed)
+    """Residual attention or SSM, then the residual MLP or MoE (none in the
+    SSM family), each behind its pre-norm, as the reference's
+    ``_apply_sublayer``; returns (x, the layer's aux loss: the MoE's, else
+    0)."""
+    h = L.norm_apply(cfg, lp["ln1"], x)
+    if "attn" in lp:
+        x = x + L.attn_apply(cfg, lp["attn"], h, positions, causal=True)
+    else:
+        x = x + L.ssm_apply(cfg, lp["ssm"], h)
+    if "moe" in lp:
+        out, routed = L.moe_apply(cfg, lp["moe"], L.norm_apply(cfg, lp["ln2"],
+                                                               x))
+        return x + out, L.moe_aux_loss(cfg, routed)
+    if "mlp" in lp:
+        x = x + L.mlp_apply(cfg, lp["mlp"], L.norm_apply(cfg, lp["ln2"], x))
+    return x, torch.zeros((), device=x.device)
+
+
+def _apply_period(cfg: ModelConfig, pp: Params, x: torch.Tensor,
+                  aux: torch.Tensor, positions: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The hybrid's period: its ``attn_every`` sub-layers in order, each
+    one's aux loss added to the running ``aux`` in turn, as the body of the
+    reference's ``_run_stack`` carries it."""
+    for i in range(cfg.attn_every):
+        x, a = _apply_layer(cfg, pp[f"sub{i}"], x, positions)
+        aux = aux + a
+    return x, aux
 
 
 #: the products whose outputs the ``dots`` policy keeps: matrix products
@@ -282,8 +299,9 @@ def _remat(cfg: ModelConfig, body):
     _remat``: ``none`` keeps every activation, ``full`` keeps the layer's
     input and recomputes the rest in the backward pass, ``dots`` also keeps
     the outputs of the matrix products with no batch dimension.  A MoE
-    layer's recompute reruns its route, dispatch and combine, which give
-    the same results again."""
+    layer's recompute reruns its route, dispatch and combine, an SSM
+    layer's its scan (whose per-chunk states the backward then takes from
+    the recompute), which give the same results again."""
     if cfg.remat == "none":
         return body
     if cfg.remat == "dots":
@@ -330,18 +348,26 @@ def train_loss(cfg: ModelConfig, params: Params, batch: dict
     """batch: ``tokens``, ``targets`` (B, S) integer ids and ``loss_mask``
     (B, S).  Returns (``lm_loss + router_aux_weight · aux_loss``, metrics)
     with metrics ``lm_loss`` and ``aux_loss``: the MoE layers' aux losses
-    summed in layer order (0 only in the dense family, which has no
-    router)."""
+    summed in layer order (0 in a family with no router).  The hybrid runs
+    period by period, each period's sub-layers under one remat, its aux
+    losses summed sub-layer by sub-layer, as the reference's scan body."""
     _require(cfg, TRAINED, "train")
     tokens = batch["tokens"]
     x = params["embed"][tokens.long()].to(L.compute_dtype(cfg))
     b, s = tokens.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
-    layer = _remat(cfg, functools.partial(_apply_layer, cfg))
     aux = torch.zeros((), device=x.device)
-    for i in range(cfg.num_layers):
-        x, a = layer(_layer(params["blocks"], i), x, positions)
-        aux = aux + a
+    if cfg.family == "hybrid":
+        period = _remat(cfg, functools.partial(_apply_period, cfg))
+        for per in range(cfg.num_layers // cfg.attn_every):
+            pp = {sub: _layer(blk, per)
+                  for sub, blk in params["blocks"].items()}
+            x, aux = period(pp, x, aux, positions)
+    else:
+        layer = _remat(cfg, functools.partial(_apply_layer, cfg))
+        for i in range(cfg.num_layers):
+            x, a = layer(_layer(params["blocks"], i), x, positions)
+            aux = aux + a
     x = L.norm_apply(cfg, params["final_norm"], x)
     loss = lm_loss(cfg, params, x, batch["targets"], batch["loss_mask"])
     return loss + cfg.router_aux_weight * aux, {"lm_loss": loss,

@@ -16,7 +16,9 @@ the plain one on the card.
 * prefill and three decode steps at capacity 1.25 and 0.5 (entries
   dropped in the MoE sub-layers);
 * ``serve.main --smoke --device cpu``, the drops reported; ``train_loss``
-  refusing the family.
+  taking the family (it refused it until the SSD scan's backward was
+  ported; the test keeps its name; ``tests/test_torch_ssm_train.py`` holds
+  its gradients to the reference's).
 """
 import dataclasses
 
@@ -131,11 +133,26 @@ def test_serve_main_runs_the_hybrid_family_on_the_cpu(capsys):
 
 
 def test_train_loss_refuses_the_hybrid_family():
-    """Serving only: the SSD scan's backward is the next slice's."""
+    """The family trains now (the name is kept from the slice that only
+    served it): ``train_loss`` runs on the smoke config period by period,
+    records autograd through the SSD scan, the chunked attention and the
+    MoE ops, and gives a finite loss, a positive aux loss and a gradient for
+    every leaf."""
     cfg = get_smoke_config(ARCH)
-    assert "hybrid" in TM.SERVED and "hybrid" not in TM.TRAINED
+    assert "hybrid" in TM.SERVED and "hybrid" in TM.TRAINED
     params = TM.init_params(cfg, torch.Generator().manual_seed(0))
-    toks = torch.zeros((1, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        TM.train_loss(cfg, params, {"tokens": toks, "targets": toks,
-                                    "loss_mask": torch.ones(1, 8)})
+    flat = [p.requires_grad_() for p in jax.tree.leaves(params)]
+    toks = torch.randint(0, cfg.vocab_size, (1, 16),
+                         generator=torch.Generator().manual_seed(1))
+    loss, metrics = TM.train_loss(cfg, params, {"tokens": toks,
+                                                "targets": toks,
+                                                "loss_mask": torch.ones(1, 16)})
+    assert loss.requires_grad and torch.isfinite(loss)
+    assert float(metrics["aux_loss"]) > 0
+    grads = torch.autograd.grad(loss, flat)
+    assert all(torch.isfinite(g).all() for g in grads)
+    ssm = params["blocks"]["sub0"]["ssm"]
+    g, = torch.autograd.grad(TM.train_loss(cfg, params, {
+        "tokens": toks, "targets": toks,
+        "loss_mask": torch.ones(1, 16)})[0], ssm["w_B"])
+    assert float(g.abs().max()) > 0

@@ -18,7 +18,9 @@ products in another order), on the JAX parameters of
 * prefill and three decode steps' logits and caches; prefill(S) plus one
   decode step against prefill(S + 1) (the chunked form against the
   recurrent one);
-* ``serve.main --smoke --device cpu``; ``train_loss`` refusing the family.
+* ``serve.main --smoke --device cpu``; ``train_loss`` taking the family
+  (it refused it until the SSD scan's backward was ported; the test keeps
+  its name).
 """
 import dataclasses
 
@@ -36,6 +38,7 @@ from repro.models import model as JM  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention as fa  # noqa: E402
 from repro_torch.kernels.moe import moe  # noqa: E402
+from repro_torch.kernels.ssd import ssd  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
@@ -250,11 +253,28 @@ def test_serve_main_runs_the_ssm_family_on_the_cpu(capsys):
 
 
 def test_train_loss_refuses_the_ssm_family():
-    """Serving only: the SSD scan's backward is the next slice's."""
+    """The family trains now (the name is kept from the slice that only
+    served it): ``train_loss`` runs on the smoke config, records autograd
+    through the SSD scan, and gives a finite loss and a gradient for every
+    SSM leaf; on the CPU the scan takes its plain versions (no launch)."""
     cfg = get_smoke_config(ARCH)
-    assert "ssm" in TM.SERVED and "ssm" not in TM.TRAINED
+    assert "ssm" in TM.SERVED and "ssm" in TM.TRAINED
     params = TM.init_params(cfg, torch.Generator().manual_seed(0))
-    toks = torch.zeros((1, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="ssm"):
-        TM.train_loss(cfg, params, {"tokens": toks, "targets": toks,
-                                    "loss_mask": torch.ones(1, 8)})
+    flat = [p.requires_grad_() for p in jax.tree.leaves(params)]
+    toks = torch.randint(0, cfg.vocab_size, (1, 8),
+                         generator=torch.Generator().manual_seed(1))
+    ssd.reset_launch_count()
+    loss, metrics = TM.train_loss(cfg, params, {"tokens": toks,
+                                                "targets": toks,
+                                                "loss_mask": torch.ones(1, 8)})
+    assert loss.requires_grad and torch.isfinite(loss)
+    assert float(metrics["aux_loss"]) == 0.0
+    grads = torch.autograd.grad(loss, flat)
+    assert all(torch.isfinite(g).all() for g in grads)
+    ssm = params["blocks"]["ssm"]
+    for key in ("A_log", "dt_bias", "w_B", "w_C", "w_x", "conv_x"):
+        g, = torch.autograd.grad(TM.train_loss(cfg, params, {
+            "tokens": toks, "targets": toks,
+            "loss_mask": torch.ones(1, 8)})[0], ssm[key])
+        assert float(g.abs().max()) > 0, key
+    assert ssd.launch_count() == 0
