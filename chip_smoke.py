@@ -309,7 +309,10 @@ The tests that launch a kernel run apart, on the same card:
 To compare two trees on one card, run ``python3 chip_smoke.py --pair
 TREE LABEL ARCH...`` for each side in turns (parent, change, change,
 parent): one JSON line a side, with the MoE entries' times of each ARCH
-that has experts and each ARCH's serving.
+that has experts, the SSD entries' times when mamba2-130m is an ARCH, and
+each ARCH's serving.  ``python3 chip_smoke.py --ssd-split OUT [TREE]``
+prints the device time of each kernel of the SSD scan and its backward
+from a profiler trace and writes it to OUT as JSON.
 
 The line before the last is the card's name and power limit, the one before
 it a JSON object of per-kernel numbers; the last line is
@@ -3308,7 +3311,9 @@ def pair_child(tree: str, label: str, archs: list[str]) -> int:
     other at its full config through ``launch.serve.main``; each 8 requests
     in batches of 4, prompt 512, 32 generated.  Prints one JSON line.  Run
     the sides in turns (parent, change, change, parent) within one chip
-    call; the first process of each tree builds its kernels."""
+    call; the first process of each tree builds its kernels.  With
+    SSM_ARCH among the ARCHs it also times ``ssd_sm90.cu``'s entries in
+    bf16 (:func:`ssd_entry_times`, the best of 3)."""
     import dataclasses
 
     import numpy as np
@@ -3343,6 +3348,9 @@ def pair_child(tree: str, label: str, archs: list[str]) -> int:
             for name, fn in runs.items():
                 out["times_us"][f"{arch} {phase} {name}"] = min(
                     graph_ms(fn, 20) for _ in range(3)) * 1e3
+    if SSM_ARCH in archs:
+        out["ssd_us"] = {key: ms * 1e3 for key, ms in ssd_entry_times(
+            ssd_timed_cases(torch), 3).items()}
     for arch in archs:
         if arch != HYBRID_ARCH:
             summary = serve.main(["--arch", arch, "--requests", "8",
@@ -4737,59 +4745,121 @@ def ssd_kernel_checks(torch) -> dict:
                   " bit")
     out["max_rel_err"], out["max_abs_err"] = worst, worst_abs
     # times, bf16
+    cases = ssd_timed_cases(torch)
+    for key, ms in ssd_entry_times(cases).items():
+        entry, kernel, plain, (b, s, nh, hd, ns, lc, width), iters = \
+            cases[key]
+        t = {"ms": ms, "eager_ms": time_ms(kernel, iters),
+             "plain_ms": time_ms(plain, 3 if entry != "step" else 20,
+                                 warmup=1 if entry != "step" else 5),
+             "floor_ms": graph_ms(lambda entry=entry: ssd.launch_floor(
+                 entry, b, s, nh, hd, ns, lc, torch.bfloat16), iters),
+             **ssd_bound(entry, b, s, nh, hd, ns, lc, 2, width)}
+        t["share"] = max(t["bound_ms"], t["floor_ms"]) / t["ms"]
+        out["times"][key] = t
+        print(f"ssd {key} bf16: kernel {t['ms'] * 1e3:.2f} us (eager "
+              f"{t['eager_ms'] * 1e3:.2f} us), plain "
+              f"{t['plain_ms'] * 1e3:.1f} us, launch floor "
+              f"{t['floor_ms'] * 1e3:.2f} us, bound "
+              f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}: "
+              f"{t['bytes'] / 1e6:.2f} MB, {t['flops'] / 1e9:.2f} GFLOP), "
+              f"kernel at {t['share']:.1%} of the larger")
+    return out
+
+
+def ssd_timed_cases(torch) -> dict:
+    """The bf16 calls of ``ssd_sm90.cu`` that are timed, in the order they
+    are timed: scan at SSD_TIMED's shapes and step at SSD_STEP's, then
+    scan_grad at SSD_TIMED's, so every forward time comes before any
+    scan_grad runs and a ``--pair`` run times the forward under the same
+    history on both sides.  {key: (entry, kernel call, plain call, (b, s,
+    nh, hd, ns, lc, conv width), calls a CUDA graph)}."""
+    from repro_torch.kernels.ssd import ref, ssd
+    fwd, bwd = {}, {}
     for seed, name in enumerate(SSD_TIMED):
         b, s, s_in, nh, hd, ns, lc = SSD_SHAPES[name]
         args = ssd_inputs(torch, b, s, s_in, nh, hd, ns, torch.bfloat16,
                           90 + seed)
         _, _, states = ssd._forward_scan(*args, lc)
         dy = torch.randn(args[1].shape, device=CARD).to(torch.bfloat16)
-        runs = {"scan": (lambda: ssd._forward_scan(*args, lc),
-                         lambda: ref.scan_ref(*args, lc)),
-                "scan_grad": (lambda: ssd.scan_grad(*args, lc, states, dy),
-                              lambda: ref.scan_grad_ref(*args, lc, states,
-                                                        dy))}
-        for entry, (kernel, plain) in runs.items():
-            t = {"ms": graph_ms(kernel, 10), "eager_ms": time_ms(kernel, 10),
-                 "plain_ms": time_ms(plain, 3, warmup=1),
-                 "floor_ms": graph_ms(lambda entry=entry: ssd.launch_floor(
-                     entry, b, s, nh, hd, ns, lc, torch.bfloat16), 10),
-                 **ssd_bound(entry, b, s, nh, hd, ns, lc, 2)}
-            t["share"] = max(t["bound_ms"], t["floor_ms"]) / t["ms"]
-            out["times"][f"{entry} {name}"] = t
-            print(f"ssd {entry} {name} bf16: kernel {t['ms'] * 1e3:.1f} us "
-                  f"(eager {t['eager_ms'] * 1e3:.1f} us), plain "
-                  f"{t['plain_ms'] * 1e3:.1f} us, launch floor "
-                  f"{t['floor_ms'] * 1e3:.2f} us, bound "
-                  f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}: "
-                  f"{t['bytes'] / 1e6:.1f} MB, {t['flops'] / 1e9:.2f} GFLOP),"
-                  f" kernel at {t['share']:.1%} of the larger")
-        del states, args
-        torch.cuda.empty_cache()
+        dims = (b, s, nh, hd, ns, lc, 0)
+        fwd[f"scan {name}"] = (
+            "scan", lambda a=args, lc=lc: ssd._forward_scan(*a, lc),
+            lambda a=args, lc=lc: ref.scan_ref(*a, lc), dims, 10)
+        bwd[f"scan_grad {name}"] = (
+            "scan_grad",
+            lambda a=args, lc=lc, st=states, dy=dy: ssd.scan_grad(
+                *a, lc, st, dy),
+            lambda a=args, lc=lc, st=states, dy=dy: ref.scan_grad_ref(
+                *a, lc, st, dy), dims, 10)
     for arch, (b, nh, hd, ns, width) in SSD_STEP.items():
         gen = torch.Generator(device=CARD).manual_seed(81)
-        t16 = [torch.randn(shape, generator=gen, device=CARD).to(
-            torch.bfloat16) for shape in ((b, nh, hd, ns), (b, 3, width),
-                                          (b, 4, width), (b, nh, hd), (b, ns),
-                                          (b, ns))]
-        state, conv, window, xh, Bv, Cv = t16
+        state, conv, window, xh, Bv, Cv = (
+            torch.randn(shape, generator=gen, device=CARD).to(torch.bfloat16)
+            for shape in ((b, nh, hd, ns), (b, 3, width), (b, 4, width),
+                          (b, nh, hd), (b, ns), (b, ns)))
         dtv = torch.nn.functional.softplus(torch.randn((b, nh), device=CARD))
         A = -torch.exp(torch.randn((nh,), device=CARD))
         step_args = (state, conv, window, xh, dtv, A, Bv, Cv)
-        t = {"ms": graph_ms(lambda: ssd.step(*step_args), 50),
-             "eager_ms": time_ms(lambda: ssd.step(*step_args), 50),
-             "plain_ms": time_ms(lambda: ref.step_ref(*step_args), 20),
-             "floor_ms": graph_ms(lambda: ssd.launch_floor(
-                 "step", b, 1, nh, hd, ns, 1, torch.bfloat16), 50),
-             **ssd_bound("step", b, 1, nh, hd, ns, 1, 2, width)}
-        t["share"] = max(t["bound_ms"], t["floor_ms"]) / t["ms"]
-        out["times"][f"step {arch} decode"] = t
-        print(f"ssd step {arch} decode bf16: kernel {t['ms'] * 1e3:.2f} us "
-              f"(eager {t['eager_ms'] * 1e3:.2f} us), plain "
-              f"{t['plain_ms'] * 1e3:.1f} us, launch floor "
-              f"{t['floor_ms'] * 1e3:.2f} us, bound {t['bound_ms'] * 1e3:.2f}"
-              f" us ({t['bytes'] / 1e6:.2f} MB), kernel at {t['share']:.1%} "
-              "of the larger")
-    return out
+        fwd[f"step {arch} decode"] = (
+            "step", lambda a=step_args: ssd.step(*a),
+            lambda a=step_args: ref.step_ref(*a), (b, 1, nh, hd, ns, 1, width),
+            50)
+    return {**fwd, **bwd}
+
+
+def ssd_entry_times(cases: dict, reps: int = 1) -> dict:
+    """ms a call of each of :func:`ssd_timed_cases`, in its order, from a
+    CUDA graph of its calls: the best of ``reps``."""
+    return {key: min(graph_ms(kernel, iters) for _ in range(reps))
+            for key, (_, kernel, _, _, iters) in cases.items()}
+
+
+def ssd_split_child(out_path: str, tree: str | None = None) -> int:
+    """``python3 chip_smoke.py --ssd-split OUT [TREE]``: the device time of
+    each kernel of ``ssd_sm90.cu``'s scan and scan_grad at
+    :func:`ssd_timed_cases`' shapes, from one ``torch.profiler`` trace
+    (CUDA activities) of 10 eager calls, beside the entry's CUDA-graph time;
+    printed and written to OUT as JSON.  TREE: another checkout's kernels
+    (as ``--pair`` takes them), this one's by default.  Not a phase of the
+    smoke run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    check(torch.cuda.is_available(), "the split needs a card")
+    src = Path(tree).resolve() / "src" if tree else SRC
+    sys.path.insert(0, str(src))
+    from repro_torch.kernels.ssd import ssd
+    check(Path(ssd.__file__).resolve().is_relative_to(src.resolve()),
+          f"imported {ssd.__file__}, not {src}'s")
+    card = card_line()
+    print(card, flush=True)
+    cases = {k: v for k, v in ssd_timed_cases(torch).items()
+             if v[0] != "step"}
+    res = {"card": card, "split": {}}
+    for key, ms in ssd_entry_times(cases).items():
+        kernel = cases[key][1]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                kernel()
+            torch.cuda.synchronize()
+        rows = {}
+        for ev in prof.key_averages():
+            t = getattr(ev, "device_time_total", None)
+            if t is None:
+                t = getattr(ev, "cuda_time_total", 0)
+            if t > 0 and "kernel" in ev.key:
+                rows[ev.key] = t / 10
+        res["split"][key] = {"graph_us": ms * 1e3, "kernels_us": dict(
+            sorted(rows.items(), key=lambda kv: -kv[1]))}
+        print(f"{key}: graph {ms * 1e3:.1f} us, kernels "
+              f"{sum(rows.values()):.1f} us", flush=True)
+        for k, v in res["split"][key]["kernels_us"].items():
+            print(f"   {v:9.1f} us  {k}", flush=True)
+    Path(out_path).parent.mkdir(parents=True, exist_ok=True)
+    Path(out_path).write_text(json.dumps(res, indent=1))
+    return 0
 
 
 def _checked_ssd_ops(torch, worst: list):
@@ -5449,6 +5519,8 @@ if __name__ == "__main__":
         sys.exit(streams_entry_child(sys.argv[2:]))
     if sys.argv[1:2] == ["--train-resume"]:
         sys.exit(train_resume_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--ssd-split"]:
+        sys.exit(ssd_split_child(*sys.argv[2:4]))
     if sys.argv[1:2] == ["--pair"]:
         sys.exit(pair_child(sys.argv[2], sys.argv[3], sys.argv[4:]))
     sys.exit(main())

@@ -109,14 +109,6 @@ struct Smem {
   static constexpr int BYTES = BAR + (1 + 4 * STAGES) * 8 + 1024;  // + alignment slack
 };
 
-// TF32 round to nearest, ties away from zero, as an fp32 value whose low
-// 13 mantissa bits are zero.
-__device__ __forceinline__ float tf32_rna(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return __uint_as_float(r & 0xffffe000u);
-}
-
 __device__ __forceinline__ void split4(float4 x, float4& hi, float4& lo) {
   hi.x = tf32_rna(x.x); lo.x = tf32_rna(x.x - hi.x);
   hi.y = tf32_rna(x.y); lo.y = tf32_rna(x.y - hi.y);

@@ -1,5 +1,6 @@
-// Hopper (sm_90a) building blocks shared by the port's kernels: for the
-// tensor-core flash kernels (flash_attention_sm90.cu, bf16;
+// Hopper (sm_90a) building blocks shared by the port's kernels: the TF32
+// rounding of a 3xTF32 split (flash_attention_sm90_fp32.cu, ssd_sm90.cu);
+// for the tensor-core flash kernels (flash_attention_sm90.cu, bf16;
 // flash_attention_sm90_fp32.cu, 3xTF32) mbarriers, TMA loads and stores
 // through 4-d tensor maps, wgmma shared-memory descriptors and group
 // control, and cuTensorMapEncodeTiled taken from the driver at run time, so
@@ -24,6 +25,14 @@ __device__ __forceinline__ float max_nan(float a, float b) {
   float r;
   asm("max.NaN.f32 %0, %1, %2;\n" : "=f"(r) : "f"(a), "f"(b));
   return r;
+}
+
+// TF32 round to nearest, ties away from zero, as an fp32 value whose low
+// 13 mantissa bits are zero.
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r & 0xffffe000u);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {

@@ -12,21 +12,39 @@
 // ns) in the compute dtype T (fp32 or bf16), A (nh) fp32, chunks of lc <=
 // 256 steps (s a multiple of lc), hd * ns <= 8192.
 //
-// Numbers.  Every product of the recurrence sums in fp32 (fmaf, in k order)
-// and is rounded once to T, where the plain version's einsum rounds; the
+// Numbers.  The forward: every product sums in fp32 (fmaf, in k order) and
+// is rounded once to T, where the plain version's einsum rounds; the
 // elementwise steps round where it rounds, with __fmul_rn / __fadd_rn (no
 // contraction): the scores r(cb), r((cb * exp(cums_i - cums_j)) * dt_j)
 // masked to j <= i; y = r(r(intra) + r(r(C . S) * r(exp(cums_i)))); sdecay
 // r(exp(seg - cums_j) * dt_j), its product with x rounded; the state update
-// r(r(S * r(exp(seg))) + r(contrib)).  So the kernel agrees with the plain
-// version to the order of fp32 sums.  The backward carries fp32: the
-// forward's values as the forward rounded them, each rounding's cotangent
-// passed straight through, each cotangent rounded once to its input's dtype
-// (scan_grad_ref's definition).  step is elementwise and equals step_ref bit
-// for bit in the state and the conv window; its readout sums over n in
-// order.  Every sum runs in a fixed order: dB and dC are summed per head,
-// then over the heads in head order; dA per (batch, chunk), then in that
-// order; no float atomics, so two runs give the same bits.
+// r(r(S * r(exp(seg))) + r(contrib)).  step is elementwise and equals
+// step_ref bit for bit in the state and the conv window; its readout sums
+// over n in order.
+// The backward carries fp32 (scan_grad_ref's definition): the forward's
+// values as the forward rounded them, each rounding's cotangent passed
+// straight through, each cotangent rounded once to its input's dtype.  Its
+// products run on the tensor cores with fp32 accumulators, and no operand
+// is rounded below what the plain version carries:
+//   * a bf16 operand (x, dy, B, C, the saved states, r(L), U = r(sdecay x))
+//     goes in as it is: its products with another bf16 value are exact;
+//   * a product of two bf16 values (dy * r(exp(cums))) has 16 significant
+//     bits and splits exactly into a bf16 hi and a bf16 lo: two products;
+//   * an fp32 operand (g, the state cotangent; dcb, the scores' cotangent)
+//     splits as hi = tf32_rna(v), lo = tf32_rna(v - hi) (3xTF32): hi hi' +
+//     hi lo' + lo hi', lo lo' (about 2^-22 of the product) dropped; a bf16
+//     partner is exact in TF32, so its lo is zero and its product is
+//     skipped;
+//   * with T fp32 every operand is fp32 and takes 3xTF32.
+// So the backward agrees with scan_grad_ref to the order of fp32 sums (the
+// order inside an MMA's k step is the hardware's).  Every sum runs in a
+// fixed order: a product's k steps in order, where A comes from registers
+// each step's two halves of k into two partials that are then added; the
+// row and column sums of a tile by shuffles in a fixed tree and then over
+// the warps in order; dcb over a group of heads in head order, the groups
+// in group order; dB and dC over the heads in head order inside one
+// accumulator; dA over (batch, chunk) in that order; no float atomics, so
+// two runs give the same bits.
 //
 // Design.  Chunk-parallel, as SSD's chunked form allows: each chunk's
 // contribution to the state does not depend on the state.
@@ -38,40 +56,88 @@
 //   contributions into the states entering each chunk (saved for the
 //   backward) and the final state; (5) the outputs, a block a (64 rows of
 //   the chunk, chunk, batch, head): the masked scores times x and C times
-//   the entering state.
-//   scan_grad: (1)-(2) again; (3) each chunk's state cotangent from its
-//   outputs, sum_i (dy_i r(exp(cums_i))) (x) C_i; (4) one reverse pass over
-//   the chunks a (batch, head) turning those into the cotangent of each
-//   chunk's state, with d(exp(seg)) reduced in a fixed tree; (5) a block a
-//   64 rows: the state update's cotangents (dx, d sdecay, dB) and the
-//   inter-chunk output's (d exp(cums), dC); (6) a block a 64 rows i: the
-//   score cotangents' strip (64 x lc) in shared memory, row sums, dC; (7) a
-//   block a 64 columns j: the strip (lc x 64), column sums, dx (the state
-//   part added, rounded) and dB; (8) one thread a (batch, chunk, head): the
-//   exponents' cotangents, the reverse cumsum, ddt and dA's partial; (9) the
-//   heads' dB and dC and the partials of dA summed in order.  The (lc, lc)
-//   fp32 scores of a chunk (256 KB at lc 256) never sit whole in shared
-//   memory: (5)-(7) tile them over 64 rows or columns.
-// Every product is one block-wide routine (gemm): a 64 x 64 output tile,
-// 256 threads with a 4 x 4 register tile each, k staged through shared
-// memory 32 at a time by functors that compute each operand on its load
-// (the scores, sdecay * x, dy * exp(cums)).  fp32 FMA, no tensor cores.
+//   the entering state.  Every product is one block-wide fp32 FMA routine
+//   (gemm): a 64 x 64 output tile, 256 threads with a 4 x 4 register tile
+//   each, k staged through shared memory 32 at a time by functors that
+//   compute each operand on its load.
+//   scan_grad, four launches:
+//   (1) carry, a block a (batch, head): the chunks' cumsums, then the one
+//   reverse pass over the chunks; at chunk c the state cotangent its
+//   outputs give, gs = (dy r(exp(cums)))^T C, then g (the cotangent of the
+//   state after chunk c) written out, dG = sum g * S_c in a fixed tree, and
+//   g <- g r(exp(seg)) + gs, g held in shared memory;
+//   (2) heads, a block a (pair of 64-column tiles J: the first and the
+//   last, the second and the one before, an even load; chunk, batch, group
+//   of heads): the scores' strip r(C_I . B_J) (I >= J) once for the group,
+//   in shared memory; each tile dL_IJ = dy_I . x_J^T once a head, its
+//   epilogue in registers giving dcb (summed over the group's heads in
+//   registers, written once a tile), the rows' and the columns' exponent
+//   sums and ddt's score part; then each head's dx for the rows J, sdecay
+//   (B_J . g^T) + sum_I r(L_IJ)^T dy_I in one accumulator, the row sum d
+//   sdecay = sum_p x dU, and d exp(cums) = sum_p dy r(C . S^T);
+//   (3) finish, a block a (batch, chunk, head): the groups' dcb folded into
+//   the first group's (a share of the chunk a block, in group order), the
+//   exponents' cotangents, the reverse cumsum in order, ddt and dA's
+//   partial;
+//   (4) sums, a block a (64 rows T, 64 columns of ns, chunk, batch): dB_T =
+//   sum_h U_T g_h + dcb_{.,T}^T C and dC_T = sum_h dQ_T S_h + dcb_{T,.} B,
+//   each one accumulator whose k runs over (head, p), rounded once to T;
+//   dA's partials summed in order.
+//   B and C are shared by the heads, so dB and dC sum over them: the sums
+//   stay in the accumulators of (4) and the registers of (2), and of the
+//   per-head values only the scores' cotangent of each group of heads
+//   reaches device memory (groups of at most G_MAX heads, as many as give
+//   (2) about GROUP_BLOCKS blocks but no more than GROUPS_AIM groups: two
+//   groups of 12 at mamba2-130m's training shape, 2 x 16.8 MB).
+// The backward's products are wgmma, 64 x 64 output tiles, k in steps of
+// 32, the block's two warpgroups sharing a tile:
+//   * an operand computed on its load (the decay-weighted scores r(L), dy
+//     r(exp(cums)), U = r(sdecay x)) goes in as A from registers, each
+//     thread computing its fragment from shared memory; the warpgroups
+//     split each step's k, each a 64 x 64 partial (m64n64), so every value
+//     is computed once a block, and the partials meet at the end;
+//   * with T = bf16 and hd, lc multiples of 32 and ns of 8 (mamba2-130m's
+//     and jamba's full configs), the operands that are bf16 as they stand in device
+//     memory come by TMA straight into shared memory in wgmma's layout (A
+//     and B of the scores' strip, of dL = dy x^T and of d exp(cums); B of
+//     the register products, read transposed), one thread arming a stage's
+//     mbarrier (Tgemm);
+//   * the fp32 operands (g, dcb) are split by the threads into 3xTF32
+//     planes, K-major, as is every operand that does not take TMA (T =
+//     fp32, other shapes): each thread copies runs of eight with cp.async
+//     into its own slots of a ring and writes them into the planes (Gemm);
+//     the operands with both split are the warpgroups' n halves (m64n32).
+// A shape that fits no 64-row tile (lc 8, 13, 24; hd 12, 16; ns 16, 20)
+// runs the same products on zero-padded tiles.  The next product's first
+// steps are issued before this one's epilogue.
 //
 // What bounds it on the H100: at mamba2-130m's training shape (8 x 2048,
-// nh 24, hd 64, ns 128, lc 256) the scan moves ~136 MB with the saved states
-// and does ~27 GFLOP (41 us at the byte rate; 0.40 ms at the fp32 FMA peak
-// of 67 TFLOP/s, which is where this design sits, short of it by the
-// staging); the backward ~196 MB and 55-60 GFLOP.  The products belong on
-// the tensor cores (wgmma on TMA tiles, the state in registers): ROADMAP B3.
-// step moves the state (read and write) and is bound by bytes.
+// nh 24, hd 64, ns 128, lc 256) the scan moves 138.9 MB and does 19.89
+// GFLOP (41 us at the byte rate, 20 us at the bf16 tensor-core peak; its
+// FMA products sit short of the fp32 FMA peak of 67 TFLOP/s, 0.30 ms, by
+// their staging); the backward moves 196.1 MB and does 39.78 GFLOP (59 us
+// by bytes, 40 us at the bf16 peak) and as many again for the hi / lo and
+// 3xTF32 splits, with 98 MB of scratch besides (the per-chunk state
+// cotangents, 50 MB, written once and read twice; the two groups' dcb, 34
+// MB).  What holds it back is the instruction stream around the products:
+// the register fragments and the staged planes are computed by every
+// thread a step (expf, masks, splits), and a step's barrier waits for the
+// slowest warp; the tensor cores are busy a few percent of the time.  step
+// moves the state (read and write) and is bound by bytes.
 //
 // Launch: each entry launches its kernels on the caller's stream and
 // returns the first CUDA error (0 on success); scratch comes from the
 // caller's workspace (ssd_workspace_floats).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <initializer_list>
+#include <type_traits>
+
+#include "sm90_common.cuh"
 
 namespace {
 
@@ -80,7 +146,6 @@ constexpr int KT = 32;          // the k depth staged at a time
 constexpr int THREADS = 256;    // 16 x 16 threads, 4 x 4 outputs each
 constexpr int MAX_CHUNK = 256;
 constexpr int MAX_STATE = 8192;              // hd * ns
-constexpr int PER_THREAD = MAX_STATE / THREADS;
 constexpr int PAD = TILE + 1;                // a shared row, bank-skewed
 
 enum Entry { SCAN = 0, SCAN_GRAD = 1, STEP = 2 };
@@ -115,11 +180,6 @@ __device__ __forceinline__ size_t row(const Dims& d, int bb, int pos) {
 __device__ __forceinline__ size_t state_base(const Dims& d, int c, int bb,
                                              int h) {
   return ((static_cast<size_t>(c) * d.b + bb) * d.nh + h) * d.hd * d.ns;
-}
-// the per-head partials (nh, b, s, ns) of dB and dC
-__device__ __forceinline__ size_t head_row(const Dims& d, int h, int bb,
-                                           int pos) {
-  return (static_cast<size_t>(h) * d.b + bb) * d.s + pos;
 }
 
 // The k operands staged for one step of a 64 x 64 output tile.
@@ -337,431 +397,1658 @@ out_kernel(const float* __restrict__ dt, const T* __restrict__ X,
 }
 
 // ------------------------------------------------------------ backward
-// gs[c, b, h] = sum_i (dy_i * r(exp(cums_i))) (x) C_i: the cotangent the
-// chunk's outputs give the state entering it
+// Tensor-core products: wgmma.  A block's two warpgroups share a 64 x 64
+// output tile, warpgroup wg its columns [32 wg, 32 wg + 32) (m64n32, A and
+// B from shared memory); each thread holds 16 fp32 accumulators, element q
+// at row 16 w + g + 8 ((q & 3) >> 1) and column 32 wg + 8 (q >> 2) + 2 t +
+// (q & 1) (w the warp in its warpgroup, g = lane / 4, t = lane % 4:
+// wgmma's accumulator layout, the same for bf16 k16 and tf32 k8).
+// The kinds of a plane: bf16, tf32, and fp32 kept whole (FP: an operand's
+// values as loaded, before the threads compute a register operand from
+// them; TF32's layout).
+enum Kind { BF = 0, TF = 1, FP = 2 };
+
+constexpr int KS = 32;                     // the k depth of a step
+// A plane: one operand's 64 rows x KS, K-major in wgmma's layout without
+// swizzle: core matrices of 8 rows x 16 bytes, the 8 row groups of a k
+// chunk 128 bytes apart (SBO) and the k chunks LBO apart.  LBO is 64 x 16
+// bytes plus 16, so the k chunks fall in different banks and the threads'
+// stores along m (put_col) do not collide.
+constexpr int SBO = 128;
+constexpr int LBO = TILE * 16 + 16;
+constexpr int PLANE_BF = (KS / 8) * LBO;   // 4 k chunks of 8 bf16
+constexpr int PLANE_TF = (KS / 4) * LBO;   // 8 k chunks of 4 fp32
+// The ring of a kernel: S steps of STAGE bytes (a step's runs of A, then
+// B's), and NB buffers of planes of BUF bytes (A's planes, then B's); with
+// two or more, a step's planes are staged while the step before runs on
+// the tensor cores.  The TMA products take the planes' region as stages.
+template <int S_, int STAGE_, int BUF_, int NB_>
+struct Ring {
+  static constexpr int S = S_, STAGE = STAGE_, BUF = BUF_, NB = NB_;
+};
+// Stage bytes: runs of T and fp32, or of T and T.
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-w_kernel(const T* __restrict__ dy, const T* __restrict__ C,
-         const float* __restrict__ cums, Dims d, float* __restrict__ gs) {
-  __shared__ Stage st;
-  __shared__ float ef[MAX_CHUNK];
-  const int c = blockIdx.x, bb = blockIdx.y, h = blockIdx.z;
-  const size_t r0 = row(d, bb, c * d.lc);
-  for (int i = threadIdx.x; i < d.lc; i += THREADS)
-    ef[i] = rnd<T>(expf(cums[(r0 + i) * d.nh + h]));
-  __syncthreads();
-  float* out = gs + state_base(d, c, bb, h);
-  for (int p0 = 0; p0 < d.hd; p0 += TILE)
-    for (int n0 = 0; n0 < d.ns; n0 += TILE) {
-      float acc[4][4];
-      zero(acc);
-      gemm<false, false>(
-          acc, p0, n0, d.hd, d.ns, 0, d.lc,
-          [&](int i, int p) {
-            return __fmul_rn(ld(dy, ((r0 + i) * d.nh + h) * d.hd + p), ef[i]);
-          },
-          [&](int i, int n) { return ld(C, (r0 + i) * d.ns + n); }, st);
-      each(p0, n0, d.hd, d.ns, [&](int r, int q, int p, int n) {
-        out[static_cast<size_t>(p) * d.ns + n] = acc[r][q];
-      });
-    }
+struct Stage2 {
+  static constexpr int MIXED = THREADS * 8 * (sizeof(T) + 4);
+  static constexpr int SAME = THREADS * 8 * 2 * sizeof(T);
+};
+constexpr int HEADS_STAGES = 2;            // the rings' depths
+constexpr int SUMS_STAGES = 2;
+constexpr int CARRY_STAGES = 3;
+// The plane buffers: one keeps two heads blocks an SM beside the scores'
+// strip (with two, one block an SM would be left to hide its own
+// latencies); three let a register product compute a step's fragments
+// while the step before runs, at two blocks an SM.
+constexpr int HEADS_NB = 1;
+constexpr int SUMS_NB = 3;
+constexpr int CARRY_NB = 3;
+constexpr int SUMS_HEADS = 32;             // heads a table of the sums kernel
+constexpr int G_MAX = 16;                  // heads a group of the heads kernel
+constexpr int GROUP_BLOCKS = 256;          // the heads kernel's blocks aimed at
+constexpr int GROUPS_AIM = 8;              // and the groups at most, within G_MAX
+constexpr int SP = TILE + 1;               // a row of the scores' strip
+constexpr int FIN = 64;                    // threads of the finish kernel
+
+// The kind and planes of an operand of the compute dtype: a bf16 value
+// goes in as itself (one plane, exact in bf16 and in TF32); an fp32 value
+// splits into hi and lo TF32 planes.  TT: the kind of a product of two.
+// BUF: the bytes of a buffer of planes, the most any product of the
+// backward takes (bf16: a TF32 product of a bf16 and a split fp32 operand,
+// three planes; fp32: four).
+template <typename T> struct Prec;
+// CARRY_BUF: the carry kernel's, whose one product takes A's values as
+// loaded and B in T (bf16: two bf16 planes; fp32: one fp32, two tf32).
+template <> struct Prec<float> {
+  static constexpr int TT = TF, PT = 2, BUF = 4 * PLANE_TF,
+                       CARRY_BUF = 3 * PLANE_TF;
+};
+template <> struct Prec<BF16> {
+  static constexpr int TT = BF, PT = 1, BUF = 3 * PLANE_TF,
+                       CARRY_BUF = 2 * PLANE_BF;
+};
+
+// An operand computed on its load from shared memory alone: no run is
+// copied for it.
+struct Computed {};
+template <class E> struct IsComputed {
+  static constexpr bool value = false;
+};
+template <> struct IsComputed<Computed> {
+  static constexpr bool value = true;
+};
+
+// A wgmma descriptor of a K-major plane without swizzle at shared address
+// addr (PTX ISA, "Matrix Descriptor"; layout type 0).
+__device__ __forceinline__ uint64_t plane_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(LBO >> 4) << 16) |
+         (static_cast<uint64_t>(SBO >> 4) << 32);
 }
 
-// The reverse pass of a (batch, head): g, the cotangent of the state after
-// chunk c, replaces gs[c]; dG[c] = sum g * S_c in a fixed tree; the
-// cotangent after chunk c - 1 is g * r(exp(seg_c)) + gs[c].
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-reverse_kernel(const T* __restrict__ states, const T* __restrict__ dfinal,
-               const float* __restrict__ cums, Dims d, float* __restrict__ gs,
-               float* __restrict__ dG) {
-  __shared__ float red[THREADS];
+// D[64 x 32] += A[64 x 16] B[16 x 32], bf16, both K-major in shared memory.
+__device__ __forceinline__ void wgmma_bf16(float (&d)[16], uint64_t da,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// D[64 x 32] += A[64 x 8] B[8 x 32], tf32, both K-major in shared memory.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[16], uint64_t da,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// D[64 x 64] += A[64 x 16] B[16 x 64], bf16, A in registers, B K-major in
+// shared memory.
+__device__ __forceinline__ void wgmma_bf16_rs(float (&d)[32], const uint32_t* a,
+                                     uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, "
+      "p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 64] += A[64 x 8] B[8 x 64], tf32, A in registers, B K-major in
+// shared memory.
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32], const uint32_t* a,
+                                     uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, "
+      "p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// v split into its kind's planes: BF hi = r_bf16(v), lo = r_bf16(v - hi);
+// TF hi = tf32_rna(v), lo = tf32_rna(v - hi).  v - hi is exact in fp32.
+// With one plane v must be exact in the kind.  FP: v itself.
+template <int K>
+__device__ __forceinline__ void split(float v, float& hi, float& lo) {
+  if (K == BF) {
+    hi = __bfloat162float(__float2bfloat16_rn(v));
+    lo = __bfloat162float(__float2bfloat16_rn(v - hi));
+  } else if (K == FP) {
+    hi = v;
+    lo = 0.f;
+  } else {
+    hi = tf32_rna(v);
+    lo = tf32_rna(v - hi);
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(a))) |
+         static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(b)))
+             << 16;
+}
+
+// The byte offset of element (row mm, k kk) in a plane of kind K.
+template <int K>
+__host__ __device__ __forceinline__ int plane_at(int mm, int kk) {
+  return K == BF ? (kk >> 3) * LBO + mm * 16 + (kk & 7) * 2
+                 : (kk >> 2) * LBO + mm * 16 + (kk & 3) * 4;
+}
+template <int K> __host__ __device__ constexpr int plane_bytes() {
+  return K == BF ? PLANE_BF : PLANE_TF;
+}
+
+// Eight values along k of an operand's row mm, from k kk (a multiple of
+// 8), into its planes: one 16-byte store a plane (two in TF32).
+template <int K, int P>
+__device__ __forceinline__ void put_row(unsigned char* base, int mm, int kk,
+                                        const float (&v)[8]) {
+  float hi[8], lo[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) split<K>(v[e], hi[e], lo[e]);
+#pragma unroll
+  for (int pl = 0; pl < P; ++pl) {
+    const float* x = pl == 0 ? hi : lo;
+    unsigned char* at = base + pl * plane_bytes<K>() + plane_at<K>(mm, kk);
+    if (K == BF) {
+      *reinterpret_cast<uint4*>(at) =
+          make_uint4(pack_bf16(x[0], x[1]), pack_bf16(x[2], x[3]),
+                     pack_bf16(x[4], x[5]), pack_bf16(x[6], x[7]));
+    } else {
+      *reinterpret_cast<float4*>(at) = make_float4(x[0], x[1], x[2], x[3]);
+      *reinterpret_cast<float4*>(at + LBO) =
+          make_float4(x[4], x[5], x[6], x[7]);
+    }
+  }
+}
+
+// Eight values along m (rows mm..mm+7) at k kk into the planes.
+template <int K, int P>
+__device__ __forceinline__ void put_col(unsigned char* base, int mm, int kk,
+                                        const float (&v)[8]) {
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    float hi, lo;
+    split<K>(v[e], hi, lo);
+#pragma unroll
+    for (int pl = 0; pl < P; ++pl) {
+      const float x = pl == 0 ? hi : lo;
+      unsigned char* at =
+          base + pl * plane_bytes<K>() + plane_at<K>(mm + e, kk);
+      if (K == BF)
+        *reinterpret_cast<uint16_t*>(at) =
+            __bfloat16_as_ushort(__float2bfloat16_rn(x));
+      else
+        *reinterpret_cast<float*>(at) = x;
+    }
+  }
+}
+
+// A thread's run of eight in a k step: along k (kf), row b0 + tid / 4
+// from k (tid % 4) * 8; along the other dimension, k row tid % 32 from
+// b0 + (tid / 32) * 8, so a warp's stores into the planes fall in distinct
+// banks.  cnt of the eight lie inside [k_lo, k_hi) x [b0, B).
+__device__ __forceinline__ void run_at(bool kf, int c, int k_lo, int k_hi,
+                                       int b0, int B, int& k, int& r,
+                                       int& cnt) {
+  const int tid = threadIdx.x;
+  auto clamp8 = [](int n) { return n < 0 ? 0 : (n > 8 ? 8 : n); };
+  if (kf) {
+    r = b0 + tid / 4;
+    k = k_lo + c * KS + (tid % 4) * 8;
+    cnt = r < B ? clamp8(k_hi - k) : 0;
+  } else {
+    k = k_lo + c * KS + tid % 32;
+    r = b0 + (tid / 32) * 8;
+    cnt = k < k_hi ? clamp8(B - r) : 0;
+  }
+}
+
+// A run's cnt elements from p into the thread's slot: cp.async (16 bytes
+// a copy, the rest zero-filled) where p is 16-byte aligned, else plain
+// loads.  The slot is the thread's own: only it reads the run back.
+__device__ __forceinline__ uint16_t raw_bits(BF16 v) {
+  return __bfloat16_as_ushort(v);
+}
+__device__ __forceinline__ float raw_bits(float v) { return v; }
+template <class E>
+__device__ __forceinline__ void issue_run(unsigned char* slot, const E* p,
+                                          int cnt) {
+  if (cnt <= 0) return;
+  constexpr int es = sizeof(E);
+  if ((reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+    const uint32_t dst = smem_addr(slot);
+    cp_async16(dst, p, cnt * es < 16 ? cnt * es : 16);
+    if (es == 4) cp_async16(dst + 16, cnt > 4 ? p + 4 : p, cnt > 4 ? (cnt - 4) * 4 : 0);
+  } else {
+    auto* out = reinterpret_cast<decltype(raw_bits(*p))*>(slot);
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      out[e] = e < cnt ? raw_bits(p[e]) : decltype(raw_bits(*p))(0);
+  }
+}
+// The same, element by element through src(e) (a run that is not
+// contiguous in memory).
+template <class E, class F>
+__device__ __forceinline__ void issue_elems(unsigned char* slot, F src,
+                                            int cnt) {
+  auto* out = reinterpret_cast<decltype(raw_bits(*src(0)))*>(slot);
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    out[e] = e < cnt ? raw_bits(*src(e)) : decltype(raw_bits(*src(0)))(0);
+}
+
+// The run in the slot as fp32, the elements past cnt zero.
+__device__ __forceinline__ void read_run(const unsigned char* slot, const BF16*,
+                                         int cnt, float (&v)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(slot);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    v[2 * e] = __uint_as_float(w[e] << 16);
+    v[2 * e + 1] = __uint_as_float(w[e] & 0xffff0000u);
+  }
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    if (e >= cnt) v[e] = 0.f;
+}
+__device__ __forceinline__ void read_run(const unsigned char* slot,
+                                         const float*, int cnt, float (&v)[8]) {
+  const float4 a = reinterpret_cast<const float4*>(slot)[0];
+  const float4 b = reinterpret_cast<const float4*>(slot)[1];
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    if (e >= cnt) v[e] = 0.f;
+}
+__device__ __forceinline__ void read_run(const unsigned char*, const Computed*,
+                                         int, float (&v)[8]) {
+#pragma unroll
+  for (int e = 0; e < 8; ++e) v[e] = 0.f;
+}
+
+// One k step (kn <= KS valid) of the warpgroup's 64 x 32 on the planes at
+// shared address buf (A's PA planes, then B's PB): for each k slice of 16
+// (bf16) or 8 (tf32) the lo products first, then hi hi'.
+template <int K, int PA, int PB>
+__device__ __forceinline__ void wg_chunk(float (&acc)[16], uint32_t buf,
+                                         int kn) {
+  constexpr int PL = plane_bytes<K>(), KK = K == BF ? 16 : 8;
+  const uint32_t a = buf;
+  const uint32_t b = buf + PA * PL + (threadIdx.x >> 7) * 4 * SBO;
+#pragma unroll
+  for (int ks = 0; ks < KS; ks += KK) {
+    if (ks >= kn) break;
+    const uint32_t off = (ks / KK) * 2 * LBO;   // two k chunks a slice
+    const uint64_t ah = plane_desc(a + off), bh = plane_desc(b + off);
+    if (K == BF) {
+      if (PA == 2) wgmma_bf16(acc, plane_desc(a + PL + off), bh);
+      if (PB == 2) wgmma_bf16(acc, ah, plane_desc(b + PL + off));
+      wgmma_bf16(acc, ah, bh);
+    } else {
+      if (PA == 2) wgmma_tf32(acc, plane_desc(a + PL + off), bh);
+      if (PB == 2) wgmma_tf32(acc, ah, plane_desc(b + PL + off));
+      wgmma_tf32(acc, ah, bh);
+    }
+  }
+}
+
+// One product on the tensor cores: acc[q] += sum_{k in [k_lo, k_hi)}
+// A(k, m) B(k, n) for the thread's elements (m, n) of the tile at (m0, n0)
+// (m < M, n < N; the rest sums zeros).  An operand comes as runs of eight
+// consecutive values, along k where AK / BK (it is contiguous in k) and
+// along m / n otherwise: sa(k, m) points at a run in device memory (EA the
+// element type; Computed: none, xa makes it), copied with cp.async into the
+// thread's own slot of a ring of R::S steps, and xa(k, m, cnt, v) turns the
+// run's fp32 values into the operand's on their way into the planes of
+// kind K (PA and PB planes; a bf16 run that goes in as it is is copied
+// as it is).  contig_a false: A's runs are not contiguous (read element by
+// element through sa).  prologue() issues the first S - 1 steps; run()
+// issues S - 1 steps ahead of the one it stages, so the next product's
+// prologue can be issued before this one's epilogue.  With two buffers of
+// planes, run() stages step c while the tensor cores run step c - 1: one
+// barrier a step.  Every thread of the block calls run(); it reads shared
+// memory written before it only after its first barrier, and returns with
+// its warpgroup's products complete.
+// acc += half 0 + half 1 at each of the thread's elements: each
+// warpgroup's 64 x 64 partial over its half of k, the columns that the
+// other warpgroup holds handed over through 16 KB of shared memory at x,
+// free once every thread has passed the first barrier.  (Constant indices
+// keep part in registers.)
+__device__ __forceinline__ void meet_halves(float (&acc)[16],
+                                            const float (&part)[32],
+                                            unsigned char* at) {
+  float* x = reinterpret_cast<float*>(at);            // [2][16][128]
+  const int wg = threadIdx.x >> 7, ti = threadIdx.x & 127;
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < 16; ++q)
+    x[(wg * 16 + q) * 128 + ti] = wg == 0 ? part[16 + q] : part[q];
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < 16; ++q)
+    acc[q] = __fadd_rn(acc[q], __fadd_rn(wg == 0 ? part[q] : part[16 + q],
+                                         x[((1 - wg) * 16 + q) * 128 + ti]));
+}
+
+template <class X> struct Unchanged {
+  static constexpr bool value = false;
+};
+// A's transform for a register operand: f(k, m, v, q) the value of A at
+// (k, m) from the operand's value v as loaded (0 for a Computed operand);
+// with span > 0 every k slice lies inside one span of k and q is the
+// slice's k / span (the head, where k runs over (head, p)), else q = -1.
+template <class F> struct Reg {
+  F f;
+  int span;
+};
+template <class F>
+__device__ __forceinline__ Reg<F> reg(F f, int span = 0) {
+  return {f, span};
+}
+template <class X> struct IsReg {
+  static constexpr bool value = false;
+};
+template <class F> struct IsReg<Reg<F>> {
+  static constexpr bool value = true;
+};
+// The TMA state of a block: its stages' mbarriers and, a bit a stage, the
+// parity of each one's next phase (the same in every thread).
+struct Tma {
+  uint32_t bars;                  // shared address of TMA_STAGES mbarriers
+  uint32_t phase;
+};
+// What a kernel's products share: the planes' region (region bytes), the
+// cp.async ring and the TMA state.
+struct Ctx {
+  unsigned char* planes;
+  unsigned char* ring;
+  int region;
+  Tma tm;
+};
+template <class F> __device__ __forceinline__ int span_of(const Reg<F>& r) {
+  return r.span;
+}
+template <class X> __device__ __forceinline__ int span_of(const X&) {
+  return 0;
+}
+
+// the transform that leaves a run as it came
+struct Same {
+  __device__ void operator()(int, int, int, float (&)[8]) const {}
+};
+template <> struct Unchanged<Same> {
+  static constexpr bool value = true;
+};
+
+template <int K, int PA, int PB, bool AK, bool BK, class EA, class EB,
+          class R, class SA, class XA, class SB, class XB>
+struct Gemm {
+  int m0, n0, M, N, k_lo, k_hi;
+  SA sa;
+  XA xa;
+  SB sb;
+  XB xb;
+  bool contig_a;
+
+  static constexpr int RA = IsComputed<EA>::value ? 0 : 8 * sizeof(EA);
+  static constexpr int RB = IsComputed<EB>::value ? 0 : 8 * sizeof(EB);
+  static constexpr int PL = plane_bytes<K>();
+  // A in registers: its values as loaded go into one plane of kind AK_ (bf16
+  // as it is, fp32 whole), none for a Computed operand
+  static constexpr bool AR = IsReg<XA>::value;
+  static constexpr int KA = IsComputed<EA>::value || sizeof(EA) == 2 ? BF : FP;
+  static constexpr int A_BYTES =
+      !AR ? PA * PL : (IsComputed<EA>::value ? 0 : plane_bytes<KA>());
+  static_assert(THREADS * (RA + RB) <= R::STAGE, "a step's runs fit a stage");
+  static_assert(A_BYTES + PB * PL <= R::BUF, "a step's planes fit a buffer");
+  static_assert(2 * 16 * 128 * 4 <= R::NB * R::BUF,
+                "the halves' exchange fits the planes");
+
+  __device__ int steps() const {
+    return k_hi > k_lo ? (k_hi - k_lo + KS - 1) / KS : 0;
+  }
+  __device__ void issue(unsigned char* ring, int c) const {
+    if (c < steps()) {
+      unsigned char* st = ring + (c % R::S) * R::STAGE;
+      int k, r, cnt;
+      if constexpr (!IsComputed<EA>::value) {
+        run_at(AK, c, k_lo, k_hi, m0, M, k, r, cnt);
+        unsigned char* at = st + threadIdx.x * RA;
+        if (contig_a)
+          issue_run(at, reinterpret_cast<const EA*>(sa(k, r)), cnt);
+        else
+          issue_elems<EA>(at, [&](int e) {
+            return reinterpret_cast<const EA*>(AK ? sa(k + e, r) : sa(k, r + e));
+          }, cnt);
+      }
+      if constexpr (!IsComputed<EB>::value) {
+        run_at(BK, c, k_lo, k_hi, n0, N, k, r, cnt);
+        issue_run(st + THREADS * RA + threadIdx.x * RB,
+                  reinterpret_cast<const EB*>(sb(k, r)), cnt);
+      }
+    }
+    cp_commit();
+  }
+  __device__ void prologue(unsigned char* ring) const {
+    for (int c = 0; c < R::S - 1; ++c) issue(ring, c);
+  }
+  // one operand's run of step c from its slot into the planes at `pl`
+  template <int KD, int P, bool KF, class E, class XF>
+  __device__ void stage_one(const unsigned char* slot, unsigned char* pl,
+                            int c, int b0, int B, XF xf) const {
+    int k, r, cnt;
+    run_at(KF, c, k_lo, k_hi, b0, B, k, r, cnt);
+    const int lr = r - b0, lk = k - k_lo - c * KS;
+    if constexpr (KD == BF && P == 1 && KF && Unchanged<XF>::value &&
+                  sizeof(E) == 2 && !IsComputed<E>::value) {
+      const uint4 u = cnt > 0 ? *reinterpret_cast<const uint4*>(slot)
+                              : make_uint4(0u, 0u, 0u, 0u);
+      *reinterpret_cast<uint4*>(pl + plane_at<BF>(lr, lk)) = u;
+    } else {
+      float v[8];
+      read_run(slot, static_cast<const E*>(nullptr), cnt, v);
+      xf(k, r, cnt, v);
+      if (KF) put_row<KD, P>(pl, lr, lk, v);
+      else put_col<KD, P>(pl, lr, lk, v);
+    }
+  }
+  // step c: its runs issued S - 1 steps before, staged into planes `pl`
+  __device__ void stage(unsigned char* ring, unsigned char* pl, int c) const {
+    issue(ring, c + R::S - 1);
+    cp_wait<R::S - 1>();
+    const unsigned char* st = ring + (c % R::S) * R::STAGE;
+    if constexpr (!AR)
+      stage_one<K, PA, AK, EA>(st + threadIdx.x * RA, pl, c, m0, M, xa);
+    else if constexpr (!IsComputed<EA>::value)
+      stage_one<KA, 1, AK, EA>(st + threadIdx.x * RA, pl, c, m0, M, Same());
+    stage_one<K, PB, BK, EB>(st + THREADS * RA + threadIdx.x * RB,
+                             pl + A_BYTES, c, n0, N, xb);
+  }
+  // A in registers: the two warpgroups split each step's k, warpgroup wg
+  // its half (bf16: the k slice of 16 at 16 wg; tf32: the slices of 8 at 16
+  // wg and 16 wg + 8), each summing a 64 x 64 partial (m64n64), so each A
+  // value is computed once a block; the two partials meet at the end.
+  static constexpr int KK = K == BF ? 16 : 8;
+  static constexpr int WSL = KS / 2 / KK;     // k slices a warpgroup a step
+  static constexpr int FR = WSL * 8;          // fr[(s * 2 + plane) * 4 + j]
+  // The thread's A fragments of step c, split into its PA planes: wgmma's
+  // register layout for the warp's 16 rows (bf16 k16: a register the pair
+  // (k, k + 1) at rows g and g + 8, k = 2 t and 2 t + 8; tf32 k8: (g, t),
+  // (g + 8, t), (g, t + 4), (g + 8, t + 4)).
+  __device__ void frags(const unsigned char* buf, int c,
+                        uint32_t (&fr)[FR]) const {
+    const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3;
+    const int g = lane >> 2, t = lane & 3, kc = k_lo + c * KS;
+    const int wg = threadIdx.x >> 7;
+#pragma unroll
+    for (int sl = 0; sl < WSL; ++sl) {
+      const int k0 = (wg * WSL + sl) * KK;
+      const int q = xa.span > 0 ? (kc + k0) / xa.span : -1;
+      float v[8];
+#pragma unroll
+      for (int e = 0; e < (K == BF ? 8 : 4); ++e) {
+        int mm, kk;
+        if (K == BF) {
+          const int j = e >> 1;
+          mm = 16 * w + g + 8 * (j & 1);
+          kk = k0 + 2 * t + 8 * (j >> 1) + (e & 1);
+        } else {
+          mm = 16 * w + g + 8 * (e & 1);
+          kk = k0 + t + 4 * (e >> 1);
+        }
+        const int m = m0 + mm, k = kc + kk;
+        float raw = 0.f;
+        if constexpr (!IsComputed<EA>::value) {
+          const unsigned char* at = buf + plane_at<KA>(mm, kk);
+          raw = KA == BF ? __bfloat162float(*reinterpret_cast<const BF16*>(at))
+                         : *reinterpret_cast<const float*>(at);
+        }
+        v[e] = m < M && k < k_hi ? xa.f(k, m, raw, q) : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (K == BF) {
+          float h0, l0, h1, l1;
+          split<BF>(v[2 * j], h0, l0);
+          split<BF>(v[2 * j + 1], h1, l1);
+          fr[sl * 8 + j] = pack_bf16(h0, h1);
+          fr[sl * 8 + 4 + j] = pack_bf16(l0, l1);
+        } else {
+          float h, l;
+          split<TF>(v[j], h, l);
+          fr[sl * 8 + j] = __float_as_uint(h);
+          fr[sl * 8 + 4 + j] = __float_as_uint(l);
+        }
+      }
+    }
+  }
+  // The warpgroup's half of a k step (kn <= KS valid) with A from
+  // registers: for each slice the lo products first, then hi hi'.
+  __device__ void chunk_rs(float (&part)[32], const uint32_t (&fr)[FR],
+                           uint32_t buf, int kn) const {
+    const uint32_t b = buf + A_BYTES;
+    const int wg = threadIdx.x >> 7;
+#pragma unroll
+    for (int sl = 0; sl < WSL; ++sl) {
+      const int s_ = wg * WSL + sl;
+      if (s_ * KK >= kn) break;
+      const uint32_t off = s_ * 2 * LBO;
+      const uint64_t bh = plane_desc(b + off);
+      if (K == BF) {
+        if (PA == 2) wgmma_bf16_rs(part, fr + sl * 8 + 4, bh);
+        if (PB == 2) wgmma_bf16_rs(part, fr + sl * 8, plane_desc(b + PL + off));
+        wgmma_bf16_rs(part, fr + sl * 8, bh);
+      } else {
+        if (PA == 2) wgmma_tf32_rs(part, fr + sl * 8 + 4, bh);
+        if (PB == 2) wgmma_tf32_rs(part, fr + sl * 8, plane_desc(b + PL + off));
+        wgmma_tf32_rs(part, fr + sl * 8, bh);
+      }
+    }
+  }
+  __device__ void run(float (&acc)[16], unsigned char* planes,
+                      unsigned char* ring) const {
+    if constexpr (AR) run_rs(acc, planes, ring);
+    else run_ss(acc, planes, ring);
+  }
+  __device__ void prologue(Ctx& x) const { prologue(x.ring); }
+  __device__ void run(float (&acc)[16], Ctx& x) const {
+    run(acc, x.planes, x.ring);
+  }
+  __device__ void run_ss(float (&acc)[16], unsigned char* planes,
+                         unsigned char* ring) const {
+    const bool busy = n0 + (threadIdx.x >> 7) * 32 < N;
+    const int n = steps();
+    __syncthreads();
+    for (int c = 0; c < n; ++c) {
+      unsigned char* buf = planes + (c % R::NB) * R::BUF;
+      if (R::NB == 1 && c > 0) __syncthreads();
+      stage(ring, buf, c);
+      fence_async_smem();
+      if (R::NB > 1) {                  // step c - 1 done: its buffer frees
+        wgmma_wait<0>();
+        fence_regs(acc);
+      }
+      __syncthreads();
+      if (busy) {
+        fence_regs(acc);
+        wgmma_fence();
+        wg_chunk<K, PA, PB>(acc, smem_addr(buf),
+                            min(KS, k_hi - k_lo - c * KS));
+        wgmma_commit();
+        fence_regs(acc);
+      }
+      if (R::NB == 1) {
+        wgmma_wait<0>();
+        fence_regs(acc);
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+  }
+  // With three buffers of planes the fragments of step c are computed
+  // while step c - 1 runs on the tensor cores (their registers alternate):
+  // a buffer is staged again three steps on, after every thread has waited
+  // for the products that read it and passed a barrier since.
+  __device__ void step_rs(float (&part)[32], unsigned char* planes,
+                          unsigned char* ring, int c, uint32_t (&fr)[FR],
+                          uint32_t (&prev)[FR]) const {
+    unsigned char* buf = planes + (c % R::NB) * R::BUF;
+    stage(ring, buf, c);
+    fence_async_smem();
+    __syncthreads();
+    frags(buf, c, fr);
+    wgmma_wait<0>();                    // step c - 1 done: prev is free
+    fence_regs(part);
+    fence_regs(prev);
+    wgmma_fence();
+    chunk_rs(part, fr, smem_addr(buf), min(KS, k_hi - k_lo - c * KS));
+    wgmma_commit();
+    fence_regs(part);
+    fence_regs(fr);
+  }
+  // acc += the product, its two k halves summed each in its warpgroup's
+  // 64 x 64 partial and then added, each warpgroup handing the other the
+  // columns it holds: acc + (half 0 + half 1) at every element.  With one
+  // or two buffers a step's fragments follow its barrier.
+  __device__ void run_rs(float (&acc)[16], unsigned char* planes,
+                         unsigned char* ring) const {
+    const int n = steps();
+    float part[32];
+#pragma unroll
+    for (int q = 0; q < 32; ++q) part[q] = 0.f;
+    uint32_t fr[FR] = {}, fr2[FR] = {};  // read by a step until its wait
+    __syncthreads();
+    if constexpr (R::NB >= 3) {
+      for (int c = 0; c < n; c += 2) {
+        step_rs(part, planes, ring, c, fr, fr2);
+        if (c + 1 < n) step_rs(part, planes, ring, c + 1, fr2, fr);
+      }
+    } else {
+      for (int c = 0; c < n; ++c) {
+        unsigned char* buf = planes + (c % R::NB) * R::BUF;
+        if (R::NB == 1 && c > 0) __syncthreads();
+        stage(ring, buf, c);
+        fence_async_smem();
+        if (R::NB == 2) {
+          wgmma_wait<0>();
+          fence_regs(part);
+          fence_regs(fr);
+        }
+        __syncthreads();
+        frags(buf, c, fr);
+        fence_regs(part);
+        wgmma_fence();
+        chunk_rs(part, fr, smem_addr(buf), min(KS, k_hi - k_lo - c * KS));
+        wgmma_commit();
+        fence_regs(part);
+        fence_regs(fr);
+        if (R::NB == 1) {
+          wgmma_wait<0>();
+          fence_regs(part);
+          fence_regs(fr);
+        }
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(part);
+    fence_regs(fr);
+    fence_regs(fr2);
+    meet_halves(acc, part, planes);
+  }
+};
+
+template <int K, int PA, int PB, bool AK, bool BK, class EA, class EB,
+          class R, class SA, class XA, class SB, class XB>
+__device__ __forceinline__ Gemm<K, PA, PB, AK, BK, EA, EB, R, SA, XA, SB, XB>
+gemm(int m0, int n0, int M, int N, int k_lo, int k_hi, SA sa, XA xa, SB sb,
+     XB xb, bool contig_a = true) {
+  return {m0, n0, M, N, k_lo, k_hi, sa, xa, sb, xb, contig_a};
+}
+
+// the source of a Computed operand
+struct Nowhere {
+  __device__ const void* operator()(int, int) const { return nullptr; }
+};
+
+// ------------------------------------------------- products through TMA
+// With T = bf16 and shapes that TMA's boxes fit (tma_fits), the products
+// whose operands are bf16 as they stand in device memory take them by TMA
+// straight into shared memory: a box of 8 columns (16 bytes) by 64 rows a
+// k chunk of a K-major plane (its rows 16 bytes apart, the chunks 1024:
+// wgmma's layout without swizzle), or by 32 rows of k an 8-column group of
+// an MN-major plane (k rows 16 bytes apart, the groups 512; B read
+// transposed).  One thread arms the stage's mbarrier and issues the boxes;
+// the stages live in the planes' region, each refilled after a barrier
+// once its product has run.  Out-of-range rows and columns of a tensor
+// come as zeros.
+constexpr int TMA_PLANE = 4096;            // a bf16 plane of 64 x KS by TMA
+// an MN-major plane's k groups (LBO) and n groups (SBO)
+constexpr uint32_t MN_LBO = 128, MN_SBO = 512;
+constexpr int TMA_STAGES = 4;              // at most, as the region allows
+
+// The 2-d tensor maps of the bf16 operands, box 8 x 64 (K-major chunks) or
+// 8 x 32 (MN-major groups): dy, x (b s, nh hd), B, C (b s, ns), the states
+// (nc b nh hd, ns).
+struct Maps {
+  CUtensorMap dyK, dyMN, xK, BK, CK, CMN, SK, SMN;
+};
+
+__device__ __forceinline__ void tma_load2(uint32_t dst, const CUtensorMap* map,
+                                          uint32_t bar, int col, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row)
+      : "memory");
+}
+
+// A wgmma descriptor without swizzle: leading and stride byte offsets
+__device__ __forceinline__ uint64_t desc_of(uint32_t addr, uint32_t lbo,
+                                            uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32);
+}
+
+// D[64 x 64] += A[64 x 16] B[16 x 64], bf16, A in registers, B MN-major in
+// shared memory (read transposed).
+__device__ __forceinline__ void wgmma_bf16_rs_t(float (&d)[32],
+                                                const uint32_t* a,
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, "
+      "p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+// Waits for stage s's boxes and flips its parity.
+__device__ __forceinline__ void tma_wait(Tma& tm, int s) {
+  mbar_wait(tm.bars + 8 * s, (tm.phase >> s) & 1);
+  tm.phase ^= 1u << s;
+}
+
+// An operand by TMA: the map, and the box origin of k_lo (col, row).
+struct Src {
+  const CUtensorMap* map;
+  int col, row;
+};
+
+// The operand kinds of a TMA product.
+enum TmaA { A_K = 0, A_COMPUTED = 1, A_RAW_MN = 2, A_RAW_K = 3 };
+
+// acc += sum_{k in [k_lo, k_hi)} A(k, m) B(k, n) for the thread's elements
+// of the tile at (m0, n0), k in steps of KS through NS stages of the
+// region at `planes`.  AM = A_K: A and B K-major by TMA, both from shared
+// memory, the warpgroups splitting n as Gemm does.  Otherwise B is
+// MN-major by TMA and A comes from registers, f(k, m, v, -1) of A's value
+// v as loaded (A_RAW_MN: A's k are its rows; A_RAW_K: its columns) or from
+// nothing (A_COMPUTED), the warpgroups splitting k as Gemm's register
+// products do; PA planes of A (bf16 hi and lo).  prologue() (every thread,
+// after the block's last product) issues the first stages; run() issues
+// each further stage after the barrier that frees it, and reads shared
+// memory written before it only after its first barrier.
+template <int AM, int PA, class XA>
+struct Tgemm {
+  int m0, n0, M, N, k_lo, k_hi;
+  Src a, b;
+  XA xa;
+
+  static constexpr int A_BYTES = AM == A_COMPUTED ? 0 : TMA_PLANE;
+  static constexpr int STAGE = A_BYTES + TMA_PLANE;
+  static constexpr int KK = 16, WSL = KS / 2 / KK, FR = WSL * 8;
+
+  __device__ int steps() const {
+    return k_hi > k_lo ? (k_hi - k_lo + KS - 1) / KS : 0;
+  }
+  __device__ static int stages(int region) {
+    const int n = region / STAGE;
+    return n < TMA_STAGES ? n : TMA_STAGES;
+  }
+  // thread 0: step c's boxes into stage s
+  __device__ void issue(unsigned char* planes, const Tma& tm, int c,
+                        int s) const {
+    const uint32_t dst = smem_addr(planes + s * STAGE);
+    const uint32_t bar = tm.bars + 8 * s;
+    const int k = c * KS;
+    mbar_expect_tx(bar, STAGE);
+    if (AM == A_K || AM == A_RAW_K)
+      for (int q = 0; q < KS / 8; ++q)
+        tma_load2(dst + q * 1024, a.map, bar, a.col + k + 8 * q, a.row);
+    else if (AM == A_RAW_MN)
+      for (int q = 0; q < TILE / 8; ++q)
+        tma_load2(dst + q * 512, a.map, bar, a.col + 8 * q, a.row + k);
+    if (AM == A_K)
+      for (int q = 0; q < KS / 8; ++q)
+        tma_load2(dst + A_BYTES + q * 1024, b.map, bar, b.col + k + 8 * q,
+                  b.row);
+    else
+      for (int q = 0; q < TILE / 8; ++q)
+        tma_load2(dst + A_BYTES + q * 512, b.map, bar, b.col + 8 * q,
+                  b.row + k);
+  }
+  __device__ void prologue(unsigned char* planes, int region,
+                           const Tma& tm) const {
+    fence_async_smem();
+    __syncthreads();                    // the region is free
+    if (threadIdx.x == 0) {
+      const int n = steps(), ns = stages(region);
+      for (int c = 0; c < n && c < ns; ++c) issue(planes, tm, c, c);
+    }
+  }
+  // the thread's A fragments of stage `st`'s step c (Gemm::frags' layout)
+  __device__ void frags(const unsigned char* st, int c,
+                        uint32_t (&fr)[FR]) const {
+    const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3;
+    const int g = lane >> 2, t = lane & 3, kc = k_lo + c * KS;
+    const int wg = threadIdx.x >> 7, span = span_of(xa);
+#pragma unroll
+    for (int sl = 0; sl < WSL; ++sl) {
+      const int k0 = (wg * WSL + sl) * KK;
+      const int q = span > 0 ? (kc + k0) / span : -1;
+      float v[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int j = e >> 1;
+        const int mm = 16 * w + g + 8 * (j & 1);
+        const int kk = k0 + 2 * t + 8 * (j >> 1) + (e & 1);
+        const int m = m0 + mm, k = kc + kk;
+        float raw = 0.f;
+        if (AM == A_RAW_MN)
+          raw = __bfloat162float(*reinterpret_cast<const BF16*>(
+              st + (mm >> 3) * 512 + kk * 16 + (mm & 7) * 2));
+        else if (AM == A_RAW_K)
+          raw = __bfloat162float(*reinterpret_cast<const BF16*>(
+              st + (kk >> 3) * 1024 + mm * 16 + (kk & 7) * 2));
+        v[e] = m < M && k < k_hi ? xa.f(k, m, raw, q) : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float h0, l0, h1, l1;
+        split<BF>(v[2 * j], h0, l0);
+        split<BF>(v[2 * j + 1], h1, l1);
+        fr[sl * 8 + j] = pack_bf16(h0, h1);
+        fr[sl * 8 + 4 + j] = pack_bf16(l0, l1);
+      }
+    }
+  }
+  template <class ACC>
+  __device__ void run_steps(ACC& acc, unsigned char* planes, int region,
+                            Tma& tm) const {
+    const int n = steps(), ns = stages(region);
+    const int wg = threadIdx.x >> 7;
+    const bool busy = AM != A_K || n0 + wg * 32 < N;
+    uint32_t fr[FR] = {};
+    for (int c = 0; c < n; ++c) {
+      const int s = c % ns;
+      unsigned char* st = planes + s * STAGE;
+      const uint32_t sa = smem_addr(st), sb = sa + A_BYTES;
+      const int kn = min(KS, k_hi - k_lo - c * KS);
+      tma_wait(tm, s);
+      if (busy) {
+        if constexpr (AM == A_K) {
+          fence_regs(acc);
+          wgmma_fence();
+#pragma unroll
+          for (int sl = 0; sl < KS / 16; ++sl) {
+            if (sl * 16 >= kn) break;
+            wgmma_bf16(acc, desc_of(sa + sl * 2048, 1024, 128),
+                       desc_of(sb + wg * 512 + sl * 2048, 1024, 128));
+          }
+        } else {
+          frags(st, c, fr);
+          fence_regs(acc);
+          wgmma_fence();
+#pragma unroll
+          for (int sl = 0; sl < WSL; ++sl) {
+            const int s_ = wg * WSL + sl;
+            if (s_ * KK >= kn) break;
+            const uint64_t db = desc_of(sb + s_ * 256, MN_LBO, MN_SBO);
+            if (PA == 2) wgmma_bf16_rs_t(acc, fr + sl * 8 + 4, db);
+            wgmma_bf16_rs_t(acc, fr + sl * 8, db);
+          }
+        }
+        wgmma_commit();
+        fence_regs(acc);
+        fence_regs(fr);
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(fr);
+      if (c + ns < n) {
+        __syncthreads();                // every product of stage s has run
+        if (threadIdx.x == 0) {
+          fence_async_smem();
+          issue(planes, tm, c + ns, s);
+        }
+      }
+    }
+  }
+  __device__ void prologue(Ctx& x) const {
+    prologue(x.planes, x.region, x.tm);
+  }
+  __device__ void run(float (&acc)[16], Ctx& x) const {
+    run(acc, x.planes, x.region, x.tm);
+  }
+  __device__ void run(float (&acc)[16], unsigned char* planes, int region,
+                      Tma& tm) const {
+    __syncthreads();                    // what the block wrote before it
+    if constexpr (AM == A_K) {
+      run_steps(acc, planes, region, tm);
+    } else {
+      float part[32];
+#pragma unroll
+      for (int q = 0; q < 32; ++q) part[q] = 0.f;
+      run_steps(part, planes, region, tm);
+      meet_halves(acc, part, planes);
+    }
+  }
+};
+
+template <int AM, int PA, class XA>
+__device__ __forceinline__ Tgemm<AM, PA, XA> tgemm(int m0, int n0, int M,
+                                                   int N, int k_lo, int k_hi,
+                                                   Src a, Src b, XA xa) {
+  return {m0, n0, M, N, k_lo, k_hi, a, b, xa};
+}
+struct NoX {
+  __device__ float f(int, int, float v, int) const { return v; }
+};
+
+// Sets up the block's TMA stages' mbarriers at `bars` (thread 0), before
+// the block's first barrier.
+__device__ __forceinline__ Tma tma_init(unsigned char* bars) {
+  const uint32_t b = smem_addr(bars);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < TMA_STAGES; ++s) mbar_init(b + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  return {b, 0u};
+}
+
+// f(q, m, n) for each of the thread's accumulators inside (M, N)
+template <class F>
+__device__ __forceinline__ void each_mma(int m0, int n0, int M, int N, F f) {
+  const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3;
+  const int wg = threadIdx.x >> 7, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int q = 0; q < 16; ++q) {
+    const int m = m0 + w * 16 + g + 8 * ((q & 3) >> 1);
+    const int n = n0 + wg * 32 + (q >> 2) * 8 + 2 * t + (q & 1);
+    if (m < M && n < N) f(q, m, n);
+  }
+}
+
+__device__ __forceinline__ void zero16(float (&v)[16]) {
+#pragma unroll
+  for (int q = 0; q < 16; ++q) v[q] = 0.f;
+}
+
+// A tile's 64 row sums of v (zero outside the tile) in a fixed order: the
+// thread's eight values of a row, ((c, c+1) + (c+8, c+9)) + ((c+16, c+17)
+// + (c+24, c+25)), the row's four lanes by shuffles (row_parts, into red:
+// 2 x 64 floats), then after a barrier the two warpgroups in order
+// (row_total, to thread r for row r < 64).  The block passes another
+// barrier before it writes red again.
+__device__ void row_parts(const float (&v)[16], float* red) {
+  const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3;
+  const int wg = threadIdx.x >> 7, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int q = 2 * hf;
+    float s = __fadd_rn(
+        __fadd_rn(__fadd_rn(v[q], v[q + 1]), __fadd_rn(v[q + 4], v[q + 5])),
+        __fadd_rn(__fadd_rn(v[q + 8], v[q + 9]),
+                  __fadd_rn(v[q + 12], v[q + 13])));
+    s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, 1));
+    s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, 2));
+    if (t == 0) red[wg * TILE + w * 16 + g + 8 * hf] = s;
+  }
+}
+__device__ float row_total(const float* red) {
+  const int r = threadIdx.x;
+  return r < TILE ? __fadd_rn(red[r], red[TILE + r]) : 0.f;
+}
+
+// The same for the 64 column sums: the thread's two values of a column
+// (rows g and g + 8), the column's eight lanes by shuffles (col_parts, into
+// red: 4 x 64 floats), then the four warps of its warpgroup in order
+// (col_total, to thread n).
+__device__ void col_parts(const float (&v)[16], float* red) {
+  const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3;
+  const int wg = threadIdx.x >> 7, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float s = __fadd_rn(v[4 * j + e], v[4 * j + 2 + e]);
+      s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, 4));
+      s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, 8));
+      s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, 16));
+      if (g == 0) red[w * TILE + wg * 32 + j * 8 + 2 * t + e] = s;
+    }
+}
+__device__ float col_total(const float* red) {
+  const int n = threadIdx.x;
+  return n < TILE ? __fadd_rn(__fadd_rn(__fadd_rn(red[n], red[TILE + n]),
+                                        red[2 * TILE + n]),
+                              red[3 * TILE + n])
+                  : 0.f;
+}
+
+// The per-position vectors of the backward, (b, s, nh) fp32 each; rowp
+// holds one (b, s, nh) plane of row sums per column tile.
+struct Vecs {
+  float *dsd, *dE, *colsum, *ddti, *rowp;
+};
+
+// (1) The reverse pass of a (batch, head).  First every chunk's cumsum (a
+// thread a chunk, in order); then from the last chunk to the first: gs =
+// (dy r(exp(cums)))^T C on the tensor cores (the operand a product of two
+// bf16 values: hi and lo), g, the cotangent of the state after chunk c,
+// written out, dG[c] = sum g * S_c in a fixed tree, g <- g r(exp(seg)) +
+// gs.  g lives in shared memory; the tiles of (hd, ns) are one stream of
+// products, each one's loads issued during the one before.
+template <typename T, bool TM>
+__global__ void __launch_bounds__(THREADS, 2)
+carry_kernel(const float* __restrict__ dt, const float* __restrict__ A,
+             const T* __restrict__ dy, const T* __restrict__ C,
+             const T* __restrict__ states, const T* __restrict__ dfinal,
+             Dims d, float* __restrict__ cums, float* __restrict__ gc,
+             float* __restrict__ dG, const __grid_constant__ Maps maps) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* planes = smem;
+  using R = Ring<CARRY_STAGES, Stage2<T>::SAME, Prec<T>::CARRY_BUF, CARRY_NB>;
+  unsigned char* ring = smem + R::NB * R::BUF;
+  float* ef = reinterpret_cast<float*>(ring + R::S * R::STAGE);
+  float* g = ef + 2 * MAX_CHUNK;                              // [hd * ns]
+  float* red = g + MAX_STATE;                                 // [THREADS]
+  Ctx cx{planes, ring, R::NB * R::BUF, {}};
+  if constexpr (TM) cx.tm = tma_init(reinterpret_cast<unsigned char*>(
+                        red + THREADS));                      // [TMA_STAGES]
   const int tid = threadIdx.x, bh = blockIdx.x, bb = bh / d.nh, h = bh % d.nh;
   const int hn = d.hd * d.ns;
-  float g[PER_THREAD];
-#pragma unroll
-  for (int q = 0; q < PER_THREAD; ++q) {
-    const int e = tid + q * THREADS;
-    g[q] = (e < hn && dfinal != nullptr)
-               ? ld(dfinal, static_cast<size_t>(bh) * hn + e)
-               : 0.f;
+  const int tp = (d.hd + TILE - 1) / TILE, tn = (d.ns + TILE - 1) / TILE;
+  const float a = A[h];
+  for (int c = tid; c < d.nc; c += THREADS) {
+    float acc = 0.f;
+    for (int j = 0; j < d.lc; ++j) {
+      const size_t v = row(d, bb, c * d.lc + j) * d.nh + h;
+      acc = __fadd_rn(acc, __fmul_rn(dt[v], a));
+      cums[v] = acc;
+    }
   }
-  for (int c = d.nc - 1; c >= 0; --c) {
+  for (int e = tid; e < hn; e += THREADS)
+    g[e] = dfinal != nullptr ? ld(dfinal, static_cast<size_t>(bh) * hn + e)
+                             : 0.f;
+  // task t: chunk nc - 1 - t / (tp tn), tile (t % (tp tn)) of (hd, ns)
+  auto prod = [&](int t) {
+    const int c = d.nc - 1 - t / (tp * tn), tile = t % (tp * tn);
+    const size_t r0 = row(d, bb, c * d.lc);
+    const float* e = ef + (c & 1) * MAX_CHUNK;
+    const int p0 = (tile / tn) * TILE, n0 = (tile % tn) * TILE;
+    auto xa = reg([=](int i, int, float v, int) { return __fmul_rn(v, e[i]); });
+    if constexpr (TM)
+      return tgemm<A_RAW_MN, 2>(
+          p0, n0, d.hd, d.ns, 0, d.lc,
+          Src{&maps.dyMN, h * d.hd + p0, static_cast<int>(r0)},
+          Src{&maps.CMN, n0, static_cast<int>(r0)}, xa);
+    else
+      return gemm<Prec<T>::TT, 2, Prec<T>::PT, false, false, T, T, R>(
+          p0, n0, d.hd, d.ns, 0, d.lc,
+          [=](int i, int p) {
+            return dy + ((r0 + i) * d.nh + h) * d.hd + p;
+          },
+          xa, [=](int i, int n) { return C + (r0 + i) * d.ns + n; }, Same());
+  };
+  const int tasks = d.nc * tp * tn;
+  __syncthreads();
+  prod(0).prologue(cx);
+  float part = 0.f;
+  for (int t = 0; t < tasks; ++t) {
+    const int c = d.nc - 1 - t / (tp * tn), tile = t % (tp * tn);
+    const int p0 = (tile / tn) * TILE, n0 = (tile % tn) * TILE;
+    const size_t r0 = row(d, bb, c * d.lc);
+    if (tile == 0) {
+      for (int i = tid; i < d.lc; i += THREADS)
+        ef[(c & 1) * MAX_CHUNK + i] = rnd<T>(expf(cums[(r0 + i) * d.nh + h]));
+      part = 0.f;
+    }
+    const float gr = rnd<T>(expf(cums[(r0 + d.lc - 1) * d.nh + h]));
     const size_t base = state_base(d, c, bb, h);
-    const float gr =
-        rnd<T>(expf(cums[row(d, bb, c * d.lc + d.lc - 1) * d.nh + h]));
-    float part = 0.f;
-#pragma unroll
-    for (int q = 0; q < PER_THREAD; ++q) {
-      const int e = tid + q * THREADS;
-      if (e < hn) {
-        const float w = gs[base + e];
-        gs[base + e] = g[q];
-        part = fmaf(g[q], ld(states, base + e), part);
-        g[q] = __fadd_rn(__fmul_rn(g[q], gr), w);
-      }
-    }
-    red[tid] = part;
-    __syncthreads();
-    for (int half = THREADS / 2; half > 0; half >>= 1) {
-      if (tid < half) red[tid] = __fadd_rn(red[tid], red[tid + half]);
+    float sv[16];
+    each_mma(p0, n0, d.hd, d.ns, [&](int q, int p, int n) {
+      sv[q] = ld(states, base + static_cast<size_t>(p) * d.ns + n);
+    });
+    float acc[16];
+    zero16(acc);
+    prod(t).run(acc, cx);
+    if (t + 1 < tasks) prod(t + 1).prologue(cx);
+    each_mma(p0, n0, d.hd, d.ns, [&](int q, int p, int n) {
+      const int e = p * d.ns + n;
+      const float gold = g[e];
+      gc[base + e] = gold;
+      part = fmaf(gold, sv[q], part);
+      g[e] = __fadd_rn(__fmul_rn(gold, gr), acc[q]);
+    });
+    if (tile == tp * tn - 1) {
+      red[tid] = part;
       __syncthreads();
-    }
-    if (tid == 0) dG[(static_cast<size_t>(c) * d.b + bb) * d.nh + h] = red[0];
-    __syncthreads();
-  }
-}
-
-// The per-position vectors of the backward, (b, s, nh) fp32 each.
-struct Vecs {
-  float *dsd, *dE, *rowsum, *colsum, *ddti;
-};
-
-// 64 rows j of a chunk of one (batch, head): the state update's cotangents
-// (dx's state part, d sdecay, dB's state part) and the inter-chunk
-// output's (d exp(cums), dC's inter part)
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-state_grad_kernel(const float* __restrict__ dt, const T* __restrict__ X,
-                  const T* __restrict__ B, const T* __restrict__ C,
-                  const T* __restrict__ dy, const T* __restrict__ states,
-                  const float* __restrict__ gs,
-                  const float* __restrict__ cums, Dims d, Vecs vec,
-                  float* __restrict__ dxs, float* __restrict__ dBh,
-                  float* __restrict__ dCh) {
-  __shared__ Stage st;
-  __shared__ float buf[TILE][PAD];
-  __shared__ float sdr[TILE], ef[TILE], racc[TILE];
-  const int tid = threadIdx.x, j0 = blockIdx.x * TILE, c = blockIdx.y;
-  const int bb = blockIdx.z / d.nh, h = blockIdx.z % d.nh;
-  const int rows = min(TILE, d.lc - j0);
-  const size_t r0 = row(d, bb, c * d.lc);
-  const float seg = cums[(r0 + d.lc - 1) * d.nh + h];
-  if (tid < rows) {
-    const size_t v = (r0 + j0 + tid) * d.nh + h;
-    sdr[tid] = rnd<T>(__fmul_rn(expf(seg - cums[v]), dt[v]));
-    ef[tid] = rnd<T>(expf(cums[v]));
-    racc[tid] = 0.f;
-  }
-  __syncthreads();
-  const float* G = gs + state_base(d, c, bb, h);
-  const T* S = states + state_base(d, c, bb, h);
-  auto x_at = [&](int j, int p) {
-    return ld(X, ((r0 + j) * d.nh + h) * d.hd + p);
-  };
-  auto dy_at = [&](int i, int p) {
-    return ld(dy, ((r0 + i) * d.nh + h) * d.hd + p);
-  };
-  auto row_sums = [&](int width) {     // racc += the rows of buf, in order
-    __syncthreads();
-    if (tid < rows) {
-      float sum = racc[tid];
-      for (int q = 0; q < width; ++q) sum = __fadd_rn(sum, buf[tid][q]);
-      racc[tid] = sum;
-    }
-    __syncthreads();
-  };
-  float acc[4][4];
-  // dU = B . g^T; dx's state part sdecay * dU; d sdecay = sum_p x * dU
-  for (int p0 = 0; p0 < d.hd; p0 += TILE) {
-    zero(acc);
-    gemm<true, true>(
-        acc, j0, p0, d.lc, d.hd, 0, d.ns,
-        [&](int n, int j) { return ld(B, (r0 + j) * d.ns + n); },
-        [&](int n, int p) { return G[static_cast<size_t>(p) * d.ns + n]; },
-        st);
-    each(j0, p0, d.lc, d.hd, [&](int r, int q, int j, int p) {
-      dxs[((r0 + j) * d.nh + h) * d.hd + p] = __fmul_rn(sdr[j - j0], acc[r][q]);
-      buf[j - j0][p - p0] = __fmul_rn(x_at(j, p), acc[r][q]);
-    });
-    row_sums(min(TILE, d.hd - p0));
-  }
-  if (tid < rows) {
-    vec.dsd[(r0 + j0 + tid) * d.nh + h] = racc[tid];
-    racc[tid] = 0.f;
-  }
-  // dB's state part: U . g, U = r(sdecay * x)
-  for (int n0 = 0; n0 < d.ns; n0 += TILE) {
-    zero(acc);
-    gemm<true, false>(
-        acc, j0, n0, d.lc, d.ns, 0, d.hd,
-        [&](int p, int j) {
-          return rnd<T>(__fmul_rn(sdr[j - j0], x_at(j, p)));
-        },
-        [&](int p, int n) { return G[static_cast<size_t>(p) * d.ns + n]; },
-        st);
-    each(j0, n0, d.lc, d.ns, [&](int r, int q, int j, int n) {
-      dBh[head_row(d, h, bb, c * d.lc + j) * d.ns + n] = acc[r][q];
-    });
-  }
-  // Q = r(C . S^T); d exp(cums_i) = sum_p dy * Q
-  for (int p0 = 0; p0 < d.hd; p0 += TILE) {
-    zero(acc);
-    gemm<true, true>(
-        acc, j0, p0, d.lc, d.hd, 0, d.ns,
-        [&](int n, int i) { return ld(C, (r0 + i) * d.ns + n); },
-        [&](int n, int p) { return ld(S, static_cast<size_t>(p) * d.ns + n); },
-        st);
-    each(j0, p0, d.lc, d.hd, [&](int r, int q, int i, int p) {
-      buf[i - j0][p - p0] = __fmul_rn(dy_at(i, p), rnd<T>(acc[r][q]));
-    });
-    row_sums(min(TILE, d.hd - p0));
-  }
-  if (tid < rows) vec.dE[(r0 + j0 + tid) * d.nh + h] = racc[tid];
-  // dC's inter part: (dy * r(exp(cums))) . S
-  for (int n0 = 0; n0 < d.ns; n0 += TILE) {
-    zero(acc);
-    gemm<true, false>(
-        acc, j0, n0, d.lc, d.ns, 0, d.hd,
-        [&](int p, int i) { return __fmul_rn(dy_at(i, p), ef[i - j0]); },
-        [&](int p, int n) { return ld(S, static_cast<size_t>(p) * d.ns + n); },
-        st);
-    each(j0, n0, d.lc, d.ns, [&](int r, int q, int i, int n) {
-      dCh[head_row(d, h, bb, c * d.lc + i) * d.ns + n] = acc[r][q];
-    });
-  }
-}
-
-// The score at (i, j <= i): (cb * exp(cums_i - cums_j)) * dt_j, and the
-// parts of its cotangent from dL: dcb, d(cums_i - cums_j), d dt_j.
-struct Score {
-  float L, dcb, dexp, ddt;
-};
-__device__ __forceinline__ Score score(float cbv, float ci, float cj,
-                                       float dtj, float dl) {
-  const float e = expf(ci - cj);
-  Score s;
-  s.L = __fmul_rn(__fmul_rn(cbv, e), dtj);
-  s.dcb = __fmul_rn(__fmul_rn(dl, e), dtj);
-  s.dexp = __fmul_rn(dl, s.L);
-  s.ddt = __fmul_rn(__fmul_rn(dl, cbv), e);
-  return s;
-}
-
-// 64 rows i of a chunk of one (batch, head): the strip dL[i, :] = dy_i . x_j
-// (j <= i) in shared memory as dcb, the row sums of d(cums_i - cums_j), and
-// dC's intra part dcb . B added to dCh.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-rows_kernel(const float* __restrict__ dt, const T* __restrict__ X,
-            const T* __restrict__ B, const T* __restrict__ dy,
-            const float* __restrict__ cums, const T* __restrict__ cb, Dims d,
-            Vecs vec, float* __restrict__ dCh) {
-  extern __shared__ float strip[];         // [TILE][lc + 1]
-  __shared__ Stage st;
-  __shared__ float buf[TILE][PAD];
-  __shared__ float cu[MAX_CHUNK], dts[MAX_CHUNK], racc[TILE];
-  const int tid = threadIdx.x, i0 = blockIdx.x * TILE, c = blockIdx.y;
-  const int bb = blockIdx.z / d.nh, h = blockIdx.z % d.nh;
-  const int rows = min(TILE, d.lc - i0), sld = d.lc + 1;
-  const size_t r0 = row(d, bb, c * d.lc);
-  for (int j = tid; j < d.lc; j += THREADS) {
-    cu[j] = cums[(r0 + j) * d.nh + h];
-    dts[j] = dt[(r0 + j) * d.nh + h];
-  }
-  if (tid < TILE) racc[tid] = 0.f;
-  __syncthreads();
-  const T* cbc = cb + (static_cast<size_t>(c) * d.b + bb) * d.lc * d.lc;
-  const int kmax = min(d.lc, i0 + TILE);
-  float acc[4][4];
-  for (int j0 = 0; j0 < kmax; j0 += TILE) {
-    zero(acc);
-    gemm<true, true>(
-        acc, i0, j0, d.lc, kmax, 0, d.hd,
-        [&](int p, int i) { return ld(dy, ((r0 + i) * d.nh + h) * d.hd + p); },
-        [&](int p, int j) { return ld(X, ((r0 + j) * d.nh + h) * d.hd + p); },
-        st);
-    each(i0, j0, d.lc, kmax, [&](int r, int q, int i, int j) {
-      float dcb = 0.f, dexp = 0.f;
-      if (j <= i) {
-        const Score s = score(ld(cbc, static_cast<size_t>(i) * d.lc + j),
-                              cu[i], cu[j], dts[j], acc[r][q]);
-        dcb = s.dcb;
-        dexp = s.dexp;
+      for (int half = THREADS / 2; half > 0; half >>= 1) {
+        if (tid < half) red[tid] = __fadd_rn(red[tid], red[tid + half]);
+        __syncthreads();
       }
-      strip[(i - i0) * sld + j] = dcb;
-      buf[i - i0][j - j0] = dexp;
-    });
-    __syncthreads();
-    if (tid < rows) {
-      float sum = racc[tid];
-      const int width = min(TILE, kmax - j0);
-      for (int q = 0; q < width; ++q) sum = __fadd_rn(sum, buf[tid][q]);
-      racc[tid] = sum;
+      if (tid == 0)
+        dG[(static_cast<size_t>(c) * d.b + bb) * d.nh + h] = red[0];
     }
-    __syncthreads();
-  }
-  if (tid < rows) vec.rowsum[(r0 + i0 + tid) * d.nh + h] = racc[tid];
-  for (int n0 = 0; n0 < d.ns; n0 += TILE) {
-    zero(acc);
-    gemm<true, false>(
-        acc, i0, n0, d.lc, d.ns, 0, kmax,
-        [&](int j, int i) { return strip[(i - i0) * sld + j]; },
-        [&](int j, int n) { return ld(B, (r0 + j) * d.ns + n); }, st);
-    each(i0, n0, d.lc, d.ns, [&](int r, int q, int i, int n) {
-      const size_t at = head_row(d, h, bb, c * d.lc + i) * d.ns + n;
-      dCh[at] = __fadd_rn(dCh[at], acc[r][q]);
-    });
   }
 }
 
-// 64 columns j of a chunk of one (batch, head): the strip dL[:, j] (i >= j)
-// as dcb, the column sums of d(cums_i - cums_j) and of dt_j's score part,
-// dx = its state part + r(L)^T . dy (rounded to T), and dB's intra part
-// dcb^T . C added to dBh.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-cols_kernel(const float* __restrict__ dt, const T* __restrict__ X,
-            const T* __restrict__ C, const T* __restrict__ dy,
-            const float* __restrict__ cums, const T* __restrict__ cb,
-            const float* __restrict__ dxs, Dims d, Vecs vec,
-            T* __restrict__ dxh, float* __restrict__ dBh) {
-  extern __shared__ float dyn[];
-  float* strip = dyn;                        // [lc][PAD]
-  float* b1 = strip + d.lc * PAD;            // [TILE][PAD]
-  float* b2 = b1 + TILE * PAD;               // [TILE][PAD]
-  __shared__ Stage st;
-  __shared__ float cu[MAX_CHUNK], dts[MAX_CHUNK], c1[TILE], c2[TILE];
-  const int tid = threadIdx.x, j0 = blockIdx.x * TILE, c = blockIdx.y;
-  const int bb = blockIdx.z / d.nh, h = blockIdx.z % d.nh;
-  const int cols = min(TILE, d.lc - j0), jend = j0 + cols;
+// (2) A pair of 64-column tiles J of a chunk (J and the one as far from
+// the end: an even load), for a group of heads [h0, h1).  For each J:
+// (a) the scores' strip r(C_I . B_J), I >= J, in shared memory.  (b) Each
+// tile dL_IJ = dy_I . x_J^T once a head; in its epilogue, with L = (cb e)
+// dt_j and e = exp(cums_i - cums_j) on and below the diagonal: dcb = (dL
+// e) dt_j summed over the group's heads in registers and written once a
+// tile; dL L summed over the tile's columns (a plane of rowp) and over its
+// rows, and (dL cb) e over its rows (ddt's score part), both summed over I
+// in shared memory.  (c) Each head's dx for the rows J: sdecay (B_J . g^T)
+// (3xTF32 on g), its row sum with x (d sdecay), then + r(L_IJ)^T dy_I for
+// each I >= J in the same accumulator, rounded once.  (d) d exp(cums) for
+// the rows J: sum_p dy r(C . S^T).  Each phase is one stream of products,
+// the next one's loads and the next head's cums issued during the one
+// before.
+template <typename T, bool TM>
+__global__ void __launch_bounds__(THREADS, 2)
+heads_kernel(const float* __restrict__ dt, const T* __restrict__ X,
+             const T* __restrict__ B, const T* __restrict__ C,
+             const T* __restrict__ dy, const T* __restrict__ states,
+             const float* __restrict__ cums, const float* __restrict__ gc,
+             Dims d, int gsize, Vecs vec, float* __restrict__ dcbp,
+             T* __restrict__ dxh, const __grid_constant__ Maps maps) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  using S = Ring<HEADS_STAGES, Stage2<T>::MIXED, Prec<T>::BUF, HEADS_NB>;
+  unsigned char* planes = smem;
+  unsigned char* ring = smem + S::NB * S::BUF;
+  T* strip = reinterpret_cast<T*>(ring + S::S * S::STAGE);  // [lc][SP]
+  float* cub = reinterpret_cast<float*>(
+      reinterpret_cast<unsigned char*>(strip) +
+      (d.lc * SP * sizeof(T) + 15) / 16 * 16);              // [2][MAX_CHUNK]
+  float* dtb = cub + 2 * MAX_CHUNK;                         // [2][MAX_CHUNK]
+  float* red = dtb + 2 * MAX_CHUNK;                         // [10][TILE]
+  float* colacc = red + 10 * TILE;                          // [G_MAX][TILE]
+  float* ddtacc = colacc + G_MAX * TILE;                    // [G_MAX][TILE]
+  float* vacc = ddtacc + G_MAX * TILE;                      // [TILE]
+  Ctx cx{planes, ring, S::NB * S::BUF, {}};
+  if constexpr (TM) cx.tm = tma_init(reinterpret_cast<unsigned char*>(
+                        vacc + TILE));                        // [TMA_STAGES]
+  const int tid = threadIdx.x, c = blockIdx.y;
+  const int ngroups = (d.nh + gsize - 1) / gsize;
+  const int bb = blockIdx.z / ngroups, grp = blockIdx.z % ngroups;
+  const int h0 = grp * gsize, h1 = min(d.nh, h0 + gsize), gh = h1 - h0;
+  const int nt = (d.lc + TILE - 1) / TILE, tp = (d.hd + TILE - 1) / TILE;
   const size_t r0 = row(d, bb, c * d.lc);
-  for (int j = tid; j < d.lc; j += THREADS) {
-    cu[j] = cums[(r0 + j) * d.nh + h];
-    dts[j] = dt[(r0 + j) * d.nh + h];
-  }
-  if (tid < TILE) c1[tid] = c2[tid] = 0.f;
-  __syncthreads();
-  const T* cbc = cb + (static_cast<size_t>(c) * d.b + bb) * d.lc * d.lc;
-  float acc[4][4];
-  for (int i0 = j0; i0 < d.lc; i0 += TILE) {
-    zero(acc);
-    gemm<true, true>(
-        acc, i0, j0, d.lc, jend, 0, d.hd,
-        [&](int p, int i) { return ld(dy, ((r0 + i) * d.nh + h) * d.hd + p); },
-        [&](int p, int j) { return ld(X, ((r0 + j) * d.nh + h) * d.hd + p); },
-        st);
-    each(i0, j0, d.lc, jend, [&](int r, int q, int i, int j) {
-      float dcb = 0.f, dexp = 0.f, ddt = 0.f;
-      if (j <= i) {
-        const Score s = score(ld(cbc, static_cast<size_t>(i) * d.lc + j),
-                              cu[i], cu[j], dts[j], acc[r][q]);
-        dcb = s.dcb;
-        dexp = s.dexp;
-        ddt = s.ddt;
-      }
-      strip[i * PAD + (j - j0)] = dcb;
-      b1[(i - i0) * PAD + (j - j0)] = dexp;
-      b2[(i - i0) * PAD + (j - j0)] = ddt;
-    });
-    __syncthreads();
-    if (tid < cols) {
-      float s1 = c1[tid], s2 = c2[tid];
-      const int height = min(TILE, d.lc - i0);
-      for (int r = 0; r < height; ++r) {
-        s1 = __fadd_rn(s1, b1[r * PAD + tid]);
-        s2 = __fadd_rn(s2, b2[r * PAD + tid]);
-      }
-      c1[tid] = s1;
-      c2[tid] = s2;
+  const size_t n1 = static_cast<size_t>(d.b) * d.s * d.nh;
+  constexpr int TT = Prec<T>::TT, PT = Prec<T>::PT;
+  auto at = [=](int pos, int h) { return (r0 + pos) * d.nh + h; };
+  auto xo = [=](int pos, int h, int p) {
+    return ((r0 + pos) * d.nh + h) * d.hd + p;
+  };
+  // a head's cums and dt over the chunk: loaded into registers (a thread a
+  // position) during the product before, stored to slot `sl` before the
+  // product that needs them
+  float pcu = 0.f, pdt = 0.f;
+  auto pre_head = [&](int h) {
+    if (tid < d.lc) {
+      pcu = cums[at(tid, h)];
+      pdt = dt[at(tid, h)];
     }
+  };
+  auto put_head = [&](int sl) {
+    if (tid < d.lc) {
+      cub[sl * MAX_CHUNK + tid] = pcu;
+      dtb[sl * MAX_CHUNK + tid] = pdt;
+    }
+  };
+  float acc[16], dcb[16];
+  for (int side = 0; side < 2; ++side) {
+    const int jt = side == 0 ? blockIdx.x : nt - 1 - blockIdx.x;
+    if (side == 1 && jt == static_cast<int>(blockIdx.x)) break;
+    const int J0 = jt * TILE, jend = min(d.lc, J0 + TILE), cols = jend - J0;
+    const int ni = nt - jt;                    // the I tiles >= J
+    auto cb_at = [=](int i, int j) {
+      return ld(strip, static_cast<size_t>(i - J0) * SP + (j - J0));
+    };
+    // (a) the scores' strip
+    auto prod_a = [&](int it) {
+      if constexpr (TM)
+        return tgemm<A_K, 1>(
+            J0 + it * TILE, J0, d.lc, jend, 0, d.ns,
+            Src{&maps.CK, 0, static_cast<int>(r0) + J0 + it * TILE},
+            Src{&maps.BK, 0, static_cast<int>(r0) + J0}, NoX());
+      else
+        return gemm<TT, PT, PT, true, true, T, T, S>(
+            J0 + it * TILE, J0, d.lc, jend, 0, d.ns,
+            [=](int n, int i) { return C + (r0 + i) * d.ns + n; }, Same(),
+            [=](int n, int j) { return B + (r0 + j) * d.ns + n; }, Same());
+    };
     __syncthreads();
-  }
-  if (tid < cols) {
-    vec.colsum[(r0 + j0 + tid) * d.nh + h] = c1[tid];
-    vec.ddti[(r0 + j0 + tid) * d.nh + h] = c2[tid];
-  }
-  // dx = its state part + r(L)^T . dy
-  for (int p0 = 0; p0 < d.hd; p0 += TILE) {
-    zero(acc);
-    gemm<false, false>(
-        acc, j0, p0, jend, d.hd, j0, d.lc,
-        [&](int i, int j) {
-          return i >= j
-                     ? rnd<T>(__fmul_rn(
-                           __fmul_rn(ld(cbc, static_cast<size_t>(i) * d.lc + j),
-                                     expf(cu[i] - cu[j])),
-                           dts[j]))
-                     : 0.f;
-        },
-        [&](int i, int p) { return ld(dy, ((r0 + i) * d.nh + h) * d.hd + p); },
-        st);
-    each(j0, p0, jend, d.hd, [&](int r, int q, int j, int p) {
-      const size_t at = ((r0 + j) * d.nh + h) * d.hd + p;
-      dxh[at] = to_t<T>(__fadd_rn(dxs[at], acc[r][q]));
-    });
-  }
-  // dB's intra part: dcb^T . C
-  for (int n0 = 0; n0 < d.ns; n0 += TILE) {
-    zero(acc);
-    gemm<false, false>(
-        acc, j0, n0, jend, d.ns, j0, d.lc,
-        [&](int i, int j) { return strip[i * PAD + (j - j0)]; },
-        [&](int i, int n) { return ld(C, (r0 + i) * d.ns + n); }, st);
-    each(j0, n0, jend, d.ns, [&](int r, int q, int j, int n) {
-      const size_t at = head_row(d, h, bb, c * d.lc + j) * d.ns + n;
-      dBh[at] = __fadd_rn(dBh[at], acc[r][q]);
-    });
+    prod_a(0).prologue(cx);
+    for (int it = 0; it < ni; ++it) {
+      zero16(acc);
+      prod_a(it).run(acc, cx);
+      if (it + 1 < ni) prod_a(it + 1).prologue(cx);
+      each_mma(J0 + it * TILE, J0, d.lc, jend, [&](int q, int i, int j) {
+        strip[static_cast<size_t>(i - J0) * SP + (j - J0)] = to_t<T>(acc[q]);
+      });
+    }
+    // (b) dL once a tile: task (I, head) = (it, hh), heads inner
+    for (int e = tid; e < G_MAX * TILE; e += THREADS)
+      colacc[e] = ddtacc[e] = 0.f;
+    auto prod_b = [&](int task) {
+      const int I0 = J0 + (task / gh) * TILE, h = h0 + task % gh;
+      if constexpr (TM)
+        return tgemm<A_K, 1>(
+            I0, J0, d.lc, jend, 0, d.hd,
+            Src{&maps.dyK, h * d.hd, static_cast<int>(r0) + I0},
+            Src{&maps.xK, h * d.hd, static_cast<int>(r0) + J0}, NoX());
+      else
+        return gemm<TT, PT, PT, true, true, T, T, S>(
+            I0, J0, d.lc, jend, 0, d.hd,
+            [=](int p, int i) { return dy + xo(i, h, p); }, Same(),
+            [=](int p, int j) { return X + xo(j, h, p); }, Same());
+    };
+    const int tasks_b = ni * gh;
+    pre_head(h0);
+    prod_b(0).prologue(cx);
+    zero16(dcb);
+    for (int task = 0; task < tasks_b; ++task) {
+      const int I0 = J0 + (task / gh) * TILE, h = h0 + task % gh;
+      const int sl = task & 1;
+      put_head(sl);
+      if (task + 1 < tasks_b) pre_head(h0 + (task + 1) % gh);
+      zero16(acc);
+      prod_b(task).run(acc, cx);
+      if (task + 1 < tasks_b) prod_b(task + 1).prologue(cx);
+      const float* cu = cub + sl * MAX_CHUNK;
+      const float* dts = dtb + sl * MAX_CHUNK;
+      float vr[16], vd[16];
+      zero16(vr);
+      zero16(vd);
+      each_mma(I0, J0, d.lc, jend, [&](int q, int i, int j) {
+        if (j <= i) {
+          const float cbv = cb_at(i, j), e = expf(cu[i] - cu[j]);
+          const float L = __fmul_rn(__fmul_rn(cbv, e), dts[j]);
+          dcb[q] = __fadd_rn(dcb[q], __fmul_rn(__fmul_rn(acc[q], e), dts[j]));
+          vr[q] = __fmul_rn(acc[q], L);
+          vd[q] = __fmul_rn(__fmul_rn(acc[q], cbv), e);
+        }
+      });
+      row_parts(vr, red);
+      col_parts(vr, red + 2 * TILE);
+      col_parts(vd, red + 6 * TILE);
+      __syncthreads();
+      const float rs = row_total(red), cs = col_total(red + 2 * TILE),
+                  ds = col_total(red + 6 * TILE);
+      if (tid < min(TILE, d.lc - I0))
+        vec.rowp[jt * n1 + at(I0 + tid, h)] = rs;
+      if (tid < cols) {
+        float* ca = colacc + (h - h0) * TILE + tid;
+        float* da = ddtacc + (h - h0) * TILE + tid;
+        *ca = __fadd_rn(*ca, cs);
+        *da = __fadd_rn(*da, ds);
+      }
+      if (h == h1 - 1) {
+        float* out = dcbp + ((static_cast<size_t>(grp) * d.nc + c) * d.b +
+                             bb) * d.lc * d.lc;
+        each_mma(I0, J0, d.lc, jend, [&](int q, int i, int j) {
+          out[static_cast<size_t>(i) * d.lc + j] = dcb[q];
+        });
+        zero16(dcb);
+      }
+    }
+    if (tid < cols)
+      for (int h = h0; h < h1; ++h) {
+        vec.colsum[at(J0 + tid, h)] = colacc[(h - h0) * TILE + tid];
+        vec.ddti[at(J0 + tid, h)] = ddtacc[(h - h0) * TILE + tid];
+      }
+    // (c) dx and d sdecay for the rows J: task (head, p tile) = two
+    // products, dU = B_J . g^T (k over ns) and r(L)^T dy (k over i >= J)
+    auto prod_c1 = [&](int task) {
+      const int h = h0 + task / tp, p0 = (task % tp) * TILE;
+      const float* G = gc + state_base(d, c, bb, h);
+      return gemm<TF, PT, 2, true, true, T, float, S>(
+          J0, p0, jend, d.hd, 0, d.ns,
+          [=](int n, int j) { return B + (r0 + j) * d.ns + n; }, Same(),
+          [=](int n, int p) { return G + static_cast<size_t>(p) * d.ns + n; },
+          Same());
+    };
+    auto prod_c2 = [&](int task, const float* cu, const float* dts) {
+      const int h = h0 + task / tp, p0 = (task % tp) * TILE;
+      auto xa = reg([=](int i, int j, float, int) {
+        return j <= i ? rnd<T>(__fmul_rn(
+                            __fmul_rn(cb_at(i, j), expf(cu[i] - cu[j])),
+                            dts[j]))
+                      : 0.f;
+      });
+      if constexpr (TM)
+        return tgemm<A_COMPUTED, 1>(
+            J0, p0, jend, d.hd, J0, d.lc, Src{nullptr, 0, 0},
+            Src{&maps.dyMN, h * d.hd + p0, static_cast<int>(r0) + J0}, xa);
+      else
+        return gemm<TT, PT, PT, false, false, Computed, T, S>(
+            J0, p0, jend, d.hd, J0, d.lc, Nowhere(), xa,
+            [=](int i, int p) { return dy + xo(i, h, p); }, Same());
+    };
+    const int tasks_c = gh * tp;
+    pre_head(h0);
+    __syncthreads();
+    prod_c1(0).prologue(cx);
+    for (int task = 0; task < tasks_c; ++task) {
+      const int h = h0 + task / tp, p0 = (task % tp) * TILE;
+      const int sl = task & 1;
+      put_head(sl);
+      if (task + 1 < tasks_c) pre_head(h0 + (task + 1) / tp);
+      const float* cu = cub + sl * MAX_CHUNK;
+      const float* dts = dtb + sl * MAX_CHUNK;
+      zero16(acc);
+      prod_c1(task).run(acc, cx);
+      prod_c2(task, cu, dts).prologue(cx);
+      float vr[16];
+      zero16(vr);
+      each_mma(J0, p0, jend, d.hd, [&](int q, int j, int p) {
+        vr[q] = __fmul_rn(ld(X, xo(j, h, p)), acc[q]);
+        acc[q] = __fmul_rn(
+            rnd<T>(__fmul_rn(expf(cu[d.lc - 1] - cu[j]), dts[j])), acc[q]);
+      });
+      row_parts(vr, red);
+      __syncthreads();
+      const float rs = row_total(red);
+      if (tid < cols) vacc[tid] = p0 == 0 ? rs : __fadd_rn(vacc[tid], rs);
+      prod_c2(task, cu, dts).run(acc, cx);
+      if (task + 1 < tasks_c) prod_c1(task + 1).prologue(cx);
+      each_mma(J0, p0, jend, d.hd, [&](int q, int j, int p) {
+        dxh[xo(j, h, p)] = to_t<T>(acc[q]);
+      });
+      if (p0 + TILE >= d.hd && tid < cols) vec.dsd[at(J0 + tid, h)] = vacc[tid];
+    }
+    // (d) d exp(cums) for the rows J: task (head, p tile)
+    auto prod_d = [&](int task) {
+      const int h = h0 + task / tp, p0 = (task % tp) * TILE;
+      const T* S_ = states + state_base(d, c, bb, h);
+      if constexpr (TM)
+        return tgemm<A_K, 1>(
+            J0, p0, jend, d.hd, 0, d.ns,
+            Src{&maps.CK, 0, static_cast<int>(r0) + J0},
+            Src{&maps.SK, 0, ((c * d.b + bb) * d.nh + h) * d.hd + p0},
+            NoX());
+      else
+        return gemm<TT, PT, PT, true, true, T, T, S>(
+            J0, p0, jend, d.hd, 0, d.ns,
+            [=](int n, int i) { return C + (r0 + i) * d.ns + n; }, Same(),
+            [=](int n, int p) {
+              return S_ + static_cast<size_t>(p) * d.ns + n;
+            },
+            Same());
+    };
+    __syncthreads();
+    prod_d(0).prologue(cx);
+    for (int task = 0; task < tasks_c; ++task) {
+      const int h = h0 + task / tp, p0 = (task % tp) * TILE;
+      zero16(acc);
+      prod_d(task).run(acc, cx);
+      if (task + 1 < tasks_c) prod_d(task + 1).prologue(cx);
+      float vr[16];
+      zero16(vr);
+      each_mma(J0, p0, jend, d.hd, [&](int q, int i, int p) {
+        vr[q] = __fmul_rn(ld(dy, xo(i, h, p)), rnd<T>(acc[q]));
+      });
+      row_parts(vr, red);
+      __syncthreads();
+      const float rs = row_total(red);
+      if (tid < cols) vacc[tid] = p0 == 0 ? rs : __fadd_rn(vacc[tid], rs);
+      if (p0 + TILE >= d.hd && tid < cols) vec.dE[at(J0 + tid, h)] = vacc[tid];
+    }
   }
 }
 
-// One thread a (batch, chunk, head): the exponents' cotangents, cums' (a
-// reverse cumsum, in order) into ddt and dA's partial.
-__global__ void __launch_bounds__(THREADS)
+// (3) A (batch, chunk, head): the exponents' cotangents in parallel, then
+// one thread the sum of d sdecay's part of seg (in order) and cums' reverse
+// cumsum (in order) into ddt and dA's partial.  With more than one group
+// of heads, the blocks of a (batch, chunk) also fold the groups' dcb into
+// the first group's plane, in group order, each a share of the chunk.
+__global__ void __launch_bounds__(FIN)
 finish_kernel(const float* __restrict__ dt, const float* __restrict__ A,
               const float* __restrict__ cums, const float* __restrict__ dG,
-              Dims d, Vecs vec, float* __restrict__ ddt,
-              float* __restrict__ da_part) {
-  const int idx = blockIdx.x * THREADS + threadIdx.x;
-  if (idx >= d.b * d.nc * d.nh) return;
-  const int h = idx % d.nh, c = (idx / d.nh) % d.nc, bb = idx / (d.nh * d.nc);
+              Dims d, Vecs vec, int ngroups, float* __restrict__ dcbp,
+              float* __restrict__ ddt, float* __restrict__ da_part) {
+  __shared__ float base[MAX_CHUNK], qv[MAX_CHUNK], sv[MAX_CHUNK],
+      dsd[MAX_CHUNK], dtv[MAX_CHUNK];
+  const int h = blockIdx.x % d.nh, bc = blockIdx.x / d.nh;
+  const int c = bc % d.nc, bb = bc / d.nc;
   const size_t r0 = row(d, bb, c * d.lc);
-  const float seg = cums[(r0 + d.lc - 1) * d.nh + h], a = A[h];
-  float sum = 0.f;
-  for (int j = 0; j < d.lc; ++j) {
-    const size_t v = (r0 + j) * d.nh + h;
-    sum = fmaf(vec.dsd[v], __fmul_rn(expf(seg - cums[v]), dt[v]), sum);
+  const size_t n1 = static_cast<size_t>(d.b) * d.s * d.nh;
+  if (ngroups > 1) {
+    const size_t lc2 = static_cast<size_t>(d.lc) * d.lc;
+    const size_t plane = static_cast<size_t>(d.nc) * d.b * lc2;
+    float* p = dcbp + (static_cast<size_t>(c) * d.b + bb) * lc2;
+    if (lc2 % 4 == 0) {                      // four at a time
+      float4* p4 = reinterpret_cast<float4*>(p);
+      const size_t n4 = lc2 / 4, per = (n4 + d.nh - 1) / d.nh;
+      const size_t e1 = min(n4, (h + 1) * per);
+      for (size_t e = h * per + threadIdx.x; e < e1; e += FIN) {
+        float4 s = p4[e];
+        for (int k = 1; k < ngroups; ++k) {
+          const float4 w = p4[k * plane / 4 + e];
+          s = make_float4(__fadd_rn(s.x, w.x), __fadd_rn(s.y, w.y),
+                          __fadd_rn(s.z, w.z), __fadd_rn(s.w, w.w));
+        }
+        p4[e] = s;
+      }
+    } else {
+      const size_t per = (lc2 + d.nh - 1) / d.nh;
+      const size_t e1 = min(lc2, (h + 1) * per);
+      for (size_t e = h * per + threadIdx.x; e < e1; e += FIN) {
+        float s = p[e];
+        for (int k = 1; k < ngroups; ++k) s = __fadd_rn(s, p[k * plane + e]);
+        p[e] = s;
+      }
+    }
   }
-  const float dseg =
-      __fadd_rn(__fmul_rn(dG[(static_cast<size_t>(c) * d.b + bb) * d.nh + h],
-                          expf(seg)),
-                sum);
-  float da = 0.f, dA = 0.f;
-  for (int i = d.lc - 1; i >= 0; --i) {
+  const float seg = cums[(r0 + d.lc - 1) * d.nh + h];
+  for (int i = threadIdx.x; i < d.lc; i += FIN) {
     const size_t v = (r0 + i) * d.nh + h;
+    float rowsum = 0.f;
+    for (int jt = 0; jt <= i / TILE; ++jt)
+      rowsum = __fadd_rn(rowsum, vec.rowp[jt * n1 + v]);
     const float e = expf(seg - cums[v]);
-    float dc = __fsub_rn(vec.rowsum[v], vec.colsum[v]);
+    float dc = __fsub_rn(rowsum, vec.colsum[v]);
     dc = __fadd_rn(dc, __fmul_rn(vec.dE[v], expf(cums[v])));
     dc = __fsub_rn(dc, __fmul_rn(vec.dsd[v], __fmul_rn(e, dt[v])));
-    if (i == d.lc - 1) dc = __fadd_rn(dc, dseg);
+    base[i] = dc;
+    qv[i] = __fadd_rn(vec.ddti[v], __fmul_rn(vec.dsd[v], e));
+    sv[i] = __fmul_rn(e, dt[v]);
+    dsd[i] = vec.dsd[v];
+    dtv[i] = dt[v];
+  }
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  float sum = 0.f;
+  for (int j = 0; j < d.lc; ++j) sum = fmaf(dsd[j], sv[j], sum);
+  const float dseg = __fadd_rn(
+      __fmul_rn(dG[(static_cast<size_t>(c) * d.b + bb) * d.nh + h], expf(seg)),
+      sum);
+  const float a = A[h];
+  float da = 0.f, dA = 0.f;
+  for (int i = d.lc - 1; i >= 0; --i) {
+    const float dc = i == d.lc - 1 ? __fadd_rn(base[i], dseg) : base[i];
     da = __fadd_rn(da, dc);
-    ddt[v] = __fadd_rn(__fadd_rn(vec.ddti[v], __fmul_rn(vec.dsd[v], e)),
-                       __fmul_rn(da, a));
-    dA = fmaf(da, dt[v], dA);
+    ddt[(r0 + i) * d.nh + h] = __fadd_rn(qv[i], __fmul_rn(da, a));
+    dA = fmaf(da, dtv[i], dA);
   }
   da_part[(static_cast<size_t>(bb) * d.nc + c) * d.nh + h] = dA;
 }
 
-// dB, dC: the heads' partials summed in head order, rounded to T; dA: the
-// (batch, chunk) partials summed in that order.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-reduce_kernel(const float* __restrict__ dBh, const float* __restrict__ dCh,
-              const float* __restrict__ da_part, Dims d, T* __restrict__ dB,
-              T* __restrict__ dC, float* __restrict__ dA) {
-  const size_t n_e = static_cast<size_t>(d.b) * d.s * d.ns;
-  const size_t e = static_cast<size_t>(blockIdx.x) * THREADS + threadIdx.x;
-  if (e < n_e) {
-    float sb = 0.f, sc = 0.f;
-    for (int h = 0; h < d.nh; ++h) {
-      sb = __fadd_rn(sb, dBh[h * n_e + e]);
-      sc = __fadd_rn(sc, dCh[h * n_e + e]);
+// (4) 64 rows T and 64 columns of ns of a chunk: dB = sum_h U_h g_h +
+// dcb^T C and dC = sum_h dQ_h S_h + dcb B, each in one accumulator over
+// every head (one product whose k runs over (head, p)), rounded once to T.
+// The first block also sums dA's partials in (batch, chunk) order.
+template <typename T, bool TM>
+__global__ void __launch_bounds__(THREADS, 2)
+sums_kernel(const float* __restrict__ dt, const T* __restrict__ X,
+            const T* __restrict__ B, const T* __restrict__ C,
+            const T* __restrict__ dy, const T* __restrict__ states,
+            const float* __restrict__ cums, const float* __restrict__ gc,
+            const float* __restrict__ dcbp,
+            const float* __restrict__ da_part, Dims d, T* __restrict__ dB,
+            T* __restrict__ dC, float* __restrict__ dA,
+            const __grid_constant__ Maps maps) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  using S = Ring<SUMS_STAGES, Stage2<T>::MIXED, Prec<T>::BUF, SUMS_NB>;
+  unsigned char* planes = smem;
+  unsigned char* ring = smem + S::NB * S::BUF;
+  float* tab = reinterpret_cast<float*>(ring + S::S * S::STAGE);
+  // [SUMS_HEADS][TILE]
+  Ctx cx{planes, ring, S::NB * S::BUF, {}};
+  if constexpr (TM) cx.tm = tma_init(reinterpret_cast<unsigned char*>(
+                        tab + SUMS_HEADS * TILE));            // [TMA_STAGES]
+  const int tid = threadIdx.x, T0 = blockIdx.x * TILE, n0 = blockIdx.y * TILE;
+  const int c = blockIdx.z % d.nc, bb = blockIdx.z / d.nc;
+  const int tend = min(d.lc, T0 + TILE), rows = tend - T0;
+  const size_t r0 = row(d, bb, c * d.lc);
+  const float* dcb = dcbp + (static_cast<size_t>(c) * d.b + bb) * d.lc * d.lc;
+  const bool whole = d.hd % 8 == 0;          // a run of eight stays in a head
+  constexpr int TT = Prec<T>::TT, PT = Prec<T>::PT;
+  auto xo = [=](int pos, int h, int p) {
+    return ((r0 + pos) * d.nh + h) * d.hd + p;
+  };
+  // dB's state part, U_h g_h: k = (h, p), SUMS_HEADS heads at a time;
+  // tab[h - hb][j] = r(sdecay_j) of head h
+  float acc[16];
+  zero16(acc);
+  for (int hb = 0; hb < d.nh; hb += SUMS_HEADS) {
+    const int he = min(d.nh, hb + SUMS_HEADS);
+    __syncthreads();
+    for (int e = tid; e < (he - hb) * rows; e += THREADS) {
+      const int h = hb + e / rows, r = e % rows;
+      const size_t v = (r0 + T0 + r) * d.nh + h;
+      tab[(h - hb) * TILE + r] = rnd<T>(__fmul_rn(
+          expf(cums[(r0 + d.lc - 1) * d.nh + h] - cums[v]), dt[v]));
     }
-    dB[e] = to_t<T>(sb);
-    dC[e] = to_t<T>(sc);
+    auto prod_u = gemm<TF, PT, 2, true, false, T, float, S>(
+        T0, n0, tend, d.ns, hb * d.hd, he * d.hd,
+        [=](int k, int j) { return X + xo(j, k / d.hd, k % d.hd); },
+        reg([=](int k, int j, float v, int q) {
+          const int h = q >= 0 ? q : k / d.hd;
+          return rnd<T>(__fmul_rn(tab[(h - hb) * TILE + j - T0], v));
+        }, d.hd % 8 == 0 ? d.hd : 0),
+        [=](int k, int n) {
+          return gc + state_base(d, c, bb, k / d.hd) +
+                 static_cast<size_t>(k % d.hd) * d.ns + n;
+        },
+        Same(), whole);
+    prod_u.prologue(cx);
+    prod_u.run(acc, cx);
   }
-  if (blockIdx.x == 0)
-    for (int h = threadIdx.x; h < d.nh; h += THREADS) {
+  auto prod_bi = gemm<TF, 2, PT, false, false, float, T, S>(  // + dcb^T C
+      T0, n0, tend, d.ns, T0, d.lc,
+      [=](int i, int j) { return dcb + static_cast<size_t>(i) * d.lc + j; },
+      Same(), [=](int i, int n) { return C + (r0 + i) * d.ns + n; }, Same());
+  prod_bi.prologue(cx);
+  prod_bi.run(acc, cx);
+  each_mma(T0, n0, tend, d.ns, [&](int q, int j, int n) {
+    dB[(r0 + j) * d.ns + n] = to_t<T>(acc[q]);
+  });
+  // dC's inter part, dQ_h S_h: k = (h, p), SUMS_HEADS heads at a time;
+  // tab[h - hb][i] = r(exp(cums_i)) of head h
+  zero16(acc);
+  for (int hb = 0; hb < d.nh; hb += SUMS_HEADS) {
+    const int he = min(d.nh, hb + SUMS_HEADS);
+    __syncthreads();
+    for (int e = tid; e < (he - hb) * rows; e += THREADS) {
+      const int h = hb + e / rows, r = e % rows;
+      tab[(h - hb) * TILE + r] = rnd<T>(expf(cums[(r0 + T0 + r) * d.nh + h]));
+    }
+    auto xq = reg([=](int k, int i, float v, int q) {
+      const int h = q >= 0 ? q : k / d.hd;
+      return __fmul_rn(v, tab[(h - hb) * TILE + i - T0]);
+    }, d.hd % (Prec<T>::TT == BF ? 16 : 8) == 0 ? d.hd : 0);
+    auto go = [&](const auto& prod) {
+      prod.prologue(cx);
+      prod.run(acc, cx);
+    };
+    if constexpr (TM)
+      go(tgemm<A_RAW_K, 2>(
+          T0, n0, tend, d.ns, hb * d.hd, he * d.hd,
+          Src{&maps.dyK, hb * d.hd, static_cast<int>(r0) + T0},
+          Src{&maps.SMN, n0, (c * d.b + bb) * d.nh * d.hd + hb * d.hd}, xq));
+    else
+      go(gemm<TT, 2, PT, true, false, T, T, S>(
+          T0, n0, tend, d.ns, hb * d.hd, he * d.hd,
+          [=](int k, int i) { return dy + xo(i, k / d.hd, k % d.hd); }, xq,
+          [=](int k, int n) {
+            return states + state_base(d, c, bb, k / d.hd) +
+                   static_cast<size_t>(k % d.hd) * d.ns + n;
+          },
+          Same(), whole));
+  }
+  auto prod_ci = gemm<TF, 2, PT, true, false, float, T, S>(   // + dcb B
+      T0, n0, tend, d.ns, 0, tend,
+      [=](int j, int i) { return dcb + static_cast<size_t>(i) * d.lc + j; },
+      Same(), [=](int j, int n) { return B + (r0 + j) * d.ns + n; }, Same());
+  prod_ci.prologue(cx);
+  prod_ci.run(acc, cx);
+  each_mma(T0, n0, tend, d.ns, [&](int q, int i, int n) {
+    dC[(r0 + i) * d.ns + n] = to_t<T>(acc[q]);
+  });
+  if (blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0)
+    for (int h = tid; h < d.nh; h += THREADS) {
       float s = 0.f;
       for (int bc = 0; bc < d.b * d.nc; ++bc)
         s = __fadd_rn(s, da_part[static_cast<size_t>(bc) * d.nh + h]);
@@ -814,9 +2101,11 @@ step_kernel(T* __restrict__ state, T* __restrict__ conv,
 
 __global__ void empty_kernel(int) {}
 
+
 // ------------------------------------------------------------ launches
 struct Launch {
   dim3 grid;
+  int threads;
   size_t smem;      // dynamic shared memory
 };
 
@@ -831,78 +2120,111 @@ bool bad(const Dims& d, int dtype) {
 size_t elem(int dtype) { return dtype == 1 ? 2 : 4; }
 size_t up4(size_t floats) { return (floats + 3) / 4 * 4; }
 
+// The heads a group of the heads kernel: as many as keep about
+// GROUP_BLOCKS blocks, at most G_MAX and nh.  Fixed by the shapes alone, so
+// the order of every sum is.
+int group_size(const Dims& d) {
+  long long g = static_cast<long long>(div_up(div_up(d.lc, TILE), 2)) * d.nc *
+                d.b * d.nh / GROUP_BLOCKS;
+  if (g < div_up(d.nh, GROUPS_AIM)) g = div_up(d.nh, GROUPS_AIM);
+  if (g > G_MAX) g = G_MAX;
+  if (g > d.nh) g = d.nh;
+  return g < 1 ? 1 : static_cast<int>(g);
+}
+int groups(const Dims& d) { return div_up(d.nh, group_size(d)); }
+
 // The workspace of an entry in floats, carved in this order:
-// scan: cums, cb; scan_grad: cums, cb, gs, dG, the five vectors, dxs, dBh,
-// dCh, da_part.
+// scan: cums, cb; scan_grad: cums, the state cotangents gc, dG, the
+// vectors (dsd, dE, colsum, ddti, then a plane of row sums a column tile),
+// the groups' dcb, dA's partials.
 struct Work {
-  float *cums, *cb, *gs, *dG, *vec, *dxs, *dBh, *dCh, *da_part;
+  float *cums, *cb, *gc, *dG, *vec, *dcbp, *da_part;
   size_t floats;
 };
 
 Work carve(const Dims& d, int dtype, int entry, float* base) {
   const size_t n1 = static_cast<size_t>(d.b) * d.s * d.nh;
   const size_t hn = static_cast<size_t>(d.hd) * d.ns;
-  const size_t sizes[9] = {
-      up4(n1),
-      up4((static_cast<size_t>(d.nc) * d.b * d.lc * d.lc * elem(dtype) + 3) /
-          4),
-      up4(static_cast<size_t>(d.nc) * d.b * d.nh * hn),
-      up4(static_cast<size_t>(d.nc) * d.b * d.nh),
-      up4(5 * n1),
-      up4(n1 * d.hd),
-      up4(static_cast<size_t>(d.nh) * d.b * d.s * d.ns),
-      up4(static_cast<size_t>(d.nh) * d.b * d.s * d.ns),
-      up4(static_cast<size_t>(d.b) * d.nc * d.nh)};
-  const int used = entry == SCAN ? 2 : 9;
-  float* p[9] = {};
+  const size_t bcn = static_cast<size_t>(d.b) * d.nc;
+  const size_t lc2 = static_cast<size_t>(d.lc) * d.lc;
+  size_t sizes[7] = {};
+  float** slots[7] = {};
+  Work w{};
+  int used = 0;
+  if (entry == SCAN) {
+    sizes[0] = up4(n1);
+    sizes[1] = up4((bcn * lc2 * elem(dtype) + 3) / 4);
+    slots[0] = &w.cums;
+    slots[1] = &w.cb;
+    used = 2;
+  } else {
+    sizes[0] = up4(n1);
+    sizes[1] = up4(bcn * d.nh * hn);
+    sizes[2] = up4(bcn * d.nh);
+    sizes[3] = up4((4 + div_up(d.lc, TILE)) * n1);
+    sizes[4] = up4(groups(d) * bcn * lc2);
+    sizes[5] = up4(bcn * d.nh);
+    float** s[6] = {&w.cums, &w.gc, &w.dG, &w.vec, &w.dcbp, &w.da_part};
+    for (int k = 0; k < 6; ++k) slots[k] = s[k];
+    used = 6;
+  }
   size_t at = 0;
   for (int k = 0; k < used; ++k) {
-    p[k] = base == nullptr ? nullptr : base + at;
+    *slots[k] = base == nullptr ? nullptr : base + at;
     at += sizes[k];
   }
-  return Work{p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7], p[8], at};
+  w.floats = at;
+  return w;
 }
 
-size_t rows_smem(const Dims& d) { return sizeof(float) * TILE * (d.lc + 1); }
-size_t cols_smem(const Dims& d) {
-  return sizeof(float) * (static_cast<size_t>(d.lc) * PAD + 2 * TILE * PAD);
+size_t buf_bytes(size_t el) {
+  return el == 2 ? Prec<BF16>::BUF : Prec<float>::BUF;
+}
+size_t carry_smem(size_t el) {
+  return CARRY_NB * (el == 2 ? Prec<BF16>::CARRY_BUF : Prec<float>::CARRY_BUF) +
+         CARRY_STAGES * THREADS * 8 * 2 * el +
+         sizeof(float) * (2 * MAX_CHUNK + MAX_STATE + THREADS) +
+         8 * TMA_STAGES;
+}
+size_t heads_smem(const Dims& d, size_t el) {
+  return HEADS_NB * buf_bytes(el) + HEADS_STAGES * THREADS * 8 * (el + 4) +
+         (d.lc * SP * el + 15) / 16 * 16 +
+         sizeof(float) * (4 * MAX_CHUNK + 10 * TILE + 2 * G_MAX * TILE + TILE) +
+         8 * TMA_STAGES;
+}
+size_t sums_smem(size_t el) {
+  return 8 * TMA_STAGES + SUMS_NB * buf_bytes(el) +
+         SUMS_STAGES * THREADS * 8 * (el + 4) +
+         sizeof(float) * SUMS_HEADS * TILE;
 }
 
-// The launches of an entry, in order: each kernel's grid and dynamic
-// shared memory (the block is THREADS).
-int launches(int entry, const Dims& d, int batch_heads, Launch* out) {
+// The launches of an entry, in order: each kernel's grid, block and
+// dynamic shared memory.
+int launches(int entry, const Dims& d, int dtype, int batch_heads,
+             Launch* out) {
   const int t = div_up(d.lc, TILE);
-  const dim3 per_thread_chunk(div_up(d.b * d.nc * d.nh, THREADS));
-  const dim3 cb_grid(t * t, d.nc, d.b);
-  const dim3 rows_grid(t, d.nc, d.b * d.nh);
   if (entry == SCAN) {
     const size_t hn = static_cast<size_t>(d.hd) * d.ns;
-    out[0] = {per_thread_chunk, 0};
-    out[1] = {cb_grid, 0};
-    out[2] = {dim3(d.nc, d.b, d.nh), 0};
+    out[0] = {dim3(div_up(d.b * d.nc * d.nh, THREADS)), THREADS, 0};
+    out[1] = {dim3(t * t, d.nc, d.b), THREADS, 0};
+    out[2] = {dim3(d.nc, d.b, d.nh), THREADS, 0};
     out[3] = {dim3(static_cast<unsigned>(
                   (static_cast<size_t>(d.b) * d.nh * hn + THREADS - 1) /
                   THREADS)),
-              0};
-    out[4] = {rows_grid, 0};
+              THREADS, 0};
+    out[4] = {dim3(t, d.nc, d.b * d.nh), THREADS, 0};
     return 5;
   }
   if (entry == SCAN_GRAD) {
-    out[0] = {per_thread_chunk, 0};
-    out[1] = {cb_grid, 0};
-    out[2] = {dim3(d.nc, d.b, d.nh), 0};
-    out[3] = {dim3(d.b * d.nh), 0};
-    out[4] = {rows_grid, 0};
-    out[5] = {rows_grid, rows_smem(d)};
-    out[6] = {rows_grid, cols_smem(d)};
-    out[7] = {per_thread_chunk, 0};
-    out[8] = {dim3(static_cast<unsigned>(
-                  (static_cast<size_t>(d.b) * d.s * d.ns + THREADS - 1) /
-                  THREADS)),
-              0};
-    return 9;
+    out[0] = {dim3(d.b * d.nh), THREADS, carry_smem(elem(dtype))};
+    out[1] = {dim3(div_up(t, 2), d.nc, d.b * groups(d)), THREADS,
+              heads_smem(d, elem(dtype))};
+    out[2] = {dim3(d.b * d.nc * d.nh), FIN, 0};
+    out[3] = {dim3(t, div_up(d.ns, TILE), d.nc * d.b), THREADS,
+              sums_smem(elem(dtype))};
+    return 4;
   }
-  out[0] = {dim3(batch_heads), 0};
+  out[0] = {dim3(batch_heads), THREADS, 0};
   return 1;
 }
 
@@ -933,22 +2255,27 @@ int prepare() {
     return static_cast<int>(cudaErrorInvalidValue);
   if (done[dev]) return 0;
   const Dims most{1, MAX_CHUNK, 1, 1, 1, MAX_CHUNK, 1};
-  SSD_CHECK(allow_smem(rows_kernel<T>, rows_smem(most)));
-  SSD_CHECK(allow_smem(cols_kernel<T>, cols_smem(most)));
-  SSD_CHECK(allow_smem(empty_kernel, cols_smem(most)));
+  SSD_CHECK(allow_smem(carry_kernel<T, false>, carry_smem(sizeof(T))));
+  SSD_CHECK(allow_smem(heads_kernel<T, false>, heads_smem(most, sizeof(T))));
+  SSD_CHECK(allow_smem(sums_kernel<T, false>, sums_smem(sizeof(T))));
+  if constexpr (std::is_same<T, BF16>::value) {
+    SSD_CHECK(allow_smem(carry_kernel<T, true>, carry_smem(sizeof(T))));
+    SSD_CHECK(allow_smem(heads_kernel<T, true>, heads_smem(most, sizeof(T))));
+    SSD_CHECK(allow_smem(sums_kernel<T, true>, sums_smem(sizeof(T))));
+  }
+  SSD_CHECK(allow_smem(empty_kernel, heads_smem(most, sizeof(float))));
   done[dev] = true;
   return 0;
 }
 
 int last_error() { return static_cast<int>(cudaGetLastError()); }
 
-
 template <typename T>
 int scan_impl(const float* dt, const T* xh, const T* B, const T* C,
               const float* A, const Dims& d, const Work& w, T* y,
               T* final_state, T* states, cudaStream_t stream) {
-  Launch g[9];
-  launches(SCAN, d, 0, g);
+  Launch g[5];
+  launches(SCAN, d, 0, 0, g);
   T* cb = reinterpret_cast<T*>(w.cb);
   cums_kernel<<<g[0].grid, THREADS, 0, stream>>>(dt, A, d, w.cums);
   SSD_CHECK(last_error());
@@ -965,43 +2292,94 @@ int scan_impl(const float* dt, const T* xh, const T* B, const T* C,
   return last_error();
 }
 
-template <typename T>
-int scan_grad_impl(const float* dt, const T* xh, const T* B, const T* C,
-                   const float* A, const T* states, const T* dy,
-                   const T* dfinal, const Dims& d, const Work& w, T* dxh,
-                   float* ddt, T* dB, T* dC, float* dA, cudaStream_t stream) {
-  Launch g[9];
-  launches(SCAN_GRAD, d, 0, g);
-  T* cb = reinterpret_cast<T*>(w.cb);
+// True when TMA's boxes fit the bf16 operands: a step's 32 k stay inside
+// a head (hd), a chunk (lc) and rows of 16-byte multiples (ns), and every
+// base is 16-byte aligned.
+bool tma_fits(const Dims& d, std::initializer_list<const void*> bases) {
+  for (const void* p : bases)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
+  return d.hd % KS == 0 && d.lc % KS == 0 && d.ns % 8 == 0;
+}
+
+// A 2-d map of a row-major bf16 (rows, cols) tensor, box 8 columns by
+// box_rows rows, no swizzle, zeros out of range; 0, else 10000 + the
+// driver's CUresult.
+int encode2(CUtensorMap* map, const void* base, uint64_t cols, uint64_t rows,
+            uint32_t box_rows) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols * 2};
+  const cuuint32_t box[2] = {8, box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                         const_cast<void*>(base), dims, strides, box, elem,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_NONE,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : 10000 + static_cast<int>(r);
+}
+
+int make_maps(const Dims& d, const BF16* xh, const BF16* B, const BF16* C,
+              const BF16* states, const BF16* dy, Maps& m) {
+  const uint64_t rows = static_cast<uint64_t>(d.b) * d.s;
+  const uint64_t wide = static_cast<uint64_t>(d.nh) * d.hd;
+  const uint64_t srows = static_cast<uint64_t>(d.nc) * d.b * wide;
+  SSD_CHECK(encode2(&m.dyK, dy, wide, rows, TILE));
+  SSD_CHECK(encode2(&m.dyMN, dy, wide, rows, KS));
+  SSD_CHECK(encode2(&m.xK, xh, wide, rows, TILE));
+  SSD_CHECK(encode2(&m.BK, B, d.ns, rows, TILE));
+  SSD_CHECK(encode2(&m.CK, C, d.ns, rows, TILE));
+  SSD_CHECK(encode2(&m.CMN, C, d.ns, rows, KS));
+  SSD_CHECK(encode2(&m.SK, states, d.ns, srows, TILE));
+  return encode2(&m.SMN, states, d.ns, srows, KS);
+}
+
+template <typename T, bool TM>
+int launch_grad(const float* dt, const T* xh, const T* B, const T* C,
+                const float* A, const T* states, const T* dy,
+                const T* dfinal, const Dims& d, const Launch (&g)[4],
+                const Work& w, const Maps& maps, T* dxh, float* ddt, T* dB,
+                T* dC, float* dA, cudaStream_t stream) {
   const size_t n1 = static_cast<size_t>(d.b) * d.s * d.nh;
   const Vecs vec{w.vec, w.vec + n1, w.vec + 2 * n1, w.vec + 3 * n1,
                  w.vec + 4 * n1};
-  SSD_CHECK(prepare<T>());
-  cums_kernel<<<g[0].grid, THREADS, 0, stream>>>(dt, A, d, w.cums);
+  carry_kernel<T, TM><<<g[0].grid, g[0].threads, g[0].smem, stream>>>(
+      dt, A, dy, C, states, dfinal, d, w.cums, w.gc, w.dG, maps);
   SSD_CHECK(last_error());
-  cb_kernel<T><<<g[1].grid, THREADS, 0, stream>>>(C, B, d, cb);
+  heads_kernel<T, TM><<<g[1].grid, g[1].threads, g[1].smem, stream>>>(
+      dt, xh, B, C, dy, states, w.cums, w.gc, d, group_size(d), vec, w.dcbp,
+      dxh, maps);
   SSD_CHECK(last_error());
-  w_kernel<T><<<g[2].grid, THREADS, 0, stream>>>(dy, C, w.cums, d, w.gs);
+  finish_kernel<<<g[2].grid, g[2].threads, g[2].smem, stream>>>(
+      dt, A, w.cums, w.dG, d, vec, groups(d), w.dcbp, ddt, w.da_part);
   SSD_CHECK(last_error());
-  reverse_kernel<T><<<g[3].grid, THREADS, 0, stream>>>(states, dfinal, w.cums,
-                                                       d, w.gs, w.dG);
-  SSD_CHECK(last_error());
-  state_grad_kernel<T><<<g[4].grid, THREADS, 0, stream>>>(
-      dt, xh, B, C, dy, states, w.gs, w.cums, d, vec, w.dxs, w.dBh, w.dCh);
-  SSD_CHECK(last_error());
-  rows_kernel<T><<<g[5].grid, THREADS, g[5].smem, stream>>>(
-      dt, xh, B, dy, w.cums, cb, d, vec, w.dCh);
-  SSD_CHECK(last_error());
-  cols_kernel<T><<<g[6].grid, THREADS, g[6].smem, stream>>>(
-      dt, xh, C, dy, w.cums, cb, w.dxs, d, vec, dxh, w.dBh);
-  SSD_CHECK(last_error());
-  finish_kernel<<<g[7].grid, THREADS, 0, stream>>>(dt, A, w.cums, w.dG, d,
-                                                   vec, ddt, w.da_part);
-  SSD_CHECK(last_error());
-  reduce_kernel<T><<<g[8].grid, THREADS, 0, stream>>>(w.dBh, w.dCh,
-                                                      w.da_part, d, dB, dC,
-                                                      dA);
+  sums_kernel<T, TM><<<g[3].grid, g[3].threads, g[3].smem, stream>>>(
+      dt, xh, B, C, dy, states, w.cums, w.gc, w.dcbp, w.da_part, d, dB, dC,
+      dA, maps);
   return last_error();
+}
+
+template <typename T>
+int scan_grad_impl(const float* dt, const T* xh, const T* B, const T* C,
+                   const float* A, const T* states, const T* dy,
+                   const T* dfinal, const Dims& d, int dtype, const Work& w,
+                   T* dxh, float* ddt, T* dB, T* dC, float* dA,
+                   cudaStream_t stream) {
+  Launch g[4];
+  launches(SCAN_GRAD, d, dtype, 0, g);
+  SSD_CHECK(prepare<T>());
+  Maps maps{};
+  if constexpr (std::is_same<T, BF16>::value) {
+    if (tma_fits(d, {xh, B, C, states, dy})) {
+      SSD_CHECK(make_maps(d, xh, B, C, states, dy, maps));
+      return launch_grad<T, true>(dt, xh, B, C, A, states, dy, dfinal, d, g,
+                                  w, maps, dxh, ddt, dB, dC, dA, stream);
+    }
+  }
+  return launch_grad<T, false>(dt, xh, B, C, A, states, dy, dfinal, d, g, w,
+                               maps, dxh, ddt, dB, dC, dA, stream);
 }
 
 Dims dims(int b, int s, int nh, int hd, int ns, int lc) {
@@ -1064,13 +2442,15 @@ extern "C" int ssd_scan_grad_sm90(const float* dt, const void* xh,
     return scan_grad_impl(
         dt, static_cast<const BF16*>(xh), static_cast<const BF16*>(B),
         static_cast<const BF16*>(C), A, static_cast<const BF16*>(states),
-        static_cast<const BF16*>(dy), static_cast<const BF16*>(dfinal), d, w,
+        static_cast<const BF16*>(dy), static_cast<const BF16*>(dfinal), d,
+        dtype, w,
         static_cast<BF16*>(dxh), ddt, static_cast<BF16*>(dB),
         static_cast<BF16*>(dC), dA, stream);
   return scan_grad_impl(
       dt, static_cast<const float*>(xh), static_cast<const float*>(B),
       static_cast<const float*>(C), A, static_cast<const float*>(states),
-      static_cast<const float*>(dy), static_cast<const float*>(dfinal), d, w,
+      static_cast<const float*>(dy), static_cast<const float*>(dfinal), d,
+      dtype, w,
       static_cast<float*>(dxh), ddt, static_cast<float*>(dB),
       static_cast<float*>(dC), dA, stream);
 }
@@ -1109,11 +2489,11 @@ extern "C" int ssd_floor_sm90(int entry, int b, int s, int nh, int hd, int ns,
   const Dims d = dims(b, s, nh, hd, ns, lc);
   if (entry == STEP ? (b < 1 || nh < 1) : bad(d, dtype))
     return static_cast<int>(cudaErrorInvalidValue);
-  Launch g[9];
-  const int n = launches(entry, d, b * nh, g);
+  Launch g[5];
+  const int n = launches(entry, d, dtype, b * nh, g);
   SSD_CHECK(prepare<float>());
   for (int k = 0; k < n; ++k) {
-    empty_kernel<<<g[k].grid, THREADS, g[k].smem, stream>>>(0);
+    empty_kernel<<<g[k].grid, g[k].threads, g[k].smem, stream>>>(0);
     SSD_CHECK(last_error());
   }
   return 0;

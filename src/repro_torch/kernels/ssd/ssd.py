@@ -15,25 +15,40 @@ Three entries, each one plain version in ``ref.py``:
   heads), each chunk's contribution to the state (all chunks at once: it
   does not depend on the state), one sequential pass over the chunks for
   the states, then the outputs in tiles of 64 rows.
-* :func:`scan_grad`: the VJP (:func:`~.ref.scan_grad_ref`), nine kernels a
-  launch: the cumsums and scores again, each chunk's state cotangent from
-  its outputs, one reverse pass over the chunks, then the cotangents in
-  tiles of 64 rows (the state update's and the inter-chunk output's; the
-  scores' row strips for dC) and of 64 columns (the scores' column strips
-  for dx and dB), the exponents' reverse cumsum, and the heads' dB and dC
-  summed in head order.  No float atomics: two runs give the same bits.
+* :func:`scan_grad`: the VJP (:func:`~.ref.scan_grad_ref`), four kernels
+  a launch, its products on Hopper's tensor cores (``wgmma``): one reverse
+  pass over the chunks a (batch, head), with the cumsums and each chunk's
+  state cotangent from its outputs; then a block a pair of 64-column tiles
+  of a chunk and a group of heads, with the scores' cotangent dL computed
+  once a tile and a head and summed over the group's heads in registers,
+  each head's dx and its exponent sums; the exponents' reverse cumsum a
+  (batch, chunk, head), folding the groups' score cotangents in group
+  order; and dB and dC a tile of 64 rows, each one accumulator over every
+  head.  An operand computed on its load (the decay-weighted scores, dy
+  times the decay, sdecay x) goes in from registers, the block's two
+  warpgroups each summing half of every k step; in bf16, where hd and lc
+  are multiples of 32 and ns of 8, the operands that are bf16 in device
+  memory come by TMA; the fp32 ones are split by the threads into 3xTF32
+  planes.  No float atomics: two runs give the same bits.
 * :func:`step`: one decode step, the state (b, nh, hd, ns) and the conv
   window updated in place, a block a (batch, head); bit for bit its plain
   version in the state and the window.
 
-Every product sums in fp32 and rounds to the compute dtype where the plain
-version rounds, so the kernels agree with it to the order of fp32 sums.
-What bounds them (``ssd_sm90.cu``'s note): the scan and its backward are
-fp32 FMA products short of the card's 67 TFLOP/s by their staging (at
-mamba2-130m's training shape 27 and 55-60 GFLOP, 136 and 196 MB); the step
-is bound by the state's bytes.  No PyTorch call computes these functions.
-:func:`launch_floor` launches an empty kernel as an entry launches its
-kernels, the least a launch of it can take.
+The forward's products sum in fp32 FMA and round to the compute dtype
+where the plain version rounds, so the scan agrees with it to the order of
+fp32 sums.  The backward carries fp32 as the plain version does: a bf16
+operand goes into the tensor cores as it is, a product of two bf16 values
+as an exact bf16 hi and lo, an fp32 operand (and every operand in fp32)
+through 3xTF32 (hi = tf32(v), lo = tf32(v - hi), three products), so it
+agrees with the plain version to the order of fp32 sums too.  What bounds
+them (``ssd_sm90.cu``'s note): at mamba2-130m's training shape the scan
+does 19.89 GFLOP and moves 138.9 MB, short of the fp32 FMA peak by its
+staging; the backward 39.78 GFLOP (twice that on the tensor cores, with
+the splits) and 196.1 MB, held back by the threads' work around its
+products (the register fragments, the staged planes, a barrier a step);
+the step is bound by the state's bytes.  No PyTorch call computes these
+functions.  :func:`launch_floor` launches an empty kernel as an entry
+launches its kernels, the least a launch of it can take.
 
 A tensor on the CPU takes the plain version; a tensor on the card launches
 the kernel or raises, whatever ``cfg.use_kernels`` says.  Every launch adds
