@@ -12,20 +12,10 @@
 // ns) in the compute dtype T (fp32 or bf16), A (nh) fp32, chunks of lc <=
 // 256 steps (s a multiple of lc), hd * ns <= 8192.
 //
-// Numbers.  The forward: every product sums in fp32 (fmaf, in k order) and
-// is rounded once to T, where the plain version's einsum rounds; the
-// elementwise steps round where it rounds, with __fmul_rn / __fadd_rn (no
-// contraction): the scores r(cb), r((cb * exp(cums_i - cums_j)) * dt_j)
-// masked to j <= i; y = r(r(intra) + r(r(C . S) * r(exp(cums_i)))); sdecay
-// r(exp(seg - cums_j) * dt_j), its product with x rounded; the state update
-// r(r(S * r(exp(seg))) + r(contrib)).  step is elementwise and equals
-// step_ref bit for bit in the state and the conv window; its readout sums
-// over n in order.
-// The backward carries fp32 (scan_grad_ref's definition): the forward's
-// values as the forward rounded them, each rounding's cotangent passed
-// straight through, each cotangent rounded once to its input's dtype.  Its
-// products run on the tensor cores with fp32 accumulators, and no operand
-// is rounded below what the plain version carries:
+// Numbers.  Every product of both directions runs on the tensor cores with
+// fp32 accumulators and is rounded once to T where the plain version's
+// einsum rounds; no operand is rounded below what the plain version
+// carries:
 //   * a bf16 operand (x, dy, B, C, the saved states, r(L), U = r(sdecay x))
 //     goes in as it is: its products with another bf16 value are exact;
 //   * a product of two bf16 values (dy * r(exp(cums))) has 16 significant
@@ -36,30 +26,52 @@
 //     partner is exact in TF32, so its lo is zero and its product is
 //     skipped;
 //   * with T fp32 every operand is fp32 and takes 3xTF32.
-// So the backward agrees with scan_grad_ref to the order of fp32 sums (the
-// order inside an MMA's k step is the hardware's).  Every sum runs in a
-// fixed order: a product's k steps in order, where A comes from registers
-// each step's two halves of k into two partials that are then added; the
-// row and column sums of a tile by shuffles in a fixed tree and then over
-// the warps in order; dcb over a group of heads in head order, the groups
-// in group order; dB and dC over the heads in head order inside one
-// accumulator; dA over (batch, chunk) in that order; no float atomics, so
-// two runs give the same bits.
+// In bf16 each of the forward's products is of two bf16 values (the
+// scores C B^T, r(L) x, C S^T, U^T B): one MMA, no split.  The forward's
+// elementwise steps round where scan_ref rounds, with __fmul_rn /
+// __fadd_rn (no contraction): the scores r(cb); r(L) = r((cb * exp(cums_i
+// - cums_j)) * dt_j) masked to j <= i before the exp (masked_score, the
+// backward's definition too); y = r(r(intra) + r(r(C . S) *
+// r(exp(cums_i)))); sdecay r(exp(seg - cums_j) * dt_j) and U = r(sdecay *
+// x); the state update r(r(S * r(exp(seg))) + r(contrib)); the cumsum of
+// dt * A in order.  The backward carries fp32 (scan_grad_ref's
+// definition): the forward's values as the forward rounded them, each
+// rounding's cotangent passed straight through, each cotangent rounded once
+// to its input's dtype.  step is elementwise and equals step_ref bit for
+// bit in the state and the conv window; its readout sums over n in order.
+// So scan and scan_grad agree with scan_ref and scan_grad_ref to the order
+// of fp32 sums (the order inside an MMA's k step is the hardware's).  Every
+// sum runs in a fixed order: a product's k steps in order, where A comes
+// from registers each step's two halves of k into two partials that are
+// then added; the row and column sums of a tile by shuffles in a fixed tree
+// and then over the warps in order; dcb over a group of heads in head
+// order, the groups in group order; dB and dC over the heads in head order
+// inside one accumulator; dA over (batch, chunk) in that order; no float
+// atomics, so two runs give the same bits.
 //
 // Design.  Chunk-parallel, as SSD's chunked form allows: each chunk's
-// contribution to the state does not depend on the state.
-//   scan: (1) the cumsum of dt * A over each chunk, one thread a (batch,
-//   chunk, head), in order; (2) the scores C_i . B_j of each chunk, shared
-//   by the heads, rounded to T; (3) each (chunk, batch, head)'s contribution
-//   sum_j B_j (x) r(sdecay_j x_j), written where its state goes; (4) one
-//   sequential pass over the chunks a state element, turning the
-//   contributions into the states entering each chunk (saved for the
-//   backward) and the final state; (5) the outputs, a block a (64 rows of
-//   the chunk, chunk, batch, head): the masked scores times x and C times
-//   the entering state.  Every product is one block-wide fp32 FMA routine
-//   (gemm): a 64 x 64 output tile, 256 threads with a 4 x 4 register tile
-//   each, k staged through shared memory 32 at a time by functors that
-//   compute each operand on its load.
+// outputs within the chunk do not depend on the state.
+//   scan, two launches:
+//   (1) state, a block a (batch, head, 64 x 64 tile of the (hd, ns) state):
+//   the one sequential walk over the chunks, the cumsums of dt * A taken
+//   CU_WIN chunks at a time into shared memory (a thread a chunk, in
+//   order; the blocks of tile 0 also write them out for the output
+//   kernel): at chunk c the contribution U^T B (U computed from x as A in
+//   registers), the entering state written out once from the registers
+//   that carry it across the chunks, and the state updated there; the
+//   final state after the last chunk (mamba2-130m's training shape: 384
+//   blocks, jamba's 256, mamba2-130m's serving 192);
+//   (2) out, a block a (pair of 64-row tiles I: the first and the last,
+//   the second and the one before, an even load as tile I has I + 1
+//   column tiles on or below the diagonal; chunk, batch, group of heads,
+//   grouped as the backward's heads kernel groups them): the scores'
+//   strip r(C_I . B_J^T), J <= I, once for the group in shared memory (at
+//   most 64 x 256 in T), then for each head the intra product r(L_I.) x,
+//   its A built in registers from the strip, the head's cums and dt, its
+//   k stopping at the tile's last row, and C_I S^T, and the epilogue y
+//   from the two accumulators (256 blocks at mamba2-130m's training shape
+//   and at jamba's, 128 at mamba2-130m's serving shape).  No scores and no
+//   contributions reach device memory.
 //   scan_grad, four launches:
 //   (1) carry, a block a (batch, head): the chunks' cumsums, then the one
 //   reverse pass over the chunks; at chunk c the state cotangent its
@@ -89,41 +101,45 @@
 //   reaches device memory (groups of at most G_MAX heads, as many as give
 //   (2) about GROUP_BLOCKS blocks but no more than GROUPS_AIM groups: two
 //   groups of 12 at mamba2-130m's training shape, 2 x 16.8 MB).
-// The backward's products are wgmma, 64 x 64 output tiles, k in steps of
-// 32, the block's two warpgroups sharing a tile:
+// The products are wgmma, 64 x 64 output tiles, the block's two
+// warpgroups sharing a tile:
 //   * an operand computed on its load (the decay-weighted scores r(L), dy
 //     r(exp(cums)), U = r(sdecay x)) goes in as A from registers, each
 //     thread computing its fragment from shared memory; the warpgroups
 //     split each step's k, each a 64 x 64 partial (m64n64), so every value
 //     is computed once a block, and the partials meet at the end;
 //   * with T = bf16 and hd, lc multiples of 32 and ns of 8 (mamba2-130m's
-//     and jamba's full configs), the operands that are bf16 as they stand in device
-//     memory come by TMA straight into shared memory in wgmma's layout (A
-//     and B of the scores' strip, of dL = dy x^T and of d exp(cums); B of
-//     the register products, read transposed), one thread arming a stage's
-//     mbarrier (Tgemm);
+//     and jamba's full configs), the operands that are bf16 as they stand
+//     in device memory come by TMA straight into shared memory in wgmma's
+//     layout, one thread arming a stage's mbarrier (Tgemm): the
+//     backward's in boxes of 8 columns (A and B of the scores' strip, of
+//     dL = dy x^T and of d exp(cums); B of the register products, read
+//     transposed), k in steps of 32; the forward's (x, B, C, the states)
+//     in boxes of 64 columns with 128-byte swizzle, k in steps of 64, and
+//     y leaves through a swizzled tile by TMA store;
 //   * the fp32 operands (g, dcb) are split by the threads into 3xTF32
 //     planes, K-major, as is every operand that does not take TMA (T =
 //     fp32, other shapes): each thread copies runs of eight with cp.async
-//     into its own slots of a ring and writes them into the planes (Gemm);
-//     the operands with both split are the warpgroups' n halves (m64n32).
+//     into its own slots of a ring and writes them into the planes (Gemm),
+//     k in steps of 32; the operands with both split are the warpgroups' n
+//     halves (m64n32).
 // A shape that fits no 64-row tile (lc 8, 13, 24; hd 12, 16; ns 16, 20)
 // runs the same products on zero-padded tiles.  The next product's first
 // steps are issued before this one's epilogue.
 //
 // What bounds it on the H100: at mamba2-130m's training shape (8 x 2048,
 // nh 24, hd 64, ns 128, lc 256) the scan moves 138.9 MB and does 19.89
-// GFLOP (41 us at the byte rate, 20 us at the bf16 tensor-core peak; its
-// FMA products sit short of the fp32 FMA peak of 67 TFLOP/s, 0.30 ms, by
-// their staging); the backward moves 196.1 MB and does 39.78 GFLOP (59 us
-// by bytes, 40 us at the bf16 peak) and as many again for the hi / lo and
-// 3xTF32 splits, with 98 MB of scratch besides (the per-chunk state
-// cotangents, 50 MB, written once and read twice; the two groups' dcb, 34
-// MB).  What holds it back is the instruction stream around the products:
-// the register fragments and the staged planes are computed by every
-// thread a step (expf, masks, splits), and a step's barrier waits for the
-// slowest warp; the tensor cores are busy a few percent of the time.  step
-// moves the state (read and write) and is bound by bytes.
+// GFLOP (41 us at the byte rate, 20 us at the bf16 tensor-core peak); the
+// backward moves 196.1 MB and does 39.78 GFLOP (59 us by bytes, 40 us at
+// the bf16 peak) and as many again for the hi / lo and 3xTF32 splits, with
+// 98 MB of scratch besides (the per-chunk state cotangents, 50 MB, written
+// once and read twice; the two groups' dcb, 34 MB).  What holds both back
+// is the instruction stream around the products: the register fragments
+// (the forward's r(L) an expf, a mask and three roundings a value) and the
+// staged planes are computed by every thread a step, a step waits for its
+// products, and a step's barrier waits for the slowest warp; the tensor
+// cores are busy a few percent of the time.  step moves the state (read
+// and write) and is bound by bytes.
 //
 // Launch: each entry launches its kernels on the caller's stream and
 // returns the first CUDA error (0 on success); scratch comes from the
@@ -142,11 +158,10 @@
 namespace {
 
 constexpr int TILE = 64;        // rows and columns of a block's output tile
-constexpr int KT = 32;          // the k depth staged at a time
-constexpr int THREADS = 256;    // 16 x 16 threads, 4 x 4 outputs each
+constexpr int THREADS = 256;    // two warpgroups
 constexpr int MAX_CHUNK = 256;
+constexpr int CU_WIN = 8;       // chunks whose cumsums the state kernel holds
 constexpr int MAX_STATE = 8192;              // hd * ns
-constexpr int PAD = TILE + 1;                // a shared row, bank-skewed
 
 enum Entry { SCAN = 0, SCAN_GRAD = 1, STEP = 2 };
 
@@ -182,221 +197,7 @@ __device__ __forceinline__ size_t state_base(const Dims& d, int c, int bb,
   return ((static_cast<size_t>(c) * d.b + bb) * d.nh + h) * d.hd * d.ns;
 }
 
-// The k operands staged for one step of a 64 x 64 output tile.
-struct Stage {
-  float a[KT][PAD];
-  float b[KT][PAD];
-};
-
-// acc[r][c] += sum_{k in [k_lo, k_hi)} fa(k, m) * fb(k, n) for the
-// thread's outputs m = m0 + ty + 16 r, n = n0 + tx + 16 c (m < M, n < N;
-// the rest of the tile sums zeros).  AK / BK: the operand is contiguous in
-// k, so the load runs k fastest.  Called by every thread of the block.
-template <bool AK, bool BK, class FA, class FB>
-__device__ void gemm(float (&acc)[4][4], int m0, int n0, int M, int N,
-                     int k_lo, int k_hi, FA fa, FB fb, Stage& st) {
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  for (int k0 = k_lo; k0 < k_hi; k0 += KT) {
-    __syncthreads();
-    for (int idx = tid; idx < KT * TILE; idx += THREADS) {
-      const int kk = AK ? idx % KT : idx / TILE;
-      const int mm = AK ? idx / KT : idx % TILE;
-      const int k = k0 + kk, m = m0 + mm;
-      st.a[kk][mm] = (k < k_hi && m < M) ? fa(k, m) : 0.f;
-    }
-    for (int idx = tid; idx < KT * TILE; idx += THREADS) {
-      const int kk = BK ? idx % KT : idx / TILE;
-      const int nn = BK ? idx / KT : idx % TILE;
-      const int k = k0 + kk, n = n0 + nn;
-      st.b[kk][nn] = (k < k_hi && n < N) ? fb(k, n) : 0.f;
-    }
-    __syncthreads();
-    const int kn = min(KT, k_hi - k0);
-    for (int kk = 0; kk < kn; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) a[r] = st.a[kk][ty + 16 * r];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) b[c] = st.b[kk][tx + 16 * c];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
-    }
-  }
-}
-
-// f(r, c, m, n) for each of the thread's outputs inside (M, N)
-template <class F>
-__device__ void each(int m0, int n0, int M, int N, F f) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int m = m0 + ty + 16 * r, n = n0 + tx + 16 * c;
-      if (m < M && n < N) f(r, c, m, n);
-    }
-}
-
-__device__ __forceinline__ void zero(float (&acc)[4][4]) {
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-}
-
-// ------------------------------------------------------------- forward
-// cums[b, c*lc + j, h] = sum_{k <= j} dt * A[h] over the chunk, in order
-__global__ void __launch_bounds__(THREADS)
-cums_kernel(const float* __restrict__ dt, const float* __restrict__ A, Dims d,
-            float* __restrict__ cums) {
-  const int idx = blockIdx.x * THREADS + threadIdx.x;
-  if (idx >= d.b * d.nc * d.nh) return;
-  const int h = idx % d.nh, c = (idx / d.nh) % d.nc, bb = idx / (d.nh * d.nc);
-  const float a = A[h];
-  float acc = 0.f;
-  for (int j = 0; j < d.lc; ++j) {
-    const size_t v = row(d, bb, c * d.lc + j) * d.nh + h;
-    acc = __fadd_rn(acc, __fmul_rn(dt[v], a));
-    cums[v] = acc;
-  }
-}
-
-// cb[c, b, i, j] = r(sum_n C[i, n] B[j, n]) for j <= i's tiles; a block a
-// 64 x 64 tile of a chunk's (lc, lc)
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-cb_kernel(const T* __restrict__ C, const T* __restrict__ B, Dims d,
-          T* __restrict__ cb) {
-  __shared__ Stage st;
-  const int tiles = (d.lc + TILE - 1) / TILE;
-  const int i0 = (blockIdx.x / tiles) * TILE, j0 = (blockIdx.x % tiles) * TILE;
-  if (j0 > i0) return;                    // wholly above the diagonal
-  const int c = blockIdx.y, bb = blockIdx.z;
-  const size_t r0 = row(d, bb, c * d.lc);
-  float acc[4][4];
-  zero(acc);
-  gemm<true, true>(
-      acc, i0, j0, d.lc, d.lc, 0, d.ns,
-      [&](int n, int i) { return ld(C, (r0 + i) * d.ns + n); },
-      [&](int n, int j) { return ld(B, (r0 + j) * d.ns + n); }, st);
-  T* out = cb + (static_cast<size_t>(c) * d.b + bb) * d.lc * d.lc;
-  each(i0, j0, d.lc, d.lc, [&](int r, int q, int i, int j) {
-    out[static_cast<size_t>(i) * d.lc + j] = to_t<T>(acc[r][q]);
-  });
-}
-
-// states[c, b, h] = r(sum_j B_j (x) r(sdecay_j * x_j)), the chunk's
-// contribution; a block a (chunk, batch, head)
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-contrib_kernel(const float* __restrict__ dt, const T* __restrict__ X,
-               const T* __restrict__ B, const float* __restrict__ cums,
-               Dims d, T* __restrict__ states) {
-  __shared__ Stage st;
-  __shared__ float sd[MAX_CHUNK];
-  const int c = blockIdx.x, bb = blockIdx.y, h = blockIdx.z;
-  const size_t r0 = row(d, bb, c * d.lc);
-  const float seg = cums[(r0 + d.lc - 1) * d.nh + h];
-  for (int j = threadIdx.x; j < d.lc; j += THREADS) {
-    const size_t v = (r0 + j) * d.nh + h;
-    sd[j] = rnd<T>(__fmul_rn(expf(seg - cums[v]), dt[v]));
-  }
-  __syncthreads();
-  T* out = states + state_base(d, c, bb, h);
-  for (int p0 = 0; p0 < d.hd; p0 += TILE)
-    for (int n0 = 0; n0 < d.ns; n0 += TILE) {
-      float acc[4][4];
-      zero(acc);
-      gemm<false, false>(
-          acc, p0, n0, d.hd, d.ns, 0, d.lc,
-          [&](int j, int p) {
-            return rnd<T>(__fmul_rn(
-                sd[j], ld(X, ((r0 + j) * d.nh + h) * d.hd + p)));
-          },
-          [&](int j, int n) { return ld(B, (r0 + j) * d.ns + n); }, st);
-      each(p0, n0, d.hd, d.ns, [&](int r, int q, int p, int n) {
-        out[static_cast<size_t>(p) * d.ns + n] = to_t<T>(acc[r][q]);
-      });
-    }
-}
-
-// The sequential pass: each state element over the chunks, the chunk's
-// contribution read where the entering state is written.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-states_kernel(const float* __restrict__ cums, Dims d, T* __restrict__ states,
-              T* __restrict__ final_state) {
-  const int hn = d.hd * d.ns;
-  const size_t idx = static_cast<size_t>(blockIdx.x) * THREADS + threadIdx.x;
-  if (idx >= static_cast<size_t>(d.b) * d.nh * hn) return;
-  const int e = static_cast<int>(idx % hn);
-  const int bh = static_cast<int>(idx / hn), h = bh % d.nh, bb = bh / d.nh;
-  float sv = 0.f;
-  for (int c = 0; c < d.nc; ++c) {
-    const size_t at = state_base(d, c, bb, h) + e;
-    const float contrib = ld(states, at);
-    states[at] = to_t<T>(sv);
-    const float g =
-        rnd<T>(expf(cums[row(d, bb, c * d.lc + d.lc - 1) * d.nh + h]));
-    sv = rnd<T>(__fadd_rn(rnd<T>(__fmul_rn(sv, g)), contrib));
-  }
-  final_state[static_cast<size_t>(bh) * hn + e] = to_t<T>(sv);
-}
-
-// y for 64 rows of a chunk of one (batch, head): the masked scores times x,
-// plus C times the entering state times r(exp(cums_i))
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-out_kernel(const float* __restrict__ dt, const T* __restrict__ X,
-           const T* __restrict__ C, const float* __restrict__ cums,
-           const T* __restrict__ cb, const T* __restrict__ states, Dims d,
-           T* __restrict__ y) {
-  __shared__ Stage st;
-  __shared__ float cu[MAX_CHUNK], dts[MAX_CHUNK];
-  const int i0 = blockIdx.x * TILE, c = blockIdx.y;
-  const int bb = blockIdx.z / d.nh, h = blockIdx.z % d.nh;
-  const size_t r0 = row(d, bb, c * d.lc);
-  for (int j = threadIdx.x; j < d.lc; j += THREADS) {
-    cu[j] = cums[(r0 + j) * d.nh + h];
-    dts[j] = dt[(r0 + j) * d.nh + h];
-  }
-  __syncthreads();
-  const T* cbc = cb + (static_cast<size_t>(c) * d.b + bb) * d.lc * d.lc;
-  const T* S = states + state_base(d, c, bb, h);
-  const int kmax = min(d.lc, i0 + TILE);
-  for (int p0 = 0; p0 < d.hd; p0 += TILE) {
-    float a1[4][4], a2[4][4];
-    zero(a1);
-    zero(a2);
-    gemm<true, false>(
-        a1, i0, p0, d.lc, d.hd, 0, kmax,
-        [&](int j, int i) {
-          return j <= i
-                     ? rnd<T>(__fmul_rn(
-                           __fmul_rn(ld(cbc, static_cast<size_t>(i) * d.lc + j),
-                                     expf(cu[i] - cu[j])),
-                           dts[j]))
-                     : 0.f;
-        },
-        [&](int j, int p) { return ld(X, ((r0 + j) * d.nh + h) * d.hd + p); },
-        st);
-    gemm<true, true>(
-        a2, i0, p0, d.lc, d.hd, 0, d.ns,
-        [&](int n, int i) { return ld(C, (r0 + i) * d.ns + n); },
-        [&](int n, int p) { return ld(S, static_cast<size_t>(p) * d.ns + n); },
-        st);
-    each(i0, p0, d.lc, d.hd, [&](int r, int q, int i, int p) {
-      const float e = rnd<T>(expf(cu[i]));
-      const float v = __fadd_rn(rnd<T>(a1[r][q]),
-                                rnd<T>(__fmul_rn(rnd<T>(a2[r][q]), e)));
-      y[((r0 + i) * d.nh + h) * d.hd + p] = to_t<T>(v);
-    });
-  }
-}
-
-// ------------------------------------------------------------ backward
+// ------------------------------------------------- tensor-core products
 // Tensor-core products: wgmma.  A block's two warpgroups share a 64 x 64
 // output tile, warpgroup wg its columns [32 wg, 32 wg + 32) (m64n32, A and
 // B from shared memory); each thread holds 16 fp32 accumulators, element q
@@ -1159,12 +960,15 @@ constexpr int TMA_PLANE = 4096;            // a bf16 plane of 64 x KS by TMA
 // an MN-major plane's k groups (LBO) and n groups (SBO)
 constexpr uint32_t MN_LBO = 128, MN_SBO = 512;
 constexpr int TMA_STAGES = 4;              // at most, as the region allows
+constexpr int KW = 2 * KS;                 // the k depth of a wide step
 
 // The 2-d tensor maps of the bf16 operands, box 8 x 64 (K-major chunks) or
 // 8 x 32 (MN-major groups): dy, x (b s, nh hd), B, C (b s, ns), the states
-// (nc b nh hd, ns).
+// (nc b nh hd, ns).  The forward has no dy.
 struct Maps {
   CUtensorMap dyK, dyMN, xK, BK, CK, CMN, SK, SMN;
+  // the forward's, wide and swizzled: x, B, C, the states and y
+  CUtensorMap xW, BW, CW, SW, yW;
 };
 
 __device__ __forceinline__ void tma_load2(uint32_t dst, const CUtensorMap* map,
@@ -1174,6 +978,25 @@ __device__ __forceinline__ void tma_load2(uint32_t dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row)
       : "memory");
+}
+
+// The 2-d box at (col, row) of map from shared address src, in a bulk
+// group of the issuing thread.
+__device__ __forceinline__ void tma_store2(const CUtensorMap* map,
+                                           uint32_t src, int col, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}],"
+      " [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(col), "r"(row)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// The issuing thread's bulk stores have read their shared memory (READ)
+// or are complete.
+template <bool READ>
+__device__ __forceinline__ void bulk_wait() {
+  if (READ) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  else asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // A wgmma descriptor without swizzle: leading and stride byte offsets
@@ -1223,9 +1046,19 @@ struct Src {
 // The operand kinds of a TMA product.
 enum TmaA { A_K = 0, A_COMPUTED = 1, A_RAW_MN = 2, A_RAW_K = 3 };
 
+// The byte of (row, byte b of its 128) in a tile of 128-byte swizzled
+// rows (TMA's CU_TENSOR_MAP_SWIZZLE_128B, wgmma's 128-byte swizzle): a
+// row's 16-byte chunks permuted by row % 8.  The tile starts 1024-aligned.
+__device__ __forceinline__ int sw128(int row, int b) {
+  return row * 128 + ((((b >> 4) ^ row) & 7) << 4) + (b & 15);
+}
+
 // acc += sum_{k in [k_lo, k_hi)} A(k, m) B(k, n) for the thread's elements
-// of the tile at (m0, n0), k in steps of KS through NS stages of the
-// region at `planes`.  AM = A_K: A and B K-major by TMA, both from shared
+// of the tile at (m0, n0), k in steps of KD through NS stages of the
+// region at `planes`: KS with boxes of 8 columns (16 bytes), or, W (the
+// forward's products), KW with boxes of 64 columns (128 bytes, swizzled,
+// sw128), a K-major operand a box of 64 rows a 64 k, an MN-major one a
+// box of KW rows of k.  AM = A_K: A and B K-major by TMA, both from shared
 // memory, the warpgroups splitting n as Gemm does.  Otherwise B is
 // MN-major by TMA and A comes from registers, f(k, m, v, -1) of A's value
 // v as loaded (A_RAW_MN: A's k are its rows; A_RAW_K: its columns) or from
@@ -1234,18 +1067,20 @@ enum TmaA { A_K = 0, A_COMPUTED = 1, A_RAW_MN = 2, A_RAW_K = 3 };
 // after the block's last product) issues the first stages; run() issues
 // each further stage after the barrier that frees it, and reads shared
 // memory written before it only after its first barrier.
-template <int AM, int PA, class XA>
+template <int AM, int PA, class XA, bool W = false>
 struct Tgemm {
   int m0, n0, M, N, k_lo, k_hi;
   Src a, b;
   XA xa;
 
-  static constexpr int A_BYTES = AM == A_COMPUTED ? 0 : TMA_PLANE;
-  static constexpr int STAGE = A_BYTES + TMA_PLANE;
-  static constexpr int KK = 16, WSL = KS / 2 / KK, FR = WSL * 8;
+  static constexpr int KD = W ? KW : KS;
+  static constexpr int PLANE = W ? KW * 128 : TMA_PLANE;   // 64 x KD bf16
+  static constexpr int A_BYTES = AM == A_COMPUTED ? 0 : PLANE;
+  static constexpr int STAGE = A_BYTES + PLANE;
+  static constexpr int KK = 16, WSL = KD / 2 / KK, FR = WSL * 8;
 
   __device__ int steps() const {
-    return k_hi > k_lo ? (k_hi - k_lo + KS - 1) / KS : 0;
+    return k_hi > k_lo ? (k_hi - k_lo + KD - 1) / KD : 0;
   }
   __device__ static int stages(int region) {
     const int n = region / STAGE;
@@ -1256,8 +1091,19 @@ struct Tgemm {
                         int s) const {
     const uint32_t dst = smem_addr(planes + s * STAGE);
     const uint32_t bar = tm.bars + 8 * s;
-    const int k = c * KS;
+    const int k = c * KD;
     mbar_expect_tx(bar, STAGE);
+    if constexpr (W) {
+      if (AM == A_K || AM == A_RAW_K)
+        tma_load2(dst, a.map, bar, a.col + k, a.row);
+      else if (AM == A_RAW_MN)
+        tma_load2(dst, a.map, bar, a.col, a.row + k);
+      if (AM == A_K)
+        tma_load2(dst + A_BYTES, b.map, bar, b.col + k, b.row);
+      else
+        tma_load2(dst + A_BYTES, b.map, bar, b.col, b.row + k);
+      return;
+    }
     if (AM == A_K || AM == A_RAW_K)
       for (int q = 0; q < KS / 8; ++q)
         tma_load2(dst + q * 1024, a.map, bar, a.col + k + 8 * q, a.row);
@@ -1286,7 +1132,7 @@ struct Tgemm {
   __device__ void frags(const unsigned char* st, int c,
                         uint32_t (&fr)[FR]) const {
     const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3;
-    const int g = lane >> 2, t = lane & 3, kc = k_lo + c * KS;
+    const int g = lane >> 2, t = lane & 3, kc = k_lo + c * KD;
     const int wg = threadIdx.x >> 7, span = span_of(xa);
 #pragma unroll
     for (int sl = 0; sl < WSL; ++sl) {
@@ -1302,19 +1148,28 @@ struct Tgemm {
         float raw = 0.f;
         if (AM == A_RAW_MN)
           raw = __bfloat162float(*reinterpret_cast<const BF16*>(
-              st + (mm >> 3) * 512 + kk * 16 + (mm & 7) * 2));
+              st + (W ? sw128(kk, 2 * mm)
+                      : (mm >> 3) * 512 + kk * 16 + (mm & 7) * 2)));
         else if (AM == A_RAW_K)
           raw = __bfloat162float(*reinterpret_cast<const BF16*>(
-              st + (kk >> 3) * 1024 + mm * 16 + (kk & 7) * 2));
+              st + (W ? sw128(mm, 2 * kk)
+                      : (kk >> 3) * 1024 + mm * 16 + (kk & 7) * 2)));
         v[e] = m < M && k < k_hi ? xa.f(k, m, raw, q) : 0.f;
       }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        float h0, l0, h1, l1;
-        split<BF>(v[2 * j], h0, l0);
-        split<BF>(v[2 * j + 1], h1, l1);
-        fr[sl * 8 + j] = pack_bf16(h0, h1);
-        fr[sl * 8 + 4 + j] = pack_bf16(l0, l1);
+        if constexpr (W && PA == 1) {   // bf16 values: one plane, one cvt
+          const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * j],
+                                                         v[2 * j + 1]);
+          fr[sl * 8 + j] = *reinterpret_cast<const uint32_t*>(&h);
+          fr[sl * 8 + 4 + j] = 0u;
+        } else {
+          float h0, l0, h1, l1;
+          split<BF>(v[2 * j], h0, l0);
+          split<BF>(v[2 * j + 1], h1, l1);
+          fr[sl * 8 + j] = pack_bf16(h0, h1);
+          fr[sl * 8 + 4 + j] = pack_bf16(l0, l1);
+        }
       }
     }
   }
@@ -1329,17 +1184,21 @@ struct Tgemm {
       const int s = c % ns;
       unsigned char* st = planes + s * STAGE;
       const uint32_t sa = smem_addr(st), sb = sa + A_BYTES;
-      const int kn = min(KS, k_hi - k_lo - c * KS);
+      const int kn = min(KD, k_hi - k_lo - c * KD);
       tma_wait(tm, s);
       if (busy) {
         if constexpr (AM == A_K) {
           fence_regs(acc);
           wgmma_fence();
 #pragma unroll
-          for (int sl = 0; sl < KS / 16; ++sl) {
+          for (int sl = 0; sl < KD / 16; ++sl) {
             if (sl * 16 >= kn) break;
-            wgmma_bf16(acc, desc_of(sa + sl * 2048, 1024, 128),
-                       desc_of(sb + wg * 512 + sl * 2048, 1024, 128));
+            if constexpr (W)            // 16 k: 32 bytes of a 128-byte row
+              wgmma_bf16(acc, smem_desc(sa + sl * 32, 16, 1024),
+                         smem_desc(sb + wg * 4096 + sl * 32, 16, 1024));
+            else
+              wgmma_bf16(acc, desc_of(sa + sl * 2048, 1024, 128),
+                         desc_of(sb + wg * 512 + sl * 2048, 1024, 128));
           }
         } else {
           frags(st, c, fr);
@@ -1349,7 +1208,9 @@ struct Tgemm {
           for (int sl = 0; sl < WSL; ++sl) {
             const int s_ = wg * WSL + sl;
             if (s_ * KK >= kn) break;
-            const uint64_t db = desc_of(sb + s_ * 256, MN_LBO, MN_SBO);
+            const uint64_t db =
+                W ? smem_desc(sb + s_ * 16 * 128, PLANE, 1024)
+                  : desc_of(sb + s_ * 256, MN_LBO, MN_SBO);
             if (PA == 2) wgmma_bf16_rs_t(acc, fr + sl * 8 + 4, db);
             wgmma_bf16_rs_t(acc, fr + sl * 8, db);
           }
@@ -1391,10 +1252,11 @@ struct Tgemm {
   }
 };
 
-template <int AM, int PA, class XA>
-__device__ __forceinline__ Tgemm<AM, PA, XA> tgemm(int m0, int n0, int M,
-                                                   int N, int k_lo, int k_hi,
-                                                   Src a, Src b, XA xa) {
+template <int AM, int PA, bool W = false, class XA>
+__device__ __forceinline__ Tgemm<AM, PA, XA, W> tgemm(int m0, int n0, int M,
+                                                      int N, int k_lo,
+                                                      int k_hi, Src a, Src b,
+                                                      XA xa) {
   return {m0, n0, M, N, k_lo, k_hi, a, b, xa};
 }
 struct NoX {
@@ -1428,6 +1290,355 @@ __device__ __forceinline__ void each_mma(int m0, int n0, int M, int N, F f) {
 __device__ __forceinline__ void zero16(float (&v)[16]) {
 #pragma unroll
   for (int q = 0; q < 16; ++q) v[q] = 0.f;
+}
+
+// ------------------------------------------------------------- forward
+// The masked score r(L_ij) = r((cb_ij exp(cums_i - cums_j)) dt_j) for j <=
+// i, and 0 above the diagonal, where the exponent is never taken: the
+// forward's intra-chunk operand and the backward's for dx, one definition
+// (cb(i, j) the rounded score, read only on and below the diagonal).
+template <typename T, class CB>
+__device__ __forceinline__ float masked_score(int i, int j, CB cb,
+                                              const float* cu,
+                                              const float* dts) {
+  return j <= i ? rnd<T>(__fmul_rn(__fmul_rn(cb(i, j), expf(cu[i] - cu[j])),
+                                   dts[j]))
+                : 0.f;
+}
+
+// A forward kernel's TMA region: the stages of its products (two of A and
+// B, or four of B alone), with room for the halves' exchange.
+constexpr int FWD_REGION = TMA_STAGES * 2 * TMA_PLANE;
+
+// The state kernel's ring of planes for its cp.async products: the
+// backward carry kernel's.
+template <typename T>
+using StateRing = Ring<CARRY_STAGES, Stage2<T>::SAME, Prec<T>::CARRY_BUF,
+                       CARRY_NB>;
+// The output kernel's: bf16, two buffers of two bf16 planes; fp32, one of
+// four 3xTF32 planes; each with room for the halves' exchange.
+template <typename T> struct OutRing;
+template <> struct OutRing<BF16> {
+  using R = Ring<HEADS_STAGES, Stage2<BF16>::SAME, 2 * PLANE_TF, 2>;
+};
+template <> struct OutRing<float> {
+  using R = Ring<HEADS_STAGES, Stage2<float>::SAME, Prec<float>::BUF, 1>;
+};
+// A row of the output kernel's scores strip: lc rounded up to 8, plus 8
+// (rows 16 bytes apart in the banks).
+__host__ __device__ __forceinline__ int strip_width(int lc) {
+  return (lc + 7) / 8 * 8 + 8;
+}
+// A forward kernel's shared memory from its first 1024-byte boundary (the
+// swizzled tiles' alignment; the launch asks for 1024 bytes more).
+__device__ __forceinline__ unsigned char* align1024(unsigned char* smem) {
+  return smem + ((1024 - (smem_addr(smem) & 1023)) & 1023);
+}
+// The bytes ahead of a forward kernel's own arrays: the TMA region (and,
+// for the output kernel, a 64 x 64 bf16 tile that y passes through on its
+// way to a TMA store: swizzled, STORE_TILE bytes), or the ring R's planes
+// and its cp.async stages.
+constexpr int STORE_TILE = TILE * TILE * 2;
+template <class R>
+__host__ __device__ constexpr int fwd_head(bool tm, bool store) {
+  return tm ? FWD_REGION + (store ? STORE_TILE : 0)
+            : R::NB * R::BUF + R::S * R::STAGE;
+}
+
+// v(q, m, n) of the thread's accumulators of the 64 x 64 tile at (m0, n0),
+// rounded to bf16, through the swizzled tile at buf to the box (col, row)
+// of map by thread 0's TMA store.  The box is written whole, clipped only
+// at the tensor's edges.  Called by every thread; buf is written once the
+// store before it has read it.
+template <class F>
+__device__ void store_tile(unsigned char* buf, const CUtensorMap* map,
+                          int col, int row, int m0, int n0, F v) {
+  if (threadIdx.x == 0) bulk_wait<true>();
+  __syncthreads();
+  each_mma(m0, n0, m0 + TILE, n0 + TILE, [&](int q, int m, int n) {
+    *reinterpret_cast<BF16*>(buf + sw128(m - m0, 2 * (n - n0))) =
+        __float2bfloat16_rn(v(q, m, n));
+  });
+  fence_async_smem();
+  __syncthreads();
+  if (threadIdx.x == 0) tma_store2(map, smem_addr(buf), col, row);
+}
+
+// The context of a forward kernel's products at `base` (1024-aligned): by
+// TMA a region of FWD_REGION bytes and TMA_STAGES mbarriers at `bars`;
+// else the ring R (planes, then its cp.async stages).
+template <bool TM, class R>
+__device__ __forceinline__ Ctx fwd_ctx(unsigned char* base,
+                                       unsigned char* bars) {
+  if constexpr (TM) return Ctx{base, nullptr, FWD_REGION, tma_init(bars)};
+  else return Ctx{base, base + R::NB * R::BUF, R::NB * R::BUF, {}};
+}
+
+// (1) The chunks of a (batch, head) in order, for the 64 x 64 tile
+// blockIdx.y of its (hd, ns) state.  The cumsums of dt * A of CU_WIN
+// chunks at a time (a thread a chunk, in order) into shared memory, and by
+// the blocks of tile 0 into cums for the output kernel; at chunk c, sdecay = r(exp(seg - cums_j) dt_j) into shared memory and the
+// tile's contribution sum_j U_j^T B_j on the tensor cores (U = r(sdecay x)
+// as A from registers, the warpgroups splitting k), the entering state
+// written out from the registers that carry it, and S <- r(r(S
+// r(exp(seg))) + r(contrib)); the final state after the last chunk.  The
+// chunks' products are one stream, each one's loads issued during the
+// epilogue of the one before.
+template <typename T, bool TM>
+__global__ void __launch_bounds__(THREADS, 2)
+state_kernel(const float* __restrict__ dt, const float* __restrict__ A,
+             const T* __restrict__ X, const T* __restrict__ B, Dims d,
+             float* __restrict__ cums, T* __restrict__ states,
+             T* __restrict__ final_state, const __grid_constant__ Maps maps) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  using R = StateRing<T>;
+  unsigned char* base = align1024(smem);
+  float* sdb = reinterpret_cast<float*>(base + fwd_head<R>(TM, false));
+  // sdb [2][MAX_CHUNK], cw [CU_WIN][MAX_CHUNK], then TMA_STAGES mbarriers
+  float* cw = sdb + 2 * MAX_CHUNK;
+  Ctx cx = fwd_ctx<TM, R>(base, reinterpret_cast<unsigned char*>(
+                                    cw + CU_WIN * MAX_CHUNK));
+  const int tid = threadIdx.x, bh = blockIdx.x, bb = bh / d.nh, h = bh % d.nh;
+  const int tn = (d.ns + TILE - 1) / TILE, tile = blockIdx.y;
+  const int p0 = (tile / tn) * TILE, n0 = (tile % tn) * TILE;
+  const float a = A[h];
+  // the cumsums of chunks [c0, c0 + CU_WIN) into cw, a thread a chunk;
+  // then tile 0's blocks copy them out, every thread a step
+  auto window = [&](int c0) {
+    const int c = c0 + tid;
+    if (tid < CU_WIN && c < d.nc) {
+      float acc = 0.f;
+      for (int j = 0; j < d.lc; ++j) {
+        acc = __fadd_rn(acc, __fmul_rn(dt[row(d, bb, c * d.lc + j) * d.nh + h],
+                                       a));
+        cw[tid * MAX_CHUNK + j] = acc;
+      }
+    }
+    __syncthreads();
+    if (tile != 0) return;
+    for (int i = tid; i < CU_WIN * d.lc; i += THREADS) {
+      const int w = i / d.lc, j = i % d.lc;
+      if (c0 + w < d.nc)
+        cums[row(d, bb, (c0 + w) * d.lc + j) * d.nh + h] =
+            cw[w * MAX_CHUNK + j];
+    }
+  };
+  window(0);                  // its barrier also covers the mbarriers' init
+  auto prod = [&](int c) {
+    const size_t r0 = row(d, bb, c * d.lc);
+    const float* sd = sdb + (c & 1) * MAX_CHUNK;
+    auto xa = reg([=](int j, int, float v, int) {
+      return rnd<T>(__fmul_rn(sd[j], v));
+    });
+    if constexpr (TM)
+      return tgemm<A_RAW_MN, 1, true>(
+          p0, n0, d.hd, d.ns, 0, d.lc,
+          Src{&maps.xW, h * d.hd + p0, static_cast<int>(r0)},
+          Src{&maps.BW, n0, static_cast<int>(r0)}, xa);
+    else
+      return gemm<Prec<T>::TT, Prec<T>::PT, Prec<T>::PT, false, false, T, T,
+                  R>(
+          p0, n0, d.hd, d.ns, 0, d.lc,
+          [=](int j, int p) { return X + ((r0 + j) * d.nh + h) * d.hd + p; },
+          xa, [=](int j, int n) { return B + (r0 + j) * d.ns + n; }, Same());
+  };
+  float sv[16];
+  zero16(sv);
+  prod(0).prologue(cx);
+  for (int c = 0; c < d.nc; ++c) {
+    if (c > 0 && c % CU_WIN == 0) {
+      __syncthreads();                    // the window before is read
+      window(c);
+    }
+    const size_t r0 = row(d, bb, c * d.lc);
+    const float* cu = cw + (c % CU_WIN) * MAX_CHUNK;
+    const float seg = cu[d.lc - 1];
+    for (int j = tid; j < d.lc; j += THREADS)
+      sdb[(c & 1) * MAX_CHUNK + j] =
+          rnd<T>(__fmul_rn(expf(seg - cu[j]), dt[(r0 + j) * d.nh + h]));
+    const float g = rnd<T>(expf(seg));
+    const size_t base_c = state_base(d, c, bb, h);
+    float acc[16];
+    zero16(acc);
+    prod(c).run(acc, cx);
+    if (c + 1 < d.nc) prod(c + 1).prologue(cx);
+    each_mma(p0, n0, d.hd, d.ns, [&](int q, int p, int n) {
+      states[base_c + static_cast<size_t>(p) * d.ns + n] = to_t<T>(sv[q]);
+      sv[q] = rnd<T>(__fadd_rn(rnd<T>(__fmul_rn(sv[q], g)), rnd<T>(acc[q])));
+    });
+  }
+  const size_t hn = static_cast<size_t>(d.hd) * d.ns;
+  each_mma(p0, n0, d.hd, d.ns, [&](int q, int p, int n) {
+    final_state[bh * hn + static_cast<size_t>(p) * d.ns + n] = to_t<T>(sv[q]);
+  });
+}
+
+// (2) The outputs of up to two 64-row tiles I of a chunk (the first and
+// the last, the second and the one before: tile I has I + 1 column tiles
+// on or below the diagonal, so a pair has an even load), for a group of
+// heads [h0, h1).  For each I: the scores' strip r(C_I . B_J^T), J <= I,
+// once for the group, in shared memory; then for each head and 64 columns
+// of hd, the intra product r(L_I.) x (A from registers through
+// masked_score, k stopping at the tile's last row) and C_I S^T, and y =
+// r(r(intra) + r(r(C S) r(exp(cums_i)))).  The products are one stream,
+// each one's loads issued before the epilogue of the one ahead of it, and
+// the next head's cums are loaded during the product before.
+template <typename T, bool TM>
+__global__ void __launch_bounds__(THREADS, 2)
+out_kernel(const float* __restrict__ dt, const T* __restrict__ X,
+           const T* __restrict__ B, const T* __restrict__ C,
+           const float* __restrict__ cums, const T* __restrict__ states,
+           Dims d, int gsize, T* __restrict__ y,
+           const __grid_constant__ Maps maps) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  using S = typename OutRing<T>::R;
+  unsigned char* base = align1024(smem);
+  unsigned char* stile = base + FWD_REGION;   // TM: the store tile
+  T* strip = reinterpret_cast<T*>(base + fwd_head<S>(TM, true));
+  // [TILE][sw]
+  const int sw = strip_width(d.lc);
+  float* cub = reinterpret_cast<float*>(strip + TILE * sw);  // [2][MAX_CHUNK]
+  float* dtb = cub + 2 * MAX_CHUNK;                          // [2][MAX_CHUNK]
+  float* eb = dtb + 2 * MAX_CHUNK;                           // [2][MAX_CHUNK]
+  Ctx cx = fwd_ctx<TM, S>(base, reinterpret_cast<unsigned char*>(
+                                    eb + 2 * MAX_CHUNK));
+  const int tid = threadIdx.x, c = blockIdx.y;
+  const int ngroups = (d.nh + gsize - 1) / gsize;
+  const int bb = blockIdx.z / ngroups, grp = blockIdx.z % ngroups;
+  const int h0 = grp * gsize, h1 = min(d.nh, h0 + gsize), gh = h1 - h0;
+  const int nt = (d.lc + TILE - 1) / TILE, tp = (d.hd + TILE - 1) / TILE;
+  const int tasks = gh * tp;
+  const size_t r0 = row(d, bb, c * d.lc);
+  constexpr int TT = Prec<T>::TT, PT = Prec<T>::PT;
+  auto at = [=](int pos, int h) { return (r0 + pos) * d.nh + h; };
+  auto xo = [=](int pos, int h, int p) {
+    return ((r0 + pos) * d.nh + h) * d.hd + p;
+  };
+  // a head's cums and dt over the chunk: loaded into registers (a thread a
+  // position) during the product before, stored to slot `sl` with r(exp(
+  // cums)) before the product that needs them
+  float pcu = 0.f, pdt = 0.f;
+  auto pre_head = [&](int h) {
+    if (tid < d.lc) {
+      pcu = cums[at(tid, h)];
+      pdt = dt[at(tid, h)];
+    }
+  };
+  auto put_head = [&](int sl) {
+    if (tid < d.lc) {
+      cub[sl * MAX_CHUNK + tid] = pcu;
+      dtb[sl * MAX_CHUNK + tid] = pdt;
+      eb[sl * MAX_CHUNK + tid] = rnd<T>(expf(pcu));
+    }
+  };
+  // the row tile of a side (-1: none) and its products: (a) a 64-column
+  // tile J of the scores' strip; (b) a task's (head, p tile) intra product
+  // and (c) its C S^T
+  auto side_tile = [&](int side) {
+    const int it = side == 0 ? static_cast<int>(blockIdx.x)
+                             : nt - 1 - static_cast<int>(blockIdx.x);
+    return side == 0 || it != static_cast<int>(blockIdx.x) ? it : -1;
+  };
+  auto prod_a = [&](int it, int jt) {
+    const int I0 = it * TILE, iend = min(d.lc, I0 + TILE);
+    if constexpr (TM)
+      return tgemm<A_K, 1, true>(
+          I0, jt * TILE, iend, iend, 0, d.ns,
+          Src{&maps.CW, 0, static_cast<int>(r0) + I0},
+          Src{&maps.BW, 0, static_cast<int>(r0) + jt * TILE}, NoX());
+    else
+      return gemm<TT, PT, PT, true, true, T, T, S>(
+          I0, jt * TILE, iend, iend, 0, d.ns,
+          [=](int n, int i) { return C + (r0 + i) * d.ns + n; }, Same(),
+          [=](int n, int j) { return B + (r0 + j) * d.ns + n; }, Same());
+  };
+  auto prod_i = [&](int it, int task) {
+    const int I0 = it * TILE, iend = min(d.lc, I0 + TILE);
+    const int h = h0 + task / tp, p0 = (task % tp) * TILE;
+    const float* cu = cub + (task & 1) * MAX_CHUNK;
+    const float* dts = dtb + (task & 1) * MAX_CHUNK;
+    auto cb_at = [=](int i, int j) {
+      return ld(strip, static_cast<size_t>(i - I0) * sw + j);
+    };
+    auto xa = reg([=](int j, int i, float, int) {
+      return masked_score<T>(i, j, cb_at, cu, dts);
+    });
+    if constexpr (TM)
+      return tgemm<A_COMPUTED, 1, true>(
+          I0, p0, iend, d.hd, 0, iend, Src{nullptr, 0, 0},
+          Src{&maps.xW, h * d.hd + p0, static_cast<int>(r0)}, xa);
+    else
+      return gemm<TT, PT, PT, false, false, Computed, T, S>(
+          I0, p0, iend, d.hd, 0, iend, Nowhere(), xa,
+          [=](int j, int p) { return X + xo(j, h, p); }, Same());
+  };
+  auto prod_s = [&](int it, int task) {
+    const int I0 = it * TILE, iend = min(d.lc, I0 + TILE);
+    const int h = h0 + task / tp, p0 = (task % tp) * TILE;
+    const T* S_ = states + state_base(d, c, bb, h);
+    if constexpr (TM)
+      return tgemm<A_K, 1, true>(
+          I0, p0, iend, d.hd, 0, d.ns,
+          Src{&maps.CW, 0, static_cast<int>(r0) + I0},
+          Src{&maps.SW, 0, ((c * d.b + bb) * d.nh + h) * d.hd + p0},
+          NoX());
+    else
+      return gemm<TT, PT, PT, true, true, T, T, S>(
+          I0, p0, iend, d.hd, 0, d.ns,
+          [=](int n, int i) { return C + (r0 + i) * d.ns + n; }, Same(),
+          [=](int n, int p) {
+            return S_ + static_cast<size_t>(p) * d.ns + n;
+          },
+          Same());
+  };
+  float acc[16], a1[16];
+  prod_a(side_tile(0), 0).prologue(cx);
+  for (int side = 0; side < 2; ++side) {
+    const int it = side_tile(side);
+    if (it < 0) break;
+    const int I0 = it * TILE, iend = min(d.lc, I0 + TILE);
+    for (int jt = 0; jt <= it; ++jt) {
+      zero16(acc);
+      prod_a(it, jt).run(acc, cx);
+      if (jt < it) prod_a(it, jt + 1).prologue(cx);
+      else prod_i(it, 0).prologue(cx);
+      each_mma(I0, jt * TILE, iend, iend, [&](int q, int i, int j) {
+        strip[static_cast<size_t>(i - I0) * sw + j] = to_t<T>(acc[q]);
+      });
+    }
+    pre_head(h0);
+    for (int task = 0; task < tasks; ++task) {
+      const int h = h0 + task / tp, p0 = (task % tp) * TILE;
+      const int sl = task & 1;
+      put_head(sl);
+      if (task + 1 < tasks) pre_head(h0 + (task + 1) / tp);
+      zero16(a1);
+      prod_i(it, task).run(a1, cx);
+      prod_s(it, task).prologue(cx);
+      zero16(acc);
+      prod_s(it, task).run(acc, cx);
+      const int nxt = side_tile(1);
+      if (task + 1 < tasks) prod_i(it, task + 1).prologue(cx);
+      else if (side == 0 && nxt >= 0) prod_a(nxt, 0).prologue(cx);
+      const float* e = eb + sl * MAX_CHUNK;
+      auto yv = [&](int q, int i, int) {
+        return __fadd_rn(rnd<T>(a1[q]),
+                         rnd<T>(__fmul_rn(rnd<T>(acc[q]), e[i])));
+      };
+      if constexpr (TM) {
+        if (iend - I0 == TILE && d.hd - p0 >= TILE) {  // the box: y's alone
+          store_tile(stile, &maps.yW, h * d.hd + p0,
+                     static_cast<int>(r0) + I0, I0, p0, yv);
+          continue;
+        }
+      }
+      each_mma(I0, p0, iend, d.hd, [&](int q, int i, int p) {
+        y[xo(i, h, p)] = to_t<T>(yv(q, i, p));
+      });
+    }
+  }
+  if constexpr (TM)
+    if (tid == 0) bulk_wait<false>();   // the stores before the block ends
 }
 
 // A tile's 64 row sums of v (zero outside the tile) in a fixed order: the
@@ -1772,10 +1983,7 @@ heads_kernel(const float* __restrict__ dt, const T* __restrict__ X,
     auto prod_c2 = [&](int task, const float* cu, const float* dts) {
       const int h = h0 + task / tp, p0 = (task % tp) * TILE;
       auto xa = reg([=](int i, int j, float, int) {
-        return j <= i ? rnd<T>(__fmul_rn(
-                            __fmul_rn(cb_at(i, j), expf(cu[i] - cu[j])),
-                            dts[j]))
-                      : 0.f;
+        return masked_score<T>(i, j, cb_at, cu, dts);
       });
       if constexpr (TM)
         return tgemm<A_COMPUTED, 1>(
@@ -2133,12 +2341,18 @@ int group_size(const Dims& d) {
 }
 int groups(const Dims& d) { return div_up(d.nh, group_size(d)); }
 
+// The state kernel's blocks a (batch, head): one a 64 x 64 tile of the
+// state.
+int state_tiles(const Dims& d) {
+  return div_up(d.hd, TILE) * div_up(d.ns, TILE);
+}
+
 // The workspace of an entry in floats, carved in this order:
-// scan: cums, cb; scan_grad: cums, the state cotangents gc, dG, the
-// vectors (dsd, dE, colsum, ddti, then a plane of row sums a column tile),
-// the groups' dcb, dA's partials.
+// scan: the cums; scan_grad:
+// cums, the state cotangents gc, dG, the vectors (dsd, dE, colsum, ddti,
+// then a plane of row sums a column tile), the groups' dcb, dA's partials.
 struct Work {
-  float *cums, *cb, *gc, *dG, *vec, *dcbp, *da_part;
+  float *cums, *gc, *dG, *vec, *dcbp, *da_part;
   size_t floats;
 };
 
@@ -2153,10 +2367,8 @@ Work carve(const Dims& d, int dtype, int entry, float* base) {
   int used = 0;
   if (entry == SCAN) {
     sizes[0] = up4(n1);
-    sizes[1] = up4((bcn * lc2 * elem(dtype) + 3) / 4);
     slots[0] = &w.cums;
-    slots[1] = &w.cb;
-    used = 2;
+    used = 1;
   } else {
     sizes[0] = up4(n1);
     sizes[1] = up4(bcn * d.nh * hn);
@@ -2192,28 +2404,40 @@ size_t heads_smem(const Dims& d, size_t el) {
          sizeof(float) * (4 * MAX_CHUNK + 10 * TILE + 2 * G_MAX * TILE + TILE) +
          8 * TMA_STAGES;
 }
+size_t state_smem(size_t el, bool tm) {
+  return 1024 + (el == 2 ? fwd_head<StateRing<BF16>>(tm, false)
+                         : fwd_head<StateRing<float>>(tm, false)) +
+         sizeof(float) * (2 + CU_WIN) * MAX_CHUNK + 8 * TMA_STAGES;
+}
+size_t out_smem(const Dims& d, size_t el, bool tm) {
+  return 1024 + (el == 2 ? fwd_head<OutRing<BF16>::R>(tm, true)
+                         : fwd_head<OutRing<float>::R>(tm, true)) +
+         TILE * strip_width(d.lc) * el + sizeof(float) * 6 * MAX_CHUNK +
+         8 * TMA_STAGES;
+}
 size_t sums_smem(size_t el) {
   return 8 * TMA_STAGES + SUMS_NB * buf_bytes(el) +
          SUMS_STAGES * THREADS * 8 * (el + 4) +
          sizeof(float) * SUMS_HEADS * TILE;
 }
 
+// True when TMA's boxes fit the bf16 operands' shapes: a step's 32 k stay
+// inside a head (hd), a chunk (lc) and rows of 16-byte multiples (ns).
+bool tma_shape(const Dims& d, int dtype) {
+  return dtype == 1 && d.hd % KS == 0 && d.lc % KS == 0 && d.ns % 8 == 0;
+}
+
 // The launches of an entry, in order: each kernel's grid, block and
-// dynamic shared memory.
-int launches(int entry, const Dims& d, int dtype, int batch_heads,
+// dynamic shared memory (tm: the forward's products by TMA).
+int launches(int entry, const Dims& d, int dtype, bool tm, int batch_heads,
              Launch* out) {
   const int t = div_up(d.lc, TILE);
   if (entry == SCAN) {
-    const size_t hn = static_cast<size_t>(d.hd) * d.ns;
-    out[0] = {dim3(div_up(d.b * d.nc * d.nh, THREADS)), THREADS, 0};
-    out[1] = {dim3(t * t, d.nc, d.b), THREADS, 0};
-    out[2] = {dim3(d.nc, d.b, d.nh), THREADS, 0};
-    out[3] = {dim3(static_cast<unsigned>(
-                  (static_cast<size_t>(d.b) * d.nh * hn + THREADS - 1) /
-                  THREADS)),
-              THREADS, 0};
-    out[4] = {dim3(t, d.nc, d.b * d.nh), THREADS, 0};
-    return 5;
+    out[0] = {dim3(d.b * d.nh, state_tiles(d)), THREADS,
+              state_smem(elem(dtype), tm)};
+    out[1] = {dim3(div_up(t, 2), d.nc, d.b * groups(d)), THREADS,
+              out_smem(d, elem(dtype), tm)};
+    return 2;
   }
   if (entry == SCAN_GRAD) {
     out[0] = {dim3(d.b * d.nh), THREADS, carry_smem(elem(dtype))};
@@ -2255,72 +2479,77 @@ int prepare() {
     return static_cast<int>(cudaErrorInvalidValue);
   if (done[dev]) return 0;
   const Dims most{1, MAX_CHUNK, 1, 1, 1, MAX_CHUNK, 1};
+  SSD_CHECK(allow_smem(state_kernel<T, false>, state_smem(sizeof(T), false)));
+  SSD_CHECK(allow_smem(out_kernel<T, false>, out_smem(most, sizeof(T), false)));
   SSD_CHECK(allow_smem(carry_kernel<T, false>, carry_smem(sizeof(T))));
   SSD_CHECK(allow_smem(heads_kernel<T, false>, heads_smem(most, sizeof(T))));
   SSD_CHECK(allow_smem(sums_kernel<T, false>, sums_smem(sizeof(T))));
   if constexpr (std::is_same<T, BF16>::value) {
+    SSD_CHECK(allow_smem(state_kernel<T, true>, state_smem(2, true)));
+    SSD_CHECK(allow_smem(out_kernel<T, true>, out_smem(most, 2, true)));
     SSD_CHECK(allow_smem(carry_kernel<T, true>, carry_smem(sizeof(T))));
     SSD_CHECK(allow_smem(heads_kernel<T, true>, heads_smem(most, sizeof(T))));
     SSD_CHECK(allow_smem(sums_kernel<T, true>, sums_smem(sizeof(T))));
   }
-  SSD_CHECK(allow_smem(empty_kernel, heads_smem(most, sizeof(float))));
+  size_t most_smem = heads_smem(most, sizeof(float));
+  for (size_t b : {carry_smem(4), sums_smem(4), state_smem(4, false),
+                   out_smem(most, 4, false), state_smem(2, true),
+                   out_smem(most, 2, true)})
+    most_smem = b > most_smem ? b : most_smem;
+  SSD_CHECK(allow_smem(empty_kernel, most_smem));
   done[dev] = true;
   return 0;
 }
 
 int last_error() { return static_cast<int>(cudaGetLastError()); }
 
-template <typename T>
-int scan_impl(const float* dt, const T* xh, const T* B, const T* C,
-              const float* A, const Dims& d, const Work& w, T* y,
-              T* final_state, T* states, cudaStream_t stream) {
-  Launch g[5];
-  launches(SCAN, d, 0, 0, g);
-  T* cb = reinterpret_cast<T*>(w.cb);
-  cums_kernel<<<g[0].grid, THREADS, 0, stream>>>(dt, A, d, w.cums);
-  SSD_CHECK(last_error());
-  cb_kernel<T><<<g[1].grid, THREADS, 0, stream>>>(C, B, d, cb);
-  SSD_CHECK(last_error());
-  contrib_kernel<T><<<g[2].grid, THREADS, 0, stream>>>(dt, xh, B, w.cums, d,
-                                                       states);
-  SSD_CHECK(last_error());
-  states_kernel<T><<<g[3].grid, THREADS, 0, stream>>>(w.cums, d, states,
-                                                      final_state);
-  SSD_CHECK(last_error());
-  out_kernel<T><<<g[4].grid, THREADS, 0, stream>>>(dt, xh, C, w.cums, cb,
-                                                   states, d, y);
-  return last_error();
-}
 
-// True when TMA's boxes fit the bf16 operands: a step's 32 k stay inside
-// a head (hd), a chunk (lc) and rows of 16-byte multiples (ns), and every
-// base is 16-byte aligned.
-bool tma_fits(const Dims& d, std::initializer_list<const void*> bases) {
+// True when TMA's boxes fit the bf16 operands (tma_shape) and every base
+// is 16-byte aligned.
+bool tma_fits(const Dims& d, int dtype,
+              std::initializer_list<const void*> bases) {
   for (const void* p : bases)
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
-  return d.hd % KS == 0 && d.lc % KS == 0 && d.ns % 8 == 0;
+  return tma_shape(d, dtype);
 }
 
 // A 2-d map of a row-major bf16 (rows, cols) tensor, box 8 columns by
-// box_rows rows, no swizzle, zeros out of range; 0, else 10000 + the
-// driver's CUresult.
+// box_rows rows without swizzle, or (wide) 64 columns by box_rows rows
+// with 128-byte swizzle; zeros out of range; 0, else 10000 + the driver's
+// CUresult.
 int encode2(CUtensorMap* map, const void* base, uint64_t cols, uint64_t rows,
-            uint32_t box_rows) {
+            uint32_t box_rows, bool wide = false) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const cuuint64_t dims[2] = {cols, rows};
   const cuuint64_t strides[1] = {cols * 2};
-  const cuuint32_t box[2] = {8, box_rows};
+  const cuuint32_t box[2] = {wide ? static_cast<cuuint32_t>(TILE) : 8u,
+                             box_rows};
   const cuuint32_t elem[2] = {1, 1};
   const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
                          const_cast<void*>(base), dims, strides, box, elem,
                          CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_NONE,
+                         wide ? CU_TENSOR_MAP_SWIZZLE_128B
+                              : CU_TENSOR_MAP_SWIZZLE_NONE,
                          CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : 10000 + static_cast<int>(r);
 }
 
+// The forward's maps: wide, swizzled.
+int make_fwd_maps(const Dims& d, const BF16* xh, const BF16* B,
+                  const BF16* C, const BF16* y, const BF16* states, Maps& m) {
+  const uint64_t rows = static_cast<uint64_t>(d.b) * d.s;
+  const uint64_t wide = static_cast<uint64_t>(d.nh) * d.hd;
+  const uint64_t srows = static_cast<uint64_t>(d.nc) * d.b * wide;
+  SSD_CHECK(encode2(&m.xW, xh, wide, rows, KW, true));
+  SSD_CHECK(encode2(&m.BW, B, d.ns, rows, KW, true));
+  SSD_CHECK(encode2(&m.CW, C, d.ns, rows, TILE, true));
+  SSD_CHECK(encode2(&m.SW, states, d.ns, srows, TILE, true));
+  return encode2(&m.yW, y, wide, rows, TILE, true);
+}
+
+// The backward's maps.
 int make_maps(const Dims& d, const BF16* xh, const BF16* B, const BF16* C,
               const BF16* states, const BF16* dy, Maps& m) {
   const uint64_t rows = static_cast<uint64_t>(d.b) * d.s;
@@ -2334,6 +2563,39 @@ int make_maps(const Dims& d, const BF16* xh, const BF16* B, const BF16* C,
   SSD_CHECK(encode2(&m.CMN, C, d.ns, rows, KS));
   SSD_CHECK(encode2(&m.SK, states, d.ns, srows, TILE));
   return encode2(&m.SMN, states, d.ns, srows, KS);
+}
+
+template <typename T, bool TM>
+int launch_scan(const float* dt, const T* xh, const T* B, const T* C,
+                const float* A, const Dims& d, const Launch (&g)[2],
+                const Work& w, const Maps& maps, T* y, T* final_state,
+                T* states, cudaStream_t stream) {
+  state_kernel<T, TM><<<g[0].grid, g[0].threads, g[0].smem, stream>>>(
+      dt, A, xh, B, d, w.cums, states, final_state, maps);
+  SSD_CHECK(last_error());
+  out_kernel<T, TM><<<g[1].grid, g[1].threads, g[1].smem, stream>>>(
+      dt, xh, B, C, w.cums, states, d, group_size(d), y, maps);
+  return last_error();
+}
+
+template <typename T>
+int scan_impl(const float* dt, const T* xh, const T* B, const T* C,
+              const float* A, const Dims& d, int dtype, const Work& w, T* y,
+              T* final_state, T* states, cudaStream_t stream) {
+  const bool tm = tma_fits(d, dtype, {xh, B, C, y, states});
+  Launch g[2];
+  launches(SCAN, d, dtype, tm, 0, g);
+  SSD_CHECK(prepare<T>());
+  Maps maps{};
+  if constexpr (std::is_same<T, BF16>::value) {
+    if (tm) {
+      SSD_CHECK(make_fwd_maps(d, xh, B, C, y, states, maps));
+      return launch_scan<T, true>(dt, xh, B, C, A, d, g, w, maps, y,
+                                  final_state, states, stream);
+    }
+  }
+  return launch_scan<T, false>(dt, xh, B, C, A, d, g, w, maps, y,
+                               final_state, states, stream);
 }
 
 template <typename T, bool TM>
@@ -2368,11 +2630,11 @@ int scan_grad_impl(const float* dt, const T* xh, const T* B, const T* C,
                    T* dxh, float* ddt, T* dB, T* dC, float* dA,
                    cudaStream_t stream) {
   Launch g[4];
-  launches(SCAN_GRAD, d, dtype, 0, g);
+  launches(SCAN_GRAD, d, dtype, false, 0, g);
   SSD_CHECK(prepare<T>());
   Maps maps{};
   if constexpr (std::is_same<T, BF16>::value) {
-    if (tma_fits(d, {xh, B, C, states, dy})) {
+    if (tma_fits(d, dtype, {xh, B, C, states, dy})) {
       SSD_CHECK(make_maps(d, xh, B, C, states, dy, maps));
       return launch_grad<T, true>(dt, xh, B, C, A, states, dy, dfinal, d, g,
                                   w, maps, dxh, ddt, dB, dC, dA, stream);
@@ -2412,12 +2674,12 @@ extern "C" int ssd_scan_sm90(const float* dt, const void* xh, const void* B,
   if (dtype == 1)
     return scan_impl(dt, static_cast<const BF16*>(xh),
                      static_cast<const BF16*>(B), static_cast<const BF16*>(C),
-                     A, d, w, static_cast<BF16*>(y),
+                     A, d, dtype, w, static_cast<BF16*>(y),
                      static_cast<BF16*>(final_state),
                      static_cast<BF16*>(states), stream);
   return scan_impl(dt, static_cast<const float*>(xh),
                    static_cast<const float*>(B), static_cast<const float*>(C),
-                   A, d, w, static_cast<float*>(y),
+                   A, d, dtype, w, static_cast<float*>(y),
                    static_cast<float*>(final_state),
                    static_cast<float*>(states), stream);
 }
@@ -2489,8 +2751,9 @@ extern "C" int ssd_floor_sm90(int entry, int b, int s, int nh, int hd, int ns,
   const Dims d = dims(b, s, nh, hd, ns, lc);
   if (entry == STEP ? (b < 1 || nh < 1) : bad(d, dtype))
     return static_cast<int>(cudaErrorInvalidValue);
-  Launch g[5];
-  const int n = launches(entry, d, dtype, b * nh, g);
+  Launch g[4];
+  const int n = launches(entry, d, dtype, entry == SCAN && tma_shape(d, dtype),
+                         b * nh, g);
   SSD_CHECK(prepare<float>());
   for (int k = 0; k < n; ++k) {
     empty_kernel<<<g[k].grid, g[k].threads, g[k].smem, stream>>>(0);

@@ -10,11 +10,15 @@ Three entries, each one plain version in ``ref.py``:
 * :func:`scan`: dt (b, s, nh) fp32, xh (b, s, nh, hd), B and C (b, s, ns) in
   the compute dtype, A (nh,) fp32, chunks of ``lc`` -> (y, the final
   state); differentiable through :class:`~.ref.Scan`, which saves the state
-  entering each chunk (nc, b, nh, hd, ns) for the backward.  Five kernels
-  a launch: the chunks' cumsums, their (lc, lc) scores C·B (shared by the
-  heads), each chunk's contribution to the state (all chunks at once: it
-  does not depend on the state), one sequential pass over the chunks for
-  the states, then the outputs in tiles of 64 rows.
+  entering each chunk (nc, b, nh, hd, ns) for the backward.  Two kernels a
+  launch, every product on Hopper's tensor cores (``wgmma``): a block a
+  (batch, head) walks the chunks in order (each chunk's cumsums, then its
+  contribution to the state U^T B, U = r(sdecay x) computed in registers,
+  the state carried in registers and the entering state written once);
+  then a block a pair of 64-row tiles of a chunk (the first with the last)
+  and a group of heads computes the scores C·B once for the group into
+  shared memory and each head's outputs, the decay-weighted scores as A
+  from registers times x, plus C times the entering state.
 * :func:`scan_grad`: the VJP (:func:`~.ref.scan_grad_ref`), four kernels
   a launch, its products on Hopper's tensor cores (``wgmma``): one reverse
   pass over the chunks a (batch, head), with the cumsums and each chunk's
@@ -34,21 +38,24 @@ Three entries, each one plain version in ``ref.py``:
   window updated in place, a block a (batch, head); bit for bit its plain
   version in the state and the window.
 
-The forward's products sum in fp32 FMA and round to the compute dtype
-where the plain version rounds, so the scan agrees with it to the order of
-fp32 sums.  The backward carries fp32 as the plain version does: a bf16
-operand goes into the tensor cores as it is, a product of two bf16 values
-as an exact bf16 hi and lo, an fp32 operand (and every operand in fp32)
-through 3xTF32 (hi = tf32(v), lo = tf32(v - hi), three products), so it
-agrees with the plain version to the order of fp32 sums too.  What bounds
-them (``ssd_sm90.cu``'s note): at mamba2-130m's training shape the scan
-does 19.89 GFLOP and moves 138.9 MB, short of the fp32 FMA peak by its
-staging; the backward 39.78 GFLOP (twice that on the tensor cores, with
-the splits) and 196.1 MB, held back by the threads' work around its
-products (the register fragments, the staged planes, a barrier a step);
-the step is bound by the state's bytes.  No PyTorch call computes these
-functions.  :func:`launch_floor` launches an empty kernel as an entry
-launches its kernels, the least a launch of it can take.
+Every product rounds once to the compute dtype where the plain version
+rounds.  In bf16 each of the forward's products is of two bf16 values (x,
+B, C, the states, the decay-weighted scores and sdecay x rounded as the
+plain version rounds them), exact on the tensor cores; the backward takes a
+product of two bf16 values as an exact bf16 hi and lo, and an fp32 operand
+through 3xTF32 (hi = tf32(v), lo = tf32(v - hi), three products); in fp32
+every operand takes 3xTF32.  So both agree with the plain versions to the
+order of fp32 sums.  In bf16, where hd and lc are multiples of 32 and ns
+of 8, the operands that are bf16 in device memory come by TMA (the
+forward's in 128-byte swizzled boxes of 64 columns).  What bounds them
+(``ssd_sm90.cu``'s note): at mamba2-130m's training shape the scan moves
+138.9 MB and does 19.89 GFLOP, the backward 196.1 MB and 39.78 GFLOP (twice
+that on the tensor cores, with the splits); both are held back by the
+threads' work around their products (the register fragments, the staged
+planes, a barrier a step); the step is bound by the state's bytes.  No
+PyTorch call computes these functions.  :func:`launch_floor` launches an
+empty kernel as an entry launches its kernels, the least a launch of it
+can take.
 
 A tensor on the CPU takes the plain version; a tensor on the card launches
 the kernel or raises, whatever ``cfg.use_kernels`` says.  Every launch adds

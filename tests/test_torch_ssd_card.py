@@ -4,7 +4,8 @@ against its plain versions, on the card.
 At the smoke configs' shapes (mamba2-130m and jamba-v0.1-52b: 8 heads of
 16, state 16, chunk 8), at a chunk of 13, one that divides no tile (lc 80,
 state 72, two output tiles) and one at the tensor-core products' edges
-(hd 12, ns 20, lc 24: none a multiple of 16): ``scan`` and ``scan_grad``
+(hd 12, ns 20, lc 24: none a multiple of 16), and one of 20 chunks (the
+state kernel takes the cumsums 8 chunks at a time): ``scan`` and ``scan_grad``
 within 1e-5 (forward) and 1e-4 (backward) of each tensor's largest
 magnitude in fp32 and 2e-2 in bf16 (``chip_smoke.FLASH_TOL``), twice bit
 for bit;
@@ -38,10 +39,12 @@ BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 #: padded-width case with two tiles a chunk, hd, ns and lc that are no
 #: multiple of 16 (the tensor-core products' k steps and fragments), and
 #: one whose bf16 operands TMA's boxes fit (hd and lc multiples of 32, ns of
-#: 8: the products take them by TMA, hd and ns narrower than a tile)
+#: 8: the products take them by TMA, hd and ns narrower than a tile), and
+#: the same at 20 chunks (the state kernel's cumsum windows of 8 chunks, the
+#: last one part full)
 SHAPES = [(2, 16, 8, 16, 16, 8), (2, 26, 4, 16, 16, 13),
           (1, 160, 2, 16, 72, 80), (1, 48, 3, 12, 20, 24),
-          (2, 128, 3, 32, 16, 64)]
+          (2, 128, 3, 32, 16, 64), (1, 640, 2, 32, 16, 32)]
 
 
 @pytest.fixture

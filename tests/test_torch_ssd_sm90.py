@@ -1,33 +1,35 @@
 """A numpy emulation of ``ssd_sm90.cu``'s loops, held against the plain
 versions (``kernels/ssd/ref.py``) on the CPU.
 
-The forward, launch by launch: each chunk's cumsum in order; the scores
-C·B only for the 64 x 64 tiles on or below the diagonal (the rest of the
-buffer NaN, so a read above the diagonal shows); each chunk's contribution
-to the state all at once, then the one sequential pass over the chunks
-that turns them into the entering states in place; the outputs in tiles of
-64 rows; every product summing its k in order in float32, as the kernel's
-fmaf does.  The backward's four launches: the reverse pass of a (batch,
-head) (gs on the tensor cores, dG as each thread's partial over the
-elements it owns in each_mma's map, then the tree over 256 threads); the
-heads kernel's walk over the 64-column tiles J, each tile of dL = dy x^T
-computed once a head, dcb summed over the group of heads in head order,
-the tile's row and column sums in the kernel's shuffle-and-warp order, dx
-as sdecay (B g^T) + r(L)^T dy in one accumulator; the groups' dcb folded
-in group order and the reverse cumsums; dB and dC in one accumulator over
-(head, p) and then the scores' part.  Every product is the tensor cores'
-(``_mma``): each operand split into planes (bf16 hi and lo of a product of
-two bf16 values; 3xTF32, the TF32 rounding done on the float32 bits, for
-an fp32 operand and for every operand in fp32), each k step of 16 (bf16)
-or 8 (TF32) summed exactly and added to the fp32 accumulator; a product
-whose A the kernel computes in registers (``_mma_split``: the scores
-r(L), dy r(exp(cums)), U) sums each step's two halves of k apart, one a
-warpgroup, and adds the two partials at the end.  Held at
-1e-5 (forward) and 1e-4 (backward) of each tensor's largest magnitude in
-float32, 2e-2 in bfloat16, on chunks of 8, 13 and 80 (two tiles of 64 a
-chunk, a state of 72: two column tiles), where the heads fall into two
-or three groups; the splits themselves against exact products; and
-``step``'s elementwise update bit for bit ``step_ref``.
+The forward's two launches: the state walk of a (batch, head) (each chunk's
+cumsum in order, then chunk by chunk the contribution U^T B with U =
+r(sdecay x) computed in registers, the entering state written and the state
+updated with the plain version's roundings); the outputs, a block a pair of
+64-row tiles (the first with the last) and a group of heads, the scores'
+strip r(C_I B_J^T) once for the group, each head's intra product r(L) x
+with r(L) computed in registers (masked before the exp) and C_I S^T, y
+rounded as the plain version rounds. The backward's four launches: the
+reverse pass of a (batch, head) (gs on the tensor cores, dG as each
+thread's partial over the elements it owns in each_mma's map, then the tree
+over 256 threads); the heads kernel's walk over the 64-column tiles J, each
+tile of dL = dy x^T computed once a head, dcb summed over the group of
+heads in head order, the tile's row and column sums in the kernel's
+shuffle-and-warp order, dx as sdecay (B g^T) + r(L)^T dy in one
+accumulator; the groups' dcb folded in group order and the reverse cumsums;
+dB and dC in one accumulator over (head, p) and then the scores' part.
+Every product of both is the tensor cores' (``_mma``): each operand split
+into planes (bf16 hi and lo of a product of two bf16 values; 3xTF32, the
+TF32 rounding done on the float32 bits, for an fp32 operand and for every
+operand in fp32), each k step of 16 (bf16) or 8 (TF32) summed exactly and
+added to the fp32 accumulator; a product whose A the kernel computes in
+registers (``_mma_split``: the scores r(L), dy r(exp(cums)), U; in the
+forward r(L) and U) sums each step's two halves of k apart, one a
+warpgroup, and adds the two partials at the end. Held at 1e-5 (forward) and
+1e-4 (backward) of each tensor's largest magnitude in float32, 2e-2 in
+bfloat16, on chunks of 8, 13 and 80 (two tiles of 64 a chunk, a state of
+72: two column tiles), where the heads fall into two or three groups; the
+splits themselves against exact products; and ``step``'s elementwise update
+bit for bit ``step_ref``.
 """
 import numpy as np
 import pytest
@@ -56,14 +58,6 @@ def _exp(v):
     return torch.exp(torch.from_numpy(np.asarray(v, F32))).numpy()
 
 
-def _gemm(a, b):
-    """sum_k a[k, m] * b[k, n] in k order, accumulated in float32."""
-    acc = np.zeros((a.shape[1], b.shape[1]), F32)
-    for k in range(a.shape[0]):
-        acc = acc + a[k][:, None] * b[k][None, :]
-    return acc
-
-
 def _inputs(shape, dtype, seed):
     b, s, nh, hd, ns, _ = shape
     g = np.random.default_rng(seed)
@@ -81,7 +75,8 @@ def _np(*ts):
 
 
 def _cums(dt, A, lc):
-    """cums_kernel: a thread a (batch, chunk, head), in order."""
+    """The cumsums of dt * A, a thread a (batch, chunk, head), in order:
+    state_kernel's and carry_kernel's."""
     b, s, nh = dt.shape
     out = np.empty_like(dt)
     for c0 in range(0, s, lc):
@@ -90,72 +85,6 @@ def _cums(dt, A, lc):
             acc = acc + dt[:, c0 + j] * A
             out[:, c0 + j] = acc
     return out
-
-
-def _scores(C, B, lc, r):
-    """cb_kernel: r(C_i . B_j) for the tiles with j0 <= i0; NaN elsewhere."""
-    b, s, _ = C.shape
-    cb = np.full((s // lc, b, lc, lc), np.nan, F32)
-    for c in range(s // lc):
-        Cc, Bc = C[:, c * lc:(c + 1) * lc], B[:, c * lc:(c + 1) * lc]
-        for i0 in range(0, lc, TILE):
-            for j0 in range(0, i0 + 1, TILE):
-                for bb in range(b):
-                    ci, bj = Cc[bb, i0:i0 + TILE], Bc[bb, j0:j0 + TILE]
-                    cb[c, bb, i0:i0 + TILE, j0:j0 + TILE] = r(_gemm(ci.T, bj.T))
-    return cb
-
-
-def _score(cb, cu, dtc, i, j):
-    """The masked score (cb * exp(cums_i - cums_j)) * dt_j of one (i, j <=
-    i); and exp's value."""
-    e = _exp(cu[i] - cu[j])
-    return F32(F32(cb * e) * dtc[j]), e
-
-
-def emulate_scan(dt, xh, B, C, A, lc, dtype):
-    r = _rounder(dtype)
-    dt, xh, B, C, A = _np(dt, xh, B, C, A)
-    b, s, nh, hd = xh.shape
-    nc = s // lc
-    cums = _cums(dt, A, lc)
-    cb = _scores(C, B, lc, r)
-    states = np.empty((nc, b, nh, hd, B.shape[-1]), F32)
-    for c in range(nc):                   # contrib_kernel, all chunks at once
-        sl = slice(c * lc, (c + 1) * lc)
-        for bb in range(b):
-            for h in range(nh):
-                cu, dtc = cums[bb, sl, h], dt[bb, sl, h]
-                sd = r(_exp(cu[-1] - cu) * dtc)
-                u = r(sd[:, None] * xh[bb, sl, h])
-                states[c, bb, h] = r(_gemm(u, B[bb, sl]))
-    sv = np.zeros(states.shape[1:], F32)  # states_kernel: in place, in order
-    for c in range(nc):
-        contrib = states[c].copy()
-        states[c] = sv
-        g = r(_exp(cums[:, c * lc + lc - 1]))[:, :, None, None]
-        sv = r(r(sv * g) + contrib)
-    y = np.empty_like(xh)
-    for c in range(nc):                   # out_kernel, tiles of 64 rows
-        sl = slice(c * lc, (c + 1) * lc)
-        for bb in range(b):
-            for h in range(nh):
-                cu, dtc = cums[bb, sl, h], dt[bb, sl, h]
-                for i0 in range(0, lc, TILE):
-                    rows = range(i0, min(lc, i0 + TILE))
-                    kmax = min(lc, i0 + TILE)
-                    L = np.zeros((kmax, len(rows)), F32)
-                    for m, i in enumerate(rows):
-                        for j in range(i + 1):
-                            L[j, m] = r(_score(cb[c, bb, i, j], cu, dtc, i,
-                                               j)[0])
-                    a1 = _gemm(L, xh[bb, sl, h][:kmax])
-                    ci = C[bb, sl][list(rows)]
-                    a2 = _gemm(ci.T, states[c, bb, h].T)
-                    e = r(_exp(cu[list(rows)]))[:, None]
-                    y[bb, c * lc + i0:c * lc + rows[-1] + 1, h] = r(
-                        r(a1) + r(r(a2) * e))
-    return y, sv, states
 
 
 # The tensor-core products of the backward, as ssd_sm90.cu's wgmma takes
@@ -300,6 +229,76 @@ def _group_size(b, nh, lc, nc):
     g = pairs * nc * b * nh // GROUP_BLOCKS
     g = max(g, -(-nh // GROUPS_AIM))
     return max(1, min(g, G_MAX, nh))
+
+
+def _masked_scores(strip, cu, dtc, rows, cols, r):
+    """masked_score: r((cb * exp(cums_i - cums_j)) * dt_j) for j <= i, 0
+    above the diagonal (the exponent masked before the exp), as (k = j, m =
+    i)."""
+    i, j = np.meshgrid(np.array(rows), np.array(cols), indexing="ij")
+    low = j <= i
+    e = _exp(np.where(low, cu[i] - cu[j], 0))
+    L = ((strip[i - rows[0], j] * e).astype(F32) * dtc[j]).astype(F32)
+    return np.where(low, r(L), 0).astype(F32).T
+
+
+def emulate_scan(dt, xh, B, C, A, lc, dtype):
+    """ssd_sm90.cu's forward, its two launches.  (1) state_kernel: a
+    (batch, head) walks its chunks in order: the chunks' cumsums in order,
+    sdecay, the contribution U^T B with U = r(sdecay x) in registers
+    (``_mma_split``), the entering state written, S <- r(r(S r(exp(seg))) +
+    r(contrib)).  (2) out_kernel: a block a pair of 64-row tiles (the first
+    and the last, the second and the one before), a chunk, a batch and a
+    group of heads: the scores' strip r(C_I B_J^T), J <= I, once for the
+    group; each head's intra product r(L) x with r(L) in registers
+    (``_mma_split``) and C_I S^T (``_mma``); y = r(r(intra) + r(r(C S)
+    r(exp(cums_i))))."""
+    r = _rounder(dtype)
+    TT = _kinds(dtype)[0]
+    dt, xh, B, C, A = _np(dt, xh, B, C, A)
+    b, s, nh, hd = xh.shape
+    ns, nc, nt = B.shape[-1], s // lc, -(-lc // TILE)
+    cums = _cums(dt, A, lc)
+    states = np.empty((nc, b, nh, hd, ns), F32)
+    final = np.empty((b, nh, hd, ns), F32)
+    for bb in range(b):                   # (1) the state walk
+        for h in range(nh):
+            sv = np.zeros((hd, ns), F32)
+            for c in range(nc):
+                sl = slice(c * lc, (c + 1) * lc)
+                cu, dtc = cums[bb, sl, h], dt[bb, sl, h]
+                sd = r((_exp(cu[-1] - cu) * dtc).astype(F32))
+                u = r((sd[:, None] * xh[bb, sl, h]).astype(F32))
+                contrib = _mma_split(np.zeros((hd, ns), F32), u, B[bb, sl],
+                                     *TT)
+                states[c, bb, h] = sv
+                sv = r(r(sv * r(_exp(cu[-1]))) + r(contrib))
+            final[bb, h] = sv
+    y = np.empty_like(xh)
+    gsz = _group_size(b, nh, lc, nc)
+    for c in range(nc):                   # (2) the outputs
+        sl = slice(c * lc, (c + 1) * lc)
+        for bb in range(b):
+            Bc, Cc = B[bb, sl], C[bb, sl]
+            for h0 in range(0, nh, gsz):
+                for bx in range((nt + 1) // 2):
+                    for it in dict.fromkeys((bx, nt - 1 - bx)):
+                        I0, iend = it * TILE, min(lc, (it + 1) * TILE)
+                        rows = range(I0, iend)
+                        strip = r(_mma(np.zeros((len(rows), iend), F32),
+                                       Cc[rows].T, Bc[:iend].T, *TT))
+                        for h in range(h0, min(nh, h0 + gsz)):
+                            cu, dtc = cums[bb, sl, h], dt[bb, sl, h]
+                            rL = _masked_scores(strip, cu, dtc, rows,
+                                                range(iend), r)
+                            a1 = _mma_split(np.zeros((len(rows), hd), F32),
+                                            rL, xh[bb, sl, h][:iend], *TT)
+                            a2 = _mma(np.zeros((len(rows), hd), F32),
+                                      Cc[rows].T, states[c, bb, h].T, *TT)
+                            e = r(_exp(cu[list(rows)]))[:, None]
+                            y[bb, c * lc + I0:c * lc + iend, h] = r(
+                                r(a1) + r(r(a2) * e))
+    return y, final, states
 
 
 def _fma(a, b, c):
