@@ -42,7 +42,8 @@ Phases, each of which raises on failure (exit code not 0):
              dropped entries, then the route's edge shapes (MOE_EDGE: the
              one-warp and the cluster routes, ragged shares, E = 1 and 64,
              k = 1 and 8, cap 1, every expert over capacity, experts out of
-             range, 65,536 entries); each entry timed at both configs'
+             range, 65,536 entries; a few of them again by token at a wide
+             D, MOE_EDGE_WIDE); each entry timed at both configs'
              prefill and decode shapes in bf16 (CUDA graphs; the plain
              versions eagerly) beside its byte bound and its launch floor
              (an empty kernel launched and timed as the entry).  Then both
@@ -116,9 +117,10 @@ Phases, each of which raises on failure (exit code not 0):
              DIR``) under deterministic algorithms.
              Then the MoE family (``moe_sm90.cu``'s backward entries:
              dispatch_grad, the combine with unit gates; combine_grad;
-             gate_grad): each bit for bit to its plain version at both MoE
-             configs' training shape (8 x 2048 tokens), bf16 and fp32,
-             capacity 1.25 and 0.5, and in NaN cases, and timed there
+             gate_grad; and the forward dispatch, which with combine_grad
+             goes by token there): each bit for bit to its plain version at
+             both MoE configs' training shape (8 x 2048 tokens), bf16 and
+             fp32, capacity 1.25 and 0.5, and in NaN cases, and timed there
              (CUDA graphs) beside its byte bound and launch floor; a
              full-width MoE layer's gradients (x, router, experts, shared)
              through the kernels bit for bit those through the plain
@@ -412,6 +414,21 @@ MOE_EDGE = (("shares_whole_tiles", 2048, 60, 4, 176),
             ("warp_4x8", 4, 60, 8, 4), ("out_of_range", 1500, 36, 4, 50),
             ("entries_65536_cf1.25", 16384, 60, 4, None),
             ("entries_65536_cf0.5", 16384, 60, 4, None))
+
+# Edge routings of MOE_EDGE again at a D that puts x past ROWS_IN_L2 (the
+# dispatch and combine_grad by token): (name, D, dtype).  Every D here is
+# more than 512 vectors a token (bf16 above 4096, fp32 above 2048), so the
+# token blocks' vector loop reloads; an inf and a NaN at dropped tokens sit
+# in the reloaded columns.
+MOE_EDGE_WIDE = (("one_expert", 12288, "bfloat16"),
+                 ("cap_one", 12288, "bfloat16"),
+                 ("e64_top8", 12288, "bfloat16"),
+                 ("out_of_range", 8192, "bfloat16"),
+                 ("all_overflow", 6144, "float32"))
+
+# x's bytes of the dispatch that ``--pair`` also times in bf16, between the
+# serving prefill's 4-8 MB and the training shape's 33.5-67 MB.
+PAIR_GAP_BYTES = 24 << 20
 
 # The MoE entries of the forward pass (serving launches only these).
 MOE_FORWARD = ("route", "dispatch", "combine")
@@ -2922,7 +2939,8 @@ def moe_edge_checks(torch) -> list:
     """The edge shapes (MOE_EDGE): route, dispatch and combine, and the
     backward's three entries, bit for bit to their plain versions on the
     card, in bf16 at D = 2048 and fp32 at D = 64; each route the launch
-    ``moe.geometry`` gives (one warp up to 32 entries, else a cluster)."""
+    ``moe.geometry`` gives (one warp up to 32 entries, else a cluster).
+    Then a few of them by token at a wide D (MOE_EDGE_WIDE)."""
     from repro_torch.kernels.moe import moe
     from repro_torch.kernels.moe import ref
 
@@ -2964,6 +2982,55 @@ def moe_edge_checks(torch) -> list:
                   f"{g['threads']} (cluster {g['cluster']}): route, "
                   "dispatch, combine and the backward's dispatch_grad, "
                   "combine_grad, gate_grad bit for bit to the plain versions")
+    out.extend(_moe_edge_wide_checks(torch))
+    return out
+
+
+def _moe_edge_wide_checks(torch) -> list:
+    """MOE_EDGE_WIDE: dispatch and combine_grad by token (``moe.by_token``
+    and the built kernel's launch, one token a block, agree) bit for bit
+    to their plain versions, twice on one routing, an inf and a NaN of x at
+    dropped tokens past the first 512 vectors; the counters back at 0."""
+    from repro_torch.kernels.moe import moe
+    from repro_torch.kernels.moe import ref
+
+    edge = {c[0]: (seed, c) for seed, c in enumerate(MOE_EDGE)}
+    out = []
+    for name, d, dt in MOE_EDGE_WIDE:
+        seed, (_, n, e, k, cap) = edge[name]
+        dtype = getattr(torch, dt)
+        elem = torch.empty((), dtype=dtype).element_size()
+        top_e = moe_edge_inputs(torch, 100 + seed, name, n, e, k)
+        r = moe.route(top_e, e, cap)
+        want = ref.route_ref(top_e, e, cap)
+        g = moe.library_geometry("dispatch", n, k, d, e, cap, dtype)
+        check(moe.by_token(n, d, elem) and g["per_block"] == 1 and g ==
+              moe.geometry("dispatch", n, k, d, e, cap, elem),
+              f"moe edge {name} D={d}: launch {g}, not by token")
+        gen = torch.Generator(device=CARD).manual_seed(200 + seed)
+        x = torch.randn((n, d), generator=gen, device=CARD).to(dtype)
+        gates = torch.rand((n, k), generator=gen, device=CARD)
+        drop = want.dropped[want.dropped >= 0].long()
+        check(drop.numel() > 0, f"moe edge {name} D={d}: nothing dropped")
+        x[drop[0] // k, d - 8] = float("inf")
+        x[drop[-1] // k, d // 2 + 3] = float("nan")
+        buf = ref.dispatch_ref(x, want)
+        dho = ref.combine_grad_ref(x, want, gates)
+        nan_rows = int(torch.isnan(buf).any(1).sum())
+        check(nan_rows > 0, f"moe edge {name} D={d}: no NaN to keep")
+        for _ in range(2):
+            _moe_equal(torch, moe.dispatch(x, r), buf)
+            _moe_equal(torch, moe.combine_grad(x, r, gates), dho)
+            check(r.scratch.tolist() == [0, 0, 0],
+                  f"moe edge {name} D={d}: counters left at "
+                  f"{r.scratch.tolist()}")
+        out.append({"name": f"{name} D={d} {dt}", "entries": n * k,
+                    "experts": e, "cap": cap, "dropped": drop.numel(),
+                    "dispatch": g, "nan_rows": nan_rows})
+        print(f"moe edge {name} by token: N={n} D={d} {dt} "
+              f"({n * d * elem / 1e6:.1f} MB of x), {drop.numel()} dropped, "
+              f"{g['blocks']} blocks: dispatch and combine_grad bit for bit "
+              f"to the plain versions twice, {nan_rows} rows NaN as theirs")
     return out
 
 
@@ -3341,9 +3408,14 @@ def pair_child(tree: str, label: str, archs: list[str]) -> int:
     other at its full config through ``launch.serve.main``; each 8 requests
     in batches of 4, prompt 512, 32 generated.  Prints one JSON line.  Run
     the sides in turns (parent, change, change, parent) within one chip
-    call; the first process of each tree builds its kernels.  With
-    SSM_ARCH among the ARCHs it also times ``ssd_sm90.cu``'s entries in
-    bf16 (:func:`ssd_entry_times`, the best of 3)."""
+    call; the first process of each tree builds its kernels.  For each
+    ARCH with experts it also times dispatch and combine_grad at the
+    training shape (TRAIN_BATCH x TRAIN_SEQ tokens), at the prefill shape
+    in fp32, and in bf16 at the tokens whose x is PAIR_GAP_BYTES (the
+    last two between the serving prefill's x and the training shape's,
+    where the dispatch's shape rule falls).  With SSM_ARCH among
+    the ARCHs it also times ``ssd_sm90.cu``'s entries in bf16
+    (:func:`ssd_entry_times`, the best of 3)."""
     import dataclasses
 
     import numpy as np
@@ -3363,18 +3435,24 @@ def pair_child(tree: str, label: str, archs: list[str]) -> int:
     for seed, arch in enumerate(archs):
         cfg = get_config(arch)
         e, k, d = cfg.moe_num_experts, cfg.moe_top_k, cfg.d_model
-        for phase, n in (("prefill", SERVE_BATCH * SERVE_PROMPT),
-                         ("decode", SERVE_BATCH)) if e else ():
+        for phase, n, dtype in (
+                ("prefill", SERVE_BATCH * SERVE_PROMPT, torch.bfloat16),
+                ("decode", SERVE_BATCH, torch.bfloat16),
+                ("train", TRAIN_BATCH * TRAIN_SEQ, torch.bfloat16),
+                ("prefill_fp32", SERVE_BATCH * SERVE_PROMPT, torch.float32),
+                ("gap", PAIR_GAP_BYTES // (d * 2), torch.bfloat16)) \
+                if e else ():
             cap = moe.capacity(n, k, e, cfg.capacity_factor)
-            top_e, gates, x, gen = moe_inputs(torch, seed, n, e, k, d,
-                                              torch.bfloat16)
+            top_e, gates, x, gen = moe_inputs(torch, seed, n, e, k, d, dtype)
             top_e = top_e.int()
             r = moe.route(top_e, e, cap, distinct=True)
-            ho = torch.randn((e * cap, d), generator=gen,
-                             device=CARD).to(torch.bfloat16)
+            ho = torch.randn((e * cap, d), generator=gen, device=CARD).to(dtype)
             runs = {"route": lambda: moe.route(top_e, e, cap, distinct=True),
                     "dispatch": lambda: moe.dispatch(x, r),
                     "combine": lambda: moe.combine(ho, r, gates)}
+            if phase not in ("prefill", "decode"):
+                runs = {"dispatch": runs["dispatch"],
+                        "combine_grad": lambda: moe.combine_grad(x, r, gates)}
             for name, fn in runs.items():
                 out["times_us"][f"{arch} {phase} {name}"] = min(
                     graph_ms(fn, 20) for _ in range(3)) * 1e3
@@ -3422,14 +3500,16 @@ def pair_child(tree: str, label: str, archs: list[str]) -> int:
 
 def moe_backward_checks(torch) -> dict:
     """The backward entries (``dispatch_grad``, the combine with unit
-    gates; ``combine_grad``; ``gate_grad``) against their plain versions on
-    the card, bit for bit, at both MoE configs' training shape
-    (TRAIN_BATCH x TRAIN_SEQ tokens), bf16 and fp32, capacity 1.25 and
-    0.5; then NaN: a non-finite dout at tokens whose dropped entries' slots
-    are rows, a NaN in ho under dropped entries and in dbuf at their slots,
-    twice on one routing (its counters back at 0).  The edge shapes run in
-    the moe phase (:func:`moe_edge_checks`).  Launches here are
-    comparisons, not the main path."""
+    gates; ``combine_grad``; ``gate_grad``) and the forward ``dispatch``
+    against their plain versions on the card, bit for bit, at both MoE
+    configs' training shape (TRAIN_BATCH x TRAIN_SEQ tokens, where the
+    dispatch and combine_grad go by token: ``moe.by_token``), bf16 and
+    fp32, capacity 1.25 and 0.5; then NaN: a non-finite dout (the
+    dispatch's x) at tokens whose dropped entries' slots are rows, a NaN in
+    ho under dropped entries and in dbuf at their slots, twice on one
+    routing (its counters back at 0).  The edge shapes run in the moe phase
+    (:func:`moe_edge_checks`).  Launches here are comparisons, not the main
+    path."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.moe import moe
     from repro_torch.kernels.moe import ref
@@ -3446,10 +3526,16 @@ def moe_backward_checks(torch) -> dict:
                                                      k, d, dtype)
                 r = moe.route(top_e, e, cap, distinct=True)
                 want = ref.route_ref(top_e.int(), e, cap)
+                check(moe.by_token(n, d, dout.element_size()),
+                      f"{arch}: the training shape's dispatch goes by rows")
                 rows = [torch.randn((e * cap, d), generator=gen,
                                     device=CARD).to(dtype) for _ in range(2)]
                 worst = max(worst, _moe_backward_equal(
-                    torch, r, want, dout, rows[0], rows[1], gates))
+                    torch, r, want, dout, rows[0], rows[1], gates),
+                    _moe_equal(torch, moe.dispatch(dout, r),
+                               ref.dispatch_ref(dout, want)))
+                check(r.scratch.tolist() == [0, 0, 0], "moe dispatch left "
+                      f"its counters at {r.scratch.tolist()}")
                 drops = int(want.stats[-1])
                 check(cf == 1.25 or drops > 0,
                       f"{arch} training shape at cf {cf} dropped nothing")
@@ -3457,8 +3543,9 @@ def moe_backward_checks(torch) -> dict:
                                      "cf": cf, "dtype": str(dtype),
                                      "dropped": drops})
                 print(f"moe backward {arch} N={n} cap={cap} cf={cf} {dtype}:"
-                      " dispatch_grad, combine_grad, gate_grad bit for bit "
-                      f"to the plain versions, {drops} entries dropped")
+                      " dispatch_grad, combine_grad, gate_grad and the "
+                      "forward dispatch bit for bit to the plain versions, "
+                      f"{drops} entries dropped")
     cfg = get_config(MOE_ARCHS[0])
     e, k, d = cfg.moe_num_experts, cfg.moe_top_k, cfg.d_model
     cap = moe.capacity(n, k, e, 0.5)
@@ -3476,22 +3563,28 @@ def moe_backward_checks(torch) -> dict:
         dho = ref.combine_grad_ref(dout, want, gates)
         dg = ref.gate_grad_ref(dout, ho, want).view(-1)
         dx = ref.dispatch_grad_ref(dbuf, want)
+        buf = ref.dispatch_ref(dout, want)
         check(bool(torch.isnan(dho[want.slot[drop[:3]].long(), 5]).all())
               and bool(torch.isnan(dg[drop[5:8]]).all())
-              and bool(torch.isnan(dx[drop[8:10] // k, 9]).all()),
-              "moe backward: no NaN to keep")
+              and bool(torch.isnan(dx[drop[8:10] // k, 9]).all())
+              and bool(torch.isnan(buf[want.slot[drop[3:5]].long(), 6])
+                       .all()), "moe backward: no NaN to keep")
         for _ in range(2):
             _moe_backward_equal(torch, r, want, dout, dbuf, ho, gates)
-            check(r.scratch.tolist() == [0, 0, 0], "moe combine_grad left "
-                  f"its counters at {r.scratch.tolist()}")
+            _moe_equal(torch, moe.dispatch(dout, r), buf)
+            check(r.scratch.tolist() == [0, 0, 0], "moe combine_grad or "
+                  f"dispatch left its counters at {r.scratch.tolist()}")
         out.setdefault("nan", {})[str(dtype)] = {
             "dho_rows": int(torch.isnan(dho).any(1).sum()),
             "gates": int(torch.isnan(dg).sum()),
-            "dx_tokens": int(torch.isnan(dx).any(1).sum())}
+            "dx_tokens": int(torch.isnan(dx).any(1).sum()),
+            "dispatch_rows": int(torch.isnan(buf).any(1).sum())}
         print(f"moe backward NaN {dtype}: dho rows NaN "
               f"{out['nan'][str(dtype)]['dho_rows']}, gate cotangents "
               f"{out['nan'][str(dtype)]['gates']}, dx tokens "
-              f"{out['nan'][str(dtype)]['dx_tokens']}, as the plain versions")
+              f"{out['nan'][str(dtype)]['dx_tokens']}, forward dispatch rows "
+              f"{out['nan'][str(dtype)]['dispatch_rows']}, as the plain "
+              "versions")
     out["max_abs_err"] = worst
     return out
 
@@ -3541,13 +3634,18 @@ def moe_backward_times(torch, arch: str, seed: int) -> dict:
               f" us ({t['bytes'] / 1e6:.2f} MB), kernel at {t['share']:.1%} "
               f"of the larger; launch {t['launch']}")
     # the forward dispatch on the same routing: combine_grad's kernel
-    # without its weights, the yardstick of its share
+    # without its weights
     fwd = {"ms": graph_ms(lambda: moe.dispatch(dout, r), 20),
+           "floor_ms": graph_ms(lambda: moe.launch_floor(
+               "dispatch", n, k, d, e, cap, torch.bfloat16), 20),
+           "launch": moe.library_geometry("dispatch", n, k, d, e, cap,
+                                          torch.bfloat16),
            **bounds["dispatch"]}
-    fwd["share"] = fwd["bound_ms"] / fwd["ms"]
+    fwd["share"] = max(fwd["bound_ms"], fwd["floor_ms"]) / fwd["ms"]
     print(f"moe dispatch (forward) {arch} train N={n} cap={cap} bf16: "
-          f"{fwd['ms'] * 1e3:.2f} us, bound {fwd['bound_ms'] * 1e3:.3f} us, "
-          f"at {fwd['share']:.1%}")
+          f"{fwd['ms'] * 1e3:.2f} us, launch floor "
+          f"{fwd['floor_ms'] * 1e3:.2f} us, bound {fwd['bound_ms'] * 1e3:.3f}"
+          f" us, at {fwd['share']:.1%}; launch {fwd['launch']}")
     return {"n": n, "cap": cap, "dropped": int(r.stats[-1]), "entries": times,
             "forward_dispatch": fwd}
 
@@ -3900,6 +3998,8 @@ def moe_train_phase(torch, card: str) -> dict:
            "floor_ms": sum(t["floor_ms"] for t in mine.values()),
            "library_ms": None,
            "entries": mine,
+           "forward_dispatch": times[MOE_TRAIN_ARCH]["forward_dispatch"],
+           "forward_dispatch_launches": launches["dispatch"],
            "other_configs": {a: times[a] for a in MOE_ARCHS
                              if a != MOE_TRAIN_ARCH}}
     print(f"train moe: {time.perf_counter() - t0:.1f} s")
@@ -4873,10 +4973,12 @@ def ssd_timed_cases(torch) -> dict:
         dtv = torch.nn.functional.softplus(torch.randn((b, nh), device=CARD))
         A = -torch.exp(torch.randn((nh,), device=CARD))
         step_args = (state, conv, window, xh, dtv, A, Bv, Cv)
+        # step's dims: s the conv window's rows, lc its width, as the
+        # launch floor takes them
         fwd[f"step {arch} decode"] = (
             "step", lambda a=step_args: ssd.step(*a),
-            lambda a=step_args: ref.step_ref(*a), (b, 1, nh, hd, ns, 1, width),
-            50)
+            lambda a=step_args: ref.step_ref(*a),
+            (b, 3, nh, hd, ns, width, width), 50)
     return {**fwd, **bwd}
 
 

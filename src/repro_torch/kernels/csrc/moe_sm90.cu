@@ -66,17 +66,34 @@
 //     A second cluster barrier, arrived at after the reads and waited at
 //     the end, keeps each block's shared counts alive while others read.
 //   * dispatch: bytes.  It reads the kept tokens' rows and writes E*cap
-//     rows.  A block of 256 threads copies 8 KB: each thread issues two
-//     16-byte loads (rows of the buffer in order, several rows a block
-//     where D is small) before its two stores, which stream (st.global.cs,
-//     evict first: the buffer is written once and read once).  Where the
-//     routing may have dropped an entry and did, the same launch runs the
-//     non-finite pass: every block checks its share of the dropped tokens'
-//     values and flags a non-finite one, the blocks take tickets as they
-//     finish, and the last 264 wait until every copy is done; only if a
-//     value was flagged do they store NaN at the dropped entries' columns
-//     that are not finite, the same NaN from every writer.  The routing's
-//     three counters (zeroed by the route) order this and are left at 0.
+//     rows, in one of two orders by one shape rule (by_token): x's bytes
+//     up to ROWS_IN_L2 (16 MB), rows in order; past it, by token.  Rows in
+//     order: a block of 256 threads copies 8 KB of the buffer (several
+//     rows where D is small), each row gathering its token's row of x, so
+//     a token row is read once a kept entry (k times); where x fits the
+//     L2 (the serving prefill's 4-8 MB) those re-reads hit there, the
+//     stores run through the buffer in sequence, and the copy reaches
+//     89-92% of the byte bound.  At the training shape (16,384 tokens: x
+//     33.5 MB at granite-moe, 67.1 MB at qwen2-moe) the re-reads come from
+//     device memory (48-59% of the bound in rows' order).  By token: the
+//     zero blocks first (at most 264, a warp a row) zero the rows no entry
+//     fills, each expert's rows past its count, read from the routing's
+//     counts; then a block takes a few tokens, loads each token row once
+//     (its first loads in flight while it reads its entries' slots and
+//     weights into shared memory) and stores it at the slot of every kept
+//     entry (an entry is kept where rows[slot] is the entry itself):
+//     83-84% of the bound, the stores scattered by token, which is why the
+//     serving shapes keep the rows' order.  Each thread issues its two
+//     16-byte loads before its
+//     stores, which stream (st.global.cs, evict first: the buffer is
+//     written once and read once).  Where the routing may have dropped an
+//     entry and did, the same launch runs the non-finite pass: every block
+//     checks its share of the dropped tokens' values and flags a
+//     non-finite one, the blocks take tickets as they finish, and the last
+//     264 wait until every store is done; only if a value was flagged do
+//     they store NaN at the dropped entries' columns that are not finite,
+//     the same NaN from every writer.  The routing's three counters
+//     (zeroed by the route) order this and are left at 0.
 //   * combine: bytes, and in bf16 the roundings.  It reads the N*k rows its
 //     entries point at and writes N rows.  A block takes one token or
 //     several (2 at D = 1024 bf16): one thread a token sorts its k choices
@@ -85,9 +102,10 @@
 //     output vector before the ordered adds, two roundings an element
 //     packed two to an instruction.  Kernels for k <= 4 and k <= 8: the
 //     registers of the loads in flight decide how many threads an SM holds.
-//   * combine_grad: bytes, as dispatch: the same kernel, instantiated with
-//     a weight an entry (read beside the row's loads), and the same NaN
-//     pass ordered by the routing's counters.
+//   * combine_grad: bytes, as dispatch: the same kernel in the same
+//     order, instantiated with a weight an entry (rows in order: read
+//     beside the row's loads; by token: into shared memory with the
+//     slots), and the same NaN pass ordered by the routing's counters.
 //   * gate_grad: bytes.  It reads the N token rows of dout and the N*k rows
 //     of ho its entries point at and writes N*k floats.  One warp an entry,
 //     8 a block (a block holds one token's entries at top-8, so its dout
@@ -119,6 +137,10 @@ constexpr int MAX_CLUSTER = 16;
 constexpr int OUT_OF_RANGE = MAX_E;       // the route's key of an expert not in [0, E)
 constexpr int COPY_THREADS = 256;
 constexpr int COPY_UNROLL = 2;            // 16-byte loads a thread before its stores
+constexpr int COPY_TOKENS = 32;           // tokens a dispatch block at most
+constexpr int COPY_SPREAD = 128;          // token blocks at least, where N allows
+constexpr int COPY_WARPS = COPY_THREADS / 32;
+constexpr int ZERO_BLOCKS = 264;          // zero blocks at most: two an SM
 constexpr int NONFINITE_BLOCKS = 264;     // the waiters: two a streaming multiprocessor
 constexpr int NONFINITE_UNROLL = 4;
 constexpr int COMBINE_THREADS = 256;
@@ -439,28 +461,22 @@ __device__ __forceinline__ bool any_nonfinite(const Vec<T>& h) {
   return bad;
 }
 
-// Block b copies rows [b*rpb, ...) of the buffer, COPY_UNROLL vectors a
-// thread, every load before any store; the stores stream (st.global.cs:
-// evict first, the buffer is written once and read once by the expert
-// products).  Where the routing may have dropped an entry and did
-// (stats[e] > 0), every block then checks its share of the dropped
-// entries' values and flags a non-finite one (scratch[2]); the blocks
-// take tickets as they finish (scratch[0]), and the last `waiters` wait
-// until every block's copy is done.  Only if a value was flagged do they
-// store NaN at the dropped entries' non-finite columns, each store after
-// the copy of its row; the last of them to finish (scratch[1]) sets the
-// counters back to 0 for the next dispatch of this routing.  WEIGHTED
-// (combine_grad): each kept row is +0 + x[token] * cdt(gates[entry]).
+// x's bytes up to which the dispatch visits the buffer's rows in order:
+// the rows' gathers of x then hit the L2.  Past it the dispatch goes by
+// token (each token row read once).  The one shape rule between the two
+// orders: rows in order are 5-7% faster at the serving prefill's x (4-8
+// MB), the two tie at 16.8 MB (fp32), and by token takes 18-38% less time
+// at 25 MB and 29-41% less at the training shape's 33.5-67 MB.
+constexpr long long ROWS_IN_L2 = 16ll << 20;
+
+// Rows in order: block b copies rows [b*rpb, ...) of the buffer, COPY_UNROLL
+// vectors a thread, every load before any store.
 template <typename T, bool WEIGHTED>
-__global__ void __launch_bounds__(COPY_THREADS)
-dispatch_kernel(const uint4* __restrict__ x, const int* __restrict__ rows,
-                const int* __restrict__ slot, const int* __restrict__ stats,
-                const int* __restrict__ dropped,
-                const float* __restrict__ gates, int k, int e, int ecap,
-                int vecs, int rpb, int may_drop,
-                unsigned* __restrict__ scratch, uint4* __restrict__ out) {
-  __shared__ int s_ticket, s_flagged;
-  const int nd = may_drop ? stats[e] : 0;
+__device__ __forceinline__ void copy_rows(const uint4* __restrict__ x,
+                                          const int* __restrict__ rows,
+                                          const float* __restrict__ gates,
+                                          int k, int ecap, int vecs, int rpb,
+                                          uint4* __restrict__ out) {
   const int r0 = blockIdx.x * rpb;
   const int nr = rpb < ecap - r0 ? rpb : ecap - r0;
   const int span = nr * vecs;
@@ -503,6 +519,147 @@ dispatch_kernel(const uint4* __restrict__ x, const int* __restrict__ rows,
     for (int u = 0; u < COPY_UNROLL; ++u)
       if (tok[u] != -2) __stcs(out + dst[u], val[u]);
   }
+}
+
+// By token, the zero blocks [0, zblocks): the rows no entry fills, expert
+// x's rows past its count [x*cap + min(stats[x], cap), (x+1)*cap), taken in
+// order as one list, a warp a row, the zero blocks' warps striding over it.
+__device__ __forceinline__ void zero_rows(const int* __restrict__ stats,
+                                          int e, int cap, int vecs,
+                                          int zblocks,
+                                          uint4* __restrict__ out) {
+  __shared__ int s_base[MAX_E + 1];             // zero rows before expert x
+  __shared__ int s_first[MAX_E];                // expert x's first zero row
+  const int warp = static_cast<int>(threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (warp == 0) {                              // experts lane and lane + 32
+    int c[2], z[2], incl[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int j = lane + 32 * h;
+      c[h] = j < e ? (stats[j] < cap ? stats[j] : cap) : cap;
+      z[h] = cap - c[h];                        // 0 past the experts
+      incl[h] = warp_scan(z[h], lane, 32);
+    }
+    const int first_half = __shfl_sync(FULL, incl[0], 31);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int j = lane + 32 * h;
+      if (j < e) {
+        s_first[j] = j * cap + c[h];
+        s_base[j] = (h ? first_half : 0) + incl[h] - z[h];
+      }
+    }
+    if (lane == 31) s_base[e] = first_half + incl[1];
+  }
+  __syncthreads();
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  for (int q = blockIdx.x * COPY_WARPS + warp; q < s_base[e];
+       q += zblocks * COPY_WARPS) {
+    int lo = 0, hi = e - 1;                     // the last expert with base <= q
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (s_base[mid] <= q) lo = mid; else hi = mid - 1;
+    }
+    const int64_t r = s_first[lo] + (q - s_base[lo]);
+    for (int v = lane; v < vecs; v += 32) __stcs(out + r * vecs + v, zero);
+  }
+}
+
+// By token, a token block (blockIdx.x - zblocks) takes tpb tokens: its first
+// COPY_UNROLL vectors are loaded while the block reads its entries' slots
+// (an entry is kept where rows[slot] is the entry itself) and weights into
+// shared memory; then each thread stores each vector it loaded at the slot
+// of every kept entry of its token, COPY_UNROLL vectors at a time: each
+// token row is read once.
+template <typename T, bool WEIGHTED>
+__device__ __forceinline__ void copy_tokens(const uint4* __restrict__ x,
+                                            const int* __restrict__ rows,
+                                            const int* __restrict__ slot,
+                                            const float* __restrict__ gates,
+                                            int n, int k, int vecs, int tpb,
+                                            int zblocks,
+                                            uint4* __restrict__ out) {
+  __shared__ int s_slot[COPY_TOKENS * MAX_K];   // -1: the entry dropped
+  __shared__ float s_wt[COPY_TOKENS * MAX_K];
+  const int t0 = (static_cast<int>(blockIdx.x) - zblocks) * tpb;
+  const int nt = tpb < n - t0 ? tpb : n - t0;
+  const int span = nt * vecs;
+  int tt[COPY_UNROLL], v[COPY_UNROLL];          // tt -1: no vector
+  uint4 val[COPY_UNROLL];
+  auto load = [&](int f0) {
+#pragma unroll
+    for (int u = 0; u < COPY_UNROLL; ++u) {
+      const int f = f0 + u * COPY_THREADS + threadIdx.x;
+      tt[u] = -1;
+      v[u] = 0;
+      if (f < span) {
+        tt[u] = f / vecs;
+        v[u] = f - tt[u] * vecs;
+        val[u] = x[static_cast<int64_t>(t0 + tt[u]) * vecs + v[u]];
+      }
+    }
+  };
+  load(0);
+  for (int j = threadIdx.x; j < nt * k; j += COPY_THREADS) {
+    const int i = t0 * k + j;
+    const int s = slot[i];
+    const bool kept = rows[s] == i;
+    s_slot[j] = kept ? s : -1;
+    if (WEIGHTED) s_wt[j] = kept ? T::f(T::r(gates[i])) : 0.f;  // gate * keep(1)
+  }
+  __syncthreads();
+  for (int f0 = 0; f0 < span; f0 += COPY_THREADS * COPY_UNROLL) {
+    if (f0 > 0) load(f0);
+#pragma unroll
+    for (int u = 0; u < COPY_UNROLL; ++u) {
+      if (tt[u] < 0) continue;
+#pragma unroll
+      for (int j = 0; j < MAX_K; ++j) {
+        if (j >= k) break;
+        const int s = s_slot[tt[u] * k + j];
+        if (s < 0) continue;
+        uint4 o = val[u];
+        if constexpr (WEIGHTED) {
+          float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+          Terms<T>::add(acc, val[u], s_wt[tt[u] * k + j]);  // +0 + cdt(x * w)
+          o = Terms<T>::out(acc);
+        }
+        __stcs(out + static_cast<int64_t>(s) * vecs + v[u], o);
+      }
+    }
+  }
+}
+
+// The dispatch: the buffer's rows in order (BY_TOKEN false: copy_rows) or
+// by token (zero_rows, then copy_tokens), every store streaming
+// (st.global.cs: evict first, the buffer is written once and read once by
+// the expert products).  Where the routing may have dropped an entry and
+// did (stats[e] > 0), every block then checks its share of the dropped
+// entries' values and flags a non-finite one (scratch[2]); the blocks take
+// tickets as they finish (scratch[0]), and the last `waiters` wait until
+// every block's stores are done.  Only if a value was flagged do they
+// store NaN at the dropped entries' non-finite columns, each store after
+// the copy of its row; the last of them to finish (scratch[1]) sets the
+// counters back to 0 for the next dispatch of this routing.  WEIGHTED
+// (combine_grad): each kept row is +0 + x[token] * cdt(gates[entry]).
+// per_block: rows (in order) or tokens (by token) a block.
+template <typename T, bool WEIGHTED, bool BY_TOKEN>
+__global__ void __launch_bounds__(COPY_THREADS)
+dispatch_kernel(const uint4* __restrict__ x, const int* __restrict__ rows,
+                const int* __restrict__ slot, const int* __restrict__ stats,
+                const int* __restrict__ dropped,
+                const float* __restrict__ gates, int n, int k, int e,
+                int cap, int vecs, int per_block, int zblocks, int may_drop,
+                unsigned* __restrict__ scratch, uint4* __restrict__ out) {
+  __shared__ int s_ticket, s_flagged;
+  const int nd = may_drop ? stats[e] : 0;
+  if constexpr (!BY_TOKEN)
+    copy_rows<T, WEIGHTED>(x, rows, gates, k, e * cap, vecs, per_block, out);
+  else if (static_cast<int>(blockIdx.x) < zblocks)
+    zero_rows(stats, e, cap, vecs, zblocks, out);
+  else
+    copy_tokens<T, WEIGHTED>(x, rows, slot, gates, n, k, vecs, per_block,
+                             zblocks, out);
   if (nd == 0) return;
 
   const int blocks = static_cast<int>(gridDim.x);
@@ -695,8 +852,8 @@ __global__ void empty_kernel(int) {}
 // ---------------------------------------------------------------- launch
 struct Geometry {
   int blocks, threads, cluster;             // cluster 0: an ordinary launch
-  int per_block;                            // route: entries; dispatch and
-                                            // combine_grad: rows; combine:
+  int per_block;                            // route: entries; dispatch,
+                                            // combine_grad and combine:
                                             // tokens; gate_grad: entries
 };
 
@@ -735,6 +892,27 @@ int elem_bytes(int dtype) { return dtype == 1 ? 2 : 4; }
 
 int div_up(int a, int b) { return (a + b - 1) / b; }
 
+// The dispatch by token (x past ROWS_IN_L2), else its rows in order.
+bool by_token(int n, int d, int dtype) {
+  return static_cast<long long>(n) * d * elem_bytes(dtype) > ROWS_IN_L2;
+}
+
+// The tokens a token block takes: COPY_UNROLL vectors a thread, at most
+// COPY_TOKENS, and few enough that N makes COPY_SPREAD blocks or more.
+int token_block(int n, int vecs) {
+  int tpb = COPY_THREADS * COPY_UNROLL / vecs;
+  if (tpb > COPY_TOKENS) tpb = COPY_TOKENS;
+  if (tpb > n / COPY_SPREAD) tpb = n / COPY_SPREAD;
+  return tpb < 1 ? 1 : tpb;
+}
+
+// The dispatch's zero blocks: a warp a row of the buffer, at most
+// ZERO_BLOCKS (the rows no entry fills are fewer).
+int zero_blocks(int e, int cap) {
+  const int b = div_up(e * cap, COPY_WARPS);
+  return b < ZERO_BLOCKS ? b : ZERO_BLOCKS;
+}
+
 Geometry geometry(int entry, int n, int k, int d, int e, int cap, int dtype) {
   const int nk = n * k;
   const int vecs = d * elem_bytes(dtype) / 16;
@@ -746,9 +924,13 @@ Geometry geometry(int entry, int n, int k, int d, int e, int cap, int dtype) {
     return {c, ROUTE_THREADS, c, div_up(nk, c)};
   }
   if (entry == DISPATCH || entry == COMBINE_GRAD) {
-    const int rpb = vecs < COPY_THREADS * COPY_UNROLL
-                        ? COPY_THREADS * COPY_UNROLL / vecs : 1;
-    return {div_up(e * cap, rpb), COPY_THREADS, 0, rpb};
+    if (!by_token(n, d, dtype)) {
+      const int rpb = vecs < COPY_THREADS * COPY_UNROLL
+                          ? COPY_THREADS * COPY_UNROLL / vecs : 1;
+      return {div_up(e * cap, rpb), COPY_THREADS, 0, rpb};
+    }
+    return {zero_blocks(e, cap) + div_up(n, token_block(n, vecs)),
+            COPY_THREADS, 0, token_block(n, vecs)};
   }
   if (entry == GATE_GRAD) return {div_up(nk, GATE_WARPS), GATE_THREADS, 0, GATE_WARPS};
   int tpb = COMBINE_THREADS / vecs;
@@ -787,6 +969,30 @@ bool bad_entry(int entry, int n, int k, int d, int e, int cap, int dtype) {
          bad_rows(d, dtype);
 }
 
+// The dispatch's launch (WEIGHTED: combine_grad's), its order by_token's.
+template <bool WEIGHTED>
+int launch_dispatch(const void* x, const int* rows, const int* slot,
+                    const int* stats, const int* dropped, const float* gates,
+                    int n, int k, int d, int e, int cap, int dtype,
+                    int may_drop, unsigned* scratch, void* out,
+                    cudaStream_t stream) {
+  const int vecs = d * elem_bytes(dtype) / 16;
+  const Geometry g = geometry(WEIGHTED ? COMBINE_GRAD : DISPATCH, n, k, d, e,
+                              cap, dtype);
+  const bool tok = by_token(n, d, dtype);
+  const int zb = tok ? zero_blocks(e, cap) : 0;
+  auto go = [&](auto kernel) {
+    return launch(kernel, g, stream, static_cast<const uint4*>(x), rows, slot,
+                  stats, dropped, gates, n, k, e, cap, vecs, g.per_block, zb,
+                  may_drop, scratch, static_cast<uint4*>(out));
+  };
+  if (dtype == 1)
+    return tok ? go(dispatch_kernel<BF16, WEIGHTED, true>)
+               : go(dispatch_kernel<BF16, WEIGHTED, false>);
+  return tok ? go(dispatch_kernel<F32, WEIGHTED, true>)
+             : go(dispatch_kernel<F32, WEIGHTED, false>);
+}
+
 }  // namespace
 
 extern "C" int moe_route_sm90(const int* top_e, int n, int k, int e, int cap,
@@ -814,18 +1020,9 @@ extern "C" int moe_dispatch_sm90(const void* x, const int* rows,
                                  cudaStream_t stream) {
   if (bad_entry(DISPATCH, n, k, d, e, cap, dtype))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int vecs = d * elem_bytes(dtype) / 16;
-  const Geometry g = geometry(DISPATCH, n, k, d, e, cap, dtype);
-  const uint4* xs = static_cast<const uint4*>(x);
-  uint4* o = static_cast<uint4*>(out);
-  const float* none = nullptr;
-  if (dtype == 1)
-    return launch(dispatch_kernel<BF16, false>, g, stream, xs, rows, slot,
-                  stats, dropped, none, k, e, e * cap, vecs, g.per_block,
-                  may_drop, scratch, o);
-  return launch(dispatch_kernel<F32, false>, g, stream, xs, rows, slot, stats,
-                dropped, none, k, e, e * cap, vecs, g.per_block, may_drop,
-                scratch, o);
+  return launch_dispatch<false>(x, rows, slot, stats, dropped, nullptr, n, k,
+                                d, e, cap, dtype, may_drop, scratch, out,
+                                stream);
 }
 
 // The combine's cotangent for ho: dout (n, d), gates (n, k) float32, out
@@ -839,17 +1036,9 @@ extern "C" int moe_combine_grad_sm90(const void* dout, const int* rows,
                                      cudaStream_t stream) {
   if (bad_entry(COMBINE_GRAD, n, k, d, e, cap, dtype))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int vecs = d * elem_bytes(dtype) / 16;
-  const Geometry g = geometry(COMBINE_GRAD, n, k, d, e, cap, dtype);
-  const uint4* xs = static_cast<const uint4*>(dout);
-  uint4* o = static_cast<uint4*>(out);
-  if (dtype == 1)
-    return launch(dispatch_kernel<BF16, true>, g, stream, xs, rows, slot,
-                  stats, dropped, gates, k, e, e * cap, vecs, g.per_block,
-                  may_drop, scratch, o);
-  return launch(dispatch_kernel<F32, true>, g, stream, xs, rows, slot, stats,
-                dropped, gates, k, e, e * cap, vecs, g.per_block, may_drop,
-                scratch, o);
+  return launch_dispatch<true>(dout, rows, slot, stats, dropped, gates, n, k,
+                               d, e, cap, dtype, may_drop, scratch, out,
+                               stream);
 }
 
 // ho (rows, d), gates (n, k) float32, out (n, d).
@@ -897,7 +1086,8 @@ extern "C" int moe_gate_grad_sm90(const void* dout, const void* ho,
 
 // entry 0 route, 1 dispatch, 2 combine, 3 combine_grad, 4 gate_grad:
 // out[0..3] = blocks, threads, cluster size (0: an ordinary launch) and
-// entries / rows / tokens / rows / entries a block.
+// entries / tokens / tokens / tokens / entries a block (dispatch and
+// combine_grad: a token block's; the zero blocks come first).
 extern "C" int moe_geometry_sm90(int entry, int n, int k, int d, int e,
                                  int cap, int dtype, int* out) {
   if (bad_entry(entry, n, k, d, e, cap, dtype))

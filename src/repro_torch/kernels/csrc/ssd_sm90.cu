@@ -38,7 +38,8 @@
 // definition): the forward's values as the forward rounded them, each
 // rounding's cotangent passed straight through, each cotangent rounded once
 // to its input's dtype.  step is elementwise and equals step_ref bit for
-// bit in the state and the conv window; its readout sums over n in order.
+// bit in the state and the conv window; its readout sums over n in a
+// fixed tree (each lane its chunks in order, then a butterfly).
 // So scan and scan_grad agree with scan_ref and scan_grad_ref to the order
 // of fp32 sums (the order inside an MMA's k step is the hardware's).  Every
 // sum runs in a fixed order: a product's k steps in order, where A comes
@@ -138,8 +139,18 @@
 // (the forward's r(L) an expf, a mask and three roundings a value) and the
 // staged planes are computed by every thread a step, a step waits for its
 // products, and a step's barrier waits for the slowest warp; the tensor
-// cores are busy a few percent of the time.  step moves the state (read
-// and write) and is bound by bytes.
+// cores are busy a few percent of the time.
+//   step moves the state (read and written once) and is bound by bytes:
+// 3.27 MB at mamba2-130m's decode shape (4 x 24 heads of 64 x 128), 0.98
+// us at the byte rate, under its launch floor (~1.5 us).  A block of four
+// warps takes a group of rows p of one (batch, head); a row's ns values
+// split into 16-byte vectors over a power-of-two group of its warp's lanes
+// (16 lanes at ns 128 in bf16, 2 at jamba's ns 16), so every thread moves
+// its state with one 16-byte load and store, and the grid spreads the
+// state over the card (768 blocks at mamba2-130m, not one a (batch,
+// head)).  The readout is a lane's chunks in order, then a butterfly of
+// shuffles over the row's lanes: no shared memory, no serial chain of ns
+// adds.  The conv window's shift takes its own blocks after the state's.
 //
 // Launch: each entry launches its kernels on the caller's stream and
 // returns the first CUDA error (0 on success); scratch comes from the
@@ -162,6 +173,9 @@ constexpr int THREADS = 256;    // two warpgroups
 constexpr int MAX_CHUNK = 256;
 constexpr int CU_WIN = 8;       // chunks whose cumsums the state kernel holds
 constexpr int MAX_STATE = 8192;              // hd * ns
+constexpr int STEP_THREADS = 128;             // step: four warps a block
+constexpr int STEP_WARPS = STEP_THREADS / 32;
+constexpr int CONV_UNROLL = 4;               // step's conv shift: loads in flight
 
 enum Entry { SCAN = 0, SCAN_GRAD = 1, STEP = 2 };
 
@@ -2265,45 +2279,100 @@ sums_kernel(const float* __restrict__ dt, const T* __restrict__ X,
 }
 
 // --------------------------------------------------------------- step
-// One decode step of a (batch, head): the state in place, the readout in
-// order over n; the blocks share the conv window's shift.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
+// One decode step.  A block takes STEP_WARPS x (32 / lanes) rows p of one
+// (batch, head); a row's ns values split into chunks of V (a 16-byte
+// vector), lane l of the row's `lanes` taking chunks l, l + lanes, ...:
+// the state updated in place elementwise, and the row's readout summed in
+// fixed order, each lane its chunks' products in order, then the lanes by
+// shuffles in a butterfly (offsets lanes / 2, ..., 1).  The blocks past
+// `state_blocks` shift the conv window.  VEC: every row of the state, B, C
+// and the conv window a whole number of aligned 16-byte vectors.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(STEP_THREADS)
 step_kernel(T* __restrict__ state, T* __restrict__ conv,
             const T* __restrict__ window, const T* __restrict__ xh,
             const float* __restrict__ dtv, const float* __restrict__ A,
             const T* __restrict__ Bv, const T* __restrict__ Cv, int nh,
-            int hd, int ns, int conv_rows, int width, int batch,
+            int hd, int ns, int lanes, int row_blocks, int state_blocks,
+            long long conv_per, int width, long long conv_total,
             T* __restrict__ y) {
-  __shared__ float prod[MAX_STATE];
-  const int tid = threadIdx.x, bh = blockIdx.x, bb = bh / nh, h = bh % nh;
-  const int hn = hd * ns;
-  const float dv = dtv[bh];
-  const float da = rnd<T>(expf(__fmul_rn(dv, A[h])));
-  const float dtr = rnd<T>(dv);
-  T* sp = state + static_cast<size_t>(bh) * hn;
-  for (int e = tid; e < hn; e += THREADS) {
-    const int p = e / ns, n = e % ns;
-    const float xd =
-        rnd<T>(__fmul_rn(ld(xh, static_cast<size_t>(bh) * hd + p), dtr));
-    const float u =
-        rnd<T>(__fmul_rn(xd, ld(Bv, static_cast<size_t>(bb) * ns + n)));
-    const float sn = rnd<T>(__fadd_rn(rnd<T>(__fmul_rn(ld(sp, e), da)), u));
-    sp[e] = to_t<T>(sn);
-    prod[e] = __fmul_rn(ld(Cv, static_cast<size_t>(bb) * ns + n), sn);
-  }
-  __syncthreads();
-  for (int p = tid; p < hd; p += THREADS) {
+  constexpr int V = 16 / sizeof(T);
+  const int tid = threadIdx.x;
+  if (static_cast<int>(blockIdx.x) < state_blocks) {
+    const int bh = blockIdx.x / row_blocks, rb = blockIdx.x % row_blocks;
+    const int bb = bh / nh, h = bh % nh;
+    const int lane = tid & 31, per_warp = 32 / lanes, sub = lane & (lanes - 1);
+    const int p = (rb * STEP_WARPS + (tid >> 5)) * per_warp + lane / lanes;
     float acc = 0.f;
-    for (int n = 0; n < ns; ++n) acc = __fadd_rn(acc, prod[p * ns + n]);
-    y[static_cast<size_t>(bh) * hd + p] = to_t<T>(acc);
+    if (p < hd) {
+      const float dv = dtv[bh];
+      const float da = rnd<T>(expf(__fmul_rn(dv, A[h])));
+      const float xd = rnd<T>(__fmul_rn(
+          ld(xh, static_cast<size_t>(bh) * hd + p), rnd<T>(dv)));
+      T* sp = state + (static_cast<size_t>(bh) * hd + p) * ns;
+      const T* bp = Bv + static_cast<size_t>(bb) * ns;
+      const T* cp = Cv + static_cast<size_t>(bb) * ns;
+      for (int n0 = sub * V; n0 < ns; n0 += lanes * V) {
+        alignas(16) T sv[V], bv[V], cv[V];
+        const int m = VEC ? V : (ns - n0 < V ? ns - n0 : V);
+        if constexpr (VEC) {
+          *reinterpret_cast<uint4*>(sv) = *reinterpret_cast<const uint4*>(sp + n0);
+          *reinterpret_cast<uint4*>(bv) = *reinterpret_cast<const uint4*>(bp + n0);
+          *reinterpret_cast<uint4*>(cv) = *reinterpret_cast<const uint4*>(cp + n0);
+        } else {
+          for (int q = 0; q < m; ++q) {
+            sv[q] = sp[n0 + q];
+            bv[q] = bp[n0 + q];
+            cv[q] = cp[n0 + q];
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < V; ++q) {
+          if (q < m) {
+            const float u = rnd<T>(__fmul_rn(xd, ld(bv, q)));
+            const float sn = rnd<T>(__fadd_rn(rnd<T>(__fmul_rn(ld(sv, q), da)), u));
+            sv[q] = to_t<T>(sn);
+            acc = __fadd_rn(acc, __fmul_rn(ld(cv, q), sn));
+          }
+        }
+        if constexpr (VEC) {
+          *reinterpret_cast<uint4*>(sp + n0) = *reinterpret_cast<const uint4*>(sv);
+        } else {
+          for (int q = 0; q < m; ++q) sp[n0 + q] = sv[q];
+        }
+      }
+    }
+    for (int o = lanes / 2; o >= 1; o >>= 1)   // every lane, live or not
+      acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, o));
+    if (p < hd && sub == 0) y[static_cast<size_t>(bh) * hd + p] = to_t<T>(acc);
+    return;
   }
-  const size_t per = static_cast<size_t>(conv_rows) * width;
-  const size_t total = per * batch;
-  for (size_t e = static_cast<size_t>(blockIdx.x) * THREADS + tid; e < total;
-       e += static_cast<size_t>(gridDim.x) * THREADS) {
-    const size_t b2 = e / per, rest = e % per;
-    conv[e] = window[b2 * (per + width) + width + rest];
+  // the conv window's shift: conv[b2, r, :] = window[b2, r + 1, :], in
+  // 16-byte vectors where VEC, CONV_UNROLL loads in flight before the stores
+  using U = typename std::conditional<VEC, uint4, T>::type;
+  const int w = VEC ? V : 1;
+  const long long per = conv_per / w, row = width / w, total = conv_total / w;
+  const U* src = reinterpret_cast<const U*>(window);
+  U* dst = reinterpret_cast<U*>(conv);
+  const long long stride =
+      static_cast<long long>(gridDim.x - state_blocks) * STEP_THREADS * CONV_UNROLL;
+  for (long long e0 = (static_cast<long long>(blockIdx.x) - state_blocks) *
+                          STEP_THREADS * CONV_UNROLL + tid;
+       e0 < total; e0 += stride) {
+    U v[CONV_UNROLL];
+#pragma unroll
+    for (int u = 0; u < CONV_UNROLL; ++u) {
+      const long long e = e0 + static_cast<long long>(u) * STEP_THREADS;
+      if (e < total) {
+        const long long b2 = e / per;
+        v[u] = src[b2 * (per + row) + row + (e - b2 * per)];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < CONV_UNROLL; ++u) {
+      const long long e = e0 + static_cast<long long>(u) * STEP_THREADS;
+      if (e < total) dst[e] = v[u];
+    }
   }
 }
 
@@ -2427,10 +2496,34 @@ bool tma_shape(const Dims& d, int dtype) {
   return dtype == 1 && d.hd % KS == 0 && d.lc % KS == 0 && d.ns % 8 == 0;
 }
 
+// The lanes step gives a row of the state: its chunks of a 16-byte vector
+// of values, rounded up to a power of two, at most 32.
+int step_lanes(int ns, int dtype) {
+  const int chunks = div_up(ns, static_cast<int>(16 / elem(dtype)));
+  int lanes = 1;
+  while (lanes < chunks && lanes < 32) lanes *= 2;
+  return lanes;
+}
+
+// step's blocks of rows of a (batch, head): STEP_WARPS x (32 / lanes) rows
+// a block.
+int step_row_blocks(const Dims& d, int dtype) {
+  return div_up(d.hd, STEP_WARPS * (32 / step_lanes(d.ns, dtype)));
+}
+
+// step's blocks of the conv window's shift (conv_rows x width values a
+// sequence): CONV_UNROLL 16-byte vectors a thread.
+int step_conv_blocks(int b, int conv_rows, int width, int dtype) {
+  const long long vecs = (static_cast<long long>(b) * conv_rows * width *
+                              static_cast<long long>(elem(dtype)) + 15) / 16;
+  return static_cast<int>((vecs + STEP_THREADS * CONV_UNROLL - 1) /
+                          (STEP_THREADS * CONV_UNROLL));
+}
+
 // The launches of an entry, in order: each kernel's grid, block and
-// dynamic shared memory (tm: the forward's products by TMA).
-int launches(int entry, const Dims& d, int dtype, bool tm, int batch_heads,
-             Launch* out) {
+// dynamic shared memory (tm: the forward's products by TMA).  step reads
+// d.s as the conv window's rows (cw - 1) and d.lc as its width.
+int launches(int entry, const Dims& d, int dtype, bool tm, Launch* out) {
   const int t = div_up(d.lc, TILE);
   if (entry == SCAN) {
     out[0] = {dim3(d.b * d.nh, state_tiles(d)), THREADS,
@@ -2448,7 +2541,9 @@ int launches(int entry, const Dims& d, int dtype, bool tm, int batch_heads,
               sums_smem(elem(dtype))};
     return 4;
   }
-  out[0] = {dim3(batch_heads), THREADS, 0};
+  out[0] = {dim3(d.b * d.nh * step_row_blocks(d, dtype) +
+                 step_conv_blocks(d.b, d.s, d.lc, dtype)),
+            STEP_THREADS, 0};
   return 1;
 }
 
@@ -2584,7 +2679,7 @@ int scan_impl(const float* dt, const T* xh, const T* B, const T* C,
               T* final_state, T* states, cudaStream_t stream) {
   const bool tm = tma_fits(d, dtype, {xh, B, C, y, states});
   Launch g[2];
-  launches(SCAN, d, dtype, tm, 0, g);
+  launches(SCAN, d, dtype, tm, g);
   SSD_CHECK(prepare<T>());
   Maps maps{};
   if constexpr (std::is_same<T, BF16>::value) {
@@ -2630,7 +2725,7 @@ int scan_grad_impl(const float* dt, const T* xh, const T* B, const T* C,
                    T* dxh, float* ddt, T* dB, T* dC, float* dA,
                    cudaStream_t stream) {
   Launch g[4];
-  launches(SCAN_GRAD, d, dtype, false, 0, g);
+  launches(SCAN_GRAD, d, dtype, false, g);
   SSD_CHECK(prepare<T>());
   Maps maps{};
   if constexpr (std::is_same<T, BF16>::value) {
@@ -2728,19 +2823,35 @@ extern "C" int ssd_step_sm90(void* state, void* conv, const void* window,
   if (b < 1 || nh < 1 || hd < 1 || ns < 1 || hd * ns > MAX_STATE ||
       conv_rows < 0 || width < 1 || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(b * nh);
-  if (dtype == 1)
-    step_kernel<BF16><<<grid, THREADS, 0, stream>>>(
+  const Dims d = dims(b, conv_rows, nh, hd, ns, width);
+  Launch g[1];
+  launches(STEP, d, dtype, false, g);
+  const int row_blocks = step_row_blocks(d, dtype);
+  const int state_blocks = b * nh * row_blocks;
+  const long long per = static_cast<long long>(conv_rows) * width;
+  const size_t e = elem(dtype);
+  bool vec = (ns * e) % 16 == 0 && (width * e) % 16 == 0;
+  for (const void* ptr : {static_cast<const void*>(state),
+                          static_cast<const void*>(conv), window, Bv, Cv})
+    vec = vec && reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+  const int lanes = step_lanes(ns, dtype);
+  if (dtype == 1) {
+    auto kernel = vec ? step_kernel<BF16, true> : step_kernel<BF16, false>;
+    kernel<<<g[0].grid, g[0].threads, 0, stream>>>(
         static_cast<BF16*>(state), static_cast<BF16*>(conv),
         static_cast<const BF16*>(window), static_cast<const BF16*>(xh), dtv,
         A, static_cast<const BF16*>(Bv), static_cast<const BF16*>(Cv), nh, hd,
-        ns, conv_rows, width, b, static_cast<BF16*>(y));
-  else
-    step_kernel<float><<<grid, THREADS, 0, stream>>>(
+        ns, lanes, row_blocks, state_blocks, per, width, per * b,
+        static_cast<BF16*>(y));
+  } else {
+    auto kernel = vec ? step_kernel<float, true> : step_kernel<float, false>;
+    kernel<<<g[0].grid, g[0].threads, 0, stream>>>(
         static_cast<float*>(state), static_cast<float*>(conv),
-        static_cast<const float*>(window), static_cast<const float*>(xh), dtv,
-        A, static_cast<const float*>(Bv), static_cast<const float*>(Cv), nh,
-        hd, ns, conv_rows, width, b, static_cast<float*>(y));
+        static_cast<const float*>(window), static_cast<const float*>(xh),
+        dtv, A, static_cast<const float*>(Bv), static_cast<const float*>(Cv),
+        nh, hd, ns, lanes, row_blocks, state_blocks, per, width, per * b,
+        static_cast<float*>(y));
+  }
   return last_error();
 }
 
@@ -2749,11 +2860,13 @@ extern "C" int ssd_step_sm90(void* state, void* conv, const void* window,
 extern "C" int ssd_floor_sm90(int entry, int b, int s, int nh, int hd, int ns,
                               int lc, int dtype, cudaStream_t stream) {
   const Dims d = dims(b, s, nh, hd, ns, lc);
-  if (entry == STEP ? (b < 1 || nh < 1) : bad(d, dtype))
+  if (entry == STEP ? (b < 1 || nh < 1 || hd < 1 || ns < 1 || s < 0 || lc < 1 ||
+                       (dtype != 0 && dtype != 1))
+                    : bad(d, dtype))
     return static_cast<int>(cudaErrorInvalidValue);
   Launch g[4];
   const int n = launches(entry, d, dtype, entry == SCAN && tma_shape(d, dtype),
-                         b * nh, g);
+                         g);
   SSD_CHECK(prepare<float>());
   for (int k = 0; k < n; ++k) {
     empty_kernel<<<g[k].grid, g[k].threads, g[k].smem, stream>>>(0);

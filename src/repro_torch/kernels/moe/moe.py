@@ -19,17 +19,26 @@ reference's ``einsum``s).  Five entries, each one plain version in
   before, in block order), then ranks its share tile by tile on top of
   those bases: the stable positions, with no sort and no global atomic.
   What bounds it: latency (a chain of barriers), not its bytes.
-* :func:`dispatch`: x (N, D) -> (E·cap, D); a block of 256 threads copies
-  8 KB of the buffer (several rows where D is small), each thread's two
-  16-byte loads before its streaming stores.  Where the routing may have
-  dropped an entry (``Routing.may_drop``) and did, every block also checks
-  its share of the dropped tokens' values and flags a non-finite one; the
-  blocks take tickets as they finish and the last 264 wait for every
-  copy, then, if a value was flagged, store NaN at the dropped entries'
-  non-finite columns (the reference adds ``x · 0`` for them): one launch,
-  ordered by the routing's counters (``Routing.scratch``, zeroed by the
-  route and left at zero), so a routing's dispatches (and its
-  :func:`combine_grad` calls) run one at a time.  Bounded by bytes.
+* :func:`dispatch`: x (N, D) -> (E·cap, D), in one of two orders by one
+  shape rule (:func:`by_token`).  Where x fits the L2 (up to
+  :data:`ROWS_IN_L2`: the serving shapes) the buffer's rows go in order, a
+  block of 256 threads copying 8 KB of them (several rows where D is
+  small), each row gathering its token's row of x.  Past it (the training
+  shape, 16,384 tokens: x is 33.5-67 MB, the rows' gathers re-read each
+  token row k times from device memory) the dispatch goes by token: up to
+  264 zero blocks first, a warp a row, zero the rows no entry fills (each
+  expert's rows past its count, from the routing's counts), then a block
+  takes a few tokens, loads each token row once and stores it at the slot
+  of every kept entry.  Every store streams, each thread's two 16-byte
+  loads before its stores.  Where the routing may have dropped an entry
+  (``Routing.may_drop``) and did, every block also checks its share of
+  the dropped tokens' values and flags a non-finite one; the blocks take
+  tickets as they finish and the last 264 wait for every copy, then, if a
+  value was flagged, store NaN at the dropped entries' non-finite columns
+  (the reference adds ``x · 0`` for them): one launch, ordered by the
+  routing's counters (``Routing.scratch``, zeroed by the route and left at
+  zero), so a routing's dispatches (and its :func:`combine_grad` calls)
+  run one at a time.  Bounded by bytes.
 * :func:`combine`: (E·cap, D) -> (N, D); a block takes one token or
   several (D·elem small), a thread a token sorts its k choices by expert
   into shared memory, then each thread issues its k row loads before the
@@ -38,7 +47,8 @@ reference's ``einsum``s).  Five entries, each one plain version in
   the kernel equals the plain version bit for bit.  Bounded by bytes.
   With unit gates it is the dispatch's backward (:func:`dispatch_grad`).
 * :func:`combine_grad`: the combine's cotangent for ho, dout (N, D) ->
-  (E·cap, D): the dispatch's kernel with a weight an entry, each kept row
+  (E·cap, D): the dispatch's kernel, in its order, with a weight an entry
+  (by token, read into shared memory with the slots), each kept row
   ``+0 + dout[token] · cdt(gate)``, zeros elsewhere, the same NaN pass for
   the dropped entries (``dout · 0``).  Bounded by bytes.
 * :func:`gate_grad`: the combine's cotangent for the gates, (N, k) fp32:
@@ -84,8 +94,8 @@ from .ref import (WINDOW, Combine, Dispatch, Routing, capacity,
                   combine_grad_ref, combine_ref, dispatch_grad_ref,
                   dispatch_ref, gate_grad_ref, route_ref)
 
-__all__ = ["Routing", "capacity", "combine", "combine_grad", "dispatch",
-           "dispatch_grad", "gate_grad", "geometry", "launch_count",
+__all__ = ["Routing", "by_token", "capacity", "combine", "combine_grad",
+           "dispatch", "dispatch_grad", "gate_grad", "geometry", "launch_count",
            "launch_counts", "launch_floor", "library_geometry",
            "reset_launch_count", "route"]
 
@@ -101,7 +111,11 @@ GATE_MAX_WINDOWS = 256
 WARP_ENTRIES = 32
 ROUTE_THREADS = 512
 MAX_CLUSTER = 16
-COPY_THREADS, COPY_UNROLL = 256, 2
+COPY_THREADS, COPY_UNROLL, COPY_TOKENS, COPY_SPREAD = 256, 2, 32, 128
+ZERO_BLOCKS = 264                       # the dispatch's zero blocks at most
+#: x's bytes up to which the dispatch visits the buffer's rows in order
+#: (their gathers hit the L2); past it the dispatch goes by token
+ROWS_IN_L2 = 16 << 20
 COMBINE_THREADS, MAX_TOKENS = 256, 32
 GATE_THREADS = 256                      # one warp an entry
 
@@ -176,14 +190,24 @@ def _div_up(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def by_token(n: int, d: int, elem: int) -> bool:
+    """Whether the dispatch (and combine_grad) of N tokens of D columns of
+    ``elem`` bytes goes by token (x's bytes past :data:`ROWS_IN_L2`: each
+    token row read once) rather than through the buffer's rows in order:
+    ``moe_sm90.cu``'s one shape rule between the two."""
+    return n * d * elem > ROWS_IN_L2
+
+
 def geometry(entry: str, n: int, k: int, d: int, e: int, cap: int,
              elem: int, cluster_max: int = MAX_CLUSTER) -> dict:
     """The launch of ``entry`` (one of :data:`ENTRIES`) at N tokens of k
     choices, D columns of ``elem`` bytes, E experts of ``cap`` rows, as
     ``moe_sm90.cu`` shapes it: ``blocks``, ``threads``, ``cluster`` (0: an
     ordinary launch) and ``per_block`` (route: entries, each block's
-    contiguous share; dispatch and combine_grad: buffer rows; combine:
-    tokens; gate_grad: entries, one a warp).  ``cluster_max`` is the
+    contiguous share; dispatch and combine_grad: buffer rows in order, or
+    by token (:func:`by_token`) a token block's tokens, after
+    ``min(ceil(E·cap / 8), ZERO_BLOCKS)`` zero blocks of a warp a row;
+    combine: tokens; gate_grad: entries, one a warp).  ``cluster_max`` is the
     largest route cluster the card co-schedules (the kernel probes it
     once)."""
     nk, vecs = n * k, d * elem // 16
@@ -193,10 +217,16 @@ def geometry(entry: str, n: int, k: int, d: int, e: int, cap: int,
         c = min(cluster_max, _div_up(nk, ROUTE_THREADS))
         return {"blocks": c, "threads": ROUTE_THREADS, "cluster": c,
                 "per_block": _div_up(nk, c)}
-    if entry in ("dispatch", "combine_grad"):
+    if entry in ("dispatch", "combine_grad") and not by_token(n, d, elem):
         rpb = max(1, COPY_THREADS * COPY_UNROLL // vecs)
         return {"blocks": _div_up(e * cap, rpb), "threads": COPY_THREADS,
                 "cluster": 0, "per_block": rpb}
+    if entry in ("dispatch", "combine_grad"):
+        tpb = max(1, min(COPY_THREADS * COPY_UNROLL // vecs, COPY_TOKENS,
+                         n // COPY_SPREAD))
+        zero = min(_div_up(e * cap, COPY_THREADS // 32), ZERO_BLOCKS)
+        return {"blocks": zero + _div_up(n, tpb), "threads": COPY_THREADS,
+                "cluster": 0, "per_block": tpb}
     if entry == "combine":
         tpb = min(max(1, COMBINE_THREADS // vecs), MAX_TOKENS)
         return {"blocks": _div_up(n, tpb), "threads": COMBINE_THREADS,

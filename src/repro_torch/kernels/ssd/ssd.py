@@ -35,8 +35,12 @@ Three entries, each one plain version in ``ref.py``:
   memory come by TMA; the fp32 ones are split by the threads into 3xTF32
   planes.  No float atomics: two runs give the same bits.
 * :func:`step`: one decode step, the state (b, nh, hd, ns) and the conv
-  window updated in place, a block a (batch, head); bit for bit its plain
-  version in the state and the window.
+  window updated in place, bit for bit its plain version in the state and
+  the window: a block of four warps a group of rows p of a (batch, head),
+  a row's ns values split into 16-byte vectors over a power-of-two group
+  of lanes (16 at mamba2-130m's ns 128 in bf16, 2 at jamba's ns 16), the
+  readout a lane's chunks in order, then a butterfly of shuffles over the
+  row's lanes; the conv window's shift on its own blocks of the grid.
 
 Every product rounds once to the compute dtype where the plain version
 rounds.  In bf16 each of the forward's products is of two bf16 values (x,
@@ -52,7 +56,8 @@ forward's in 128-byte swizzled boxes of 64 columns).  What bounds them
 138.9 MB and does 19.89 GFLOP, the backward 196.1 MB and 39.78 GFLOP (twice
 that on the tensor cores, with the splits); both are held back by the
 threads' work around their products (the register fragments, the staged
-planes, a barrier a step); the step is bound by the state's bytes.  No
+planes, a barrier a step); the step is bound by the state's bytes (its
+launch floor is most of it at the decode shapes).  No
 PyTorch call computes these functions.  :func:`launch_floor` launches an
 empty kernel as an entry launches its kernels, the least a launch of it
 can take.
@@ -81,7 +86,8 @@ ENTRIES = ("scan", "scan_grad", "step")
 #: dtype codes of the C interface
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the kernel's limits: a chunk of at most 256 steps; hd · ns state values
-#: a (batch, head) held by one block of the reverse pass and the step
+#: a (batch, head) held by one block of the reverse pass (the step takes
+#: the same)
 MAX_CHUNK = 256
 MAX_STATE = 8192
 
@@ -264,7 +270,12 @@ def step(state, conv, window, xh, dtv, A, Bv, Cv):
     """One decode step (:func:`~.ref.step_ref`): state (b, nh, hd, ns) and
     conv (b, cw-1, W) updated in place, conv from the step's whole window
     (b, cw, W); xh (b, nh, hd), dtv (b, nh) and A (nh,) fp32, Bv and Cv (b,
-    ns) -> y (b, nh, hd).  No value goes to the host."""
+    ns) -> y (b, nh, hd).  One launch: blocks of rows p of each (batch,
+    head), each row's values in 16-byte vectors over its lanes, then the
+    conv shift's blocks; the state and the window bit for bit the plain
+    version's, y summed over n in a fixed tree (each lane its chunks in
+    order, then a butterfly over the row's lanes), so two runs agree bit
+    for bit.  No value goes to the host."""
     b, nh, hd, ns = state.shape
     cdt = state.dtype
     if (cdt not in DTYPES or xh.shape != (b, nh, hd) or dtv.shape != (b, nh)
@@ -303,7 +314,8 @@ def launch_floor(entry: str, b: int, s: int, nh: int, hd: int, ns: int,
     """An empty kernel launched with each of ``entry``'s grids, blocks and
     shared memory at these shapes, in order, on the current stream: timed
     as the entry is timed, the least a launch of it can take.  Counts as no
-    launch of the entry (``step``: b sequences of nh heads)."""
+    launch of the entry (``step``: b sequences of nh heads of (hd, ns), ``s``
+    the conv window's rows and ``lc`` its width)."""
     if entry not in ENTRIES or dtype not in DTYPES:
         raise ValueError(f"entry {entry!r} of {ENTRIES}, dtype {dtype} of "
                          f"{tuple(DTYPES)}")

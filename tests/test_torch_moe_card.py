@@ -369,16 +369,65 @@ def test_kernel_equals_plain_at_the_edge_shapes(card):
                            gates, r, want)
 
 
+#: edge routings again at a D that puts x past ``moe.ROWS_IN_L2`` (the
+#: dispatch by token), each more than 512 vectors a token (the token
+#: blocks' vector loop reloads): (name, D, dtype)
+WIDE_EDGES = (("one_expert", 12288, torch.bfloat16),
+              ("cap_one", 12288, torch.bfloat16),
+              ("e64_top8", 12288, torch.bfloat16),
+              ("out_of_range", 8192, torch.bfloat16),
+              ("all_overflow", 6144, torch.float32))
+
+
+@pytest.mark.card
+def test_dispatch_by_token_at_the_edge_routings(card):
+    """dispatch and combine_grad by token (one token a block) bit for bit
+    to the plain versions at E = 1 and 64, k = 8, cap 1, experts out of
+    range and every expert over capacity, an inf and a NaN at dropped
+    tokens in the reloaded columns; twice on one routing, its counters
+    back at 0."""
+    edges = {name: (seed, top_e, e, cap)
+             for seed, (name, top_e, e, cap) in enumerate(_edge_cases())}
+    for name, d, dtype in WIDE_EDGES:
+        seed, top_e, e, cap = edges[name]
+        top_e = torch.from_numpy(np.ascontiguousarray(top_e, np.int32))
+        n, k = top_e.shape
+        elem = torch.empty((), dtype=dtype).element_size()
+        assert moe.by_token(n, d, elem)
+        assert moe.library_geometry("dispatch", n, k, d, e, cap, dtype)[
+            "per_block"] == 1
+        want = route_ref(top_e, e, cap)
+        r = moe.route(top_e.to(card), e, cap)
+        drop = want.dropped[want.dropped >= 0].long()
+        assert drop.numel() > 0, name
+        x = _rows(seed + 600, n, d, dtype)
+        x[drop[0] // k, d - 8] = float("inf")
+        x[drop[-1] // k, d // 2 + 3] = float("nan")
+        gates = torch.from_numpy(np.random.default_rng(seed).random(
+            (n, k))).float()
+        buf = dispatch_ref(x, want)
+        assert bool(torch.isnan(buf).any()), name
+        dho = ref.combine_grad_ref(x, want, gates)
+        for _ in range(2):
+            _same(moe.dispatch(x.to(card), r), buf)
+            _same(moe.combine_grad(x.to(card), r, gates.to(card)), dho)
+            assert r.scratch.tolist() == [0, 0, 0], name
+
+
 @pytest.mark.card
 def test_geometry_mirrors_the_library(card):
-    """:func:`moe.geometry` (the emulation's partition) is the built
-    kernel's launch, at the card's probed route cluster (16 or 8 blocks)."""
+    """:func:`moe.geometry` (the emulations' partitions) is the built
+    kernel's launch, at the card's probed route cluster (16 or 8 blocks),
+    the dispatch's rows in order and by token (both training shapes, and
+    x at ROWS_IN_L2 and one token past it: the shape rule's edge)."""
     cmax = moe.library_geometry("route", 16384, 4, 8, 60, 8, torch.bfloat16)[
         "cluster"]
     assert cmax in (8, 16)
     shapes = [(2048, 4, 2048, 60, 176), (2048, 8, 1024, 32, 640),
               (4, 4, 2048, 60, 4), (4, 8, 1024, 32, 4), (11, 3, 64, 8, 2),
-              (16384, 4, 2048, 60, 88), (1, 1, 8, 1, 1)]
+              (16384, 4, 2048, 60, 88), (16384, 8, 1024, 32, 5120),
+              (16384, 4, 2048, 60, 1368), (4096, 4, 2048, 60, 342),
+              (4097, 4, 2048, 60, 342), (1, 1, 8, 1, 1)]
     for n, k, d, e, cap in shapes:
         for dtype in (torch.bfloat16, torch.float32):
             for entry in moe.ENTRIES:

@@ -300,12 +300,20 @@ def test_65536_entries_walk_their_shares_in_tiles():
 
 def test_geometry_mirrors_the_kernels_launches():
     """The launches :func:`moe.geometry` gives at both MoE configs' serving
-    shapes (the card tests hold it to the built library's)."""
+    shapes (the dispatch's rows in order) and training shape (the dispatch
+    and combine_grad by token: 264 zero blocks, then the token blocks); the
+    card tests hold it to the built library's."""
     g = moe.geometry
     assert g("route", 2048, 8, 1024, 32, 640, 2)["per_block"] == 1024
     assert g("route", 4, 8, 1024, 32, 4, 2)["threads"] == 32
     assert g("dispatch", 2048, 4, 2048, 60, 176, 2)["per_block"] == 2
     assert g("dispatch", 2048, 8, 1024, 32, 640, 2)["per_block"] == 4
+    assert g("dispatch", 2048, 8, 1024, 32, 640, 2)["blocks"] == 5120
+    for entry in ("dispatch", "combine_grad"):
+        assert g(entry, 16384, 8, 1024, 32, 5120, 2) == {
+            "blocks": 264 + 4096, "threads": 256, "cluster": 0,
+            "per_block": 4}
+        assert g(entry, 16384, 4, 2048, 60, 1368, 2)["blocks"] == 264 + 8192
     assert g("combine", 2048, 8, 1024, 32, 640, 2)["per_block"] == 2
     assert g("combine", 2048, 4, 2048, 60, 176, 4)["per_block"] == 1
     with pytest.raises(ValueError):

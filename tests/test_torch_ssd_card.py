@@ -109,9 +109,12 @@ def test_scan_and_scan_grad_against_the_plain_versions(card, dtype):
 @pytest.mark.card
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_step_is_its_plain_version_bit_for_bit(card, dtype):
-    for b, nh, hd, ns in ((2, 8, 16, 16), (4, 24, 64, 128)):
+    # the last: a conv window under one 16-byte vector and ns 5, no whole
+    # vector: the scalar path
+    for b, nh, hd, ns, width in ((2, 8, 16, 16, 160), (4, 24, 64, 128, 1792),
+                                 (1, 2, 3, 5, 1)):
         g = np.random.default_rng(hd)
-        cw, width = 4, nh * hd + 2 * ns
+        cw = 4
 
         def t(*shape):
             return torch.tensor(g.normal(size=shape), device=card).to(dtype)
@@ -135,9 +138,16 @@ def test_step_is_its_plain_version_bit_for_bit(card, dtype):
 
 @pytest.mark.card
 def test_launch_floor_is_no_launch(card):
+    """Each entry's launch floor runs and counts as no launch; step's at
+    both decode shapes, its conv window's rows and width as ``s`` and
+    ``lc`` (its grid: blocks of rows of each head, then the shift's)."""
     ssd.reset_launch_count()
     for entry in ssd.ENTRIES:
         ssd.launch_floor(entry, 2, 16, 8, 16, 16, 8, torch.bfloat16, card)
+    for b, nh, hd, ns, width in ((4, 24, 64, 128, 1792),
+                                 (4, 128, 64, 16, 8224)):
+        for dtype in (torch.bfloat16, torch.float32):
+            ssd.launch_floor("step", b, 3, nh, hd, ns, width, dtype, card)
     torch.cuda.synchronize()
     assert ssd.launch_count() == 0
 

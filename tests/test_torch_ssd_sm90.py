@@ -29,7 +29,8 @@ warpgroup, and adds the two partials at the end. Held at 1e-5 (forward) and
 bfloat16, on chunks of 8, 13 and 80 (two tiles of 64 a chunk, a state of
 72: two column tiles), where the heads fall into two or three groups; the
 splits themselves against exact products; and ``step``'s elementwise update
-bit for bit ``step_ref``.
+bit for bit ``step_ref``, its readout in the kernel's tree (a lane a chunk of
+a 16-byte vector, then a butterfly over the row's lanes).
 """
 import numpy as np
 import pytest
@@ -582,33 +583,73 @@ def test_operand_splits():
     assert np.abs(got - want).max() <= 2.0 ** -20 * 40 * np.abs(want).max()
 
 
+#: step_kernel's readout: a row's ns values in chunks of a 16-byte vector,
+#: the chunks' count rounded up to a power of two lanes (at most 32)
+STEP_LANES_MAX = 32
+
+
+def _step_lanes(ns, elem):
+    chunks, lanes = -(-ns // (16 // elem)), 1
+    while lanes < chunks and lanes < STEP_LANES_MAX:
+        lanes *= 2
+    return lanes
+
+
+def _step_tree(ns, elem, add, zero):
+    """The readout's order over n: lane l sums chunks l, l + lanes, ... of
+    V = 16 / elem values in order from ``zero`` (``add(acc, n)``), then the
+    lanes meet in a butterfly, offsets lanes / 2, ..., 1, lane l adding lane
+    l ^ o's sum; -> lane 0's sum."""
+    v, lanes = 16 // elem, _step_lanes(ns, elem)
+    part = []
+    for lane in range(lanes):
+        acc = zero
+        for n0 in range(lane * v, ns, lanes * v):
+            for n in range(n0, min(n0 + v, ns)):
+                acc = add(acc, n)
+        part.append(acc)
+    o = lanes // 2
+    while o >= 1:
+        part = [part[lane] + part[lane ^ o] for lane in range(lanes)]
+        o //= 2
+    return part[0]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_emulated_step_is_step_ref_bit_for_bit(dtype):
     """step_kernel's element: xd = r(x * r(dt)), u = r(xd * B_n), s' =
     r(r(s * r(exp(dt * A))) + u), in float32 products and adds, each rounded
-    as written; the window shifted; the readout in order over n."""
+    as written: the state bit for bit, the window shifted; the readout in
+    the kernel's tree (each lane its chunks of a 16-byte vector in order,
+    then a butterfly over the row's lanes) within FWD_TOL of step_ref's, and
+    the tree sums every product once, at ns 6 (a chunk or two), 40 and 128
+    (8-32 lanes) and 8192 (32 lanes of many chunks)."""
     r = _rounder(dtype)
+    elem = 2 if dtype == torch.bfloat16 else 4
+    for ns in (6, 40, 128, 8192):
+        terms = _step_tree(ns, elem, lambda acc, n: acc + [n], [])
+        assert sorted(terms) == list(range(ns)), ns
     g = np.random.default_rng(3)
-    b, nh, hd, ns, cw, width = 2, 3, 4, 6, 4, 20
+    for b, nh, hd, ns, cw, width in ((2, 3, 4, 6, 4, 20), (1, 2, 3, 40, 4, 16),
+                                     (2, 2, 2, 128, 4, 24)):
+        def t(*shape):
+            return torch.tensor(g.normal(size=shape)).to(dtype)
 
-    def t(*shape):
-        return torch.tensor(g.normal(size=shape)).to(dtype)
-
-    state, conv, window = t(b, nh, hd, ns), t(b, cw - 1, width), \
-        t(b, cw, width)
-    xh, Bv, Cv = t(b, nh, hd), t(b, ns), t(b, ns)
-    dtv = torch.tensor(np.abs(g.normal(size=(b, nh))), dtype=torch.float32)
-    A = -torch.tensor(np.exp(g.normal(size=(nh,))), dtype=torch.float32)
-    st, cv = state.clone(), conv.clone()
-    y = ref.step_ref(st, cv, window, xh, dtv, A, Bv, Cv)
-    s_, x_, b_, c_, dtv_, A_ = _np(state, xh, Bv, Cv, dtv, A)
-    da = r(_exp(dtv_ * A_))[:, :, None, None]
-    xd = r(x_ * r(dtv_)[:, :, None])
-    u = r(xd[..., None] * b_[:, None, None, :])
-    new = r(r(s_ * da) + u)
-    np.testing.assert_array_equal(new, st.float().numpy())
-    assert torch.equal(cv, window[:, 1:])
-    acc = np.zeros((b, nh, hd), F32)
-    for n in range(ns):
-        acc = acc + c_[:, None, None, n] * new[..., n]
-    _close(r(acc), y, FWD_TOL[dtype], "step y")
+        state, conv, window = t(b, nh, hd, ns), t(b, cw - 1, width), \
+            t(b, cw, width)
+        xh, Bv, Cv = t(b, nh, hd), t(b, ns), t(b, ns)
+        dtv = torch.tensor(np.abs(g.normal(size=(b, nh))), dtype=torch.float32)
+        A = -torch.tensor(np.exp(g.normal(size=(nh,))), dtype=torch.float32)
+        st, cv = state.clone(), conv.clone()
+        y = ref.step_ref(st, cv, window, xh, dtv, A, Bv, Cv)
+        s_, x_, b_, c_, dtv_, A_ = _np(state, xh, Bv, Cv, dtv, A)
+        da = r(_exp(dtv_ * A_))[:, :, None, None]
+        xd = r(x_ * r(dtv_)[:, :, None])
+        u = r(xd[..., None] * b_[:, None, None, :])
+        new = r(r(s_ * da) + u)
+        np.testing.assert_array_equal(new, st.float().numpy())
+        assert torch.equal(cv, window[:, 1:])
+        prod = (c_[:, None, None, :] * new).astype(F32)
+        acc = _step_tree(ns, elem, lambda acc, n: (acc + prod[..., n]).astype(
+            F32), np.zeros((b, nh, hd), F32))
+        _close(r(acc), y, FWD_TOL[dtype], f"step y, ns {ns}")
