@@ -26,14 +26,21 @@ Phases, each of which raises on failure (exit code not 0):
              56 flash launches by the bf16 kernel); then prefill/decode
              consistency at full width with the kernels on, in fp32 (the
              3xTF32 kernel's path, 56 launches) and bf16;
-   Then olmo-1b at its full published config through
-             ``launch.serve.main`` and granite-34b at full width with 16 of
-             its 88 layers (``dataclasses.replace(get_config(...),
-             num_layers=16)``; all 88 do not fit the card in bf16) through
-             ``launch.serve.generate``: 8 requests in batches of 4,
-             prompt 512, 32 generated, every flash counter 0 just before
-             and layers x 2 bf16 launches just after; each model's bf16
-             prefill/decode consistency at 0.32 of its logits' std.
+   Then (SERVE_MORE) olmo-1b and whisper-medium at their full
+             published configs through ``launch.serve.main``, granite-34b
+             and internvl2-76b at full width with 16 of their 88 / 80
+             layers (``dataclasses.replace(get_config(...),
+             num_layers=16)``; all their layers do not fit the card in
+             bf16) through ``launch.serve.generate`` with the entry's
+             zero frontend embeddings: 8 requests in batches of 4, prompt
+             512 (whisper-medium's 416: 448 tokens, its text context; 256
+             vision positions before internvl2-76b's), 32 generated, every
+             flash counter 0 just before and layers x 2 bf16 launches just
+             after (the decoder's causal self-attention; whisper-medium's
+             encoder and cross-attention take the chunked path); each
+             model's bf16 prefill/decode consistency (seeded frontend
+             embeddings) at 0.32 of its logits' std, whisper-medium's at
+             CONSIST_TOL.
    moe     — the MoE family (``kernels/csrc/moe_sm90.cu``: route, dispatch,
              combine): each entry against its plain version on the card,
              bit for bit, at qwen2-moe-a2.7b's and granite-moe-1b-a400m's
@@ -150,6 +157,19 @@ Phases, each of which raises on failure (exit code not 0):
              magnitude); jamba-v0.1-52b's smoke config 6 steps on the card
              with the SSD and MoE launches exact, and card against CPU in
              fp32 where no top-k choice flips.
+   encdec  — whisper-medium (served above): fp32 prefill/decode
+             consistency at full config over 448 tokens with seeded audio
+             frames at CONSIST_TOL, 2 x 24 fp32 flash launches; trained at
+             its full config through the trainer's step (bf16, fp32 state,
+             remat full, 8 x (1500 frames + 448 tokens), 10 steps): 0 flash
+             launches, finite falling losses from ln V, step s, text
+             tokens/s and positions/s, peak GB and ``_encdec_train_flops``
+             / step s; card against CPU in fp32 at 2 + 2 layers, batch 2
+             (every gradient, AdamW's parameters and moments on the same
+             gradients, rtol 1e-4).
+   vlm     — internvl2-76b at full width (served above): fp32 consistency
+             at 4 layers; trained at 1 of its 80 layers, batch 4 x (256 +
+             1792), 6 steps, the same checks as whisper-medium's.
 5. maxplus — the (max, +) kernel against its plain version on the card at
              the JAX kernel tests' sweep (fp32 and fp16 inputs) and at
              12 lanes of p = 512 and p = 2944, at exact equality; times of
@@ -322,8 +342,10 @@ each ARCH's serving.  ``python3 chip_smoke.py --ssd-split OUT [TREE]``
 prints the device time of each kernel of the SSD scan and its backward
 from a profiler trace and writes it to OUT as JSON.
 
-The line before the last is the card's name and power limit, the one before
-it a JSON object of per-kernel numbers; the last line is
+Each phase prints its wall seconds on a line of its own (``phase NAME: S
+s``) and all of them in one JSON object at the end.  The line before the
+last is the card's name and power limit, the one before it a JSON object
+of per-kernel numbers; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or without the rest of
 the repository beside it, the script exits with code 1 and prints no result.
 """
@@ -362,14 +384,56 @@ SERVE_ARGS = ["--arch", "qwen2-1.5b", "--requests", "8", "--batch", "4",
               "--prompt", "512", "--gen", "32"]
 SERVE_BATCHES = 2
 
-# The dense family's two further configs, served as qwen2-1.5b is (2
-# batches of 4 prompts of 512, 32 generated, bf16): olmo-1b at its full
+# The further configs, served as qwen2-1.5b is (2 batches of 4 requests,
+# 32 generated, bf16), each as (arch, layers served or None for the full
+# config, prompt, the consistency check's sequence).  olmo-1b at its full
 # published config through the serve entry point; granite-34b at full
 # width (d 6144, 48 query heads on 1 kv head, d_ff 24576) with its depth cut
 # to 16 of its 88 layers, through launch.serve.generate: 8.8 B parameters,
 # 35 GB in fp32 at init and 17.6 GB served in bf16, where all 88 layers
 # take 94 GB in bf16, more than the card's 80 GB.
-SERVE_MORE = (("olmo-1b", None), ("granite-34b", 16))
+#
+# The encoder-decoder family: whisper-medium ([arXiv:2212.04356]) at its
+# full published config (24 encoder + 24 decoder layers, d 1024, 16 heads
+# of 64, d_ff 4096, 1500 audio frames from the stub frontend; 0.758 B
+# parameters) through the serve entry point, a prompt of 416 and 32
+# generated (448 tokens, its text context, over which consistency runs).
+# The decoder's self-attention at prefill takes the causal flash path (416
+# fills no 128-row tile at its end); the encoder's and the cross-attention
+# are not causal and take the chunked path, as the reference's.
+#
+# The vision-language family: internvl2-76b ([arXiv:2404.16821]: the
+# InternLM2 decoder, d 8192, 64 query heads on 8 kv heads of 128, d_ff
+# 28672, vocab 128,256, 256 vision tokens from the stub frontend; 70.6 B
+# parameters, 141 GB in bf16 at its 80 layers, more than the card's 80 GB)
+# at full width with its depth cut to 16 layers (15.8 B parameters, 31.6 GB
+# in bf16) through launch.serve.generate, 256 vision + 512 text + 32
+# generated (768 positions on the causal flash path).
+SERVE_MORE = (("olmo-1b", None, 512, 512), ("granite-34b", 16, 512, 512),
+              ("whisper-medium", None, 416, 448),
+              ("internvl2-76b", 16, 512, 512))
+CONSIST_SEQ = {arch: seq for arch, _, _, seq in SERVE_MORE}
+
+# whisper-medium trained at its full config through the trainer's step:
+# bf16, fp32 state, remat full, 8 x (1500 frames + 448 tokens), the
+# pipeline's seeded audio frames; its fp32 consistency at full config; the
+# card against the CPU in fp32 at 2 + 2 layers, batch 2.
+ENCDEC_ARCH = "whisper-medium"
+ENCDEC_TRAIN = {"steps": 10, "warmup": 10, "batch": 8, "seq": 448,
+                "lr": 3e-3}
+ENCDEC_CPU_CHECK = {"layers": 2, "batch": 2, "seq": 448}
+# internvl2-76b at full width: fp32 consistency at 4 layers (5.5 B
+# parameters, 22.1 GB); trained at 1 layer (2.96 B parameters, 47 GB of
+# fp32 parameters, gradients and AdamW moments, 2.1 B of them the
+# embedding and the head), batch 4 x (256 + 1792), 6 steps; 2 layers
+# (3.81 B, 61 GB of state) ran the card out of memory.  The lr: with 2.1 B
+# of its 2.96 B parameters in the 128,256-row embedding and head, the
+# 1-layer model's loss ended above its first at a peak lr of 3e-3 and of
+# 2e-4 over 6 warmup steps on an H100, and falls at 5e-5.
+VLM_ARCH = "internvl2-76b"
+VLM_FP32_LAYERS = 4
+VLM_TRAIN = {"layers": 1, "steps": 6, "warmup": 6, "batch": 4, "seq": 1792,
+             "lr": 5e-5}
 SERVE_PROMPT, SERVE_GEN, SERVE_BATCH = 512, 32, 4
 
 # The MoE family, served as the dense models (2 batches of 4 prompts of 512,
@@ -591,11 +655,17 @@ BF16_FLOP_PER_S = 989e12       # the H100 SXM's dense bf16 peak, data sheet
 
 # Flash attention cases: (B, S, H, Hkv, D).  The serving shape first, then
 # tests/test_kernels.py's sweep (B=2), then a length that divides no tile,
-# then olmo-1b's and granite-34b's serving shapes (MHA 16:16; MQA 48:1).
+# then olmo-1b's and granite-34b's serving shapes (MHA 16:16; MQA 48:1),
+# then FLASH_MODELS: whisper-medium's decoder prefill (MHA 16:16 of 64, a
+# prompt of 416 that fills no 128-row tile at its end) and internvl2-76b's
+# (GQA 64:8 of 128 over 256 vision + 512 text positions), each also timed
+# beside SDPA.
 FLASH_SLICE = (4, 512, 12, 2, 128)
+FLASH_MODELS = {"whisper-medium": (4, 416, 16, 16, 64),
+                "internvl2-76b": (4, 768, 64, 8, 128)}
 FLASH_SWEEP = [(2, 256, 4, 4, 64), (2, 512, 4, 2, 64), (2, 256, 8, 1, 128),
                (2, 384, 6, 2, 64), (2, 200, 4, 2, 64), (4, 512, 16, 16, 128),
-               (4, 512, 48, 1, 128)]
+               (4, 512, 48, 1, 128), *FLASH_MODELS.values()]
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # the JAX kernel tests'
 # the kernel each dtype must go through (flash_attention.KERNELS)
 FLASH_KERNEL = {"float32": "sm90_fp32", "bfloat16": "sm90_bf16"}
@@ -610,6 +680,10 @@ FLASH_LONG = (1, 8192, 12, 2, 128)
 # different paths (the kernel's fp32 P.V against decode's bf16 weights)
 # through 28 residual layers, on logits of standard deviation about 0.8.
 CONSIST_TOL = {"float32": 2e-3, "bfloat16": 0.25}
+# The models whose bf16 consistency is held to CONSIST_TOL's absolute
+# limit (whisper-medium's logits' std is 0.64 on an H100, where
+# CONSIST_BF16_STD would give 0.20)
+CONSIST_ABS = ("qwen2-1.5b", "whisper-medium")
 # The other served models' bf16 limit: qwen2-1.5b's, 0.25 at its logits'
 # std of 0.784 (chip runs of PRs 11-23), as a share of each model's std
 CONSIST_BF16_STD = 0.32
@@ -736,6 +810,20 @@ STREAMS_KEYS = ("mean_slowdown", "sitl_vs_erls_bursty", "policies",
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(msg)
+
+
+#: each phase's wall seconds, in the order the phases ran
+PHASE_S: dict[str, float] = {}
+
+
+def phase(name: str, fn, *args):
+    """``fn(*args)``, its wall seconds kept in PHASE_S and printed on a line
+    of their own, ``phase NAME: S s``."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_S[name] = time.perf_counter() - t0
+    print(f"phase {name}: {PHASE_S[name]:.1f} s", flush=True)
+    return out
 
 
 def card_line() -> str:
@@ -934,10 +1022,11 @@ def flash_phase(torch) -> tuple[dict, dict, dict]:
     check(bool(((got - want).abs() <= 2e-5 + 2e-5 * want.abs()).all()),
           "flash_attention_bhsd disagrees with attention_ref")
 
+    shapes = {"serving": FLASH_SLICE, "long": FLASH_LONG, **FLASH_MODELS}
     times = {(dt, shape): flash_times(torch, case, getattr(torch, dt),
-                                      plain=shape == "serving")
+                                      plain=shape != "long")
              for dt in ("bfloat16", "float32")
-             for shape, case in (("serving", FLASH_SLICE), ("long", FLASH_LONG))}
+             for shape, case in shapes.items()}
 
     def row(name, source, dt, err):
         serving, long = times[dt, "serving"], times[dt, "long"]
@@ -956,7 +1045,16 @@ def flash_phase(torch) -> tuple[dict, dict, dict]:
                 "pre_pass_ms": long["pre_pass"],
                 "eager_ms": long["kernel_eager"], "library_ms": long["sdpa"],
                 "fma_ms": long["fma"], "bound_ms": long["bound"],
-                "bound_by": long["bound_by"], "tflops": long["tflops"]}}
+                "bound_by": long["bound_by"], "tflops": long["tflops"]},
+            "models": {arch: {
+                "shape": list(case), "ms": times[dt, arch]["kernel"],
+                "eager_ms": times[dt, arch]["kernel_eager"],
+                "plain_ms": times[dt, arch]["plain"],
+                "library_ms": times[dt, arch]["sdpa"],
+                "library_eager_ms": times[dt, arch]["sdpa_eager"],
+                "bound_ms": times[dt, arch]["bound"],
+                "bound_by": times[dt, arch]["bound_by"]}
+                for arch, case in FLASH_MODELS.items()}}
 
     bf16_row = row("flash_attention_sm90_bf16", "flash_attention_sm90.cu",
                    "bfloat16", errs["bfloat16"])
@@ -2706,18 +2804,23 @@ def streams_phase() -> dict:
 
 
 def consistency(torch, dtype: str, cfg=None, params=None, batch: int = 2,
-                premise=None, limit: float | None = None) -> dict:
-    """max |decode(S-1 | prefill S-1) - prefill(S)| at full width: qwen2-
-    1.5b by default (its own parameters from seed 1, the limit
-    CONSIST_TOL[dtype]); given ``cfg`` (and its served ``params``), that
-    model in bf16 at CONSIST_BF16_STD of its logits' std, or at ``limit``
-    where given.  ``premise``,
+                premise=None, limit: float | None = None,
+                seq: int = 512) -> dict:
+    """max |decode(S-1 | prefill S-1) - prefill(S)| at full width, S =
+    ``seq``: qwen2-1.5b by default (its own parameters from seed 1, the
+    limit CONSIST_TOL[dtype]); given ``cfg`` (and its served ``params``),
+    that model in bf16 at CONSIST_BF16_STD of its logits' std, or at
+    ``limit`` where given.  A model with a stub frontend takes seeded 0.02
+    · N(0, 1) embeddings in both prefills (the vlm's vision prefix, the
+    encoder-decoder's audio frames), the cache the prefix's positions
+    more.  ``premise``,
     called after the prefill of S, the prefill of S-1 and the decode step,
     returns (a flag for each sequence, why): the check reads the sequences
     whose flag holds, and where none holds the row is recorded as not
     applicable, with why."""
     import dataclasses
     from repro_torch.configs import get_config
+    from repro_torch.launch import serve
     from repro_torch.models import model as M
 
     if cfg is None:
@@ -2726,12 +2829,18 @@ def consistency(torch, dtype: str, cfg=None, params=None, batch: int = 2,
     gen = torch.Generator(device=CARD).manual_seed(1)
     if params is None:
         params = M.serving_params(cfg, M.init_params(cfg, gen))
-    b, s = batch, 512
+    b, s = batch, seq
     toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
                          device=CARD)
-    logits_p, _ = M.prefill(cfg, params, toks, M.init_cache(cfg, b, s, CARD))
-    cache = M.init_cache(cfg, b, s, CARD)
-    _, cache = M.prefill(cfg, params, toks[:, :s - 1], cache)
+    embeds = serve.stub_embeds(cfg, b, CARD)
+    if embeds is not None:
+        embeds = (0.02 * torch.randn(embeds.shape, generator=gen,
+                                     device=CARD)).to(embeds.dtype)
+    max_len = M.prefix_len(cfg) + s
+    logits_p, _ = M.prefill(cfg, params, toks, M.init_cache(
+        cfg, b, max_len, CARD), embeds=embeds)
+    cache = M.init_cache(cfg, b, max_len, CARD)
+    _, cache = M.prefill(cfg, params, toks[:, :s - 1], cache, embeds=embeds)
     logits_d, _ = M.decode_step(cfg, params, cache, toks[:, s - 1:])
     flags, why = premise() if premise is not None else ([True] * b, "")
     v = cfg.vocab_size
@@ -2746,7 +2855,7 @@ def consistency(torch, dtype: str, cfg=None, params=None, batch: int = 2,
     std = logits_p[:, :v].std().item()
     same = (logits_d[:, :v].argmax(-1) == logits_p[:, :v].argmax(-1)).all().item()
     if limit is None:
-        limit = (CONSIST_TOL[dtype] if cfg.name == "qwen2-1.5b"
+        limit = (CONSIST_TOL[dtype] if cfg.name in CONSIST_ABS
                  or dtype == "float32" else CONSIST_BF16_STD * std)
     note = ("" if all(flags) else (", not read: " if holds
                                    else ", NOT APPLICABLE: ") + why)
@@ -2765,12 +2874,14 @@ def consistency(torch, dtype: str, cfg=None, params=None, batch: int = 2,
 
 
 def serve_more(torch, card: str) -> dict:
-    """olmo-1b (full) through ``launch.serve.main`` and granite-34b (full
-    width, 16 of 88 layers) through ``launch.serve.generate``, each with
+    """SERVE_MORE's configs: a full config through ``launch.serve.main``, a
+    cut one through ``launch.serve.generate`` (with the serve entry's stub
+    frontend embeddings, the cache holding their prefix too), each with
     every flash counter at 0 just before and, just after, layers x prefill
-    batches launches, all of the bf16 kernel; then each model's bf16
-    prefill/decode consistency on the same parameters (2 prefills x layers
-    launches more)."""
+    batches launches, all of the bf16 kernel (the encoder's and the
+    cross-attention take none); then each model's bf16 prefill/decode
+    consistency on the same parameters (2 prefills x layers launches
+    more)."""
     import dataclasses
 
     import numpy as np
@@ -2781,43 +2892,46 @@ def serve_more(torch, card: str) -> dict:
 
     out = {}
     batches = -(-8 // SERVE_BATCH)
-    for arch, layers in SERVE_MORE:
+    for arch, layers, prompt, consist_seq in SERVE_MORE:
         cfg = get_config(arch)
+        full = cfg.num_layers
         if layers is not None:
             cfg = dataclasses.replace(cfg, num_layers=layers)
         cfg = dataclasses.replace(cfg, use_kernels=True)
         row = {"layers": cfg.num_layers, "reduced": (
-            {} if layers is None else
-            {"num_layers": f"{layers} of {get_config(arch).num_layers}"}),
-            "params": cfg.num_params()}
+            {} if layers is None else {"num_layers": f"{layers} of {full}"}),
+            "params": _tree_params(cfg), "prompt": prompt}
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         if layers is None:          # the user's entry point, as qwen2-1.5b
             fa.reset_launch_count()
             summary = serve.main(["--arch", arch, "--requests", "8",
                                   "--batch", str(SERVE_BATCH), "--prompt",
-                                  str(SERVE_PROMPT), "--gen", str(SERVE_GEN)],
+                                  str(prompt), "--gen", str(SERVE_GEN)],
                                  device=CARD)
             counts = fa.launch_counts()
-            check(summary["logits_finite"], f"{arch}: non-finite logits")
+            check(summary["logits_finite"]
+                  and summary["tokens"] == 8 * SERVE_GEN,
+                  f"{arch}: serve summary {summary}")
             row.update({k: summary[k] for k in ("tok_per_s", "prefill_s",
                                                 "decode_s", "wall_s")})
-            gen = torch.Generator(device=CARD).manual_seed(0)
-            params = M.serving_params(cfg, M.init_params(cfg, gen))
+            params = M.init_serving_params(
+                cfg, torch.Generator(device=CARD).manual_seed(0))
         else:                       # the cut config, through generate
-            gen = torch.Generator(device=CARD).manual_seed(0)
-            params = M.serving_params(cfg, M.init_params(cfg, gen))
+            params = M.init_serving_params(
+                cfg, torch.Generator(device=CARD).manual_seed(0))
             rng = np.random.default_rng(0)
             prefill_s = decode_s = 0.0
             finite = True
             fa.reset_launch_count()
             t0 = time.perf_counter()
             for _ in range(batches):
-                prompt = torch.as_tensor(rng.integers(
-                    0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT)),
-                    device=CARD)
-                g = serve.generate(cfg, params, prompt, SERVE_GEN,
-                                   SERVE_PROMPT + SERVE_GEN)
+                toks = torch.as_tensor(rng.integers(
+                    0, cfg.vocab_size, (SERVE_BATCH, prompt)), device=CARD)
+                g = serve.generate(
+                    cfg, params, toks, SERVE_GEN,
+                    M.prefix_len(cfg) + prompt + SERVE_GEN,
+                    serve.stub_embeds(cfg, SERVE_BATCH, CARD))
                 prefill_s += g.prefill_s
                 decode_s += g.decode_s
                 finite = finite and g.finite
@@ -2833,19 +2947,24 @@ def serve_more(torch, card: str) -> dict:
         row["flash_launches"] = want
         row["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
         fa.reset_launch_count()
-        row["consistency"] = consistency(torch, "bfloat16", cfg, params)
+        row["consistency"] = consistency(torch, "bfloat16", cfg, params,
+                                         seq=consist_seq)
         counts = fa.launch_counts()
-        check(counts["sm90_bf16"] == 2 * cfg.num_layers and sum(
-            counts.values()) == counts["sm90_bf16"], f"{arch}: the "
-            f"consistency prefills launched {counts}")
-        print(f"serve {arch} ({cfg.num_layers} layers"
-              + (f", cut from {get_config(arch).num_layers}"
-                 if layers is not None else "")
-              + f", {cfg.num_params() / 1e9:.2f} B parameters) on {card}: "
-              f"{row['tok_per_s']:.1f} tok/s, prefill {row['prefill_s']:.3f}"
-              f" s, decode {row['decode_s']:.3f} s, wall {row['wall_s']:.3f} "
-              f"s, flash launches {want} (sm90_bf16), peak "
-              f"{row['peak_gb']:.1f} GB")
+        check(counts == {**dict.fromkeys(counts, 0),
+                         "sm90_bf16": 2 * cfg.num_layers},
+              f"{arch}: the consistency prefills launched {counts}")
+        depth = (f"{cfg.encoder_layers} + {cfg.num_layers}"
+                 if cfg.family == "encdec" else str(cfg.num_layers))
+        front = M.frontend_positions(cfg)
+        print(f"serve {arch} ({depth} layers"
+              + (f", cut from {full}" if layers is not None else "")
+              + f", {row['params'] / 1e9:.2f} B parameters) on {card}: 8 "
+              f"requests of " + (f"{front} {cfg.frontend} positions + "
+                                 if front else "")
+              + f"{prompt} + {SERVE_GEN}, {row['tok_per_s']:.1f} tok/s, "
+              f"prefill {row['prefill_s']:.3f} s, decode "
+              f"{row['decode_s']:.3f} s, wall {row['wall_s']:.3f} s, flash "
+              f"launches {want} (sm90_bf16), peak {row['peak_gb']:.1f} GB")
         del params
         out[arch] = row
     torch.cuda.empty_cache()
@@ -3366,7 +3485,6 @@ def moe_serve(torch, card: str) -> dict:
 def moe_phase(torch, card: str) -> dict:
     """The MoE family: the kernel's checks and times, then the served
     models; returns the summary and the ``kernels`` line's row."""
-    t0 = time.perf_counter()
     checks = moe_kernel_checks(torch)
     serving = moe_serve(torch, card)
     first = checks["times"][MOE_ARCHS[0]]
@@ -3391,7 +3509,6 @@ def moe_phase(torch, card: str) -> dict:
            "other_configs": {a: checks["times"][a] for a in MOE_ARCHS[1:]},
            "edge_cases": len(checks["edge"]),
            "serve_launches": {a: v["moe_launches"] for a, v in serving.items()}}
-    print(f"moe: {time.perf_counter() - t0:.1f} s")
     return {"checks": checks, "serve": serving, "row": row}
 
 
@@ -3740,6 +3857,67 @@ def _routing_watch(torch, records: list):
     return watch, apply
 
 
+def timed_train(torch, cfg, oc, data_cfg, steps: int, counters,
+                on_step=None) -> dict:
+    """``cfg`` trained ``steps`` steps through ``launch.train``'s step
+    function on the pipeline's batches of ``data_cfg`` (fresh seeded state
+    and AdamW): each kernel module of ``counters`` at 0 just before the
+    first step and its ``launch_counts()`` read just after the last; each
+    step synchronised and timed, ``on_step(step, metrics, seconds)`` called
+    after it, off its clock.  Returns the losses, grad norms, step
+    seconds, their median over steps 2-N, peak GB and the counts (in the
+    order of ``counters``)."""
+    import gc
+
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch import train as LT
+
+    dev = torch.device(CARD)
+    gc.collect()            # what earlier runs left in reference cycles
+    torch.cuda.empty_cache()
+    one_step = LT.make_step(cfg, oc, dev)
+    state = LT.init_state(cfg, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.reset_launch_count()
+    losses, gnorms, step_s = [], [], []
+    for step in range(steps):
+        batch = make_batch(data_cfg, step)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = one_step(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+        if on_step is not None:
+            on_step(step, metrics, step_s[-1])
+    counts = [c.launch_counts() for c in counters]
+    peak = torch.cuda.max_memory_allocated()
+    del state
+    torch.cuda.empty_cache()
+    return {"losses": losses, "grad_norms": gnorms, "step_s": step_s,
+            "step_s_median": sorted(step_s[1:])[len(step_s[1:]) // 2],
+            "peak_gb": peak / 1e9, "counts": counts}
+
+
+def check_losses(name: str, cfg, losses: list, *more: list) -> float:
+    """Raises unless every loss (and every value of ``more``) is finite,
+    the first loss within TRAIN_LOSS0_TOL of ln V and the last below the
+    first; returns ln V."""
+    import math
+
+    check(all(math.isfinite(v) for v in losses + sum(more, [])),
+          f"{name}: non-finite loss, grad norm or aux loss: {losses}, "
+          f"{list(more)}")
+    ln_v = math.log(cfg.vocab_size)
+    check(abs(losses[0] - ln_v) <= TRAIN_LOSS0_TOL, f"{name}: first loss "
+          f"{losses[0]} not within {TRAIN_LOSS0_TOL} of ln V = {ln_v}")
+    check(losses[-1] < losses[0], f"{name}: loss did not fall: {losses}")
+    return ln_v
+
+
 def moe_train_run(torch, card: str, arch: str, layers: int | None,
                   steps: int, warmup: int) -> dict:
     """``arch`` (cut to ``layers`` where given) trained for ``steps`` steps
@@ -3752,17 +3930,14 @@ def moe_train_run(torch, card: str, arch: str, layers: int | None,
     off its clock); step s (synchronised; the median of steps 2-N),
     tokens/s, peak GB and (6 N_active + 12 L S H Dh) tokens / step s."""
     import dataclasses
-    import math
 
     from repro_torch.configs import get_config
-    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.data.pipeline import DataConfig
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.moe import moe
-    from repro_torch.launch import train as LT
     from repro_torch.models import layers as L
     from repro_torch.optim import adamw
 
-    dev = torch.device(CARD)
     cfg = get_config(arch)
     full_layers = cfg.num_layers
     if layers is not None:
@@ -3773,56 +3948,35 @@ def moe_train_run(torch, card: str, arch: str, layers: int | None,
     oc = adamw.OptConfig(lr=3e-3, warmup_steps=warmup, total_steps=steps)
     data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
                           global_batch=TRAIN_BATCH)
-    torch.cuda.empty_cache()
-    one_step = LT.make_step(cfg, oc, dev)
-    state = LT.init_state(cfg, dev)
     records = []
     watch, apply = _routing_watch(torch, records)
     nk = TRAIN_BATCH * TRAIN_SEQ * cfg.moe_top_k
-    losses, gnorms, aux, dropped, step_s = [], [], [], [], []
+    aux, dropped = [], []
+
+    def on_step(step, metrics, sec):
+        fwd = records[:cfg.num_layers]          # the forward's; then remat's
+        records.clear()
+        aux.append(float(metrics["aux_loss"]))
+        dropped.append(sum(int(r["dropped"]) for r in fwd)
+                       / (nk * cfg.num_layers))
+        print(f"train {arch} step {step}: loss {float(metrics['loss']):.4f}, "
+              f"aux {aux[-1]:.4f}, dropped {dropped[-1]:.2%} of entries, "
+              f"{sec:.3f} s")
     L.moe_apply = watch
     try:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        fa.reset_launch_count()
-        moe.reset_launch_count()
-        for step in range(steps):
-            batch = make_batch(data_cfg, step)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            state, metrics = one_step(state, batch)
-            torch.cuda.synchronize()
-            step_s.append(time.perf_counter() - t0)
-            fwd = records[:cfg.num_layers]      # the forward's; then remat's
-            records.clear()
-            losses.append(float(metrics["loss"]))
-            gnorms.append(float(metrics["grad_norm"]))
-            aux.append(float(metrics["aux_loss"]))
-            dropped.append(sum(int(r["dropped"]) for r in fwd)
-                           / (nk * cfg.num_layers))
-            print(f"train {arch} step {step}: loss {losses[-1]:.4f}, aux "
-                  f"{aux[-1]:.4f}, dropped {dropped[-1]:.2%} of entries, "
-                  f"{step_s[-1]:.3f} s")
-        launches, flash = moe.launch_counts(), fa.launch_count()
+        run = timed_train(torch, cfg, oc, data_cfg, steps, (moe, fa), on_step)
     finally:
         L.moe_apply = apply
-    peak = torch.cuda.max_memory_allocated()
-    del state
-    torch.cuda.empty_cache()
+    launches, flash = run["counts"][0], sum(run["counts"][1].values())
+    losses, gnorms, step_s = run["losses"], run["grad_norms"], run["step_s"]
+    steady, peak = run["step_s_median"], run["peak_gb"] * 1e9
     want = {k: v * cfg.num_layers * steps
             for k, v in MOE_TRAIN_LAUNCHES.items()}
     check(launches == want, f"{arch}: MoE launches {launches}, expected "
           f"{want}")
     check(flash == 0, f"{arch}: training launched flash attention {flash} "
           "times")
-    check(all(math.isfinite(v) for v in losses + gnorms + aux),
-          f"{arch}: non-finite loss, grad norm or aux loss: {losses}, "
-          f"{gnorms}, {aux}")
-    ln_v = math.log(cfg.vocab_size)
-    check(abs(losses[0] - ln_v) <= TRAIN_LOSS0_TOL, f"{arch}: first loss "
-          f"{losses[0]} not within {TRAIN_LOSS0_TOL} of ln V = {ln_v}")
-    check(losses[-1] < losses[0], f"{arch}: loss did not fall: {losses}")
-    steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    ln_v = check_losses(arch, cfg, losses, gnorms, aux)
     tokens = TRAIN_BATCH * TRAIN_SEQ
     flops = _train_flops(cfg, tokens, TRAIN_SEQ)
     cut = (f"{cfg.num_layers} of {full_layers} layers"
@@ -3857,10 +4011,11 @@ def train_cpu_check(torch, cfg, batch: int, seq: int, label: str,
     choice set and kept flags); where no choice flipped, the loss, the aux
     loss, the grad norm and every gradient at TRAIN_CPU_RTOL (an absolute
     floor of 1e-4 of each leaf's largest entry), and with ``adamw_too`` one
-    AdamW step on the same gradients on both, the parameters at that
-    tolerance; else "not applicable", with the flips counted and
-    printed."""
-    from repro_torch.data.pipeline import DataConfig, make_batch
+    AdamW step on the same gradients on both, the parameters, both moments
+    and the learning rate at that tolerance; else "not applicable", with
+    the flips counted and printed.  A model with a stub frontend takes the
+    pipeline's seeded embeddings (``launch.train.data_config``)."""
+    from repro_torch.data.pipeline import make_batch
     from repro_torch.launch import train as LT
     from repro_torch.models import layers as L
     from repro_torch.optim import adamw
@@ -3870,8 +4025,7 @@ def train_cpu_check(torch, cfg, batch: int, seq: int, label: str,
     dev, cpu = torch.device(CARD), torch.device("cpu")
     p_cpu = LT.init_state(cfg, cpu)["params"]
     p_card = tree_map(lambda t: t.to(dev, copy=True), p_cpu)
-    b = make_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
-                              global_batch=batch), 0)
+    b = make_batch(LT.data_config(cfg, seq, batch), 0)
     moe_layers = sum(cfg.is_moe_layer(i) for i in range(cfg.num_layers))
     runs = {}
     for name, params, where in (("card", p_card, dev), ("cpu", p_cpu, cpu)):
@@ -3927,12 +4081,20 @@ def train_cpu_check(torch, cfg, batch: int, seq: int, label: str,
     if adamw_too:
         oc = adamw.OptConfig(lr=1e-3, warmup_steps=0, total_steps=10)
         g_same = tree_map(lambda t: t.to(dev), h["grads"])
-        adamw.apply(oc, g_same, adamw.init(p_card), p_card)
-        adamw.apply(oc, h["grads"], adamw.init(p_cpu), p_cpu)
+        _, o_card, m_card = adamw.apply(oc, g_same, adamw.init(p_card),
+                                        p_card)
+        _, o_cpu, m_cpu = adamw.apply(oc, h["grads"], adamw.init(p_cpu),
+                                      p_cpu)
+        lr_rel = rel(m_card["lr"], m_cpu["lr"])
+        check(lr_rel <= TRAIN_CPU_RTOL, f"{label}: AdamW's lr {lr_rel}")
         out["params_max_rel"] = max(close(a, b_, "parameter") for a, b_ in
                                     zip(leaves(p_card), leaves(p_cpu)))
-        note = (f", AdamW's parameters on the same gradients max|Δ| / max|p|"
-                f" {out['params_max_rel']:.2e}")
+        out["moments_max_rel"] = max(
+            close(a, b_, f"AdamW's {m}") for m in ("mu", "nu")
+            for a, b_ in zip(leaves(o_card[m]), leaves(o_cpu[m])))
+        note = (f", AdamW on the same gradients: parameters max|Δ| / max|p|"
+                f" {out['params_max_rel']:.2e}, moments "
+                f"{out['moments_max_rel']:.2e}, lr rel {lr_rel:.1e}")
     print(f"train {label} (TF32 off, batch {batch} x {seq}): no top-k choice "
           f"flipped; loss rel {rels['loss']:.2e}, aux rel "
           f"{rels['aux_loss']:.2e}, grad norm rel {rels['grad_norm']:.2e}, "
@@ -4022,17 +4184,13 @@ def ssm_train_run(torch, card: str) -> dict:
     layer) / step s: the model's products forward and backward and the
     scan's forward and backward (its backward two products for each of the
     forward's), remat's recompute left out."""
-    import math
-
     from repro_torch.configs import get_config
-    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.data.pipeline import DataConfig
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.moe import moe
     from repro_torch.kernels.ssd import ssd
-    from repro_torch.launch import train as LT
     from repro_torch.optim import adamw
 
-    dev = torch.device(CARD)
     cfg = get_config(SSM_ARCH)
     check(cfg.family == "ssm" and not cfg.use_kernels
           and cfg.dtype == "bfloat16" and cfg.param_dtype == "float32"
@@ -4041,42 +4199,18 @@ def ssm_train_run(torch, card: str) -> dict:
                          total_steps=TRAIN_STEPS)
     data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
                           global_batch=TRAIN_BATCH)
-    torch.cuda.empty_cache()
-    one_step = LT.make_step(cfg, oc, dev)
-    state = LT.init_state(cfg, dev)
-    losses, gnorms, step_s = [], [], []
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    fa.reset_launch_count()
-    moe.reset_launch_count()
-    ssd.reset_launch_count()
-    for step in range(TRAIN_STEPS):
-        batch = make_batch(data_cfg, step)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, metrics = one_step(state, batch)
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-        losses.append(float(metrics["loss"]))
-        gnorms.append(float(metrics["grad_norm"]))
-    counts = ssd.launch_counts()
-    flash, moe_n = fa.launch_count(), moe.launch_count()
-    peak = torch.cuda.max_memory_allocated()
-    del state
-    torch.cuda.empty_cache()
+    run = timed_train(torch, cfg, oc, data_cfg, TRAIN_STEPS, (ssd, fa, moe))
+    counts = run["counts"][0]
+    flash, moe_n = (sum(c.values()) for c in run["counts"][1:])
+    losses, gnorms, step_s = run["losses"], run["grad_norms"], run["step_s"]
+    steady, peak = run["step_s_median"], run["peak_gb"] * 1e9
     want = {k: v * cfg.num_layers * TRAIN_STEPS
             for k, v in SSM_TRAIN_LAUNCHES.items()}
     check(counts == want, f"{SSM_ARCH}: SSD launches {counts}, expected "
           f"{want}")
     check(flash == 0 and moe_n == 0, f"{SSM_ARCH}: training launched flash "
           f"{flash} and MoE {moe_n} times")
-    check(all(math.isfinite(v) for v in losses + gnorms),
-          f"{SSM_ARCH}: non-finite loss or grad norm: {losses}, {gnorms}")
-    ln_v = math.log(cfg.vocab_size)
-    check(abs(losses[0] - ln_v) <= TRAIN_LOSS0_TOL, f"{SSM_ARCH}: first loss "
-          f"{losses[0]} not within {TRAIN_LOSS0_TOL} of ln V = {ln_v}")
-    check(losses[-1] < losses[0], f"{SSM_ARCH}: loss did not fall: {losses}")
-    steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    ln_v = check_losses(SSM_ARCH, cfg, losses, gnorms)
     tokens = TRAIN_BATCH * TRAIN_SEQ
     scan_flops = ssd_bound("scan", TRAIN_BATCH, TRAIN_SEQ, cfg.ssm_num_heads,
                            cfg.ssm_head_dim, cfg.ssm_state,
@@ -4314,7 +4448,6 @@ def train_phase(torch, card: str) -> dict:
     estimated TFLOP/s.  Then the microbatch, card-against-CPU and
     resilient-loop checks."""
     import dataclasses
-    import math
     import shutil
 
     from repro_torch.configs import get_config, get_smoke_config
@@ -4323,7 +4456,7 @@ def train_phase(torch, card: str) -> dict:
     from repro_torch.launch import train as LT
     from repro_torch.optim import adamw
     from repro_torch.train import step as TS
-    from repro_torch.tree import leaves, tree_map
+    from repro_torch.tree import leaves
 
     dev = torch.device(CARD)
     cfg = get_config(TRAIN_ARCH)
@@ -4333,35 +4466,13 @@ def train_phase(torch, card: str) -> dict:
     oc = adamw.OptConfig(lr=3e-3, warmup_steps=20, total_steps=TRAIN_STEPS)
     data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
                           global_batch=TRAIN_BATCH)
-    torch.cuda.empty_cache()
-    one_step = LT.make_step(cfg, oc, dev)
-    state = LT.init_state(cfg, dev)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    fa.reset_launch_count()
-    losses, gnorms, step_s = [], [], []
-    for step in range(TRAIN_STEPS):
-        batch = make_batch(data_cfg, step)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, metrics = one_step(state, batch)
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-        losses.append(float(metrics["loss"]))
-        gnorms.append(float(metrics["grad_norm"]))
-    launches = fa.launch_count()
-    peak = torch.cuda.max_memory_allocated()
-    del state
-    torch.cuda.empty_cache()
+    run = timed_train(torch, cfg, oc, data_cfg, TRAIN_STEPS, (fa,))
+    launches = sum(run["counts"][0].values())
+    losses, gnorms, step_s = run["losses"], run["grad_norms"], run["step_s"]
+    steady, peak = run["step_s_median"], run["peak_gb"] * 1e9
     check(launches == 0, f"training launched flash attention {launches} "
           "times")
-    check(all(math.isfinite(v) for v in losses + gnorms),
-          f"non-finite loss or grad norm: {losses}, {gnorms}")
-    ln_v = math.log(cfg.vocab_size)
-    check(abs(losses[0] - ln_v) <= TRAIN_LOSS0_TOL, f"first loss "
-          f"{losses[0]} not within {TRAIN_LOSS0_TOL} of ln V = {ln_v}")
-    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
-    steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    ln_v = check_losses(TRAIN_ARCH, cfg, losses, gnorms)
     tokens = TRAIN_BATCH * TRAIN_SEQ
     flops = _train_flops(cfg, tokens, TRAIN_SEQ)
     main = {"arch": TRAIN_ARCH, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
@@ -4418,44 +4529,12 @@ def train_phase(torch, card: str) -> dict:
     # the card against the CPU, fp32, TF32 off, full width cut in depth:
     # the loss and every gradient, then AdamW on the same gradients
     cut = TRAIN_CPU_CHECK
-    cfg2 = dataclasses.replace(cfg, num_layers=cut["layers"],
-                               dtype="float32")
-    cpu = torch.device("cpu")
-    p_cpu = LT.init_state(cfg2, cpu)["params"]
-    p_card = tree_map(lambda t: t.to(dev, copy=True), p_cpu)
-    b2 = make_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=cut["seq"],
-                               global_batch=cut["batch"]), 0)
-    l_card, _, g_card = TS.batch_grads(cfg2, p_card, LT.batch_on(b2, dev))
-    t0 = time.perf_counter()
-    l_cpu, _, g_cpu = TS.batch_grads(cfg2, p_cpu, LT.batch_on(b2, cpu))
-    cpu_s = time.perf_counter() - t0
-    rel = {"loss": abs(float(l_card) / float(l_cpu) - 1),
-           "grad_norm": abs(float(adamw.global_norm(g_card))
-                            / float(adamw.global_norm(g_cpu)) - 1)}
-
-    def close(a, b, what):
-        a = a.cpu()
-        floor = 1e-4 * b.abs().max().item()
-        check(bool(((a - b).abs() <= floor + TRAIN_CPU_RTOL * b.abs()).all()),
-              f"card against CPU: {what} {tuple(b.shape)} differs by "
-              f"{(a - b).abs().max().item()}")
-        return _max_rel(torch, a, b)
-    worst = {"grads": max(close(a, b, "gradient") for a, b in
-                          zip(leaves(g_card), leaves(g_cpu)))}
-    g_same = tree_map(lambda t: t.to(dev), g_cpu)
-    adamw.apply(oc1, g_same, adamw.init(p_card), p_card)
-    adamw.apply(oc1, g_cpu, adamw.init(p_cpu), p_cpu)
-    worst["params"] = max(close(a, b, "parameter") for a, b in
-                          zip(leaves(p_card), leaves(p_cpu)))
-    check(max(rel.values()) <= TRAIN_CPU_RTOL, f"card against CPU: {rel}")
-    del p_card, p_cpu, g_card, g_cpu, g_same
-    torch.cuda.empty_cache()
-    print(f"train card vs CPU (fp32, TF32 off, {cut['layers']} layers, batch "
-          f"{cut['batch']} x {cut['seq']}): loss rel {rel['loss']:.2e}, grad "
-          f"norm rel {rel['grad_norm']:.2e}, gradients max|Δ| / max|g| "
-          f"{worst['grads']:.2e}, AdamW's parameters on the same gradients "
-          f"max|Δ| / max|p| {worst['params']:.2e} (rtol {TRAIN_CPU_RTOL}); "
-          f"the CPU's gradients {cpu_s:.1f} s")
+    cpu_check = train_cpu_check(
+        torch, dataclasses.replace(cfg, num_layers=cut["layers"],
+                                   dtype="float32"),
+        cut["batch"], cut["seq"], f"{TRAIN_ARCH} card vs CPU ({cut['layers']}"
+        " layers)", adamw_too=True)
+    check(cpu_check["held"] is True, f"{TRAIN_ARCH}: card vs CPU not held")
 
     # the resilient loop in a fresh process: deterministic algorithms and
     # cuBLAS's workspace set from its start
@@ -4477,7 +4556,7 @@ def train_phase(torch, card: str) -> dict:
     return {"main": main, "micro": {"grad_rel": micro_rel,
                                     "loss_rel": micro_loss,
                                     "smoke_param_diff": smoke_diff},
-            "cpu_check": {"rel": rel, "max_rel": worst, "cpu_s": cpu_s},
+            "cpu_check": cpu_check,
             "resume": resume}
 
 
@@ -5486,42 +5565,184 @@ def ssm_phase(torch, card: str) -> dict:
     """The SSD kernels against their plain versions and timed
     (:func:`ssd_kernel_checks`), then the SSM and hybrid families served:
     :func:`ssm_serve` and :func:`hybrid_serve`."""
-    t0 = time.perf_counter()
     out = {"ssd": ssd_kernel_checks(torch)}
     out.update(ssm=ssm_serve(torch, card), hybrid=hybrid_serve(torch, card))
-    print(f"ssm: {time.perf_counter() - t0:.1f} s")
     return out
 
 
-def main() -> int:
-    import torch
+def _tree_params(cfg) -> int:
+    """The parameters of ``cfg``'s tree (``model.param_shapes``), counted
+    exactly: the config's ``num_params`` counts a SwiGLU MLP where the
+    encoder-decoder has a gelu one."""
+    import math
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False; this script "
-              "runs only on a card", file=sys.stderr)
-        return 1
-    if not (SRC / "repro_torch" / "__init__.py").is_file():
-        print(f"chip_smoke: {SRC / 'repro_torch'} not found; run from a "
-              "checkout of the repository", file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(SRC))
-    from repro_torch.kernels import build
+    from repro_torch.models import model as M
+
+    def walk(tree):
+        return sum(walk(v) if isinstance(v, dict) else math.prod(v)
+                   for v in tree.values())
+    return walk(M.param_shapes(cfg))
+
+
+def _encdec_train_flops(cfg, batch: int, seq: int) -> float:
+    """6 B (T (N_enc + N_xkv) + S N_dec) + 12 B H Dh (L_enc T^2 + L S^2 + L S
+    T): the matrix products forward and backward (T frames through the
+    encoder's N_enc parameters and each decoder layer's cross k / v
+    projections N_xkv; S tokens through the decoder's other N_dec, the tied
+    head once) and attention's two products over the whole squares the
+    chunked path computes (the encoder's, the decoder's self-attention
+    and the cross-attention's S x T); norms and remat's recompute left
+    out."""
+    d, f, t, layers = cfg.d_model, cfg.d_ff, cfg.encoder_seq, cfg.num_layers
+    hd = cfg.num_heads * cfg.resolved_head_dim
+    kv = cfg.num_kv_heads * cfg.resolved_head_dim
+    attn = 2 * d * hd + 2 * d * kv
+    enc = cfg.encoder_layers * (attn + 2 * d * f)
+    xkv = layers * 2 * d * kv
+    dec = layers * (attn + 2 * d * hd + 2 * d * f) + cfg.padded_vocab * d
+    att = hd * (cfg.encoder_layers * t * t + layers * seq * seq
+                + layers * seq * t)
+    return 6 * batch * (t * (enc + xkv) + seq * dec) + 12 * batch * att
+
+
+def _vlm_train_flops(cfg, batch: int, seq: int) -> float:
+    """6 B (S_all N_layers + S V d) + 12 L S_all^2 H Dh B: the layers'
+    products over the vision prefix and the tokens (S_all = vision + S),
+    the untied head over the S text positions that carry the loss (the
+    input embedding is a gather, no product), attention as
+    :func:`_train_flops`."""
+    s_all = cfg.vision_tokens + seq
+    layers = _tree_params(cfg) - 2 * cfg.padded_vocab * cfg.d_model
+    att = 12 * cfg.num_layers * s_all * s_all * cfg.num_heads \
+        * cfg.resolved_head_dim
+    return batch * (6 * (s_all * layers + seq * cfg.padded_vocab
+                         * cfg.d_model) + att)
+
+
+def frontend_train_run(torch, card: str, cfg, run: dict, flops_fn,
+                       cut: str) -> dict:
+    """``cfg`` trained ``run["steps"]`` steps (:func:`timed_train`, AdamW
+    at ``run["lr"]`` after ``run["warmup"]`` steps of warmup) on the
+    pipeline's batches of ``run["batch"]`` x ``run["seq"]`` tokens with the
+    stub frontend's seeded embeddings (``launch.train.data_config``): the
+    flash counter 0 just before and 0 just after (training takes the
+    chunked attention), :func:`check_losses`; step s, text tokens/s and
+    positions/s (the tokens and the frontend's embeddings), peak GB and
+    ``flops_fn(cfg, batch, seq)`` / step s."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.launch import train as LT
+    from repro_torch.optim import adamw
+
+    check(not cfg.use_kernels and cfg.dtype == "bfloat16"
+          and cfg.param_dtype == "float32" and cfg.remat == "full",
+          f"{cfg.name}: not the trainer's config")
+    steps, batch, seq = run["steps"], run["batch"], run["seq"]
+    oc = adamw.OptConfig(lr=run["lr"], warmup_steps=run["warmup"],
+                         total_steps=steps)
+    data_cfg = LT.data_config(cfg, seq, batch)
+    out = timed_train(torch, cfg, oc, data_cfg, steps, (fa,))
+    launches = sum(out["counts"][0].values())
+    check(launches == 0, f"{cfg.name}: training launched flash attention "
+          f"{launches} times")
+    losses, steady = out["losses"], out["step_s_median"]
+    ln_v = check_losses(cfg.name, cfg, losses, out["grad_norms"])
+    front = data_cfg.frontend[1] if data_cfg.frontend else 0
+    flops = flops_fn(cfg, batch, seq)
+    row = {"arch": cfg.name, "cut": cut, "layers": cfg.num_layers,
+           "encoder_layers": cfg.encoder_layers, "batch": batch, "seq": seq,
+           "frontend_positions": front, "steps": steps, "losses": losses,
+           "grad_norms": out["grad_norms"], "step_s": out["step_s"],
+           "step_s_median": steady, "tokens_per_s": batch * seq / steady,
+           "positions_per_s": batch * (seq + front) / steady,
+           "peak_gb": out["peak_gb"], "flops_per_step": flops,
+           "tflops": flops / steady / 1e12,
+           "mfu_vs_bf16_peak": flops / steady / BF16_FLOP_PER_S,
+           "flash_launches": launches, "params": _tree_params(cfg)}
+    print(f"train {cfg.name} ({cut}, {row['params'] / 1e9:.3f} B parameters)"
+          f" on {card}: batch {batch} x ({front} + {seq}), loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} (ln V {ln_v:.4f}), step "
+          f"{steady:.3f} s (median of steps 2-{steps}; first "
+          f"{out['step_s'][0]:.3f} s), {row['tokens_per_s']:.0f} text "
+          f"tokens/s ({row['positions_per_s']:.0f} positions/s), peak "
+          f"{row['peak_gb']:.1f} GB, ~{row['tflops']:.1f} TFLOP/s "
+          f"({flops_fn.__name__}), {row['mfu_vs_bf16_peak']:.1%} of the bf16"
+          f" dense peak; flash launches {launches}")
+    return row
+
+
+def encdec_phase(torch, card: str) -> dict:
+    """whisper-medium (ENCDEC_*; served in :func:`serve_more`): its fp32
+    prefill/decode consistency at full config over the 448-token text
+    context with seeded audio frames, every flash counter 0 just before
+    and 2 x layers launches of the fp32 kernel just after; trained at its
+    full config (:func:`frontend_train_run`); the card against the CPU in
+    fp32 at ENCDEC_CPU_CHECK's cut (:func:`train_cpu_check`)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+
+    base = get_config(ENCDEC_ARCH)
+    fa.reset_launch_count()
+    consist = consistency(torch, "float32", base,
+                          seq=CONSIST_SEQ[ENCDEC_ARCH])
+    consist["layers"] = base.num_layers
+    counts = fa.launch_counts()
+    check(counts == {**dict.fromkeys(counts, 0),
+                     "sm90_fp32": 2 * base.num_layers},
+          f"{ENCDEC_ARCH} fp32 consistency prefills launched {counts}")
+    torch.cuda.empty_cache()
+    train = frontend_train_run(
+        torch, card, base, ENCDEC_TRAIN, _encdec_train_flops, "full config")
+    cut = ENCDEC_CPU_CHECK
+    small = dataclasses.replace(base, num_layers=cut["layers"],
+                                encoder_layers=cut["layers"], dtype="float32")
+    cpu_check = train_cpu_check(
+        torch, small, cut["batch"], cut["seq"], f"{ENCDEC_ARCH} card vs CPU "
+        f"({cut['layers']} + {cut['layers']} layers, {base.encoder_seq} "
+        "frames)", adamw_too=True)
+    check(cpu_check["held"] is True, f"{ENCDEC_ARCH}: card vs CPU not held")
+    return {"consistency_fp32": consist, "train": train,
+            "cpu_check": cpu_check}
+
+
+def vlm_phase(torch, card: str) -> dict:
+    """internvl2-76b at full width (VLM_*; served in :func:`serve_more`):
+    its fp32 prefill/decode consistency at VLM_FP32_LAYERS over the vision
+    prefix and CONSIST_SEQ's tokens, every flash counter 0 just before
+    and 2 x layers launches of the fp32 kernel just after; trained at
+    VLM_TRAIN's cut (:func:`frontend_train_run`)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+
+    base = get_config(VLM_ARCH)
+    small = dataclasses.replace(base, num_layers=VLM_FP32_LAYERS)
+    fa.reset_launch_count()
+    consist = consistency(torch, "float32", small,
+                          seq=CONSIST_SEQ[VLM_ARCH])
+    consist["layers"] = small.num_layers
+    counts = fa.launch_counts()
+    check(counts == {**dict.fromkeys(counts, 0),
+                     "sm90_fp32": 2 * small.num_layers},
+          f"{VLM_ARCH} fp32 consistency prefills launched {counts}")
+    torch.cuda.empty_cache()
+    tcfg = dataclasses.replace(base, num_layers=VLM_TRAIN["layers"])
+    train = frontend_train_run(
+        torch, card, tcfg, VLM_TRAIN, _vlm_train_flops,
+        f"full width, {tcfg.num_layers} of {base.num_layers} layers")
+    return {"consistency_fp32": consist, "train": train}
+
+
+def serve_phase(torch, card: str) -> dict:
+    """qwen2-1.5b through ``launch.serve.main`` (SERVE_ARGS): every flash
+    counter 0 just before and, just after, 28 layers x SERVE_BATCHES
+    launches, all of the bf16 kernel; then its fp32 and bf16
+    prefill/decode consistency, 2 x 28 launches of each dtype's kernel."""
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.launch import serve
 
-    t_start = time.perf_counter()
-    card = card_line()
-    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-    print(f"build: {build_all(build):.1f} s")
-
-    t0 = time.perf_counter()
-    flash_row, fp32_row, fma_row = flash_phase(torch)
-    print(f"kernels: {time.perf_counter() - t0:.1f} s")
-
-    # the serving path: counters at 0 just before, read just after
     fa.reset_launch_count()
     summary = serve.main(SERVE_ARGS)
     launches = fa.launch_count()
@@ -5541,7 +5762,6 @@ def main() -> int:
           f"{summary['decode_s']:.3f} s, wall {summary['wall_s']:.3f} s, "
           f"makespan {summary['makespan']:.3f} s, flash launches {launches} "
           f"{per_kernel}")
-    flash_row["launches"] = launches
 
     # two prefills of 28 layers each, through the kernel of the dtype: the
     # fp32 one is the 3xTF32 kernel's path, its counter 0 just before
@@ -5555,23 +5775,54 @@ def main() -> int:
               f"{2 * layers} of {name}")
         print(f"prefill {dtype}: flash launches {counts}")
         if dtype == "float32":
-            fp32_row["launches"] = counts[name]
+            fp32_launches = counts[name]
         torch.cuda.empty_cache()
     print(f"serve summary: {json.dumps(summary)}")
+    return {"summary": summary, "launches": launches,
+            "fp32_launches": fp32_launches}
 
-    # olmo-1b and granite-34b (16 of 88 layers): counters at 0 just before
-    # each, read just after
-    t0 = time.perf_counter()
-    more = serve_more(torch, card)
-    flash_row["serve_launches"] = {"qwen2-1.5b": launches, **{
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "runs only on a card", file=sys.stderr)
+        return 1
+    if not (SRC / "repro_torch" / "__init__.py").is_file():
+        print(f"chip_smoke: {SRC / 'repro_torch'} not found; run from a "
+              "checkout of the repository", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(SRC))
+    from repro_torch.kernels import build
+
+    t_start = time.perf_counter()
+    card = card_line()
+    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    phase("build", build_all, build)
+
+    flash_row, fp32_row, fma_row = phase("flash", flash_phase, torch)
+
+    # the serving path: counters at 0 just before, read just after
+    served = phase("serve", serve_phase, torch, card)
+    flash_row["launches"] = served["launches"]
+    fp32_row["launches"] = served["fp32_launches"]
+
+    # olmo-1b, granite-34b (16 of 88 layers), whisper-medium and
+    # internvl2-76b (16 of 80 layers): counters at 0 just before each, read
+    # just after
+    more = phase("serve_more", serve_more, torch, card)
+    flash_row["serve_launches"] = {"qwen2-1.5b": served["launches"], **{
         k: v["flash_launches"] for k, v in more.items()}}
-    print(f"serve more: {time.perf_counter() - t0:.1f} s; "
-          f"{json.dumps(more)}")
+    print(f"serve more: {json.dumps(more)}")
 
     # the MoE family: the dispatch/combine kernel against its plain version,
     # then both MoE configs served at full width (counters at 0 just before
     # each serve, read just after)
-    moe = moe_phase(torch, card)
+    moe = phase("moe", moe_phase, torch, card)
     flash_row["serve_launches"].update({
         k: v["flash_launches"] for k, v in moe["serve"].items()})
     print(f"moe summary: {json.dumps({k: moe[k] for k in ('checks', 'serve')})}")
@@ -5579,23 +5830,21 @@ def main() -> int:
     # the SSM and hybrid families: mamba2-130m through launch.serve.main,
     # jamba-v0.1-52b at full width and 16 layers (counters at 0 just before
     # each serve, read just after)
-    ssm = ssm_phase(torch, card)
+    ssm = phase("ssm", ssm_phase, torch, card)
     flash_row["serve_launches"][HYBRID_ARCH] = ssm["hybrid"]["flash_launches"]
     flash_row["serve_launches"][SSM_ARCH] = 0
     moe["row"]["serve_launches"][HYBRID_ARCH] = ssm["hybrid"]["moe_launches"]
     print(f"ssm summary: {json.dumps(ssm)}")
 
     # the dense training path: olmo-1b at its full config
-    t0 = time.perf_counter()
-    train = train_phase(torch, card)
+    train = phase("train", train_phase, torch, card)
     flash_row["train_launches"] = train["main"]["flash_launches"]
-    print(f"train: {time.perf_counter() - t0:.1f} s")
     print(f"train summary: {json.dumps(train)}")
 
     # the MoE family's training: granite-moe-1b-a400m at its full config,
     # qwen2-moe-a2.7b at 2 layers (counters at 0 just before each run, read
     # just after), the backward entries against their plain versions
-    moe_train = moe_train_phase(torch, card)
+    moe_train = phase("train_moe", moe_train_phase, torch, card)
     flash_row["train_launches_moe"] = moe_train["train"]["flash_launches"]
     moe["row"]["train_launches"] = {
         k: moe_train["train"]["moe_launches"][k] for k in MOE_FORWARD}
@@ -5605,23 +5854,32 @@ def main() -> int:
     # the SSM family's training: mamba2-130m at its full config (counters
     # at 0 just before the run, read just after), card against CPU, the
     # kernel path against the plain path, the hybrid's smoke config
-    ssm_train = ssm_train_phase(torch, card)
+    ssm_train = phase("train_ssm", ssm_train_phase, torch, card)
     print(f"train ssm summary: {json.dumps(ssm_train)}")
 
-    t0 = time.perf_counter()
-    maxplus_row = maxplus_phase(torch)
+    # the encoder-decoder and vision-language families' fp32 consistency
+    # and training: whisper-medium at full config, internvl2-76b at full
+    # width (flash counters at 0 just before each run, read just after)
+    encdec = phase("encdec", encdec_phase, torch, card)
+    vlm = phase("vlm", vlm_phase, torch, card)
+    for arch, out in ((ENCDEC_ARCH, encdec), (VLM_ARCH, vlm)):
+        flash_row.setdefault("train_launches_frontend", {})[arch] = \
+            out["train"]["flash_launches"]
+        fp32_row.setdefault("consistency_launches", {})[arch] = \
+            2 * out["consistency_fp32"]["layers"]
+    print(f"encdec summary: {json.dumps(encdec)}")
+    print(f"vlm summary: {json.dumps(vlm)}")
+
+    maxplus_row = phase("maxplus", maxplus_phase, torch)
     torch.cuda.empty_cache()
-    print(f"maxplus: {time.perf_counter() - t0:.1f} s")
 
     # the ranking path: its counter at 0 just before, read just after
-    ranks = ranks_phase(torch)
+    ranks = phase("ranks", ranks_phase, torch)
     maxplus_row["launches"] = ranks["launches"]
     print(f"ranks summary: {json.dumps(ranks)}")
 
     # the replay path: its counter at 0 just before, read just after
-    t0 = time.perf_counter()
-    replay = replay_phase(torch)
-    print(f"replay: {time.perf_counter() - t0:.1f} s")
+    replay = phase("replay", replay_phase, torch)
     buckets = replay.pop("buckets")
     bound_by = ("bytes" if all(b["bound_by"] == "bytes" for b in buckets)
                 else "operations")
@@ -5647,9 +5905,7 @@ def main() -> int:
     print(f"replay summary: {json.dumps(replay)}")
 
     # the contention path: its counters at 0 just before each sweep
-    t0 = time.perf_counter()
-    contention = contention_phase(torch)
-    print(f"contention: {time.perf_counter() - t0:.1f} s")
+    contention = phase("contention", contention_phase, torch)
     main_groups = contention["campaign"]["groups"]
     scale_groups = contention["scale"]["groups"]
     sm90_contention = {
@@ -5685,9 +5941,7 @@ def main() -> int:
     print(f"contention summary: {json.dumps(contention)}")
 
     # the first-order LP: its counter at 0 just before the main path
-    t0 = time.perf_counter()
-    lp = lp_phase(torch)
-    print(f"lp: {time.perf_counter() - t0:.1f} s")
+    lp = phase("lp", lp_phase, torch)
     hybrid, lp_all = lp["hybrid"], lp["hybrid"] + lp["choice"]
     lp_row = {
         "name": "hlp_fo_solve", "route": "cuda",
@@ -5715,9 +5969,7 @@ def main() -> int:
 
     # the port's campaign entry in a fresh process, then the pinned gate;
     # then the full sim grid against the reference's trajectory
-    t0 = time.perf_counter()
-    campaign = campaign_phase()
-    print(f"campaign: {time.perf_counter() - t0:.1f} s")
+    campaign = phase("campaign", campaign_phase)
     sm90_row["campaign_launches"] = sum(
         campaign[b]["launches"]["replay"] for b in ("sim", "search"))
     sm90_contention["campaign_launches"] = sum(
@@ -5727,9 +5979,7 @@ def main() -> int:
 
     # the paper's experiments and the kernels target in a fresh process
     # (its counters from 0 there), then the placement planner
-    t0 = time.perf_counter()
-    paper = paper_phase()
-    print(f"paper: {time.perf_counter() - t0:.1f} s")
+    paper = phase("paper", paper_phase)
     maxplus_row["paper_launches"] = paper["kernels"]["launches"]["maxplus"]
     fp32_row["paper_launches"] = paper["kernels"]["launches"]["flash"]
     print(f"paper summary: {json.dumps(paper)}")
@@ -5737,9 +5987,7 @@ def main() -> int:
     # the open-system streams: the grids in fresh processes, then the
     # Chameleon stream at size, its rollouts replayed by the kernel (the
     # replay counter at 0 just before, in its own process)
-    t0 = time.perf_counter()
-    streams = streams_phase()
-    print(f"streams: {time.perf_counter() - t0:.1f} s")
+    streams = phase("streams", streams_phase)
     cham = streams["chameleon"]["card"]["sim_in_the_loop"]
     sm90_row["streams_launches"] = cham["launches"]
     sm90_row["streams_kernel_ms"] = cham["kernel_ms"]
@@ -5747,6 +5995,7 @@ def main() -> int:
                                          + streams["full"]["launches"])
     print(f"streams summary: {json.dumps(streams)}")
 
+    print(f"phase seconds: {json.dumps(PHASE_S)}")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
           "imports, build included")
     print(json.dumps({"kernels": [flash_row, fp32_row, fma_row,

@@ -2,7 +2,9 @@
 
 A copy of ``repro.data.pipeline`` (numpy and a thread; the port imports
 nothing of the JAX package), so the port's batches are the reference's bit
-for bit.
+for bit.  It adds one option the reference's pipeline lacks: a stub
+frontend's precomputed embeddings (``DataConfig.frontend``), drawn after
+the tokens, which stay the reference's.
 
 Every batch is a pure function of (seed, step, shard), so a restarted or
 re-sharded job replays the exact token stream — the property checkpoint
@@ -28,6 +30,9 @@ class DataConfig:
     num_shards: int = 1
     shard: int = 0
     zipf_a: float = 1.2
+    #: (batch key, positions, width) of a stub frontend's embeddings, 0.02 ·
+    #: N(0, 1) in float32, or None for a batch of tokens alone
+    frontend: tuple[str, int, int] | None = None
 
 
 def _batch_rng(cfg: DataConfig, step: int, shard: int) -> np.random.Generator:
@@ -48,11 +53,15 @@ def make_batch(cfg: DataConfig, step: int) -> dict:
     for t in range(1, s + 1):   # sequential so the bigram rule truly holds
         toks[:, t] = np.where(mask[:, t], (toks[:, t - 1] * 31 + 7) % v,
                               base[:, t])
-    return {
+    batch = {
         "tokens": toks[:, :-1].astype(np.int32),
         "targets": toks[:, 1:].astype(np.int32),
         "loss_mask": np.ones((b, s), np.float32),
     }
+    if cfg.frontend is not None:
+        key, t, d = cfg.frontend
+        batch[key] = 0.02 * rng.standard_normal((b, t, d), dtype=np.float32)
+    return batch
 
 
 class Prefetcher:

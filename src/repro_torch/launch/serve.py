@@ -9,8 +9,15 @@ latencies, dispatcher decisions and tokens/s, and returns a summary dict.
       --requests 8 --batch 4 --prompt 512 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
       --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium \\
+      --requests 8 --batch 4 --prompt 416 --gen 32
 
 The hand-written CUDA kernels are on exactly when the device is the card.
+A model with a stub frontend (whisper-medium's audio frames,
+internvl2-76b's vision patches) gets the reference entry's stub inputs:
+zero embeddings in the compute dtype.  The cache holds the vision prefix
+too (``vision_tokens + prompt + gen`` positions), where the reference's
+entry sizes it ``prompt + gen`` and its prefill overflows it.
 """
 from __future__ import annotations
 
@@ -46,15 +53,32 @@ class Generation:
     prefill_dropped: int        # MoE entries (token, choice) dropped in prefill
 
 
+def stub_embeds(cfg: ModelConfig, batch: int,
+                device: torch.device) -> torch.Tensor | None:
+    """The reference serve entry's stub frontend input: zeros (batch,
+    vision_tokens | encoder_seq, d_model) in the compute dtype, or None
+    for a model with no frontend."""
+    t = M.frontend_positions(cfg)
+    if not t:
+        return None
+    return torch.zeros((batch, t, cfg.d_model), dtype=getattr(torch, cfg.dtype),
+                       device=device)
+
+
 def generate(cfg: ModelConfig, params: M.Params, prompt: torch.Tensor,
-             gen: int, max_len: int) -> Generation:
-    """Prefill ``prompt`` (B, S), then decode greedily to ``gen`` tokens."""
+             gen: int, max_len: int,
+             embeds: torch.Tensor | None = None) -> Generation:
+    """Prefill ``prompt`` (B, S) after the frontend's ``embeds`` (B, T, D)
+    where the model has one, then decode greedily to ``gen`` tokens;
+    ``max_len`` counts the frontend's positions too
+    (``model.prefix_len``)."""
     dev = prompt.device
     cache = M.init_cache(cfg, prompt.shape[0], max_len, dev)
     _sync(dev)
     drops: list[torch.Tensor] = []
     t0 = time.perf_counter()
-    logits, cache = M.prefill(cfg, params, prompt, cache, drops)
+    logits, cache = M.prefill(cfg, params, prompt, cache, drops,
+                              embeds=embeds)
     finite = torch.isfinite(logits[:, :cfg.vocab_size]).all()
     tok = logits.argmax(-1, keepdim=True)
     _sync(dev)
@@ -89,7 +113,7 @@ def main(argv: list[str] | None = None, device: str = "cuda") -> dict:
     cfg = dataclasses.replace(cfg, use_kernels=dev.type == "cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     params = M.init_serving_params(cfg, gen)
-    max_len = args.prompt + args.gen
+    max_len = M.prefix_len(cfg) + args.prompt + args.gen
 
     # Dispatcher plans placement across a heterogeneous fleet model:
     # many "slow" host-class workers vs few "fast" accelerator workers.
@@ -113,7 +137,8 @@ def main(argv: list[str] | None = None, device: str = "cuda") -> dict:
         placements = [disp.submit(r) for r in reqs]
         prompt = torch.as_tensor(
             rng.integers(0, cfg.vocab_size, (nb, args.prompt)), device=dev)
-        g = generate(cfg, params, prompt, args.gen, max_len)
+        g = generate(cfg, params, prompt, args.gen, max_len,
+                     stub_embeds(cfg, nb, dev))
         total_tokens += nb * args.gen
         prefill_s += g.prefill_s
         decode_s += g.decode_s

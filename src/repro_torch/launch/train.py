@@ -3,7 +3,10 @@ pipeline, the train step and the resilient loop (checkpoint / restart /
 watchdog).
 
 The counterpart of ``repro.launch.train``, on one device: the card unless
-``--device cpu``.  It trains the dense, MoE, SSM and hybrid families.
+``--device cpu``.  It trains every model family; a model with a stub
+frontend (whisper-medium's audio frames, internvl2-76b's vision patches)
+takes seeded 0.02 · N(0, 1) embeddings from the data pipeline
+(:func:`data_config`), which the reference's trainer does not give it.
 Flash attention stays off in training (``use_kernels`` False), as the
 reference's trainer leaves ``use_pallas``: the flash kernel is forward
 only, and attention trains through the chunked path.  The MoE and SSD ops
@@ -23,6 +26,8 @@ backward ``scan_grad`` of ``kernels/csrc/ssd_sm90.cu``.
       --steps 20 --batch 8 --seq 2048
   PYTHONPATH=src python -m repro_torch.launch.train --arch jamba-v0.1-52b \\
       --smoke --device cpu --steps 30 --batch 4 --seq 32
+  PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-medium \\
+      --steps 10 --batch 8 --seq 448
 """
 from __future__ import annotations
 
@@ -43,6 +48,17 @@ from repro_torch.train.step import make_train_step
 def batch_on(batch: dict, device: torch.device) -> dict:
     """A pipeline batch (numpy) as tensors on ``device``."""
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def data_config(cfg: ModelConfig, seq: int, batch: int,
+                seed: int = 0) -> DataConfig:
+    """The data pipeline's config for ``cfg``: ``batch`` sequences of
+    ``seq`` tokens, and the stub frontend's embeddings where the model has
+    one (``vision_tokens`` or ``encoder_seq`` positions of d_model)."""
+    t = M.frontend_positions(cfg)
+    frontend = (M.FRONTEND_KEYS[cfg.frontend], t, cfg.d_model) if t else None
+    return DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                      global_batch=batch, seed=seed, frontend=frontend)
 
 
 def init_state(cfg: ModelConfig, device: torch.device, seed: int = 0) -> dict:
@@ -87,8 +103,7 @@ def main(argv: list[str] | None = None) -> dict:
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
     oc = adamw.OptConfig(lr=args.lr, warmup_steps=20, total_steps=args.steps)
     one_step = make_step(cfg, oc, device, args.microbatches)
-    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
-                          global_batch=args.batch)
+    data_cfg = data_config(cfg, args.seq, args.batch)
     losses = []
 
     def on_metrics(step, metrics):

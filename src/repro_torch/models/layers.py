@@ -1,5 +1,6 @@
-"""Model building blocks — the dense, MoE and SSM paths of
-``repro.models.layers`` in torch.
+"""Model building blocks — ``repro.models.layers`` in torch: norms, RoPE,
+self- and cross-attention, the SwiGLU and gelu MLPs, the MoE and the
+Mamba2 (SSD) layer.
 
 Plain functions on tensors over a parameter dict with the JAX package's
 shapes (``wq`` is (d, h, hd), ``wo`` is (h, hd, d), ...), so parameters
@@ -7,7 +8,6 @@ carry over by copy (``repro_torch.models.convert``).  Compute dtype is
 ``cfg.dtype``, parameter dtype ``cfg.param_dtype``; each weight is cast to
 the compute dtype where it is used, as in the JAX package, which is a no-op
 for weights already held in the compute dtype (``model.serving_params``).
-Cross-attention ports with its model family.
 """
 from __future__ import annotations
 
@@ -110,7 +110,8 @@ def _sdpa_chunked(q, k, v, *, causal: bool, q_chunk: int = 512) -> torch.Tensor:
 def attn_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
                positions: torch.Tensor, *, causal: bool = True,
                return_kv: bool = False):
-    """Self-attention over a full sequence (prefill).
+    """Self-attention over a full sequence (training, prefill, the
+    encoder).
 
     The kernel gate is the JAX package's: flash attention runs when the
     kernels are on, the attention is causal and the sequence is at least
@@ -164,11 +165,43 @@ def attn_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
     return y, (cache_k, cache_v)
 
 
+def cross_attn_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                     enc_k: torch.Tensor, enc_v: torch.Tensor) -> torch.Tensor:
+    """Cross-attention (the encoder-decoder's decoder): x (B, Sq, D), Sq = 1
+    at decode, against the encoder's k, v (B, encoder_seq, Hkv, Dh) from
+    :func:`cross_kv`.  Not causal, so it takes the chunked einsum path, as
+    the reference's."""
+    cdt = compute_dtype(cfg)
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(cdt))
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(cdt)
+    out = _sdpa_chunked(q, enc_k, enc_v, causal=False)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(cdt))
+
+
+def cross_kv(cfg: ModelConfig, p: Params, enc_out: torch.Tensor):
+    """The cross-attention's k, v (B, encoder_seq, Hkv, Dh) of the encoder
+    output (B, encoder_seq, D)."""
+    cdt = compute_dtype(cfg)
+    k = torch.einsum("bsd,dhk->bshk", enc_out, p["wk"].to(cdt))
+    v = torch.einsum("bsd,dhk->bshk", enc_out, p["wv"].to(cdt))
+    if cfg.qkv_bias:
+        k = k + p["bk"].to(cdt)
+        v = v + p["bv"].to(cdt)
+    return k, v
+
+
 # ---------------------------------------------------------------------- MLP
 def mlp_apply(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU MLP (the gelu MLP of the encoder-decoder family ports with it)."""
+    """SwiGLU MLP, or, where ``w_gate`` is absent (the encoder-decoder
+    family's), the gelu MLP: gelu's tanh form, ``jax.nn.gelu``'s default,
+    not torch's exact erf."""
     cdt = compute_dtype(cfg)
-    h = F.silu(x @ p["w_gate"].to(cdt)) * (x @ p["w_up"].to(cdt))
+    up = x @ p["w_up"].to(cdt)
+    if "w_gate" in p:
+        h = F.silu(x @ p["w_gate"].to(cdt)) * up
+    else:
+        h = F.gelu(up, approximate="tanh")
     return h @ p["w_down"].to(cdt)
 
 

@@ -14,6 +14,15 @@ import torch
 
 from repro_torch.tree import leaves, tree_map
 
+#: the most elements :func:`apply` updates at once: a leaf is split along
+#: its first axis into runs of rows of at most this many (one row where a
+#: row is larger), so the update's float32 temporaries are a few of 256 MB
+#: and not a few of the largest leaf's size (internvl2-76b's 4.2 GB
+#: embedding, whose whole-leaf temporaries ran the card out of memory at
+#: one layer beside 47 GB of state).  Every operation is elementwise, so
+#: the split changes no bit.
+CHUNK = 1 << 26
+
 
 @dataclasses.dataclass(frozen=True)
 class OptConfig:
@@ -70,7 +79,8 @@ def apply(oc: OptConfig, grads: dict, state: dict, params: dict
     global norm; returns (params, state, metrics ``grad_norm``, ``lr``).
 
     In place: each parameter, ``mu`` and ``nu`` leaf is overwritten (the
-    reference returns new trees); ``state["count"]`` is replaced."""
+    reference returns new trees), :data:`CHUNK` elements at a time;
+    ``state["count"]`` is replaced."""
     gnorm = global_norm(grads)
     scale = torch.clamp_max(oc.clip_norm / (gnorm + 1e-9), 1.0)
     count = state["count"] + 1
@@ -81,13 +91,17 @@ def apply(oc: OptConfig, grads: dict, state: dict, params: dict
                         count.to(f32))
     bc2 = 1 - torch.pow(torch.tensor(b2, dtype=f32, device=count.device),
                         count.to(f32))
-    for p, g, m, n in zip(leaves(params), leaves(grads), leaves(state["mu"]),
-                          leaves(state["nu"])):
-        g = g.to(f32) * scale
-        m.mul_(b1).add_(g * (1 - b1))
-        n.mul_(b2).add_(g * (1 - b2) * g)
-        step = (m / bc1) / (torch.sqrt(n / bc2) + oc.eps)
-        pf = p.to(f32)
-        p.copy_((pf - lr * (step + oc.weight_decay * pf)).to(p.dtype))
+    for leaf in zip(leaves(params), leaves(grads), leaves(state["mu"]),
+                    leaves(state["nu"])):
+        rows = max(1, CHUNK // max(leaf[0][:1].numel(), 1))
+        parts = ([x.split(rows) for x in leaf] if leaf[0].ndim
+                 else [[x] for x in leaf])
+        for p, g, m, n in zip(*parts):
+            g = g.to(f32) * scale
+            m.mul_(b1).add_(g * (1 - b1))
+            n.mul_(b2).add_(g * (1 - b2) * g)
+            step = (m / bc1) / (torch.sqrt(n / bc2) + oc.eps)
+            pf = p.to(f32)
+            p.copy_((pf - lr * (step + oc.weight_decay * pf)).to(p.dtype))
     state["count"] = count
     return params, state, {"grad_norm": gnorm, "lr": lr}

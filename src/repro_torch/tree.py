@@ -29,10 +29,13 @@ def tree_map(fn: Callable, tree, *rest):
 def unflatten_like(tree, flat: list):
     """A tree of ``tree``'s structure whose leaves are ``flat``, in
     :func:`leaves`' order."""
-    it = iter(flat)
+    return _build(tree, iter(flat))
 
-    def build(node):
-        if isinstance(node, dict):
-            return {k: build(node[k]) for k in sorted(node)}
-        return next(it)
-    return build(tree)
+
+def _build(node, it):
+    # a module-level function, not a closure: a recursive closure is a
+    # reference cycle that would keep ``flat`` (a step's gradients) alive
+    # until the cycle collector runs
+    if isinstance(node, dict):
+        return {k: _build(node[k], it) for k in sorted(node)}
+    return next(it)

@@ -139,7 +139,7 @@ def test_train_loss_refuses_the_hybrid_family():
     MoE ops, and gives a finite loss, a positive aux loss and a gradient for
     every leaf."""
     cfg = get_smoke_config(ARCH)
-    assert "hybrid" in TM.SERVED and "hybrid" in TM.TRAINED
+    assert "hybrid" in TM.FAMILIES
     params = TM.init_params(cfg, torch.Generator().manual_seed(0))
     flat = [p.requires_grad_() for p in jax.tree.leaves(params)]
     toks = torch.randint(0, cfg.vocab_size, (1, 16),

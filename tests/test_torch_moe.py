@@ -311,7 +311,7 @@ def test_train_loss_refuses_moe_and_the_wrapper_is_forward_only():
     params = TM.init_params(cfg, torch.Generator().manual_seed(0))
     toks = torch.zeros((1, 8), dtype=torch.long)
     batch = {"tokens": toks, "targets": toks, "loss_mask": torch.ones(1, 8)}
-    assert "moe" in TM.TRAINED
+    assert "moe" in TM.FAMILIES
     loss, metrics = TM.train_loss(cfg, params, batch)
     assert bool(torch.isfinite(loss)) and float(metrics["aux_loss"]) > 0
     r = moe.route(torch.tensor([[0, 1], [1, 0]]), 2, 2)

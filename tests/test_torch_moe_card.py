@@ -14,10 +14,12 @@ the backward's three cotangents (``dispatch_grad``, the combine with unit
 gates; ``combine_grad``; ``gate_grad``): the bits of every value that is
 not NaN are equal (so -0 and +0 differ), and NaN stands in the same places
 (its payload is the card's own).  A full MoE layer's gradients through
-the kernels equal those through the plain versions on the card.
+the kernels equal those through the plain versions on the card.  The
+route's edge shapes (``MOE_EDGE``, ``MOE_EDGE_WIDE``) and the backward
+entries at both configs' training shape run in ``chip_smoke.py``
+(``moe_edge_checks``, ``moe_backward_checks``), not here.
 """
 import dataclasses
-import zlib
 
 import numpy as np
 import pytest
@@ -31,7 +33,6 @@ from repro_torch.kernels.moe.ref import (combine_ref, dispatch_ref,  # noqa: E40
                                          route_ref)
 from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
-from test_torch_moe_sm90 import CASES, _topk  # noqa: E402
 
 ARCHS = ("qwen2-moe-a2.7b", "granite-moe-1b-a400m")
 #: tokens of a prefill (2 batches of 4 prompts of 512 serve in batches of
@@ -198,17 +199,16 @@ def test_autograd_runs_the_backward_entries(card):
 
 
 @pytest.mark.card
-def test_backward_entries_equal_plain_at_small_and_training_shapes(card):
+def test_backward_entries_equal_plain_at_small_shapes(card):
     """dispatch_grad, combine_grad and gate_grad bit for bit to the plain
-    versions at both MoE configs' training shape (16,384 tokens) and
-    small shapes, bf16 and fp32, capacity 1.25 and 0.5; gate_grad's
-    windows of 32 in one level (64), two (4096: 4 windows of window sums in
-    bf16) and two padded ones (4160: 130 windows, 15 zeros in front), and
-    refused at widths not a multiple of 32 (40, 8)."""
-    shapes = [(get_config(a).moe_num_experts, get_config(a).moe_top_k,
-               get_config(a).d_model, 16384) for a in ARCHS]
-    shapes += [(8, 4, 64, 96), (60, 4, 40, 33), (1, 1, 8, 1),
-               (8, 2, 4096, 64), (4, 2, 4160, 24)]
+    versions at small shapes, bf16 and fp32, capacity 1.25 and 0.5;
+    gate_grad's windows of 32 in one level (64), two (4096: 4 windows of
+    window sums in bf16) and two padded ones (4160: 130 windows, 15 zeros
+    in front), and refused at widths not a multiple of 32 (40, 8).  (Both
+    MoE configs' training shape, 16,384 tokens, is ``chip_smoke.py``'s:
+    ``moe_backward_checks``.)"""
+    shapes = [(8, 4, 64, 96), (60, 4, 40, 33), (1, 1, 8, 1),
+              (8, 2, 4096, 64), (4, 2, 4160, 24)]
     for seed, (e, k, d, n) in enumerate(shapes):
         for cf in CAPACITY_FACTORS:
             cap = moe.capacity(n, k, e, cf)
@@ -322,96 +322,6 @@ def test_moe_apply_on_the_card_launches_each_entry_once(card):
         np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
                                    rtol=1e-4, atol=1e-4)
         np.testing.assert_allclose(float(aux), float(want_aux), rtol=1e-5)
-
-
-def _edge_cases():
-    """The route emulation's cases (``tests/test_torch_moe_sm90.py``) on the
-    card, with a D for the dispatch and combine: contiguous shares whole and
-    ragged, one block and a few, E = 1 and 64, top-1 and top-8, cap 1,
-    every expert over capacity, the decode shapes' one warp, experts out of
-    range, and 65,536 entries."""
-    for name, n, e, k, cap in CASES:
-        yield name, _topk(zlib.crc32(name.encode()), n, e, k, skew=3.0), e, cap
-    for n, k in ((1, 1), (4, 4), (4, 8)):
-        top_e = _topk(n * k, n, 60, k).reshape(-1)
-        if top_e.size > 2:
-            top_e[1], top_e[-1] = top_e[0], 65
-        yield f"warp_{n}x{k}", top_e.reshape(n, k), 60, 4
-    rng = np.random.default_rng(5)
-    yield ("out_of_range", rng.integers(-3, 40, size=(1500, 4)).astype(
-        np.int32), 36, 50)
-    top_e = _topk(11, 16384, 60, 4, skew=1.0)
-    for cf in (1.25, 0.5):
-        yield f"entries_65536_cf{cf}", top_e, 60, moe.capacity(16384, 4, 60, cf)
-
-
-@pytest.mark.card
-def test_kernel_equals_plain_at_the_edge_shapes(card):
-    """route, dispatch, combine and the three backward entries bit for bit
-    to the plain versions at the edge shapes, bf16 and fp32, D = 64 and
-    2048; each route is the launch :func:`moe.geometry` gives (one warp up
-    to 32 entries, else a cluster)."""
-    for seed, (name, top_e, e, cap) in enumerate(_edge_cases()):
-        top_e = torch.from_numpy(np.ascontiguousarray(top_e, np.int32))
-        n, k = top_e.shape
-        want = route_ref(top_e, e, cap)
-        r = moe.route(top_e.to(card), e, cap)
-        _check_routing(r, want)
-        gates = torch.from_numpy(np.random.default_rng(seed).random(
-            (n, k))).float()
-        for dtype, d in ((torch.bfloat16, 2048), (torch.float32, 64)):
-            x = _rows(seed + 300, n, d, dtype)
-            _same(moe.dispatch(x.to(card), r), dispatch_ref(x, want))
-            ho = _rows(seed + 400, e * cap, d, dtype)
-            _same(moe.combine(ho.to(card), r, gates.to(card)),
-                  combine_ref(ho, want, gates))
-            _same_backward(x, _rows(seed + 500, e * cap, d, dtype), ho,
-                           gates, r, want)
-
-
-#: edge routings again at a D that puts x past ``moe.ROWS_IN_L2`` (the
-#: dispatch by token), each more than 512 vectors a token (the token
-#: blocks' vector loop reloads): (name, D, dtype)
-WIDE_EDGES = (("one_expert", 12288, torch.bfloat16),
-              ("cap_one", 12288, torch.bfloat16),
-              ("e64_top8", 12288, torch.bfloat16),
-              ("out_of_range", 8192, torch.bfloat16),
-              ("all_overflow", 6144, torch.float32))
-
-
-@pytest.mark.card
-def test_dispatch_by_token_at_the_edge_routings(card):
-    """dispatch and combine_grad by token (one token a block) bit for bit
-    to the plain versions at E = 1 and 64, k = 8, cap 1, experts out of
-    range and every expert over capacity, an inf and a NaN at dropped
-    tokens in the reloaded columns; twice on one routing, its counters
-    back at 0."""
-    edges = {name: (seed, top_e, e, cap)
-             for seed, (name, top_e, e, cap) in enumerate(_edge_cases())}
-    for name, d, dtype in WIDE_EDGES:
-        seed, top_e, e, cap = edges[name]
-        top_e = torch.from_numpy(np.ascontiguousarray(top_e, np.int32))
-        n, k = top_e.shape
-        elem = torch.empty((), dtype=dtype).element_size()
-        assert moe.by_token(n, d, elem)
-        assert moe.library_geometry("dispatch", n, k, d, e, cap, dtype)[
-            "per_block"] == 1
-        want = route_ref(top_e, e, cap)
-        r = moe.route(top_e.to(card), e, cap)
-        drop = want.dropped[want.dropped >= 0].long()
-        assert drop.numel() > 0, name
-        x = _rows(seed + 600, n, d, dtype)
-        x[drop[0] // k, d - 8] = float("inf")
-        x[drop[-1] // k, d // 2 + 3] = float("nan")
-        gates = torch.from_numpy(np.random.default_rng(seed).random(
-            (n, k))).float()
-        buf = dispatch_ref(x, want)
-        assert bool(torch.isnan(buf).any()), name
-        dho = ref.combine_grad_ref(x, want, gates)
-        for _ in range(2):
-            _same(moe.dispatch(x.to(card), r), buf)
-            _same(moe.combine_grad(x.to(card), r, gates.to(card)), dho)
-            assert r.scratch.tolist() == [0, 0, 0], name
 
 
 @pytest.mark.card

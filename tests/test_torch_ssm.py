@@ -258,7 +258,7 @@ def test_train_loss_refuses_the_ssm_family():
     through the SSD scan, and gives a finite loss and a gradient for every
     SSM leaf; on the CPU the scan takes its plain versions (no launch)."""
     cfg = get_smoke_config(ARCH)
-    assert "ssm" in TM.SERVED and "ssm" in TM.TRAINED
+    assert "ssm" in TM.FAMILIES
     params = TM.init_params(cfg, torch.Generator().manual_seed(0))
     flat = [p.requires_grad_() for p in jax.tree.leaves(params)]
     toks = torch.randint(0, cfg.vocab_size, (1, 8),

@@ -117,6 +117,31 @@ def test_one_adamw_step_matches_jax(arch):
     assert to["count"].dtype == torch.int32 and int(to["count"]) == 2
 
 
+def test_adamw_split_into_chunks_changes_no_bit(monkeypatch):
+    """``adamw.apply`` updates a leaf in runs of rows of at most
+    ``CHUNK`` elements: at a CHUNK that splits every leaf of the smoke
+    tree (and at one below a row's size), twice, the parameters and both
+    moments equal the whole-leaf update's bit for bit."""
+    jcfg, tcfg, jp, _ = _pair("qwen2-1.5b")
+    jb, _ = _batch(jcfg, step=3)
+    jg = jax.grad(lambda p: JM.train_loss(jcfg, p, jb)[0])(jp)
+    toc = TA.OptConfig(lr=1e-2, warmup_steps=1, total_steps=10,
+                       clip_norm=0.5)
+    runs = []
+    for chunk in (TA.CHUNK, 96, 5):
+        monkeypatch.setattr(TA, "CHUNK", chunk)
+        tp = params_from_jax(tcfg, jax.tree.map(np.asarray, jp))
+        tg = params_from_jax(tcfg, jax.tree.map(np.asarray, jg))
+        to = TA.init(tp)
+        for _ in range(2):
+            tp, to, _ = TA.apply(toc, tg, to, tp)
+        runs.append(leaves(tp) + leaves(to["mu"]) + leaves(to["nu"]))
+    assert max(x.numel() for x in runs[0]) > 96
+    for run in runs[1:]:
+        for a, b in zip(run, runs[0]):
+            assert torch.equal(a, b)
+
+
 def test_lr_schedules_match_jax():
     for schedule in ("cosine", "linear", "constant"):
         oc = JA.OptConfig(lr=3e-3, warmup_steps=7, total_steps=50,
